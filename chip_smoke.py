@@ -6,19 +6,31 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in four phases:
+runs on the CPU). It prints one JSON line per check, in five phases:
 
 1. device: the card, its power limit, and the matmul precision settings;
-2. build: both CUDA kernels compiled with nvcc (seconds, ptxas report);
+2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
+   ptxas report);
 3. kernels: each kernel against its plain PyTorch version on the card at
    long4k shapes, with its time, the plain version's time, one library
-   call's time, and the least time the card could take (bound);
-4. main path: a long4k-width decoder-only LM (random weights from a seed,
+   call's time, and the least time the card could take (bound); the flash
+   kernels also read two planted faults (the plain versions with a causal
+   off-by-one, and the backward ones with the last 10 query rows left
+   out) by the same measures, which must clear the limits;
+4. serving: a long4k-width decoder-only LM (random weights from a seed,
    written as an export) serves JSONL requests through
-   ``transformer_tpu_torch.cli.serve`` with the paged KV pool; both kernels'
-   launch counters must equal layers x decode forwards. Then a few decode
-   forwards at fp32 compare the kernels with their plain versions, and a
-   profiled window of decode steps shows where a step's time goes.
+   ``transformer_tpu_torch.cli.serve`` with the paged KV pool; both decode
+   kernels' launch counters must equal layers x decode forwards. Then a
+   few decode forwards at fp32 compare the kernels with their plain
+   versions, and a profiled window of decode steps shows where a step's
+   time goes;
+5. training: ``transformer_tpu_torch.cli.train --preset long4k --epochs 1``
+   on the bundled corpus at full width; the three flash kernels' launch
+   counters must equal the count that steps and eval batches imply, the
+   losses must be finite and the export must load back. Then one fp32
+   train step at full width (2 layers) compares the kernels with their
+   plain versions, and a profiled window of train steps shows where a
+   step's time goes.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and a ``{"kernels": [...]}`` summary; the last
@@ -47,6 +59,30 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
 # held to absolute limits (their outputs are O(1) LayerNorm outputs and
 # logits).
 TOL = {"paged_attention": 2e-2, "fused_ln_ffn": 5e-2, "logits_fp32": 2e-3}
+# Flash kernels: ``out``, dq, dk and dv are each held to the largest, over
+# (batch, row, head), of ||got - want|| / ||want|| across head_dim, so a
+# fault inside one 64-row tile reads at full size (for the gradients the
+# row norm is floored at 1e-2 of its head's RMS row norm: see grad_rel).
+# bf16 ``out`` differs from the plain version by where p is rounded (running
+# maxima against the row maximum); the backward kernels recompute p from
+# the same lse and sum in the plain versions' order.
+FLASH_TOL = {
+    "bfloat16": {"out": 2e-2, "grad": 2e-2},
+    "float32": {"out": 1e-4, "grad": 1e-4},
+}
+# The fp32 train step, kernels against plain versions: loss relative, and
+# every gradient leaf's ||got - want|| / ||want|| (weight gradients sum
+# many cancelling per-token terms, so the forward's ~1e-6 differences show
+# up to ~1e-4 in them). The key biases' gradient
+# is zero up to rounding (the softmax cancels a bias shared by a row's
+# keys), so instead its norm must stay below 1e-3 of the query bias's in
+# the same layer, on both sides.
+TRAIN_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-3, "key_bias_ratio": 1e-3}
+FLASH_REPLACES = {
+    "flash_fwd": "transformer_tpu/kernels/flash_attention.py:183 _fwd_kernel",
+    "flash_dq": "transformer_tpu/kernels/flash_attention.py:451 _dq_kernel",
+    "flash_dkdv": "transformer_tpu/kernels/flash_attention.py:490 _dkdv_kernel",
+}
 BUILD_DIR = os.path.join(ROOT, "build")
 
 
@@ -294,7 +330,277 @@ def check_fused_ln_ffn(label, m, activation, norm_scheme, d=512, dff=2048):
 
 
 # --------------------------------------------------------------------------
-# phase 4: the main path
+# phase 3: the flash kernels against their plain versions
+
+
+def flash_inputs(b, s_q, s_k, h, h_kv, d, dtype, padded, seed=SEED):
+    """Random q/k/v/dO and a (B, S_k) key mask: all True, or (``padded``)
+    the first sequence's last seventh of keys padding and the last
+    sequence's first 33 keys padding, so that under causality its first 33
+    query rows see no key at all."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", dtype)
+
+    q, k, v, do = t(b, s_q, h, d), t(b, s_k, h_kv, d), t(b, s_k, h_kv, d), t(b, s_q, h, d)
+    mask = np.ones((b, s_k), bool)
+    if padded:
+        mask[0, s_k - s_k // 7:] = False
+        mask[-1, :33] = False
+    return q, k, v, do, torch.from_numpy(mask).cuda()
+
+
+def out_rel(got, want):
+    """Per (batch, row, head): ||got - want|| / ||want|| across head_dim
+    (||got|| where the plain row is exactly 0)."""
+    import torch
+
+    diff = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    return torch.where(ref > 0, diff / ref.clamp_min(1e-30), diff)
+
+
+def grad_rel(got, want):
+    """Per (batch, row, head): ||got - want|| / ||want|| across head_dim,
+    with ||want|| floored at 1e-2 of the RMS row norm of its (batch, head).
+    A row whose exact gradient is 0 or cancels to about 0 (dQ of a causal
+    first row, dK/dV of a padding key) thus reads its error against the
+    head's scale, not against its own rounding."""
+    import torch
+
+    diff = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    floor = 1e-2 * ref.pow(2).mean(dim=1, keepdim=True).sqrt()
+    return diff / torch.maximum(ref, floor).clamp_min(1e-30)
+
+
+def head_rel(got, want):
+    """Per (batch, head): ||got - want|| / ||want|| across (sequence,
+    head_dim), the measure the gradients were once held to; kept to show
+    how far it dilutes a fault inside one tile."""
+    diff = (got.float() - want.float()).pow(2).sum(dim=(1, 3)).sqrt()
+    return diff / want.float().pow(2).sum(dim=(1, 3)).sqrt().clamp_min(1e-30)
+
+
+def row_delta(do, out):
+    return (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def off_by_one_plain(q, k, v, do, mask, window):
+    """The planted fault: the plain versions with the causal test off by
+    one (cols < rows, the diagonal dropped). Computed exactly by running
+    them causally over keys moved one position later, the first slot
+    masked, and moving dK/dV back. Returns (out, dq, dk, dv)."""
+    import torch
+
+    from transformer_tpu_torch.kernels.flash_attention import (
+        flash_dkdv_plain,
+        flash_dq_plain,
+        flash_fwd_plain,
+    )
+
+    def later(x):
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+    def earlier(x):
+        return torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
+
+    k1, v1 = later(k), later(v)
+    kw = dict(kv_mask=later(mask), causal=True, window=window)
+    out, lse = flash_fwd_plain(q, k1, v1, **kw)
+    delta = row_delta(do, out)
+    dq = flash_dq_plain(q, k1, v1, do, lse, delta, **kw)
+    dk, dv = flash_dkdv_plain(q, k1, v1, do, lse, delta, **kw)
+    return out, dq, earlier(dk), earlier(dv)
+
+
+def last_rows_dropped_plain(q, k, v, do, lse, delta, kw, rows=10):
+    """The second planted fault, inside one tile: the plain backward
+    versions with the last 10 query rows (about 15% of the last 64-row
+    tile) left out, as a ragged-edge guard off by 10 in both backward
+    kernels would give. Their lse is set so high that p is 0 there.
+    Returns (dq, dk, dv)."""
+    from transformer_tpu_torch.kernels.flash_attention import flash_dkdv_plain, flash_dq_plain
+
+    lse = lse.clone()
+    lse[..., -rows:] = 1e30
+    dq = flash_dq_plain(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_dkdv_plain(q, k, v, do, lse, delta, **kw))
+
+
+def visible_pairs(mask, s_q, causal, window):
+    """(query row, key) pairs the attention computes, summed over the
+    batch, per query head: what these inputs need, not the dense S_q*S_k."""
+    import torch
+
+    cm = torch.cumsum(mask.long(), dim=1)  # (B, S_k)
+    if not causal:
+        return int(cm[:, -1].sum().item()) * s_q
+    rows = torch.arange(s_q, device=mask.device)
+    seen = cm[:, rows]
+    if window:
+        lo = rows - window
+        seen = seen - torch.where(lo >= 0, cm[:, lo.clamp_min(0)], torch.zeros_like(seen))
+    return int(seen.sum().item())
+
+
+def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, window, padded, timed=False):
+    import torch
+
+    from transformer_tpu_torch.kernels.flash_attention import (
+        flash_dkdv,
+        flash_dkdv_plain,
+        flash_dq,
+        flash_dq_plain,
+        flash_fwd,
+        flash_fwd_plain,
+    )
+
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+    q, k, v, do, mask = flash_inputs(b, s_q, s_k, h, h_kv, d, dt, padded)
+    kw = dict(kv_mask=mask, causal=causal, window=window)
+    out, lse = flash_fwd(q, k, v, **kw)
+    want_out, want_lse = flash_fwd_plain(q, k, v, **kw)
+    delta = row_delta(do, want_out)
+    dq = flash_dq(q, k, v, do, want_lse, delta, **kw)
+    dk, dv = flash_dkdv(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    want_dq = flash_dq_plain(q, k, v, do, want_lse, delta, **kw)
+    want_dk, want_dv = flash_dkdv_plain(q, k, v, do, want_lse, delta, **kw)
+    got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+    want = {"out": want_out, "dq": want_dq, "dk": want_dk, "dv": want_dv}
+    readings = {"out": out_rel(out, want_out).max().item()}
+    readings.update({key: grad_rel(got[key], want[key]).max().item() for key in ("dq", "dk", "dv")})
+    max_abs = {key: (got[key].float() - want[key].float()).abs().max().item() for key in got}
+    seen = want_lse > -1e29
+    empty = int((~seen).sum().item())  # (batch, head, row) triples that see no key
+    lse_err = (lse - want_lse)[seen].abs().max().item()
+    empty_exact = bool(
+        torch.all(lse[~seen] == -1e30).item()
+        and torch.all(out.permute(0, 2, 1, 3)[~seen] == 0).item()
+        and torch.all(dq.permute(0, 2, 1, 3)[~seen] == 0).item()
+    )
+    tol = FLASH_TOL[dtype]
+    finite = all(bool(torch.isfinite(t).all().item()) for t in got.values())
+    ok = (
+        finite and empty_exact and lse_err <= 1e-4
+        and readings["out"] <= tol["out"]
+        and all(readings[key] <= tol["grad"] for key in ("dq", "dk", "dv"))
+    )
+    rec = {
+        "phase": "kernels", "kernel": "flash_attention", "case": label, "dtype": dtype,
+        "b": b, "s_q": s_q, "s_k": s_k, "h": h, "h_kv": h_kv, "d": d, "causal": causal,
+        "window": window, "padded": padded, "rows_seeing_no_key": empty,
+        "readings": readings, "max_abs_err": max_abs, "lse_max_abs_err": lse_err,
+        "empty_rows_exact": empty_exact, "tolerance": tol,
+    }
+    # A planted fault must read above the limit in every (batch, head): the
+    # worst row of each, at its least over (batch, head).
+    def worst_row_least_head(fault, key):
+        return grad_rel(fault, want[key]).amax(dim=1).min().item()
+
+    grads = ("dq", "dk", "dv")
+    if causal:
+        fault = dict(zip(("out", *grads), off_by_one_plain(q, k, v, do, mask, window)))
+        fault_rows = out_rel(fault["out"], want_out)
+        rec["planted_fault"] = {
+            "out_max_row": fault_rows.max().item(),
+            "out_median_row": fault_rows.median().item(),
+            **{f"{key}_worst_row_least_head": worst_row_least_head(fault[key], key)
+               for key in grads},
+        }
+        pf = rec["planted_fault"]
+        ok = ok and pf["out_max_row"] > tol["out"] and all(
+            pf[f"{key}_worst_row_least_head"] > tol["grad"] for key in grads
+        )
+        del fault
+    rows_fault = dict(zip(grads, last_rows_dropped_plain(q, k, v, do, want_lse, delta, kw)))
+    rec["planted_rows_fault"] = {
+        **{f"{key}_worst_row_least_head": worst_row_least_head(rows_fault[key], key)
+           for key in grads},
+        **{f"{key}_per_head_max": head_rel(rows_fault[key], want[key]).max().item()
+           for key in grads},
+    }
+    ok = ok and all(
+        rec["planted_rows_fault"][f"{key}_worst_row_least_head"] > tol["grad"] for key in grads
+    )
+    del rows_fault
+    if timed:
+        rec.update(time_flash(q, k, v, do, mask, kw, want_lse, delta, dtype))
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise SystemExit(f"flash attention {label}: {rec}")
+    return rec
+
+
+def time_flash(q, k, v, do, mask, kw, lse, delta, dtype):
+    """Each kernel's time, its plain version's, the library call's (SDPA
+    forward; for the two backward kernels, the backward of SDPA, which
+    computes dq, dk and dv together) and the bound from this run's inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from transformer_tpu_torch.kernels.flash_attention import (
+        flash_dkdv,
+        flash_dkdv_plain,
+        flash_dq,
+        flash_dq_plain,
+        flash_fwd,
+        flash_fwd_plain,
+    )
+
+    ms = {
+        "flash_fwd": cuda_ms(lambda: flash_fwd(q, k, v, **kw), iters=20),
+        "flash_dq": cuda_ms(lambda: flash_dq(q, k, v, do, lse, delta, **kw), iters=20),
+        "flash_dkdv": cuda_ms(lambda: flash_dkdv(q, k, v, do, lse, delta, **kw), iters=20),
+    }
+    plain_ms = {
+        "flash_fwd": cuda_ms(lambda: flash_fwd_plain(q, k, v, **kw), iters=3, warmup=1),
+        "flash_dq": cuda_ms(
+            lambda: flash_dq_plain(q, k, v, do, lse, delta, **kw), iters=3, warmup=1
+        ),
+        "flash_dkdv": cuda_ms(
+            lambda: flash_dkdv_plain(q, k, v, do, lse, delta, **kw), iters=3, warmup=1
+        ),
+    }
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True))
+    library_ms = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd, "flash_dkdv": lib_bwd}
+    b, s_q, h, d = q.shape
+    e = q.element_size()
+    pairs = visible_pairs(mask, s_q, kw["causal"], kw["window"]) * h
+    qb, kvb, rows = q.numel() * e, k.numel() * e, b * h * s_q * 4
+    nbytes = {
+        "flash_fwd": 2 * qb + 2 * kvb + rows + mask.numel(),
+        "flash_dq": 3 * qb + 2 * kvb + 2 * rows + mask.numel(),
+        "flash_dkdv": 2 * qb + 4 * kvb + 2 * rows + mask.numel(),
+    }
+    # 2 flops per multiply-add: QK^T and PV forward; S, dP and dQ; S, dP,
+    # dV and dK.
+    flops = {name: 2.0 * n * d * pairs
+             for name, n in (("flash_fwd", 2), ("flash_dq", 3), ("flash_dkdv", 4))}
+    bounds = {name: bound_ms(nbytes[name], flops[name], dtype) for name in ms}
+    return {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True); "
+                   "backward via torch.autograd.grad (dq, dk, dv together)",
+        "visible_pairs_per_head": pairs // h, "bytes": nbytes, "flops": flops,
+        "bound_ms": {n: v[0] for n, v in bounds.items()},
+        "bound_by": {n: v[1] for n, v in bounds.items()},
+        "share_of_bound": {n: bounds[n][0] / ms[n] for n in ms},
+    }
+
+
+# --------------------------------------------------------------------------
+# phase 4: serving
 
 
 def long4k_config(vocab_size: int, **overrides):
@@ -303,12 +609,13 @@ def long4k_config(vocab_size: int, **overrides):
     post-LN, sinusoidal, relu, bf16; dropout off for serving."""
     from transformer_tpu_torch.config import ModelConfig
 
-    return ModelConfig(
+    fields = dict(
         num_layers=6, d_model=512, num_heads=8, dff=2048,
         input_vocab_size=vocab_size, target_vocab_size=vocab_size,
         max_position=4096, decoder_only=True, attention_impl="flash",
-        remat=True, dropout_rate=0.0, **overrides,
+        remat=True, dropout_rate=0.0,
     )
+    return ModelConfig(**{**fields, **overrides})
 
 
 def vocab(target_size: int = 2**15):
@@ -538,6 +845,191 @@ def decode_profile(export, tok, reqs, steps: int = 20):
 
 
 # --------------------------------------------------------------------------
+# phase 5: training
+
+
+def train_path(vocab_path):
+    """``cli.train --preset long4k --epochs 1`` on the bundled corpus, with
+    the flash launch counters set to 0 just before and read just after."""
+    import statistics
+
+    import torch
+
+    from transformer_tpu_torch.cli import train
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.data.pipeline import load_lm_splits
+    from transformer_tpu_torch.kernels.flash_attention import flash_dkdv, flash_dq, flash_fwd
+    from transformer_tpu_torch.models.transformer import flatten
+
+    data = os.path.join(ROOT, "data")
+    export = os.path.join(BUILD_DIR, "train_export")
+    argv = [
+        "--preset", "long4k", "--epochs", "1", "--dataset_path", data,
+        "--tgt_vocab_file", vocab_path, "--export_path", export, "--device", "cuda",
+    ]
+    flags = train.resolve_flags(argv)
+    t0 = time.perf_counter()
+    train_ds, test_ds, _ = load_lm_splits(
+        data, vocab_path, batch_size=flags.batch_size, sequence_length=flags.sequence_length
+    )
+    windows = {
+        "train_windows": train_ds.num_examples, "train_batches": len(train_ds),
+        "test_windows": test_ds.num_examples, "test_batches": len(test_ds),
+        "eval_rows_all_pad": len(test_ds) * flags.batch_size - test_ds.num_examples,
+        "count_seconds": time.perf_counter() - t0,
+    }
+    logs: list[str] = []
+    torch.cuda.reset_peak_memory_stats()
+    flash_fwd.launches = flash_dq.launches = flash_dkdv.launches = 0
+    t0 = time.perf_counter()
+    trainer = train.main(argv, log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_fwd.launches, "flash_dq": flash_dq.launches,
+                "flash_dkdv": flash_dkdv.launches}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = trainer.model_cfg
+    steps, evals = len(trainer.step_seconds), trainer.eval_batches
+    forwards_per_step = 2 if cfg.remat else 1  # remat recomputes each layer's forward
+    want = {
+        "flash_fwd": cfg.num_layers * (forwards_per_step * steps + evals),
+        "flash_dq": cfg.num_layers * steps,
+        "flash_dkdv": cfg.num_layers * steps,
+    }
+    params, loaded_cfg = load_export(export, device="cuda")
+    same = loaded_cfg == cfg and all(
+        torch.equal(a, b.detach()) for a, b in zip(
+            flatten(params).values(), flatten(trainer.state.params).values()
+        )
+    )
+    ms = [t * 1e3 for t in trainer.step_seconds]
+    train_loss, eval_loss = trainer.train_metrics.loss, trainer.eval_metrics.loss
+    rec = {
+        "phase": "train", "step": "fit", "argv": argv, "config": dataclasses.asdict(cfg),
+        **windows, "steps": steps, "eval_batches": evals,
+        "step_ms_mean": statistics.mean(ms), "step_ms_median": statistics.median(ms),
+        "step_ms_first": ms[0], "step_ms_all": ms,
+        "tokens_per_s": trainer.tokens / sum(trainer.step_seconds),
+        "fit_wall_s": wall, "max_memory_allocated_bytes": peak,
+        "train_loss": train_loss, "eval_loss": eval_loss,
+        "eval_perplexity": math.exp(min(eval_loss, 30.0)),
+        "launches": launches, "expected_launches": want, "export_loads_back": same,
+        "logs": logs,
+    }
+    emit(rec)
+    if not (math.isfinite(train_loss) and math.isfinite(eval_loss)):
+        raise SystemExit(f"training produced a non-finite loss: {train_loss} / {eval_loss}")
+    if evals < 1 or steps < 1:
+        raise SystemExit(f"training ran {steps} steps and {evals} eval batches")
+    for name, count in launches.items():
+        if count <= 0 or count != want[name]:
+            raise SystemExit(f"{name} launched {count} times, expected {want[name]}")
+    if not same:
+        raise SystemExit("the written export does not load back to the trained params")
+    return trainer, train_ds, launches
+
+
+def fp32_train_check(tok, train_ds, layers: int = 2):
+    """One fp32 train step's loss and gradients at full width (2 layers,
+    S 4096, batch 4, dropout 0) from the same params and batch, once on
+    the kernels and once on their plain versions."""
+    import torch
+
+    from transformer_tpu_torch.config import TrainConfig
+    from transformer_tpu_torch.models.transformer import flatten, init_params, unflatten
+    from transformer_tpu_torch.train.trainer import loss_and_grads
+
+    cfg = long4k_config(tok.model_vocab_size, num_layers=layers, dtype="float32")
+    tcfg = TrainConfig(batch_size=4, sequence_length=4096)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    _, tgt = next(iter(train_ds.batches(0)))
+    tgt = torch.from_numpy(tgt).to(params["decoder"]["embedding"]["table"].device, torch.long)
+    runs = []
+    for reference in (False, True):
+        p = unflatten({k: v.clone().requires_grad_() for k, v in flatten(params).items()})
+        metrics, grads = loss_and_grads(p, tgt, cfg, tcfg, key=None, reference=reference)
+        runs.append((float(metrics["loss"]), grads))
+        del p, metrics, grads
+    (loss, got), (want_loss, want) = runs
+
+    worst, worst_key = 0.0, None
+    for key, g in got.items():
+        if key.endswith("self_mha/key/bias"):
+            continue
+        rel = ((g - want[key]).norm() / want[key].norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_key = rel, key
+    key_bias = 0.0
+    for key in got:
+        if key.endswith("self_mha/key/bias"):  # zero up to rounding
+            q_key = key.replace("key/bias", "query/bias")
+            for grads in (got, want):
+                ratio = (grads[key].norm() / grads[q_key].norm().clamp_min(1e-30)).item()
+                key_bias = max(key_bias, ratio)
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    rec = {
+        "phase": "train", "step": "fp32_train_check", "layers": layers, "batch": 4,
+        "sequence_length": 4096, "loss": loss, "plain_loss": want_loss,
+        "loss_rel_diff": loss_rel, "grad_worst_rel": worst, "grad_worst_leaf": worst_key,
+        "key_bias_grad_ratio": key_bias, "leaves": len(got), "tolerance": TRAIN_TOL,
+    }
+    emit(rec)
+    if not (loss_rel <= TRAIN_TOL["loss_rel"] and worst <= TRAIN_TOL["grad_rel"]
+            and key_bias <= TRAIN_TOL["key_bias_ratio"]):
+        raise SystemExit(f"fp32 train check failed: {rec}")
+
+
+def train_profile(trainer, train_ds, steps: int = 3):
+    """Where a long4k train step's time goes: ``steps`` steps on the host
+    clock, then the same number under ``torch.profiler`` for device time
+    by kernel. Device busy share = summed kernel time / unprofiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [tgt for _, tgt in train_ds.batches(1)][: 2 * steps + 1]
+    trainer.state, _ = trainer.train_step(trainer.state, None, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tgt in batches[1 : steps + 1]:
+        trainer.state, _ = trainer.train_step(trainer.state, None, tgt)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for tgt in batches[steps + 1 :]:
+            trainer.state, _ = trainer.train_step(trainer.state, None, tgt)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [
+        e for e in prof.key_averages()
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0
+    ]
+    total_us = sum(dev_us(e) for e in events)
+    device_ms = total_us / steps / 1e3
+    shares = {
+        name: sum(dev_us(e) for e in events if f"{name}_kernel" in e.key) / max(total_us, 1)
+        for name in ("flash_fwd", "flash_dq", "flash_dkdv")
+    }
+    top = sorted(events, key=dev_us, reverse=True)[:10]
+    rec = {
+        "phase": "train", "step": "train_profile", "steps": steps,
+        "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms if events else "not measured",
+        "device_busy_share": device_ms / wall_ms if events else "not measured",
+        "flash_share_of_device_time": shares if events else "not measured",
+        "top_kernels": [
+            {"name": e.key[:90], "ms_per_step": dev_us(e) / steps / 1e3,
+             "calls_per_step": e.count / steps}
+            for e in top
+        ],
+    }
+    emit(rec)
+    return rec
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -573,7 +1065,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = build.build(["paged_attention", "fused_ln_ffn"])
+    reports = build.build(["paged_attention", "fused_ln_ffn", "flash_attention"])
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
         "ptxas": {
@@ -599,12 +1091,32 @@ def main() -> int:
         a_recs.append(check_fused_ln_ffn(f"swiglu pre m={m}", m, "swiglu", "pre"))
         a_recs.append(check_fused_ln_ffn(f"gelu pre m={m}", m, "gelu", "pre"))
     a_main = check_fused_ln_ffn("main path", 4, "relu", "post")
+    # Flash kernels: the training path's shape (B 4, S 4095 = the window
+    # less the teacher-forcing shift, 8 heads of 64, bf16, causal, the
+    # padding mask all True), then fp32, padding with rows that see no
+    # key, GQA with a window, S_q != S_k, and head_dim 32.
+    f_main = check_flash("main path", "bfloat16", 4, 4095, 4095, 8, 8, 64, True, 0, False,
+                         timed=True)
+    f_recs = [
+        check_flash("fp32 causal padded", "float32", 2, 1000, 1000, 8, 8, 64, True, 0, True),
+        check_flash("bf16 causal padded", "bfloat16", 2, 1000, 1000, 8, 8, 64, True, 0, True),
+        check_flash("bf16 gqa h_kv=2 window=256", "bfloat16", 2, 2048, 2048, 8, 2, 64,
+                    True, 256, False),
+        check_flash("bf16 cross s_q=512 s_k=1500 padded", "bfloat16", 2, 512, 1500, 8, 8, 64,
+                    False, 0, True),
+        check_flash("fp32 d=32 causal", "float32", 2, 777, 777, 4, 4, 32, True, 0, False),
+    ]
 
-    # 4. main path
+    # 4. serving
     tok, vocab_path = vocab()
     cfg, export, reqs, launches = main_path(tok, vocab_path)
     fp32_decode_check(cfg, export, tok, reqs)
     decode_profile(export, tok, reqs)
+
+    # 5. training
+    trainer, train_ds, train_launches = train_path(vocab_path)
+    fp32_train_check(tok, train_ds)
+    train_profile(trainer, train_ds)
 
     def summary(name, main_rec, recs, replaces):
         return {
@@ -623,12 +1135,31 @@ def main() -> int:
             "share_of_bound": main_rec["share_of_bound"],
         }
 
+    def flash_summary(name, readings):
+        recs = [f_main] + f_recs
+        return {
+            "name": name, "route": "cuda",
+            "source": "transformer_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name], "launches": train_launches[name],
+            "max_abs_err": max(r["max_abs_err"][k] for r in recs for k in readings),
+            "max_reading": max(r["readings"][k] for r in recs for k in readings),
+            "tolerance": FLASH_TOL,
+            "tolerance_on": "worst (batch, row, head) relative across head_dim",
+            "ms": f_main["ms"][name], "plain_ms": f_main["plain_ms"][name],
+            "bound_ms": f_main["bound_ms"][name], "bound_by": f_main["bound_by"][name],
+            "library_ms": f_main["library_ms"][name],
+            "share_of_bound": f_main["share_of_bound"][name],
+        }
+
     print(smi, flush=True)
     emit({"kernels": [
         summary("paged_attention", b_main, b_recs,
                 "transformer_tpu/kernels/paged_flash.py:62 _paged_kernel"),
         summary("fused_ln_ffn", a_main, a_recs,
                 "transformer_tpu/ops/ffn.py:112 _fused_kernel"),
+        flash_summary("flash_fwd", ("out",)),
+        flash_summary("flash_dq", ("dq",)),
+        flash_summary("flash_dkdv", ("dk", "dv")),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,12 @@ at the row maximum; attention outputs shrink with length, so the limit is
 relative to the row);
 kernel A fp32 1e-5 and bf16 3e-2 (the dff contraction is summed in
 another order); decode-forward logits 1e-4 at fp32.
+Flash forward/dQ/dK/dV: fp32 ``out`` and ``lse`` 1e-5 absolute; bf16
+``out`` 2e-2 on the largest row's ||got - want|| / ||want|| (the kernel
+rounds p to bf16 at running maxima, the plain version at the row maximum);
+gradients 1e-4 (fp32) and 2e-2 (bf16) on the largest, over (batch, row,
+head), of ||got - want|| / ||want|| across head_dim, with ||want|| floored
+at 1e-2 of its head's RMS row norm.
 """
 
 import numpy as np
@@ -22,6 +28,15 @@ import pytest
 import torch
 
 from transformer_tpu_torch.config import ModelConfig
+from transformer_tpu_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_dkdv,
+    flash_dkdv_plain,
+    flash_dq,
+    flash_dq_plain,
+    flash_fwd,
+    flash_fwd_plain,
+)
 from transformer_tpu_torch.kernels.paged_flash import (
     paged_flash_attention,
     paged_flash_attention_plain,
@@ -171,3 +186,88 @@ def test_decode_forward_kernels_match_reference(cuda, kv_cache_int8):
     assert paged_flash_attention.launches == before[0] + cfg.num_layers
     assert fused_ln_ffn.launches == before[1] + cfg.num_layers
     np.testing.assert_allclose(outs[0].cpu().numpy(), outs[1].cpu().numpy(), rtol=0, atol=1e-4)
+
+
+FLASH_CASES = {
+    # dtype, B, S_q, S_k, H, H_kv, D, causal, window, padded
+    "fp32_causal_pad": (torch.float32, 2, 200, 200, 4, 4, 64, True, 0, True),
+    "bf16_causal_pad": (torch.bfloat16, 2, 200, 200, 4, 4, 64, True, 0, True),
+    "bf16_gqa_window": (torch.bfloat16, 2, 333, 333, 8, 2, 64, True, 70, False),
+    "bf16_cross_pad": (torch.bfloat16, 2, 96, 257, 4, 4, 32, False, 0, True),
+    "fp32_d32": (torch.float32, 1, 130, 130, 2, 1, 32, True, 0, False),
+}
+
+
+def _flash_case(name, seed=0):
+    dtype, b, s_q, s_k, h, h_kv, d, causal, window, padded = FLASH_CASES[name]
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+
+    mask = None
+    if padded:
+        m = np.ones((b, s_k), bool)
+        m[0, s_k - 37:] = False
+        m[-1, :9] = False  # with causal: the first 9 rows see no key
+        mask = torch.from_numpy(m).cuda()
+    kw = dict(kv_mask=mask, causal=causal, window=window)
+    return (t(b, s_q, h, d), t(b, s_k, h_kv, d), t(b, s_k, h_kv, d), t(b, s_q, h, d)), kw
+
+
+def _rel_per_row(got, want):
+    """Largest, over (batch, row, head), of ||got - want|| / ||want|| across
+    head_dim; ||want|| is floored at 1e-2 of its (batch, head)'s RMS row
+    norm, so rows whose exact gradient is about 0 do not read rounding."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    floor = 1e-2 * ref.pow(2).mean(dim=1, keepdim=True).sqrt()
+    return (diff / torch.maximum(ref, floor).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, name):
+    (q, k, v, do), kw = _flash_case(name)
+    fp32 = q.dtype == torch.float32
+    before = (flash_fwd.launches, flash_dq.launches, flash_dkdv.launches)
+    out, lse = flash_fwd(q, k, v, **kw)
+    want_out, want_lse = flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * want_out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq = flash_dq(q, k, v, do, want_lse, delta, **kw)
+    dk, dv = flash_dkdv(q, k, v, do, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_dq.launches, flash_dkdv.launches) == tuple(
+        n + 1 for n in before
+    )
+    if fp32:
+        np.testing.assert_allclose(out.cpu().numpy(), want_out.cpu().numpy(), rtol=0, atol=1e-5)
+    else:
+        diff = (out.float() - want_out.float()).norm(dim=-1)
+        rel = (diff / want_out.float().norm(dim=-1).clamp_min(1e-30))
+        rel = torch.where(want_out.float().norm(dim=-1) > 0, rel, diff)
+        assert rel.max().item() <= 2e-2, rel.max().item()
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), rtol=0,
+                               atol=1e-5 if fp32 else 1e-4)
+    tol = 1e-4 if fp32 else 2e-2
+    want_dq = flash_dq_plain(q, k, v, do, want_lse, delta, **kw)
+    want_dk, want_dv = flash_dkdv_plain(q, k, v, do, want_lse, delta, **kw)
+    for got, want, label in ((dq, want_dq, "dq"), (dk, want_dk, "dk"), (dv, want_dv, "dv")):
+        assert got.dtype == want.dtype and got.shape == want.shape, label
+        assert _rel_per_row(got, want) <= tol, (label, _rel_per_row(got, want))
+    if kw["kv_mask"] is not None and kw["causal"]:
+        assert torch.all(out[-1, :9] == 0) and torch.all(dq[-1, :9] == 0)
+
+
+def test_flash_attention_autograd_runs_the_three_kernels(cuda):
+    (q, k, v, do), kw = _flash_case("fp32_causal_pad", seed=3)
+    grads = []
+    before = (flash_fwd.launches, flash_dq.launches, flash_dkdv.launches)
+    for reference in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, reference=reference, **kw)
+        grads.append(torch.autograd.grad(out, leaves, do))
+    assert (flash_fwd.launches, flash_dq.launches, flash_dkdv.launches) == tuple(
+        n + 1 for n in before
+    )
+    for got, want in zip(*grads):
+        assert _rel_per_row(got, want) <= 1e-4

@@ -3,7 +3,8 @@
 - No module of ``transformer_tpu_torch/`` (nor ``chip_smoke.py``, nor the
   card-only ``tests/test_torch_cuda.py``) imports ``jax`` or the JAX
   package ``transformer_tpu``: an AST walk of every import statement.
-- ``ModelConfig`` has the JAX twin's fields, defaults and validation.
+- ``ModelConfig`` and ``TrainConfig`` have the JAX twins' fields, defaults
+  and validation.
 - ``convert``: JAX params -> numpy -> port -> numpy is byte-identical,
   int8-quantized exports dequantize as the JAX loader does.
 - ``KVPool`` alloc / alias / CoW / free keeps ``check_consistency``.
@@ -21,9 +22,11 @@ import pytest
 import torch
 
 from transformer_tpu.config import ModelConfig as JConfig
+from transformer_tpu.config import TrainConfig as JTrain
 from transformer_tpu.models import transformer_init
 from transformer_tpu.train.checkpoint import _flatten, export_params
 from transformer_tpu_torch.config import FFN_ACTIVATIONS, ModelConfig as TConfig
+from transformer_tpu_torch.config import TrainConfig as TTrain
 from transformer_tpu_torch.convert import load_export, params_from_numpy, params_to_numpy
 from transformer_tpu_torch.kernels.kv_pool import KVPool, KVPoolExhausted
 
@@ -85,6 +88,29 @@ def test_model_config_validation_matches_jax(bad):
         JConfig(**bad)
     with pytest.raises(ValueError):
         TConfig(**bad)
+
+
+def test_train_config_fields_match_jax():
+    jf = [(f.name, f.default) for f in dataclasses.fields(JTrain)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(TTrain)]
+    assert tf == jf
+
+
+@pytest.mark.parametrize(
+    "bad",
+    [
+        dict(loss_normalization="mean"), dict(objective="span"), dict(mlm_mask_rate=1.0),
+        dict(pp_schedule="zb"), dict(optimizer="sgd"), dict(weight_decay=0.1),
+        dict(lr_schedule="linear"), dict(lr_schedule="cosine", peak_lr=0.0),
+        dict(lr_schedule="cosine", peak_lr=1e-3, warmup_steps=10, lr_decay_steps=10),
+        dict(steps_per_dispatch=0),
+    ],
+)
+def test_train_config_validation_matches_jax(bad):
+    with pytest.raises(ValueError):
+        JTrain(**bad)
+    with pytest.raises(ValueError):
+        TTrain(**bad)
 
 
 def test_compute_dtype_is_torch():
@@ -196,10 +222,20 @@ def test_entry_points_refuse_cuda_without_a_card(tmp_path):
         load_export(str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--export_path", str(tmp_path), "--tgt_vocab_file", "unused"])
+    from transformer_tpu_torch.cli import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--preset", "long4k", "--dataset_path", str(tmp_path)])
 
 
 def test_kernel_wrappers_refuse_other_devices():
+    from transformer_tpu_torch.kernels.flash_attention import flash_attention, flash_fwd
     from transformer_tpu_torch.kernels.paged_flash import paged_flash_attention
+
+    x = torch.zeros((1, 8, 2, 8), device="meta")
+    for fn in (flash_attention, flash_fwd):
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            fn(x, x, x, causal=True)
 
     q = torch.zeros((1, 1, 2, 8), device="meta")
     pool = torch.zeros((2, 4, 2, 8), device="meta")

@@ -3,7 +3,10 @@ JAX package's Pallas kernel (interpret mode, as tests/test_paged_kernel.py
 runs it on the CPU) and against the XLA gather oracle, across
 fp32 / bf16 / int8 / GQA pools x S_q in {1, 3}, on a fragmented table
 with an aliased slot and stale rows full of data. (The CUDA kernel
-against the plain version: tests/test_torch_cuda.py.)
+against the plain version: tests/test_torch_cuda.py.) The gather oracle
+(``_gather_oracle``: dense-ordered views through the table, then the
+fp32-softmax ``dot_product_attention`` under the offset causal mask) is
+the port's twin of JAX's ``paged_attention(impl="xla")``.
 
 Tolerances (per variant, as the JAX suite states them for its own kernel
 against its oracle): fp32 5e-6; bf16 / int8 / GQA 3e-2 (the online and
@@ -17,11 +20,12 @@ import torch
 
 from transformer_tpu.kernels.flash_attention import paged_attention as j_paged_attention
 from transformer_tpu.ops.attention import _quantize_kv as j_quantize
-from transformer_tpu_torch.kernels.flash_attention import paged_attention
+from transformer_tpu_torch.kernels.kv_pool import gather_block_views
 from transformer_tpu_torch.kernels.paged_flash import (
     paged_flash_attention,
     paged_flash_attention_plain,
 )
+from transformer_tpu_torch.ops.attention import dot_product_attention
 
 TOL = {"fp32": 5e-6, "bf16": 3e-2, "int8": 3e-2, "gqa": 3e-2}
 ORACLE_TOL = {"fp32": 1e-6, "bf16": 2**-7, "int8": 2**-7, "gqa": 2**-7}
@@ -68,6 +72,20 @@ def _case(variant: str, s_q: int, block_tokens: int = 8, seed: int = 0):
     return jargs, jkw, targs, tkw
 
 
+def _gather_oracle(q, k_pool, v_pool, table, lengths, *, k_scale=None, v_scale=None):
+    """(N, S_q, H, D) queries against the pools through the block tables;
+    row ``s`` sits at positions ``lengths[s] - S_q .. lengths[s] - 1``."""
+    s_q = q.shape[1]
+    k = gather_block_views(k_pool, table)  # (N, L, H_kv, D)
+    v = gather_block_views(v_pool, table)
+    if k_scale is not None:
+        k = k.to(q.dtype) * gather_block_views(k_scale, table).to(q.dtype)
+        v = v.to(q.dtype) * gather_block_views(v_scale, table).to(q.dtype)
+    positions = torch.arange(k.shape[1])[None, None, None, :]
+    q_pos = (lengths.long()[:, None, None, None] - s_q) + torch.arange(s_q)[None, None, :, None]
+    return dot_product_attention(q, k, v, positions <= q_pos)
+
+
 def _np(t):
     return np.asarray(t.float() if isinstance(t, torch.Tensor) else t, np.float32)
 
@@ -91,7 +109,7 @@ def test_plain_matches_jax_gather_oracle(variant, s_q):
     got = paged_flash_attention_plain(*targs, **tkw)
     np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[variant], atol=TOL[variant])
     # The port's own gather oracle against JAX's, closer still.
-    oracle = paged_attention(*targs, impl="xla", **tkw)
+    oracle = _gather_oracle(*targs, **tkw)
     np.testing.assert_allclose(
         _np(oracle), _np(want), rtol=0, atol=ORACLE_TOL[variant]
     )
@@ -100,7 +118,7 @@ def test_plain_matches_jax_gather_oracle(variant, s_q):
 def test_wrapper_on_cpu_is_the_plain_version():
     _, _, targs, tkw = _case("int8", 3)
     before = paged_flash_attention.launches
-    got = paged_attention(*targs, impl="paged_flash", **tkw)
+    got = paged_flash_attention(*targs, **tkw)
     assert torch.equal(got, paged_flash_attention_plain(*targs, **tkw))
     assert paged_flash_attention.launches == before  # only kernel launches count
 

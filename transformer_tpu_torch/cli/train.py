@@ -1,0 +1,186 @@
+"""Train a decoder-only LM on the target side of a parallel corpus.
+
+    python -m transformer_tpu_torch.cli.train --preset long4k --epochs 1 \
+        --dataset_path data --tgt_vocab_file tgt_vocab.subwords \
+        [--export_path model] [--device cuda]
+
+Port of the LM-window mode of ``transformer_tpu/cli/train.py``
+(``--decoder_only``): load (or build) the vocabulary and the LM splits,
+build the train state, fit, log eval loss and perplexity from the final
+epoch's full eval, and write an export (``params.npz`` + ``config.json``,
+the JAX export layout) that ``transformer_tpu_torch.cli.serve`` loads.
+Flags keep the JAX CLI's names and defaults, and ``--preset`` fills the
+flags not given explicitly; argparse replaces absl. ``--export_path``
+(default ``model``) and ``--device`` (default ``cuda``) are the port's
+own. Seq2seq and masked-LM training raise until their slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import sys
+
+# ``--preset`` values, a copy of transformer_tpu/cli/flags.py _PRESETS.
+_PRESETS: dict[str, dict] = {
+    "tiny": dict(num_layers=2, d_model=128, num_heads=4, dff=512, batch_size=64),
+    "base": dict(num_layers=6, d_model=512, num_heads=8, dff=2048, batch_size=64),
+    "big": dict(
+        num_layers=6, d_model=1024, num_heads=16, dff=4096,
+        label_smoothing=0.1, batch_size=32,
+    ),
+    "tied": dict(
+        num_layers=6, d_model=512, num_heads=8, dff=2048,
+        tie_embeddings=True, tie_output=True, batch_size=64,
+    ),
+    "long4k": dict(
+        num_layers=6, d_model=512, num_heads=8, dff=2048,
+        decoder_only=True, attention_impl="flash", sequence_length=4096,
+        remat=True, batch_size=4,
+    ),
+}
+
+
+def _bool(text: str) -> bool:
+    if text.lower() in ("1", "true", "yes"):
+        return True
+    if text.lower() in ("0", "false", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
+
+
+# name -> (type, default, help); the JAX CLI's defaults.
+_FLAGS: dict[str, tuple] = {
+    "dataset_path": (str, "data", "directory with src/tgt line files"),
+    "tgt_vocab_file": (str, "tgt_vocab.subwords", "target subword vocab path"),
+    "target_vocab_size": (int, 2**15, "subword vocab build target"),
+    "sequence_length": (int, 50, "LM window length (tokens incl. BOS)"),
+    "epochs": (int, 4, "training epochs"),
+    "batch_size": (int, 64, "global batch size"),
+    "num_layers": (int, 4, "transformer layers"),
+    "d_model": (int, 512, "model width"),
+    "dff": (int, 1024, "FFN hidden width"),
+    "num_heads": (int, 4, "attention heads"),
+    "num_kv_heads": (int, 0, "grouped-query kv heads (0 = num_heads)"),
+    "dropout_rate": (float, 0.1, "dropout rate"),
+    "warmup_steps": (int, 60000, "LR warmup steps"),
+    "lr_schedule": (str, "noam", "noam | cosine | constant"),
+    "peak_lr": (float, 0.0, "peak LR for cosine/constant"),
+    "lr_decay_steps": (int, 0, "cosine horizon"),
+    "label_smoothing": (float, 0.0, "label smoothing epsilon"),
+    "loss_normalization": (str, "tokens", "tokens | batch"),
+    "max_grad_norm": (float, 0.0, "global-norm gradient clip (0 = off)"),
+    "optimizer": (str, "adam", "adam (adafactor/adamw are not ported)"),
+    "weight_decay": (float, 0.0, "adamw weight decay"),
+    "tie_embeddings": (_bool, False, "share src/tgt embedding tables"),
+    "tie_output": (_bool, False, "tie the output projection to the embedding"),
+    "norm_scheme": (str, "post", "post | pre"),
+    "ffn_activation": (str, "relu", "FFN activation"),
+    "position_scheme": (str, "sinusoidal", "sinusoidal | rope"),
+    "decoder_only": (_bool, False, "causal-LM mode (the only mode ported)"),
+    "objective": (str, "causal", "causal (mlm is not ported)"),
+    "attention_impl": (str, "xla", "xla | flash"),
+    "attention_window": (int, 0, "sliding-window causal attention (0 = full)"),
+    "dtype": (str, "bfloat16", "compute dtype"),
+    "remat": (_bool, False, "rematerialize each layer in the backward"),
+    "remat_policy": (str, "full", "full (dots is not ported)"),
+    "eval_max_batches": (int, 8, "cap on in-loop eval batches (0 = all)"),
+    "grad_accum": (int, 1, "gradient accumulation (only 1 is ported)"),
+    "loss_chunks": (int, 1, "chunked CE (only 1 is ported)"),
+    "steps_per_dispatch": (int, 1, "steps per dispatch (only 1 is ported)"),
+    "seed": (int, 0, "seed of the init, the shuffle and dropout"),
+    "export_path": (str, "model", "where to write params.npz + config.json"),
+    "device": (str, "cuda", "cuda (default) or cpu"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--preset", default="", choices=["", *sorted(_PRESETS)],
+                    help="start from a benchmark config; explicit flags win")
+    for name, (typ, _, help_) in _FLAGS.items():
+        kw = dict(nargs="?", const=True) if typ is _bool else {}
+        ap.add_argument(f"--{name}", type=typ, default=argparse.SUPPRESS, help=help_, **kw)
+    return ap
+
+
+def resolve_flags(argv: list[str] | None) -> argparse.Namespace:
+    """Defaults, then the preset, then the flags given explicitly."""
+    explicit = vars(build_parser().parse_args(argv))
+    preset = _PRESETS.get(explicit.pop("preset"), {})
+    values = {name: spec[1] for name, spec in _FLAGS.items()}
+    values.update(preset)
+    values.update(explicit)
+    return argparse.Namespace(**values)
+
+
+def main(argv: list[str] | None = None, log_fn=print):
+    """Train and export; returns the trainer."""
+    args = resolve_flags(argv)
+    if not args.decoder_only or args.objective != "causal":
+        raise NotImplementedError(
+            "the port trains decoder-only causal LMs (--decoder_only); seq2seq and "
+            "masked-LM training are later slices"
+        )
+    from transformer_tpu_torch.config import ModelConfig, TrainConfig
+    from transformer_tpu_torch.convert import export_params
+    from transformer_tpu_torch.data.pipeline import load_lm_splits
+    from transformer_tpu_torch.device import resolve_device
+    from transformer_tpu_torch.train.state import create_train_state
+    from transformer_tpu_torch.train.trainer import Trainer
+
+    device = resolve_device(args.device)
+    train_cfg = TrainConfig(
+        batch_size=args.batch_size, sequence_length=args.sequence_length,
+        epochs=args.epochs, warmup_steps=args.warmup_steps,
+        lr_schedule=args.lr_schedule, peak_lr=args.peak_lr,
+        lr_decay_steps=args.lr_decay_steps, label_smoothing=args.label_smoothing,
+        loss_normalization=args.loss_normalization, max_grad_norm=args.max_grad_norm,
+        optimizer=args.optimizer, weight_decay=args.weight_decay, seed=args.seed,
+        eval_max_batches=args.eval_max_batches, grad_accum_steps=args.grad_accum,
+        loss_chunks=args.loss_chunks, steps_per_dispatch=args.steps_per_dispatch,
+        objective=args.objective,
+    )
+    train_ds, test_ds, tok = load_lm_splits(
+        args.dataset_path, args.tgt_vocab_file, batch_size=train_cfg.batch_size,
+        sequence_length=train_cfg.sequence_length,
+        target_vocab_size=args.target_vocab_size, seed=train_cfg.seed,
+    )
+    log_fn(
+        f"data: {train_ds.num_examples} train windows ({len(train_ds)} batches), "
+        f"{test_ds.num_examples if test_ds else 0} test windows "
+        f"({len(test_ds) if test_ds else 0} batches), vocab {tok.vocab_size}"
+    )
+    vocab = tok.model_vocab_size
+    model_cfg = ModelConfig(
+        num_layers=args.num_layers, d_model=args.d_model, num_heads=args.num_heads,
+        num_kv_heads=args.num_kv_heads, dff=args.dff, input_vocab_size=vocab,
+        target_vocab_size=vocab, dropout_rate=args.dropout_rate,
+        max_position=max(args.sequence_length, 64), norm_scheme=args.norm_scheme,
+        position_scheme=args.position_scheme, decoder_only=True,
+        tie_embeddings=args.tie_embeddings, tie_output=args.tie_output,
+        ffn_activation=args.ffn_activation, dtype=args.dtype,
+        attention_impl=args.attention_impl, attention_window=args.attention_window,
+        remat=args.remat, remat_policy=args.remat_policy,
+    )
+    state = create_train_state(model_cfg, train_cfg, device=device)
+    trainer = Trainer(model_cfg, train_cfg, state, log_fn=log_fn)
+    trainer.fit(train_ds, test_ds)
+    if test_ds is not None and trainer.eval_metrics.weight > 0:
+        loss = trainer.eval_metrics.loss
+        log_fn(f"eval loss {loss:.4f}, perplexity {math.exp(min(loss, 30.0)):.2f}")
+    elif test_ds is not None:
+        log_fn("eval split produced no tokens; no perplexity")
+    export_params(trainer.state.params, model_cfg, args.export_path)
+    log_fn(f"exported params to {args.export_path}")
+    return trainer
+
+
+def run() -> int:
+    """Console-script entry point: train, then exit with status 0."""
+    main()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(run())

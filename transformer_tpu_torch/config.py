@@ -1,11 +1,11 @@
 """Model configuration for the PyTorch port.
 
-Field-for-field twin of ``transformer_tpu/config.py`` ``ModelConfig``: same
-names, same defaults, same validation, so an export's ``config.json``
-loads into either package. The only difference is what the dtype
-properties return: ``torch.dtype`` objects instead of jnp dtypes. The
-activation list is kept here (the JAX package reads it from its FFN op
-module, which imports jax).
+Field-for-field twins of ``transformer_tpu/config.py`` ``ModelConfig`` and
+``TrainConfig``: same names, same defaults, same validation, so an
+export's ``config.json`` loads into either package. The only difference
+is what the dtype properties return: ``torch.dtype`` objects instead of
+jnp dtypes. The activation list is kept here (the JAX package reads it
+from its FFN op module, which imports jax).
 """
 
 from __future__ import annotations
@@ -159,6 +159,93 @@ class ModelConfig:
     @property
     def params_dtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-engine knobs; see the JAX twin for what each field means.
+    The port's trainer runs the plain single-card path: it raises on
+    ``grad_accum_steps``/``steps_per_dispatch``/``loss_chunks`` > 1, on
+    ``optimizer`` other than "adam" and on ``objective="mlm"``."""
+
+    batch_size: int = 64
+    sequence_length: int = 50
+    epochs: int = 4
+    warmup_steps: int = 60000
+    lr_schedule: str = "noam"  # "noam" | "cosine" | "constant"
+    peak_lr: float = 0.0
+    lr_decay_steps: int = 0
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.98
+    adam_epsilon: float = 1e-9
+    optimizer: str = "adam"  # "adam" | "adafactor" | "adamw"
+    weight_decay: float = 0.0  # adamw only
+    label_smoothing: float = 0.0
+    loss_normalization: str = "tokens"  # "tokens" | "batch"
+    max_grad_norm: float = 0.0  # 0 disables clipping
+    buffer_size: int = 100000
+    eval_every_steps: int = 500
+    eval_max_batches: int = 8  # in-loop eval cap; 0 = the full test set
+    early_stop_patience: int = 0
+    log_every_steps: int = 100
+    checkpoint_every_epochs: int = 5
+    max_ckpt_keep: int = 5
+    ckpt_path: str = "model_dist"
+    enable_function: bool = True
+    seed: int = 0
+    pp_microbatches: int = 0
+    pp_schedule: str = "gpipe"  # "gpipe" | "1f1b"
+    grad_accum_steps: int = 1
+    loss_chunks: int = 1
+    steps_per_dispatch: int = 1
+    objective: str = "causal"  # "causal" | "mlm"
+    mlm_mask_rate: float = 0.15
+    mlm_excluded_ids: tuple[int, ...] | None = None
+
+    def __post_init__(self) -> None:
+        if self.loss_normalization not in ("tokens", "batch"):
+            raise ValueError(
+                f"loss_normalization must be 'tokens' or 'batch', got {self.loss_normalization!r}"
+            )
+        if self.objective not in ("causal", "mlm"):
+            raise ValueError(
+                f"objective must be 'causal' or 'mlm', got {self.objective!r}"
+            )
+        if not 0.0 < self.mlm_mask_rate < 1.0:
+            raise ValueError(
+                f"mlm_mask_rate must be in (0, 1), got {self.mlm_mask_rate}"
+            )
+        if self.pp_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                f"pp_schedule must be 'gpipe' or '1f1b', got {self.pp_schedule!r}"
+            )
+        if self.optimizer not in ("adam", "adafactor", "adamw"):
+            raise ValueError(
+                "optimizer must be 'adam', 'adafactor' or 'adamw', got "
+                f"{self.optimizer!r}"
+            )
+        if self.weight_decay and self.optimizer != "adamw":
+            raise ValueError(
+                "weight_decay > 0 requires optimizer='adamw' (adam/adafactor "
+                "would silently ignore it)"
+            )
+        if self.lr_schedule not in ("noam", "cosine", "constant"):
+            raise ValueError(
+                f"lr_schedule must be noam/cosine/constant, got {self.lr_schedule!r}"
+            )
+        if self.lr_schedule != "noam" and self.peak_lr <= 0:
+            raise ValueError(
+                f"lr_schedule={self.lr_schedule!r} needs peak_lr > 0"
+            )
+        if self.lr_schedule == "cosine" and self.lr_decay_steps <= self.warmup_steps:
+            raise ValueError(
+                "lr_schedule='cosine' needs lr_decay_steps > warmup_steps "
+                f"(got {self.lr_decay_steps} <= {self.warmup_steps})"
+            )
+        if self.steps_per_dispatch < 1:
+            raise ValueError(
+                f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}"
+            )
 
 
 def config_to_json(cfg: Any) -> str:

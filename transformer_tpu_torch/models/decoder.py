@@ -1,9 +1,11 @@
-"""Decoder stack of the decoder-only LM, on its KV-cached path.
+"""Decoder stack of the decoder-only LM: the cache-free training forward
+and the KV-cached path of serving.
 
-Port of the parts of ``transformer_tpu/models/decoder.py`` the serving
-slice runs: the self-attention + FFN layer over a per-layer cache, the
-stack, and the chunked single-pass prefill. Cross-attention (seq2seq) and
-the cache-free training forward are later slices.
+Port of the parts of ``transformer_tpu/models/decoder.py`` the serving and
+training slices run: the self-attention + FFN layer (over a per-layer
+cache, or cache-free under the structural causal flag and the padding
+self-mask, with dropout and per-layer remat), the stack, and the chunked
+single-pass prefill. Cross-attention (seq2seq) is a later slice.
 """
 
 from __future__ import annotations
@@ -18,39 +20,53 @@ from transformer_tpu_torch.models.encoder import (
     _sublayer,
     embed_prologue,
 )
-from transformer_tpu_torch.ops.attention import cached_self_attention
-from transformer_tpu_torch.ops.nn import Params, layernorm_apply
+from transformer_tpu_torch.ops.attention import cached_self_attention, mha_apply
+from transformer_tpu_torch.ops.nn import Params, dropout_generator, layernorm_apply, remat_layer
 
 
-def _require_decoder_only(cfg: ModelConfig) -> None:
-    if not cfg.decoder_only:
-        raise NotImplementedError(
-            "the port serves decoder-only LMs; seq2seq decoding is a later slice"
-        )
-    if cfg.attention_window:
-        raise NotImplementedError(
-            "sliding-window attention (rolling caches) is a later slice of the port"
-        )
+def _generators(key, n: int, cfg: ModelConfig, deterministic: bool, device):
+    """One dropout generator per site, keyed ``key + (site,)``; Nones when
+    dropout is off."""
+    if deterministic or cfg.dropout_rate == 0.0:
+        return [None] * n
+    if key is None:
+        raise ValueError("dropout in training mode requires a key")
+    return [dropout_generator(tuple(key) + (i,), device) for i in range(n)]
 
 
 def decoder_layer_apply(
     params: Params,
     x: torch.Tensor,
     cfg: ModelConfig,
-    cache: dict[str, Any],
-) -> tuple[torch.Tensor, dict[str, Any]]:
-    """One decoder-only layer over its KV cache: (x, updated cache)."""
+    cache: dict[str, Any] | None = None,
+    *,
+    self_mask: torch.Tensor | None = None,
+    key: tuple[int, ...] | None = None,
+    deterministic: bool = True,
+    reference: bool = False,
+) -> tuple[torch.Tensor, dict[str, Any] | None]:
+    """One decoder-only layer: (x, updated cache). With a cache, causal
+    attention over it (serving); without, causal self-attention under
+    ``self_mask`` (B, 1, 1, S) with dropout keyed on ``key`` (training)."""
     box: list[Any] = [None]
 
     def self_attn(h):
-        out, box[0] = cached_self_attention(
-            params["self_mha"], h, cache, rope=cfg.position_scheme == "rope",
+        if cache is not None:
+            out, box[0] = cached_self_attention(
+                params["self_mha"], h, cache, rope=cfg.position_scheme == "rope",
+            )
+            return out
+        return mha_apply(
+            params["self_mha"], h, h, self_mask, impl=cfg.attention_impl, causal=True,
+            window=cfg.attention_window, rope=cfg.position_scheme == "rope",
+            reference=reference,
         )
-        return out
 
-    x = _sublayer(cfg, params["ln1"], x, self_attn)
+    g_attn, g_ffn = _generators(key, 2, cfg, deterministic, x.device)
+    x = _sublayer(cfg, params["ln1"], x, self_attn, g_attn, deterministic)
     x = _sublayer(
-        cfg, params["ln_ffn"], x, lambda h: _ffn_sublayer_apply(params, h, cfg)
+        cfg, params["ln_ffn"], x, lambda h: _ffn_sublayer_apply(params, h, cfg),
+        g_ffn, deterministic,
     )
     return x, box[0]
 
@@ -59,17 +75,51 @@ def decoder_apply(
     params: Params,
     ids: torch.Tensor,
     cfg: ModelConfig,
-    caches: list[dict[str, Any]],
+    caches: list[dict[str, Any]] | None = None,
     position_offset: int = 0,
-) -> tuple[torch.Tensor, list[dict[str, Any]]]:
+    *,
+    self_mask: torch.Tensor | None = None,
+    key: tuple[int, ...] | None = None,
+    deterministic: bool = True,
+    reference: bool = False,
+) -> tuple[torch.Tensor, list[dict[str, Any]] | None]:
     """(B, S) ids at positions ``position_offset ..`` -> (B, S, d_model)
-    hiddens and the updated caches."""
-    _require_decoder_only(cfg)
-    x = embed_prologue(params["embedding"], ids, cfg, position_offset)
-    new_caches = []
-    for layer, cache in zip(params["layers"], caches):
-        x, cache = decoder_layer_apply(layer, x, cfg, cache)
-        new_caches.append(cache)
+    hiddens and the updated caches (None on the cache-free path). Dropout
+    sites are keyed ``key + (0, site)`` for the prologue and ``key +
+    (layer + 1, site)`` per layer. With ``cfg.remat`` the cache-free layers
+    run under ``remat_layer`` whenever gradients are recorded."""
+    if not cfg.decoder_only:
+        raise NotImplementedError(
+            "the port runs decoder-only LMs; cross-attention (seq2seq) is a later slice"
+        )
+    if caches is not None and cfg.attention_window:
+        raise NotImplementedError(
+            "sliding-window attention over a cache (rolling caches) is a later slice of the port"
+        )
+    (g_embed,) = _generators(
+        None if key is None else tuple(key) + (0,), 1, cfg, deterministic, ids.device
+    )
+    x = embed_prologue(
+        params["embedding"], ids, cfg, position_offset, g_embed, deterministic
+    )
+    if caches is not None:
+        new_caches = []
+        for layer, cache in zip(params["layers"], caches):
+            x, cache = decoder_layer_apply(layer, x, cfg, cache)
+            new_caches.append(cache)
+    else:
+        new_caches = None
+
+        def layer_call(layer, x, layer_key):
+            return decoder_layer_apply(
+                layer, x, cfg, self_mask=self_mask, key=layer_key,
+                deterministic=deterministic, reference=reference,
+            )[0]
+
+        if cfg.remat and torch.is_grad_enabled():
+            layer_call = remat_layer(layer_call, cfg)
+        for i, layer in enumerate(params["layers"]):
+            x = layer_call(layer, x, None if key is None else tuple(key) + (i + 1,))
     if cfg.norm_scheme == "pre":
         x = layernorm_apply(params["final_ln"], x, cfg.layernorm_epsilon)
     return x, new_caches

@@ -1,8 +1,9 @@
 """Shared layer plumbing: the embedding prologue and the residual sublayer.
 
-Port of the parts of ``transformer_tpu/models/encoder.py`` the serving
-slice runs. Serving is deterministic, so dropout is the identity and takes
-no argument here.
+Port of the parts of ``transformer_tpu/models/encoder.py`` the serving and
+training slices run. Dropout sits where the JAX twin puts it: after each
+sublayer's function and at the end of the prologue; it is the identity
+when ``deterministic`` (the default, which serving keeps).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 
 from transformer_tpu_torch.config import ModelConfig
 from transformer_tpu_torch.ops.ffn import ffn_apply
-from transformer_tpu_torch.ops.nn import Params, embedding_lookup, layernorm_apply
+from transformer_tpu_torch.ops.nn import Params, dropout, embedding_lookup, layernorm_apply
 from transformer_tpu_torch.ops.positional import sinusoidal_rows
 
 
@@ -20,12 +21,14 @@ def layer_uses_moe(cfg: ModelConfig, layer_index: int) -> bool:
     return cfg.moe_experts > 0 and (layer_index + 1) % cfg.moe_every == 0
 
 
-def _sublayer(cfg: ModelConfig, params_ln, x, fn):
-    """Residual sublayer in post-LN (``LN(x + fn(x))``) or pre-LN
-    (``x + fn(LN(x))``) form."""
+def _sublayer(cfg: ModelConfig, params_ln, x, fn, generator=None, deterministic=True):
+    """Residual sublayer in post-LN (``LN(x + drop(fn(x)))``) or pre-LN
+    (``x + drop(fn(LN(x)))``) form."""
     if cfg.norm_scheme == "pre":
-        return x + fn(layernorm_apply(params_ln, x, cfg.layernorm_epsilon))
-    return layernorm_apply(params_ln, x + fn(x), cfg.layernorm_epsilon)
+        y = fn(layernorm_apply(params_ln, x, cfg.layernorm_epsilon))
+        return x + dropout(generator, y, cfg.dropout_rate, deterministic)
+    y = dropout(generator, fn(x), cfg.dropout_rate, deterministic)
+    return layernorm_apply(params_ln, x + y, cfg.layernorm_epsilon)
 
 
 def _ffn_sublayer_apply(params: Params, h: torch.Tensor, cfg: ModelConfig):
@@ -41,12 +44,14 @@ def embed_prologue(
     ids: torch.Tensor,
     cfg: ModelConfig,
     position_offset: int | torch.Tensor = 0,
+    generator: torch.Generator | None = None,
+    deterministic: bool = True,
 ) -> torch.Tensor:
     """(B, S) ids -> embed, ×√d_model (in the compute dtype), + the
-    sinusoidal rows at ``position_offset + arange(S)``. ``position_offset``
-    is an int or a (B,) tensor of per-row offsets (the batched decode
-    step). Offsets clamp to ``max_position`` exactly as the JAX twin's
-    dynamic slice of its ``max_position + S``-row table does."""
+    sinusoidal rows at ``position_offset + arange(S)``, then dropout.
+    ``position_offset`` is an int or a (B,) tensor of per-row offsets (the
+    batched decode step). Offsets clamp to ``max_position`` exactly as the
+    JAX twin's dynamic slice of its ``max_position + S``-row table does."""
     seq_len = ids.shape[1]
     if seq_len > cfg.max_position:
         raise ValueError(
@@ -61,4 +66,4 @@ def embed_prologue(
         offset = torch.clamp(offset, 0, cfg.max_position).reshape(-1, 1)
         positions = offset + torch.arange(seq_len, device=ids.device)[None, :]
         x = x + sinusoidal_rows(positions, cfg.d_model, dtype)
-    return x
+    return dropout(generator, x, cfg.dropout_rate, deterministic)

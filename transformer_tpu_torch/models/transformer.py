@@ -1,6 +1,8 @@
-"""LM assembly: parameter layout, random init, vocab projection, prefill.
+"""LM assembly: parameter layout, random init, forward, vocab projection,
+prefill.
 
-Port of ``project_logits`` and ``transformer_prefill`` from
+Port of ``transformer_hidden_apply``, ``transformer_apply``,
+``project_logits`` and ``transformer_prefill`` from
 ``transformer_tpu/models/transformer.py`` for decoder-only models, plus
 ``param_spec`` (the JAX package's parameter tree, flattened with its
 checkpoint naming) and ``init_params`` (a random init of that tree from a
@@ -14,9 +16,10 @@ from typing import Any
 
 import torch
 
-from transformer_tpu_torch.config import ModelConfig, is_gated
+from transformer_tpu_torch.config import PAD_ID, ModelConfig, is_gated
 from transformer_tpu_torch.device import resolve_device
-from transformer_tpu_torch.models.decoder import decoder_prefill
+from transformer_tpu_torch.models.decoder import decoder_apply, decoder_prefill
+from transformer_tpu_torch.ops.masks import make_padding_mask
 from transformer_tpu_torch.ops.nn import Params, dense_apply, embedding_attend
 
 SEP = "/"
@@ -128,6 +131,51 @@ def project_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.T
     if cfg.tie_output:
         return embedding_attend(params["decoder"]["embedding"], x)
     return dense_apply(params["final"], x)
+
+
+def transformer_hidden_apply(
+    params: Params,
+    inp: torch.Tensor | None,
+    tar: torch.Tensor,
+    cfg: ModelConfig,
+    key: tuple[int, ...] | None = None,
+    deterministic: bool = True,
+    reference: bool = False,
+    pad_id: int = PAD_ID,
+) -> torch.Tensor:
+    """(B, S) token ids -> (B, S, d_model) hiddens of the decoder-only LM,
+    before the vocab projection. ``inp`` is ignored (the JAX signature's
+    source side); the self-mask is ``make_padding_mask(tar)``, ANDed with
+    causality inside attention. ``key`` seeds dropout when not
+    ``deterministic``; ``reference`` runs the flash kernels' plain
+    versions."""
+    if not cfg.decoder_only:
+        raise NotImplementedError(
+            "the port trains decoder-only LMs; seq2seq and encoder-only models are later slices"
+        )
+    x, _ = decoder_apply(
+        params["decoder"], tar, cfg, self_mask=make_padding_mask(tar, pad_id), key=key,
+        deterministic=deterministic, reference=reference,
+    )
+    return x
+
+
+def transformer_apply(
+    params: Params,
+    inp: torch.Tensor | None,
+    tar: torch.Tensor,
+    cfg: ModelConfig,
+    key: tuple[int, ...] | None = None,
+    deterministic: bool = True,
+    reference: bool = False,
+    pad_id: int = PAD_ID,
+) -> torch.Tensor:
+    """(B, S) token ids -> (B, S, V) raw logits (the JAX twin also returns
+    attention maps; the port has none)."""
+    x = transformer_hidden_apply(
+        params, inp, tar, cfg, key, deterministic, reference, pad_id
+    )
+    return project_logits(params, x, cfg)
 
 
 def transformer_prefill(

@@ -1,10 +1,12 @@
-"""Scaled dot-product attention and the cached self-attention of prefill.
+"""Scaled dot-product attention: the cache-free ``mha_apply`` of training
+and the cached self-attention of prefill.
 
-Port of the parts of ``transformer_tpu/ops/attention.py`` the serving
-slice runs. Layouts are the JAX package's: activations (B, S, H, D); q/k/v
-kernels (d_model, H, D); the out kernel (H, D, d_model). KV caches and
-pools are dicts with the JAX key names (``k``/``v``, plus fp32
-``k_scale``/``v_scale`` for int8 storage, plus ``index`` for a cache).
+Port of the parts of ``transformer_tpu/ops/attention.py`` the serving and
+training slices run. Layouts are the JAX package's: activations
+(B, S, H, D); q/k/v kernels (d_model, H, D); the out kernel
+(H, D, d_model). KV caches and pools are dicts with the JAX key names
+(``k``/``v``, plus fp32 ``k_scale``/``v_scale`` for int8 storage, plus
+``index`` for a cache).
 """
 
 from __future__ import annotations
@@ -13,7 +15,11 @@ from typing import Any
 
 import torch
 
-from transformer_tpu_torch.ops.masks import attention_bias, make_cache_prefix_mask
+from transformer_tpu_torch.ops.masks import (
+    attention_bias,
+    make_cache_prefix_mask,
+    make_causal_mask,
+)
 from transformer_tpu_torch.ops.nn import Params
 
 
@@ -62,6 +68,72 @@ def out_project(p: Params, out: torch.Tensor, dtype) -> torch.Tensor:
     return torch.einsum("bshd,hdm->bsm", out, p["kernel"].to(dtype)) + p[
         "bias"
     ].to(dtype)
+
+
+def _kv_padding_mask(mask: torch.Tensor | None, impl: str) -> torch.Tensor | None:
+    """Blockwise kernels take key padding only: squeeze a broadcastable
+    (B|1, 1, 1, S_k) allowed-mask to (B|1, S_k), or reject."""
+    if mask is None:
+        return None
+    if mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1:
+        return mask[:, 0, 0, :]
+    raise ValueError(
+        f"attention_impl={impl!r} takes a key-padding mask (B, 1, 1, S_k) plus the "
+        f"structural causal flag; got a mask of shape {tuple(mask.shape)}"
+    )
+
+
+def mha_apply(
+    params: Params,
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    *,
+    impl: str = "xla",
+    causal: bool = False,
+    window: int = 0,
+    rope: bool = False,
+    reference: bool = False,
+) -> torch.Tensor:
+    """Cache-free multi-head attention: (B, S_q, d) x (B, S_k, d) ->
+    (B, S_q, d). ``mask`` is a broadcastable bool allowed-mask; ``causal``
+    is ANDed with it (structural under ``impl="flash"``, a dense mask under
+    ``"xla"``); ``window`` needs ``causal``. ``rope`` rotates q and k at
+    positions ``arange(S)``. ``reference`` runs the flash kernels' plain
+    versions on any device."""
+    if window and not causal:
+        raise ValueError(
+            "window requires causal=True; bidirectional local attention is not implemented"
+        )
+    dtype = x_q.dtype
+    q = _project(params["query"], x_q, dtype)
+    k = _project(params["key"], x_kv, dtype)
+    v = _project(params["value"], x_kv, dtype)
+    if rope:
+        from transformer_tpu_torch.ops.positional import apply_rope
+
+        positions = torch.arange(x_q.shape[1], device=x_q.device)
+        q = apply_rope(q, positions)
+        k = apply_rope(k, positions)
+    if impl == "flash":
+        from transformer_tpu_torch.kernels.flash_attention import flash_attention
+
+        kv_mask = _kv_padding_mask(mask, impl)
+        if kv_mask is not None:
+            kv_mask = kv_mask.expand(q.shape[0], k.shape[1])
+        out = flash_attention(
+            q, k, v, kv_mask=kv_mask, causal=causal, window=window, reference=reference
+        )
+    elif impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention_impl={impl!r} (sequence parallelism) is not ported yet"
+        )
+    else:
+        if causal:
+            cmask = make_causal_mask(x_q.shape[1], window, device=x_q.device)
+            mask = cmask if mask is None else mask & cmask
+        out = dot_product_attention(q, k, v, mask)
+    return out_project(params["out"], out, dtype)
 
 
 def _quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

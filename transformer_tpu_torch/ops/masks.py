@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from transformer_tpu_torch.config import PAD_ID
+
 # Finite large-negative bias: fully-masked rows give a uniform softmax
 # instead of NaNs.
 NEG_INF = -1e9
@@ -26,3 +28,17 @@ def attention_bias(mask: torch.Tensor | None, dtype=torch.float32):
         return None
     zero = torch.zeros((), dtype=dtype, device=mask.device)
     return torch.where(mask, zero, torch.tensor(NEG_INF, dtype=dtype, device=mask.device))
+
+
+def make_padding_mask(ids: torch.Tensor, pad_id: int = PAD_ID) -> torch.Tensor:
+    """(B, S) ids -> (B, 1, 1, S) bool, True where the key is a real token."""
+    return (ids != pad_id)[:, None, None, :]
+
+
+def make_causal_mask(seq_len: int, window: int = 0, device="cpu") -> torch.Tensor:
+    """(1, 1, S, S) bool, True where query i may attend key j <= i;
+    ``window > 0`` also requires j > i - window (a sliding window)."""
+    mask = torch.tril(torch.ones((seq_len, seq_len), dtype=torch.bool, device=device))
+    if window:
+        mask = mask & torch.triu(torch.ones_like(mask), diagonal=-(window - 1))
+    return mask[None, None]

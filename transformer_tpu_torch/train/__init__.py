@@ -1,1 +1,2 @@
-"""Decoding helpers of the port: token picking and prefill bucketing."""
+"""Training and decoding of the port: loss, schedules, Adam, the train and
+eval steps and the epoch loop; token picking and prefill bucketing."""
