@@ -6,7 +6,7 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in five phases:
+runs on the CPU). It prints one JSON line per check, in six phases:
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -16,7 +16,11 @@ runs on the CPU). It prints one JSON line per check, in five phases:
    call's time, and the least time the card could take (bound); the flash
    kernels also read two planted faults (the plain versions with a causal
    off-by-one, and the backward ones with the last 10 query rows left
-   out) by the same measures, which must clear the limits;
+   out) by the same measures, which must clear the limits; the backward
+   kernels also run with a band apart from causality (+256, 0, -100); the
+   ring step reads its own two planted faults (no rescaling of acc when the
+   maximum moves, 10 rows of a tile unfolded); and a ring of 4 is replayed
+   in one process at the main shape against the whole-sequence kernels;
 4. serving: a long4k-width decoder-only LM (random weights from a seed,
    written as an export) serves JSONL requests through
    ``transformer_tpu_torch.cli.serve`` with the paged KV pool; both decode
@@ -30,7 +34,16 @@ runs on the CPU). It prints one JSON line per check, in five phases:
    losses must be finite and the export must load back. Then one fp32
    train step at full width (2 layers) compares the kernels with their
    plain versions, and a profiled window of train steps shows where a
-   step's time goes.
+   step's time goes;
+6. sequence-parallel training: ``torch.distributed.run`` starts four
+   processes of ``transformer_tpu_torch.cli.distributed_train --preset
+   long4k --attention_impl ring --sp 4 --epochs 1`` on this one card (gloo,
+   staged through host memory); the counters of the ring step and both
+   backward kernels must equal what steps, hops and eval batches imply, the
+   losses must be within 0.01 of phase 5's, and every rank's parameters
+   and the export must be bit-identical. Then one fp32 step at full width
+   (2 layers) over a ring of four processes compares with the
+   single-process flash step.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and a ``{"kernels": [...]}`` summary; the last
@@ -82,6 +95,7 @@ FLASH_REPLACES = {
     "flash_fwd": "transformer_tpu/kernels/flash_attention.py:183 _fwd_kernel",
     "flash_dq": "transformer_tpu/kernels/flash_attention.py:451 _dq_kernel",
     "flash_dkdv": "transformer_tpu/kernels/flash_attention.py:490 _dkdv_kernel",
+    "flash_ring_step": "transformer_tpu/kernels/flash_attention.py:298 _ring_step_kernel",
 }
 BUILD_DIR = os.path.join(ROOT, "build")
 
@@ -390,7 +404,7 @@ def row_delta(do, out):
     return (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
 
 
-def off_by_one_plain(q, k, v, do, mask, window):
+def off_by_one_plain(q, k, v, do, mask, band):
     """The planted fault: the plain versions with the causal test off by
     one (cols < rows, the diagonal dropped). Computed exactly by running
     them causally over keys moved one position later, the first slot
@@ -410,7 +424,7 @@ def off_by_one_plain(q, k, v, do, mask, window):
         return torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
 
     k1, v1 = later(k), later(v)
-    kw = dict(kv_mask=later(mask), causal=True, window=window)
+    kw = dict(kv_mask=later(mask), causal=True, band=band)
     out, lse = flash_fwd_plain(q, k1, v1, **kw)
     delta = row_delta(do, out)
     dq = flash_dq_plain(q, k1, v1, do, lse, delta, **kw)
@@ -420,19 +434,24 @@ def off_by_one_plain(q, k, v, do, mask, window):
 
 def last_rows_dropped_plain(q, k, v, do, lse, delta, kw, rows=10):
     """The second planted fault, inside one tile: the plain backward
-    versions with the last 10 query rows (about 15% of the last 64-row
-    tile) left out, as a ragged-edge guard off by 10 in both backward
-    kernels would give. Their lse is set so high that p is 0 there.
-    Returns (dq, dk, dv)."""
+    versions with the last 10 query rows that see any key (about 15% of a
+    64-row tile; the last rows of the sequence unless a band of 0 or less
+    leaves those with no key) left out, as a ragged-edge guard off by 10
+    in both backward kernels would give. Their lse is set so high that p
+    is 0 there. Returns (dq, dk, dv)."""
+    import torch
+
     from transformer_tpu_torch.kernels.flash_attention import flash_dkdv_plain, flash_dq_plain
 
+    seen = torch.nonzero((lse > -1e29).any(dim=0).any(dim=0))
+    hi = int(seen.max().item()) + 1
     lse = lse.clone()
-    lse[..., -rows:] = 1e30
+    lse[..., hi - rows:hi] = 1e30
     dq = flash_dq_plain(q, k, v, do, lse, delta, **kw)
     return (dq, *flash_dkdv_plain(q, k, v, do, lse, delta, **kw))
 
 
-def visible_pairs(mask, s_q, causal, window):
+def visible_pairs(mask, s_q, causal, band):
     """(query row, key) pairs the attention computes, summed over the
     batch, per query head: what these inputs need, not the dense S_q*S_k."""
     import torch
@@ -442,13 +461,13 @@ def visible_pairs(mask, s_q, causal, window):
         return int(cm[:, -1].sum().item()) * s_q
     rows = torch.arange(s_q, device=mask.device)
     seen = cm[:, rows]
-    if window:
-        lo = rows - window
+    if band is not None:
+        lo = rows - band
         seen = seen - torch.where(lo >= 0, cm[:, lo.clamp_min(0)], torch.zeros_like(seen))
     return int(seen.sum().item())
 
 
-def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, window, padded, timed=False):
+def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, timed=False):
     import torch
 
     from transformer_tpu_torch.kernels.flash_attention import (
@@ -462,7 +481,7 @@ def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, window, padded, t
 
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
     q, k, v, do, mask = flash_inputs(b, s_q, s_k, h, h_kv, d, dt, padded)
-    kw = dict(kv_mask=mask, causal=causal, window=window)
+    kw = dict(kv_mask=mask, causal=causal, band=band)
     out, lse = flash_fwd(q, k, v, **kw)
     want_out, want_lse = flash_fwd_plain(q, k, v, **kw)
     delta = row_delta(do, want_out)
@@ -494,7 +513,7 @@ def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, window, padded, t
     rec = {
         "phase": "kernels", "kernel": "flash_attention", "case": label, "dtype": dtype,
         "b": b, "s_q": s_q, "s_k": s_k, "h": h, "h_kv": h_kv, "d": d, "causal": causal,
-        "window": window, "padded": padded, "rows_seeing_no_key": empty,
+        "band": band, "padded": padded, "rows_seeing_no_key": empty,
         "readings": readings, "max_abs_err": max_abs, "lse_max_abs_err": lse_err,
         "empty_rows_exact": empty_exact, "tolerance": tol,
     }
@@ -505,7 +524,7 @@ def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, window, padded, t
 
     grads = ("dq", "dk", "dv")
     if causal:
-        fault = dict(zip(("out", *grads), off_by_one_plain(q, k, v, do, mask, window)))
+        fault = dict(zip(("out", *grads), off_by_one_plain(q, k, v, do, mask, band)))
         fault_rows = out_rel(fault["out"], want_out)
         rec["planted_fault"] = {
             "out_max_row": fault_rows.max().item(),
@@ -576,7 +595,7 @@ def time_flash(q, k, v, do, mask, kw, lse, delta, dtype):
     library_ms = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd, "flash_dkdv": lib_bwd}
     b, s_q, h, d = q.shape
     e = q.element_size()
-    pairs = visible_pairs(mask, s_q, kw["causal"], kw["window"]) * h
+    pairs = visible_pairs(mask, s_q, kw["causal"], kw["band"]) * h
     qb, kvb, rows = q.numel() * e, k.numel() * e, b * h * s_q * 4
     nbytes = {
         "flash_fwd": 2 * qb + 2 * kvb + rows + mask.numel(),
@@ -597,6 +616,186 @@ def time_flash(q, k, v, do, mask, kw, lse, delta, dtype):
         "bound_by": {n: v[1] for n, v in bounds.items()},
         "share_of_bound": {n: bounds[n][0] / ms[n] for n in ms},
     }
+
+
+# --------------------------------------------------------------------------
+# phase 3: the ring step against its plain version, and a ring replayed in
+# one process
+
+
+def finalise(m, l, acc, dtype):
+    """(out (B, C, H, D) in ``dtype``, lse (B, H, C)) of a ring carry, as
+    ``parallel/ring_attention.py`` finalises it."""
+    import torch
+
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l_safe.permute(0, 2, 1)[..., None]).to(dtype), m + torch.log(l_safe)
+
+
+def ring_faults(carry, want, rows=10):
+    """The two planted faults, as finalised carries: the plain step with
+    the correction factor left out (acc not rescaled when the running
+    maximum moves: acc_prev + P·V = want_acc + acc_prev·(1 - corr)), and
+    the plain step with the last 10 query rows that the hop folds a key
+    into left unfolded (their carry unchanged), as a ragged-edge guard off
+    by 10 would give."""
+    import torch
+
+    m0, l0, acc0 = carry
+    m1, l1, acc1 = want
+    corr = torch.exp(m0 - m1).permute(0, 2, 1)[..., None]  # (B, C, H, 1)
+    no_corr = (m1, l1, acc1 + acc0 * (1.0 - corr))
+    hi = int(torch.nonzero((l1 != l0).any(dim=0).any(dim=0)).max().item()) + 1
+    lo = hi - rows
+    m2, l2, acc2 = (x.clone() for x in want)
+    m2[..., lo:hi], l2[..., lo:hi], acc2[:, lo:hi] = m0[..., lo:hi], l0[..., lo:hi], acc0[:, lo:hi]
+    return {"no_correction": no_corr, "rows_unfolded": (m2, l2, acc2)}
+
+
+def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=False):
+    """flash_ring_step against flash_ring_step_plain for one hop from the
+    carry an earlier, unmasked hop left. Read per row: the finalised out
+    (||Δ|| / ||want|| across head_dim), lse (absolute), m (absolute) and l
+    (relative); both planted faults must read above the out limit on the
+    worst row."""
+    import torch
+
+    from transformer_tpu_torch.kernels.flash_attention import (
+        flash_ring_step,
+        flash_ring_step_plain,
+    )
+    from transformer_tpu_torch.kernels.paged_flash import MASKED
+
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+    q, k, v, _, mask = flash_inputs(b, c, c, h, h_kv, d, dt, padded)
+    _, k0, v0, _, _ = flash_inputs(b, c, c, h, h_kv, d, dt, False, seed=SEED + 1)
+    fresh = (torch.full((b, h, c), MASKED, device="cuda"), torch.zeros((b, h, c), device="cuda"),
+             torch.zeros((b, c, h, d), device="cuda"))
+    carry = flash_ring_step_plain(q, k0, v0, None, *fresh)
+    kw = dict(causal=causal, band=band)
+    got = [x.clone() for x in carry]
+    flash_ring_step(q, k, v, mask, *got, **kw)
+    want = flash_ring_step_plain(q, k, v, mask, *carry, **kw)
+    torch.cuda.synchronize()
+    got_out, got_lse = finalise(*got, dt)
+    want_out, want_lse = finalise(*want, dt)
+    seen = want[1] > 0
+    readings = {
+        "out": out_rel(got_out, want_out).max().item(),
+        "lse_abs": (got_lse - want_lse)[seen].abs().max().item(),
+        "m_abs": (got[0] - want[0])[seen].abs().max().item(),
+        "l_rel": ((got[1] - want[1]).abs() / want[1].clamp_min(1e-30))[seen].max().item(),
+    }
+    tol = FLASH_TOL[dtype]["out"]
+    faults = {
+        name: out_rel(finalise(*f, dt)[0], want_out).max().item()
+        for name, f in ring_faults(carry, want).items()
+    }
+    finite = all(bool(torch.isfinite(x).all().item()) for x in got)
+    ok = (finite and readings["out"] <= tol and readings["lse_abs"] <= 1e-4
+          and readings["m_abs"] <= 1e-4 and readings["l_rel"] <= tol
+          and all(f > tol for f in faults.values()))
+    rec = {
+        "phase": "kernels", "kernel": "flash_ring_step", "case": label, "dtype": dtype,
+        "b": b, "c": c, "h": h, "h_kv": h_kv, "d": d, "causal": causal, "band": band,
+        "padded": padded, "readings": readings,
+        "max_abs_err": (got_out.float() - want_out.float()).abs().max().item(),
+        "tolerance": {"out_row_rel": tol, "l_row_rel": tol, "lse_abs": 1e-4, "m_abs": 1e-4},
+        "planted_faults_worst_row": faults,
+    }
+    if timed:
+        ms = cuda_ms(lambda: flash_ring_step(q, k, v, mask, *got, **kw), iters=20)
+        plain_ms = cuda_ms(lambda: flash_ring_step_plain(q, k, v, mask, *carry, **kw),
+                           iters=3, warmup=1)
+        e = q.element_size()
+        carry_bytes = sum(x.numel() * 4 for x in carry)
+        nbytes = q.numel() * e + 2 * k.numel() * e + mask.numel() + 2 * carry_bytes
+        pairs = visible_pairs(mask, c, causal, None) * h
+        flops = 4.0 * d * pairs  # QK^T and PV, 2 flops per multiply-add
+        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        rec.update({
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call folds a chunk into an online-softmax carry",
+            "bytes": nbytes, "flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / ms,
+        })
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise SystemExit(f"flash_ring_step {label}: {rec}")
+    return rec
+
+
+def ring_replay(b=4, s=4096, h=8, d=64, sp=4):
+    """The ring of ``sp`` ranks replayed in one process at the main shape
+    (bf16, causal, the last key padding as the sequence split pads 4095
+    to 4096): each rank's hops in ring order through flash_ring_step and
+    its backward through flash_chunk_bwd, against flash_fwd / flash_dq /
+    flash_dkdv on the whole sequence. This holds the carry and the dK/dV
+    sums across hops without any transport."""
+    import torch
+
+    from transformer_tpu_torch.kernels.flash_attention import (
+        flash_chunk_bwd,
+        flash_dkdv,
+        flash_dq,
+        flash_fwd,
+        flash_ring_step,
+    )
+    from transformer_tpu_torch.kernels.paged_flash import MASKED
+
+    q, k, v, do, mask = flash_inputs(b, s, s, h, h, d, torch.bfloat16, False)
+    mask[:, -1] = False
+    kw = dict(kv_mask=mask, causal=True)
+    want_out, want_lse = flash_fwd(q, k, v, **kw)
+    delta = row_delta(do, want_out)
+    want = {"dq": flash_dq(q, k, v, do, want_lse, delta, **kw)}
+    want["dk"], want["dv"] = flash_dkdv(q, k, v, do, want_lse, delta, **kw)
+    c = s // sp
+
+    def part(x, r):
+        return x[:, r * c:(r + 1) * c].contiguous()
+
+    outs, lses, dqs = [], [], []
+    dks = [torch.zeros((b, c, h, d), device="cuda") for _ in range(sp)]
+    dvs = [torch.zeros((b, c, h, d), device="cuda") for _ in range(sp)]
+    for r in range(sp):
+        m = torch.full((b, h, c), MASKED, device="cuda")
+        l, acc = torch.zeros_like(m), torch.zeros((b, c, h, d), device="cuda")
+        srcs = [(r - t) % sp for t in range(sp) if (r - t) % sp <= r]
+        for src in srcs:
+            flash_ring_step(part(q, r), part(k, src), part(v, src), part(mask, src), m, l, acc,
+                            causal=src == r)
+        out_r, lse_r = finalise(m, l, acc, torch.bfloat16)
+        delta_r = row_delta(part(do, r), out_r)
+        dq_r = torch.zeros((b, c, h, d), device="cuda")
+        for src in srcs:
+            dq_s, dk_s, dv_s = flash_chunk_bwd(
+                part(q, r), part(k, src), part(v, src), part(mask, src), lse_r, delta_r,
+                part(do, r), causal=src == r,
+            )
+            dq_r += dq_s.float()
+            dks[src] += dk_s.float()
+            dvs[src] += dv_s.float()
+        outs.append(out_r)
+        lses.append(lse_r)
+        dqs.append(dq_r.to(torch.bfloat16))
+    got = {"out": torch.cat(outs, 1), "dq": torch.cat(dqs, 1),
+           "dk": torch.cat(dks, 1).to(torch.bfloat16), "dv": torch.cat(dvs, 1).to(torch.bfloat16)}
+    torch.cuda.synchronize()
+    readings = {"out": out_rel(got["out"], want_out).max().item()}
+    readings.update({key: grad_rel(got[key], want[key]).max().item() for key in ("dq", "dk", "dv")})
+    readings["lse_abs"] = (torch.cat(lses, 2) - want_lse).abs().max().item()
+    tol = FLASH_TOL["bfloat16"]
+    ok = (readings["out"] <= tol["out"] and readings["lse_abs"] <= 1e-4
+          and all(readings[key] <= tol["grad"] for key in ("dq", "dk", "dv")))
+    rec = {"phase": "kernels", "step": "ring_replay", "b": b, "s": s, "h": h, "d": d, "sp": sp,
+           "hops_folded": sum(r + 1 for r in range(sp)), "readings": readings,
+           "tolerance": {**tol, "lse_abs": 1e-4}, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise SystemExit(f"ring replay failed: {rec}")
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -926,7 +1125,7 @@ def train_path(vocab_path):
             raise SystemExit(f"{name} launched {count} times, expected {want[name]}")
     if not same:
         raise SystemExit("the written export does not load back to the trained params")
-    return trainer, train_ds, launches
+    return trainer, train_ds, launches, rec
 
 
 def fp32_train_check(tok, train_ds, layers: int = 2):
@@ -1030,6 +1229,183 @@ def train_profile(trainer, train_ds, steps: int = 3):
 
 
 # --------------------------------------------------------------------------
+# phase 6: sequence-parallel training, the main path of the ring
+
+
+def sp_train_path(vocab_path, single, sp: int = 4):
+    """``cli.distributed_train --preset long4k --attention_impl ring --sp 4
+    --epochs 1`` under ``torch.distributed.run``: four processes on this
+    one card, so the transport is gloo through host memory. The kernel
+    counters of each process start at 0 with it and are read from its
+    report at the end. Losses must be within 0.01 of the single-card run
+    of phase 5 (same seed, same dropout draws)."""
+    import statistics
+
+    from transformer_tpu_torch.convert import load_export, params_digest
+
+    export = os.path.join(BUILD_DIR, "sp_train_export")
+    report_path = os.path.join(BUILD_DIR, "sp_train_report.json")
+    args = [
+        "--preset", "long4k", "--attention_impl", "ring", "--sp", str(sp), "--epochs", "1",
+        "--dataset_path", os.path.join(ROOT, "data"), "--tgt_vocab_file", vocab_path,
+        "--export_path", export, "--device", "cuda", "--metrics_json", report_path,
+    ]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(sp), "-m", "transformer_tpu_torch.cli.distributed_train", *args]
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(
+            f"sequence-parallel training failed (exit {proc.returncode}):\n"
+            f"{proc.stdout[-4000:]}\n{proc.stderr[-6000:]}"
+        )
+    with open(report_path) as f:
+        report = json.load(f)
+    ranks = report["ranks"]
+    cfg = single["config"]
+    steps, evals = len(ranks[0]["step_seconds"]), ranks[0]["eval_batches"]
+    per_rank = {r["rank"]: r["launches"] for r in ranks}
+    launches = {name: sum(r[name] for r in per_rank.values()) for name in per_rank[0]}
+    hops = sum(r + 1 for r in range(sp))  # rank r folds its own chunk and the r before it
+    layers = cfg["num_layers"]
+    want = {
+        "flash_fwd": 0,
+        "flash_ring_step": layers * hops * (2 * steps + evals),  # remat: each forward twice
+        "flash_dq": layers * hops * steps,
+        "flash_dkdv": layers * hops * steps,
+    }
+    params, loaded_cfg = load_export(export, device="cuda")
+    digest = params_digest(params)
+    ms = [t * 1e3 for t in ranks[0]["step_seconds"]]
+    train_loss, eval_loss = ranks[0]["train_loss"], ranks[0]["eval_loss"]
+    rec = {
+        "phase": "sp_train", "step": "fit", "argv": args, "processes": sp,
+        "transport": ranks[0]["transport"], "card": nvidia_smi_line(),
+        "devices": [r["device"] for r in ranks],
+        "staged_bytes_per_rank": [r["staged_bytes"] for r in ranks],
+        "steps": steps, "eval_batches": evals,
+        "step_ms_mean": statistics.mean(ms), "step_ms_median": statistics.median(ms),
+        "step_ms_first": ms[0], "step_ms_all": ms,
+        "tokens_per_s": ranks[0]["tokens"] / sum(ranks[0]["step_seconds"]),
+        "wall_s": wall, "train_loss": train_loss, "eval_loss": eval_loss,
+        "single_card_train_loss": single["train_loss"],
+        "single_card_eval_loss": single["eval_loss"],
+        "launches_per_rank": per_rank, "launches": launches, "expected_launches": want,
+        "export_loads_back": digest == ranks[0]["params_sha256"],
+        "ranks_hold_the_same_params": len({r["params_sha256"] for r in ranks}) == 1,
+        "logs": proc.stdout.splitlines()[-12:],
+    }
+    emit(rec)
+    if rec["transport"] != "gloo":
+        raise SystemExit(f"{sp} processes on one card must use gloo, got {rec['transport']}")
+    if not (abs(train_loss - single["train_loss"]) <= 0.01
+            and abs(eval_loss - single["eval_loss"]) <= 0.01):
+        raise SystemExit(f"sequence-parallel losses {train_loss}/{eval_loss} are not within "
+                         f"0.01 of the single-card {single['train_loss']}/{single['eval_loss']}")
+    if steps != single["steps"] or evals != single["eval_batches"] or loaded_cfg.num_layers != layers:
+        raise SystemExit(f"sequence-parallel run took {steps} steps / {evals} evals")
+    for name, count in launches.items():
+        if count != want[name] or (want[name] and count <= 0):
+            raise SystemExit(f"{name} launched {count} times in the ring, expected {want[name]}")
+    if not (rec["export_loads_back"] and rec["ranks_hold_the_same_params"]):
+        raise SystemExit("the ranks' params differ, or the export does not load back to them")
+    return rec
+
+
+def _fp32_ring_worker(rank, world, port, vocab_size, tgt, layers, out_path):
+    """One rank of the fp32 ring check: one step's loss and gradients
+    (summed over the ring), written by rank 0."""
+    import torch
+
+    from transformer_tpu_torch.config import MeshConfig, TrainConfig
+    from transformer_tpu_torch.models.transformer import flatten, init_params
+    from transformer_tpu_torch.parallel.distributed import _seq_parallel_forward_loss
+    from transformer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from transformer_tpu_torch.train.trainer import loss_and_grads
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    mesh = make_mesh(MeshConfig(seq=world), initialize_distributed("cuda", log_fn=lambda *_: None))
+    cfg = long4k_config(vocab_size, num_layers=layers, dtype="float32", attention_impl="ring")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device=mesh.device)
+    for p in flatten(params).values():
+        p.requires_grad_(True)
+    metrics, grads = loss_and_grads(
+        params, torch.from_numpy(tgt).to(mesh.device, torch.long), cfg,
+        TrainConfig(batch_size=4, sequence_length=4096), None,
+        forward_loss=_seq_parallel_forward_loss(mesh),
+    )
+    mesh.all_reduce_sum_([*grads.values(), *metrics.values()])
+    if rank == 0:
+        torch.save({"loss": float(metrics["loss"]), "grads": {k: g.cpu() for k, g in grads.items()}},
+                   out_path)
+    torch.distributed.destroy_process_group()
+
+
+def fp32_ring_check(tok, train_ds, layers: int = 2, sp: int = 4):
+    """One fp32 step at full width (2 layers, S 4096, batch 4, dropout 0)
+    from one init: the sp=4 ring (kernels, four processes on this card)
+    against the single-process flash step (kernels). Limits as the fp32
+    train check: loss 1e-5 relative, the worst gradient leaf 1e-3, the key
+    biases' gradient below 1e-3 of the query biases' on both sides."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from transformer_tpu_torch.config import TrainConfig
+    from transformer_tpu_torch.models.transformer import flatten, init_params
+    from transformer_tpu_torch.train.trainer import loss_and_grads
+
+    _, tgt = next(iter(train_ds.batches(0)))
+    out_path = os.path.join(BUILD_DIR, "fp32_ring_grads.pt")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(_fp32_ring_worker, args=(sp, port, tok.model_vocab_size, tgt, layers, out_path),
+             nprocs=sp, join=True)
+    ring_s = time.perf_counter() - t0
+    ring = torch.load(out_path)
+    cfg = long4k_config(tok.model_vocab_size, num_layers=layers, dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    for p in flatten(params).values():
+        p.requires_grad_(True)
+    metrics, want = loss_and_grads(
+        params, torch.from_numpy(tgt).to("cuda", torch.long), cfg,
+        TrainConfig(batch_size=4, sequence_length=4096), None,
+    )
+    want_loss = float(metrics["loss"])
+    worst, worst_key, key_bias = 0.0, None, 0.0
+    for key, w in want.items():
+        g = ring["grads"][key].cuda()
+        if key.endswith("self_mha/key/bias"):  # zero up to rounding
+            q_key = key.replace("key/bias", "query/bias")
+            for grads in ({key: g, q_key: ring["grads"][q_key].cuda()}, want):
+                ratio = (grads[key].norm() / grads[q_key].norm().clamp_min(1e-30)).item()
+                key_bias = max(key_bias, ratio)
+            continue
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_key = rel, key
+    loss_rel = abs(ring["loss"] - want_loss) / abs(want_loss)
+    rec = {
+        "phase": "sp_train", "step": "fp32_ring_check", "layers": layers, "batch": 4,
+        "sequence_length": 4096, "processes": sp, "ring_loss": ring["loss"],
+        "flash_loss": want_loss, "loss_rel_diff": loss_rel, "grad_worst_rel": worst,
+        "grad_worst_leaf": worst_key, "key_bias_grad_ratio": key_bias, "leaves": len(want),
+        "ring_seconds": ring_s, "tolerance": TRAIN_TOL,
+    }
+    emit(rec)
+    if not (loss_rel <= TRAIN_TOL["loss_rel"] and worst <= TRAIN_TOL["grad_rel"]
+            and key_bias <= TRAIN_TOL["key_bias_ratio"]):
+        raise SystemExit(f"fp32 ring check failed: {rec}")
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1095,17 +1471,42 @@ def main() -> int:
     # less the teacher-forcing shift, 8 heads of 64, bf16, causal, the
     # padding mask all True), then fp32, padding with rows that see no
     # key, GQA with a window, S_q != S_k, and head_dim 32.
-    f_main = check_flash("main path", "bfloat16", 4, 4095, 4095, 8, 8, 64, True, 0, False,
+    f_main = check_flash("main path", "bfloat16", 4, 4095, 4095, 8, 8, 64, True, None, False,
                          timed=True)
     f_recs = [
-        check_flash("fp32 causal padded", "float32", 2, 1000, 1000, 8, 8, 64, True, 0, True),
-        check_flash("bf16 causal padded", "bfloat16", 2, 1000, 1000, 8, 8, 64, True, 0, True),
+        check_flash("fp32 causal padded", "float32", 2, 1000, 1000, 8, 8, 64, True, None, True),
+        check_flash("bf16 causal padded", "bfloat16", 2, 1000, 1000, 8, 8, 64, True, None, True),
         check_flash("bf16 gqa h_kv=2 window=256", "bfloat16", 2, 2048, 2048, 8, 2, 64,
                     True, 256, False),
         check_flash("bf16 cross s_q=512 s_k=1500 padded", "bfloat16", 2, 512, 1500, 8, 8, 64,
-                    False, 0, True),
-        check_flash("fp32 d=32 causal", "float32", 2, 777, 777, 4, 4, 32, True, 0, False),
+                    False, None, True),
+        check_flash("fp32 d=32 causal", "float32", 2, 777, 777, 4, 4, 32, True, None, False),
     ]
+    # The band apart from causality, as the ring backward passes it: bands
+    # of +256, 0 and -100 without causality (a band of 0 or less leaves the
+    # last rows with no key at all).
+    f_recs += [
+        check_flash(f"bf16 gqa h_kv=2 band={band} non-causal", "bfloat16", 2, 2048, 2048, 8, 2,
+                    64, False, band, False)
+        for band in (256, 0, -100)
+    ]
+    # The ring step: the main path's hops (B 4, C 1024 = 4096 / 4, 8 heads
+    # of 64, bf16) on and below the diagonal, then fp32 with padding, GQA
+    # with a positive band and with one of 0 or less, and a ragged C.
+    r_diag = check_ring_step("main path diagonal hop", "bfloat16", 4, 1024, 8, 8, 64, True, None,
+                             False, timed=True)
+    r_below = check_ring_step("main path hop below the diagonal", "bfloat16", 4, 1024, 8, 8, 64,
+                              False, None, False, timed=True)
+    r_recs = [
+        r_diag, r_below,
+        check_ring_step("fp32 causal padded", "float32", 2, 1000, 8, 8, 64, True, None, True),
+        check_ring_step("bf16 gqa h_kv=2 band=300", "bfloat16", 2, 1024, 8, 2, 64, True, 300, False),
+        check_ring_step("bf16 gqa h_kv=2 band=-100", "bfloat16", 2, 1024, 8, 2, 64, False, -100,
+                        True),
+        check_ring_step("bf16 ragged c=1000", "bfloat16", 2, 1000, 8, 8, 64, False, None, True),
+        check_ring_step("fp32 d=32 gqa band=0", "float32", 2, 777, 4, 2, 32, False, 0, False),
+    ]
+    ring_replay()
 
     # 4. serving
     tok, vocab_path = vocab()
@@ -1113,10 +1514,16 @@ def main() -> int:
     fp32_decode_check(cfg, export, tok, reqs)
     decode_profile(export, tok, reqs)
 
-    # 5. training
-    trainer, train_ds, train_launches = train_path(vocab_path)
+    # 5. training on one card
+    trainer, train_ds, train_launches, single = train_path(vocab_path)
     fp32_train_check(tok, train_ds)
     train_profile(trainer, train_ds)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 6. sequence-parallel training over four processes on this card
+    sp = sp_train_path(vocab_path, single)
+    fp32_ring_check(tok, train_ds)
 
     def summary(name, main_rec, recs, replaces):
         return {
@@ -1140,7 +1547,10 @@ def main() -> int:
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",
-            "replaces": FLASH_REPLACES[name], "launches": train_launches[name],
+            "replaces": FLASH_REPLACES[name],
+            "launches": train_launches[name] + sp["launches"][name],
+            "launches_by_path": {"train": train_launches[name],
+                                 "sp_train": sp["launches"][name]},
             "max_abs_err": max(r["max_abs_err"][k] for r in recs for k in readings),
             "max_reading": max(r["readings"][k] for r in recs for k in readings),
             "tolerance": FLASH_TOL,
@@ -1160,6 +1570,23 @@ def main() -> int:
         flash_summary("flash_fwd", ("out",)),
         flash_summary("flash_dq", ("dq",)),
         flash_summary("flash_dkdv", ("dk", "dv")),
+        {
+            "name": "flash_ring_step", "route": "cuda",
+            "source": "transformer_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES["flash_ring_step"],
+            "launches": sp["launches"]["flash_ring_step"],
+            "launches_by_path": {"sp_train": sp["launches"]["flash_ring_step"]},
+            "max_abs_err": max(r["max_abs_err"] for r in r_recs),
+            "max_reading": max(r["readings"]["out"] for r in r_recs),
+            "tolerance": {k: v["out"] for k, v in FLASH_TOL.items()},
+            "tolerance_on": "worst (batch, row, head) relative across head_dim of acc / l",
+            "ms": r_below["ms"], "ms_diagonal": r_diag["ms"],
+            "plain_ms": r_below["plain_ms"], "plain_ms_diagonal": r_diag["plain_ms"],
+            "bound_ms": r_below["bound_ms"], "bound_by": r_below["bound_by"],
+            "bound_ms_diagonal": r_diag["bound_ms"], "bound_by_diagonal": r_diag["bound_by"],
+            "library_ms": None, "share_of_bound": r_below["share_of_bound"],
+            "share_of_bound_diagonal": r_diag["share_of_bound"],
+        },
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,10 @@ rounds p to bf16 at running maxima, the plain version at the row maximum);
 gradients 1e-4 (fp32) and 2e-2 (bf16) on the largest, over (batch, row,
 head), of ||got - want|| / ||want|| across head_dim, with ||want|| floored
 at 1e-2 of its head's RMS row norm.
+Ring step: the finalised ``acc / l`` of one hop from a non-trivial carry,
+per row as ``out`` (1e-5 relative fp32, 2e-2 bf16), and its lse 1e-4
+absolute; the banded backward as the gradients above. A ring of one
+against ``flash_attention``: 1e-4 per row, fp32.
 """
 
 import numpy as np
@@ -30,12 +34,15 @@ import torch
 from transformer_tpu_torch.config import ModelConfig
 from transformer_tpu_torch.kernels.flash_attention import (
     flash_attention,
+    flash_chunk_bwd,
     flash_dkdv,
     flash_dkdv_plain,
     flash_dq,
     flash_dq_plain,
     flash_fwd,
     flash_fwd_plain,
+    flash_ring_step,
+    flash_ring_step_plain,
 )
 from transformer_tpu_torch.kernels.paged_flash import (
     paged_flash_attention,
@@ -211,7 +218,7 @@ def _flash_case(name, seed=0):
         m[0, s_k - 37:] = False
         m[-1, :9] = False  # with causal: the first 9 rows see no key
         mask = torch.from_numpy(m).cuda()
-    kw = dict(kv_mask=mask, causal=causal, window=window)
+    kw = dict(kv_mask=mask, causal=causal, band=window or None)
     return (t(b, s_q, h, d), t(b, s_k, h_kv, d), t(b, s_k, h_kv, d), t(b, s_q, h, d)), kw
 
 
@@ -264,10 +271,83 @@ def test_flash_attention_autograd_runs_the_three_kernels(cuda):
     before = (flash_fwd.launches, flash_dq.launches, flash_dkdv.launches)
     for reference in (False, True):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = flash_attention(*leaves, reference=reference, **kw)
+        out = flash_attention(*leaves, kv_mask=kw["kv_mask"], causal=kw["causal"],
+                              reference=reference)
         grads.append(torch.autograd.grad(out, leaves, do))
     assert (flash_fwd.launches, flash_dq.launches, flash_dkdv.launches) == tuple(
         n + 1 for n in before
     )
+    for got, want in zip(*grads):
+        assert _rel_per_row(got, want) <= 1e-4
+
+
+RING_CASES = {
+    # dtype, B, C, H, H_kv, D, causal, band, padded
+    "fp32_diagonal_pad": (torch.float32, 2, 200, 4, 4, 64, True, None, True),
+    "bf16_below_diagonal": (torch.bfloat16, 2, 256, 8, 8, 64, False, None, False),
+    "bf16_gqa_band_neg40": (torch.bfloat16, 2, 333, 8, 2, 64, False, -40, True),
+    "fp32_d32_band0": (torch.float32, 1, 130, 2, 1, 32, False, 0, False),
+    "bf16_gqa_causal_band70": (torch.bfloat16, 2, 333, 8, 2, 64, True, 70, False),
+}
+
+
+def _finalised(m, l, acc, dtype):
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    return (acc / l_safe.permute(0, 2, 1)[..., None]).to(dtype), m + torch.log(l_safe)
+
+
+@pytest.mark.parametrize("name", sorted(RING_CASES))
+def test_ring_step_and_banded_backward_match_plain(cuda, name):
+    dtype, b, c, h, h_kv, d, causal, band, padded = RING_CASES[name]
+    rng = np.random.default_rng(1)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+
+    q, k0, v0, k, v, do = (t(b, c, h, d), t(b, c, h_kv, d), t(b, c, h_kv, d), t(b, c, h_kv, d),
+                           t(b, c, h_kv, d), t(b, c, h, d))
+    mask = torch.ones((b, c), dtype=torch.bool, device="cuda")
+    if padded:
+        mask[0, c - 37:] = False
+        mask[-1, :9] = False
+    fresh = (torch.full((b, h, c), -1e30, device="cuda"), torch.zeros((b, h, c), device="cuda"),
+             torch.zeros((b, c, h, d), device="cuda"))
+    carry = flash_ring_step_plain(q, k0, v0, None, *fresh)
+    kw = dict(causal=causal, band=band)
+    got = [x.clone() for x in carry]
+    before = flash_ring_step.launches
+    out = flash_ring_step(q, k, v, mask, *got, **kw)
+    assert all(a is b for a, b in zip(out, got)) and flash_ring_step.launches == before + 1
+    want = flash_ring_step_plain(q, k, v, mask, *carry, **kw)
+    (g_out, g_lse), (w_out, w_lse) = _finalised(*got, dtype), _finalised(*want, dtype)
+    rel = ((g_out.float() - w_out.float()).norm(dim=-1)
+           / w_out.float().norm(dim=-1).clamp_min(1e-30)).max().item()
+    fp32 = dtype == torch.float32
+    assert rel <= (1e-5 if fp32 else 2e-2), rel
+    assert (g_lse - w_lse).abs().max().item() <= 1e-4
+    w_fwd, lse = flash_fwd_plain(q, k, v, kv_mask=mask, **kw)
+    delta = (do.float() * w_fwd.float()).sum(-1).permute(0, 2, 1).contiguous()
+    got_grads = flash_chunk_bwd(q, k, v, mask, lse, delta, do, **kw)
+    want_grads = (flash_dq_plain(q, k, v, do, lse, delta, kv_mask=mask, **kw),
+                  *flash_dkdv_plain(q, k, v, do, lse, delta, kv_mask=mask, **kw))
+    for g, w, label in zip(got_grads, want_grads, ("dq", "dk", "dv")):
+        assert _rel_per_row(g, w) <= (1e-4 if fp32 else 2e-2), (label, _rel_per_row(g, w))
+
+
+def test_ring_of_one_runs_the_ring_kernels(cuda):
+    from transformer_tpu_torch.parallel.ring_attention import ring_attention
+
+    (q, k, v, do), kw = _flash_case("fp32_causal_pad", seed=4)
+    grads = []
+    before = (flash_ring_step.launches, flash_dq.launches, flash_dkdv.launches)
+    for ring in (True, False):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        if ring:
+            out = ring_attention(*leaves, group=None, kv_mask=kw["kv_mask"], causal=True)
+        else:
+            out = flash_attention(*leaves, kv_mask=kw["kv_mask"], causal=True)
+        grads.append((out, *torch.autograd.grad(out, leaves, do)))
+    assert flash_ring_step.launches == before[0] + 1
+    assert (flash_dq.launches, flash_dkdv.launches) == (before[1] + 2, before[2] + 2)
     for got, want in zip(*grads):
         assert _rel_per_row(got, want) <= 1e-4

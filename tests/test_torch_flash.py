@@ -128,6 +128,7 @@ def _rel(got, want):
 def test_plain_matches_jax_pallas_kernel(name):
     spec, arrays, mask = _case(name)
     kw = dict(causal=spec["causal"], window=spec["window"])
+    band = dict(causal=spec["causal"], band=spec["window"] or None)  # the kernel-level spelling
     jq, jk, jv, jdo, jmask = _jax_inputs(spec, arrays, mask)
 
     def f(q, k, v):
@@ -142,7 +143,7 @@ def test_plain_matches_jax_pallas_kernel(name):
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     out = flash_attention(q, k, v, kv_mask=tmask, **kw)
     out.backward(do)
-    _, lse = flash_fwd_plain(q.detach(), k.detach(), v.detach(), kv_mask=tmask, **kw)
+    _, lse = flash_fwd_plain(q.detach(), k.detach(), v.detach(), kv_mask=tmask, **band)
 
     assert out.dtype == q.dtype and tuple(out.shape) == want_out.shape
     bf16 = spec["dtype"] == "bfloat16"
@@ -163,7 +164,7 @@ def test_plain_matches_jax_pallas_kernel(name):
 @pytest.mark.parametrize("name", ["causal_pad", "gqa", "window", "cross"])
 def test_plain_backward_matches_autograd_of_plain_forward(name):
     spec, arrays, mask = _case(name, seed=1)
-    kw = dict(causal=spec["causal"], window=spec["window"])
+    kw = dict(causal=spec["causal"], band=spec["window"] or None)
     q, k, v, do, tmask = _torch_inputs(spec, arrays, mask)
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
     out, lse = flash_fwd_plain(qr, kr, vr, kv_mask=tmask, **kw)

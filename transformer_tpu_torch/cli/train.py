@@ -79,7 +79,7 @@ _FLAGS: dict[str, tuple] = {
     "position_scheme": (str, "sinusoidal", "sinusoidal | rope"),
     "decoder_only": (_bool, False, "causal-LM mode (the only mode ported)"),
     "objective": (str, "causal", "causal (mlm is not ported)"),
-    "attention_impl": (str, "xla", "xla | flash"),
+    "attention_impl": (str, "xla", "xla | flash | ring (ring: cli.distributed_train --sp > 1)"),
     "attention_window": (int, 0, "sliding-window causal attention (0 = full)"),
     "dtype": (str, "bfloat16", "compute dtype"),
     "remat": (_bool, False, "rematerialize each layer in the backward"),
@@ -94,43 +94,37 @@ _FLAGS: dict[str, tuple] = {
 }
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def build_parser(flags: dict[str, tuple] = _FLAGS, doc: str = __doc__) -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--preset", default="", choices=["", *sorted(_PRESETS)],
                     help="start from a benchmark config; explicit flags win")
-    for name, (typ, _, help_) in _FLAGS.items():
+    for name, (typ, _, help_) in flags.items():
         kw = dict(nargs="?", const=True) if typ is _bool else {}
         ap.add_argument(f"--{name}", type=typ, default=argparse.SUPPRESS, help=help_, **kw)
     return ap
 
 
-def resolve_flags(argv: list[str] | None) -> argparse.Namespace:
+def resolve_flags(
+    argv: list[str] | None, flags: dict[str, tuple] = _FLAGS, doc: str = __doc__
+) -> argparse.Namespace:
     """Defaults, then the preset, then the flags given explicitly."""
-    explicit = vars(build_parser().parse_args(argv))
+    explicit = vars(build_parser(flags, doc).parse_args(argv))
     preset = _PRESETS.get(explicit.pop("preset"), {})
-    values = {name: spec[1] for name, spec in _FLAGS.items()}
+    values = {name: spec[1] for name, spec in flags.items()}
     values.update(preset)
     values.update(explicit)
-    return argparse.Namespace(**values)
-
-
-def main(argv: list[str] | None = None, log_fn=print):
-    """Train and export; returns the trainer."""
-    args = resolve_flags(argv)
-    if not args.decoder_only or args.objective != "causal":
+    if not values["decoder_only"] or values["objective"] != "causal":
         raise NotImplementedError(
             "the port trains decoder-only causal LMs (--decoder_only); seq2seq and "
             "masked-LM training are later slices"
         )
-    from transformer_tpu_torch.config import ModelConfig, TrainConfig
-    from transformer_tpu_torch.convert import export_params
-    from transformer_tpu_torch.data.pipeline import load_lm_splits
-    from transformer_tpu_torch.device import resolve_device
-    from transformer_tpu_torch.train.state import create_train_state
-    from transformer_tpu_torch.train.trainer import Trainer
+    return argparse.Namespace(**values)
 
-    device = resolve_device(args.device)
-    train_cfg = TrainConfig(
+
+def train_config(args: argparse.Namespace):
+    from transformer_tpu_torch.config import TrainConfig
+
+    return TrainConfig(
         batch_size=args.batch_size, sequence_length=args.sequence_length,
         epochs=args.epochs, warmup_steps=args.warmup_steps,
         lr_schedule=args.lr_schedule, peak_lr=args.peak_lr,
@@ -141,6 +135,13 @@ def main(argv: list[str] | None = None, log_fn=print):
         loss_chunks=args.loss_chunks, steps_per_dispatch=args.steps_per_dispatch,
         objective=args.objective,
     )
+
+
+def load_data(args: argparse.Namespace, train_cfg, log_fn=print):
+    """(train, test, tokenizer) LM splits; builds the vocabulary file when
+    it is missing."""
+    from transformer_tpu_torch.data.pipeline import load_lm_splits
+
     train_ds, test_ds, tok = load_lm_splits(
         args.dataset_path, args.tgt_vocab_file, batch_size=train_cfg.batch_size,
         sequence_length=train_cfg.sequence_length,
@@ -151,8 +152,13 @@ def main(argv: list[str] | None = None, log_fn=print):
         f"{test_ds.num_examples if test_ds else 0} test windows "
         f"({len(test_ds) if test_ds else 0} batches), vocab {tok.vocab_size}"
     )
-    vocab = tok.model_vocab_size
-    model_cfg = ModelConfig(
+    return train_ds, test_ds, tok
+
+
+def model_config(args: argparse.Namespace, vocab: int):
+    from transformer_tpu_torch.config import ModelConfig
+
+    return ModelConfig(
         num_layers=args.num_layers, d_model=args.d_model, num_heads=args.num_heads,
         num_kv_heads=args.num_kv_heads, dff=args.dff, input_vocab_size=vocab,
         target_vocab_size=vocab, dropout_rate=args.dropout_rate,
@@ -163,16 +169,37 @@ def main(argv: list[str] | None = None, log_fn=print):
         attention_impl=args.attention_impl, attention_window=args.attention_window,
         remat=args.remat, remat_policy=args.remat_policy,
     )
-    state = create_train_state(model_cfg, train_cfg, device=device)
-    trainer = Trainer(model_cfg, train_cfg, state, log_fn=log_fn)
-    trainer.fit(train_ds, test_ds)
+
+
+def report_and_export(trainer, test_ds, export_path: str, log_fn=print) -> None:
+    """Eval loss and perplexity of the final epoch's full eval, then the
+    export."""
+    from transformer_tpu_torch.convert import export_params
+
     if test_ds is not None and trainer.eval_metrics.weight > 0:
         loss = trainer.eval_metrics.loss
         log_fn(f"eval loss {loss:.4f}, perplexity {math.exp(min(loss, 30.0)):.2f}")
     elif test_ds is not None:
         log_fn("eval split produced no tokens; no perplexity")
-    export_params(trainer.state.params, model_cfg, args.export_path)
-    log_fn(f"exported params to {args.export_path}")
+    export_params(trainer.state.params, trainer.model_cfg, export_path)
+    log_fn(f"exported params to {export_path}")
+
+
+def main(argv: list[str] | None = None, log_fn=print):
+    """Train and export; returns the trainer."""
+    args = resolve_flags(argv)
+    from transformer_tpu_torch.device import resolve_device
+    from transformer_tpu_torch.train.state import create_train_state
+    from transformer_tpu_torch.train.trainer import Trainer
+
+    device = resolve_device(args.device)
+    train_cfg = train_config(args)
+    train_ds, test_ds, tok = load_data(args, train_cfg, log_fn)
+    model_cfg = model_config(args, tok.model_vocab_size)
+    state = create_train_state(model_cfg, train_cfg, device=device)
+    trainer = Trainer(model_cfg, train_cfg, state, log_fn=log_fn)
+    trainer.fit(train_ds, test_ds)
+    report_and_export(trainer, test_ds, args.export_path, log_fn)
     return trainer
 
 

@@ -1,7 +1,7 @@
 """Model configuration for the PyTorch port.
 
-Field-for-field twins of ``transformer_tpu/config.py`` ``ModelConfig`` and
-``TrainConfig``: same names, same defaults, same validation, so an
+Field-for-field twins of ``transformer_tpu/config.py`` ``ModelConfig``,
+``TrainConfig`` and ``MeshConfig``: same names, same defaults, same validation, so an
 export's ``config.json`` loads into either package. The only difference
 is what the dtype properties return: ``torch.dtype`` objects instead of
 jnp dtypes. The activation list is kept here (the JAX package reads it
@@ -246,6 +246,36 @@ class TrainConfig:
             raise ValueError(
                 f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical process mesh, the JAX twin's axes in its order: ``data``
+    (gradient sum), ``fsdp``, ``model``, ``seq`` (ring attention),
+    ``pipe``, ``expert``; ``dcn_data`` is how many hosts the data axis
+    spans. The port runs ``data`` and ``seq``: ``DistributedTrainer``
+    raises ``NotImplementedError`` on any other axis above 1 and on
+    ``dcn_data`` above 1."""
+
+    data: int = 1
+    fsdp: int = 1
+    model: int = 1
+    seq: int = 1
+    pipe: int = 1
+    expert: int = 1
+    dcn_data: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.fsdp * self.model * self.seq * self.pipe * self.expert
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return ("data", "fsdp", "model", "seq", "pipe", "expert")
+
+    @property
+    def axis_sizes(self) -> tuple[int, ...]:
+        return (self.data, self.fsdp, self.model, self.seq, self.pipe, self.expert)
 
 
 def config_to_json(cfg: Any) -> str:

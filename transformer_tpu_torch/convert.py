@@ -12,6 +12,7 @@ package.
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import numpy as np
@@ -56,6 +57,16 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig, device="cud
 def params_to_numpy(params) -> dict[str, np.ndarray]:
     """The port's params -> flat JAX-named numpy arrays (CPU copies)."""
     return {k: v.detach().cpu().numpy() for k, v in flatten(params).items()}
+
+
+def params_digest(params) -> str:
+    """sha256 over every parameter's name and bytes, in flat-name order:
+    equal digests mean bit-identical parameters."""
+    h = hashlib.sha256()
+    for key, arr in sorted(params_to_numpy(params).items()):
+        h.update(key.encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
 
 
 def export_params(params, cfg: ModelConfig, path: str) -> None:

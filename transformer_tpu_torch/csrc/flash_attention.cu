@@ -1,19 +1,23 @@
 // Blockwise (flash) attention for training: forward, dQ and dK/dV.
 //
-// Replaces the three TPU kernels of transformer_tpu/kernels/flash_attention.py:
-//   flash_fwd   <- `_fwd_kernel`  (online softmax; writes out and the row lse)
-//   flash_dq    <- `_dq_kernel`   (dQ, P recomputed from lse)
-//   flash_dkdv  <- `_dkdv_kernel` (dK and dV, summed over the GQA group)
+// Replaces four TPU kernels of transformer_tpu/kernels/flash_attention.py:
+//   flash_fwd        <- `_fwd_kernel`       (online softmax; writes out and the row lse)
+//   flash_ring_step  <- `_ring_step_kernel` (the same tile loop, but the (m, l, acc)
+//                                            carry is read from and written back to
+//                                            device memory in place: one ring hop)
+//   flash_dq         <- `_dq_kernel`        (dQ, P recomputed from lse)
+//   flash_dkdv       <- `_dkdv_kernel`      (dK and dV, summed over the GQA group)
 //
 // Layouts are the model's: q/dO/out/dq (B, S_q, H, D), k/v/dk/dv
 // (B, S_k, H_kv, D), row-major and contiguous, read in place (no fold to
 // (B*H, S, D) in device memory); kv_mask (B, S_k) uint8 or null; lse and
-// delta (B, H, S_q) fp32. Query head h reads kv head h / (H / H_kv).
+// delta (B, H, S_q) fp32; the ring carry m, l (B, H, S_q) and acc
+// (B, S_q, H, D) fp32. Query head h reads kv head h / (H / H_kv).
 //
 // Numerics mirror the TPU kernels (T = bf16 or fp32): scores are q.k over
 // T values with fp32 accumulation (exact products, fp32 FMAs), times the
-// scale in fp32; key padding, causality (col > row) and the window band
-// (col <= row - window) set a score to -1e30, and exp is guarded
+// scale in fp32; key padding, causality (col > row) and the band
+// (col <= row - band) set a score to -1e30, and exp is guarded
 // (s > -1e29) so masked entries are exactly 0; the normaliser sums the
 // unrounded fp32 p; P.V, dS.K, P^T.dO and (dS*scale)^T.Q take their left
 // operand rounded to T and accumulate in fp32. A row with no visible key
@@ -21,12 +25,13 @@
 //
 // Bound on an H100: at long4k (B 4, H 8, S 4095, D 64, causal) the forward
 // is 6.9e10 flops against 67 MB of q/k/v/out, far above the ~295 flop/byte
-// ridge, so all three kernels are bound by operations. What this design
+// ridge, so all three kernels are bound by operations (a ring hop at
+// C 1024 moves its fp32 carry too and sits near the ridge). What this design
 // does about it: 64x64 tiles, 256 threads each owning a 4x4 block of the
 // score tile and a 4 x D/16 block of the output, operands staged in shared
 // memory as fp32 and read as float4, so each thread does 16 FMAs per two
 // shared loads; the score tile, P and dS never leave the chip; tiles above
-// the diagonal or below the window are skipped structurally. This first
+// the diagonal or below the band are skipped structurally. This first
 // version runs on the CUDA cores in fp32, not on the tensor cores, which
 // is the known gap to the bf16 bound (mma/wgmma, TMA and pipelining are
 // later work). Each output element is written once by one CTA: dQ by the
@@ -128,9 +133,12 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ bool visible(int row, int col, int causal, int window) {
+// The band is separate from causality, as `_FlashConfig.band` is: a ring
+// hop t passes W - t*C, which may be 0 or negative, so `has_band` says
+// whether there is one and no value of `band` means "none".
+__device__ __forceinline__ bool visible(int row, int col, int causal, int has_band, int band) {
   if (causal && col > row) return false;
-  if (window > 0 && col <= row - window) return false;
+  if (has_band && col <= row - band) return false;
   return true;
 }
 
@@ -145,26 +153,35 @@ __device__ __forceinline__ void load_key_flags(float* flags, const uint8_t* kv_m
   }
 }
 
-// The k tiles a q tile starting at q0 can see.
-__device__ __forceinline__ void k_tile_range(int q0, int s_k, int causal, int window,
-                                             int* begin, int* end) {
+// The k tiles a q tile starting at q0 can see. The band's lower edge is
+// taken from the tile's first row (`_visible`): its leftmost visible
+// column q0 - band + 1 is the leftmost of the tile.
+__device__ __forceinline__ void k_tile_range(int q0, int s_k, int causal, int has_band,
+                                             int band, int* begin, int* end) {
   int e = (s_k + kTile - 1) / kTile;
   if (causal) e = min(e, (q0 + kTile - 1) / kTile + 1);
   int bgn = 0;
-  if (window > 0) bgn = max(0, q0 - window + 1) / kTile;
+  if (has_band) bgn = max(0, q0 - band + 1) / kTile;
   *begin = bgn;
   *end = e;
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one CTA per (q tile, batch * head).
+// Forward and ring step: one CTA per (q tile, batch * head). The forward
+// (Carry = false) starts the row statistics at (m, l, acc) = (-1e30, 0, 0)
+// and finalises out = acc / l and lse = m + log l; the ring step (Carry =
+// true) reads the carry of its 64 rows from device memory first and writes
+// it back unnormalised, so one launch folds one KV chunk into it. Each
+// carry row is read and written by the one CTA that owns it, which is what
+// makes the in-place update (the TPU kernel's input_output_aliases) safe.
 
-template <typename T, int D>
+template <typename T, int D, bool Carry>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const uint8_t* __restrict__ kv_mask, T* __restrict__ out,
-                 float* __restrict__ lse, int s_q, int s_k, int h, int h_kv, int causal,
-                 int window, float scale) {
+                 float* __restrict__ lse, float* __restrict__ m_io, float* __restrict__ l_io,
+                 float* __restrict__ acc_io, int s_q, int s_k, int h, int h_kv, int causal,
+                 int has_band, int band, float scale) {
   constexpr int DC = D / 16;
   const int q0 = blockIdx.x * kTile;
   const int b = blockIdx.y / h, head = blockIdx.y % h;
@@ -184,17 +201,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* vb = v + static_cast<int64_t>(b) * s_k * ks + hk * D;
   load_tile<T, D, true>(qt, qb, qs, q0, s_q);
 
+  const int64_t row_off = (static_cast<int64_t>(b) * h + head) * s_q;  // into (B, H, S_q)
   float m[4], l[4], acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
     m[i] = kMasked;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    if (Carry && row < s_q) {
+      m[i] = m_io[row_off + row];
+      l[i] = l_io[row_off + row];
+      const float* arow = acc_io + (static_cast<int64_t>(b) * s_q + row) * qs + head * D;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] = arow[tx * DC + c];
+    }
   }
 
   int kt_begin, kt_end;
-  k_tile_range(q0, s_k, causal, window, &kt_begin, &kt_end);
+  k_tile_range(q0, s_k, causal, has_band, band, &kt_begin, &kt_end);
   for (int tile = kt_begin; tile < kt_end; ++tile) {
     const int k0 = tile * kTile;
     __syncthreads();  // the previous tile's readers are done
@@ -212,7 +238,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        const bool ok = kflag[tx * 4 + j] != 0.f && visible(row, col, causal, window);
+        const bool ok = kflag[tx * 4 + j] != 0.f && visible(row, col, causal, has_band, band);
         s[i][j] = ok ? s[i][j] * scale : kMasked;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -238,6 +264,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= s_q) continue;
+    if (Carry) {
+      float* arow = acc_io + (static_cast<int64_t>(b) * s_q + row) * qs + head * D;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) arow[tx * DC + c] = acc[i][c];
+      if (tx == 0) {
+        m_io[row_off + row] = m[i];
+        l_io[row_off + row] = l[i];
+      }
+      continue;
+    }
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
     T* orow = out + static_cast<int64_t>(b) * s_q * qs + row * qs + head * D;
 #pragma unroll
@@ -254,8 +290,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, const uint8_t* __restrict__ kv_mask,
-                T* __restrict__ dq, int s_q, int s_k, int h, int h_kv, int causal, int window,
-                float scale) {
+                T* __restrict__ dq, int s_q, int s_k, int h, int h_kv, int causal,
+                int has_band, int band, float scale) {
   constexpr int DC = D / 16;
   const int q0 = blockIdx.x * kTile;
   const int b = blockIdx.y / h, head = blockIdx.y % h;
@@ -288,7 +324,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   float acc[4][DC] = {};
   int kt_begin, kt_end;
-  k_tile_range(q0, s_k, causal, window, &kt_begin, &kt_end);
+  k_tile_range(q0, s_k, causal, has_band, band, &kt_begin, &kt_end);
   for (int tile = kt_begin; tile < kt_end; ++tile) {
     const int k0 = tile * kTile;
     __syncthreads();
@@ -307,7 +343,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        const bool ok = row < s_q && kflag[tx * 4 + j] != 0.f && visible(row, col, causal, window);
+        const bool ok =
+            row < s_q && kflag[tx * 4 + j] != 0.f && visible(row, col, causal, has_band, band);
         const float sv = ok ? s[i][j] * scale : kMasked;
         const float p = sv > kMaskGuard ? expf(sv - lse_s[r]) : 0.f;
         dst[(tx * 4 + j) * kLd + r] = round_t<T>(p * (dp[i][j] - delta_s[r]));
@@ -338,7 +375,7 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                   const T* __restrict__ dout, const float* __restrict__ lse,
                   const float* __restrict__ delta, const uint8_t* __restrict__ kv_mask,
                   T* __restrict__ dk, T* __restrict__ dv, int s_q, int s_k, int h, int h_kv,
-                  int causal, int window, float scale) {
+                  int causal, int has_band, int band, float scale) {
   constexpr int DC = D / 16;
   const int k0 = blockIdx.x * kTile;
   const int b = blockIdx.y / h_kv, hk = blockIdx.y % h_kv;
@@ -364,11 +401,16 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   load_tile<T, D, true>(vt, v + koff, ks, k0, s_k);
   load_key_flags(kflag, kv_mask, b, s_k, k0);
 
-  // The q tiles that can see this k tile.
+  // The q tiles that can see this k tile: under the band, q tile i does
+  // while i * 64 <= k0 + 62 + band (its first row's rule, as `_visible`),
+  // which may be no tile at all when the band is 0 or negative.
   const int nq = (s_q + kTile - 1) / kTile;
   const int qt_begin = causal ? k0 / kTile : 0;
   int qt_end = nq;
-  if (window > 0) qt_end = min(nq, (k0 + kTile - 2 + window) / kTile + 1);
+  if (has_band) {
+    const int hi = k0 + kTile - 2 + band;
+    qt_end = hi < 0 ? 0 : min(nq, hi / kTile + 1);
+  }
 
   float dk_acc[4][DC] = {}, dv_acc[4][DC] = {};
   for (int g = 0; g < group; ++g) {
@@ -398,7 +440,7 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int r = tx * 4 + j, row = q0 + r;
-          const bool ok = row < s_q && kflag[c] != 0.f && visible(row, col, causal, window);
+          const bool ok = row < s_q && kflag[c] != 0.f && visible(row, col, causal, has_band, band);
           const float sv = ok ? s[i][j] * scale : kMasked;
           const float p = sv > kMaskGuard ? expf(sv - lse_s[r]) : 0.f;
           const float ds = p * (dp[i][j] - delta_s[r]);
@@ -444,25 +486,46 @@ constexpr size_t dkdv_smem(int d) {
   return sizeof(float) * (4 * d * kLd + 2 * kTile * d + 2 * kTile * kLd + 3 * kTile);
 }
 
-template <typename T, int D>
+// Carry = false: out and lse are written, the carry pointers are null.
+// Carry = true: m, l and acc are updated in place, out and lse are null.
+template <typename T, int D, bool Carry>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
-                       void* out, float* lse, int b, int s_q, int s_k, int h, int h_kv,
-                       int causal, int window, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
+                       void* out, float* lse, float* m, float* l, float* acc, int b, int s_q,
+                       int s_k, int h, int h_kv, int causal, int has_band, int band, float scale,
+                       cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<T, D, Carry>;
   cudaError_t e = set_smem(kernel, fwd_smem(D));
   if (e != cudaSuccess) return e;
   dim3 grid((s_q + kTile - 1) / kTile, b * h);
   kernel<<<grid, kThreads, fwd_smem(D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-      static_cast<T*>(out), lse, s_q, s_k, h, h_kv, causal, window, scale);
+      static_cast<T*>(out), lse, m, l, acc, s_q, s_k, h, h_kv, causal, has_band, band, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_plain_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
+                             void* out, float* lse, int b, int s_q, int s_k, int h, int h_kv,
+                             int causal, int has_band, int band, float scale,
+                             cudaStream_t stream) {
+  return launch_fwd<T, D, false>(q, k, v, mask, out, lse, nullptr, nullptr, nullptr, b, s_q,
+                                 s_k, h, h_kv, causal, has_band, band, scale, stream);
+}
+
+template <typename T, int D>
+cudaError_t launch_ring_step(const void* q, const void* k, const void* v, const uint8_t* mask,
+                             float* m, float* l, float* acc, int b, int s_q, int s_k, int h,
+                             int h_kv, int causal, int has_band, int band, float scale,
+                             cudaStream_t stream) {
+  return launch_fwd<T, D, true>(q, k, v, mask, nullptr, nullptr, m, l, acc, b, s_q, s_k, h,
+                                h_kv, causal, has_band, band, scale, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, const uint8_t* mask, void* dq,
-                      int b, int s_q, int s_k, int h, int h_kv, int causal, int window,
-                      float scale, cudaStream_t stream) {
+                      int b, int s_q, int s_k, int h, int h_kv, int causal, int has_band,
+                      int band, float scale, cudaStream_t stream) {
   auto kernel = flash_dq_kernel<T, D>;
   cudaError_t e = set_smem(kernel, dq_smem(D));
   if (e != cudaSuccess) return e;
@@ -470,7 +533,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   kernel<<<grid, kThreads, dq_smem(D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, mask, static_cast<T*>(dq), s_q, s_k, h, h_kv,
-      causal, window, scale);
+      causal, has_band, band, scale);
   return cudaGetLastError();
 }
 
@@ -478,7 +541,7 @@ template <typename T, int D>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, const uint8_t* mask, void* dk,
                         void* dv, int b, int s_q, int s_k, int h, int h_kv, int causal,
-                        int window, float scale, cudaStream_t stream) {
+                        int has_band, int band, float scale, cudaStream_t stream) {
   auto kernel = flash_dkdv_kernel<T, D>;
   cudaError_t e = set_smem(kernel, dkdv_smem(D));
   if (e != cudaSuccess) return e;
@@ -486,7 +549,7 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
   kernel<<<grid, kThreads, dkdv_smem(D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, mask, static_cast<T*>(dk), static_cast<T*>(dv),
-      s_q, s_k, h, h_kv, causal, window, scale);
+      s_q, s_k, h, h_kv, causal, has_band, band, scale);
   return cudaGetLastError();
 }
 
@@ -508,32 +571,43 @@ bool bad_shape(int b, int s_q, int s_k, int h, int h_kv) {
 
 extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v,
                          const uint8_t* kv_mask, void* out, float* lse, int b, int s_q,
-                         int s_k, int h, int h_kv, int d, int causal, int window, float scale,
-                         void* stream) {
+                         int s_k, int h, int h_kv, int d, int causal, int has_band, int band,
+                         float scale, void* stream) {
   if (bad_shape(b, s_q, s_k, h, h_kv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_fwd, q, k, v, kv_mask, out, lse, b, s_q, s_k, h, h_kv, causal, window,
-                 scale, st);
+  FLASH_DISPATCH(launch_plain_fwd, q, k, v, kv_mask, out, lse, b, s_q, s_k, h, h_kv, causal,
+                 has_band, band, scale, st);
+}
+
+extern "C" int flash_ring_step(int dtype, const void* q, const void* k, const void* v,
+                               const uint8_t* kv_mask, float* m, float* l, float* acc, int b,
+                               int s_q, int s_k, int h, int h_kv, int d, int causal,
+                               int has_band, int band, float scale, void* stream) {
+  if (bad_shape(b, s_q, s_k, h, h_kv)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH(launch_ring_step, q, k, v, kv_mask, m, l, acc, b, s_q, s_k, h, h_kv, causal,
+                 has_band, band, scale, st);
 }
 
 extern "C" int flash_dq(int dtype, const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* delta,
                         const uint8_t* kv_mask, void* dq, int b, int s_q, int s_k, int h,
-                        int h_kv, int d, int causal, int window, float scale, void* stream) {
+                        int h_kv, int d, int causal, int has_band, int band, float scale,
+                        void* stream) {
   if (bad_shape(b, s_q, s_k, h, h_kv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, kv_mask, dq, b, s_q, s_k, h, h_kv,
-                 causal, window, scale, st);
+                 causal, has_band, band, scale, st);
 }
 
 extern "C" int flash_dkdv(int dtype, const void* q, const void* k, const void* v,
                           const void* dout, const float* lse, const float* delta,
                           const uint8_t* kv_mask, void* dk, void* dv, int b, int s_q, int s_k,
-                          int h, int h_kv, int d, int causal, int window, float scale,
-                          void* stream) {
+                          int h, int h_kv, int d, int causal, int has_band, int band,
+                          float scale, void* stream) {
   if (bad_shape(b, s_q, s_k, h, h_kv) || b * h_kv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_dkdv, q, k, v, dout, lse, delta, kv_mask, dk, dv, b, s_q, s_k, h,
-                 h_kv, causal, window, scale, st);
+                 h_kv, causal, has_band, band, scale, st);
 }

@@ -21,7 +21,13 @@ from transformer_tpu_torch.models.encoder import (
     embed_prologue,
 )
 from transformer_tpu_torch.ops.attention import cached_self_attention, mha_apply
-from transformer_tpu_torch.ops.nn import Params, dropout_generator, layernorm_apply, remat_layer
+from transformer_tpu_torch.ops.nn import (
+    GlobalSlice,
+    Params,
+    dropout_generator,
+    layernorm_apply,
+    remat_layer,
+)
 
 
 def _generators(key, n: int, cfg: ModelConfig, deterministic: bool, device):
@@ -44,10 +50,12 @@ def decoder_layer_apply(
     key: tuple[int, ...] | None = None,
     deterministic: bool = True,
     reference: bool = False,
+    dropout_slice: GlobalSlice | None = None,
 ) -> tuple[torch.Tensor, dict[str, Any] | None]:
     """One decoder-only layer: (x, updated cache). With a cache, causal
     attention over it (serving); without, causal self-attention under
-    ``self_mask`` (B, 1, 1, S) with dropout keyed on ``key`` (training)."""
+    ``self_mask`` (B, 1, 1, S) with dropout keyed on ``key`` (training),
+    drawn over the global activation ``dropout_slice`` places x in."""
     box: list[Any] = [None]
 
     def self_attn(h):
@@ -63,10 +71,10 @@ def decoder_layer_apply(
         )
 
     g_attn, g_ffn = _generators(key, 2, cfg, deterministic, x.device)
-    x = _sublayer(cfg, params["ln1"], x, self_attn, g_attn, deterministic)
+    x = _sublayer(cfg, params["ln1"], x, self_attn, g_attn, deterministic, dropout_slice)
     x = _sublayer(
         cfg, params["ln_ffn"], x, lambda h: _ffn_sublayer_apply(params, h, cfg),
-        g_ffn, deterministic,
+        g_ffn, deterministic, dropout_slice,
     )
     return x, box[0]
 
@@ -82,12 +90,15 @@ def decoder_apply(
     key: tuple[int, ...] | None = None,
     deterministic: bool = True,
     reference: bool = False,
+    dropout_slice: GlobalSlice | None = None,
 ) -> tuple[torch.Tensor, list[dict[str, Any]] | None]:
     """(B, S) ids at positions ``position_offset ..`` -> (B, S, d_model)
     hiddens and the updated caches (None on the cache-free path). Dropout
     sites are keyed ``key + (0, site)`` for the prologue and ``key +
-    (layer + 1, site)`` per layer. With ``cfg.remat`` the cache-free layers
-    run under ``remat_layer`` whenever gradients are recorded."""
+    (layer + 1, site)`` per layer, and draw over the global activation
+    that ``dropout_slice`` places the ids in (a data × sequence split).
+    With ``cfg.remat`` the cache-free layers run under ``remat_layer``
+    whenever gradients are recorded."""
     if not cfg.decoder_only:
         raise NotImplementedError(
             "the port runs decoder-only LMs; cross-attention (seq2seq) is a later slice"
@@ -100,7 +111,7 @@ def decoder_apply(
         None if key is None else tuple(key) + (0,), 1, cfg, deterministic, ids.device
     )
     x = embed_prologue(
-        params["embedding"], ids, cfg, position_offset, g_embed, deterministic
+        params["embedding"], ids, cfg, position_offset, g_embed, deterministic, dropout_slice
     )
     if caches is not None:
         new_caches = []
@@ -113,7 +124,7 @@ def decoder_apply(
         def layer_call(layer, x, layer_key):
             return decoder_layer_apply(
                 layer, x, cfg, self_mask=self_mask, key=layer_key,
-                deterministic=deterministic, reference=reference,
+                deterministic=deterministic, reference=reference, dropout_slice=dropout_slice,
             )[0]
 
         if cfg.remat and torch.is_grad_enabled():

@@ -12,7 +12,13 @@ import torch
 
 from transformer_tpu_torch.config import ModelConfig
 from transformer_tpu_torch.ops.ffn import ffn_apply
-from transformer_tpu_torch.ops.nn import Params, dropout, embedding_lookup, layernorm_apply
+from transformer_tpu_torch.ops.nn import (
+    GlobalSlice,
+    Params,
+    dropout,
+    embedding_lookup,
+    layernorm_apply,
+)
 from transformer_tpu_torch.ops.positional import sinusoidal_rows
 
 
@@ -21,13 +27,15 @@ def layer_uses_moe(cfg: ModelConfig, layer_index: int) -> bool:
     return cfg.moe_experts > 0 and (layer_index + 1) % cfg.moe_every == 0
 
 
-def _sublayer(cfg: ModelConfig, params_ln, x, fn, generator=None, deterministic=True):
+def _sublayer(cfg: ModelConfig, params_ln, x, fn, generator=None, deterministic=True,
+              dropout_slice: GlobalSlice | None = None):
     """Residual sublayer in post-LN (``LN(x + drop(fn(x)))``) or pre-LN
-    (``x + drop(fn(LN(x)))``) form."""
+    (``x + drop(fn(LN(x)))``) form; ``dropout_slice`` places ``x`` in the
+    global activation of a split run (``ops.nn.dropout``)."""
     if cfg.norm_scheme == "pre":
         y = fn(layernorm_apply(params_ln, x, cfg.layernorm_epsilon))
-        return x + dropout(generator, y, cfg.dropout_rate, deterministic)
-    y = dropout(generator, fn(x), cfg.dropout_rate, deterministic)
+        return x + dropout(generator, y, cfg.dropout_rate, deterministic, dropout_slice)
+    y = dropout(generator, fn(x), cfg.dropout_rate, deterministic, dropout_slice)
     return layernorm_apply(params_ln, x + y, cfg.layernorm_epsilon)
 
 
@@ -46,9 +54,12 @@ def embed_prologue(
     position_offset: int | torch.Tensor = 0,
     generator: torch.Generator | None = None,
     deterministic: bool = True,
+    dropout_slice: GlobalSlice | None = None,
 ) -> torch.Tensor:
     """(B, S) ids -> embed, ×√d_model (in the compute dtype), + the
-    sinusoidal rows at ``position_offset + arange(S)``, then dropout.
+    sinusoidal rows at ``position_offset + arange(S)``, then dropout
+    (drawn over the global activation that ``dropout_slice`` places the
+    ids in, when given).
     ``position_offset`` is an int or a (B,) tensor of per-row offsets (the
     batched decode step). Offsets clamp to ``max_position`` exactly as the
     JAX twin's dynamic slice of its ``max_position + S``-row table does."""
@@ -66,4 +77,4 @@ def embed_prologue(
         offset = torch.clamp(offset, 0, cfg.max_position).reshape(-1, 1)
         positions = offset + torch.arange(seq_len, device=ids.device)[None, :]
         x = x + sinusoidal_rows(positions, cfg.d_model, dtype)
-    return dropout(generator, x, cfg.dropout_rate, deterministic)
+    return dropout(generator, x, cfg.dropout_rate, deterministic, dropout_slice)

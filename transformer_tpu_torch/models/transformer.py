@@ -20,7 +20,7 @@ from transformer_tpu_torch.config import PAD_ID, ModelConfig, is_gated
 from transformer_tpu_torch.device import resolve_device
 from transformer_tpu_torch.models.decoder import decoder_apply, decoder_prefill
 from transformer_tpu_torch.ops.masks import make_padding_mask
-from transformer_tpu_torch.ops.nn import Params, dense_apply, embedding_attend
+from transformer_tpu_torch.ops.nn import GlobalSlice, Params, dense_apply, embedding_attend
 
 SEP = "/"
 
@@ -142,20 +142,25 @@ def transformer_hidden_apply(
     deterministic: bool = True,
     reference: bool = False,
     pad_id: int = PAD_ID,
+    position_offset: int = 0,
+    dropout_slice: GlobalSlice | None = None,
 ) -> torch.Tensor:
     """(B, S) token ids -> (B, S, d_model) hiddens of the decoder-only LM,
     before the vocab projection. ``inp`` is ignored (the JAX signature's
     source side); the self-mask is ``make_padding_mask(tar)``, ANDed with
     causality inside attention. ``key`` seeds dropout when not
     ``deterministic``; ``reference`` runs the flash kernels' plain
-    versions."""
+    versions. Under sequence parallelism ``tar`` is this process's chunk:
+    ``position_offset`` is its first global position and ``dropout_slice``
+    its place in the global batch."""
     if not cfg.decoder_only:
         raise NotImplementedError(
             "the port trains decoder-only LMs; seq2seq and encoder-only models are later slices"
         )
     x, _ = decoder_apply(
-        params["decoder"], tar, cfg, self_mask=make_padding_mask(tar, pad_id), key=key,
-        deterministic=deterministic, reference=reference,
+        params["decoder"], tar, cfg, position_offset=position_offset,
+        self_mask=make_padding_mask(tar, pad_id), key=key, deterministic=deterministic,
+        reference=reference, dropout_slice=dropout_slice,
     )
     return x
 
@@ -169,11 +174,14 @@ def transformer_apply(
     deterministic: bool = True,
     reference: bool = False,
     pad_id: int = PAD_ID,
+    position_offset: int = 0,
+    dropout_slice: GlobalSlice | None = None,
 ) -> torch.Tensor:
     """(B, S) token ids -> (B, S, V) raw logits (the JAX twin also returns
     attention maps; the port has none)."""
     x = transformer_hidden_apply(
-        params, inp, tar, cfg, key, deterministic, reference, pad_id
+        params, inp, tar, cfg, key, deterministic, reference, pad_id, position_offset,
+        dropout_slice,
     )
     return project_logits(params, x, cfg)
 

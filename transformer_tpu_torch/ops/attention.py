@@ -97,14 +97,29 @@ def mha_apply(
 ) -> torch.Tensor:
     """Cache-free multi-head attention: (B, S_q, d) x (B, S_k, d) ->
     (B, S_q, d). ``mask`` is a broadcastable bool allowed-mask; ``causal``
-    is ANDed with it (structural under ``impl="flash"``, a dense mask under
-    ``"xla"``); ``window`` needs ``causal``. ``rope`` rotates q and k at
-    positions ``arange(S)``. ``reference`` runs the flash kernels' plain
-    versions on any device."""
+    is ANDed with it (structural under ``impl="flash"`` and ``"ring"``, a
+    dense mask under ``"xla"``); ``window`` needs ``causal``. ``rope``
+    rotates q and k at positions ``arange(S)``, offset by the chunk's
+    global position under ``"ring"``. ``impl="ring"`` runs inside
+    ``parallel.seq_context.sequence_parallel``: the inputs are this
+    process's sequence chunk and the keys come round the ring.
+    ``reference`` runs the flash kernels' plain versions on any device."""
     if window and not causal:
         raise ValueError(
             "window requires causal=True; bidirectional local attention is not implemented"
         )
+    ctx = None
+    if impl in ("ring", "ulysses"):
+        from transformer_tpu_torch.parallel.seq_context import current_seq_context
+
+        ctx = current_seq_context()
+        if ctx is None:
+            raise RuntimeError(
+                f"attention_impl={impl!r} needs an active sequence-parallel "
+                "context: train through DistributedTrainer with "
+                "MeshConfig(seq>1) (or wrap the forward in "
+                "parallel.seq_context.sequence_parallel)"
+            )
     dtype = x_q.dtype
     q = _project(params["query"], x_q, dtype)
     k = _project(params["key"], x_kv, dtype)
@@ -113,6 +128,8 @@ def mha_apply(
         from transformer_tpu_torch.ops.positional import apply_rope
 
         positions = torch.arange(x_q.shape[1], device=x_q.device)
+        if ctx is not None:
+            positions = positions + ctx.offset
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
     if impl == "flash":
@@ -124,10 +141,13 @@ def mha_apply(
         out = flash_attention(
             q, k, v, kv_mask=kv_mask, causal=causal, window=window, reference=reference
         )
-    elif impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={impl!r} (sequence parallelism) is not ported yet"
-        )
+    elif ctx is not None:
+        from transformer_tpu_torch.parallel.seq_context import seq_parallel_attention
+
+        kv_mask = _kv_padding_mask(mask, impl)
+        if kv_mask is not None:
+            kv_mask = kv_mask.expand(q.shape[0], k.shape[1])
+        out = seq_parallel_attention(ctx, impl, q, k, v, kv_mask, causal, window=window)
     else:
         if causal:
             cmask = make_causal_mask(x_q.shape[1], window, device=x_q.device)

@@ -7,6 +7,9 @@ compute casts to the caller's dtype exactly where the JAX twin does.
 
 from __future__ import annotations
 
+import contextvars
+import dataclasses
+
 import numpy as np
 import torch
 import torch.utils.checkpoint
@@ -55,17 +58,49 @@ def dropout_generator(key: tuple[int, ...], device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+@dataclasses.dataclass(frozen=True)
+class GlobalSlice:
+    """Where this process's (b, s, ...) activation sits in the global one
+    of a data × sequence split: the global, unpadded batch and length, and
+    the global index of its first row and first position. Positions past
+    ``length`` are the sequence split's padding."""
+
+    batch: int
+    length: int
+    row: int
+    col: int
+
+
 def dropout(
-    generator: torch.Generator | None, x: torch.Tensor, rate: float, deterministic: bool
+    generator: torch.Generator | None,
+    x: torch.Tensor,
+    rate: float,
+    deterministic: bool,
+    region: GlobalSlice | None = None,
 ) -> torch.Tensor:
     """Inverted dropout with masks drawn from ``generator``;
-    ``deterministic`` (eval) or ``rate == 0`` is the identity."""
+    ``deterministic`` (eval) or ``rate == 0`` is the identity. With a
+    ``region``, the mask is drawn for the whole global (batch, length, ...)
+    tensor and this process keeps its own rows and positions, so a split
+    run draws exactly the masks of the unsplit one (``torch.rand`` fills in
+    row-major order, so a draw over another shape would put other values
+    at the same indices); padding positions past ``length`` keep their
+    values, which nothing reads."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training mode requires a generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if region is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    else:
+        full = torch.rand(
+            (region.batch, region.length) + tuple(x.shape[2:]), generator=generator,
+            device=x.device,
+        )
+        part = full[region.row : region.row + x.shape[0], region.col : region.col + x.shape[1]]
+        mask = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+        mask[:, : part.shape[1]] = part < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -74,7 +109,10 @@ def remat_layer(fn, cfg):
     activations are recomputed in the backward instead of kept. Policy
     "full" only; "dots" (keep matmul outputs) is not ported. Dropout inside
     ``fn`` must come from generators seeded per call (``dropout_generator``),
-    since the global RNG state is not replayed."""
+    since the global RNG state is not replayed. The recompute runs in a
+    copy of the context variables of the forward call (the
+    sequence-parallel context among them), since the backward runs outside
+    the ``with`` blocks that set them."""
     if cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported; the port rematerializes "
@@ -82,8 +120,10 @@ def remat_layer(fn, cfg):
         )
 
     def checkpointed(*args, **kwargs):
+        ctx = contextvars.copy_context()
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs
+            lambda *a, **k: ctx.run(fn, *a, **k), *args, use_reentrant=False,
+            preserve_rng_state=False, **kwargs,
         )
 
     return checkpointed

@@ -4,8 +4,11 @@ Port of ``masked_cross_entropy`` from ``transformer_tpu/train/loss.py``:
 per-token CE over fp32 log-softmax with PAD targets zeroed, optional label
 smoothing, normalised per non-PAD token ("tokens") or per sequence
 ("batch"), returned with the exact sums ``loss_sum``, ``weight`` and
-``correct`` so metrics accumulate without averaging error. The chunked
-variant (``loss_chunks > 1``) is not ported.
+``correct`` so metrics accumulate without averaging error. Under a data ×
+sequence split each process holds part of the batch: it normalises its
+partial sum by the global token count (``total_weight``) or the global
+batch, so the processes' losses add up to the loss of the whole batch.
+The chunked variant (``loss_chunks > 1``) is not ported.
 """
 
 from __future__ import annotations
@@ -32,9 +35,12 @@ def masked_cross_entropy(
     normalization: str = "tokens",
     batch_size: int | None = None,
     pad_id: int = PAD_ID,
+    total_weight: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(B, S, V) logits, (B, S) targets -> (loss, {"loss_sum", "weight",
-    "correct"}), all fp32 scalars on the logits' device."""
+    "correct"}), all fp32 scalars on the logits' device. ``total_weight``
+    replaces this call's own non-PAD count as the "tokens" divisor (the
+    global count of a split batch)."""
     vocab = logits.shape[-1]
     targets = targets.long()
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -49,6 +55,7 @@ def masked_cross_entropy(
     mask = (targets != pad_id).float()
     loss_sum = (per_token * mask).sum()
     weight = mask.sum()
-    loss = _normalize(loss_sum, weight, normalization, batch_size)
+    divisor = weight if total_weight is None else total_weight
+    loss = _normalize(loss_sum, divisor, normalization, batch_size)
     correct = ((logits.argmax(dim=-1) == targets).float() * mask).sum()
     return loss, {"loss_sum": loss_sum, "weight": weight, "correct": correct}

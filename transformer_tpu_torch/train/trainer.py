@@ -5,7 +5,10 @@ path: ``make_train_step`` (teacher-forcing shift, forward with dropout
 keyed on (seed, step), masked CE, backward, Adam with the pre-clip
 ``grad_norm`` metric), ``make_eval_step``, ``MetricAccumulator`` and
 ``Trainer.fit`` reduced to epochs, periodic logging, bounded in-loop eval
-and the full end-of-epoch eval. Checkpoints, telemetry, preemption,
+and the full end-of-epoch eval. The steps take two hooks that
+``parallel.distributed.DistributedTrainer`` fills: the forward-and-loss
+function, and a sum across processes for the gradients and the metric
+sums. Checkpoints, telemetry, preemption,
 gradient accumulation, multi-step dispatch and the chunked loss are not
 ported: the configs that ask for them raise.
 """
@@ -61,26 +64,35 @@ def loss_and_grads(
     train_cfg: TrainConfig,
     key: tuple[int, ...] | None,
     reference: bool = False,
+    forward_loss: Callable | None = None,
 ) -> tuple[dict, dict[str, torch.Tensor]]:
     """One forward and backward on a (B, L) batch (dropout keyed on
     ``key``, none for None). Returns (metrics, grads by flat parameter
     name). ``reference`` runs the flash kernels' plain versions, to hold
-    the kernels against them."""
+    the kernels against them. ``forward_loss`` replaces the single-process
+    forward (same signature as ``_forward_loss``)."""
     leaves = flatten(params)
-    loss, metrics = _forward_loss(params, tgt, model_cfg, train_cfg, key, reference)
+    loss, metrics = (forward_loss or _forward_loss)(
+        params, tgt, model_cfg, train_cfg, key, reference
+    )
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-    return {"loss": loss.detach(), **metrics}, grads
+    return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}, grads
 
 
 def make_train_step(
     model_cfg: ModelConfig,
     train_cfg: TrainConfig,
     tx: Adam | None = None,
+    forward_loss: Callable | None = None,
+    sum_across: Callable[[list[torch.Tensor]], None] | None = None,
 ) -> Callable[[TrainState, Any, Any], tuple[TrainState, dict]]:
     """``step(state, src, tgt) -> (state, metrics)``: ``loss_and_grads``
     with dropout keyed on (seed, step), then Adam, updating the params in
     place. Metrics are device scalars (``loss``, ``loss_sum``, ``weight``,
-    ``correct``, ``grad_norm``); nothing here waits for the device."""
+    ``correct``, ``grad_norm``); nothing here waits for the device. With
+    ``sum_across`` (an in-place sum over processes) the gradients and the
+    metrics are summed before ``grad_norm`` and Adam, so every process
+    takes the same update and reports the same metrics."""
     _check_supported(model_cfg, train_cfg)
     tx = tx or make_optimizer(model_cfg, train_cfg)
 
@@ -88,8 +100,11 @@ def make_train_step(
         leaves = flatten(state.params)
         tgt = _batch(tgt, next(iter(leaves.values())).device)
         metrics, grads = loss_and_grads(
-            state.params, tgt, model_cfg, train_cfg, (train_cfg.seed, state.step)
+            state.params, tgt, model_cfg, train_cfg, (train_cfg.seed, state.step),
+            forward_loss=forward_loss,
         )
+        if sum_across is not None:
+            sum_across([*grads.values(), *metrics.values()])
         metrics["grad_norm"] = global_norm(grads.values())
         updates, opt_state = tx.update(grads, state.opt_state)
         with torch.no_grad():
@@ -101,16 +116,25 @@ def make_train_step(
 
 
 def make_eval_step(
-    model_cfg: ModelConfig, train_cfg: TrainConfig
+    model_cfg: ModelConfig,
+    train_cfg: TrainConfig,
+    forward_loss: Callable | None = None,
+    sum_across: Callable[[list[torch.Tensor]], None] | None = None,
 ) -> Callable[[TrainState, Any, Any], dict]:
-    """Forward-only ``eval(state, src, tgt) -> metrics`` (no dropout)."""
+    """Forward-only ``eval(state, src, tgt) -> metrics`` (no dropout);
+    the hooks as in ``make_train_step``."""
     _check_supported(model_cfg, train_cfg)
 
     @torch.no_grad()
     def eval_step(state: TrainState, src, tgt):
         tgt = _batch(tgt, next(iter(flatten(state.params).values())).device)
-        loss, metrics = _forward_loss(state.params, tgt, model_cfg, train_cfg, None)
-        return {"loss": loss, **metrics}
+        loss, metrics = (forward_loss or _forward_loss)(
+            state.params, tgt, model_cfg, train_cfg, None
+        )
+        metrics = {"loss": loss, **metrics}
+        if sum_across is not None:
+            sum_across(list(metrics.values()))
+        return metrics
 
     return eval_step
 
@@ -170,13 +194,16 @@ class Trainer:
         train_cfg: TrainConfig,
         state: TrainState,
         log_fn: Callable[[str], None] = print,
+        forward_loss: Callable | None = None,
+        sum_across: Callable[[list[torch.Tensor]], None] | None = None,
     ) -> None:
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.state = state
         self.log_fn = log_fn
-        self.train_step = make_train_step(model_cfg, train_cfg)
-        self.eval_step = make_eval_step(model_cfg, train_cfg)
+        hooks = dict(forward_loss=forward_loss, sum_across=sum_across)
+        self.train_step = make_train_step(model_cfg, train_cfg, **hooks)
+        self.eval_step = make_eval_step(model_cfg, train_cfg, **hooks)
         self.train_metrics = MetricAccumulator()
         self.eval_metrics = MetricAccumulator()
         self.device = resolve_device(next(iter(flatten(state.params).values())).device)
