@@ -10,14 +10,18 @@ runs on the CPU). It prints one JSON line per check, in six phases:
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
-   ptxas report);
+   ptxas report), and each kernel's count of HGMMA (warpgroup MMA)
+   instructions in its SASS (``cuobjdump -sass``): the bf16 flash forward
+   and dK/dV kernels must have some, every other kernel none;
 3. kernels: each kernel against its plain PyTorch version on the card at
    long4k shapes, with its time, the plain version's time, one library
    call's time, and the least time the card could take (bound); the flash
    kernels also read two planted faults (the plain versions with a causal
    off-by-one, and the backward ones with the last 10 query rows left
    out) by the same measures, which must clear the limits; the backward
-   kernels also run with a band apart from causality (+256, 0, -100); the
+   kernels also run with a band apart from causality (+256, 0, -100); bf16
+   cases at the tensor-core kernels' edges (head_dim 32, S 1 / 63 / 129,
+   GQA with a group of 4, padding that leaves the first rows no key); the
    ring step reads its own two planted faults (no rescaling of acc when the
    maximum moves, 10 rows of a tile unfolded); and a ring of 4 is replayed
    in one process at the main shape against the whole-sequence kernels;
@@ -57,6 +61,8 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -77,8 +83,9 @@ TOL = {"paged_attention": 2e-2, "fused_ln_ffn": 5e-2, "logits_fp32": 2e-3}
 # fault inside one 64-row tile reads at full size (for the gradients the
 # row norm is floored at 1e-2 of its head's RMS row norm: see grad_rel).
 # bf16 ``out`` differs from the plain version by where p is rounded (running
-# maxima against the row maximum); the backward kernels recompute p from
-# the same lse and sum in the plain versions' order.
+# maxima against the row maximum); bf16 dK/dV recompute p from the same lse
+# but sum on the tensor cores, in another order than the plain versions
+# (fp32 dK/dV and dQ of both dtypes sum in the plain versions' order).
 FLASH_TOL = {
     "bfloat16": {"out": 2e-2, "grad": 2e-2},
     "float32": {"out": 1e-4, "grad": 1e-4},
@@ -134,6 +141,82 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# --------------------------------------------------------------------------
+# phase 2: what was compiled
+
+
+def cuda_tool(name: str) -> str | None:
+    """A CUDA toolkit binary: on PATH, under /usr/local/cuda/bin, or the copy
+    that Triton's package carries (triton/backends/nvidia/bin)."""
+    import importlib.util
+
+    found = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+    if os.path.exists(found):
+        return found
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        alt = os.path.join(os.path.dirname(spec.origin), "backends", "nvidia", "bin", name)
+        if os.path.exists(alt):
+            return alt
+    return None
+
+
+def short_names(mangled: list[str]) -> dict[str, str]:
+    """Mangled kernel names -> ``name<template args>`` through cu++filt
+    (or c++filt), else unchanged."""
+    tool = cuda_tool("cu++filt") or shutil.which("c++filt")
+    if tool is None:
+        return {m: m for m in mangled}
+    out = subprocess.run([tool], input="\n".join(mangled), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    if len(out) != len(mangled):
+        return {m: m for m in mangled}
+
+    def short(d):
+        for noise in ("void ", "<unnamed>::", "(anonymous namespace)::", "(int)", "(bool)"):
+            d = d.replace(noise, "")
+        return d.split("(")[0]
+
+    return {m: short(d) for m, d in zip(mangled, out)}
+
+
+def sass_hgmma(names):
+    """Each built kernel's count of HGMMA (warpgroup MMA) instructions in
+    its SASS, from ``cuobjdump -sass``. The bf16 flash forward and dK/dV
+    kernels (``*_kernel_wgmma``) must issue some and every other kernel
+    none; without cuobjdump the counts are "not measured"."""
+    from transformer_tpu_torch.kernels import build
+
+    tool = cuda_tool("cuobjdump")
+    if tool is None:
+        rec = {"phase": "build", "step": "sass_hgmma", "hgmma_by_kernel": "not measured"}
+        emit(rec)
+        return rec
+    counts: dict[str, int] = {}
+    for name in names:
+        out = subprocess.run([tool, "-sass", str(build._target(name)[1])], capture_output=True,
+                             text=True, check=True, timeout=300).stdout
+        fn = None
+        for line in out.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                counts[fn] += 1
+    wgmma = {fn for fn in counts if "_kernel_wgmma" in fn}
+    ok = (any("flash_fwd_kernel_wgmma" in fn for fn in wgmma)
+          and any("flash_dkdv_kernel_wgmma" in fn for fn in wgmma)
+          and all((counts[fn] > 0) == (fn in wgmma) for fn in counts))
+    pretty = short_names(sorted(counts))
+    rec = {"phase": "build", "step": "sass_hgmma", "tool": tool,
+           "hgmma_by_kernel": {pretty[fn]: counts[fn] for fn in sorted(counts)}, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise SystemExit(f"HGMMA counts are not as designed: {rec}")
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -1212,6 +1295,12 @@ def train_profile(trainer, train_ds, steps: int = 3):
         for name in ("flash_fwd", "flash_dq", "flash_dkdv")
     }
     top = sorted(events, key=dev_us, reverse=True)[:10]
+    # The host's side of the same window: operators by their own CPU time
+    # (the profiler's overhead included), to see what keeps the device idle.
+    host = sorted(
+        (e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CPU")),
+        key=lambda e: e.self_cpu_time_total, reverse=True,
+    )[:8]
     rec = {
         "phase": "train", "step": "train_profile", "steps": steps,
         "wall_ms_per_step": wall_ms,
@@ -1222,6 +1311,11 @@ def train_profile(trainer, train_ds, steps: int = 3):
             {"name": e.key[:90], "ms_per_step": dev_us(e) / steps / 1e3,
              "calls_per_step": e.count / steps}
             for e in top
+        ],
+        "top_host_ops": [
+            {"name": e.key[:60], "self_cpu_ms_per_step": e.self_cpu_time_total / steps / 1e3,
+             "calls_per_step": e.count / steps}
+            for e in host
         ],
     }
     emit(rec)
@@ -1450,6 +1544,7 @@ def main() -> int:
             for name, rep in reports.items()
         },
     })
+    sass_hgmma(list(reports))
 
     # 3. kernels against their plain versions, long4k shapes
     spread = [1, 100, 517, 1024, 1700, 2048, 3001, 4096]
@@ -1489,6 +1584,19 @@ def main() -> int:
         check_flash(f"bf16 gqa h_kv=2 band={band} non-causal", "bfloat16", 2, 2048, 2048, 8, 2,
                     64, False, band, False)
         for band in (256, 0, -100)
+    ]
+    # The bf16 tensor-core kernels' edges: head_dim 32; S shorter than a
+    # tile (one query row over 100 keys; 63 rows, the last sequence's first
+    # 33 seeing no key); S one row past two 64-row tiles; GQA with a group
+    # of 4.
+    f_recs += [
+        check_flash("bf16 d=32 causal", "bfloat16", 2, 777, 777, 4, 4, 32, True, None, False),
+        check_flash("bf16 s_q=1 s_k=100 padded", "bfloat16", 2, 1, 100, 8, 8, 64, False, None,
+                    True),
+        check_flash("bf16 s=63 causal padded", "bfloat16", 2, 63, 63, 8, 8, 64, True, None, True),
+        check_flash("bf16 s=129 causal", "bfloat16", 2, 129, 129, 8, 8, 64, True, None, False),
+        check_flash("bf16 gqa h_kv=2 causal padded", "bfloat16", 2, 1000, 1000, 8, 2, 64, True,
+                    None, True),
     ]
     # The ring step: the main path's hops (B 4, C 1024 = 4096 / 4, 8 heads
     # of 64, bf16) on and below the diagonal, then fp32 with padding, GQA

@@ -1,0 +1,66 @@
+"""The port's kernel build and binding, on the CPU: nothing is compiled.
+
+``kernels/build.py`` keys each library by its source, every ``csrc/*.cuh``
+header and the nvcc flags, so an edit to a header that a source includes
+builds a new library instead of loading a stale one. The bf16 flash
+kernels read their tiles through TMA tensor maps, which need 16-byte
+aligned base addresses: the wrappers' check raises on anything else.
+"""
+
+import shutil
+
+import pytest
+import torch
+
+from transformer_tpu_torch.kernels import build
+from transformer_tpu_torch.kernels.flash_attention import _check_tma_aligned
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    dst = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, dst)
+    monkeypatch.setattr(build, "CSRC", dst)
+    return dst
+
+
+def _edit_header(csrc):
+    path = csrc / "hopper.cuh"
+    path.write_bytes(path.read_bytes() + b"\n// edited\n")
+
+
+def _edit_source(csrc):
+    path = csrc / "flash_attention.cu"
+    path.write_bytes(path.read_bytes() + b"\n// edited\n")
+
+
+def _add_header(csrc):
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+
+
+@pytest.mark.parametrize("change", [_edit_header, _edit_source, _add_header],
+                         ids=["edit_header", "edit_source", "add_header"])
+def test_library_key_follows_sources_and_headers(csrc_copy, change):
+    src, before = build._target("flash_attention")
+    assert src == csrc_copy / "flash_attention.cu"
+    assert build._target("flash_attention")[1] == before  # stable while nothing changes
+    change(csrc_copy)
+    after = build._target("flash_attention")[1]
+    assert after != before and after.name == before.name == "libflash_attention.so"
+
+
+def test_library_key_is_restored_with_the_bytes(csrc_copy):
+    header = csrc_copy / "hopper.cuh"
+    original = header.read_bytes()
+    before = build._target("flash_attention")[1]
+    header.write_bytes(original.replace(b"namespace hopper", b"namespace hopper2", 1))
+    assert build._target("flash_attention")[1] != before
+    header.write_bytes(original)
+    assert build._target("flash_attention")[1] == before
+
+
+def test_tma_inputs_must_be_16_byte_aligned():
+    buf = torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)
+    _check_tma_aligned(buf[:256], torch.zeros(3, 5, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_tma_aligned(buf[:256], buf[1:257])

@@ -17,7 +17,8 @@ kernel A fp32 1e-5 and bf16 3e-2 (the dff contraction is summed in
 another order); decode-forward logits 1e-4 at fp32.
 Flash forward/dQ/dK/dV: fp32 ``out`` and ``lse`` 1e-5 absolute; bf16
 ``out`` 2e-2 on the largest row's ||got - want|| / ||want|| (the kernel
-rounds p to bf16 at running maxima, the plain version at the row maximum);
+rounds p to bf16 at running maxima, the plain version at the row maximum;
+bf16 forward and dK/dV sum on the tensor cores, in another order);
 gradients 1e-4 (fp32) and 2e-2 (bf16) on the largest, over (batch, row,
 head), of ||got - want|| / ||want|| across head_dim, with ||want|| floored
 at 1e-2 of its head's RMS row norm.
@@ -202,6 +203,13 @@ FLASH_CASES = {
     "bf16_gqa_window": (torch.bfloat16, 2, 333, 333, 8, 2, 64, True, 70, False),
     "bf16_cross_pad": (torch.bfloat16, 2, 96, 257, 4, 4, 32, False, 0, True),
     "fp32_d32": (torch.float32, 1, 130, 130, 2, 1, 32, True, 0, False),
+    # the bf16 tensor-core kernels' edges: D 32; S shorter than a tile, or
+    # straddling a 128-row CTA; GQA with a group of 4
+    "bf16_d32_causal": (torch.bfloat16, 2, 200, 200, 4, 4, 32, True, 0, False),
+    "bf16_s1_cross_pad": (torch.bfloat16, 2, 1, 100, 4, 4, 64, False, 0, True),
+    "bf16_s63_causal_pad": (torch.bfloat16, 2, 63, 63, 4, 4, 64, True, 0, True),
+    "bf16_s129_causal": (torch.bfloat16, 2, 129, 129, 4, 4, 64, True, 0, False),
+    "bf16_gqa4_causal_pad": (torch.bfloat16, 2, 200, 200, 8, 2, 64, True, 0, True),
 }
 
 

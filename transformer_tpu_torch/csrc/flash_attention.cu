@@ -15,7 +15,7 @@
 // (B, S_q, H, D) fp32. Query head h reads kv head h / (H / H_kv).
 //
 // Numerics mirror the TPU kernels (T = bf16 or fp32): scores are q.k over
-// T values with fp32 accumulation (exact products, fp32 FMAs), times the
+// T values with fp32 accumulation (exact products summed in fp32), times the
 // scale in fp32; key padding, causality (col > row) and the band
 // (col <= row - band) set a score to -1e30, and exp is guarded
 // (s > -1e29) so masked entries are exactly 0; the normaliser sums the
@@ -25,23 +25,53 @@
 //
 // Bound on an H100: at long4k (B 4, H 8, S 4095, D 64, causal) the forward
 // is 6.9e10 flops against 67 MB of q/k/v/out, far above the ~295 flop/byte
-// ridge, so all three kernels are bound by operations (a ring hop at
-// C 1024 moves its fp32 carry too and sits near the ridge). What this design
-// does about it: 64x64 tiles, 256 threads each owning a 4x4 block of the
-// score tile and a 4 x D/16 block of the output, operands staged in shared
-// memory as fp32 and read as float4, so each thread does 16 FMAs per two
-// shared loads; the score tile, P and dS never leave the chip; tiles above
-// the diagonal or below the band are skipped structurally. This first
-// version runs on the CUDA cores in fp32, not on the tensor cores, which
-// is the known gap to the bf16 bound (mma/wgmma, TMA and pipelining are
-// later work). Each output element is written once by one CTA: dQ by the
-// CTA of its q tile, dK/dV by the CTA of its k tile walking every
-// (group member, q tile) pair, so nothing needs atomics and results do not
-// depend on scheduling.
+// ridge, so the kernels are bound by operations (a ring hop at C 1024 moves
+// its fp32 carry too and sits near the ridge). Each output element is
+// written once by one CTA: out/lse and dQ by the CTA of their q tile, dK/dV
+// by the CTA of their k tile walking every (group member, q tile) pair, so
+// nothing needs atomics and results do not depend on scheduling. Tiles
+// above the diagonal or below the band are skipped structurally; the score
+// tile, P and dS never leave the chip.
+//
+// bf16 flash_fwd and flash_dkdv run on the tensor cores (the bf16 rate is
+// 989 TFLOP/s there, 67 outside), the TPU kernels' bf16 x bf16 -> fp32
+// products taken by `wgmma` (hopper.cuh). A CTA is one warpgroup of 128
+// threads that owns 64 query rows (forward) or 64 keys (dK/dV), several
+// CTAs resident per SM (two warpgroups sharing each streamed tile were
+// slower in both kernels, PERF.md). The tiles that stay (Q in the forward,
+// K and V in dK/dV) arrive once; the ones that stream (K/V in the forward,
+// Q/dO plus the pair's lse/delta in dK/dV) go through a 2-stage ring in
+// shared memory, filled by TMA from one thread, completion counted on an
+// mbarrier per stage, the next tile in flight while the current one is
+// multiplied. Tiles sit in shared memory in the 128-byte (D 64) or 64-byte
+// (D 32) swizzle that the TMA map and the wgmma descriptors both name.
+// Forward: S = Q.K^T over tiles of 64 keys (K-major operands from shared
+// memory), the online softmax in registers on the accumulator layout (a
+// row's 16 columns per thread, 4 threads a row; scores in log2 units so
+// that each p is one SFU exp2), P rounded to bf16 and fed straight back as
+// the register A operand of O += P.V (V read MN-major through the
+// transpose bit). Masks cost nothing where nothing is masked: a ballot of
+// each tile's key flags decides per tile, so only the diagonal, the band's
+// edge, the ragged end and tiles holding padding take the masked path. dK/dV: S^T = K.Q^T and dP^T = V.dO^T from shared memory, P^T and
+// dS^T in registers, then dV += bf16(P^T).dO and dK += bf16(dS^T.scale).Q
+// with A from registers and dO, Q MN-major. The tiles of a CTA are on the
+// slow grid axis, longest first.
+//
+// fp32 stays on CUDA-core loops, on purpose: on the tensor cores fp32 runs
+// as TF32, about three decimal digits, and fp32 is this port's checking
+// dtype (its 1e-4 kernel limits and the 1e-5 train-step limit against the
+// plain versions). Those loops: 64x64 tiles, 256 threads each owning a 4x4
+// block of the score tile and a 4 x D/16 block of the output, operands
+// staged in shared memory as fp32 and read as float4, so each thread does
+// 16 FMAs per two shared loads. flash_dq (both dtypes) and flash_ring_step
+// (both dtypes; its bf16 hop is the old forward loop with the carry) keep
+// those loops too: they are the next kernels to move onto the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -467,6 +497,436 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 }
 
 // ---------------------------------------------------------------------------
+// bf16 forward and dK/dV on the tensor cores (see the note at the top).
+//
+// Inside a warpgroup, warp w owns accumulator rows 16w..16w+15 of the
+// 64-row tile; lane l holds rows g = l/4 and g + 8 and, in each 8-column
+// block j, columns 8j + 2(l%4) + {0, 1}: d[4j], d[4j+1] on row g and
+// d[4j+2], d[4j+3] on row g + 8. The 16 columns of k-block kb of such an
+// accumulator, packed to bf16 pairs, are exactly the A fragment of an
+// m64nNk16 wgmma: {d[8kb], d[8kb+1]}, {d[8kb+2], d[8kb+3]}, {d[8kb+4],
+// d[8kb+5]}, {d[8kb+6], d[8kb+7]}.
+
+constexpr int kWgRows = 64;  // accumulator rows of one warpgroup; keys or queries of a tile
+
+template <int D>
+struct TcTile {
+  static constexpr uint32_t kRowBytes = D * 2;
+  static constexpr uint32_t kBytes = kWgRows * kRowBytes;  // one [64][D] bf16 tile
+  static constexpr uint32_t kLayout = D == 64 ? hopper::kSwizzle128B : hopper::kSwizzle64B;
+  static constexpr uint32_t kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle pattern
+
+  // A [rows][D] tile as an operand whose reduction runs over d (K-major):
+  // 8-row groups kAtomBytes apart; k-step kk (16 columns) starts 32 bytes on.
+  static __device__ __forceinline__ uint64_t k_major(const uint8_t* tile, int kk) {
+    return hopper::smem_desc(tile + kk * 32, 16, kAtomBytes, kLayout);
+  }
+  // A [rows][D] tile as the B operand of a product that reduces over its
+  // rows (MN-major, the transpose bit set): N = D fits one swizzle pattern,
+  // 8-row groups kAtomBytes apart; k-step kk starts 16 rows on.
+  static __device__ __forceinline__ uint64_t mn_major(const uint8_t* tile, int kk) {
+    return hopper::smem_desc(tile + kk * 16 * kRowBytes, kAtomBytes, kAtomBytes, kLayout);
+  }
+};
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t{1023});
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Keys per K/V tile of the bf16 forward.
+constexpr int kFwdKeys = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+constexpr size_t fwd_tc_smem() {
+  // align slack, Q [64][D], K and V [2 stages][kFwdKeys][D], 3 barriers,
+  // key flags [2 stages] x kFwdKeys bits
+  return 1024 + (kWgRows + 4 * kFwdKeys) * TcTile<D>::kRowBytes + 3 * 8 + kFwdKeys / 4;
+}
+
+// The accumulator's k-blocks of 16 columns as A fragments, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void to_a_frags(const float (&d)[N], uint32_t (&a)[N / 8][4]) {
+#pragma unroll
+  for (int kb = 0; kb < N / 8; ++kb)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kb][r] = hopper::pack_bf16(d[8 * kb + 2 * r], d[8 * kb + 2 * r + 1]);
+}
+
+// Bit t of word t / 32: key k0 + t exists and is not padding. Called by the
+// first kFwdKeys threads, whole warps; lane 0 of each stores its word.
+__device__ __forceinline__ void key_flags(uint32_t* dst, const uint8_t* mask_row, int s_k,
+                                          int k0) {
+  const int t = threadIdx.x;
+  const int col = k0 + t;
+  const bool ok = col < s_k && (mask_row == nullptr || mask_row[col] != 0);
+  const uint32_t bits = __ballot_sync(0xffffffffu, ok);
+  if (t % 32 == 0) dst[t / 32] = bits;
+}
+
+// Forward: one CTA per (batch * head, 64 query rows). The q tiles run
+// last first, on the slow grid axis, so that under causality the longest
+// CTAs of every head start first and the tail of the grid is short.
+// Scores are kept in log2 units (the scale times log2 e), so that each p
+// is one exp2 on the SFU; lse goes back to natural units at the end.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const uint8_t* __restrict__ kv_mask, __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int s_q, int s_k, int h, int h_kv, int causal,
+                       int has_band, int band, float scale) {
+  using T = TcTile<D>;
+  constexpr int kN = kFwdKeys;
+  constexpr uint32_t kKvBytes = kN * T::kRowBytes;  // one K or V tile
+  constexpr int kWords = kN / 32;                   // key-flag words per tile
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;
+  const int b = blockIdx.x / h, head = blockIdx.x % h;
+  const int hk = head / (h / h_kv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = q0 + warp * 16 + lane / 4;      // this thread's rows r0 and r0 + 8
+  const int c0 = 2 * (lane % 4);                 // and columns 8j + c0 + {0, 1}
+  const float scale2 = scale * kLog2e;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align_1024(smem_raw);            // [64][D]
+  uint8_t* sk = sq + T::kBytes;                  // [2][kN][D]
+  uint8_t* sv = sk + 2 * kKvBytes;               // [2][kN][D]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sv + 2 * kKvBytes);  // q, stage 0, stage 1
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(bar + 3);          // [2 stages][kWords]
+  const uint8_t* mask_row = kv_mask == nullptr ? nullptr : kv_mask + static_cast<int64_t>(b) * s_k;
+
+  // k tiles: k_tile_range (first row for the band, last row for
+  // causality), in tiles of kN keys
+  int kt_begin = 0, kt_end = (s_k + kN - 1) / kN;
+  if (causal) kt_end = min(kt_end, (q0 + kWgRows - 1) / kN + 1);
+  if (has_band) kt_begin = max(0, q0 - band + 1) / kN;
+  const int n = max(0, kt_end - kt_begin);
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::fence_barrier_init();
+  }
+  if (tid < kN && n > 0) key_flags(kbits, mask_row, s_k, kt_begin * kN);
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bar[0], T::kBytes);
+    hopper::tma_load_4d(sq, &tm_q, &bar[0], 0, head, q0, b);
+    if (n > 0) {
+      hopper::mbar_expect_tx(&bar[1], 2 * kKvBytes);
+      hopper::tma_load_4d(sk, &tm_k, &bar[1], 0, hk, kt_begin * kN, b);
+      hopper::tma_load_4d(sv, &tm_v, &bar[1], 0, hk, kt_begin * kN, b);
+    }
+  }
+  __syncwarp();
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // m in log2 units
+  hopper::mbar_wait(&bar[0], 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int stage = it & 1;
+    const int k0 = (kt_begin + it) * kN;
+    if (tid == 0 && it + 1 < n) {  // the next tile into the other stage, freed last iteration
+      uint64_t* nb = &bar[1 + (stage ^ 1)];
+      hopper::mbar_expect_tx(nb, 2 * kKvBytes);
+      hopper::tma_load_4d(sk + (stage ^ 1) * kKvBytes, &tm_k, nb, 0, hk, k0 + kN, b);
+      hopper::tma_load_4d(sv + (stage ^ 1) * kKvBytes, &tm_v, nb, 0, hk, k0 + kN, b);
+    }
+    __syncwarp();
+    if (tid < kN && it + 1 < n) key_flags(kbits + kWords * (stage ^ 1), mask_row, s_k, k0 + kN);
+    hopper::mbar_wait(&bar[1 + stage], (it >> 1) & 1);
+    const uint8_t* k_tile = sk + stage * kKvBytes;
+    const uint8_t* v_tile = sv + stage * kKvBytes;
+
+    float s[kN / 2];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) s[i] = 0.f;
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss(s, T::k_major(sq, kk), T::k_major(k_tile, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    // Masks only where the tile needs them: a key that is padding or
+    // past s_k, the diagonal, the band's edge.
+    uint32_t keys[kWords];
+    bool all_keys = true;
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      keys[w] = kbits[kWords * stage + w];
+      all_keys = all_keys && keys[w] == ~0u;
+    }
+    const bool pos_mask = (causal && k0 + kN - 1 > q0) ||
+                          (has_band && k0 <= q0 + kWgRows - 1 - band);
+    const bool need_mask = pos_mask || !all_keys;
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = 8 * j + c0 + e;  // in word j / 4, bit t % 32
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float& x = s[4 * j + 2 * i + e];
+          const bool ok = !need_mask ||
+                          (((keys[j / 4] >> (t % 32)) & 1) != 0 &&
+                           (!pos_mask || visible(r0 + 8 * i, k0 + t, causal, has_band, band)));
+          x = ok ? x * scale2 : kMasked;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      corr[i] = hopper::exp2_approx(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * i + e];
+          x = x > kMaskGuard ? hopper::exp2_approx(x - m[i]) : 0.f;
+          sum[i] += x;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = corr[i] * l[i] + quad_sum(sum[i]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[4 * j + 2 * i] *= corr[i];
+        o[4 * j + 2 * i + 1] *= corr[i];
+      }
+
+    uint32_t p[kN / 16][4];
+    to_a_frags(s, p);
+    hopper::fence_regs(o);
+    hopper::fence_frags(p);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < kN / 16; ++kb) hopper::wgmma_rs(o, p[kb], T::mn_major(v_tile, kb));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const int64_t qs = static_cast<int64_t>(h) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= s_q) continue;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    __nv_bfloat16* orow = out + (static_cast<int64_t>(b) * s_q + row) * qs + head * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + c0) =
+          hopper::pack_bf16(o[4 * j + 2 * i] / l_safe, o[4 * j + 2 * i + 1] / l_safe);
+    }
+    // A row that saw no key keeps m = -1e30 and l = 0: lse = -1e30 exactly.
+    if (lane % 4 == 0)
+      lse[(static_cast<int64_t>(b) * h + head) * s_q + row] =
+          m[i] == kMasked ? kMasked : (m[i] + log2f(l_safe)) * kLn2;
+  }
+}
+
+template <int D>
+constexpr size_t dkdv_tc_smem() {
+  // align slack, K and V [64][D], Q and dO [2 stages][64][D], lse and
+  // delta [2 stages][64] fp32, 3 barriers
+  return 1024 + 6 * TcTile<D>::kBytes + 4 * kWgRows * 4 + 64;
+}
+
+// dK/dV: one CTA per (batch * kv head, 64 keys), walking (group
+// member, visible q tile) pairs; k tiles on the slow grid axis, first
+// first (under causality the longest). Accumulator rows are keys, columns
+// queries.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_dkdv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const uint8_t* __restrict__ kv_mask, __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int s_q, int s_k, int h, int h_kv,
+                        int causal, int has_band, int band, float scale) {
+  using T = TcTile<D>;
+  const int k0 = blockIdx.y * kWgRows;
+  const int b = blockIdx.x / h_kv, hk = blockIdx.x % h_kv;
+  const int group = h / h_kv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kr0 = k0 + warp * 16 + lane / 4;     // this thread's keys kr0 and kr0 + 8
+  const int c0 = 2 * (lane % 4);                 // and query columns 8j + c0 + {0, 1}
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sk = align_1024(smem_raw);            // [64][D]
+  uint8_t* sv = sk + T::kBytes;                  // [64][D]
+  uint8_t* sq = sv + T::kBytes;                  // [2][64][D]
+  uint8_t* sdo = sq + 2 * T::kBytes;             // [2][64][D]
+  float* s_lse = reinterpret_cast<float*>(sdo + 2 * T::kBytes);  // [2][64]
+  float* s_delta = s_lse + 2 * kWgRows;                          // [2][64]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_delta + 2 * kWgRows);  // k/v, stage 0, stage 1
+
+  // The q tiles that can see the CTA's keys (as the CUDA-core kernel): a
+  // band of 0 or less may leave none.
+  const int nq = (s_q + kTile - 1) / kTile;
+  const int qt_begin = causal ? k0 / kTile : 0;
+  int qt_end = nq;
+  if (has_band) {
+    const int hi = k0 + kWgRows - 2 + band;
+    qt_end = hi < 0 ? 0 : min(nq, hi / kTile + 1);
+  }
+  const int nqt = max(0, qt_end - qt_begin);
+  const int npairs = group * nqt;
+
+  // Pair p: query head hk * group + p / nqt, q tile qt_begin + p % nqt.
+  auto fetch = [&](int p, int slot) {
+    const int head = hk * group + p / nqt, q0 = (qt_begin + p % nqt) * kTile;
+    if (tid == 0) {
+      hopper::mbar_expect_tx(&bar[1 + slot], 2 * T::kBytes);
+      hopper::tma_load_4d(sq + slot * T::kBytes, &tm_q, &bar[1 + slot], 0, head, q0, b);
+      hopper::tma_load_4d(sdo + slot * T::kBytes, &tm_do, &bar[1 + slot], 0, head, q0, b);
+    }
+    __syncwarp();
+    const int r = tid % kWgRows;
+    const int64_t off = (static_cast<int64_t>(b) * h + head) * s_q + q0 + r;
+    const bool in = q0 + r < s_q;
+    if (tid < kWgRows) {
+      s_lse[slot * kWgRows + r] = in ? lse[off] : 0.f;
+    } else {
+      s_delta[slot * kWgRows + r] = in ? delta[off] : 0.f;
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bar[0], 2 * T::kBytes);
+    hopper::tma_load_4d(sk, &tm_k, &bar[0], 0, hk, k0, b);
+    hopper::tma_load_4d(sv, &tm_v, &bar[0], 0, hk, k0, b);
+  }
+  __syncwarp();
+  if (npairs > 0) fetch(0, 0);
+
+  bool key_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kr0 + 8 * i;
+    key_ok[i] = key < s_k && (kv_mask == nullptr || kv_mask[static_cast<int64_t>(b) * s_k + key] != 0);
+  }
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  __syncthreads();  // pair 0's lse and delta
+  hopper::mbar_wait(&bar[0], 0);
+
+  for (int p = 0; p < npairs; ++p) {
+    const int stage = p & 1;
+    const int q0 = (qt_begin + p % nqt) * kTile;
+    if (p + 1 < npairs) fetch(p + 1, stage ^ 1);  // into the stage freed last iteration
+    hopper::mbar_wait(&bar[1 + stage], (p >> 1) & 1);
+    const uint8_t* q_tile = sq + stage * T::kBytes;
+    const uint8_t* do_tile = sdo + stage * T::kBytes;
+
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss(st, T::k_major(sk, kk), T::k_major(q_tile, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss(dpt, T::k_major(sv, kk), T::k_major(do_tile, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
+    const bool need_mask = q0 + kTile > s_q || (causal && k0 + kWgRows - 1 > q0) ||
+                           (has_band && k0 <= q0 + kTile - 1 - band);
+    const float* lse_t = s_lse + stage * kWgRows;
+    const float* delta_t = s_delta + stage * kWgRows;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + c0 + e, row = q0 + c;
+        const float row_lse = lse_t[c], row_delta = delta_t[c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int idx = 4 * j + 2 * i + e;
+          const bool ok = key_ok[i] && (!need_mask || (row < s_q &&
+                                        visible(row, kr0 + 8 * i, causal, has_band, band)));
+          const float sv_ = ok ? st[idx] * scale : kMasked;
+          const float pv = sv_ > kMaskGuard ? __expf(sv_ - row_lse) : 0.f;
+          st[idx] = pv;
+          dpt[idx] = pv * (dpt[idx] - row_delta) * scale;
+        }
+      }
+    uint32_t pa[4][4], dsa[4][4];
+    to_a_frags(st, pa);
+    to_a_frags(dpt, dsa);
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    hopper::fence_frags(pa);
+    hopper::fence_frags(dsa);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) hopper::wgmma_rs(dv_acc, pa[kb], T::mn_major(do_tile, kb));
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) hopper::wgmma_rs(dk_acc, dsa[kb], T::mn_major(q_tile, kb));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    __syncthreads();  // this stage's tiles and rows are free, the next pair's rows are in
+  }
+
+  const int64_t ks = static_cast<int64_t>(h_kv) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kr0 + 8 * i;
+    if (key >= s_k) continue;
+    const int64_t off = (static_cast<int64_t>(b) * s_k + key) * ks + hk * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + c0) =
+          hopper::pack_bf16(dk_acc[4 * j + 2 * i], dk_acc[4 * j + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + c0) =
+          hopper::pack_bf16(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 
 template <typename K>
@@ -553,6 +1013,48 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const uint8_t* mask,
+                          void* out, float* lse, int b, int s_q, int s_k, int h, int h_kv,
+                          int causal, int has_band, int band, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = hopper_host::encode_rows(&tq, q, b, s_q, h, D, kWgRows);
+  if (e == cudaSuccess) e = hopper_host::encode_rows(&tk, k, b, s_k, h_kv, D, kFwdKeys);
+  if (e == cudaSuccess) e = hopper_host::encode_rows(&tv, v, b, s_k, h_kv, D, kFwdKeys);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_fwd_kernel_wgmma<D>;
+  const size_t smem = fwd_tc_smem<D>();
+  e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(b * h, (s_q + kWgRows - 1) / kWgRows);
+  kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, mask, static_cast<__nv_bfloat16*>(out), lse,
+                                      s_q, s_k, h, h_kv, causal, has_band, band, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, const uint8_t* mask, void* dk,
+                           void* dv, int b, int s_q, int s_k, int h, int h_kv, int causal,
+                           int has_band, int band, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e = hopper_host::encode_rows(&tq, q, b, s_q, h, D, kWgRows);
+  if (e == cudaSuccess) e = hopper_host::encode_rows(&tdo, dout, b, s_q, h, D, kWgRows);
+  if (e == cudaSuccess) e = hopper_host::encode_rows(&tk, k, b, s_k, h_kv, D, kWgRows);
+  if (e == cudaSuccess) e = hopper_host::encode_rows(&tv, v, b, s_k, h_kv, D, kWgRows);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_dkdv_kernel_wgmma<D>;
+  const size_t smem = dkdv_tc_smem<D>();
+  e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(b * h_kv, (s_k + kWgRows - 1) / kWgRows);
+  kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, tdo, lse, delta, mask,
+                                      static_cast<__nv_bfloat16*>(dk),
+                                      static_cast<__nv_bfloat16*>(dv), s_q, s_k, h, h_kv, causal,
+                                      has_band, band, scale);
+  return cudaGetLastError();
+}
+
 // Dispatch on (dtype code, head_dim): 0 = float32, 1 = bfloat16; D 32 or 64.
 #define FLASH_DISPATCH(FN, ...)                                                  \
   do {                                                                           \
@@ -560,6 +1062,17 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
     if (dtype == 0 && d == 64) return FN<float, 64>(__VA_ARGS__);                \
     if (dtype == 1 && d == 32) return FN<__nv_bfloat16, 32>(__VA_ARGS__);        \
     if (dtype == 1 && d == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);        \
+    return static_cast<int>(cudaErrorInvalidValue);                              \
+  } while (0)
+
+// fp32 to the CUDA-core loop FN, bf16 to the tensor-core kernel TC; D 32
+// or 64.
+#define FLASH_DISPATCH_TC(FN, TC, ...)                                           \
+  do {                                                                           \
+    if (dtype == 0 && d == 32) return FN<float, 32>(__VA_ARGS__);                \
+    if (dtype == 0 && d == 64) return FN<float, 64>(__VA_ARGS__);                \
+    if (dtype == 1 && d == 32) return TC<32>(__VA_ARGS__);                       \
+    if (dtype == 1 && d == 64) return TC<64>(__VA_ARGS__);                       \
     return static_cast<int>(cudaErrorInvalidValue);                              \
   } while (0)
 
@@ -575,8 +1088,8 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v,
                          float scale, void* stream) {
   if (bad_shape(b, s_q, s_k, h, h_kv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_plain_fwd, q, k, v, kv_mask, out, lse, b, s_q, s_k, h, h_kv, causal,
-                 has_band, band, scale, st);
+  FLASH_DISPATCH_TC(launch_plain_fwd, launch_fwd_tc, q, k, v, kv_mask, out, lse, b, s_q, s_k, h,
+                    h_kv, causal, has_band, band, scale, st);
 }
 
 extern "C" int flash_ring_step(int dtype, const void* q, const void* k, const void* v,
@@ -608,6 +1121,6 @@ extern "C" int flash_dkdv(int dtype, const void* q, const void* k, const void* v
   if (bad_shape(b, s_q, s_k, h, h_kv) || b * h_kv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dkdv, q, k, v, dout, lse, delta, kv_mask, dk, dv, b, s_q, s_k, h,
-                 h_kv, causal, has_band, band, scale, st);
+  FLASH_DISPATCH_TC(launch_dkdv, launch_dkdv_tc, q, k, v, dout, lse, delta, kv_mask, dk, dv, b,
+                    s_q, s_k, h, h_kv, causal, has_band, band, scale, st);
 }

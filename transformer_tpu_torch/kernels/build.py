@@ -7,7 +7,8 @@ first use with
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
 into ``build/kernels/<name>-<hash>/`` at the root of the checkout (listed
-in ``.gitignore``), keyed by a hash of the source and the flags, and
+in ``.gitignore``), keyed by a hash of the source, the ``csrc/*.cuh``
+headers and the flags, and
 loaded with ``ctypes``. No PyTorch headers are involved, so a build takes
 seconds. A failed build raises with the compiler's output. Nothing here
 runs at import time: the CPU tests import every module.
@@ -45,10 +46,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[Path, Path]:
+    """The source and the library it builds to, keyed by the source, every
+    header of ``csrc/`` (a source may include any of them) and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     out_dir = BUILD_DIR / f"{name}-{digest}"
     return src, out_dir / f"lib{name}.so"
 

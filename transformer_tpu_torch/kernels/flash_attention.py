@@ -36,7 +36,8 @@ product with a second operand (P·V, dS·K, Pᵀ·dO, dSᵀ·Q) takes its fp32
 left operand rounded to T. The plain versions do one softmax over the
 whole row where the kernels walk tiles with an online softmax, so in bf16
 they differ by where ``p`` is rounded (the row maximum against running
-maxima).
+maxima); the bf16 forward and dK/dV kernels also sum their products on
+the tensor cores, in another order.
 
 Layouts are the JAX function's: (B, S, H, D) activations, k/v with H_kv
 heads (grouped-query attention, query head ``h`` reads kv head
@@ -62,6 +63,7 @@ _SIGNATURES = {
 }
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)  # the head widths csrc/flash_attention.cu is built for
+TMA_ALIGN = 16  # bytes: a TMA tensor map's base address must be a multiple
 
 
 def check_args(q, k, v, kv_mask=None, causal=False, window=0) -> None:
@@ -261,6 +263,17 @@ def _kernel_args(q, k, v, kv_mask, causal, band, extra=()):
     return q.contiguous(), k.contiguous(), v.contiguous(), mask, dims
 
 
+def _check_tma_aligned(*tensors) -> None:
+    """The bf16 forward and dK/dV kernels read q/k/v/dO through TMA tensor
+    maps, whose base addresses must be TMA_ALIGN-byte aligned."""
+    for t in tensors:
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(
+                f"flash attention: bf16 inputs must start on a {TMA_ALIGN}-byte boundary "
+                f"(TMA), got address {t.data_ptr():#x}"
+            )
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -286,6 +299,8 @@ def flash_fwd(q, k, v, *, kv_mask=None, causal=False, band=None):
     from transformer_tpu_torch.kernels import build
 
     q, k, v, mask, dims = _kernel_args(q, k, v, kv_mask, causal, band)
+    if q.dtype == torch.bfloat16:
+        _check_tma_aligned(q, k, v)
     b, s_q, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
@@ -380,7 +395,8 @@ def flash_dkdv(q, k, v, do, lse, delta, *, kv_mask=None, causal=False, band=None
     Bound by operations (four half-matmuls at causal): one CTA per
     (batch·kv head, k tile) walks (group member, visible q tile) pairs and
     accumulates dK and dV in registers, so the GQA group sums with no write
-    race and no atomics.
+    race and no atomics. bf16 runs the four products on the tensor cores
+    (``wgmma``, Q/dO tiles fed by TMA), fp32 on the CUDA cores.
     """
     if _device_kind(q) == "cpu":
         return flash_dkdv_plain(
@@ -390,6 +406,8 @@ def flash_dkdv(q, k, v, do, lse, delta, *, kv_mask=None, causal=False, band=None
 
     do, lse, delta = _bwd_extra(q, do, lse, delta)
     q, k, v, mask, dims = _kernel_args(q, k, v, kv_mask, causal, band, (do, lse, delta))
+    if q.dtype == torch.bfloat16:
+        _check_tma_aligned(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = build.load("flash_attention", _SIGNATURES)
     status = lib.flash_dkdv(

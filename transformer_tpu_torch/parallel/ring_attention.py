@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from transformer_tpu_torch.kernels.flash_attention import (
+    TMA_ALIGN,
     check_args,
     flash_chunk_bwd,
     flash_ring_step,
@@ -52,12 +53,13 @@ def ring_shift(tensors: list, group: Any, offset: int = 1) -> list:
     dst = dist.get_global_rank(group, (me + offset) % size)
     src = dist.get_global_rank(group, (me - offset) % size)
     device = tensors[0].device
-    # 8-byte aligned segments, so every piece views back as its dtype.
+    # Segments on TMA_ALIGN-byte boundaries, so that every piece views back
+    # as its dtype and k/v views can feed the bf16 kernels' tensor maps.
     parts, sizes = [], []
     for t in tensors:
         raw = t.contiguous().reshape(-1).view(torch.uint8)
         sizes.append(raw.numel())
-        parts += [raw, raw.new_zeros((-raw.numel()) % 8)]
+        parts += [raw, raw.new_zeros((-raw.numel()) % TMA_ALIGN)]
     send = torch.cat(parts)
     stage = device.type == "cuda" and dist.get_backend(group) == "gloo"
     if stage:
@@ -74,7 +76,7 @@ def ring_shift(tensors: list, group: Any, offset: int = 1) -> list:
     out, off = [], 0
     for t, n in zip(tensors, sizes):
         out.append(recv[off : off + n].view(t.dtype).reshape(t.shape))
-        off += n + (-n) % 8
+        off += n + (-n) % TMA_ALIGN
     return out
 
 
