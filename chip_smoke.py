@@ -11,11 +11,20 @@ runs on the CPU). It prints one JSON line per check, in six phases:
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
    ptxas report), and each kernel's count of HGMMA (warpgroup MMA)
-   instructions in its SASS (``cuobjdump -sass``): the bf16 flash forward
-   and dK/dV kernels must have some, every other kernel none;
+   instructions in its SASS (``cuobjdump -sass``): the bf16 flash forward,
+   dQ and dK/dV kernels must have some at head_dim 32 and 64, every other
+   kernel none (the two paged attention kernels included);
 3. kernels: each kernel against its plain PyTorch version on the card at
    long4k shapes, with its time, the plain version's time, one library
-   call's time, and the least time the card could take (bound); the flash
+   call's time, and the least time the card could take (bound). Two
+   timers: ``cuda_ms`` (CUDA events around back-to-back Python calls: for
+   a kernel of a few microseconds that is the host's time per call) for
+   every kernel, and ``cuda_graph_ms`` (the calls captured in one CUDA
+   graph and its replay timed: device time only) for kernels A and B and
+   their library calls, whose share of the bound is taken from it. Kernel
+   B also runs at its split edges (lengths of one split, one split + 1, 1;
+   S_q rows straddling a split's end; a 257-entry table with every length
+   under one split, so most CTAs are empty; int8 and GQA). The flash
    kernels also read two planted faults (the plain versions with a causal
    off-by-one, and the backward ones with the last 10 query rows left
    out) by the same measures, which must clear the limits; the backward
@@ -83,9 +92,9 @@ TOL = {"paged_attention": 2e-2, "fused_ln_ffn": 5e-2, "logits_fp32": 2e-3}
 # fault inside one 64-row tile reads at full size (for the gradients the
 # row norm is floored at 1e-2 of its head's RMS row norm: see grad_rel).
 # bf16 ``out`` differs from the plain version by where p is rounded (running
-# maxima against the row maximum); bf16 dK/dV recompute p from the same lse
-# but sum on the tensor cores, in another order than the plain versions
-# (fp32 dK/dV and dQ of both dtypes sum in the plain versions' order).
+# maxima against the row maximum); bf16 dQ and dK/dV recompute p from the
+# same lse but sum on the tensor cores, in another order than the plain
+# versions (fp32 dQ and dK/dV sum in the plain versions' order).
 FLASH_TOL = {
     "bfloat16": {"out": 2e-2, "grad": 2e-2},
     "float32": {"out": 1e-4, "grad": 1e-4},
@@ -105,6 +114,13 @@ FLASH_REPLACES = {
     "flash_ring_step": "transformer_tpu/kernels/flash_attention.py:298 _ring_step_kernel",
 }
 BUILD_DIR = os.path.join(ROOT, "build")
+# Which timer each time of kernels A and B comes from.
+TIMERS = {
+    "ms": "cuda_ms: CUDA events around back-to-back Python calls (host-paced at these sizes)",
+    "device_ms": "cuda_graph_ms: the calls captured in one CUDA graph, its replay timed",
+    "library_ms": "cuda_ms", "library_device_ms": "cuda_graph_ms",
+    "plain_ms": "cuda_ms", "share_of_bound": "bound_ms / device_ms",
+}
 
 
 def emit(obj) -> None:
@@ -120,8 +136,10 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn()`` in ms: CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
+    """Mean time of ``fn()`` in ms: CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls. Device time while the device
+    is the bottleneck; for a call whose kernels take a few microseconds it
+    is the host's time per call (the device waits between launches)."""
     import torch
 
     for _ in range(warmup):
@@ -135,6 +153,61 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_graph_ms(fn, iters: int = 50, replays: int = 10, warmup: int = 3) -> float:
+    """Device-only time of ``fn()`` in ms: ``iters`` calls captured in one
+    CUDA graph, whose replay is timed with CUDA events (the mean over
+    ``replays`` replays after one untimed), so no host time between
+    launches is in it. Inputs stay where the calls left them (in L2 when
+    they fit), as for ``cuda_ms``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up (build, load) off the capture
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
+
+
+def kernel_us(fn, calls: int = 50) -> dict:
+    """Mean device time per call of each kernel ``fn()`` launches, in us,
+    from ``torch.profiler`` over ``calls`` calls after a warm-up (the
+    profiler times each kernel on the device, whatever the host gaps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out[e.key[:90]] = us / calls
+    return out or "not measured"
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -184,9 +257,10 @@ def short_names(mangled: list[str]) -> dict[str, str]:
 
 def sass_hgmma(names):
     """Each built kernel's count of HGMMA (warpgroup MMA) instructions in
-    its SASS, from ``cuobjdump -sass``. The bf16 flash forward and dK/dV
-    kernels (``*_kernel_wgmma``) must issue some and every other kernel
-    none; without cuobjdump the counts are "not measured"."""
+    its SASS, from ``cuobjdump -sass``. The bf16 flash forward, dQ and
+    dK/dV kernels (``*_kernel_wgmma``) must issue some at head_dim 32 and
+    64, and every other kernel none, the paged attention split and merge
+    kernels included; without cuobjdump the counts are "not measured"."""
     from transformer_tpu_torch.kernels import build
 
     tool = cuda_tool("cuobjdump")
@@ -207,12 +281,17 @@ def sass_hgmma(names):
             elif fn is not None and "HGMMA" in line:
                 counts[fn] += 1
     wgmma = {fn for fn in counts if "_kernel_wgmma" in fn}
-    ok = (any("flash_fwd_kernel_wgmma" in fn for fn in wgmma)
-          and any("flash_dkdv_kernel_wgmma" in fn for fn in wgmma)
+    # Mangled template instantiations: name<D> is "nameILi<D>E".
+    need = [f"{k}_kernel_wgmmaILi{d}E" for k in ("flash_fwd", "flash_dq", "flash_dkdv")
+            for d in (32, 64)]
+    missing = [n for n in need if not any(n in fn and counts[fn] > 0 for fn in counts)]
+    paged = [fn for fn in counts if "paged_split_kernel" in fn or "paged_combine_kernel" in fn]
+    ok = (not missing and bool(paged) and all(counts[fn] == 0 for fn in paged)
           and all((counts[fn] > 0) == (fn in wgmma) for fn in counts))
     pretty = short_names(sorted(counts))
     rec = {"phase": "build", "step": "sass_hgmma", "tool": tool,
-           "hgmma_by_kernel": {pretty[fn]: counts[fn] for fn in sorted(counts)}, "ok": ok}
+           "hgmma_by_kernel": {pretty[fn]: counts[fn] for fn in sorted(counts)},
+           "missing": missing, "paged_kernels": len(paged), "ok": ok}
     emit(rec)
     if not ok:
         raise SystemExit(f"HGMMA counts are not as designed: {rec}")
@@ -282,7 +361,7 @@ def drop_first_block(table, lens, s_q, block=16):
     )
 
 
-def check_paged_attention(label, s_q, h, h_kv, lengths, quant, nmax=None):
+def check_paged_attention(label, s_q, h, h_kv, lengths, quant, nmax=None, profiled=False):
     import torch
     import torch.nn.functional as F
 
@@ -310,6 +389,7 @@ def check_paged_attention(label, s_q, h, h_kv, lengths, quant, nmax=None):
     tol = TOL["paged_attention"]
     ok = bool(torch.isfinite(got).all().item()) and rel <= tol < fault_rel
     ms = cuda_ms(lambda: paged_flash_attention(q, k, v, table, lens, **extra))
+    device_ms = cuda_graph_ms(lambda: paged_flash_attention(q, k, v, table, lens, **extra))
     plain_ms = cuda_ms(lambda: paged_flash_attention_plain(q, k, v, table, lens, **extra), iters=10)
     # Library yardstick: one SDPA call over the gathered (dequantised) view,
     # prepared outside the timed region.
@@ -323,9 +403,11 @@ def check_paged_attention(label, s_q, h, h_kv, lengths, quant, nmax=None):
     mask = (torch.arange(L, device="cuda")[None, None, :] <= q_pos[:, :, None])[:, None]
     qt, kt, vt = q.transpose(1, 2), kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
     gqa = {"enable_gqa": True} if h != h_kv else {}
-    library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)
-    )
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)
+
+    library_ms = cuda_ms(library)
+    library_device_ms = cuda_graph_ms(library)
     d = q.shape[-1]
     kv_elem = 1 if quant else 2
     rows = sum(lengths)
@@ -344,10 +426,14 @@ def check_paged_attention(label, s_q, h, h_kv, lengths, quant, nmax=None):
         "nmax": int(table.shape[1]), "pool": "int8" if quant else "bfloat16",
         "lengths": lengths, "max_abs_err": err, "max_rel_err": rel,
         "tolerance_rel": tol, "planted_fault_min_rel_err": fault_rel,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_device_ms": library_device_ms, "timers": TIMERS,
         "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-        "share_of_bound": b_ms / ms, "ok": ok,
+        "share_of_bound": b_ms / device_ms, "ok": ok,
     }
+    if profiled:  # the split kernel against the merge
+        rec["device_us_by_kernel"] = kernel_us(
+            lambda: paged_flash_attention(q, k, v, table, lens, **extra))
     emit(rec)
     if not ok:
         raise SystemExit(
@@ -389,6 +475,7 @@ def check_fused_ln_ffn(label, m, activation, norm_scheme, d=512, dff=2048):
     err = (got.float() - want.float()).abs().max().item()
     ok = bool(torch.isfinite(got).all().item()) and err <= TOL["fused_ln_ffn"]
     ms = cuda_ms(lambda: fused_ln_ffn(ln, ffn, x, **kw))
+    device_ms = cuda_graph_ms(lambda: fused_ln_ffn(ln, ffn, x, **kw))
     plain_ms = cuda_ms(lambda: fused_ln_ffn_plain(ln, ffn, x, **kw), iters=20)
     # Library yardstick: the F.layer_norm + F.linear chain.
     w_in_t = ffn["in"]["kernel"].t().contiguous()
@@ -407,6 +494,7 @@ def check_fused_ln_ffn(label, m, activation, norm_scheme, d=512, dff=2048):
         return y if norm_scheme == "pre" else F.layer_norm(y, (d,), ln["scale"], ln["bias"], 1e-6)
 
     library_ms = cuda_ms(library)
+    library_device_ms = cuda_graph_ms(library)
     mats = 3 if gated else 2
     nbytes = 2 * (2 * m * d + mats * d * dff + (mats - 1) * dff + d + 2 * d)
     flops = 2.0 * m * d * dff * mats
@@ -416,9 +504,10 @@ def check_fused_ln_ffn(label, m, activation, norm_scheme, d=512, dff=2048):
         "m": m, "d": d, "dff": dff, "activation": activation,
         "norm_scheme": norm_scheme, "dtype": "bfloat16",
         "max_abs_err": err, "tolerance": TOL["fused_ln_ffn"],
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_device_ms": library_device_ms, "timers": TIMERS,
         "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-        "share_of_bound": b_ms / ms, "ok": ok,
+        "share_of_bound": b_ms / device_ms, "ok": ok,
     }
     emit(rec)
     if not ok:
@@ -1108,7 +1197,15 @@ def decode_profile(export, tok, reqs, steps: int = 20):
         e for e in prof.key_averages()
         if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0
     ]
-    device_ms = sum(dev_us(e) for e in events) / steps / 1e3
+    total_us = sum(dev_us(e) for e in events)
+    device_ms = total_us / steps / 1e3
+    # Kernel B is two kernels since the split: the split and the merge.
+    names = {"paged_attention": ("paged_split_kernel", "paged_combine_kernel"),
+             "fused_ln_ffn": ("fused_ln_ffn_kernel",)}
+    shares = {
+        name: sum(dev_us(e) for e in events if any(k in e.key for k in keys)) / max(total_us, 1)
+        for name, keys in names.items()
+    }
     top = sorted(events, key=dev_us, reverse=True)[:8]
     rec = {
         "phase": "main", "step": "decode_profile", "steps": steps, "slots_busy": 4,
@@ -1116,6 +1213,7 @@ def decode_profile(export, tok, reqs, steps: int = 20):
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms if events else "not measured",
         "device_busy_share": device_ms / wall_ms if events else "not measured",
+        "kernel_share_of_device_time": shares if events else "not measured",
         "top_kernels": [
             {"name": e.key[:80], "ms_per_step": dev_us(e) / steps / 1e3,
              "calls_per_step": e.count / steps}
@@ -1553,9 +1651,23 @@ def main() -> int:
         b_recs.append(check_paged_attention(f"bf16 s_q={s_q}", s_q, 8, 8, spread, False))
         b_recs.append(check_paged_attention(f"int8 s_q={s_q}", s_q, 8, 8, spread, True))
         b_recs.append(check_paged_attention(f"gqa h_kv=2 s_q={s_q}", s_q, 8, 2, spread, False))
+    # The split's edges (128-position splits at 16-token blocks): lengths
+    # of one split, one split + 1 and 1; S_q = 4 rows straddling a split's
+    # end (positions 126-129 and 254-257); a table 257 entries wide with
+    # every length under one split, so most CTAs write empty partials; int8
+    # and GQA at the edges.
+    b_recs += [
+        check_paged_attention("split edges", 1, 8, 8, [128, 129, 1, 127, 256, 257], False),
+        check_paged_attention("split edges s_q=4 straddling", 4, 8, 8, [130, 258, 4, 129], False),
+        check_paged_attention("nmax=257 every length under one split", 1, 8, 8,
+                              [100, 20, 127, 64], False, nmax=257),
+        check_paged_attention("split edges int8", 1, 8, 8, [128, 129, 1, 300], True),
+        check_paged_attention("split edges gqa h_kv=2 s_q=4", 4, 8, 2, [128, 129, 4, 258], False),
+    ]
     # The main path's shape: 4 slots, one decode row, table width 257
     # (serve_max_total 4097 / 16-token blocks), prompt-scale lengths.
-    b_main = check_paged_attention("main path", 1, 8, 8, [1001, 311, 701, 131], False, nmax=257)
+    b_main = check_paged_attention("main path", 1, 8, 8, [1001, 311, 701, 131], False, nmax=257,
+                                   profiled=True)
     a_recs = []
     for m in (1, 8, 64):
         a_recs.append(check_fused_ln_ffn(f"relu post m={m}", m, "relu", "post"))
@@ -1644,9 +1756,11 @@ def main() -> int:
             if name == "paged_attention" else None,
             "tolerance": TOL[name],
             "tolerance_on": "max_rel_err" if name == "paged_attention" else "max_abs_err",
-            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+            "ms": main_rec["ms"], "device_ms": main_rec["device_ms"],
+            "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_us": main_rec["bound_us"],
             "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
+            "library_device_ms": main_rec["library_device_ms"], "timers": TIMERS,
             "share_of_bound": main_rec["share_of_bound"],
         }
 
@@ -1667,6 +1781,7 @@ def main() -> int:
             "bound_ms": f_main["bound_ms"][name], "bound_by": f_main["bound_by"][name],
             "library_ms": f_main["library_ms"][name],
             "share_of_bound": f_main["share_of_bound"][name],
+            "timers": {"ms": "cuda_ms (device-bound at the main shape)", "library_ms": "cuda_ms"},
         }
 
     print(smi, flush=True)
@@ -1694,6 +1809,7 @@ def main() -> int:
             "bound_ms_diagonal": r_diag["bound_ms"], "bound_by_diagonal": r_diag["bound_by"],
             "library_ms": None, "share_of_bound": r_below["share_of_bound"],
             "share_of_bound_diagonal": r_diag["share_of_bound"],
+            "timers": {"ms": "cuda_ms (device-bound at the main shape)"},
         },
     ]})
     emit({"ok": True, "device": {

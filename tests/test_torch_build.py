@@ -4,7 +4,8 @@
 header and the nvcc flags, so an edit to a header that a source includes
 builds a new library instead of loading a stale one. The bf16 flash
 kernels read their tiles through TMA tensor maps, which need 16-byte
-aligned base addresses: the wrappers' check raises on anything else.
+aligned base addresses: the wrappers' check raises on anything else,
+before anything is built or launched.
 """
 
 import shutil
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from transformer_tpu_torch.kernels import build
+from transformer_tpu_torch.kernels import flash_attention as fa
 from transformer_tpu_torch.kernels.flash_attention import _check_tma_aligned
 
 
@@ -64,3 +66,26 @@ def test_tma_inputs_must_be_16_byte_aligned():
     _check_tma_aligned(buf[:256], torch.zeros(3, 5, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="16-byte"):
         _check_tma_aligned(buf[:256], buf[1:257])
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("wrapper", ["flash_dq", "flash_dkdv"])
+def test_bf16_backward_wrappers_refuse_a_misaligned_view(monkeypatch, wrapper, operand):
+    """The bf16 dQ and dK/dV wrappers, routed as for a CUDA tensor, raise
+    the TMA alignment error on a view 2 bytes into its buffer before they
+    build or launch anything."""
+    monkeypatch.setattr(fa, "_device_kind", lambda q: "cuda")
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the wrapper reached the build")
+
+    monkeypatch.setattr(build, "load", no_build)
+    b, s, h, d = 1, 8, 2, 32
+    shape = (b, s, h, d)
+    t = {name: torch.zeros(shape, dtype=torch.bfloat16) for name in ("q", "k", "v", "do")}
+    buf = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16)
+    t[operand] = buf[1:].view(shape)
+    assert t[operand].is_contiguous() and t[operand].data_ptr() % 16
+    lse = torch.zeros((b, h, s), dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        getattr(fa, wrapper)(t["q"], t["k"], t["v"], t["do"], lse, lse.clone(), causal=True)

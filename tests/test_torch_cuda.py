@@ -12,13 +12,14 @@ Tolerances: kernel B fp32 5e-6; bf16/int8/GQA 2e-2 on the largest, over
 (sequence, query row, head), of ||got - want|| / ||want|| across head_dim
 (the online softmax rounds p to bf16 at running maxima, the plain version
 at the row maximum; attention outputs shrink with length, so the limit is
-relative to the row);
+relative to the row), on a fragmented table and on one whose lengths sit
+on the kernel's 128-position split edges;
 kernel A fp32 1e-5 and bf16 3e-2 (the dff contraction is summed in
 another order); decode-forward logits 1e-4 at fp32.
 Flash forward/dQ/dK/dV: fp32 ``out`` and ``lse`` 1e-5 absolute; bf16
 ``out`` 2e-2 on the largest row's ||got - want|| / ||want|| (the kernel
 rounds p to bf16 at running maxima, the plain version at the row maximum;
-bf16 forward and dK/dV sum on the tensor cores, in another order);
+bf16 forward, dQ and dK/dV sum on the tensor cores, in another order);
 gradients 1e-4 (fp32) and 2e-2 (bf16) on the largest, over (batch, row,
 head), of ||got - want|| / ||want|| across head_dim, with ||want|| floored
 at 1e-2 of its head's RMS row norm.
@@ -93,11 +94,43 @@ def _pool_case(dtype, h, h_kv, quant, s_q, block=16, d=64, seed=0):
     return tuple(t.cuda() for t in args), extra
 
 
+def _split_edge_case(dtype, h, h_kv, quant, s_q, block=16, d=64, seed=0):
+    """Lengths on the kernel's 128-position split edges over a table 257
+    entries wide (33 splits, most of them past every length, so most CTAs
+    write empty partials): one split exactly, one split + 1, S_q alone,
+    and 258, whose last S_q = 4 rows straddle the second split's end (as
+    129's do the first's). Blocks scattered over the pool; unused entries
+    on sink block 0."""
+    rng = np.random.default_rng(seed)
+    lengths = [128, 129, s_q, 258]
+    need = [-(-L // block) for L in lengths]
+    blocks = 1 + sum(need)
+    perm = rng.permutation(np.arange(1, blocks)).tolist()
+    table = np.zeros((len(lengths), 257), np.int32)
+    for i, k in enumerate(need):
+        table[i, :k] = [perm.pop() for _ in range(k)]
+    kf = torch.from_numpy(rng.standard_normal((blocks, block, h_kv, d), np.float32))
+    vf = torch.from_numpy(rng.standard_normal((blocks, block, h_kv, d), np.float32))
+    q = torch.from_numpy(rng.standard_normal((len(lengths), s_q, h, d), np.float32)).to(dtype)
+    if quant:
+        k, ks = _quantize_kv(kf)
+        v, vs = _quantize_kv(vf)
+        extra = {"k_scale": ks.cuda(), "v_scale": vs.cuda()}
+    else:
+        k, v, extra = kf.to(dtype), vf.to(dtype), {}
+    args = (q, k, v, torch.from_numpy(table), torch.tensor(lengths, dtype=torch.int32))
+    return tuple(t.cuda() for t in args), extra
+
+
+PAGED_TABLES = {"fragmented": _pool_case, "split_edges": _split_edge_case}
+
+
 @pytest.mark.parametrize("s_q", [1, 4])
 @pytest.mark.parametrize("variant", sorted(B_VARIANTS))
-def test_paged_attention_kernel_matches_plain(cuda, variant, s_q):
+@pytest.mark.parametrize("table", sorted(PAGED_TABLES))
+def test_paged_attention_kernel_matches_plain(cuda, table, variant, s_q):
     dtype, h, h_kv, quant, tol = B_VARIANTS[variant]
-    args, extra = _pool_case(dtype, h, h_kv, quant, s_q)
+    args, extra = PAGED_TABLES[table](dtype, h, h_kv, quant, s_q)
     before = paged_flash_attention.launches
     got = paged_flash_attention(*args, **extra)
     torch.cuda.synchronize()
@@ -210,10 +243,15 @@ FLASH_CASES = {
     "bf16_s63_causal_pad": (torch.bfloat16, 2, 63, 63, 4, 4, 64, True, 0, True),
     "bf16_s129_causal": (torch.bfloat16, 2, 129, 129, 4, 4, 64, True, 0, False),
     "bf16_gqa4_causal_pad": (torch.bfloat16, 2, 200, 200, 8, 2, 64, True, 0, True),
+    # a band of -100 without causality (as a ring hop passes it): rows past
+    # 155 see no key and the last q tile's CTAs have no k tile at all
+    "bf16_band_neg100_pad": (torch.bfloat16, 2, 256, 256, 4, 4, 64, False, -100, True),
 }
 
 
 def _flash_case(name, seed=0):
+    """Inputs of a FLASH_CASES entry; its window is the band (of any sign
+    without causality)."""
     dtype, b, s_q, s_k, h, h_kv, d, causal, window, padded = FLASH_CASES[name]
     rng = np.random.default_rng(seed)
 
@@ -271,6 +309,10 @@ def test_flash_kernels_match_plain(cuda, name):
         assert _rel_per_row(got, want) <= tol, (label, _rel_per_row(got, want))
     if kw["kv_mask"] is not None and kw["causal"]:
         assert torch.all(out[-1, :9] == 0) and torch.all(dq[-1, :9] == 0)
+    # Every row that sees no key: lse -1e30, out and dQ exactly 0.
+    empty = (want_lse <= -1e29).permute(0, 2, 1)  # (B, S_q, H)
+    assert torch.all(lse.permute(0, 2, 1)[empty] == -1e30)
+    assert torch.all(out[empty] == 0) and torch.all(dq[empty] == 0)
 
 
 def test_flash_attention_autograd_runs_the_three_kernels(cuda):

@@ -33,14 +33,15 @@
 // above the diagonal or below the band are skipped structurally; the score
 // tile, P and dS never leave the chip.
 //
-// bf16 flash_fwd and flash_dkdv run on the tensor cores (the bf16 rate is
-// 989 TFLOP/s there, 67 outside), the TPU kernels' bf16 x bf16 -> fp32
-// products taken by `wgmma` (hopper.cuh). A CTA is one warpgroup of 128
-// threads that owns 64 query rows (forward) or 64 keys (dK/dV), several
-// CTAs resident per SM (two warpgroups sharing each streamed tile were
-// slower in both kernels, PERF.md). The tiles that stay (Q in the forward,
-// K and V in dK/dV) arrive once; the ones that stream (K/V in the forward,
-// Q/dO plus the pair's lse/delta in dK/dV) go through a 2-stage ring in
+// bf16 flash_fwd, flash_dq and flash_dkdv run on the tensor cores (the bf16
+// rate is 989 TFLOP/s there, 67 outside), the TPU kernels' bf16 x bf16 ->
+// fp32 products taken by `wgmma` (hopper.cuh). A CTA is one warpgroup of
+// 128 threads that owns 64 query rows (forward, dQ) or 64 keys (dK/dV),
+// several CTAs resident per SM (two warpgroups sharing each streamed tile
+// were slower in the forward and dK/dV, PERF.md). The tiles that stay (Q in
+// the forward, Q and dO in dQ, K and V in dK/dV) arrive once; the ones that
+// stream (K/V in the forward and dQ, Q/dO plus the pair's lse/delta in
+// dK/dV) go through a 2-stage ring in
 // shared memory, filled by TMA from one thread, completion counted on an
 // mbarrier per stage, the next tile in flight while the current one is
 // multiplied. Tiles sit in shared memory in the 128-byte (D 64) or 64-byte
@@ -54,8 +55,11 @@
 // each tile's key flags decides per tile, so only the diagonal, the band's
 // edge, the ragged end and tiles holding padding take the masked path. dK/dV: S^T = K.Q^T and dP^T = V.dO^T from shared memory, P^T and
 // dS^T in registers, then dV += bf16(P^T).dO and dK += bf16(dS^T.scale).Q
-// with A from registers and dO, Q MN-major. The tiles of a CTA are on the
-// slow grid axis, longest first.
+// with A from registers and dO, Q MN-major. dQ: S = Q.K^T and dP = dO.V^T
+// from shared memory, dS = P(dP - delta) rounded to bf16 in registers, then
+// dQ += dS.K with K MN-major, and the scale applied to the fp32 sum once at
+// the end (the TPU kernel's order: dS is rounded before the scale, unlike
+// dK's). The tiles of a CTA are on the slow grid axis, longest first.
 //
 // fp32 stays on CUDA-core loops, on purpose: on the tensor cores fp32 runs
 // as TF32, about three decimal digits, and fp32 is this port's checking
@@ -63,9 +67,9 @@
 // plain versions). Those loops: 64x64 tiles, 256 threads each owning a 4x4
 // block of the score tile and a 4 x D/16 block of the output, operands
 // staged in shared memory as fp32 and read as float4, so each thread does
-// 16 FMAs per two shared loads. flash_dq (both dtypes) and flash_ring_step
-// (both dtypes; its bf16 hop is the old forward loop with the carry) keep
-// those loops too: they are the next kernels to move onto the tensor cores.
+// 16 FMAs per two shared loads. flash_ring_step (both dtypes; its bf16 hop
+// is the old forward loop with the carry) keeps that loop too: it is the
+// next kernel to move onto the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -926,6 +930,167 @@ flash_dkdv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+template <int D>
+constexpr size_t dq_tc_smem() {
+  // align slack, Q and dO [64][D], K and V [2 stages][64][D], 3 barriers,
+  // key flags [2 stages] x 64 bits
+  return 1024 + 6 * TcTile<D>::kBytes + 3 * 8 + kWgRows / 4;
+}
+
+// dQ: one CTA per (batch * head, 64 query rows), walking the visible k
+// tiles (k_tile_range) through the 2-stage ring; q tiles on the slow grid
+// axis, last first, as the forward. Accumulator rows are queries, columns
+// keys (S, dP) or d (dQ).
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      const uint8_t* __restrict__ kv_mask, __nv_bfloat16* __restrict__ dq,
+                      int s_q, int s_k, int h, int h_kv, int causal, int has_band, int band,
+                      float scale) {
+  using T = TcTile<D>;
+  constexpr int kN = kTile;       // keys per K/V tile
+  constexpr int kWords = kN / 32;  // key-flag words per tile
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;
+  const int b = blockIdx.x / h, head = blockIdx.x % h;
+  const int hk = head / (h / h_kv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = q0 + warp * 16 + lane / 4;      // this thread's rows r0 and r0 + 8
+  const int c0 = 2 * (lane % 4);                 // and columns 8j + c0 + {0, 1}
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align_1024(smem_raw);            // [64][D]
+  uint8_t* sdo = sq + T::kBytes;                 // [64][D]
+  uint8_t* sk = sdo + T::kBytes;                 // [2][kN][D]
+  uint8_t* sv = sk + 2 * T::kBytes;              // [2][kN][D]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sv + 2 * T::kBytes);  // q/dO, stage 0, stage 1
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(bar + 3);           // [2 stages][kWords]
+  const uint8_t* mask_row = kv_mask == nullptr ? nullptr : kv_mask + static_cast<int64_t>(b) * s_k;
+
+  int kt_begin, kt_end;
+  k_tile_range(q0, s_k, causal, has_band, band, &kt_begin, &kt_end);
+  const int n = max(0, kt_end - kt_begin);  // 0: a band of 0 or less left no key
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::fence_barrier_init();
+  }
+  if (tid < kN && n > 0) key_flags(kbits, mask_row, s_k, kt_begin * kN);
+  __syncthreads();
+  if (tid == 0 && n > 0) {
+    hopper::mbar_expect_tx(&bar[0], 2 * T::kBytes);
+    hopper::tma_load_4d(sq, &tm_q, &bar[0], 0, head, q0, b);
+    hopper::tma_load_4d(sdo, &tm_do, &bar[0], 0, head, q0, b);
+    hopper::mbar_expect_tx(&bar[1], 2 * T::kBytes);
+    hopper::tma_load_4d(sk, &tm_k, &bar[1], 0, hk, kt_begin * kN, b);
+    hopper::tma_load_4d(sv, &tm_v, &bar[1], 0, hk, kt_begin * kN, b);
+  }
+  __syncwarp();
+
+  // This thread's rows' lse and delta; rows past s_q read 0 and are never
+  // written (their dS touches no other row's dQ).
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    const int64_t off = (static_cast<int64_t>(b) * h + head) * s_q + row;
+    row_lse[i] = row < s_q ? lse[off] : 0.f;
+    row_delta[i] = row < s_q ? delta[off] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (n > 0) hopper::mbar_wait(&bar[0], 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int stage = it & 1;
+    const int k0 = (kt_begin + it) * kN;
+    if (tid == 0 && it + 1 < n) {  // the next tile into the other stage, freed last iteration
+      uint64_t* nb = &bar[1 + (stage ^ 1)];
+      hopper::mbar_expect_tx(nb, 2 * T::kBytes);
+      hopper::tma_load_4d(sk + (stage ^ 1) * T::kBytes, &tm_k, nb, 0, hk, k0 + kN, b);
+      hopper::tma_load_4d(sv + (stage ^ 1) * T::kBytes, &tm_v, nb, 0, hk, k0 + kN, b);
+    }
+    __syncwarp();
+    if (tid < kN && it + 1 < n) key_flags(kbits + kWords * (stage ^ 1), mask_row, s_k, k0 + kN);
+    hopper::mbar_wait(&bar[1 + stage], (it >> 1) & 1);
+    const uint8_t* k_tile = sk + stage * T::kBytes;
+    const uint8_t* v_tile = sv + stage * T::kBytes;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss(s, T::k_major(sq, kk), T::k_major(k_tile, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss(dp, T::k_major(sdo, kk), T::k_major(v_tile, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    // Masks only where the tile needs them (as the forward).
+    uint32_t keys[kWords];
+    bool all_keys = true;
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      keys[w] = kbits[kWords * stage + w];
+      all_keys = all_keys && keys[w] == ~0u;
+    }
+    const bool pos_mask = (causal && k0 + kN - 1 > q0) ||
+                          (has_band && k0 <= q0 + kWgRows - 1 - band);
+    const bool need_mask = pos_mask || !all_keys;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = 8 * j + c0 + e;  // in word j / 4, bit t % 32
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int idx = 4 * j + 2 * i + e;
+          const bool ok = !need_mask ||
+                          (((keys[j / 4] >> (t % 32)) & 1) != 0 &&
+                           (!pos_mask || visible(r0 + 8 * i, k0 + t, causal, has_band, band)));
+          const float sv_ = ok ? s[idx] * scale : kMasked;
+          const float p = sv_ > kMaskGuard ? __expf(sv_ - row_lse[i]) : 0.f;
+          s[idx] = p * (dp[idx] - row_delta[i]);  // dS, rounded to bf16 by to_a_frags
+        }
+      }
+    uint32_t ds[kN / 16][4];
+    to_a_frags(s, ds);
+    hopper::fence_regs(acc);
+    hopper::fence_frags(ds);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < kN / 16; ++kb) hopper::wgmma_rs(acc, ds[kb], T::mn_major(k_tile, kb));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const int64_t qs = static_cast<int64_t>(h) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= s_q) continue;
+    __nv_bfloat16* drow = dq + (static_cast<int64_t>(b) * s_q + row) * qs + head * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(drow + 8 * j + c0) =
+          hopper::pack_bf16(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launchers
 
@@ -1033,6 +1198,28 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const uin
 }
 
 template <int D>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, const uint8_t* mask, void* dq,
+                         int b, int s_q, int s_k, int h, int h_kv, int causal, int has_band,
+                         int band, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e = hopper_host::encode_rows(&tq, q, b, s_q, h, D, kWgRows);
+  if (e == cudaSuccess) e = hopper_host::encode_rows(&tdo, dout, b, s_q, h, D, kWgRows);
+  if (e == cudaSuccess) e = hopper_host::encode_rows(&tk, k, b, s_k, h_kv, D, kTile);
+  if (e == cudaSuccess) e = hopper_host::encode_rows(&tv, v, b, s_k, h_kv, D, kTile);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_dq_kernel_wgmma<D>;
+  const size_t smem = dq_tc_smem<D>();
+  e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(b * h, (s_q + kWgRows - 1) / kWgRows);
+  kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, tdo, lse, delta, mask,
+                                      static_cast<__nv_bfloat16*>(dq), s_q, s_k, h, h_kv, causal,
+                                      has_band, band, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* delta, const uint8_t* mask, void* dk,
                            void* dv, int b, int s_q, int s_k, int h, int h_kv, int causal,
@@ -1109,8 +1296,8 @@ extern "C" int flash_dq(int dtype, const void* q, const void* k, const void* v,
                         void* stream) {
   if (bad_shape(b, s_q, s_k, h, h_kv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, kv_mask, dq, b, s_q, s_k, h, h_kv,
-                 causal, has_band, band, scale, st);
+  FLASH_DISPATCH_TC(launch_dq, launch_dq_tc, q, k, v, dout, lse, delta, kv_mask, dq, b, s_q,
+                    s_k, h, h_kv, causal, has_band, band, scale, st);
 }
 
 extern "C" int flash_dkdv(int dtype, const void* q, const void* k, const void* v,

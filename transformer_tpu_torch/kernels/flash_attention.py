@@ -36,8 +36,8 @@ product with a second operand (P·V, dS·K, Pᵀ·dO, dSᵀ·Q) takes its fp32
 left operand rounded to T. The plain versions do one softmax over the
 whole row where the kernels walk tiles with an online softmax, so in bf16
 they differ by where ``p`` is rounded (the row maximum against running
-maxima); the bf16 forward and dK/dV kernels also sum their products on
-the tensor cores, in another order.
+maxima); the bf16 forward, dQ and dK/dV kernels also sum their products
+on the tensor cores, in another order.
 
 Layouts are the JAX function's: (B, S, H, D) activations, k/v with H_kv
 heads (grouped-query attention, query head ``h`` reads kv head
@@ -264,8 +264,8 @@ def _kernel_args(q, k, v, kv_mask, causal, band, extra=()):
 
 
 def _check_tma_aligned(*tensors) -> None:
-    """The bf16 forward and dK/dV kernels read q/k/v/dO through TMA tensor
-    maps, whose base addresses must be TMA_ALIGN-byte aligned."""
+    """The bf16 forward, dQ and dK/dV kernels read q/k/v/dO through TMA
+    tensor maps, whose base addresses must be TMA_ALIGN-byte aligned."""
     for t in tensors:
         if t.data_ptr() % TMA_ALIGN:
             raise ValueError(
@@ -369,6 +369,8 @@ def flash_dq(q, k, v, do, lse, delta, *, kv_mask=None, causal=False, band=None):
     operations (three half-matmuls at causal): one CTA per (batch·head,
     q tile) walks the visible K/V tiles, recomputes P from ``lse`` and
     accumulates dQ in registers, so dQ is written once, with no atomics.
+    bf16 runs the three products on the tensor cores (``wgmma``, K/V tiles
+    fed by TMA), fp32 on the CUDA cores.
     """
     if _device_kind(q) == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, kv_mask=kv_mask, causal=causal, band=band)
@@ -376,6 +378,8 @@ def flash_dq(q, k, v, do, lse, delta, *, kv_mask=None, causal=False, band=None):
 
     do, lse, delta = _bwd_extra(q, do, lse, delta)
     q, k, v, mask, dims = _kernel_args(q, k, v, kv_mask, causal, band, (do, lse, delta))
+    if q.dtype == torch.bfloat16:
+        _check_tma_aligned(q, k, v, do)
     dq = torch.empty_like(q)
     lib = build.load("flash_attention", _SIGNATURES)
     status = lib.flash_dq(

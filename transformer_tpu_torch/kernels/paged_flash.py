@@ -10,6 +10,7 @@ CPU tensors and as the kernel's reference on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -21,7 +22,37 @@ MASKED = -1e30
 MASK_GUARD = -1e29
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"paged_attention": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P]}
+_SIGNATURES = {"paged_attention": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P]}
+
+# Positions one CTA of the kernel folds, rounded down to whole pool blocks
+# (at least one). At the serving path's 16-token blocks that is 8 blocks:
+# the main path's lengths (1001, 311, 701, 131 over 8 kv heads) then keep
+# 152 CTAs busy on the H100's 132 SMs, where 256 would leave 80 and 64
+# would double the partials the merge reads while leaving two of a CTA's
+# four 32-token warps without work.
+SPLIT_TARGET_TOKENS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How the kernel cuts a table of ``nmax`` entries over the sequence:
+    ``splits`` CTAs per (sequence, kv head), each folding ``split_tokens``
+    consecutive positions into an fp32 partial (m, l, acc) in scratch of
+    the shapes below. Depends on the table's width only, never on the
+    lengths, so the wrapper reads nothing back from the device."""
+
+    split_tokens: int
+    splits: int
+    rows_shape: tuple[int, ...]  # m and l: (N, H_kv, splits, G * S_q)
+    acc_shape: tuple[int, ...]  # acc: (N, H_kv, splits, G * S_q, D)
+
+
+def split_plan(n: int, s_q: int, h: int, h_kv: int, d: int, nmax: int,
+               block_tokens: int) -> SplitPlan:
+    blocks = max(1, SPLIT_TARGET_TOKENS // block_tokens)
+    splits = -(-nmax // blocks)
+    rows = (n, h_kv, splits, (h // h_kv) * s_q)
+    return SplitPlan(blocks * block_tokens, splits, rows, rows + (d,))
 
 
 def _check(q, k_pool, v_pool, k_scale, v_scale):
@@ -98,9 +129,13 @@ def paged_flash_attention(
     paged_flash.py``). On CPU tensors this runs the plain version; on CUDA
     tensors it launches ``csrc/paged_attention.cu`` or raises. Decode
     attention is bound by reading the visible K/V rows from HBM: the kernel
-    runs one CTA per (sequence, kv head) that walks only the table entries
-    below the sequence's length and serves all G query heads of its kv
-    head from one read of each row.
+    splits each sequence over CTAs of ``split_plan(...).split_tokens``
+    positions, each reading only the table entries below the sequence's
+    length, its K/V rows as 16-byte vectors, and serving all G query heads
+    of its kv head from one read of each row; a second kernel merges the
+    CTAs' fp32 partials in split order. A K/V row (``D`` times the pool's
+    element size) must be a multiple of 16 bytes and the pools 16-byte
+    aligned.
     """
     if q.device.type == "cpu":
         return paged_flash_attention_plain(
@@ -132,9 +167,20 @@ def paged_flash_attention(
         raise ValueError("int8 pool scales must be float32")
     n, s_q, h, d = q.shape
     _, block_tokens, h_kv, _ = k_pool.shape
+    if (d * k_pool.element_size()) % 16:
+        raise ValueError(
+            f"paged attention kernel reads K/V rows as 16-byte vectors: head_dim {d} x "
+            f"{k_pool.element_size()} bytes is not a multiple of 16"
+        )
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged attention kernel: the pools must start on a 16-byte boundary")
     q = q.contiguous()
     table = table.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
+    plan = split_plan(n, s_q, h, h_kv, d, table.shape[1], block_tokens)
+    part_m = torch.empty(plan.rows_shape, dtype=torch.float32, device=q.device)
+    part_l = torch.empty(plan.rows_shape, dtype=torch.float32, device=q.device)
+    part_acc = torch.empty(plan.acc_shape, dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     lib = build.load("paged_attention", _SIGNATURES)
 
@@ -143,9 +189,9 @@ def paged_flash_attention(
 
     status = lib.paged_attention(
         codes[q.dtype], ptr(q), ptr(k_pool), ptr(v_pool), ptr(k_scale),
-        ptr(v_scale), ptr(table), ptr(lengths), ptr(out),
-        n, s_q, h, h_kv, d, block_tokens, table.shape[1], d**-0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        ptr(v_scale), ptr(table), ptr(lengths), ptr(part_m), ptr(part_l), ptr(part_acc),
+        ptr(out), n, s_q, h, h_kv, d, block_tokens, table.shape[1], plan.split_tokens,
+        plan.splits, d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(status, "paged_attention")
     paged_flash_attention.launches += 1
