@@ -12,8 +12,9 @@ runs on the CPU). It prints one JSON line per check, in six phases:
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
    ptxas report), and each kernel's count of HGMMA (warpgroup MMA)
    instructions in its SASS (``cuobjdump -sass``): the bf16 flash forward,
-   dQ and dK/dV kernels must have some at head_dim 32 and 64, every other
-   kernel none (the two paged attention kernels included);
+   ring step, dQ and dK/dV kernels must have some at head_dim 32 and 64,
+   every other kernel none (the two paged attention kernels and kernel A,
+   which runs on the CUDA cores, included);
 3. kernels: each kernel against its plain PyTorch version on the card at
    long4k shapes, with its time, the plain version's time, one library
    call's time, and the least time the card could take (bound). Two
@@ -21,7 +22,11 @@ runs on the CPU). It prints one JSON line per check, in six phases:
    a kernel of a few microseconds that is the host's time per call) for
    every kernel, and ``cuda_graph_ms`` (the calls captured in one CUDA
    graph and its replay timed: device time only) for kernels A and B and
-   their library calls, whose share of the bound is taken from it. Kernel
+   their library calls, whose share of the bound is taken from it. Kernel A
+   and its library chain are also timed cold: the graph's calls cycle
+   through 16 copies of the weights, more than the 50 MB L2 holds, and A's
+   share of the bound is taken from that time; A also reads a planted
+   fault (the plain version with one CTA's dff slab of W_out dropped). Kernel
    B also runs at its split edges (lengths of one split, one split + 1, 1;
    S_q rows straddling a split's end; a 257-entry table with every length
    under one split, so most CTAs are empty; int8 and GQA). The flash
@@ -32,7 +37,9 @@ runs on the CPU). It prints one JSON line per check, in six phases:
    cases at the tensor-core kernels' edges (head_dim 32, S 1 / 63 / 129,
    GQA with a group of 4, padding that leaves the first rows no key); the
    ring step reads its own two planted faults (no rescaling of acc when the
-   maximum moves, 10 rows of a tile unfolded); and a ring of 4 is replayed
+   maximum moves, 10 rows of a tile unfolded), and also runs from a fresh
+   carry with a band of -100, where the rows that see no key must keep m =
+   -1e30, l = 0 and acc = 0 bit for bit; and a ring of 4 is replayed
    in one process at the main shape against the whole-sequence kernels;
 4. serving: a long4k-width decoder-only LM (random weights from a seed,
    written as an export) serves JSONL requests through
@@ -120,6 +127,16 @@ TIMERS = {
     "device_ms": "cuda_graph_ms: the calls captured in one CUDA graph, its replay timed",
     "library_ms": "cuda_ms", "library_device_ms": "cuda_graph_ms",
     "plain_ms": "cuda_ms", "share_of_bound": "bound_ms / device_ms",
+}
+# Kernel A is also timed cold: the graph's calls cycle through COLD_COPIES
+# copies of the weights (16 x 4.2 MB at long4k, more than the 50 MB L2), so
+# each call reads its weights from HBM, as a decode step's layers do.
+COLD_COPIES = 16
+TIMERS_A = {
+    **TIMERS,
+    "device_ms_cold": f"cuda_graph_ms, the calls cycling through {COLD_COPIES} weight copies",
+    "library_device_ms_cold": "as device_ms_cold",
+    "share_of_bound": "bound_ms / device_ms_cold", "share_of_bound_warm": "bound_ms / device_ms",
 }
 
 
@@ -257,10 +274,12 @@ def short_names(mangled: list[str]) -> dict[str, str]:
 
 def sass_hgmma(names):
     """Each built kernel's count of HGMMA (warpgroup MMA) instructions in
-    its SASS, from ``cuobjdump -sass``. The bf16 flash forward, dQ and
-    dK/dV kernels (``*_kernel_wgmma``) must issue some at head_dim 32 and
-    64, and every other kernel none, the paged attention split and merge
-    kernels included; without cuobjdump the counts are "not measured"."""
+    its SASS, from ``cuobjdump -sass``. The bf16 flash forward and ring
+    step (``flash_fwd_kernel_wgmma<D, Carry>``), dQ and dK/dV kernels
+    (``*_kernel_wgmma``) must issue some at head_dim 32 and 64, and every
+    other kernel none: the paged attention split and merge kernels and
+    kernel A, whose products run on the CUDA cores, included; without
+    cuobjdump the counts are "not measured"."""
     from transformer_tpu_torch.kernels import build
 
     tool = cuda_tool("cuobjdump")
@@ -281,17 +300,20 @@ def sass_hgmma(names):
             elif fn is not None and "HGMMA" in line:
                 counts[fn] += 1
     wgmma = {fn for fn in counts if "_kernel_wgmma" in fn}
-    # Mangled template instantiations: name<D> is "nameILi<D>E".
-    need = [f"{k}_kernel_wgmmaILi{d}E" for k in ("flash_fwd", "flash_dq", "flash_dkdv")
-            for d in (32, 64)]
+    # Mangled template instantiations: name<D> is "nameILi<D>E", and
+    # flash_fwd_kernel_wgmma<D, Carry> "…ILi<D>ELb<0 or 1>E" (1: the ring step).
+    need = [f"flash_fwd_kernel_wgmmaILi{d}ELb{carry}E" for carry in (0, 1) for d in (32, 64)]
+    need += [f"{k}_kernel_wgmmaILi{d}E" for k in ("flash_dq", "flash_dkdv") for d in (32, 64)]
     missing = [n for n in need if not any(n in fn and counts[fn] > 0 for fn in counts)]
-    paged = [fn for fn in counts if "paged_split_kernel" in fn or "paged_combine_kernel" in fn]
-    ok = (not missing and bool(paged) and all(counts[fn] == 0 for fn in paged)
+    kinds = ("paged_split_kernel", "paged_combine_kernel", "fused_ln_ffn_kernel")
+    cuda_cores = [fn for fn in counts if any(k in fn for k in kinds)]
+    ok = (not missing and all(any(k in fn for fn in cuda_cores) for k in kinds)
+          and all(counts[fn] == 0 for fn in cuda_cores)
           and all((counts[fn] > 0) == (fn in wgmma) for fn in counts))
     pretty = short_names(sorted(counts))
     rec = {"phase": "build", "step": "sass_hgmma", "tool": tool,
            "hgmma_by_kernel": {pretty[fn]: counts[fn] for fn in sorted(counts)},
-           "missing": missing, "paged_kernels": len(paged), "ok": ok}
+           "missing": missing, "cuda_core_kernels_checked": len(cuda_cores), "ok": ok}
     emit(rec)
     if not ok:
         raise SystemExit(f"HGMMA counts are not as designed: {rec}")
@@ -443,13 +465,37 @@ def check_paged_attention(label, s_q, h, h_kv, lengths, quant, nmax=None, profil
     return rec
 
 
+def cycling(fns):
+    """A call of the next of ``fns`` in turn: captured in a CUDA graph,
+    consecutive calls read different copies of their inputs."""
+    state = {"i": 0}
+
+    def call():
+        fns[state["i"] % len(fns)]()
+        state["i"] += 1
+
+    return call
+
+
+def dropped_slab_plain(ln, ffn, x, kw, cols):
+    """The planted fault: the plain version with one CTA's dff slab (the
+    ``cols`` W_out rows in the middle of dff) left out of the second
+    product."""
+    from transformer_tpu_torch.ops.ffn import fused_ln_ffn_plain
+
+    dff = ffn["out"]["kernel"].shape[0]
+    w_out = ffn["out"]["kernel"].clone()
+    w_out[dff // 2:dff // 2 + cols] = 0
+    return fused_ln_ffn_plain(ln, {**ffn, "out": {**ffn["out"], "kernel": w_out}}, x, **kw)
+
+
 def check_fused_ln_ffn(label, m, activation, norm_scheme, d=512, dff=2048):
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from transformer_tpu_torch.config import is_gated
-    from transformer_tpu_torch.ops.ffn import fused_ln_ffn, fused_ln_ffn_plain
+    from transformer_tpu_torch.ops.ffn import fused_ln_ffn, fused_ln_ffn_plain, slab_cols
 
     rng = np.random.default_rng(SEED + m)
     dt = torch.bfloat16
@@ -471,30 +517,56 @@ def check_fused_ln_ffn(label, m, activation, norm_scheme, d=512, dff=2048):
     kw = dict(activation=activation, norm_scheme=norm_scheme, epsilon=1e-6)
     got = fused_ln_ffn(ln, ffn, x, **kw)
     want = fused_ln_ffn_plain(ln, ffn, x, **kw)
+    fault = dropped_slab_plain(ln, ffn, x, kw, slab_cols(dt))
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    ok = bool(torch.isfinite(got).all().item()) and err <= TOL["fused_ln_ffn"]
-    ms = cuda_ms(lambda: fused_ln_ffn(ln, ffn, x, **kw))
-    device_ms = cuda_graph_ms(lambda: fused_ln_ffn(ln, ffn, x, **kw))
-    plain_ms = cuda_ms(lambda: fused_ln_ffn_plain(ln, ffn, x, **kw), iters=20)
+    fault_err = (fault.float() - want.float()).abs().max().item()
+    tol = TOL["fused_ln_ffn"]
+    ok = bool(torch.isfinite(got).all().item()) and err <= tol and fault_err > tol
     # Library yardstick: the F.layer_norm + F.linear chain.
-    w_in_t = ffn["in"]["kernel"].t().contiguous()
-    w_out_t = ffn["out"]["kernel"].t().contiguous()
-    w_gate_t = ffn["gate"]["kernel"].t().contiguous() if gated else None
     act = {
         "relu": F.relu, "gelu": lambda z: F.gelu(z, approximate="tanh"), "silu": F.silu,
         "reglu": F.relu, "geglu": lambda z: F.gelu(z, approximate="tanh"), "swiglu": F.silu,
     }[activation]
 
-    def library():
-        h = F.layer_norm(x, (d,), ln["scale"], ln["bias"], 1e-6) if norm_scheme == "pre" else x
-        u = F.linear(h, w_in_t, ffn["in"]["bias"])
-        z = act(F.linear(h, w_gate_t, ffn["gate"]["bias"])) * u if gated else act(u)
-        y = x + F.linear(z, w_out_t, ffn["out"]["bias"])
-        return y if norm_scheme == "pre" else F.layer_norm(y, (d,), ln["scale"], ln["bias"], 1e-6)
+    def kernel_call(ffn, ln):
+        return lambda: fused_ln_ffn(ln, ffn, x, **kw)
 
+    def library_call(ffn, ln):
+        w_in_t = ffn["in"]["kernel"].t().contiguous()
+        w_out_t = ffn["out"]["kernel"].t().contiguous()
+        w_gate_t = ffn["gate"]["kernel"].t().contiguous() if gated else None
+
+        def library():
+            h = F.layer_norm(x, (d,), ln["scale"], ln["bias"], 1e-6) if norm_scheme == "pre" else x
+            u = F.linear(h, w_in_t, ffn["in"]["bias"])
+            z = act(F.linear(h, w_gate_t, ffn["gate"]["bias"])) * u if gated else act(u)
+            y = x + F.linear(z, w_out_t, ffn["out"]["bias"])
+            if norm_scheme == "pre":
+                return y
+            return F.layer_norm(y, (d,), ln["scale"], ln["bias"], 1e-6)
+
+        return library
+
+    ms = cuda_ms(kernel_call(ffn, ln))
+    device_ms = cuda_graph_ms(kernel_call(ffn, ln))
+    plain_ms = cuda_ms(lambda: fused_ln_ffn_plain(ln, ffn, x, **kw), iters=20)
+    library = library_call(ffn, ln)
     library_ms = cuda_ms(library)
     library_device_ms = cuda_graph_ms(library)
+    # Cold: COLD_COPIES copies of the weights, each call of the graph on the
+    # next copy, so a copy comes round again only after the others have
+    # passed through L2.
+    copies = [
+        ({k: {n: w.clone() for n, w in p.items()} for k, p in ffn.items()},
+         {n: w.clone() for n, w in ln.items()})
+        for _ in range(COLD_COPIES)
+    ]
+    iters = 3 * COLD_COPIES
+    device_ms_cold = cuda_graph_ms(cycling([kernel_call(*c) for c in copies]), iters=iters)
+    library_device_ms_cold = cuda_graph_ms(cycling([library_call(*c) for c in copies]),
+                                           iters=iters)
+    del copies
     mats = 3 if gated else 2
     nbytes = 2 * (2 * m * d + mats * d * dff + (mats - 1) * dff + d + 2 * d)
     flops = 2.0 * m * d * dff * mats
@@ -503,15 +575,22 @@ def check_fused_ln_ffn(label, m, activation, norm_scheme, d=512, dff=2048):
         "phase": "kernels", "kernel": "fused_ln_ffn", "case": label,
         "m": m, "d": d, "dff": dff, "activation": activation,
         "norm_scheme": norm_scheme, "dtype": "bfloat16",
-        "max_abs_err": err, "tolerance": TOL["fused_ln_ffn"],
-        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_device_ms": library_device_ms, "timers": TIMERS,
+        "max_abs_err": err, "tolerance": tol,
+        "planted_fault_dropped_slab": fault_err,
+        "ms": ms, "device_ms": device_ms, "device_ms_cold": device_ms_cold,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_device_ms": library_device_ms,
+        "library_device_ms_cold": library_device_ms_cold, "timers": TIMERS_A,
         "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-        "share_of_bound": b_ms / device_ms, "ok": ok,
+        "share_of_bound": b_ms / device_ms_cold, "share_of_bound_warm": b_ms / device_ms,
+        "ok": ok,
     }
     emit(rec)
     if not ok:
-        raise SystemExit(f"fused_ln_ffn {label}: max abs err {err} (tolerance {TOL['fused_ln_ffn']})")
+        raise SystemExit(
+            f"fused_ln_ffn {label}: max abs err {err}, planted fault {fault_err} "
+            f"(tolerance {tol})"
+        )
     return rec
 
 
@@ -824,12 +903,17 @@ def ring_faults(carry, want, rows=10):
     return {"no_correction": no_corr, "rows_unfolded": (m2, l2, acc2)}
 
 
-def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=False):
+def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=False,
+                    fresh=False):
     """flash_ring_step against flash_ring_step_plain for one hop from the
-    carry an earlier, unmasked hop left. Read per row: the finalised out
-    (||Δ|| / ||want|| across head_dim), lse (absolute), m (absolute) and l
-    (relative); both planted faults must read above the out limit on the
-    worst row."""
+    carry an earlier, unmasked hop left (``fresh``: from the carry a ring
+    starts with, m = MASKED, l = 0, acc = 0). Read per row: the finalised
+    out (||Δ|| / ||want|| across head_dim), lse (absolute), m (absolute)
+    and l (relative); the planted faults must read above the out limit on
+    the worst row (from a fresh carry there is nothing to rescale, so only
+    the unfolded rows are planted). From a fresh carry, every row that sees
+    no key in the hop must come back with m = MASKED, l = 0 and acc = 0
+    exactly."""
     import torch
 
     from transformer_tpu_torch.kernels.flash_attention import (
@@ -841,9 +925,9 @@ def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
     q, k, v, _, mask = flash_inputs(b, c, c, h, h_kv, d, dt, padded)
     _, k0, v0, _, _ = flash_inputs(b, c, c, h, h_kv, d, dt, False, seed=SEED + 1)
-    fresh = (torch.full((b, h, c), MASKED, device="cuda"), torch.zeros((b, h, c), device="cuda"),
+    start = (torch.full((b, h, c), MASKED, device="cuda"), torch.zeros((b, h, c), device="cuda"),
              torch.zeros((b, c, h, d), device="cuda"))
-    carry = flash_ring_step_plain(q, k0, v0, None, *fresh)
+    carry = start if fresh else flash_ring_step_plain(q, k0, v0, None, *start)
     kw = dict(causal=causal, band=band)
     got = [x.clone() for x in carry]
     flash_ring_step(q, k, v, mask, *got, **kw)
@@ -862,15 +946,27 @@ def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=
     faults = {
         name: out_rel(finalise(*f, dt)[0], want_out).max().item()
         for name, f in ring_faults(carry, want).items()
+        if not (fresh and name == "no_correction")
     }
     finite = all(bool(torch.isfinite(x).all().item()) for x in got)
     ok = (finite and readings["out"] <= tol and readings["lse_abs"] <= 1e-4
           and readings["m_abs"] <= 1e-4 and readings["l_rel"] <= tol
           and all(f > tol for f in faults.values()))
+    if fresh:
+        unseen = ~seen  # (B, H, C)
+        sentinel = {
+            "rows_without_a_key": int(unseen.sum().item()),
+            "m_is_masked": bool((got[0][unseen] == MASKED).all().item()),
+            "l_is_zero": bool((got[1][unseen] == 0).all().item()),
+            "acc_is_zero": bool((got[2].permute(0, 2, 1, 3)[unseen] == 0).all().item()),
+        }
+        readings["sentinel"] = sentinel
+        ok = ok and sentinel["rows_without_a_key"] > 0 and all(
+            sentinel[k] for k in ("m_is_masked", "l_is_zero", "acc_is_zero"))
     rec = {
         "phase": "kernels", "kernel": "flash_ring_step", "case": label, "dtype": dtype,
         "b": b, "c": c, "h": h, "h_kv": h_kv, "d": d, "causal": causal, "band": band,
-        "padded": padded, "readings": readings,
+        "padded": padded, "fresh_carry": fresh, "readings": readings,
         "max_abs_err": (got_out.float() - want_out.float()).abs().max().item(),
         "tolerance": {"out_row_rel": tol, "l_row_rel": tol, "lse_abs": 1e-4, "m_abs": 1e-4},
         "planted_faults_worst_row": faults,
@@ -1200,6 +1296,7 @@ def decode_profile(export, tok, reqs, steps: int = 20):
     total_us = sum(dev_us(e) for e in events)
     device_ms = total_us / steps / 1e3
     # Kernel B is two kernels since the split: the split and the merge.
+    # Kernel A is one (its cluster sums and its last stage run inside it).
     names = {"paged_attention": ("paged_split_kernel", "paged_combine_kernel"),
              "fused_ln_ffn": ("fused_ln_ffn_kernel",)}
     shares = {
@@ -1712,7 +1809,9 @@ def main() -> int:
     ]
     # The ring step: the main path's hops (B 4, C 1024 = 4096 / 4, 8 heads
     # of 64, bf16) on and below the diagonal, then fp32 with padding, GQA
-    # with a positive band and with one of 0 or less, and a ragged C.
+    # with a positive band and with one of 0 or less, a ragged C, and the
+    # first hop of a ring (a fresh carry) with a band that leaves rows, and
+    # whole CTAs, no key.
     r_diag = check_ring_step("main path diagonal hop", "bfloat16", 4, 1024, 8, 8, 64, True, None,
                              False, timed=True)
     r_below = check_ring_step("main path hop below the diagonal", "bfloat16", 4, 1024, 8, 8, 64,
@@ -1724,6 +1823,8 @@ def main() -> int:
         check_ring_step("bf16 gqa h_kv=2 band=-100", "bfloat16", 2, 1024, 8, 2, 64, False, -100,
                         True),
         check_ring_step("bf16 ragged c=1000", "bfloat16", 2, 1000, 8, 8, 64, False, None, True),
+        check_ring_step("bf16 fresh carry band=-100", "bfloat16", 2, 1024, 8, 8, 64, False, -100,
+                        True, fresh=True),
         check_ring_step("fp32 d=32 gqa band=0", "float32", 2, 777, 4, 2, 32, False, 0, False),
     ]
     ring_replay()
@@ -1746,6 +1847,8 @@ def main() -> int:
     fp32_ring_check(tok, train_ds)
 
     def summary(name, main_rec, recs, replaces):
+        cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
+                                         "share_of_bound_warm") if k in main_rec}
         return {
             "name": name, "route": "cuda",
             "source": f"transformer_tpu_torch/csrc/{name}.cu",
@@ -1760,8 +1863,8 @@ def main() -> int:
             "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_us": main_rec["bound_us"],
             "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
-            "library_device_ms": main_rec["library_device_ms"], "timers": TIMERS,
-            "share_of_bound": main_rec["share_of_bound"],
+            "library_device_ms": main_rec["library_device_ms"], "timers": main_rec["timers"],
+            "share_of_bound": main_rec["share_of_bound"], **cold,
         }
 
     def flash_summary(name, readings):

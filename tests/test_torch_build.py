@@ -3,9 +3,9 @@
 ``kernels/build.py`` keys each library by its source, every ``csrc/*.cuh``
 header and the nvcc flags, so an edit to a header that a source includes
 builds a new library instead of loading a stale one. The bf16 flash
-kernels read their tiles through TMA tensor maps, which need 16-byte
-aligned base addresses: the wrappers' check raises on anything else,
-before anything is built or launched.
+kernels (forward, ring step, dQ, dK/dV) read their tiles through TMA
+tensor maps, which need 16-byte aligned base addresses: the wrappers'
+check raises on anything else, before anything is built or launched.
 """
 
 import shutil
@@ -89,3 +89,26 @@ def test_bf16_backward_wrappers_refuse_a_misaligned_view(monkeypatch, wrapper, o
     lse = torch.zeros((b, h, s), dtype=torch.float32)
     with pytest.raises(ValueError, match="16-byte"):
         getattr(fa, wrapper)(t["q"], t["k"], t["v"], t["do"], lse, lse.clone(), causal=True)
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+def test_bf16_ring_step_refuses_a_misaligned_view(monkeypatch, operand):
+    """The bf16 ring step runs on the tensor cores with TMA-fed tiles: its
+    wrapper, routed as for a CUDA tensor, raises the alignment error on a
+    view 2 bytes into its buffer before it builds or launches anything."""
+    monkeypatch.setattr(fa, "_device_kind", lambda q: "cuda")
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the wrapper reached the build")
+
+    monkeypatch.setattr(build, "load", no_build)
+    b, c, h, d = 1, 8, 2, 32
+    shape = (b, c, h, d)
+    t = {name: torch.zeros(shape, dtype=torch.bfloat16) for name in ("q", "k", "v")}
+    buf = torch.zeros(b * c * h * d + 1, dtype=torch.bfloat16)
+    t[operand] = buf[1:].view(shape)
+    assert t[operand].is_contiguous() and t[operand].data_ptr() % 16
+    m = torch.full((b, h, c), -1e30)
+    l, acc = torch.zeros((b, h, c)), torch.zeros(shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_ring_step(t["q"], t["k"], t["v"], None, m, l, acc, causal=True)

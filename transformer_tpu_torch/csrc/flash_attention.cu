@@ -33,16 +33,16 @@
 // above the diagonal or below the band are skipped structurally; the score
 // tile, P and dS never leave the chip.
 //
-// bf16 flash_fwd, flash_dq and flash_dkdv run on the tensor cores (the bf16
-// rate is 989 TFLOP/s there, 67 outside), the TPU kernels' bf16 x bf16 ->
-// fp32 products taken by `wgmma` (hopper.cuh). A CTA is one warpgroup of
-// 128 threads that owns 64 query rows (forward, dQ) or 64 keys (dK/dV),
-// several CTAs resident per SM (two warpgroups sharing each streamed tile
-// were slower in the forward and dK/dV, PERF.md). The tiles that stay (Q in
-// the forward, Q and dO in dQ, K and V in dK/dV) arrive once; the ones that
-// stream (K/V in the forward and dQ, Q/dO plus the pair's lse/delta in
-// dK/dV) go through a 2-stage ring in
-// shared memory, filled by TMA from one thread, completion counted on an
+// bf16 flash_fwd, flash_ring_step, flash_dq and flash_dkdv run on the
+// tensor cores (the bf16 rate is 989 TFLOP/s there, 67 outside), the TPU
+// kernels' bf16 x bf16 -> fp32 products taken by `wgmma` (hopper.cuh). A
+// CTA is one warpgroup of 128 threads that owns 64 query rows (forward,
+// ring step, dQ) or 64 keys (dK/dV), several CTAs resident per SM (two
+// warpgroups sharing each streamed tile were slower in the forward and
+// dK/dV, PERF.md). The tiles that stay (Q in the forward, Q and dO in dQ,
+// K and V in dK/dV) arrive once; the ones that stream (K/V in the forward
+// and dQ, Q/dO plus the pair's lse/delta in dK/dV) go through a 2-stage
+// ring in shared memory, filled by TMA from one thread, completion counted on an
 // mbarrier per stage, the next tile in flight while the current one is
 // multiplied. Tiles sit in shared memory in the 128-byte (D 64) or 64-byte
 // (D 32) swizzle that the TMA map and the wgmma descriptors both name.
@@ -53,7 +53,11 @@
 // the register A operand of O += P.V (V read MN-major through the
 // transpose bit). Masks cost nothing where nothing is masked: a ballot of
 // each tile's key flags decides per tile, so only the diagonal, the band's
-// edge, the ragged end and tiles holding padding take the masked path. dK/dV: S^T = K.Q^T and dP^T = V.dO^T from shared memory, P^T and
+// edge, the ragged end and tiles holding padding take the masked path.
+// The ring step is the forward's kernel with its Carry flag set: the
+// (m, l, acc) carry is read before the k-tile loop, acc straight into the
+// accumulator's registers, and written back after it unnormalised.
+// dK/dV: S^T = K.Q^T and dP^T = V.dO^T from shared memory, P^T and
 // dS^T in registers, then dV += bf16(P^T).dO and dK += bf16(dS^T.scale).Q
 // with A from registers and dO, Q MN-major. dQ: S = Q.K^T and dP = dO.V^T
 // from shared memory, dS = P(dP - delta) rounded to bf16 in registers, then
@@ -67,9 +71,8 @@
 // plain versions). Those loops: 64x64 tiles, 256 threads each owning a 4x4
 // block of the score tile and a 4 x D/16 block of the output, operands
 // staged in shared memory as fp32 and read as float4, so each thread does
-// 16 FMAs per two shared loads. flash_ring_step (both dtypes; its bf16 hop
-// is the old forward loop with the carry) keeps that loop too: it is the
-// next kernel to move onto the tensor cores.
+// 16 FMAs per two shared loads. The fp32 ring step is that forward loop
+// with its Carry flag set.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -578,19 +581,29 @@ __device__ __forceinline__ void key_flags(uint32_t* dst, const uint8_t* mask_row
   if (t % 32 == 0) dst[t / 32] = bits;
 }
 
-// Forward: one CTA per (batch * head, 64 query rows). The q tiles run
-// last first, on the slow grid axis, so that under causality the longest
-// CTAs of every head start first and the tail of the grid is short.
+// Forward and ring step: one CTA per (batch * head, 64 query rows). The q
+// tiles run last first, on the slow grid axis, so that under causality the
+// longest CTAs of every head start first and the tail of the grid is short.
 // Scores are kept in log2 units (the scale times log2 e), so that each p
-// is one exp2 on the SFU; lse goes back to natural units at the end.
-template <int D>
+// is one exp2 on the SFU; lse goes back to natural units at the end. The
+// forward (Carry = false) starts each row at (m, l, acc) = (-1e30, 0, 0)
+// and writes out = acc / l and lse; the ring step (Carry = true) reads the
+// carry of its rows first (m in natural units, taken to log2 units; acc
+// straight into the accumulator's registers) and writes it back
+// unnormalised, m in natural units again. The sentinel m = -1e30 maps to
+// kMasked and back exactly, so a row that has still seen no key keeps it
+// bit for bit. Each carry row is read and written by the CTA that owns it,
+// so the in-place update needs no atomics. A ring CTA that sees no k tile
+// returns at once: its carry stays as it is and it issues no TMA.
+template <int D, bool Carry>
 __global__ void __launch_bounds__(128)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const uint8_t* __restrict__ kv_mask, __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, int s_q, int s_k, int h, int h_kv, int causal,
-                       int has_band, int band, float scale) {
+                       float* __restrict__ lse, float* __restrict__ m_io,
+                       float* __restrict__ l_io, float* __restrict__ acc_io, int s_q, int s_k,
+                       int h, int h_kv, int causal, int has_band, int band, float scale) {
   using T = TcTile<D>;
   constexpr int kN = kFwdKeys;
   constexpr uint32_t kKvBytes = kN * T::kRowBytes;  // one K or V tile
@@ -617,6 +630,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   if (causal) kt_end = min(kt_end, (q0 + kWgRows - 1) / kN + 1);
   if (has_band) kt_begin = max(0, q0 - band + 1) / kN;
   const int n = max(0, kt_end - kt_begin);
+  if (Carry && n == 0) return;
 
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
@@ -639,6 +653,25 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // m in log2 units
+  const int64_t qs = static_cast<int64_t>(h) * D;
+  const int64_t stat_row = (static_cast<int64_t>(b) * h + head) * s_q;  // into (B, H, S_q)
+  if (Carry) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 8 * i;
+      if (row >= s_q) continue;
+      const float mi = m_io[stat_row + row];
+      m[i] = mi == kMasked ? kMasked : mi * kLog2e;
+      l[i] = l_io[stat_row + row];
+      const float* arow = acc_io + (static_cast<int64_t>(b) * s_q + row) * qs + head * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float2 a = *reinterpret_cast<const float2*>(arow + 8 * j + c0);
+        o[4 * j + 2 * i] = a.x;
+        o[4 * j + 2 * i + 1] = a.y;
+      }
+    }
+  }
   hopper::mbar_wait(&bar[0], 0);
 
   for (int it = 0; it < n; ++it) {
@@ -736,11 +769,22 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  const int64_t qs = static_cast<int64_t>(h) * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + 8 * i;
     if (row >= s_q) continue;
+    if (Carry) {
+      float* arow = acc_io + (static_cast<int64_t>(b) * s_q + row) * qs + head * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(arow + 8 * j + c0) =
+            make_float2(o[4 * j + 2 * i], o[4 * j + 2 * i + 1]);
+      if (lane % 4 == 0) {
+        m_io[stat_row + row] = m[i] == kMasked ? kMasked : m[i] * kLn2;
+        l_io[stat_row + row] = l[i];
+      }
+      continue;
+    }
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
     __nv_bfloat16* orow = out + (static_cast<int64_t>(b) * s_q + row) * qs + head * D;
 #pragma unroll
@@ -750,8 +794,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
     // A row that saw no key keeps m = -1e30 and l = 0: lse = -1e30 exactly.
     if (lane % 4 == 0)
-      lse[(static_cast<int64_t>(b) * h + head) * s_q + row] =
-          m[i] == kMasked ? kMasked : (m[i] + log2f(l_safe)) * kLn2;
+      lse[stat_row + row] = m[i] == kMasked ? kMasked : (m[i] + log2f(l_safe)) * kLn2;
   }
 }
 
@@ -1178,23 +1221,44 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const uint8_t* mask,
-                          void* out, float* lse, int b, int s_q, int s_k, int h, int h_kv,
-                          int causal, int has_band, int band, float scale, cudaStream_t stream) {
+// As launch_fwd: Carry = false writes out and lse, Carry = true updates
+// m, l and acc in place.
+template <int D, bool Carry>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, const uint8_t* mask,
+                             void* out, float* lse, float* m, float* l, float* acc, int b,
+                             int s_q, int s_k, int h, int h_kv, int causal, int has_band,
+                             int band, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t e = hopper_host::encode_rows(&tq, q, b, s_q, h, D, kWgRows);
   if (e == cudaSuccess) e = hopper_host::encode_rows(&tk, k, b, s_k, h_kv, D, kFwdKeys);
   if (e == cudaSuccess) e = hopper_host::encode_rows(&tv, v, b, s_k, h_kv, D, kFwdKeys);
   if (e != cudaSuccess) return e;
-  auto kernel = flash_fwd_kernel_wgmma<D>;
+  auto kernel = flash_fwd_kernel_wgmma<D, Carry>;
   const size_t smem = fwd_tc_smem<D>();
   e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(b * h, (s_q + kWgRows - 1) / kWgRows);
   kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, mask, static_cast<__nv_bfloat16*>(out), lse,
-                                      s_q, s_k, h, h_kv, causal, has_band, band, scale);
+                                      m, l, acc, s_q, s_k, h, h_kv, causal, has_band, band,
+                                      scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const uint8_t* mask,
+                          void* out, float* lse, int b, int s_q, int s_k, int h, int h_kv,
+                          int causal, int has_band, int band, float scale, cudaStream_t stream) {
+  return launch_fwd_wgmma<D, false>(q, k, v, mask, out, lse, nullptr, nullptr, nullptr, b, s_q,
+                                    s_k, h, h_kv, causal, has_band, band, scale, stream);
+}
+
+template <int D>
+cudaError_t launch_ring_step_tc(const void* q, const void* k, const void* v, const uint8_t* mask,
+                                float* m, float* l, float* acc, int b, int s_q, int s_k, int h,
+                                int h_kv, int causal, int has_band, int band, float scale,
+                                cudaStream_t stream) {
+  return launch_fwd_wgmma<D, true>(q, k, v, mask, nullptr, nullptr, m, l, acc, b, s_q, s_k, h,
+                                   h_kv, causal, has_band, band, scale, stream);
 }
 
 template <int D>
@@ -1242,18 +1306,8 @@ cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-// Dispatch on (dtype code, head_dim): 0 = float32, 1 = bfloat16; D 32 or 64.
-#define FLASH_DISPATCH(FN, ...)                                                  \
-  do {                                                                           \
-    if (dtype == 0 && d == 32) return FN<float, 32>(__VA_ARGS__);                \
-    if (dtype == 0 && d == 64) return FN<float, 64>(__VA_ARGS__);                \
-    if (dtype == 1 && d == 32) return FN<__nv_bfloat16, 32>(__VA_ARGS__);        \
-    if (dtype == 1 && d == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);        \
-    return static_cast<int>(cudaErrorInvalidValue);                              \
-  } while (0)
-
-// fp32 to the CUDA-core loop FN, bf16 to the tensor-core kernel TC; D 32
-// or 64.
+// Dispatch on (dtype code, head_dim): 0 = float32 to the CUDA-core loop
+// FN, 1 = bfloat16 to the tensor-core kernel TC; D 32 or 64.
 #define FLASH_DISPATCH_TC(FN, TC, ...)                                           \
   do {                                                                           \
     if (dtype == 0 && d == 32) return FN<float, 32>(__VA_ARGS__);                \
@@ -1285,8 +1339,8 @@ extern "C" int flash_ring_step(int dtype, const void* q, const void* k, const vo
                                int has_band, int band, float scale, void* stream) {
   if (bad_shape(b, s_q, s_k, h, h_kv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_ring_step, q, k, v, kv_mask, m, l, acc, b, s_q, s_k, h, h_kv, causal,
-                 has_band, band, scale, st);
+  FLASH_DISPATCH_TC(launch_ring_step, launch_ring_step_tc, q, k, v, kv_mask, m, l, acc, b, s_q,
+                    s_k, h, h_kv, causal, has_band, band, scale, st);
 }
 
 extern "C" int flash_dq(int dtype, const void* q, const void* k, const void* v,

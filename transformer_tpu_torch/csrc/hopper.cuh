@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks for the flash attention kernels: mbarriers,
-// TMA tile loads, shared-memory matrix descriptors and warpgroup MMA
-// (wgmma) with bf16 inputs and fp32 accumulators, as inline PTX; and the
-// host-side encoding of a TMA tensor map, reached through the runtime's
-// driver entry point so that the build links no -lcuda.
+// Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
+// tile loads, cp.async, a device-scope acquire-release add, thread block
+// clusters (distributed shared memory), shared-memory matrix descriptors
+// and warpgroup MMA (wgmma) with bf16 inputs and fp32 accumulators, as
+// inline PTX; and the host-side encoding of a TMA tensor map, reached
+// through the runtime's driver entry point so that the build links no
+// -lcuda.
 
 #pragma once
 
@@ -70,6 +72,68 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// --- cp.async ----------------------------------------------------------------
+
+// 16 bytes from global to shared memory without passing through registers
+// (L2 only: the bytes are read once). Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// An add at device scope with release and acquire semantics: what happens
+// before it (in this thread, or before a barrier this thread then passed)
+// is visible to a thread whose add reads the result, and what other
+// threads released before their adds is visible after it (as CUTLASS's
+// GenericBarrier: a CTA barrier, then one thread's release add).
+__device__ __forceinline__ uint32_t atomic_add_acq_rel(uint32_t* p, uint32_t v) {
+  uint32_t old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+// --- thread block clusters ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives and waits; shared and
+// global writes before it are visible to the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of the same shared-memory variable in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // --- wgmma -------------------------------------------------------------------

@@ -36,8 +36,8 @@ product with a second operand (P·V, dS·K, Pᵀ·dO, dSᵀ·Q) takes its fp32
 left operand rounded to T. The plain versions do one softmax over the
 whole row where the kernels walk tiles with an online softmax, so in bf16
 they differ by where ``p`` is rounded (the row maximum against running
-maxima); the bf16 forward, dQ and dK/dV kernels also sum their products
-on the tensor cores, in another order.
+maxima); the bf16 kernels also sum their products on the tensor cores, in
+another order.
 
 Layouts are the JAX function's: (B, S, H, D) activations, k/v with H_kv
 heads (grouped-query attention, query head ``h`` reads kv head
@@ -264,8 +264,9 @@ def _kernel_args(q, k, v, kv_mask, causal, band, extra=()):
 
 
 def _check_tma_aligned(*tensors) -> None:
-    """The bf16 forward, dQ and dK/dV kernels read q/k/v/dO through TMA
-    tensor maps, whose base addresses must be TMA_ALIGN-byte aligned."""
+    """The bf16 forward, ring step, dQ and dK/dV kernels read q/k/v/dO
+    through TMA tensor maps, whose base addresses must be TMA_ALIGN-byte
+    aligned."""
     for t in tensors:
         if t.data_ptr() % TMA_ALIGN:
             raise ValueError(
@@ -323,10 +324,14 @@ def flash_ring_step(q, k, v, kv_mask, m, l, acc, *, causal=False, band=None):
     chunks' local coordinates. CPU tensors run ``flash_ring_step_plain`` and
     copy its result into the carry; CUDA tensors launch
     ``csrc/flash_attention.cu`` ``flash_ring_step`` or raise. The kernel is
-    ``flash_fwd``'s tile loop with the carry's 64 rows read from device
-    memory before it and written back after it by the CTA that owns them.
-    At C 1024 a hop moves the fp32 carry (read and written) beside q/k/v,
-    so it sits near the bytes/operations ridge.
+    ``flash_fwd``'s kernel with its carry flag set: the carry's 64 rows are
+    read from device memory before the k-tile loop and written back after
+    it by the CTA that owns them, so the in-place update needs no atomics.
+    bf16 runs on the tensor cores (``wgmma``, K/V tiles fed by TMA, so q, k
+    and v must start on 16-byte boundaries), with ``m`` taken to log2 units
+    and back and the sentinel ``MASKED`` kept exactly; fp32 on the CUDA
+    cores. At C 1024 a hop moves the fp32 carry (read and written) beside
+    q/k/v, so it sits near the bytes/operations ridge.
     """
     if _device_kind(q) == "cpu":
         new = flash_ring_step_plain(q, k, v, kv_mask, m, l, acc, causal=causal, band=band)
@@ -341,6 +346,11 @@ def flash_ring_step(q, k, v, kv_mask, m, l, acc, *, causal=False, band=None):
             "the ring carry is updated in place: m, l, acc must be contiguous on q's device"
         )
     q, k, v, mask, dims = _kernel_args(q, k, v, kv_mask, causal, band)
+    if q.dtype == torch.bfloat16:
+        _check_tma_aligned(q, k, v)
+        if acc.data_ptr() % 8:
+            raise ValueError("the bf16 ring step stores acc in 8-byte pairs: acc must be "
+                             f"8-byte aligned, got address {acc.data_ptr():#x}")
     lib = build.load("flash_attention", _SIGNATURES)
     status = lib.flash_ring_step(
         _CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(m), _ptr(l), _ptr(acc),

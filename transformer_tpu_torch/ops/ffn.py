@@ -85,11 +85,100 @@ def fused_ln_ffn_plain(
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "fused_ln_ffn_tile_cols": [],
-    "fused_ln_ffn_tile_rows": [],
-    "fused_ln_ffn": [_I] + [_P] * 12 + [_I] * 5 + [_F, _P],
-}
+_SIGNATURES = {"fused_ln_ffn": [_I] + [_P] * 12 + [_I] * 5 + [_F, _P]}
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's tiling (csrc/fused_ln_ffn.cu): each CTA owns a 32-byte slab
+# of dff (16 bf16 or 8 fp32 columns) and 8 rows, CTAs come in clusters of
+# 8, the first product splits d into 64 k-segments.
+SLAB_BYTES = 32
+CLUSTER = 8
+ROW_CHUNK = 8
+MAX_ROWS = 256
+MAX_D = 1024
+D_MULTIPLE = 64
+CP_ASYNC_ALIGN = 16  # bytes: x and the weights are copied to shared memory 16 at a time
+
+
+def slab_cols(dtype: torch.dtype) -> int:
+    """dff columns one CTA owns."""
+    return SLAB_BYTES // torch.empty((), dtype=dtype).element_size()
+
+
+def check_kernel_args(
+    ln_params: Params, ffn_params: Params, x: torch.Tensor, activation: str
+) -> None:
+    """Refuse what the CUDA kernel cannot take, before anything is built or
+    launched: the dtype, the row count M (x's leading axes folded), d and
+    dff against the tiling, the weight shapes, the gate weights (present
+    exactly for a gated activation), devices, and the 16-byte alignment of
+    x's and each weight's start (their copies into shared memory are 16
+    bytes)."""
+    if x.dtype not in _CODES:
+        raise ValueError(f"fused_ln_ffn kernel takes float32 or bfloat16, not {x.dtype}")
+    d = x.shape[-1]
+    m = x.numel() // max(d, 1)
+    if not 1 <= m <= MAX_ROWS:
+        raise ValueError(f"fused_ln_ffn kernel takes 1 to {MAX_ROWS} rows, got {m}")
+    if d % D_MULTIPLE or not D_MULTIPLE <= d <= MAX_D:
+        raise ValueError(
+            f"fused_ln_ffn kernel needs d_model a multiple of {D_MULTIPLE} in "
+            f"[{D_MULTIPLE}, {MAX_D}], got {d}"
+        )
+    dff = ffn_params["in"]["kernel"].shape[-1]
+    cols = slab_cols(x.dtype)
+    if dff % (cols * CLUSTER):
+        raise ValueError(
+            f"fused_ln_ffn kernel needs dff % {cols * CLUSTER} == 0 in {x.dtype} "
+            f"({cols}-column slabs in clusters of {CLUSTER}), got {dff}"
+        )
+    gated = is_gated(activation)
+    if gated != ("gate" in ffn_params):
+        raise ValueError(
+            f"fused_ln_ffn: activation {activation!r} "
+            + ("needs gate weights" if gated else "takes no gate weights")
+        )
+    want = {"in": ((d, dff), (dff,)), "out": ((dff, d), (d,))}
+    if gated:
+        want["gate"] = want["in"]
+    if x.data_ptr() % CP_ASYNC_ALIGN:
+        raise ValueError(
+            f"fused_ln_ffn: x must start on a {CP_ASYNC_ALIGN}-byte boundary, "
+            f"got address {x.data_ptr():#x}"
+        )
+    tensors = [x, ln_params["scale"], ln_params["bias"]]
+    for name, (w_shape, b_shape) in want.items():
+        w, b = ffn_params[name]["kernel"], ffn_params[name]["bias"]
+        if tuple(w.shape) != w_shape or tuple(b.shape) != b_shape:
+            raise ValueError(
+                f"fused_ln_ffn {name} weights {tuple(w.shape)}/{tuple(b.shape)} do not "
+                f"fit d={d}, dff={dff}"
+            )
+        if w.data_ptr() % CP_ASYNC_ALIGN:
+            raise ValueError(
+                f"fused_ln_ffn: the {name} kernel must start on a {CP_ASYNC_ALIGN}-byte "
+                f"boundary, got address {w.data_ptr():#x}"
+            )
+        tensors += [w, b]
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("fused_ln_ffn: every tensor must be on x's device")
+
+
+# Scratch of the kernel, kept per device across calls: the cluster partials
+# (grown when a call needs more) and one last-cluster ticket per row chunk,
+# zeroed once here and left at zero by every launch. Calls on one device
+# share it, so they must run in order on one stream, as the decode step's
+# do.
+_WORKSPACE: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, floats: int) -> tuple[torch.Tensor, torch.Tensor]:
+    partial, tickets = _WORKSPACE.get(device, (None, None))
+    if tickets is None:
+        tickets = torch.zeros((MAX_ROWS // ROW_CHUNK,), dtype=torch.int32, device=device)
+    if partial is None or partial.numel() < floats:
+        partial = torch.empty((floats,), dtype=torch.float32, device=device)
+    _WORKSPACE[device] = (partial, tickets)
+    return partial, tickets
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -111,9 +200,12 @@ def fused_ln_ffn(
     ffn.py``). On a CPU tensor this runs ``fused_ln_ffn_plain``; on a CUDA
     tensor it launches ``csrc/fused_ln_ffn.cu`` or raises. At decode M is
     ``slots * S_q`` rows, so the kernel is bound by reading the weights once
-    (2 * 512 * 2048 * 2 B = 4.2 MB a layer at long4k in bf16): its grid
-    splits dff into 32-column tiles so every weight byte is read by one CTA,
-    and the (M, dff) intermediate stays in shared memory.
+    (2 * 512 * 2048 * 2 B = 4.2 MB a layer at long4k in bf16): one CTA per
+    32-byte slab of dff and 8 rows streams its W_in columns and W_out rows
+    with 16-byte copies, the slabs' contributions are summed in thread
+    block clusters of 8 through distributed shared memory, and the last
+    cluster of a row chunk adds the clusters' partials and applies the
+    residual and LayerNorm, one row per CTA.
     """
     if x.device.type == "cpu":
         return fused_ln_ffn_plain(
@@ -123,47 +215,33 @@ def fused_ln_ffn(
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_ffn runs on cpu or cuda, not {x.device}")
     _check_args(norm_scheme, activation)
-    from transformer_tpu_torch.kernels import build
-
     dtype = x.dtype
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if dtype not in codes:
-        raise ValueError(f"fused_ln_ffn kernel takes float32 or bfloat16, not {dtype}")
-    lead, d = x.shape[:-1], x.shape[-1]
-    xf = x.reshape(-1, d).contiguous()
-    m = xf.shape[0]
-    dff = ffn_params["in"]["kernel"].shape[1]
-    lib = build.load("fused_ln_ffn", _SIGNATURES)
-    cols, rows = lib.fused_ln_ffn_tile_cols(), lib.fused_ln_ffn_tile_rows()
-    if dff % cols:
-        raise ValueError(f"fused_ln_ffn kernel needs dff % {cols} == 0, got {dff}")
 
     def cast(t):
         return t.to(dtype).contiguous()
 
     gated = is_gated(activation)
-    w_in, b_in = cast(ffn_params["in"]["kernel"]), cast(ffn_params["in"]["bias"])
-    w_out, b_out = cast(ffn_params["out"]["kernel"]), cast(ffn_params["out"]["bias"])
-    w_gate = cast(ffn_params["gate"]["kernel"]) if gated else None
-    b_gate = cast(ffn_params["gate"]["bias"]) if gated else None
-    ln_scale, ln_bias = cast(ln_params["scale"]), cast(ln_params["bias"])
-    if w_in.shape != (d, dff) or w_out.shape != (dff, d):
-        raise ValueError(
-            f"fused_ln_ffn weight shapes {tuple(w_in.shape)}/{tuple(w_out.shape)} "
-            f"do not fit d={d}, dff={dff}"
-        )
-    tensors = [xf, w_in, b_in, w_out, b_out, ln_scale, ln_bias]
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("fused_ln_ffn: every tensor must be on x's device")
+    ffn = {name: {k: cast(v) for k, v in ffn_params[name].items()}
+           for name in ("in", "out", "gate") if name in ffn_params}
+    ln = {k: cast(ln_params[k]) for k in ("scale", "bias")}
+    lead, d = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, d).contiguous()
+    if xf.data_ptr() % CP_ASYNC_ALIGN:
+        xf = xf.clone()  # a view into a buffer: a fresh allocation is aligned
+    check_kernel_args(ln, ffn, xf, activation)
+    from transformer_tpu_torch.kernels import build
+
+    m, dff = xf.shape[0], ffn["in"]["kernel"].shape[1]
+    lib = build.load("fused_ln_ffn", _SIGNATURES)
     out = torch.empty_like(xf)
-    partial = torch.empty((dff // cols, m, d), dtype=torch.float32, device=x.device)
-    tickets = torch.zeros((-(-m // rows),), dtype=torch.int32, device=x.device)
+    partial, tickets = _workspace(x.device, dff // (slab_cols(dtype) * CLUSTER) * m * d)
+    gate = ffn["gate"] if gated else {"kernel": None, "bias": None}
     status = lib.fused_ln_ffn(
-        codes[dtype], _ptr(xf), _ptr(w_in), _ptr(b_in),
-        _ptr(w_gate), _ptr(b_gate), _ptr(w_out), _ptr(b_out),
-        _ptr(ln_scale), _ptr(ln_bias), _ptr(out), _ptr(partial), _ptr(tickets),
-        m, d, dff, _ACT_CODE[activation], int(norm_scheme == "pre"), epsilon,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _CODES[dtype], _ptr(xf), _ptr(ffn["in"]["kernel"]), _ptr(ffn["in"]["bias"]),
+        _ptr(gate["kernel"]), _ptr(gate["bias"]), _ptr(ffn["out"]["kernel"]),
+        _ptr(ffn["out"]["bias"]), _ptr(ln["scale"]), _ptr(ln["bias"]), _ptr(out),
+        _ptr(partial), _ptr(tickets), m, d, dff, _ACT_CODE[activation],
+        int(norm_scheme == "pre"), epsilon, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(status, "fused_ln_ffn")
     fused_ln_ffn.launches += 1
