@@ -6,7 +6,7 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in six phases:
+runs on the CPU). It prints one JSON line per check, in seven phases:
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -55,7 +55,24 @@ runs on the CPU). It prints one JSON line per check, in six phases:
    train step at full width (2 layers) compares the kernels with their
    plain versions, and a profiled window of train steps shows where a
    step's time goes;
-6. sequence-parallel training: ``torch.distributed.run`` starts four
+6. seq2seq: the flash kernels at the seq2seq shapes (B 64, S 64, 8 x 64:
+   the encoder's non-causal self-attention over ragged key lengths with a
+   row of PAD only, whose rows must come back with out = 0, lse = MASKED
+   and zero gradients exactly; the decoder's causal S 63; the big and tiny
+   presets' encoders), bf16 and fp32, each with a planted fault (the first
+   real key of every sequence taken for padding, where not causal); then
+   ``transformer_tpu_torch.cli.train --preset base --attention_impl flash
+   --sequence_length 64 --epochs 1`` (Transformer-base at full width on the
+   bundled corpus), whose flash counters must equal 12 launches of each
+   kernel a train step, 12 forward launches an eval batch and 6 a
+   translate call of the epilogue's sample translation and BLEU on 200
+   test pairs; a profiled window of its train steps; one fp32 train step
+   (2 + 2 layers) kernels against plain versions; ``cli.translate``
+   greedy and ``--beam 4`` and ``cli.evaluate --limit 200`` on the export
+   (its JSON line printed); greedy and beam-4 tokens with the flash encoder
+   and its plain version at fp32 (2 + 2 layers), which must be identical;
+   and the tiny, big and tied presets for an epoch of 1280 pairs;
+7. sequence-parallel training: ``torch.distributed.run`` starts four
    processes of ``transformer_tpu_torch.cli.distributed_train --preset
    long4k --attention_impl ring --sp 4 --epochs 1`` on this one card (gloo,
    staged through host memory); the counters of the ring step and both
@@ -598,11 +615,13 @@ def check_fused_ln_ffn(label, m, activation, norm_scheme, d=512, dff=2048):
 # phase 3: the flash kernels against their plain versions
 
 
-def flash_inputs(b, s_q, s_k, h, h_kv, d, dtype, padded, seed=SEED):
+def flash_inputs(b, s_q, s_k, h, h_kv, d, dtype, padded, seed=SEED, lengths=None):
     """Random q/k/v/dO and a (B, S_k) key mask: all True, or (``padded``)
     the first sequence's last seventh of keys padding and the last
     sequence's first 33 keys padding, so that under causality its first 33
-    query rows see no key at all."""
+    query rows see no key at all; or, given ``lengths``, the first
+    ``lengths[i]`` keys of sequence i real and the rest padding, as a
+    batch of sentences pads them (a length of 0: a row of PAD only)."""
     import numpy as np
     import torch
 
@@ -613,10 +632,48 @@ def flash_inputs(b, s_q, s_k, h, h_kv, d, dtype, padded, seed=SEED):
 
     q, k, v, do = t(b, s_q, h, d), t(b, s_k, h_kv, d), t(b, s_k, h_kv, d), t(b, s_q, h, d)
     mask = np.ones((b, s_k), bool)
-    if padded:
+    if lengths is not None:
+        mask = np.arange(s_k)[None, :] < np.asarray(lengths)[:, None]
+    elif padded:
         mask[0, s_k - s_k // 7:] = False
         mask[-1, :33] = False
     return q, k, v, do, torch.from_numpy(mask).cuda()
+
+
+def sentence_lengths(b, s, seed=SEED, empty_row=False):
+    """Ragged key lengths of a batch of B sentences padded to S: from 2
+    (a sentence's BOS and EOS) to S, the last row 0 (all PAD) with
+    ``empty_row``. (A sequence of one key has gradients that are 0 up to
+    rounding, which a relative reading cannot judge.)"""
+    import numpy as np
+
+    lengths = np.random.default_rng(seed + 7).integers(2, s + 1, size=b)
+    lengths[0] = s
+    if empty_row:
+        lengths[-1] = 0
+    return lengths
+
+
+def first_key_dropped_plain(q, k, v, do, mask, kw):
+    """The planted fault of the non-causal cases: the plain versions with
+    each sequence's first real key taken for padding, as a key-mask test
+    off by one would give. Returns (out, dq, dk, dv)."""
+    import torch
+
+    from transformer_tpu_torch.kernels.flash_attention import (
+        flash_dkdv_plain,
+        flash_dq_plain,
+        flash_fwd_plain,
+    )
+
+    first = torch.argmax(mask.int(), dim=1)  # each row's first real key (0 if none)
+    dropped = mask.clone()
+    dropped[torch.arange(mask.shape[0], device=mask.device), first] = False
+    kw = dict(kw, kv_mask=dropped)
+    out, lse = flash_fwd_plain(q, k, v, **kw)
+    delta = row_delta(do, out)
+    return (out, flash_dq_plain(q, k, v, do, lse, delta, **kw),
+            *flash_dkdv_plain(q, k, v, do, lse, delta, **kw))
 
 
 def out_rel(got, want):
@@ -718,7 +775,14 @@ def visible_pairs(mask, s_q, causal, band):
     return int(seen.sum().item())
 
 
-def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, timed=False):
+def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, timed=False,
+                lengths=None, device_timed=False):
+    """The three flash kernels against their plain versions on one case,
+    read per (batch, row, head), with the planted faults. Rows that see no
+    key must come back with out = 0, lse = MASKED and dQ = 0 exactly; with
+    ``lengths`` (a batch of padded sentences, non-causal cases reading the
+    first-key-dropped fault) the padding keys' dK and dV must be exactly 0
+    too."""
     import torch
 
     from transformer_tpu_torch.kernels.flash_attention import (
@@ -731,7 +795,7 @@ def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, tim
     )
 
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
-    q, k, v, do, mask = flash_inputs(b, s_q, s_k, h, h_kv, d, dt, padded)
+    q, k, v, do, mask = flash_inputs(b, s_q, s_k, h, h_kv, d, dt, padded, lengths=lengths)
     kw = dict(kv_mask=mask, causal=causal, band=band)
     out, lse = flash_fwd(q, k, v, **kw)
     want_out, want_lse = flash_fwd_plain(q, k, v, **kw)
@@ -745,6 +809,8 @@ def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, tim
     want = {"out": want_out, "dq": want_dq, "dk": want_dk, "dv": want_dv}
     readings = {"out": out_rel(out, want_out).max().item()}
     readings.update({key: grad_rel(got[key], want[key]).max().item() for key in ("dq", "dk", "dv")})
+    worst_batch = {key: int(grad_rel(got[key], want[key]).amax(dim=(1, 2)).argmax().item())
+                   for key in ("dq", "dk", "dv")}
     max_abs = {key: (got[key].float() - want[key].float()).abs().max().item() for key in got}
     seen = want_lse > -1e29
     empty = int((~seen).sum().item())  # (batch, head, row) triples that see no key
@@ -754,10 +820,15 @@ def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, tim
         and torch.all(out.permute(0, 2, 1, 3)[~seen] == 0).item()
         and torch.all(dq.permute(0, 2, 1, 3)[~seen] == 0).item()
     )
+    pad_keys = ~mask  # (B, S_k)
+    padded_keys_exact = bool(
+        torch.all(dk[pad_keys] == 0).item() and torch.all(dv[pad_keys] == 0).item()
+    )
     tol = FLASH_TOL[dtype]
     finite = all(bool(torch.isfinite(t).all().item()) for t in got.values())
     ok = (
         finite and empty_exact and lse_err <= 1e-4
+        and (padded_keys_exact or lengths is None)
         and readings["out"] <= tol["out"]
         and all(readings[key] <= tol["grad"] for key in ("dq", "dk", "dv"))
     )
@@ -765,13 +836,19 @@ def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, tim
         "phase": "kernels", "kernel": "flash_attention", "case": label, "dtype": dtype,
         "b": b, "s_q": s_q, "s_k": s_k, "h": h, "h_kv": h_kv, "d": d, "causal": causal,
         "band": band, "padded": padded, "rows_seeing_no_key": empty,
-        "readings": readings, "max_abs_err": max_abs, "lse_max_abs_err": lse_err,
-        "empty_rows_exact": empty_exact, "tolerance": tol,
+        "key_lengths": None if lengths is None else [int(n) for n in lengths],
+        "readings": readings, "worst_batch": worst_batch, "max_abs_err": max_abs,
+        "lse_max_abs_err": lse_err,
+        "empty_rows_exact": empty_exact, "padding_keys_dk_dv_exact": padded_keys_exact,
+        "tolerance": tol,
     }
-    # A planted fault must read above the limit in every (batch, head): the
-    # worst row of each, at its least over (batch, head).
+    # A planted fault must read above the limit in every (batch, head) of
+    # a sequence that has a key: the worst row of each, at its least over
+    # (batch, head). (A sequence of PAD only has nothing to get wrong.)
+    has_key = mask.any(dim=1)
+
     def worst_row_least_head(fault, key):
-        return grad_rel(fault, want[key]).amax(dim=1).min().item()
+        return grad_rel(fault, want[key]).amax(dim=1)[has_key].min().item()
 
     grads = ("dq", "dk", "dv")
     if causal:
@@ -788,6 +865,20 @@ def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, tim
             pf[f"{key}_worst_row_least_head"] > tol["grad"] for key in grads
         )
         del fault
+    elif lengths is not None:
+        fault = dict(zip(("out", *grads), first_key_dropped_plain(q, k, v, do, mask, kw)))
+        fault_rows = out_rel(fault["out"], want_out)[has_key]
+        rec["planted_key_fault"] = {
+            "out_max_row": fault_rows.max().item(),
+            "out_median_row": fault_rows.median().item(),
+            **{f"{key}_worst_row_least_head": worst_row_least_head(fault[key], key)
+               for key in grads},
+        }
+        pf = rec["planted_key_fault"]
+        ok = ok and pf["out_max_row"] > tol["out"] and all(
+            pf[f"{key}_worst_row_least_head"] > tol["grad"] for key in grads
+        )
+        del fault
     rows_fault = dict(zip(grads, last_rows_dropped_plain(q, k, v, do, want_lse, delta, kw)))
     rec["planted_rows_fault"] = {
         **{f"{key}_worst_row_least_head": worst_row_least_head(rows_fault[key], key)
@@ -800,7 +891,7 @@ def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, tim
     )
     del rows_fault
     if timed:
-        rec.update(time_flash(q, k, v, do, mask, kw, want_lse, delta, dtype))
+        rec.update(time_flash(q, k, v, do, mask, kw, want_lse, delta, dtype, device_timed))
     rec["ok"] = ok
     emit(rec)
     if not ok:
@@ -808,10 +899,13 @@ def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, tim
     return rec
 
 
-def time_flash(q, k, v, do, mask, kw, lse, delta, dtype):
+def time_flash(q, k, v, do, mask, kw, lse, delta, dtype, device_timed=False):
     """Each kernel's time, its plain version's, the library call's (SDPA
     forward; for the two backward kernels, the backward of SDPA, which
-    computes dq, dk and dv together) and the bound from this run's inputs."""
+    computes dq, dk and dv together) and the bound from this run's inputs.
+    With ``device_timed`` (shapes where a call takes microseconds, so that
+    ``cuda_ms`` reads the host's time per call) also each kernel's own
+    device time and the library call's, by ``kernel_us``."""
     import torch
     import torch.nn.functional as F
 
@@ -824,11 +918,12 @@ def time_flash(q, k, v, do, mask, kw, lse, delta, dtype):
         flash_fwd_plain,
     )
 
-    ms = {
-        "flash_fwd": cuda_ms(lambda: flash_fwd(q, k, v, **kw), iters=20),
-        "flash_dq": cuda_ms(lambda: flash_dq(q, k, v, do, lse, delta, **kw), iters=20),
-        "flash_dkdv": cuda_ms(lambda: flash_dkdv(q, k, v, do, lse, delta, **kw), iters=20),
+    calls = {
+        "flash_fwd": lambda: flash_fwd(q, k, v, **kw),
+        "flash_dq": lambda: flash_dq(q, k, v, do, lse, delta, **kw),
+        "flash_dkdv": lambda: flash_dkdv(q, k, v, do, lse, delta, **kw),
     }
+    ms = {name: cuda_ms(fn, iters=20) for name, fn in calls.items()}
     plain_ms = {
         "flash_fwd": cuda_ms(lambda: flash_fwd_plain(q, k, v, **kw), iters=3, warmup=1),
         "flash_dq": cuda_ms(
@@ -839,12 +934,22 @@ def time_flash(q, k, v, do, mask, kw, lse, delta, dtype):
         ),
     }
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    b, s_q, h, d = q.shape
+    # is_causal=True where the key mask is all True (the long4k main path);
+    # otherwise the key mask (ANDed with causality) as a boolean attn_mask.
+    if bool(mask.all().item()) and kw["causal"]:
+        sdpa_kw, library = dict(is_causal=True), "is_causal=True"
+    else:
+        allowed = mask[:, None, None, :]
+        if kw["causal"]:
+            allowed = allowed & torch.ones((s_q, k.shape[1]), dtype=torch.bool,
+                                           device=mask.device).tril()
+        sdpa_kw, library = dict(attn_mask=allowed), "attn_mask=key mask"
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw))
     leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
-    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True))
     library_ms = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd, "flash_dkdv": lib_bwd}
-    b, s_q, h, d = q.shape
     e = q.element_size()
     pairs = visible_pairs(mask, s_q, kw["causal"], kw["band"]) * h
     qb, kvb, rows = q.numel() * e, k.numel() * e, b * h * s_q * 4
@@ -858,9 +963,30 @@ def time_flash(q, k, v, do, mask, kw, lse, delta, dtype):
     flops = {name: 2.0 * n * d * pairs
              for name, n in (("flash_fwd", 2), ("flash_dq", 3), ("flash_dkdv", 4))}
     bounds = {name: bound_ms(nbytes[name], flops[name], dtype) for name in ms}
+    device = {}
+    if device_timed:
+        own = {name: kernel_us(fn) for name, fn in calls.items()}
+        lib = [kernel_us(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)),
+               kernel_us(lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True))]
+        own_ms = {
+            name: sum(us for key, us in own[name].items() if f"{name}_kernel" in key) / 1e3
+            if isinstance(own[name], dict) else 0.0
+            for name in calls
+        }
+        if not all(own_ms.values()) or "not measured" in lib:
+            device = {"device_ms": "not measured", "library_device_ms": "not measured"}
+        else:
+            lib_fwd_ms, lib_bwd_ms = (sum(us.values()) / 1e3 for us in lib)
+            device = {
+                "device_ms": own_ms,
+                "library_device_ms": {"flash_fwd": lib_fwd_ms, "flash_dq": lib_bwd_ms,
+                                      "flash_dkdv": lib_bwd_ms},
+                "share_of_bound_device": {n: bounds[n][0] / own_ms[n] for n in calls},
+            }
     return {
+        **device,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True); "
+        "library": f"torch.nn.functional.scaled_dot_product_attention({library}); "
                    "backward via torch.autograd.grad (dq, dk, dv together)",
         "visible_pairs_per_head": pairs // h, "bytes": nbytes, "flops": flops,
         "bound_ms": {n: v[0] for n, v in bounds.items()},
@@ -1053,6 +1179,8 @@ def ring_replay(b=4, s=4096, h=8, d=64, sp=4):
     torch.cuda.synchronize()
     readings = {"out": out_rel(got["out"], want_out).max().item()}
     readings.update({key: grad_rel(got[key], want[key]).max().item() for key in ("dq", "dk", "dv")})
+    worst_batch = {key: int(grad_rel(got[key], want[key]).amax(dim=(1, 2)).argmax().item())
+                   for key in ("dq", "dk", "dv")}
     readings["lse_abs"] = (torch.cat(lses, 2) - want_lse).abs().max().item()
     tol = FLASH_TOL["bfloat16"]
     ok = (readings["out"] <= tol["out"] and readings["lse_abs"] <= 1e-4
@@ -1085,25 +1213,25 @@ def long4k_config(vocab_size: int, **overrides):
     return ModelConfig(**{**fields, **overrides})
 
 
-def vocab(target_size: int = 2**15):
-    """The port's tokenizer built from data/tgt-train.txt at the CLI's
+def vocab(target_size: int = 2**15, side: str = "tgt"):
+    """The port's tokenizer built from data/{side}-train.txt (``side``
+    "joint": both sides, one id space for tied tables) at the CLI's
     default target size, cached under build/vocab/."""
     from transformer_tpu_torch.data.tokenizer import SubwordTokenizer, iter_lines
 
-    path = os.path.join(BUILD_DIR, "vocab", f"tgt-train-{target_size}.subwords")
+    path = os.path.join(BUILD_DIR, "vocab", f"{side}-train-{target_size}.subwords")
+    files = [os.path.join(ROOT, "data", f"{name}-train.txt")
+             for name in (("src", "tgt") if side == "joint" else (side,))]
     t0 = time.perf_counter()
     if os.path.exists(path):
         tok, built = SubwordTokenizer.load(path), False
     else:
-        tok = SubwordTokenizer.build_from_corpus(
-            iter_lines(os.path.join(ROOT, "data", "tgt-train.txt")),
-            target_vocab_size=target_size,
-        )
+        tok = SubwordTokenizer.build_from_corpus(iter_lines(*files), target_vocab_size=target_size)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tok.save(path)
         built = True
     emit({
-        "phase": "main", "step": "vocab", "target_size": target_size,
+        "phase": "main", "step": "vocab", "side": side, "target_size": target_size,
         "subwords": len(tok.subwords), "model_vocab": tok.model_vocab_size,
         "built": built, "seconds": time.perf_counter() - t0, "path": path,
     })
@@ -1413,67 +1541,83 @@ def fp32_train_check(tok, train_ds, layers: int = 2):
     import torch
 
     from transformer_tpu_torch.config import TrainConfig
-    from transformer_tpu_torch.models.transformer import flatten, init_params, unflatten
-    from transformer_tpu_torch.train.trainer import loss_and_grads
+    from transformer_tpu_torch.models.transformer import init_params
 
     cfg = long4k_config(tok.model_vocab_size, num_layers=layers, dtype="float32")
     tcfg = TrainConfig(batch_size=4, sequence_length=4096)
     params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
     _, tgt = next(iter(train_ds.batches(0)))
     tgt = torch.from_numpy(tgt).to(params["decoder"]["embedding"]["table"].device, torch.long)
+    kernels_vs_plain_step(
+        {"phase": "train", "step": "fp32_train_check", "layers": layers, "batch": 4,
+         "sequence_length": 4096}, cfg, tcfg, params, tgt,
+    )
+
+
+def kernels_vs_plain_step(rec, cfg, tcfg, params, tgt, src=None):
+    """One train step's loss and gradients from ``params`` on one batch,
+    once on the kernels and once on their plain versions, held to
+    TRAIN_TOL; the attention key biases (zero gradient up to rounding) to
+    a fraction of the query biases' gradient instead."""
+    import torch
+
+    from transformer_tpu_torch.models.transformer import flatten, unflatten
+    from transformer_tpu_torch.train.trainer import loss_and_grads
+
     runs = []
     for reference in (False, True):
         p = unflatten({k: v.clone().requires_grad_() for k, v in flatten(params).items()})
-        metrics, grads = loss_and_grads(p, tgt, cfg, tcfg, key=None, reference=reference)
+        metrics, grads = loss_and_grads(p, tgt, cfg, tcfg, key=None, reference=reference,
+                                        src=src)
         runs.append((float(metrics["loss"]), grads))
         del p, metrics, grads
     (loss, got), (want_loss, want) = runs
 
     worst, worst_key = 0.0, None
     for key, g in got.items():
-        if key.endswith("self_mha/key/bias"):
+        if key.endswith("mha/key/bias"):
             continue
         rel = ((g - want[key]).norm() / want[key].norm().clamp_min(1e-30)).item()
         if rel > worst:
             worst, worst_key = rel, key
     key_bias = 0.0
     for key in got:
-        if key.endswith("self_mha/key/bias"):  # zero up to rounding
+        if key.endswith("mha/key/bias"):  # zero up to rounding
             q_key = key.replace("key/bias", "query/bias")
             for grads in (got, want):
                 ratio = (grads[key].norm() / grads[q_key].norm().clamp_min(1e-30)).item()
                 key_bias = max(key_bias, ratio)
     loss_rel = abs(loss - want_loss) / abs(want_loss)
     rec = {
-        "phase": "train", "step": "fp32_train_check", "layers": layers, "batch": 4,
-        "sequence_length": 4096, "loss": loss, "plain_loss": want_loss,
+        **rec, "loss": loss, "plain_loss": want_loss,
         "loss_rel_diff": loss_rel, "grad_worst_rel": worst, "grad_worst_leaf": worst_key,
         "key_bias_grad_ratio": key_bias, "leaves": len(got), "tolerance": TRAIN_TOL,
     }
     emit(rec)
     if not (loss_rel <= TRAIN_TOL["loss_rel"] and worst <= TRAIN_TOL["grad_rel"]
             and key_bias <= TRAIN_TOL["key_bias_ratio"]):
-        raise SystemExit(f"fp32 train check failed: {rec}")
+        raise SystemExit(f"fp32 kernels-vs-plain train step failed: {rec}")
+    return rec
 
 
-def train_profile(trainer, train_ds, steps: int = 3):
-    """Where a long4k train step's time goes: ``steps`` steps on the host
-    clock, then the same number under ``torch.profiler`` for device time
-    by kernel. Device busy share = summed kernel time / unprofiled wall."""
+def train_profile(trainer, train_ds, steps: int = 3, phase: str = "train"):
+    """Where a train step's time goes: ``steps`` steps on the host clock,
+    then the same number under ``torch.profiler`` for device time by
+    kernel. Device busy share = summed kernel time / unprofiled wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    batches = [tgt for _, tgt in train_ds.batches(1)][: 2 * steps + 1]
-    trainer.state, _ = trainer.train_step(trainer.state, None, batches[0])
+    batches = list(train_ds.batches(1))[: 2 * steps + 1]
+    trainer.state, _ = trainer.train_step(trainer.state, *batches[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for tgt in batches[1 : steps + 1]:
-        trainer.state, _ = trainer.train_step(trainer.state, None, tgt)
+    for src, tgt in batches[1 : steps + 1]:
+        trainer.state, _ = trainer.train_step(trainer.state, src, tgt)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for tgt in batches[steps + 1 :]:
-            trainer.state, _ = trainer.train_step(trainer.state, None, tgt)
+        for src, tgt in batches[steps + 1 :]:
+            trainer.state, _ = trainer.train_step(trainer.state, src, tgt)
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -1497,7 +1641,7 @@ def train_profile(trainer, train_ds, steps: int = 3):
         key=lambda e: e.self_cpu_time_total, reverse=True,
     )[:8]
     rec = {
-        "phase": "train", "step": "train_profile", "steps": steps,
+        "phase": phase, "step": "train_profile", "steps": steps,
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms if events else "not measured",
         "device_busy_share": device_ms / wall_ms if events else "not measured",
@@ -1518,7 +1662,7 @@ def train_profile(trainer, train_ds, steps: int = 3):
 
 
 # --------------------------------------------------------------------------
-# phase 6: sequence-parallel training, the main path of the ring
+# phase 7: sequence-parallel training, the main path of the ring
 
 
 def sp_train_path(vocab_path, single, sp: int = 4):
@@ -1695,6 +1839,336 @@ def fp32_ring_check(tok, train_ds, layers: int = 2, sp: int = 4):
 
 
 # --------------------------------------------------------------------------
+# phase 6: seq2seq training, translation and scoring
+
+
+S2S_LEN = 64  # --sequence_length of the seq2seq main path (bench.py's seq)
+
+
+def seq2seq_flash_checks():
+    """The flash kernels at the seq2seq path's shapes, bf16 and fp32: the
+    encoder's self-attention (B 64, S 64, non-causal, ragged key lengths,
+    one row of PAD only), the decoder's (B 64, S 63 after the
+    teacher-forcing shift, causal, padded), and the encoders of the big
+    (16 x 64 at B 32) and tiny (4 x 32) presets. The bf16 encoder and
+    decoder cases are timed."""
+    b, s = 64, S2S_LEN
+    enc = sentence_lengths(b, s, empty_row=True)
+    dec = sentence_lengths(b, s - 1, seed=SEED + 1)
+    recs, timed = [], {}
+    for dtype in ("bfloat16", "float32"):
+        bf16 = dtype == "bfloat16"
+        timed_enc = check_flash("seq2seq encoder", dtype, b, s, s, 8, 8, 64, False, None, True,
+                                timed=bf16, lengths=enc, device_timed=bf16)
+        timed_dec = check_flash("seq2seq decoder", dtype, b, s - 1, s - 1, 8, 8, 64, True, None,
+                                True, timed=bf16, lengths=dec, device_timed=bf16)
+        recs += [
+            timed_enc, timed_dec,
+            check_flash("big encoder", dtype, 32, s, s, 16, 16, 64, False, None, True,
+                        lengths=sentence_lengths(32, s, seed=SEED + 2, empty_row=True)),
+            check_flash("tiny encoder", dtype, b, s, s, 4, 4, 32, False, None, True,
+                        lengths=sentence_lengths(b, s, seed=SEED + 3, empty_row=True)),
+        ]
+        if bf16:
+            timed = {"encoder": timed_enc, "decoder": timed_dec}
+    return recs, timed
+
+
+def flash_counters():
+    from transformer_tpu_torch.kernels.flash_attention import flash_dkdv, flash_dq, flash_fwd
+
+    return flash_fwd, flash_dq, flash_dkdv
+
+
+def read_flash_counters(reset: bool = False) -> dict:
+    out = {fn.__name__: fn.launches for fn in flash_counters()}
+    if reset:
+        for fn in flash_counters():
+            fn.launches = 0
+    return out
+
+
+def seq2seq_train_path(src_vocab, tgt_vocab):
+    """``cli.train --preset base --attention_impl flash --sequence_length
+    64 --epochs 1`` on the bundled corpus: Transformer-base at full width
+    (6 + 6 layers, d 512, 8 heads, dff 2048, bf16, batch 64, dropout 0.1),
+    then the epilogue's sample translation, export and BLEU on 200 test
+    pairs. The flash counters are set to 0 just before and read just
+    after: 12 forward, 12 dQ and 12 dK/dV launches a train step, 12
+    forward launches an eval batch, 6 (the encoder) a translate call."""
+    import statistics
+
+    import torch
+
+    from transformer_tpu_torch.cli import train
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.data.pipeline import load_dataset
+    from transformer_tpu_torch.models.transformer import flatten
+
+    data = os.path.join(ROOT, "data")
+    export = os.path.join(BUILD_DIR, "seq2seq_export")
+    argv = [
+        "--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
+        "--epochs", "1", "--dataset_path", data, "--src_vocab_file", src_vocab,
+        "--tgt_vocab_file", tgt_vocab, "--export_path", export, "--device", "cuda",
+    ]
+    flags = train.resolve_flags(argv)
+    t0 = time.perf_counter()
+    train_ds, test_ds, _, _ = load_dataset(data, src_vocab, tgt_vocab, batch_size=flags.batch_size,
+                                           sequence_length=flags.sequence_length)
+    pairs = {
+        "train_pairs": train_ds.num_examples, "train_batches": len(train_ds),
+        "test_pairs": test_ds.num_examples, "test_batches": len(test_ds),
+        "count_seconds": time.perf_counter() - t0,
+    }
+    logs: list[str] = []
+    torch.cuda.reset_peak_memory_stats()
+    read_flash_counters(reset=True)
+    t0 = time.perf_counter()
+    trainer = train.main(argv, log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_flash_counters()
+    peak = torch.cuda.max_memory_allocated()
+    cfg = trainer.model_cfg
+    steps, evals = len(trainer.step_seconds), trainer.eval_batches
+    bleu_line = next((ln for ln in logs if ln.startswith("test BLEU")), "")
+    match = re.match(r"test BLEU ([-0-9.naif]+) on (\d+) pairs", bleu_line)
+    bleu_pairs = int(match.group(2)) if match else 0
+    translate_calls = 1 + -(-bleu_pairs // flags.batch_size)  # the sample + BLEU batches
+    layers = 2 * cfg.num_layers
+    want = {
+        "flash_fwd": layers * (steps + evals) + cfg.num_layers * translate_calls,
+        "flash_dq": layers * steps,
+        "flash_dkdv": layers * steps,
+    }
+    params, loaded_cfg = load_export(export, device="cuda")
+    same = loaded_cfg == cfg and all(
+        torch.equal(a, b.detach()) for a, b in zip(
+            flatten(params).values(), flatten(trainer.state.params).values()
+        )
+    )
+    step_s = trainer.step_seconds
+    ms = [t * 1e3 for t in step_s]
+    later = ms[1:] or ms
+    train_loss, eval_loss = trainer.train_metrics.loss, trainer.eval_metrics.loss
+    bleu = float(match.group(1)) if match else float("nan")
+    rec = {
+        "phase": "seq2seq", "step": "fit", "argv": argv, "config": dataclasses.asdict(cfg),
+        **pairs, "steps": steps, "eval_batches": evals, "step_ms_first": ms[0],
+        "step_ms_median": statistics.median(later), "step_ms_mean": statistics.mean(later),
+        "step_ms_all": ms,
+        "target_positions_per_s": trainer.tokens / sum(step_s),
+        "target_tokens_per_s": trainer.train_metrics.weight / sum(step_s),
+        "target_tokens": trainer.train_metrics.weight,
+        "fit_and_epilogue_wall_s": wall, "max_memory_allocated_bytes": peak,
+        "train_loss": train_loss, "eval_loss": eval_loss, "bleu": bleu,
+        "bleu_pairs": bleu_pairs, "translate_calls": translate_calls,
+        "launches": launches, "expected_launches": want, "export_loads_back": same,
+        "logs": logs,
+    }
+    emit(rec)
+    if not (math.isfinite(train_loss) and math.isfinite(eval_loss) and math.isfinite(bleu)):
+        raise SystemExit(f"seq2seq: non-finite loss or BLEU: {train_loss} / {eval_loss} / {bleu}")
+    if steps < 1 or evals < 1 or bleu_pairs != 200:
+        raise SystemExit(f"seq2seq ran {steps} steps, {evals} eval batches, BLEU on "
+                         f"{bleu_pairs} pairs")
+    for name, count in launches.items():
+        if count <= 0 or count != want[name]:
+            raise SystemExit(f"{name} launched {count} times on the seq2seq path, "
+                             f"expected {want[name]}")
+    if not same:
+        raise SystemExit("the seq2seq export does not load back to the trained params")
+    return trainer, train_ds, export, launches, rec
+
+
+def seq2seq_fp32_check(trainer, batch, layers: int = 2):
+    """One fp32 seq2seq train step at base width (2 + 2 layers, B 64, S
+    64, dropout 0, label smoothing 0.1) on a corpus batch, kernels against
+    their plain versions."""
+    import dataclasses as dc
+
+    import torch
+
+    from transformer_tpu_torch.config import TrainConfig
+    from transformer_tpu_torch.models.transformer import init_params
+
+    cfg = dc.replace(trainer.model_cfg, num_layers=layers, dtype="float32", dropout_rate=0.0)
+    tcfg = TrainConfig(batch_size=64, sequence_length=S2S_LEN, label_smoothing=0.1)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    src, tgt = (torch.from_numpy(a).to("cuda", torch.long) for a in batch)
+    return kernels_vs_plain_step(
+        {"phase": "seq2seq", "step": "fp32_train_check", "layers": layers, "batch": 64,
+         "sequence_length": S2S_LEN, "label_smoothing": 0.1}, cfg, tcfg, params, tgt, src=src,
+    )
+
+
+def source_sentences(n: int) -> list[str]:
+    with open(os.path.join(ROOT, "data", "src-test.txt"), encoding="utf-8") as f:
+        return [next(f).strip() for _ in range(n)]
+
+
+def translate_path(export, src_vocab, tgt_vocab, batch_size: int = 64):
+    """``cli.translate`` on the trained export, greedy and ``--beam 4``, on
+    8 test sentences read from stdin, then ``cli.evaluate --limit 200 --beam 1``, with the
+    flash counters set to 0 just before and read just after (6 forward
+    launches, the encoder, per translate call). Greedy and beam are timed
+    on the host clock."""
+    import torch
+
+    from transformer_tpu_torch.cli import evaluate
+    from transformer_tpu_torch.cli import translate as cli_translate
+
+    common = ["--export_path", export, "--src_vocab_file", src_vocab, "--tgt_vocab_file",
+              tgt_vocab, "--max_len", str(S2S_LEN), "--device", "cuda"]
+    sentences = "".join(line + "\n" for line in source_sentences(8))
+    read_flash_counters(reset=True)
+    times, outputs = {}, {}
+    for beam in (1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outputs[beam] = cli_translate.main(
+            common + ["--beam", str(beam)], stdin=io.StringIO(sentences), stdout=io.StringIO()
+        )
+        torch.cuda.synchronize()
+        times[beam] = time.perf_counter() - t0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    result = evaluate.main(common + ["--src_file", os.path.join(ROOT, "data", "src-test.txt"),
+                                     "--tgt_file", os.path.join(ROOT, "data", "tgt-test.txt"),
+                                     "--limit", "200", "--beam", "1"], stdout=out)
+    eval_s = time.perf_counter() - t0
+    launches = read_flash_counters()
+    line = out.getvalue().strip()
+    evaluate_batches = -(-200 // batch_size)
+    want = {"flash_fwd": 6 * (2 + evaluate_batches), "flash_dq": 0, "flash_dkdv": 0}
+    rec = {
+        "phase": "seq2seq", "step": "translate", "sentences": 8,
+        "greedy_wall_s": times[1], "beam4_wall_s": times[4], "evaluate_wall_s": eval_s,
+        "greedy": outputs[1], "beam4": outputs[4], "evaluate_json_line": line,
+        "launches": launches, "expected_launches": want,
+    }
+    emit(rec)
+    print(line, flush=True)
+    if json.loads(line) != result or result["n"] != 200 or not math.isfinite(result["bleu"]):
+        raise SystemExit(f"cli.evaluate printed {line!r}")
+    if len(outputs[1]) != 8 or len(outputs[4]) != 8:
+        raise SystemExit("cli.translate did not answer every sentence")
+    if launches != want:
+        raise SystemExit(f"translate path launches {launches}, expected {want}")
+    return launches, rec
+
+
+def fp32_decode_tokens_check(trainer, src_tok, tgt_tok, layers: int = 2):
+    """Greedy and beam-4 tokens at base width (2 + 2 layers, fp32, random
+    weights from the seed) with the flash encoder and with its plain
+    version, for 5 test sentences that ``_pad_batch`` fills to 8 rows with
+    rows of PAD only: they must be identical. Each decode is also timed on
+    the host clock, and greedy and beam under the profiler for device
+    time."""
+    import dataclasses as dc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from transformer_tpu_torch.models.transformer import init_params
+    from transformer_tpu_torch.train.decode import _pad_batch, beam_search_decode, greedy_decode
+
+    cfg = dc.replace(trainer.model_cfg, num_layers=layers, dtype="float32", dropout_rate=0.0)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED + 1), device="cuda")
+    encoded = [[src_tok.bos_id, *src_tok.encode(t), src_tok.eos_id][:S2S_LEN]
+               for t in source_sentences(5)]
+    ids, n = _pad_batch(encoded, S2S_LEN)
+    src = torch.from_numpy(ids).to("cuda", torch.long)
+    ends = (tgt_tok.bos_id, tgt_tok.eos_id)
+    tokens, times = {}, {}
+    for name, fn in (("greedy", greedy_decode), ("beam4", beam_search_decode)):
+        kw = dict(beam_size=4, alpha=0.6) if name == "beam4" else {}
+        for reference in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens[name, reference] = fn(params, src, cfg, S2S_LEN, *ends, reference=reference,
+                                         **kw)
+            torch.cuda.synchronize()
+            times[f"{name}_{'plain' if reference else 'kernels'}_s"] = time.perf_counter() - t0
+    device_ms = {}
+    for name, fn in (("greedy", greedy_decode), ("beam4", beam_search_decode)):
+        kw = dict(beam_size=4, alpha=0.6) if name == "beam4" else {}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(params, src, cfg, S2S_LEN, *ends, **kw)
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages())
+        device_ms[name] = us / 1e3 if us else "not measured"
+    same = {name: bool(torch.equal(tokens[name, False], tokens[name, True]))
+            for name in ("greedy", "beam4")}
+    rec = {
+        "phase": "seq2seq", "step": "fp32_decode_tokens", "layers": layers, "rows": ids.shape[0],
+        "real_rows": n, "identical": same, "host_s": times, "device_ms": device_ms,
+        "greedy_tokens_row0": tokens["greedy", False][0].tolist(),
+        "beam4_tokens_row0": tokens["beam4", False][0].tolist(),
+        "dummy_rows_all_pad": bool((tokens["greedy", False][n:] == 0).all().item()
+                                   and (tokens["beam4", False][n:] == 0).all().item()),
+    }
+    emit(rec)
+    if not all(same.values()) or not rec["dummy_rows_all_pad"]:
+        raise SystemExit(f"flash vs plain encoder decode tokens differ: {rec}")
+    return rec
+
+
+def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 1280):
+    """The tiny, big and tied presets through ``cli.train --attention_impl
+    flash`` for one epoch on the first ``pairs`` corpus pairs (and 64 test
+    pairs), BLEU off: losses finite, every flash kernel launched."""
+    import shutil as sh
+
+    import torch
+
+    from transformer_tpu_torch.cli import train
+
+    data = os.path.join(BUILD_DIR, "seq2seq_cut")
+    os.makedirs(data, exist_ok=True)
+    for split, n in (("train", pairs), ("test", 64)):
+        for side in ("src", "tgt"):
+            with open(os.path.join(ROOT, "data", f"{side}-{split}.txt"), encoding="utf-8") as f:
+                head = [next(f) for _ in range(n)]
+            with open(os.path.join(data, f"{side}-{split}.txt"), "w", encoding="utf-8") as f:
+                f.writelines(head)
+    recs = []
+    for preset in ("tiny", "big", "tied"):
+        src_v, tgt_v = (joint_vocab, joint_vocab) if preset == "tied" else (src_vocab, tgt_vocab)
+        export = os.path.join(BUILD_DIR, f"seq2seq_{preset}_export")
+        argv = ["--preset", preset, "--attention_impl", "flash", "--sequence_length",
+                str(S2S_LEN), "--epochs", "1", "--dataset_path", data, "--src_vocab_file", src_v,
+                "--tgt_vocab_file", tgt_v, "--export_path", export, "--eval_bleu", "false",
+                "--device", "cuda"]
+        read_flash_counters(reset=True)
+        t0 = time.perf_counter()
+        trainer = train.main(argv, log_fn=lambda _: None)
+        torch.cuda.synchronize()
+        cfg = trainer.model_cfg
+        rec = {
+            "phase": "seq2seq", "step": "preset", "preset": preset, "wall_s":
+            time.perf_counter() - t0, "steps": len(trainer.step_seconds),
+            "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "tied": [cfg.tie_embeddings, cfg.tie_output],
+            "label_smoothing": trainer.train_cfg.label_smoothing,
+            "train_loss": trainer.train_metrics.loss, "eval_loss": trainer.eval_metrics.loss,
+            "launches": read_flash_counters(),
+        }
+        emit(rec)
+        recs.append(rec)
+        ok = (math.isfinite(rec["train_loss"]) and math.isfinite(rec["eval_loss"])
+              and rec["steps"] > 0 and all(n > 0 for n in rec["launches"].values()))
+        del trainer
+        sh.rmtree(export, ignore_errors=True)
+        torch.cuda.empty_cache()
+        if not ok:
+            raise SystemExit(f"preset {preset} failed: {rec}")
+    return recs
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1842,7 +2316,23 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
-    # 6. sequence-parallel training over four processes on this card
+    # 6. seq2seq: the flash kernels at its shapes, Transformer-base trained
+    # for an epoch and scored, fp32 checks, translation, the other presets
+    s2s_recs, s2s_timed = seq2seq_flash_checks()
+    src_tok, src_vocab = vocab(side="src")
+    s2s_trainer, s2s_train_ds, s2s_export, s2s_launches, _ = seq2seq_train_path(
+        src_vocab, vocab_path
+    )
+    train_profile(s2s_trainer, s2s_train_ds, phase="seq2seq")
+    seq2seq_fp32_check(s2s_trainer, next(iter(s2s_train_ds.batches(0))))
+    tr_launches, _ = translate_path(s2s_export, src_vocab, vocab_path)
+    fp32_decode_tokens_check(s2s_trainer, src_tok, tok)
+    del s2s_trainer
+    torch.cuda.empty_cache()
+    _, joint_vocab = vocab(side="joint")
+    presets_path(src_vocab, vocab_path, joint_vocab)
+
+    # 7. sequence-parallel training over four processes on this card
     sp = sp_train_path(vocab_path, single)
     fp32_ring_check(tok, train_ds)
 
@@ -1868,14 +2358,19 @@ def main() -> int:
         }
 
     def flash_summary(name, readings):
-        recs = [f_main] + f_recs
+        def pick(rec, key):
+            val = rec.get(key, "not measured")
+            return val[name] if isinstance(val, dict) else val
+
+        recs = [f_main] + f_recs + s2s_recs
+        by_path = {"train": train_launches[name], "sp_train": sp["launches"][name],
+                   "seq2seq_train": s2s_launches[name], "translate": tr_launches[name]}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
-            "launches": train_launches[name] + sp["launches"][name],
-            "launches_by_path": {"train": train_launches[name],
-                                 "sp_train": sp["launches"][name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"][k] for r in recs for k in readings),
             "max_reading": max(r["readings"][k] for r in recs for k in readings),
             "tolerance": FLASH_TOL,
@@ -1884,7 +2379,16 @@ def main() -> int:
             "bound_ms": f_main["bound_ms"][name], "bound_by": f_main["bound_by"][name],
             "library_ms": f_main["library_ms"][name],
             "share_of_bound": f_main["share_of_bound"][name],
-            "timers": {"ms": "cuda_ms (device-bound at the main shape)", "library_ms": "cuda_ms"},
+            "seq2seq": {
+                part: {key: pick(rec, key) for key in (
+                    "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                    "bound_ms", "bound_by", "share_of_bound", "share_of_bound_device")}
+                for part, rec in s2s_timed.items()
+            },
+            "timers": {"ms": "cuda_ms (device-bound at the main shape)", "library_ms": "cuda_ms",
+                       "seq2seq": "ms, plain_ms, library_ms: cuda_ms (the host's time per call "
+                                  "at B 64, S 64); device_ms, library_device_ms: kernel_us "
+                                  "(profiler device time per call)"},
         }
 
     print(smi, flush=True)

@@ -62,6 +62,11 @@ def main(argv: list[str] | None = None, log_fn=print):
     """Train over the launcher's processes and export from rank 0;
     returns the trainer."""
     args = train.resolve_flags(argv, _FLAGS, __doc__)
+    if not args.decoder_only:
+        raise NotImplementedError(
+            "cli.distributed_train trains decoder-only LMs (--decoder_only); seq2seq "
+            "models train on one card through cli.train"
+        )
     for name in ("fsdp", "tp", "pp", "ep"):
         if getattr(args, name) > 1:
             raise NotImplementedError(

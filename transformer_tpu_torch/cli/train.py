@@ -1,18 +1,23 @@
-"""Train a decoder-only LM on the target side of a parallel corpus.
+"""Train a seq2seq translator on a parallel corpus, or a decoder-only LM
+on its target side.
 
+    python -m transformer_tpu_torch.cli.train --preset base --epochs 1 \
+        --dataset_path data --src_vocab_file src_vocab.subwords \
+        --tgt_vocab_file tgt_vocab.subwords [--export_path model] [--device cuda]
     python -m transformer_tpu_torch.cli.train --preset long4k --epochs 1 \
-        --dataset_path data --tgt_vocab_file tgt_vocab.subwords \
-        [--export_path model] [--device cuda]
+        --dataset_path data --tgt_vocab_file tgt_vocab.subwords
 
-Port of the LM-window mode of ``transformer_tpu/cli/train.py``
-(``--decoder_only``): load (or build) the vocabulary and the LM splits,
-build the train state, fit, log eval loss and perplexity from the final
-epoch's full eval, and write an export (``params.npz`` + ``config.json``,
-the JAX export layout) that ``transformer_tpu_torch.cli.serve`` loads.
-Flags keep the JAX CLI's names and defaults, and ``--preset`` fills the
-flags not given explicitly; argparse replaces absl. ``--export_path``
-(default ``model``) and ``--device`` (default ``cuda``) are the port's
-own. Seq2seq and masked-LM training raise until their slice.
+Port of ``transformer_tpu/cli/train.py``. Seq2seq (the default): load (or
+build) both vocabularies and the sentence pairs, fit, translate a sample
+sentence, write the export, then score BLEU on the first ``--bleu_limit``
+test pairs (``--eval_bleu``). LM mode (``--decoder_only``): the LM windows
+of the target side, then eval loss and perplexity from the final epoch's
+full eval, and the export. The export (``params.npz`` + ``config.json``,
+the JAX export layout) loads in ``cli.translate``/``cli.evaluate`` or
+``cli.serve``. Flags keep the JAX CLI's names and defaults, and
+``--preset`` fills the flags not given explicitly; argparse replaces
+absl. ``--export_path`` (default ``model``) and ``--device`` (default
+``cuda``) are the port's own. Masked-LM training raises until its slice.
 """
 
 from __future__ import annotations
@@ -52,9 +57,10 @@ def _bool(text: str) -> bool:
 # name -> (type, default, help); the JAX CLI's defaults.
 _FLAGS: dict[str, tuple] = {
     "dataset_path": (str, "data", "directory with src/tgt line files"),
+    "src_vocab_file": (str, "src_vocab.subwords", "source subword vocab path (seq2seq)"),
     "tgt_vocab_file": (str, "tgt_vocab.subwords", "target subword vocab path"),
     "target_vocab_size": (int, 2**15, "subword vocab build target"),
-    "sequence_length": (int, 50, "LM window length (tokens incl. BOS)"),
+    "sequence_length": (int, 50, "max sentence / LM window length (tokens incl. BOS/EOS)"),
     "epochs": (int, 4, "training epochs"),
     "batch_size": (int, 64, "global batch size"),
     "num_layers": (int, 4, "transformer layers"),
@@ -77,7 +83,7 @@ _FLAGS: dict[str, tuple] = {
     "norm_scheme": (str, "post", "post | pre"),
     "ffn_activation": (str, "relu", "FFN activation"),
     "position_scheme": (str, "sinusoidal", "sinusoidal | rope"),
-    "decoder_only": (_bool, False, "causal-LM mode (the only mode ported)"),
+    "decoder_only": (_bool, False, "causal-LM mode (default: seq2seq translation)"),
     "objective": (str, "causal", "causal (mlm is not ported)"),
     "attention_impl": (str, "xla", "xla | flash | ring (ring: cli.distributed_train --sp > 1)"),
     "attention_window": (int, 0, "sliding-window causal attention (0 = full)"),
@@ -89,6 +95,8 @@ _FLAGS: dict[str, tuple] = {
     "loss_chunks": (int, 1, "chunked CE (only 1 is ported)"),
     "steps_per_dispatch": (int, 1, "steps per dispatch (only 1 is ported)"),
     "seed": (int, 0, "seed of the init, the shuffle and dropout"),
+    "eval_bleu": (_bool, True, "seq2seq: corpus BLEU on the test split after training"),
+    "bleu_limit": (int, 200, "score only the first N test pairs (0 = all)"),
     "export_path": (str, "model", "where to write params.npz + config.json"),
     "device": (str, "cuda", "cuda (default) or cpu"),
 }
@@ -113,10 +121,10 @@ def resolve_flags(
     values = {name: spec[1] for name, spec in flags.items()}
     values.update(preset)
     values.update(explicit)
-    if not values["decoder_only"] or values["objective"] != "causal":
+    if values["objective"] != "causal":
         raise NotImplementedError(
-            "the port trains decoder-only causal LMs (--decoder_only); seq2seq and "
-            "masked-LM training are later slices"
+            "the port trains with the causal objective (seq2seq or --decoder_only); "
+            "masked-LM training is a later slice"
         )
     return argparse.Namespace(**values)
 
@@ -155,15 +163,37 @@ def load_data(args: argparse.Namespace, train_cfg, log_fn=print):
     return train_ds, test_ds, tok
 
 
-def model_config(args: argparse.Namespace, vocab: int):
+def load_pairs(args: argparse.Namespace, train_cfg, log_fn=print):
+    """(train, test, src tokenizer, tgt tokenizer) seq2seq splits; builds
+    missing vocabulary files."""
+    from transformer_tpu_torch.data.pipeline import load_dataset
+
+    train_ds, test_ds, src_tok, tgt_tok = load_dataset(
+        args.dataset_path, args.src_vocab_file, args.tgt_vocab_file,
+        batch_size=train_cfg.batch_size, sequence_length=train_cfg.sequence_length,
+        target_vocab_size=args.target_vocab_size, seed=train_cfg.seed,
+    )
+    log_fn(
+        f"data: {train_ds.num_examples} train pairs ({len(train_ds)} batches), "
+        f"{test_ds.num_examples if test_ds else 0} test pairs, "
+        f"vocabs {src_tok.vocab_size}/{tgt_tok.vocab_size}"
+    )
+    return train_ds, test_ds, src_tok, tgt_tok
+
+
+def model_config(args: argparse.Namespace, vocab: int, input_vocab: int | None = None):
+    """The model of the flags: ``vocab`` target ids, and ``input_vocab``
+    source ids (default ``vocab``); ``max_position`` is
+    ``max(sequence_length, 64)``, as the JAX CLI sets it."""
     from transformer_tpu_torch.config import ModelConfig
 
     return ModelConfig(
         num_layers=args.num_layers, d_model=args.d_model, num_heads=args.num_heads,
-        num_kv_heads=args.num_kv_heads, dff=args.dff, input_vocab_size=vocab,
+        num_kv_heads=args.num_kv_heads, dff=args.dff,
+        input_vocab_size=vocab if input_vocab is None else input_vocab,
         target_vocab_size=vocab, dropout_rate=args.dropout_rate,
         max_position=max(args.sequence_length, 64), norm_scheme=args.norm_scheme,
-        position_scheme=args.position_scheme, decoder_only=True,
+        position_scheme=args.position_scheme, decoder_only=args.decoder_only,
         tie_embeddings=args.tie_embeddings, tie_output=args.tie_output,
         ffn_activation=args.ffn_activation, dtype=args.dtype,
         attention_impl=args.attention_impl, attention_window=args.attention_window,
@@ -172,8 +202,8 @@ def model_config(args: argparse.Namespace, vocab: int):
 
 
 def report_and_export(trainer, test_ds, export_path: str, log_fn=print) -> None:
-    """Eval loss and perplexity of the final epoch's full eval, then the
-    export."""
+    """Eval loss and perplexity of the final epoch's full eval (per target
+    token, for seq2seq too), then the export."""
     from transformer_tpu_torch.convert import export_params
 
     if test_ds is not None and trainer.eval_metrics.weight > 0:
@@ -186,7 +216,8 @@ def report_and_export(trainer, test_ds, export_path: str, log_fn=print) -> None:
 
 
 def main(argv: list[str] | None = None, log_fn=print):
-    """Train and export; returns the trainer."""
+    """Train and export (seq2seq: then translate and score); returns the
+    trainer."""
     args = resolve_flags(argv)
     from transformer_tpu_torch.device import resolve_device
     from transformer_tpu_torch.train.state import create_train_state
@@ -194,12 +225,32 @@ def main(argv: list[str] | None = None, log_fn=print):
 
     device = resolve_device(args.device)
     train_cfg = train_config(args)
-    train_ds, test_ds, tok = load_data(args, train_cfg, log_fn)
-    model_cfg = model_config(args, tok.model_vocab_size)
+    if args.decoder_only:
+        train_ds, test_ds, tok = load_data(args, train_cfg, log_fn)
+        model_cfg = model_config(args, tok.model_vocab_size)
+    else:
+        train_ds, test_ds, src_tok, tgt_tok = load_pairs(args, train_cfg, log_fn)
+        model_cfg = model_config(args, tgt_tok.model_vocab_size, src_tok.model_vocab_size)
     state = create_train_state(model_cfg, train_cfg, device=device)
     trainer = Trainer(model_cfg, train_cfg, state, log_fn=log_fn)
     trainer.fit(train_ds, test_ds)
+    if args.decoder_only:
+        report_and_export(trainer, test_ds, args.export_path, log_fn)
+        return trainer
+    from transformer_tpu_torch.train.decode import translate
+    from transformer_tpu_torch.train.evaluate import bleu_on_test_files
+
+    sample = "he go to school"
+    out = translate(trainer.state.params, model_cfg, src_tok, tgt_tok, sample,
+                    max_len=train_cfg.sequence_length)
+    log_fn(f"sample translation {sample!r} -> {out[0]!r}")
     report_and_export(trainer, test_ds, args.export_path, log_fn)
+    if args.eval_bleu:
+        bleu_on_test_files(
+            trainer.state.params, model_cfg, src_tok, tgt_tok, args.dataset_path,
+            batch_size=train_cfg.batch_size, max_len=train_cfg.sequence_length,
+            limit=args.bleu_limit, log_fn=log_fn,
+        )
     return trainer
 
 

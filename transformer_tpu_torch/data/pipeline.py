@@ -1,13 +1,15 @@
-"""Host-side input pipeline of the LM-window path.
+"""Host-side input pipeline: parallel-corpus pairs and LM windows.
 
 Port of the parts of ``transformer_tpu/data/pipeline.py`` that
-``cli.train --decoder_only`` runs: the parallel-corpus reader (target side
-used), the tokenizer build-or-load, the causal-LM dataset (the corpus as
-one EOS-separated token stream cut into BOS-prefixed windows) and the flat
-in-memory batcher of ``Seq2SeqDataset`` with its (seed, epoch)-keyed
-shuffle. Batches are numpy int32 arrays equal to the JAX package's,
-element for element. Length buckets, the native C++ loader, prefetch and
-streaming are not ported.
+``cli.train`` runs: the parallel-corpus reader, the tokenizer
+build-or-load, the seq2seq dataset of ``load_dataset`` on its in-memory
+path (BOS/EOS framing, the filter that drops a train pair with either side
+longer than ``sequence_length``, the test split cut to fit), the
+causal-LM dataset (the corpus as one EOS-separated token stream cut into
+BOS-prefixed windows) and the flat in-memory batcher of ``Seq2SeqDataset``
+with its (seed, epoch)-keyed shuffle. Batches are numpy int32 arrays equal
+to the JAX package's, element for element. Length buckets, the native C++
+loader, prefetch and streaming are not ported: they raise.
 """
 
 from __future__ import annotations
@@ -66,6 +68,15 @@ def load_or_build_tokenizer(
     os.makedirs(os.path.dirname(vocab_file) or ".", exist_ok=True)
     tok.save(vocab_file)
     return tok
+
+
+def _encode_and_frame(lines: list[str], tok: SubwordTokenizer) -> list[np.ndarray]:
+    bos, eos = tok.bos_id, tok.eos_id
+    return [np.asarray([bos, *tok.encode(line), eos], dtype=np.int32) for line in lines]
+
+
+def _round_up(n: int, multiple: int = 8) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
 
 
 @dataclasses.dataclass
@@ -185,3 +196,74 @@ def load_lm_splits(
     except (FileNotFoundError, ValueError):
         test = None  # no test split, or one shorter than a window
     return train, test, tok
+
+
+def load_dataset(
+    dataset_path: str,
+    src_vocab_file: str,
+    tgt_vocab_file: str,
+    batch_size: int,
+    sequence_length: int,
+    target_vocab_size: int = 2**15,
+    seed: int = 0,
+    prefetch: bool = False,
+    length_buckets: tuple[int, ...] = (),
+    streaming: bool = False,
+) -> tuple[Seq2SeqDataset, Seq2SeqDataset | None, SubwordTokenizer, SubwordTokenizer]:
+    """Seq2seq train (+ test, when the split exists) datasets and both
+    tokenizers, built from (or saved to) the vocab files. Train pairs with
+    either side longer than ``sequence_length`` after BOS/EOS framing are
+    dropped."""
+    if streaming or prefetch or length_buckets:
+        raise NotImplementedError(
+            "streaming, the native prefetching loader and length buckets are not "
+            "ported; the port batches the corpus in memory"
+        )
+    src_lines, tgt_lines = read_parallel_corpus(dataset_path, "train")
+    src_tok = load_or_build_tokenizer(src_vocab_file, src_lines, target_vocab_size)
+    tgt_tok = load_or_build_tokenizer(tgt_vocab_file, tgt_lines, target_vocab_size)
+    src_ids = _encode_and_frame(src_lines, src_tok)
+    tgt_ids = _encode_and_frame(tgt_lines, tgt_tok)
+    keep = [
+        i for i in range(len(src_ids))
+        if len(src_ids[i]) <= sequence_length and len(tgt_ids[i]) <= sequence_length
+    ]
+    train = Seq2SeqDataset(
+        [src_ids[i] for i in keep], [tgt_ids[i] for i in keep], batch_size=batch_size,
+        src_len=sequence_length, tgt_len=sequence_length, shuffle=True, seed=seed,
+    )
+    test = _build_test_split(dataset_path, src_tok, tgt_tok, batch_size, sequence_length)
+    return train, test, src_tok, tgt_tok
+
+
+def _build_test_split(
+    dataset_path: str,
+    src_tok: SubwordTokenizer,
+    tgt_tok: SubwordTokenizer,
+    batch_size: int,
+    sequence_length: int,
+) -> Seq2SeqDataset | None:
+    """The test split, unshuffled with an all-PAD-padded tail batch: no
+    length filter, but examples longer than ``sequence_length`` are cut to
+    it and keep their EOS; each side pads to its longest example rounded
+    up to 8, at most ``sequence_length``."""
+    try:
+        test_src, test_tgt = read_parallel_corpus(dataset_path, "test")
+    except FileNotFoundError:
+        return None
+
+    def truncate_keep_eos(arrs: list[np.ndarray], eos: int) -> list[np.ndarray]:
+        return [
+            a if len(a) <= sequence_length
+            else np.concatenate([a[: sequence_length - 1], [eos]]).astype(np.int32)
+            for a in arrs
+        ]
+
+    tsrc = truncate_keep_eos(_encode_and_frame(test_src, src_tok), src_tok.eos_id)
+    ttgt = truncate_keep_eos(_encode_and_frame(test_tgt, tgt_tok), tgt_tok.eos_id)
+    return Seq2SeqDataset(
+        tsrc, ttgt, batch_size=batch_size,
+        src_len=min(_round_up(max(len(a) for a in tsrc)), sequence_length),
+        tgt_len=min(_round_up(max(len(a) for a in ttgt)), sequence_length),
+        shuffle=False, drop_remainder=False,
+    )

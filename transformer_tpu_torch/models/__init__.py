@@ -1,2 +1,2 @@
-"""Model assembly of the port: embedding prologue, decoder stack, logits,
-prefill, and the paged decode forward."""
+"""Model assembly of the port: embedding prologue, encoder and decoder
+stacks, logits, prefill, the decode step, and the paged decode forward."""

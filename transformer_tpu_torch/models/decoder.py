@@ -1,11 +1,14 @@
-"""Decoder stack of the decoder-only LM: the cache-free training forward
-and the KV-cached path of serving.
+"""Decoder stack: the cache-free training forward and the KV-cached path
+of decoding.
 
-Port of the parts of ``transformer_tpu/models/decoder.py`` the serving and
-training slices run: the self-attention + FFN layer (over a per-layer
-cache, or cache-free under the structural causal flag and the padding
-self-mask, with dropout and per-layer remat), the stack, and the chunked
-single-pass prefill. Cross-attention (seq2seq) is a later slice.
+Port of ``transformer_tpu/models/decoder.py``: the layer (causal
+self-attention over a per-layer cache, or cache-free under the structural
+causal flag and the padding self-mask; for seq2seq models the
+cross-attention sublayer over the encoder output; the FFN), the stack
+with dropout and per-layer remat, the chunked single-pass prefill, the
+decode caches and the precomputed cross-attention K/V. Cross-attention
+always takes the plain path, whatever ``cfg.attention_impl`` says, as in
+the JAX twin.
 """
 
 from __future__ import annotations
@@ -17,27 +20,25 @@ import torch
 from transformer_tpu_torch.config import ModelConfig
 from transformer_tpu_torch.models.encoder import (
     _ffn_sublayer_apply,
+    _generators,
+    _subkey,
     _sublayer,
     embed_prologue,
 )
-from transformer_tpu_torch.ops.attention import cached_self_attention, mha_apply
+from transformer_tpu_torch.ops.attention import (
+    cached_self_attention,
+    init_cache,
+    mha_apply,
+    project_kv,
+)
 from transformer_tpu_torch.ops.nn import (
     GlobalSlice,
     Params,
-    dropout_generator,
     layernorm_apply,
     remat_layer,
 )
 
-
-def _generators(key, n: int, cfg: ModelConfig, deterministic: bool, device):
-    """One dropout generator per site, keyed ``key + (site,)``; Nones when
-    dropout is off."""
-    if deterministic or cfg.dropout_rate == 0.0:
-        return [None] * n
-    if key is None:
-        raise ValueError("dropout in training mode requires a key")
-    return [dropout_generator(tuple(key) + (i,), device) for i in range(n)]
+CrossKV = tuple[torch.Tensor, torch.Tensor]
 
 
 def decoder_layer_apply(
@@ -47,15 +48,21 @@ def decoder_layer_apply(
     cache: dict[str, Any] | None = None,
     *,
     self_mask: torch.Tensor | None = None,
+    enc_out: torch.Tensor | None = None,
+    cross_mask: torch.Tensor | None = None,
+    cross_kv: CrossKV | None = None,
     key: tuple[int, ...] | None = None,
     deterministic: bool = True,
     reference: bool = False,
     dropout_slice: GlobalSlice | None = None,
 ) -> tuple[torch.Tensor, dict[str, Any] | None]:
-    """One decoder-only layer: (x, updated cache). With a cache, causal
-    attention over it (serving); without, causal self-attention under
+    """One decoder layer: (x, updated cache). With a cache, causal
+    attention over it (decoding); without, causal self-attention under
     ``self_mask`` (B, 1, 1, S) with dropout keyed on ``key`` (training),
-    drawn over the global activation ``dropout_slice`` places x in."""
+    drawn over the global activation ``dropout_slice`` places x in. A
+    seq2seq layer then attends over ``enc_out`` under ``cross_mask``, or
+    over its projected ``cross_kv``. Dropout sites: 0 self-attention, 1
+    FFN, 2 cross-attention."""
     box: list[Any] = [None]
 
     def self_attn(h):
@@ -70,11 +77,21 @@ def decoder_layer_apply(
             reference=reference,
         )
 
-    g_attn, g_ffn = _generators(key, 2, cfg, deterministic, x.device)
-    x = _sublayer(cfg, params["ln1"], x, self_attn, g_attn, deterministic, dropout_slice)
+    gens = _generators(key, 2 if cfg.decoder_only else 3, cfg, deterministic, x.device)
+    x = _sublayer(cfg, params["ln1"], x, self_attn, gens[0], deterministic, dropout_slice)
+    if not cfg.decoder_only:
+        if enc_out is None and cross_kv is None:
+            raise ValueError("a seq2seq decoder needs the encoder output (or its cross K/V)")
+
+        def cross_attn(h):
+            return mha_apply(
+                params["cross_mha"], h, enc_out, cross_mask, precomputed_kv=cross_kv,
+            )
+
+        x = _sublayer(cfg, params["ln2"], x, cross_attn, gens[2], deterministic)
     x = _sublayer(
         cfg, params["ln_ffn"], x, lambda h: _ffn_sublayer_apply(params, h, cfg),
-        g_ffn, deterministic, dropout_slice,
+        gens[1], deterministic, dropout_slice,
     )
     return x, box[0]
 
@@ -84,9 +101,12 @@ def decoder_apply(
     ids: torch.Tensor,
     cfg: ModelConfig,
     caches: list[dict[str, Any]] | None = None,
-    position_offset: int = 0,
+    position_offset: int | torch.Tensor = 0,
     *,
     self_mask: torch.Tensor | None = None,
+    enc_out: torch.Tensor | None = None,
+    cross_mask: torch.Tensor | None = None,
+    cross_kvs: list[CrossKV] | None = None,
     key: tuple[int, ...] | None = None,
     deterministic: bool = True,
     reference: bool = False,
@@ -99,24 +119,20 @@ def decoder_apply(
     that ``dropout_slice`` places the ids in (a data × sequence split).
     With ``cfg.remat`` the cache-free layers run under ``remat_layer``
     whenever gradients are recorded."""
-    if not cfg.decoder_only:
-        raise NotImplementedError(
-            "the port runs decoder-only LMs; cross-attention (seq2seq) is a later slice"
-        )
     if caches is not None and cfg.attention_window:
         raise NotImplementedError(
             "sliding-window attention over a cache (rolling caches) is a later slice of the port"
         )
-    (g_embed,) = _generators(
-        None if key is None else tuple(key) + (0,), 1, cfg, deterministic, ids.device
-    )
+    (g_embed,) = _generators(_subkey(key, 0), 1, cfg, deterministic, ids.device)
     x = embed_prologue(
         params["embedding"], ids, cfg, position_offset, g_embed, deterministic, dropout_slice
     )
+    cross = dict(enc_out=enc_out, cross_mask=cross_mask)
     if caches is not None:
         new_caches = []
-        for layer, cache in zip(params["layers"], caches):
-            x, cache = decoder_layer_apply(layer, x, cfg, cache)
+        for i, (layer, cache) in enumerate(zip(params["layers"], caches)):
+            kv = None if cross_kvs is None else cross_kvs[i]
+            x, cache = decoder_layer_apply(layer, x, cfg, cache, cross_kv=kv, **cross)
             new_caches.append(cache)
     else:
         new_caches = None
@@ -125,12 +141,13 @@ def decoder_apply(
             return decoder_layer_apply(
                 layer, x, cfg, self_mask=self_mask, key=layer_key,
                 deterministic=deterministic, reference=reference, dropout_slice=dropout_slice,
+                **cross,
             )[0]
 
         if cfg.remat and torch.is_grad_enabled():
             layer_call = remat_layer(layer_call, cfg)
         for i, layer in enumerate(params["layers"]):
-            x = layer_call(layer, x, None if key is None else tuple(key) + (i + 1,))
+            x = layer_call(layer, x, _subkey(key, i + 1))
     if cfg.norm_scheme == "pre":
         x = layernorm_apply(params["final_ln"], x, cfg.layernorm_epsilon)
     return x, new_caches
@@ -143,6 +160,10 @@ def decoder_prefill(
     cfg: ModelConfig,
     start: int = 0,
     chunk: int = 0,
+    *,
+    enc_out: torch.Tensor | None = None,
+    cross_mask: torch.Tensor | None = None,
+    cross_kvs: list[CrossKV] | None = None,
 ) -> tuple[torch.Tensor, list[dict[str, Any]]]:
     """Teacher-forced prefill of (B, n) ``tokens`` at positions ``start ..
     start + n - 1``, in ``chunk``-sized forwards (0 = one forward). Returns
@@ -156,7 +177,35 @@ def decoder_prefill(
         width = min(chunk, n - off)
         x, caches = decoder_apply(
             params, tokens[:, off : off + width], cfg, caches,
-            position_offset=start + off,
+            position_offset=start + off, enc_out=enc_out, cross_mask=cross_mask,
+            cross_kvs=cross_kvs,
         )
         x_last = x[:, -1, :]
     return x_last, caches
+
+
+def init_decoder_caches(
+    cfg: ModelConfig, batch_size: int, max_len: int, device="cpu"
+) -> list[dict[str, Any]]:
+    """One full-length self-attention KV cache per decoder layer (int8 with
+    ``cfg.kv_cache_int8``), starting at position 0."""
+    if cfg.attention_window:
+        raise NotImplementedError(
+            "sliding-window attention over a cache (rolling caches) is a later slice of the port"
+        )
+    return [
+        init_cache(batch_size, max_len, cfg.kv_heads, cfg.head_dim, cfg.compute_dtype,
+                   quantize=cfg.kv_cache_int8, device=device)
+        for _ in range(cfg.num_layers)
+    ]
+
+
+def precompute_cross_kvs(
+    params: Params, enc_out: torch.Tensor, cfg: ModelConfig
+) -> list[CrossKV]:
+    """Every layer's cross-attention K/V of the (fixed) encoder output,
+    projected once for the whole decode."""
+    return [
+        project_kv(layer["cross_mha"], enc_out, cfg.compute_dtype)
+        for layer in params["layers"]
+    ]

@@ -1,13 +1,19 @@
-"""LM assembly: parameter layout, random init, forward, vocab projection,
-prefill.
+"""Model assembly: parameter layout, random init, forward, vocab
+projection, prefill and the decode step.
 
 Port of ``transformer_hidden_apply``, ``transformer_apply``,
-``project_logits`` and ``transformer_prefill`` from
-``transformer_tpu/models/transformer.py`` for decoder-only models, plus
+``project_logits``, ``transformer_prefill`` and
+``transformer_decode_step`` from ``transformer_tpu/models/transformer.py``
+for decoder-only LMs and seq2seq (encoder-decoder) models, plus
 ``param_spec`` (the JAX package's parameter tree, flattened with its
 checkpoint naming) and ``init_params`` (a random init of that tree from a
 ``torch.Generator``; same distributions as the JAX init, different
 numbers).
+
+``tie_embeddings`` ties the source and target tables at init only, as the
+JAX package does: its decoder starts from the encoder's table, but the
+tree holds two leaves, each with its own gradient and Adam update. The
+port keeps two tensors, the decoder's a copy of the encoder's at init.
 """
 
 from __future__ import annotations
@@ -18,33 +24,40 @@ import torch
 
 from transformer_tpu_torch.config import PAD_ID, ModelConfig, is_gated
 from transformer_tpu_torch.device import resolve_device
-from transformer_tpu_torch.models.decoder import decoder_apply, decoder_prefill
+from transformer_tpu_torch.models.decoder import CrossKV, decoder_apply, decoder_prefill
+from transformer_tpu_torch.models.encoder import _subkey, encoder_apply
 from transformer_tpu_torch.ops.masks import make_padding_mask
 from transformer_tpu_torch.ops.nn import GlobalSlice, Params, dense_apply, embedding_attend
 
 SEP = "/"
 
 
-def param_spec(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
-    """Flat key -> (shape, init) for a decoder-only model, keys in the JAX
-    checkpoint naming (``decoder/layers/0/self_mha/query/kernel``). init is
-    one of "normal_embed", "glorot", "glorot_out", "zeros", "ones"."""
-    if not cfg.decoder_only:
-        raise NotImplementedError(
-            "the port holds decoder-only LMs; seq2seq and encoder-only "
-            "models are later slices"
-        )
+def _mha_spec(prefix: str, cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
     d, h, hd, kv = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.kv_heads
+    spec = {}
+    for name, heads in (("query", h), ("key", kv), ("value", kv)):
+        spec[prefix + f"{name}/kernel"] = ((d, heads, hd), "glorot")
+        spec[prefix + f"{name}/bias"] = ((heads, hd), "zeros")
+    spec[prefix + "out/kernel"] = ((h, hd, d), "glorot_out")
+    spec[prefix + "out/bias"] = ((d,), "zeros")
+    return spec
+
+
+def _stack_spec(tower: str, cfg: ModelConfig, vocab: int, embed_init: str):
+    """One tower's embedding, layers and (pre-LN) final LayerNorm."""
+    d = cfg.d_model
     spec: dict[str, tuple[tuple[int, ...], str]] = {
-        "decoder/embedding/table": ((cfg.target_vocab_size, d), "normal_embed"),
+        f"{tower}/embedding/table": ((vocab, d), embed_init),
     }
+    seq2seq_decoder = tower == "decoder" and not cfg.decoder_only
     for i in range(cfg.num_layers):
-        p = f"decoder/layers/{i}/"
-        for name, heads in (("query", h), ("key", kv), ("value", kv)):
-            spec[p + f"self_mha/{name}/kernel"] = ((d, heads, hd), "glorot")
-            spec[p + f"self_mha/{name}/bias"] = ((heads, hd), "zeros")
-        spec[p + "self_mha/out/kernel"] = ((h, hd, d), "glorot_out")
-        spec[p + "self_mha/out/bias"] = ((d,), "zeros")
+        p = f"{tower}/layers/{i}/"
+        if tower == "encoder":
+            spec.update(_mha_spec(p + "mha/", cfg))
+        else:
+            spec.update(_mha_spec(p + "self_mha/", cfg))
+        if seq2seq_decoder:
+            spec.update(_mha_spec(p + "cross_mha/", cfg))
         if cfg.moe_experts and (i + 1) % cfg.moe_every == 0:
             raise NotImplementedError("MoE layers are a later slice of the port")
         dense = [("in", d, cfg.dff), ("out", cfg.dff, d)]
@@ -53,14 +66,42 @@ def param_spec(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
         for name, d_in, d_out in dense:
             spec[p + f"ffn/{name}/kernel"] = ((d_in, d_out), "glorot")
             spec[p + f"ffn/{name}/bias"] = ((d_out,), "zeros")
-        for ln in ("ln1", "ln_ffn"):
+        norms = ("ln1", "ln2") if tower == "encoder" else ("ln1", "ln_ffn")
+        if seq2seq_decoder:
+            norms += ("ln2",)
+        for ln in norms:
             spec[p + f"{ln}/scale"] = ((d,), "ones")
             spec[p + f"{ln}/bias"] = ((d,), "zeros")
     if cfg.norm_scheme == "pre":
-        spec["decoder/final_ln/scale"] = ((d,), "ones")
-        spec["decoder/final_ln/bias"] = ((d,), "zeros")
+        spec[f"{tower}/final_ln/scale"] = ((d,), "ones")
+        spec[f"{tower}/final_ln/bias"] = ((d,), "zeros")
+    return spec
+
+
+def param_spec(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
+    """Flat key -> (shape, init) in the JAX checkpoint naming
+    (``decoder/layers/0/self_mha/query/kernel``), encoder first. init is
+    one of "normal_embed", "glorot", "glorot_out", "zeros", "ones", and
+    "tied" for a decoder table that starts as a copy of the encoder's."""
+    if cfg.encoder_only:
+        raise NotImplementedError(
+            "the port holds decoder-only LMs and seq2seq models; encoder-only "
+            "(masked-LM) models are a later slice"
+        )
+    spec: dict[str, tuple[tuple[int, ...], str]] = {}
+    decoder_embed = "normal_embed"
+    if not cfg.decoder_only:
+        if cfg.tie_embeddings:
+            if cfg.input_vocab_size != cfg.target_vocab_size:
+                raise ValueError(
+                    "tie_embeddings requires input_vocab_size == target_vocab_size "
+                    f"({cfg.input_vocab_size} != {cfg.target_vocab_size})"
+                )
+            decoder_embed = "tied"
+        spec.update(_stack_spec("encoder", cfg, cfg.input_vocab_size, "normal_embed"))
+    spec.update(_stack_spec("decoder", cfg, cfg.target_vocab_size, decoder_embed))
     if not cfg.tie_output:
-        spec["final/kernel"] = ((d, cfg.target_vocab_size), "glorot")
+        spec["final/kernel"] = ((cfg.d_model, cfg.target_vocab_size), "glorot")
         spec["final/bias"] = ((cfg.target_vocab_size,), "zeros")
     return spec
 
@@ -104,12 +145,15 @@ def init_params(
 ) -> Params:
     """Random parameters for ``cfg`` (in ``param_dtype``): glorot-uniform
     kernels, N(0, 1)/sqrt(d_model) embeddings, zero biases, unit LN scales.
-    Values come from ``generator`` on the CPU, then move to ``device``."""
+    Values come from ``generator`` on the CPU, then move to ``device``; a
+    tied decoder table is a copy of the encoder's."""
     dev = resolve_device(device)
     dtype = cfg.params_dtype
     flat = {}
     for key, (shape, init) in param_spec(cfg).items():
-        if init == "normal_embed":
+        if init == "tied":
+            t = flat["encoder/embedding/table"].clone()
+        elif init == "normal_embed":
             t = torch.randn(shape, generator=generator) * cfg.d_model**-0.5
         elif init in ("glorot", "glorot_out"):
             if init == "glorot_out":  # (H, D, d_model), drawn as (d, d)
@@ -145,22 +189,37 @@ def transformer_hidden_apply(
     position_offset: int = 0,
     dropout_slice: GlobalSlice | None = None,
 ) -> torch.Tensor:
-    """(B, S) token ids -> (B, S, d_model) hiddens of the decoder-only LM,
-    before the vocab projection. ``inp`` is ignored (the JAX signature's
-    source side); the self-mask is ``make_padding_mask(tar)``, ANDed with
-    causality inside attention. ``key`` seeds dropout when not
-    ``deterministic``; ``reference`` runs the flash kernels' plain
-    versions. Under sequence parallelism ``tar`` is this process's chunk:
-    ``position_offset`` is its first global position and ``dropout_slice``
-    its place in the global batch."""
-    if not cfg.decoder_only:
+    """(B, S) target ids -> (B, S, d_model) decoder hiddens, before the
+    vocab projection. Decoder-only: ``inp`` is ignored; the self-mask is
+    ``make_padding_mask(tar)``, ANDed with causality inside attention.
+    Seq2seq: ``inp`` (B, S_src) goes through the encoder under its padding
+    mask, which also masks cross-attention; encoder dropout is keyed ``key
+    + (0,)`` and decoder dropout ``key + (1,)``. ``key`` seeds dropout
+    when not ``deterministic``; ``reference`` runs the flash kernels'
+    plain versions. Under sequence parallelism (decoder-only) ``tar`` is
+    this process's chunk: ``position_offset`` is its first global position
+    and ``dropout_slice`` its place in the global batch."""
+    if cfg.encoder_only:
         raise NotImplementedError(
-            "the port trains decoder-only LMs; seq2seq and encoder-only models are later slices"
+            "encoder-only (masked-LM) models are a later slice of the port"
         )
+    self_mask = make_padding_mask(tar, pad_id)
+    kw = dict(self_mask=self_mask, deterministic=deterministic, reference=reference)
+    if cfg.decoder_only:
+        x, _ = decoder_apply(
+            params["decoder"], tar, cfg, position_offset=position_offset, key=key,
+            dropout_slice=dropout_slice, **kw,
+        )
+        return x
+    if inp is None:
+        raise ValueError("a seq2seq model needs the source ids")
+    enc_mask = make_padding_mask(inp, pad_id)
+    enc_out = encoder_apply(
+        params["encoder"], inp, enc_mask, cfg, _subkey(key, 0), deterministic, reference
+    )
     x, _ = decoder_apply(
-        params["decoder"], tar, cfg, position_offset=position_offset,
-        self_mask=make_padding_mask(tar, pad_id), key=key, deterministic=deterministic,
-        reference=reference, dropout_slice=dropout_slice,
+        params["decoder"], tar, cfg, enc_out=enc_out, cross_mask=enc_mask,
+        key=_subkey(key, 1), **kw,
     )
     return x
 
@@ -177,8 +236,9 @@ def transformer_apply(
     position_offset: int = 0,
     dropout_slice: GlobalSlice | None = None,
 ) -> torch.Tensor:
-    """(B, S) token ids -> (B, S, V) raw logits (the JAX twin also returns
-    attention maps; the port has none)."""
+    """(B, S) target ids (and, seq2seq, (B, S_src) source ids) -> (B, S, V)
+    raw logits (the JAX twin also returns attention maps; the port has
+    none)."""
     x = transformer_hidden_apply(
         params, inp, tar, cfg, key, deterministic, reference, pad_id, position_offset,
         dropout_slice,
@@ -193,10 +253,38 @@ def transformer_prefill(
     position: int,
     cfg: ModelConfig,
     chunk: int = 0,
+    *,
+    enc_out: torch.Tensor | None = None,
+    cross_mask: torch.Tensor | None = None,
+    cross_kvs: list[CrossKV] | None = None,
 ) -> tuple[torch.Tensor, list[dict[str, Any]]]:
     """(B, n) prompt tokens at positions ``position ..`` -> ((B, V) logits of
-    the next position, caches holding every prompt position's K/V)."""
+    the next position, caches holding every prompt position's K/V). A
+    seq2seq decoder attends over ``enc_out`` (or its ``cross_kvs``) under
+    ``cross_mask``."""
     x_last, caches = decoder_prefill(
-        params["decoder"], tokens, caches, cfg, start=position, chunk=chunk
+        params["decoder"], tokens, caches, cfg, start=position, chunk=chunk,
+        enc_out=enc_out, cross_mask=cross_mask, cross_kvs=cross_kvs,
     )
     return project_logits(params, x_last[:, None, :], cfg)[:, -1, :], caches
+
+
+def transformer_decode_step(
+    params: Params,
+    token: torch.Tensor,
+    caches: list[dict[str, Any]],
+    position: int,
+    cfg: ModelConfig,
+    *,
+    enc_out: torch.Tensor | None = None,
+    cross_mask: torch.Tensor | None = None,
+    cross_kvs: list[CrossKV] | None = None,
+) -> tuple[torch.Tensor, list[dict[str, Any]]]:
+    """One KV-cached step: (B, 1) token at ``position`` -> ((B, V) logits of
+    the next position, updated caches). Pass ``cross_kvs`` from
+    ``precompute_cross_kvs`` so the encoder output is projected once."""
+    x, caches = decoder_apply(
+        params["decoder"], token, cfg, caches, position_offset=position,
+        enc_out=enc_out, cross_mask=cross_mask, cross_kvs=cross_kvs,
+    )
+    return project_logits(params, x, cfg)[:, -1, :], caches

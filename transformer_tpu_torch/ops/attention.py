@@ -1,8 +1,10 @@
 """Scaled dot-product attention: the cache-free ``mha_apply`` of training
 and the cached self-attention of prefill.
 
-Port of the parts of ``transformer_tpu/ops/attention.py`` the serving and
-training slices run. Layouts are the JAX package's: activations
+Port of the parts of ``transformer_tpu/ops/attention.py`` the serving,
+training and seq2seq slices run: the cache-free ``mha_apply`` (with
+``precomputed_kv`` for cross-attention), ``project_kv``, the full-length
+dense decode cache and its cached self-attention. Layouts are the JAX package's: activations
 (B, S, H, D); q/k/v kernels (d_model, H, D); the out kernel
 (H, D, d_model). KV caches and pools are dicts with the JAX key names
 (``k``/``v``, plus fp32 ``k_scale``/``v_scale`` for int8 storage, plus
@@ -70,6 +72,13 @@ def out_project(p: Params, out: torch.Tensor, dtype) -> torch.Tensor:
     ].to(dtype)
 
 
+def project_kv(params: Params, x_kv: torch.Tensor, dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Project key/value inputs once, for reuse across decode steps through
+    ``mha_apply(..., precomputed_kv=...)``."""
+    dtype = dtype or x_kv.dtype
+    return _project(params["key"], x_kv, dtype), _project(params["value"], x_kv, dtype)
+
+
 def _kv_padding_mask(mask: torch.Tensor | None, impl: str) -> torch.Tensor | None:
     """Blockwise kernels take key padding only: squeeze a broadcastable
     (B|1, 1, 1, S_k) allowed-mask to (B|1, S_k), or reject."""
@@ -94,11 +103,14 @@ def mha_apply(
     window: int = 0,
     rope: bool = False,
     reference: bool = False,
+    precomputed_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Cache-free multi-head attention: (B, S_q, d) x (B, S_k, d) ->
-    (B, S_q, d). ``mask`` is a broadcastable bool allowed-mask; ``causal``
-    is ANDed with it (structural under ``impl="flash"`` and ``"ring"``, a
-    dense mask under ``"xla"``); ``window`` needs ``causal``. ``rope``
+    (B, S_q, d). ``precomputed_kv`` carries k/v already projected to
+    (B, S_k, H_kv, D) (cross-attention over a fixed encoder output).
+    ``mask`` is a broadcastable bool allowed-mask; ``causal`` is ANDed with
+    it (structural under ``impl="flash"`` and ``"ring"``, a dense mask
+    under ``"xla"``); ``window`` needs ``causal``. ``rope``
     rotates q and k at positions ``arange(S)``, offset by the chunk's
     global position under ``"ring"``. ``impl="ring"`` runs inside
     ``parallel.seq_context.sequence_parallel``: the inputs are this
@@ -122,8 +134,11 @@ def mha_apply(
             )
     dtype = x_q.dtype
     q = _project(params["query"], x_q, dtype)
-    k = _project(params["key"], x_kv, dtype)
-    v = _project(params["value"], x_kv, dtype)
+    if precomputed_kv is not None:
+        k, v = (t.to(dtype) for t in precomputed_kv)
+    else:
+        k = _project(params["key"], x_kv, dtype)
+        v = _project(params["value"], x_kv, dtype)
     if rope:
         from transformer_tpu_torch.ops.positional import apply_rope
 
@@ -131,7 +146,8 @@ def mha_apply(
         if ctx is not None:
             positions = positions + ctx.offset
         q = apply_rope(q, positions)
-        k = apply_rope(k, positions)
+        if precomputed_kv is None:
+            k = apply_rope(k, positions)
     if impl == "flash":
         from transformer_tpu_torch.kernels.flash_attention import flash_attention
 
@@ -185,6 +201,25 @@ def _store_kv(cache, k, v, index: int):
         vals = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
     for key in kv_buffer_keys(cache):
         cache[key][:, index : index + s_q] = vals[key]
+
+
+def init_cache(
+    batch_size: int,
+    max_len: int,
+    num_heads: int,
+    head_dim: int,
+    dtype=torch.bfloat16,
+    quantize: bool = False,
+    device="cpu",
+) -> dict[str, Any]:
+    """A fresh full-length decode cache for ``cached_self_attention``:
+    (B, max_len, H, D) k/v in ``dtype``, or int8 codes with one fp32 scale
+    per (position, head) row, and ``index`` 0. Rolling (windowed) caches
+    are not ported."""
+    return dict(
+        init_block_pool(batch_size, max_len, num_heads, head_dim, dtype, quantize, device),
+        index=0,
+    )
 
 
 def cached_self_attention(

@@ -57,7 +57,11 @@ def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
     the part's real positions, normalised globally."""
     sp = mesh.shape["seq"]
 
-    def forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False):
+    def forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=None):
+        if src is not None:
+            raise NotImplementedError(
+                "seq2seq models are not trained over processes in the port yet"
+            )
         inp, out = tgt[:, :-1], tgt[:, 1:]
         inp_part, row, col = put_batch(inp, mesh)
         out_part, _, _ = put_batch(out, mesh)
@@ -83,7 +87,13 @@ def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
 
 
 def check_mesh(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh) -> None:
-    """The JAX trainer's checks, and the axes the port does not run."""
+    """The JAX trainer's checks, and the axes and models the port does not
+    run over processes."""
+    if not model_cfg.decoder_only:
+        raise NotImplementedError(
+            "the port trains seq2seq models on one card (cli.train); over processes "
+            "it trains decoder-only LMs"
+        )
     shape = mesh.shape
     others = {a: n for a, n in shape.items() if a not in ("data", "seq") and n > 1}
     if others or mesh.cfg.dcn_data > 1:

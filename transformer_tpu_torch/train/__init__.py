@@ -1,2 +1,3 @@
-"""Training and decoding of the port: loss, schedules, Adam, the train and
-eval steps and the epoch loop; token picking and prefill bucketing."""
+"""Training, decoding and scoring of the port: loss, schedules, Adam, the
+train and eval steps and the epoch loop; token picking, prefill bucketing,
+greedy and beam-search translation; BLEU and perplexity."""

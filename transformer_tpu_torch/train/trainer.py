@@ -1,7 +1,9 @@
 """Train and eval steps and the epoch loop.
 
 Port of ``transformer_tpu/train/trainer.py`` on its plain single-card
-path: ``make_train_step`` (teacher-forcing shift, forward with dropout
+path, for decoder-only LMs and seq2seq models (``src`` into the encoder,
+``tgt[:, :-1]`` into the decoder, ``tgt[:, 1:]`` scored):
+``make_train_step`` (teacher-forcing shift, forward with dropout
 keyed on (seed, step), masked CE, backward, Adam with the pre-clip
 ``grad_norm`` metric), ``make_eval_step``, ``MetricAccumulator`` and
 ``Trainer.fit`` reduced to epochs, periodic logging, bounded in-loop eval
@@ -30,10 +32,10 @@ from transformer_tpu_torch.train.state import Adam, TrainState, global_norm, mak
 
 
 def _check_supported(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
-    if train_cfg.objective != "causal" or not model_cfg.decoder_only:
+    if train_cfg.objective != "causal" or model_cfg.encoder_only:
         raise NotImplementedError(
-            "the port trains decoder-only causal LMs; seq2seq and masked-LM training "
-            "are later slices"
+            "the port trains decoder-only LMs and seq2seq models with the causal "
+            "objective; masked-LM training is a later slice"
         )
     for name in ("grad_accum_steps", "steps_per_dispatch", "loss_chunks"):
         if getattr(train_cfg, name) > 1:
@@ -44,11 +46,18 @@ def _batch(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x)).to(device=device, dtype=torch.long)
 
 
-def _forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False):
-    """Feed ``tgt[:, :-1]``, predict ``tgt[:, 1:]``: (loss, metric sums).
-    Dropout is keyed on ``key``; None runs deterministically."""
+def _source(src, model_cfg: ModelConfig, device) -> torch.Tensor | None:
+    """The source batch on ``device`` for a seq2seq model, else None (an LM
+    batch's src repeats its tgt)."""
+    return None if model_cfg.decoder_only else _batch(src, device)
+
+
+def _forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=None):
+    """Feed ``tgt[:, :-1]`` (and, seq2seq, ``src`` to the encoder), predict
+    ``tgt[:, 1:]``: (loss, metric sums). Dropout is keyed on ``key``; None
+    runs deterministically."""
     logits = transformer_apply(
-        params, None, tgt[:, :-1], model_cfg, key=key, deterministic=key is None,
+        params, src, tgt[:, :-1], model_cfg, key=key, deterministic=key is None,
         reference=reference,
     )
     return masked_cross_entropy(
@@ -65,15 +74,17 @@ def loss_and_grads(
     key: tuple[int, ...] | None,
     reference: bool = False,
     forward_loss: Callable | None = None,
+    src: torch.Tensor | None = None,
 ) -> tuple[dict, dict[str, torch.Tensor]]:
     """One forward and backward on a (B, L) batch (dropout keyed on
-    ``key``, none for None). Returns (metrics, grads by flat parameter
-    name). ``reference`` runs the flash kernels' plain versions, to hold
-    the kernels against them. ``forward_loss`` replaces the single-process
-    forward (same signature as ``_forward_loss``)."""
+    ``key``, none for None); ``src`` is the seq2seq source batch. Returns
+    (metrics, grads by flat parameter name). ``reference`` runs the flash
+    kernels' plain versions, to hold the kernels against them.
+    ``forward_loss`` replaces the single-process forward (same signature
+    as ``_forward_loss``)."""
     leaves = flatten(params)
     loss, metrics = (forward_loss or _forward_loss)(
-        params, tgt, model_cfg, train_cfg, key, reference
+        params, tgt, model_cfg, train_cfg, key, reference, src=src
     )
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}, grads
@@ -98,10 +109,11 @@ def make_train_step(
 
     def train_step(state: TrainState, src, tgt):
         leaves = flatten(state.params)
-        tgt = _batch(tgt, next(iter(leaves.values())).device)
+        device = next(iter(leaves.values())).device
         metrics, grads = loss_and_grads(
-            state.params, tgt, model_cfg, train_cfg, (train_cfg.seed, state.step),
-            forward_loss=forward_loss,
+            state.params, _batch(tgt, device), model_cfg, train_cfg,
+            (train_cfg.seed, state.step), forward_loss=forward_loss,
+            src=_source(src, model_cfg, device),
         )
         if sum_across is not None:
             sum_across([*grads.values(), *metrics.values()])
@@ -127,9 +139,10 @@ def make_eval_step(
 
     @torch.no_grad()
     def eval_step(state: TrainState, src, tgt):
-        tgt = _batch(tgt, next(iter(flatten(state.params).values())).device)
+        device = next(iter(flatten(state.params).values())).device
         loss, metrics = (forward_loss or _forward_loss)(
-            state.params, tgt, model_cfg, train_cfg, None
+            state.params, _batch(tgt, device), model_cfg, train_cfg, None,
+            src=_source(src, model_cfg, device),
         )
         metrics = {"loss": loss, **metrics}
         if sum_across is not None:
