@@ -6,7 +6,7 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in seven phases:
+runs on the CPU). It prints one JSON line per check, in eight phases:
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -80,7 +80,32 @@ runs on the CPU). It prints one JSON line per check, in seven phases:
    losses must be within 0.01 of phase 5's, and every rank's parameters
    and the export must be bit-identical. Then one fp32 step at full width
    (2 layers) over a ring of four processes compares with the
-   single-process flash step.
+   single-process flash step;
+8. checkpoints: ``cli.train --preset base --attention_impl flash
+   --sequence_length 64 --grad_accum 2`` on the first 1,300 corpus pairs
+   (20 steps an epoch), each run with its own ``--ckpt_path``: U trains 2
+   epochs; R trains 1, then is relaunched for 2 on the same path and must
+   log the restore and ``resuming at epoch 2/2 (step 20)`` and end with
+   U's parameters bit for bit (else U runs again and R is held to the
+   U-to-U spread); every run's flash counters must equal 24 launches of
+   each kernel a step (12 per micro-step), 12 forward launches an eval
+   batch and 6 for the sample translation. P runs U's flags with
+   ``--async_checkpoint`` in a subprocess that gets SIGTERM once it logs
+   the end of epoch 1: its log must name a step S in epoch 2 whose
+   checkpoint verifies against its manifest, a relaunch must resume at
+   epoch 2 and end at S + 20, and after one byte of the newest arrays.npz
+   is flipped the next relaunch must fall back to S. Then the save stall
+   (sync and async), the async write's time to durable, restore + verify
+   and the checkpoint's bytes at full width; ``cli.export --average_last 2
+   --quantize int8`` from R, every leaf within half a quantization step
+   of the fp32 average and the file under 1/2.5 of fp32's;
+   ``cli.translate`` (greedy, 8 sentences) and ``cli.evaluate --limit
+   200`` on it; and one fp32 step (2 + 2 layers, B 64, kernels on) with
+   ``--grad_accum 2`` against the whole batch, held to the fp32 step's
+   limits.
+
+Every training run writes checkpoints to a fresh directory under
+``build/ckpt/``, so no run restores another's.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and a ``{"kernels": [...]}`` summary; the last
@@ -167,6 +192,29 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def fresh_dir(*parts) -> str:
+    """``BUILD_DIR/<parts>``, emptied: every training run gets a checkpoint
+    directory of its own, so no run restores another's (or an earlier
+    call's) checkpoints."""
+    path = os.path.join(BUILD_DIR, *parts)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def cut_corpus(pairs: int, test: int = 64) -> str:
+    """A dataset directory with the first ``pairs`` train and ``test`` test
+    pairs of the bundled corpus."""
+    data = os.path.join(BUILD_DIR, f"corpus_{pairs}")
+    os.makedirs(data, exist_ok=True)
+    for split, n in (("train", pairs), ("test", test)):
+        for side in ("src", "tgt"):
+            with open(os.path.join(ROOT, "data", f"{side}-{split}.txt"), encoding="utf-8") as f:
+                head = [next(f) for _ in range(n)]
+            with open(os.path.join(data, f"{side}-{split}.txt"), "w", encoding="utf-8") as f:
+                f.writelines(head)
+    return data
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1470,7 +1518,8 @@ def train_path(vocab_path):
     export = os.path.join(BUILD_DIR, "train_export")
     argv = [
         "--preset", "long4k", "--epochs", "1", "--dataset_path", data,
-        "--tgt_vocab_file", vocab_path, "--export_path", export, "--device", "cuda",
+        "--tgt_vocab_file", vocab_path, "--export_path", export,
+        "--ckpt_path", fresh_dir("ckpt", "train"), "--device", "cuda",
     ]
     flags = train.resolve_flags(argv)
     t0 = time.perf_counter()
@@ -1557,10 +1606,7 @@ def fp32_train_check(tok, train_ds, layers: int = 2):
 def kernels_vs_plain_step(rec, cfg, tcfg, params, tgt, src=None):
     """One train step's loss and gradients from ``params`` on one batch,
     once on the kernels and once on their plain versions, held to
-    TRAIN_TOL; the attention key biases (zero gradient up to rounding) to
-    a fraction of the query biases' gradient instead."""
-    import torch
-
+    TRAIN_TOL (``hold_to_train_tol``)."""
     from transformer_tpu_torch.models.transformer import flatten, unflatten
     from transformer_tpu_torch.train.trainer import loss_and_grads
 
@@ -1571,8 +1617,15 @@ def kernels_vs_plain_step(rec, cfg, tcfg, params, tgt, src=None):
                                         src=src)
         runs.append((float(metrics["loss"]), grads))
         del p, metrics, grads
-    (loss, got), (want_loss, want) = runs
+    return hold_to_train_tol(rec, runs[0], runs[1], "fp32 kernels-vs-plain train step")
 
+
+def hold_to_train_tol(rec, got_run, want_run, what):
+    """Two (loss, gradients by leaf) of one step held to TRAIN_TOL: loss
+    relative, every leaf's relative norm; the attention key biases (zero
+    gradient up to rounding) to a fraction of the query biases' gradient
+    instead, on both sides."""
+    (loss, got), (want_loss, want) = got_run, want_run
     worst, worst_key = 0.0, None
     for key, g in got.items():
         if key.endswith("mha/key/bias"):
@@ -1589,14 +1642,14 @@ def kernels_vs_plain_step(rec, cfg, tcfg, params, tgt, src=None):
                 key_bias = max(key_bias, ratio)
     loss_rel = abs(loss - want_loss) / abs(want_loss)
     rec = {
-        **rec, "loss": loss, "plain_loss": want_loss,
+        **rec, "loss": loss, "want_loss": want_loss,
         "loss_rel_diff": loss_rel, "grad_worst_rel": worst, "grad_worst_leaf": worst_key,
         "key_bias_grad_ratio": key_bias, "leaves": len(got), "tolerance": TRAIN_TOL,
     }
     emit(rec)
     if not (loss_rel <= TRAIN_TOL["loss_rel"] and worst <= TRAIN_TOL["grad_rel"]
             and key_bias <= TRAIN_TOL["key_bias_ratio"]):
-        raise SystemExit(f"fp32 kernels-vs-plain train step failed: {rec}")
+        raise SystemExit(f"{what} failed: {rec}")
     return rec
 
 
@@ -1681,7 +1734,8 @@ def sp_train_path(vocab_path, single, sp: int = 4):
     args = [
         "--preset", "long4k", "--attention_impl", "ring", "--sp", str(sp), "--epochs", "1",
         "--dataset_path", os.path.join(ROOT, "data"), "--tgt_vocab_file", vocab_path,
-        "--export_path", export, "--device", "cuda", "--metrics_json", report_path,
+        "--export_path", export, "--ckpt_path", fresh_dir("ckpt", "sp_train"),
+        "--device", "cuda", "--metrics_json", report_path,
     ]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            str(sp), "-m", "transformer_tpu_torch.cli.distributed_train", *args]
@@ -1910,7 +1964,8 @@ def seq2seq_train_path(src_vocab, tgt_vocab):
     argv = [
         "--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
         "--epochs", "1", "--dataset_path", data, "--src_vocab_file", src_vocab,
-        "--tgt_vocab_file", tgt_vocab, "--export_path", export, "--device", "cuda",
+        "--tgt_vocab_file", tgt_vocab, "--export_path", export,
+        "--ckpt_path", fresh_dir("ckpt", "seq2seq"), "--device", "cuda",
     ]
     flags = train.resolve_flags(argv)
     t0 = time.perf_counter()
@@ -2126,14 +2181,7 @@ def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 1280):
 
     from transformer_tpu_torch.cli import train
 
-    data = os.path.join(BUILD_DIR, "seq2seq_cut")
-    os.makedirs(data, exist_ok=True)
-    for split, n in (("train", pairs), ("test", 64)):
-        for side in ("src", "tgt"):
-            with open(os.path.join(ROOT, "data", f"{side}-{split}.txt"), encoding="utf-8") as f:
-                head = [next(f) for _ in range(n)]
-            with open(os.path.join(data, f"{side}-{split}.txt"), "w", encoding="utf-8") as f:
-                f.writelines(head)
+    data = cut_corpus(pairs)
     recs = []
     for preset in ("tiny", "big", "tied"):
         src_v, tgt_v = (joint_vocab, joint_vocab) if preset == "tied" else (src_vocab, tgt_vocab)
@@ -2141,7 +2189,7 @@ def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 1280):
         argv = ["--preset", preset, "--attention_impl", "flash", "--sequence_length",
                 str(S2S_LEN), "--epochs", "1", "--dataset_path", data, "--src_vocab_file", src_v,
                 "--tgt_vocab_file", tgt_v, "--export_path", export, "--eval_bleu", "false",
-                "--device", "cuda"]
+                "--ckpt_path", fresh_dir("ckpt", preset), "--device", "cuda"]
         read_flash_counters(reset=True)
         t0 = time.perf_counter()
         trainer = train.main(argv, log_fn=lambda _: None)
@@ -2162,10 +2210,385 @@ def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 1280):
               and rec["steps"] > 0 and all(n > 0 for n in rec["launches"].values()))
         del trainer
         sh.rmtree(export, ignore_errors=True)
+        fresh_dir("ckpt", preset)
         torch.cuda.empty_cache()
         if not ok:
             raise SystemExit(f"preset {preset} failed: {rec}")
     return recs
+
+
+# --------------------------------------------------------------------------
+# phase 8: checkpoints, resume, preemption and export on the base path
+
+
+# 1,300 corpus pairs leave 1,293 under the 64-token filter: 20 steps of 64
+# an epoch (the first 1,280 leave 19).
+CKPT_PAIRS = 1300
+
+
+def ckpt_argv(data, src_vocab, tgt_vocab, root, name, epochs, *extra):
+    """``cli.train --preset base --attention_impl flash --sequence_length
+    64 --grad_accum 2`` on the cut corpus, checkpointing to ``root/name``."""
+    return [
+        "--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
+        "--grad_accum", "2", "--epochs", str(epochs), "--dataset_path", data,
+        "--src_vocab_file", src_vocab, "--tgt_vocab_file", tgt_vocab,
+        "--ckpt_path", os.path.join(root, name), "--export_path", os.path.join(root, f"{name}_export"),
+        "--eval_bleu", "false", "--device", "cuda", *extra,
+    ]
+
+
+def ckpt_fit(argv, phase_launches: dict):
+    """One ``cli.train`` run in this process with the flash counters set to
+    0 just before and read just after (added to ``phase_launches``), held
+    to 12 launches of each kernel a micro-step (24 a step at
+    ``--grad_accum 2``), 12 forward launches an eval batch and 6 for the
+    epilogue's sample translation. Returns (trainer, logs, record)."""
+    import statistics
+
+    import torch
+
+    from transformer_tpu_torch.cli import train
+    from transformer_tpu_torch.convert import params_digest
+
+    logs: list[str] = []
+    read_flash_counters(reset=True)
+    t0 = time.perf_counter()
+    trainer = train.main(argv, log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_flash_counters()
+    for name, count in launches.items():
+        phase_launches[name] += count
+    cfg, accum = trainer.model_cfg, trainer.train_cfg.grad_accum_steps
+    steps, evals, layers = len(trainer.step_seconds), trainer.eval_batches, 2 * cfg.num_layers
+    want = {
+        "flash_fwd": layers * (accum * steps + evals) + cfg.num_layers,
+        "flash_dq": layers * accum * steps,
+        "flash_dkdv": layers * accum * steps,
+    }
+    ms = [t * 1e3 for t in trainer.step_seconds] or [float("nan")]
+    rec = {
+        "epochs": trainer.train_cfg.epochs, "steps": steps, "final_step": trainer.state.step,
+        "eval_batches": evals, "wall_s": wall, "step_ms_median": statistics.median(ms),
+        "step_ms_mean": statistics.mean(ms), "step_ms_first": ms[0],
+        "launches": launches, "expected_launches": want,
+        "train_loss": trainer.train_metrics.loss, "params_sha256": params_digest(trainer.state.params),
+        "logs": [ln for ln in logs if not ln.startswith("sample translation")],
+    }
+    if launches != want:
+        raise SystemExit(f"checkpoints: launches {launches}, expected {want}: {rec}")
+    return trainer, logs, rec
+
+
+def params_spread(a, b) -> dict:
+    """Largest absolute difference between two parameter sets, and the
+    leaves that differ."""
+    from transformer_tpu_torch.models.transformer import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    diffs = {k: (fa[k].detach() - fb[k].detach()).abs().max().item() for k in fa}
+    return {"max_abs": max(diffs.values()), "leaves": sorted(k for k, d in diffs.items() if d)}
+
+
+def preempted_run(argv, steps_per_epoch: int) -> dict:
+    """``cli.train ... --async_checkpoint`` in a subprocess; SIGTERM is sent
+    when it logs the end of epoch 1, so it lands in epoch 2's first steps.
+    The run must log ``preemption (signal 15) at step S: checkpoint saved
+    to ...`` with S in epoch 2 and exit 0."""
+    import signal
+
+    cmd = [sys.executable, "-u", "-m", "transformer_tpu_torch.cli.train", *argv]
+    env = {**os.environ, "PYTHONPATH": ROOT, "PYTHONUNBUFFERED": "1"}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, signalled = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if signalled is None and line.startswith("epoch 1/2 done"):
+                proc.send_signal(signal.SIGTERM)
+                signalled = time.perf_counter() - t0
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    found = [re.fullmatch(r"preemption \(signal (\d+)\) at step (\d+): checkpoint saved to (.+)", ln)
+             for ln in lines]
+    found = [m for m in found if m]
+    rec = {"exit_code": rc, "signalled_after_s": signalled, "wall_s": time.perf_counter() - t0,
+           "logs": [ln for ln in lines if not ln.startswith("sample translation")][-12:]}
+    if rc != 0 or signalled is None or len(found) != 1:
+        raise SystemExit(f"checkpoints: the preempted run did not save on SIGTERM: {rec}")
+    signum, step, path = int(found[0].group(1)), int(found[0].group(2)), found[0].group(3)
+    rec.update(signal=signum, step=step, path=path)
+    if signum != signal.SIGTERM or not steps_per_epoch < step <= 2 * steps_per_epoch:
+        raise SystemExit(f"checkpoints: preemption at step {step} is not in epoch 2: {rec}")
+    return rec
+
+
+def flip_byte(path: str) -> int:
+    """Flip one byte in the middle of ``path``; returns its offset."""
+    offset = os.path.getsize(path) // 2
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        byte = f.read(1)
+        f.seek(offset)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    return offset
+
+
+def save_timings(state, root, reps: int = 2) -> dict:
+    """Host time the train loop is blocked in ``save`` (sync: snapshot and
+    write; async: the snapshot, the write left to the worker), the async
+    write's time to durable, and ``restore_latest`` (read, manifest check,
+    copy to the card) of the state at full width."""
+    import torch
+
+    from transformer_tpu_torch.convert import params_digest
+    from transformer_tpu_torch.train.checkpoint import (
+        AsyncCheckpointManager,
+        CheckpointManager,
+        verify_manifest,
+    )
+
+    sync = CheckpointManager(os.path.join(root, "timing_sync"), max_to_keep=1)
+    asyn = AsyncCheckpointManager(os.path.join(root, "timing_async"), max_to_keep=1)
+    out = {k: [] for k in ("sync_save_s", "async_stall_s", "async_durable_s",
+                           "restore_and_verify_s", "verify_s")}
+    digest = params_digest(state.params)
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync.save(state, step=i)
+        out["sync_save_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        asyn.save(state, step=i)
+        out["async_stall_s"].append(time.perf_counter() - t0)
+        asyn.wait()
+        out["async_durable_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        verify_manifest(sync.path(i))
+        out["verify_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        restored = sync.restore_latest(state)
+        torch.cuda.synchronize()
+        out["restore_and_verify_s"].append(time.perf_counter() - t0)
+        if params_digest(restored.params) != digest or restored.step != state.step:
+            raise SystemExit("checkpoints: a restored state differs from the saved one")
+        del restored
+    return out
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+
+
+def ckpt_fp32_accum_check(model_cfg, batch, layers: int = 2):
+    """One fp32 train step at base width (2 + 2 layers, B 64, S 64, dropout
+    0, kernels on) with ``grad_accum_steps=2`` against the whole batch:
+    loss and every gradient leaf held to TRAIN_TOL."""
+    import dataclasses as dc
+
+    import torch
+
+    from transformer_tpu_torch.config import TrainConfig
+    from transformer_tpu_torch.models.transformer import flatten, init_params, unflatten
+    from transformer_tpu_torch.train.state import TrainState
+    from transformer_tpu_torch.train.trainer import make_train_step
+
+    class Capture:  # an optimizer that keeps the gradients and moves nothing
+        def update(self, grads, state, params=None):
+            self.grads = grads
+            return {k: torch.zeros_like(g) for k, g in grads.items()}, state
+
+    cfg = dc.replace(model_cfg, num_layers=layers, dtype="float32", dropout_rate=0.0)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    runs = []
+    for accum in (2, 1):
+        tcfg = TrainConfig(batch_size=64, sequence_length=S2S_LEN, grad_accum_steps=accum)
+        p = unflatten({k: v.clone().requires_grad_() for k, v in flatten(params).items()})
+        cap = Capture()
+        _, m = make_train_step(cfg, tcfg, tx=cap)(TrainState(0, p, None), *batch)
+        runs.append((float(m["loss"]), cap.grads))
+    return hold_to_train_tol(
+        {"phase": "checkpoints", "step": "fp32_grad_accum_check", "layers": layers, "batch": 64,
+         "sequence_length": S2S_LEN, "grad_accum": 2, "against": "the whole batch, kernels on"},
+        runs[0], runs[1], "fp32 grad_accum 2 against the whole batch",
+    )
+
+
+def checkpoints_path(src_vocab, tgt_vocab):
+    """U: ``cli.train`` base/flash/``--grad_accum 2`` for 2 epochs. R: the
+    same for 1 epoch, then relaunched for 2 on its directory, which must
+    restore, resume at epoch 2 and end bit-identical to U (if it does not,
+    U runs again: a U-to-U spread names nondeterminism and holds R to it).
+    P: U in a subprocess with ``--async_checkpoint``, SIGTERM in epoch 2;
+    its checkpoint must verify against its manifest, a relaunch resume at
+    epoch 2 and end n steps later; one byte flipped in the newest
+    checkpoint's arrays.npz, the next relaunch must fall back to the step
+    before. Then save and restore timings, ``cli.export --average_last 2
+    --quantize int8`` from R (within the int8 bound of the fp32 average,
+    smaller than fp32), ``cli.translate`` and ``cli.evaluate --limit 200``
+    on it, and the fp32 accumulation check. Returns the flash launches of
+    the phase's in-process runs."""
+    import numpy as np
+    import torch
+
+    from transformer_tpu_torch.cli import evaluate
+    from transformer_tpu_torch.cli import export as cli_export
+    from transformer_tpu_torch.cli import translate as cli_translate
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.data.pipeline import load_dataset
+    from transformer_tpu_torch.models.transformer import flatten
+    from transformer_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        _q8_group_axes,
+        load_manifest,
+        verify_manifest,
+    )
+
+    data = cut_corpus(CKPT_PAIRS)
+    root = fresh_dir("ckpt", "checkpoints")
+    launches = {fn.__name__: 0 for fn in flash_counters()}
+
+    def argv(name, epochs, *extra):
+        return ckpt_argv(data, src_vocab, tgt_vocab, root, name, epochs, *extra)
+
+    # U and R
+    u, _, u_rec = ckpt_fit(argv("u", 2), launches)
+    n = u_rec["steps"] // 2
+    r1, _, r1_rec = ckpt_fit(argv("r", 1), launches)
+    del r1
+    r, r_logs, r_rec = ckpt_fit(argv("r", 2), launches)
+    resumed = (f"restored checkpoint at step {n}" in r_logs
+               and f"resuming at epoch 2/2 (step {n})" in r_logs and r_rec["steps"] == n)
+    rec = {"phase": "checkpoints", "step": "resume", "card": nvidia_smi_line(),
+           "steps_per_epoch": n, "U": u_rec, "R_epoch_1": r1_rec, "R_relaunch": r_rec,
+           "bit_identical": r_rec["params_sha256"] == u_rec["params_sha256"]}
+    if not rec["bit_identical"]:
+        u2, _, u2_rec = ckpt_fit(argv("u2", 2), launches)
+        rec["U_again"] = u2_rec
+        rec["u_to_u_spread"] = params_spread(u.state.params, u2.state.params)
+        rec["r_to_u_spread"] = params_spread(r.state.params, u.state.params)
+        del u2
+    emit(rec)
+    if n != 20 or u_rec["final_step"] != 2 * n or not resumed:
+        raise SystemExit(f"checkpoints: U took {u_rec['steps']} steps, or R did not resume at "
+                         f"epoch 2 (step {n}): {r_rec['logs']}")
+    if not rec["bit_identical"] and not (
+            0 < rec["r_to_u_spread"]["max_abs"] <= rec["u_to_u_spread"]["max_abs"]):
+        raise SystemExit(f"checkpoints: R differs from U beyond U's own spread: {rec}")
+    del u
+    torch.cuda.empty_cache()
+
+    # P: preempted, relaunched, then a byte flipped in the newest checkpoint
+    pre = preempted_run(argv("p", 2, "--async_checkpoint"), n)
+    s = pre["step"]
+    p_mgr = CheckpointManager(os.path.join(root, "p"))
+    pre["manifest_digest"] = verify_manifest(p_mgr.path(s))
+    if pre["path"] != p_mgr.path(s) or p_mgr.all_steps() != [s]:
+        raise SystemExit(f"checkpoints: the preempted run left {p_mgr.all_steps()}: {pre}")
+    p1, p1_logs, p1_rec = ckpt_fit(argv("p", 2), launches)
+    relaunched = (f"resuming at epoch 2/2 (step {s})" in p1_logs and p1_rec["final_step"] == s + n)
+    offset = flip_byte(os.path.join(p_mgr.path(s + n), "arrays.npz"))
+    p2, p2_logs, p2_rec = ckpt_fit(argv("p", 2), launches)
+    fell_back = (any(ln.startswith(f"checkpoint at step {s + n} unreadable") for ln in p2_logs)
+                 and f"restored checkpoint at step {s}" in p2_logs
+                 and p2_rec["final_step"] == s + n)
+    rec = {"phase": "checkpoints", "step": "preempt", "card": nvidia_smi_line(),
+           "preempted": pre, "relaunch": p1_rec, "flipped_byte_at": offset,
+           "relaunch_after_the_flip": p2_rec,
+           "flip_relaunch_equals_first_relaunch": p2_rec["params_sha256"] == p1_rec["params_sha256"]}
+    emit(rec)
+    if not (relaunched and fell_back):
+        raise SystemExit(f"checkpoints: preempted run's relaunches failed: {rec}")
+    del p1, p2
+    torch.cuda.empty_cache()
+
+    # what a checkpoint costs at full width
+    r_mgr = CheckpointManager(os.path.join(root, "r"))
+    timings = save_timings(r.state, root)
+    rec = {"phase": "checkpoints", "step": "timings", "card": nvidia_smi_line(),
+           "checkpoint_bytes": dir_bytes(r_mgr.path(2 * n)),
+           "arrays_npz_bytes": os.path.getsize(os.path.join(r_mgr.path(2 * n), "arrays.npz")),
+           "leaves": len(load_manifest(r_mgr.path(2 * n))["arrays"]),
+           **timings,
+           "timers": "host clock (time.perf_counter) around save / wait / verify_manifest / "
+                     "restore_latest + synchronize, after a synchronize; files in the page cache"}
+    emit(rec)
+
+    # export: the average of R's two checkpoints, int8 and fp32
+    common = ["--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
+              "--src_vocab_file", src_vocab, "--tgt_vocab_file", tgt_vocab,
+              "--ckpt_path", r_mgr.directory, "--average_last", "2", "--device", "cuda"]
+    q8, fp = os.path.join(root, "q8_export"), os.path.join(root, "fp32_export")
+    t0 = time.perf_counter()
+    steps = cli_export.main(common + ["--quantize", "int8", "--export_path", q8],
+                            log_fn=lambda _: None)
+    q8_s = time.perf_counter() - t0
+    cli_export.main(common + ["--export_path", fp], log_fn=lambda _: None)
+    got, cfg = load_export(q8, device="cuda")
+    want, want_cfg = load_export(fp, device="cuda")
+    # Every quantized element within half its group's quantization step of
+    # the fp32 average, as the JAX package's int8 test holds it, plus the
+    # fp32 rounding of the codes' division and the dequantizing product
+    # (one spacing of the group's largest value and of the result) where
+    # that test allows a flat 1e-8; elements past the flat 1e-8 are counted.
+    worst, quantized, outside, past_flat = 0.0, 0, [], 0
+    for key, w in flatten(want).items():
+        w, g = w.float().cpu().numpy(), flatten(got)[key].float().cpu().numpy()
+        if w.ndim < 2 or w.size < 1024 or key.endswith("/bias"):
+            if not (g == w).all():
+                outside.append(key)
+            continue
+        quantized += 1
+        amax = np.max(np.abs(w), axis=_q8_group_axes(key, w), keepdims=True)
+        half, err = amax / 127.0 * 0.5, np.abs(w - g)
+        if not np.all(err <= half + np.spacing(amax) + np.spacing(np.abs(g))):
+            outside.append(key)
+        past_flat += int(np.count_nonzero(err > half + 1e-8))
+        worst = max(worst, float((err / np.maximum(half, 1e-30)).max()))
+    sizes = {"int8_params_npz_bytes": os.path.getsize(os.path.join(q8, "params.npz")),
+             "fp32_params_npz_bytes": os.path.getsize(os.path.join(fp, "params.npz"))}
+    tr_common = ["--export_path", q8, "--src_vocab_file", src_vocab, "--tgt_vocab_file",
+                 tgt_vocab, "--max_len", str(S2S_LEN), "--device", "cuda"]
+    sentences = "".join(line + "\n" for line in source_sentences(8))
+    read_flash_counters(reset=True)
+    greedy = cli_translate.main(tr_common + ["--beam", "1"], stdin=io.StringIO(sentences),
+                                stdout=io.StringIO())
+    out = io.StringIO()
+    result = evaluate.main(tr_common + ["--src_file", os.path.join(ROOT, "data", "src-test.txt"),
+                                        "--tgt_file", os.path.join(ROOT, "data", "tgt-test.txt"),
+                                        "--limit", "200", "--beam", "1"], stdout=out)
+    for name, count in read_flash_counters().items():
+        launches[name] += count
+    line = out.getvalue().strip()
+    rec = {"phase": "checkpoints", "step": "export", "card": nvidia_smi_line(),
+           "averaged_steps": steps, "int8_export_s": q8_s, **sizes,
+           "int8_to_fp32": sizes["int8_params_npz_bytes"] / sizes["fp32_params_npz_bytes"],
+           "quantized_leaves": quantized, "worst_error_in_half_steps": worst,
+           "leaves_outside_the_bound": outside, "elements_past_a_flat_1e-8": past_flat,
+           "greedy": greedy, "evaluate_json_line": line}
+    emit(rec)
+    print(line, flush=True)
+    if steps != [n, 2 * n] or cfg != want_cfg or quantized == 0 or outside:
+        raise SystemExit(f"checkpoints: the int8 export is not within its bound: {rec}")
+    if sizes["int8_params_npz_bytes"] >= sizes["fp32_params_npz_bytes"] / 2.5:
+        raise SystemExit(f"checkpoints: the int8 export is not smaller than fp32: {rec}")
+    if len(greedy) != 8 or json.loads(line) != result or result["n"] != 200 \
+            or not math.isfinite(result["bleu"]):
+        raise SystemExit(f"checkpoints: translate/evaluate on the int8 export failed: {rec}")
+
+    train_ds, _, _, _ = load_dataset(data, src_vocab, tgt_vocab, batch_size=64,
+                                     sequence_length=S2S_LEN)
+    ckpt_fp32_accum_check(r.model_cfg, next(iter(train_ds.batches(0))))
+    del r
+    torch.cuda.empty_cache()
+    fresh_dir("ckpt", "checkpoints")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -2335,6 +2758,10 @@ def main() -> int:
     # 7. sequence-parallel training over four processes on this card
     sp = sp_train_path(vocab_path, single)
     fp32_ring_check(tok, train_ds)
+    fresh_dir("ckpt")  # the earlier runs' checkpoints
+
+    # 8. checkpoints, resume, preemption and export on the base path
+    ckpt_launches = checkpoints_path(src_vocab, vocab_path)
 
     def summary(name, main_rec, recs, replaces):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
@@ -2364,7 +2791,8 @@ def main() -> int:
 
         recs = [f_main] + f_recs + s2s_recs
         by_path = {"train": train_launches[name], "sp_train": sp["launches"][name],
-                   "seq2seq_train": s2s_launches[name], "translate": tr_launches[name]}
+                   "seq2seq_train": s2s_launches[name], "translate": tr_launches[name],
+                   "ckpt": ckpt_launches[name]}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",

@@ -224,7 +224,7 @@ def test_cli_under_torchrun_trains_a_ring_and_exports(tmp_path):
          "-m", "transformer_tpu_torch.cli.distributed_train", *TINY,
          "--attention_impl", "ring", "--sp", "2", "--dataset_path", str(tmp_path),
          "--tgt_vocab_file", str(tmp_path / "v.subwords"), "--export_path", str(export),
-         "--metrics_json", str(report)],
+         "--ckpt_path", str(tmp_path / "ckpt"), "--metrics_json", str(report)],
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT,
     )
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
@@ -250,7 +250,7 @@ def test_console_script_exits_zero_in_a_world_of_one(tmp_path, monkeypatch):
     monkeypatch.setattr(sys, "argv", [
         "ttpu-torch-distributed-train", *TINY, "--attention_impl", "flash",
         "--dataset_path", str(tmp_path), "--tgt_vocab_file", str(tmp_path / "v.subwords"),
-        "--export_path", str(tmp_path / "export"),
+        "--export_path", str(tmp_path / "export"), "--ckpt_path", str(tmp_path / "ckpt"),
     ])
     assert distributed_train.run() == 0
     assert load_export(str(tmp_path / "export"), device="cpu")[1].num_layers == 1
@@ -294,12 +294,13 @@ def test_ring_attention_without_a_context_raises():
         mha_apply(p, x, x, impl="ring", causal=True)
 
 
-def test_guards():
+def test_guards(tmp_path):
     from transformer_tpu_torch.cli import distributed_train
     from transformer_tpu_torch.parallel.distributed import DistributedTrainer
 
     with pytest.raises(NotImplementedError, match="--tp > 1"):
-        distributed_train.main(["--tp", "2", "--decoder_only", "--device", "cpu"])
+        distributed_train.main(["--tp", "2", "--decoder_only", "--device", "cpu",
+                                "--ckpt_path", str(tmp_path / "ckpt")])
     with pytest.raises(ValueError, match="needs a sequence-parallel attention impl"):
         DistributedTrainer(ModelConfig(**MODEL), TrainConfig(**TRAIN),
                            _fake_mesh(MeshConfig(seq=2)))
@@ -319,4 +320,5 @@ def test_cli_refuses_cuda_without_a_card(tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distributed_train.main(["--preset", "long4k", "--attention_impl", "ring",
-                                "--dataset_path", str(tmp_path)])
+                                "--dataset_path", str(tmp_path),
+                                "--ckpt_path", str(tmp_path / "ckpt")])

@@ -225,7 +225,8 @@ def test_entry_points_refuse_cuda_without_a_card(tmp_path):
     from transformer_tpu_torch.cli import train
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        train.main(["--preset", "long4k", "--dataset_path", str(tmp_path)])
+        train.main(["--preset", "long4k", "--dataset_path", str(tmp_path),
+                    "--ckpt_path", str(tmp_path / "ckpt")])
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -331,7 +331,7 @@ def test_cli_train_exports_a_servable_model(tmp_path):
         "--tgt_vocab_file", vocab, "--target_vocab_size", "400", "--num_layers", "1",
         "--d_model", "32", "--dff", "64", "--num_heads", "4", "--sequence_length", "64",
         "--batch_size", "8", "--epochs", "1", "--attention_impl", "flash", "--remat",
-        "--export_path", export,
+        "--export_path", export, "--ckpt_path", str(tmp_path / "ckpt"),
     ], log_fn=logs.append)
     assert trainer.state.step == len(trainer.step_seconds) > 0
     assert any(line.startswith("eval loss") for line in logs), logs

@@ -263,7 +263,8 @@ def _train_argv(tmp, vocabs, export, *extra):
         "--tgt_vocab_file", vocabs["tgt"], "--num_layers", "1", "--d_model", "32",
         "--dff", "64", "--num_heads", "4", "--sequence_length", "64", "--batch_size", "16",
         "--epochs", "1", "--attention_impl", "flash", "--bleu_limit", "8",
-        "--export_path", export, *extra,
+        "--export_path", export, "--ckpt_path", os.path.join(os.path.dirname(export), "ckpt"),
+        *extra,
     ]
 
 
@@ -328,7 +329,8 @@ def test_new_entry_points_refuse_cuda_without_a_card(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        train.main(["--preset", "base", "--dataset_path", str(tmp_path)])
+        train.main(["--preset", "base", "--dataset_path", str(tmp_path),
+                    "--ckpt_path", str(tmp_path / "ckpt")])
     with pytest.raises(NotImplementedError, match="attention_out"):
         cli_translate.main(["--export_path", str(tmp_path), "--attention_out", "a.npz",
                             "--device=cpu"])

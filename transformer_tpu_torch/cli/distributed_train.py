@@ -12,10 +12,14 @@ ring``), and ``--fsdp/--tp/--pp/--ep``, which raise above 1. Without the
 launcher's environment it runs as a world of one. Each process reads the
 same data and keeps its part of each batch; rank 0 builds a missing
 vocabulary before the others read it, logs, reports the eval and writes
-the export. The transport (NCCL, or gloo through host memory when ranks
-share a card or run on the CPU) is chosen at start-up and logged.
+the export. Checkpoints follow ``cli.train``'s flags (``--ckpt_path``,
+``--max_ckpt_keep``, ``--async_checkpoint``): rank 0 writes them, every
+rank restores the newest at start. The transport (NCCL, or gloo through
+host memory when ranks share a card or run on the CPU) is chosen at
+start-up and logged.
 ``--metrics_json`` writes every rank's step times, losses, kernel launch
-counts, staged bytes and a digest of its parameters, gathered on rank 0.
+counts, staged bytes, step, whether it writes checkpoints and a digest of
+its parameters, gathered on rank 0.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ def _report(trainer, process) -> dict:
         "tokens": trainer.tokens, "eval_batches": trainer.eval_batches,
         "train_loss": trainer.train_metrics.loss, "eval_loss": trainer.eval_metrics.loss,
         "params_sha256": params_digest(trainer.state.params),
+        "step": trainer.state.step, "checkpoint_writer": trainer.checkpoint.is_primary,
     }
 
 
@@ -91,7 +96,8 @@ def main(argv: list[str] | None = None, log_fn=print):
         if process.rank == 0:
             mesh.barrier()
         model_cfg = train.model_config(args, tok.model_vocab_size)
-        trainer = DistributedTrainer(model_cfg, train_cfg, mesh, log_fn=log)
+        trainer = DistributedTrainer(model_cfg, train_cfg, mesh, log_fn=log,
+                                     checkpoint=train.checkpoint_manager(args, train_cfg))
         trainer.fit(train_ds, test_ds)
         if process.rank == 0:
             train.report_and_export(trainer, test_ds, args.export_path, log)

@@ -12,9 +12,13 @@ build) both vocabularies and the sentence pairs, fit, translate a sample
 sentence, write the export, then score BLEU on the first ``--bleu_limit``
 test pairs (``--eval_bleu``). LM mode (``--decoder_only``): the LM windows
 of the target side, then eval loss and perplexity from the final epoch's
-full eval, and the export. The export (``params.npz`` + ``config.json``,
-the JAX export layout) loads in ``cli.translate``/``cli.evaluate`` or
-``cli.serve``. Flags keep the JAX CLI's names and defaults, and
+full eval, and the export. As the JAX CLI does, both always checkpoint,
+to ``--ckpt_path`` (default ``model_dist`` in the working directory):
+the newest intact checkpoint there is restored before training, so a
+relaunch with the same path resumes (after a finished run it trains
+nothing and exports again); SIGTERM/SIGINT saves and ends the run. The
+export (``params.npz`` + ``config.json``, the JAX export layout) loads
+in ``cli.translate``/``cli.evaluate`` or ``cli.serve``. Flags keep the JAX CLI's names and defaults, and
 ``--preset`` fills the flags not given explicitly; argparse replaces
 absl. ``--export_path`` (default ``model``) and ``--device`` (default
 ``cuda``) are the port's own. Masked-LM training raises until its slice.
@@ -76,7 +80,7 @@ _FLAGS: dict[str, tuple] = {
     "label_smoothing": (float, 0.0, "label smoothing epsilon"),
     "loss_normalization": (str, "tokens", "tokens | batch"),
     "max_grad_norm": (float, 0.0, "global-norm gradient clip (0 = off)"),
-    "optimizer": (str, "adam", "adam (adafactor/adamw are not ported)"),
+    "optimizer": (str, "adam", "adam | adamw (adafactor is not ported)"),
     "weight_decay": (float, 0.0, "adamw weight decay"),
     "tie_embeddings": (_bool, False, "share src/tgt embedding tables"),
     "tie_output": (_bool, False, "tie the output projection to the embedding"),
@@ -91,13 +95,18 @@ _FLAGS: dict[str, tuple] = {
     "remat": (_bool, False, "rematerialize each layer in the backward"),
     "remat_policy": (str, "full", "full (dots is not ported)"),
     "eval_max_batches": (int, 8, "cap on in-loop eval batches (0 = all)"),
-    "grad_accum": (int, 1, "gradient accumulation (only 1 is ported)"),
-    "loss_chunks": (int, 1, "chunked CE (only 1 is ported)"),
+    "grad_accum": (int, 1, "gradient-accumulation micro-steps per optimizer update (1 = off)"),
+    "loss_chunks": (int, 1, "vocab projection + CE over this many sequence slices (1 = off)"),
     "steps_per_dispatch": (int, 1, "steps per dispatch (only 1 is ported)"),
     "seed": (int, 0, "seed of the init, the shuffle and dropout"),
     "eval_bleu": (_bool, True, "seq2seq: corpus BLEU on the test split after training"),
     "bleu_limit": (int, 200, "score only the first N test pairs (0 = all)"),
     "export_path": (str, "model", "where to write params.npz + config.json"),
+    "ckpt_path": (str, "model_dist", "checkpoint directory (restored from, then written)"),
+    "max_ckpt_keep": (int, 5, "checkpoints to retain"),
+    "async_checkpoint": (_bool, False, "write checkpoints from a background thread"),
+    "early_stop_patience": (int, 0, "stop after this many epochs without eval-loss "
+                            "improvement (0 = run all epochs)"),
     "device": (str, "cuda", "cuda (default) or cpu"),
 }
 
@@ -141,8 +150,17 @@ def train_config(args: argparse.Namespace):
         optimizer=args.optimizer, weight_decay=args.weight_decay, seed=args.seed,
         eval_max_batches=args.eval_max_batches, grad_accum_steps=args.grad_accum,
         loss_chunks=args.loss_chunks, steps_per_dispatch=args.steps_per_dispatch,
-        objective=args.objective,
+        objective=args.objective, early_stop_patience=args.early_stop_patience,
+        max_ckpt_keep=args.max_ckpt_keep, ckpt_path=args.ckpt_path,
     )
+
+
+def checkpoint_manager(args: argparse.Namespace, train_cfg):
+    """The run's checkpoint manager: async with ``--async_checkpoint``."""
+    from transformer_tpu_torch.train.checkpoint import AsyncCheckpointManager, CheckpointManager
+
+    cls = AsyncCheckpointManager if args.async_checkpoint else CheckpointManager
+    return cls(train_cfg.ckpt_path, train_cfg.max_ckpt_keep)
 
 
 def load_data(args: argparse.Namespace, train_cfg, log_fn=print):
@@ -232,7 +250,8 @@ def main(argv: list[str] | None = None, log_fn=print):
         train_ds, test_ds, src_tok, tgt_tok = load_pairs(args, train_cfg, log_fn)
         model_cfg = model_config(args, tgt_tok.model_vocab_size, src_tok.model_vocab_size)
     state = create_train_state(model_cfg, train_cfg, device=device)
-    trainer = Trainer(model_cfg, train_cfg, state, log_fn=log_fn)
+    trainer = Trainer(model_cfg, train_cfg, state, log_fn=log_fn,
+                      checkpoint=checkpoint_manager(args, train_cfg))
     trainer.fit(train_ds, test_ds)
     if args.decoder_only:
         report_and_export(trainer, test_ds, args.export_path, log_fn)

@@ -6,7 +6,8 @@ The JAX package flattens its parameter tree with ``/``-joined path names
 dict saved as ``params.npz`` beside a ``config.json``. The port keeps the
 same tree, in the same layouts, as nested dicts/lists of torch tensors, so
 the map is one-to-one and exact: numpy -> port -> numpy is byte-identical.
-This module reads and writes those files itself; it never imports the JAX
+The export files are read and written by ``train/checkpoint.py``
+(``exported_leaf``, ``export_params``); nothing here imports the JAX
 package.
 """
 
@@ -18,13 +19,10 @@ import os
 import numpy as np
 import torch
 
-from transformer_tpu_torch.config import ModelConfig, config_from_json, config_to_json
+from transformer_tpu_torch.config import ModelConfig, config_from_json
 from transformer_tpu_torch.device import resolve_device
 from transformer_tpu_torch.models.transformer import flatten, param_spec, unflatten
-
-# int8-quantized export leaves: codes under key + Q8, scales under key + Q8S.
-Q8_SUFFIX = "::q8"
-Q8_SCALE_SUFFIX = "::q8scale"
+from transformer_tpu_torch.train import checkpoint
 
 
 def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig, device="cuda"):
@@ -36,13 +34,7 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig, device="cud
     dev = resolve_device(device)
     out = {}
     for key, (shape, _) in param_spec(cfg).items():
-        if key in flat:
-            arr = np.asarray(flat[key])
-        elif key + Q8_SUFFIX in flat:
-            codes = np.asarray(flat[key + Q8_SUFFIX]).astype(np.float32)
-            arr = codes * flat[key + Q8_SCALE_SUFFIX]
-        else:
-            raise KeyError(f"no array for parameter {key!r}")
+        arr = np.asarray(checkpoint.exported_leaf(flat, key))
         if arr.shape != tuple(shape):
             raise ValueError(
                 f"parameter {key!r} has shape {arr.shape}, the config "
@@ -55,8 +47,9 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig, device="cud
 
 
 def params_to_numpy(params) -> dict[str, np.ndarray]:
-    """The port's params -> flat JAX-named numpy arrays (CPU copies)."""
-    return {k: v.detach().cpu().numpy() for k, v in flatten(params).items()}
+    """The port's params -> flat JAX-named numpy arrays (CPU copies; bf16
+    as raw 2-byte words)."""
+    return {k: checkpoint.to_numpy(v) for k, v in flatten(params).items()}
 
 
 def params_digest(params) -> str:
@@ -69,12 +62,10 @@ def params_digest(params) -> str:
     return h.hexdigest()
 
 
-def export_params(params, cfg: ModelConfig, path: str) -> None:
-    """Write ``params.npz`` + ``config.json`` in the JAX export layout."""
-    os.makedirs(path, exist_ok=True)
-    np.savez(os.path.join(path, "params.npz"), **params_to_numpy(params))
-    with open(os.path.join(path, "config.json"), "w") as f:
-        f.write(config_to_json(cfg))
+def export_params(params, cfg: ModelConfig, path: str, quantize: str = "") -> None:
+    """Write ``params.npz`` + ``config.json`` in the JAX export layout
+    (``quantize="int8"``: large weights as int8 codes + fp32 scales)."""
+    checkpoint.export_params(params, cfg, path, quantize=quantize)
 
 
 def load_export(path: str, kv_cache_int8: bool = False, device="cuda"):

@@ -27,13 +27,13 @@ from typing import Callable
 import torch
 
 from transformer_tpu_torch.config import PAD_ID, ModelConfig, TrainConfig
-from transformer_tpu_torch.models.transformer import flatten, transformer_apply
+from transformer_tpu_torch.models.transformer import flatten, transformer_hidden_apply
 from transformer_tpu_torch.ops.nn import GlobalSlice
 from transformer_tpu_torch.parallel.mesh import Mesh
 from transformer_tpu_torch.parallel.seq_context import SeqParallelContext, sequence_parallel
-from transformer_tpu_torch.train.loss import masked_cross_entropy
+from transformer_tpu_torch.train.checkpoint import CheckpointManager
 from transformer_tpu_torch.train.state import TrainState, create_train_state
-from transformer_tpu_torch.train.trainer import Trainer
+from transformer_tpu_torch.train.trainer import Trainer, loss_from_hidden
 
 
 def put_batch(batch: torch.Tensor, mesh: Mesh) -> tuple[torch.Tensor, int, int]:
@@ -53,8 +53,9 @@ def put_batch(batch: torch.Tensor, mesh: Mesh) -> tuple[torch.Tensor, int, int]:
 def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
     """The ``forward_loss`` hook of ``Trainer``: the teacher-forcing shift
     on the global batch, this process's part of it, the forward under the
-    sequence-parallel context (when ``seq > 1``), and the masked CE over
-    the part's real positions, normalised globally."""
+    sequence-parallel context (when ``seq > 1``), and the masked CE
+    (chunked with ``loss_chunks > 1``) over the part's real positions,
+    normalised globally."""
     sp = mesh.shape["seq"]
 
     def forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=None):
@@ -71,16 +72,13 @@ def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
         if sp > 1:
             ctx = SeqParallelContext(mesh.seq_group, mesh.index("seq"), sp, col)
             with sequence_parallel(ctx):
-                logits = transformer_apply(params, None, inp_part, model_cfg, **kw)
+                hidden = transformer_hidden_apply(params, None, inp_part, model_cfg, **kw)
         else:
-            logits = transformer_apply(params, None, inp_part, model_cfg, **kw)
+            hidden = transformer_hidden_apply(params, None, inp_part, model_cfg, **kw)
         real = min(inp_part.shape[1], inp.shape[1] - col)  # drop the padded positions
-        logits, out_part = logits[:, :real], out_part[:, :real]
         total = (out != PAD_ID).sum().float()  # every process holds the whole batch
-        return masked_cross_entropy(
-            logits, out_part, label_smoothing=train_cfg.label_smoothing,
-            normalization=train_cfg.loss_normalization, batch_size=train_cfg.batch_size,
-            total_weight=total,
+        return loss_from_hidden(
+            params, hidden[:, :real], out_part[:, :real], model_cfg, train_cfg, total_weight=total
         )
 
     return forward_loss
@@ -107,6 +105,12 @@ def check_mesh(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh) -> No
             f"by data×fsdp×expert = {shape['data']} "
             "(reference check: distributed_train.py:154-158)"
         )
+    micro = train_cfg.batch_size // max(1, train_cfg.grad_accum_steps)
+    if train_cfg.grad_accum_steps > 1 and micro % shape["data"]:
+        raise ValueError(
+            f"the micro-batch of {micro} rows (batch {train_cfg.batch_size} / grad_accum_steps "
+            f"{train_cfg.grad_accum_steps}) must be divisible by data = {shape['data']}"
+        )
     if shape["seq"] > 1:
         if model_cfg.attention_impl not in ("ring", "ulysses"):
             raise ValueError(
@@ -127,7 +131,9 @@ class DistributedTrainer(Trainer):
     process holds the whole (replicated) train state and its part of each
     batch; the ``data × seq`` sums make the update the same everywhere.
     ``state`` defaults to a fresh one from ``train_cfg.seed`` on the mesh's
-    device; rank 0's parameters are broadcast to every process."""
+    device; rank 0's parameters are broadcast to every process. With a
+    ``checkpoint`` manager rank 0 writes and every process restores the
+    same checkpoint at the start of ``fit``."""
 
     def __init__(
         self,
@@ -136,6 +142,7 @@ class DistributedTrainer(Trainer):
         mesh: Mesh,
         state: TrainState | None = None,
         log_fn: Callable[[str], None] = print,
+        checkpoint: CheckpointManager | None = None,
     ) -> None:
         check_mesh(model_cfg, train_cfg, mesh)
         if state is None:
@@ -145,5 +152,6 @@ class DistributedTrainer(Trainer):
         super().__init__(
             model_cfg, train_cfg, state, log_fn,
             forward_loss=_seq_parallel_forward_loss(mesh), sum_across=mesh.all_reduce_sum_,
+            checkpoint=checkpoint,
         )
 

@@ -1,22 +1,25 @@
 """Train and eval steps and the epoch loop.
 
-Port of ``transformer_tpu/train/trainer.py`` on its plain single-card
-path, for decoder-only LMs and seq2seq models (``src`` into the encoder,
-``tgt[:, :-1]`` into the decoder, ``tgt[:, 1:]`` scored):
-``make_train_step`` (teacher-forcing shift, forward with dropout
-keyed on (seed, step), masked CE, backward, Adam with the pre-clip
-``grad_norm`` metric), ``make_eval_step``, ``MetricAccumulator`` and
-``Trainer.fit`` reduced to epochs, periodic logging, bounded in-loop eval
-and the full end-of-epoch eval. The steps take two hooks that
-``parallel.distributed.DistributedTrainer`` fills: the forward-and-loss
-function, and a sum across processes for the gradients and the metric
-sums. Checkpoints, telemetry, preemption,
-gradient accumulation, multi-step dispatch and the chunked loss are not
-ported: the configs that ask for them raise.
+Port of ``transformer_tpu/train/trainer.py`` for decoder-only LMs and
+seq2seq models (``src`` into the encoder, ``tgt[:, :-1]`` into the
+decoder, ``tgt[:, 1:]`` scored): ``make_train_step`` (teacher-forcing
+shift, forward with dropout keyed on (seed, step), masked CE, backward,
+Adam with the pre-clip ``grad_norm`` metric; with ``grad_accum_steps``
+micro-steps summed in the loss-sum domain and divided once; with
+``loss_chunks`` the chunked CE), ``make_eval_step``, ``MetricAccumulator``
+and ``Trainer.fit``: restore before training, resume at the right epoch,
+periodic logging, bounded in-loop eval, the full end-of-epoch eval, the
+plateau early stop, checkpoints on a cadence and on SIGTERM/SIGINT. The
+steps take two hooks that ``parallel.distributed.DistributedTrainer``
+fills: the forward-and-loss function, and a sum across processes for the
+gradients and the metric sums. Telemetry, tracing and multi-step dispatch
+are not ported: ``steps_per_dispatch > 1`` raises.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from collections.abc import Callable, Iterable
 from typing import Any
@@ -26,9 +29,15 @@ import torch
 
 from transformer_tpu_torch.config import ModelConfig, TrainConfig
 from transformer_tpu_torch.device import resolve_device, synchronize
-from transformer_tpu_torch.models.transformer import flatten, transformer_apply
-from transformer_tpu_torch.train.loss import masked_cross_entropy
+from transformer_tpu_torch.models.transformer import (
+    flatten,
+    project_logits,
+    transformer_hidden_apply,
+)
+from transformer_tpu_torch.train.checkpoint import CheckpointManager
+from transformer_tpu_torch.train.loss import chunked_cross_entropy_from_hidden, masked_cross_entropy
 from transformer_tpu_torch.train.state import Adam, TrainState, global_norm, make_optimizer
+from transformer_tpu_torch.utils.preemption import PreemptionGuard
 
 
 def _check_supported(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
@@ -37,9 +46,8 @@ def _check_supported(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
             "the port trains decoder-only LMs and seq2seq models with the causal "
             "objective; masked-LM training is a later slice"
         )
-    for name in ("grad_accum_steps", "steps_per_dispatch", "loss_chunks"):
-        if getattr(train_cfg, name) > 1:
-            raise NotImplementedError(f"{name} > 1 is not ported yet")
+    if train_cfg.steps_per_dispatch > 1:
+        raise NotImplementedError("steps_per_dispatch > 1 is not ported yet")
 
 
 def _batch(x, device) -> torch.Tensor:
@@ -52,18 +60,32 @@ def _source(src, model_cfg: ModelConfig, device) -> torch.Tensor | None:
     return None if model_cfg.decoder_only else _batch(src, device)
 
 
+def loss_from_hidden(params, hidden, targets, model_cfg, train_cfg, total_weight=None):
+    """(loss, metric sums) of the (B, S, d_model) decoder hiddens against
+    ``targets``: the logits' masked CE, or with ``loss_chunks > 1`` the
+    chunked CE that never holds the whole (B, S, V) logits.
+    ``total_weight`` is the "tokens" divisor of a batch split over
+    processes (see ``masked_cross_entropy``)."""
+    kw = dict(
+        label_smoothing=train_cfg.label_smoothing, normalization=train_cfg.loss_normalization,
+        batch_size=train_cfg.batch_size, total_weight=total_weight,
+    )
+    if train_cfg.loss_chunks > 1:
+        return chunked_cross_entropy_from_hidden(
+            params, hidden, targets, model_cfg, num_chunks=train_cfg.loss_chunks, **kw
+        )
+    return masked_cross_entropy(project_logits(params, hidden, model_cfg), targets, **kw)
+
+
 def _forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=None):
     """Feed ``tgt[:, :-1]`` (and, seq2seq, ``src`` to the encoder), predict
     ``tgt[:, 1:]``: (loss, metric sums). Dropout is keyed on ``key``; None
     runs deterministically."""
-    logits = transformer_apply(
+    hidden = transformer_hidden_apply(
         params, src, tgt[:, :-1], model_cfg, key=key, deterministic=key is None,
         reference=reference,
     )
-    return masked_cross_entropy(
-        logits, tgt[:, 1:], label_smoothing=train_cfg.label_smoothing,
-        normalization=train_cfg.loss_normalization, batch_size=train_cfg.batch_size,
-    )
+    return loss_from_hidden(params, hidden, tgt[:, 1:], model_cfg, train_cfg)
 
 
 def loss_and_grads(
@@ -103,9 +125,25 @@ def make_train_step(
     ``correct``, ``grad_norm``); nothing here waits for the device. With
     ``sum_across`` (an in-place sum over processes) the gradients and the
     metrics are summed before ``grad_norm`` and Adam, so every process
-    takes the same update and reports the same metrics."""
+    takes the same update and reports the same metrics.
+
+    With ``grad_accum_steps`` = n > 1 the batch runs as n micro-batches of
+    B / n rows (n must divide B), micro-step i's dropout keyed on (seed,
+    step, i): each one's gradient of its loss *sum* is added up, and the
+    total divided once by the whole batch's non-PAD token count ("tokens")
+    or the batch size ("batch"), so the update is the whole batch's."""
     _check_supported(model_cfg, train_cfg)
     tx = tx or make_optimizer(model_cfg, train_cfg)
+    accum = max(1, train_cfg.grad_accum_steps)
+    forward = forward_loss or _forward_loss
+
+    def apply(state, leaves, grads, metrics):
+        metrics["grad_norm"] = global_norm(grads.values())
+        updates, opt_state = tx.update(grads, state.opt_state, leaves)
+        with torch.no_grad():
+            for name, p in leaves.items():
+                p.add_(updates[name])
+        return TrainState(state.step + 1, state.params, opt_state), metrics
 
     def train_step(state: TrainState, src, tgt):
         leaves = flatten(state.params)
@@ -117,14 +155,41 @@ def make_train_step(
         )
         if sum_across is not None:
             sum_across([*grads.values(), *metrics.values()])
-        metrics["grad_norm"] = global_norm(grads.values())
-        updates, opt_state = tx.update(grads, state.opt_state)
-        with torch.no_grad():
-            for name, p in leaves.items():
-                p.add_(updates[name])
-        return TrainState(state.step + 1, state.params, opt_state), metrics
+        return apply(state, leaves, grads, metrics)
 
-    return train_step
+    def accum_train_step(state: TrainState, src, tgt):
+        leaves = flatten(state.params)
+        device = next(iter(leaves.values())).device
+        tgt, src = _batch(tgt, device), _source(src, model_cfg, device)
+        if tgt.shape[0] % accum:
+            raise ValueError(f"grad_accum_steps {accum} must divide the batch {tgt.shape[0]}")
+        mb = tgt.shape[0] // accum
+        grads = sums = None
+        for i in range(accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            _, m = forward(
+                state.params, tgt[rows], model_cfg, train_cfg, (train_cfg.seed, state.step, i),
+                src=None if src is None else src[rows],
+            )
+            g = torch.autograd.grad(m["loss_sum"], list(leaves.values()))
+            m = {k: v.detach() for k, v in m.items()}
+            if grads is None:
+                grads, sums = list(g), m
+            else:
+                for a, b in zip(grads, g):
+                    a.add_(b)
+                sums = {k: sums[k] + m[k] for k in sums}
+        grads = dict(zip(leaves, grads))
+        if sum_across is not None:
+            sum_across([*grads.values(), *sums.values()])
+        if train_cfg.loss_normalization == "tokens":
+            denom = torch.clamp(sums["weight"], min=1.0)
+        else:
+            denom = torch.tensor(float(train_cfg.batch_size), device=device)
+        grads = {k: g / denom for k, g in grads.items()}
+        return apply(state, leaves, grads, {"loss": sums["loss_sum"] / denom, **sums})
+
+    return accum_train_step if accum > 1 else train_step
 
 
 def make_eval_step(
@@ -199,7 +264,10 @@ class Trainer:
     """Epoch-driven training loop on one device.
 
     Each train step ends in a device synchronize, so ``step_seconds`` holds
-    the wall time of every step (host enqueue plus device work)."""
+    the wall time of every step (host enqueue plus device work). With a
+    ``checkpoint`` manager, ``fit`` restores the newest intact checkpoint
+    before training and saves on its cadence, on early stop and on
+    SIGTERM/SIGINT."""
 
     def __init__(
         self,
@@ -209,11 +277,13 @@ class Trainer:
         log_fn: Callable[[str], None] = print,
         forward_loss: Callable | None = None,
         sum_across: Callable[[list[torch.Tensor]], None] | None = None,
+        checkpoint: CheckpointManager | None = None,
     ) -> None:
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.state = state
         self.log_fn = log_fn
+        self.checkpoint = checkpoint
         hooks = dict(forward_loss=forward_loss, sum_across=sum_across)
         self.train_step = make_train_step(model_cfg, train_cfg, **hooks)
         self.eval_step = make_eval_step(model_cfg, train_cfg, **hooks)
@@ -223,48 +293,193 @@ class Trainer:
         self.step_seconds: list[float] = []
         self.tokens = 0
         self.eval_batches = 0
+        self._best_eval = float("inf")
+        self._epochs_since_best = 0
 
-    def evaluate(self, batches: Iterable, max_batches: int | None = None) -> None:
+    def evaluate(
+        self, batches: Iterable, max_batches: int | None = None,
+        guard: PreemptionGuard | None = None,
+    ) -> None:
         self.eval_metrics.reset()
         for i, (src, tgt) in enumerate(batches):
             if max_batches is not None and i >= max_batches:
                 break
+            if guard is not None and guard.should_stop:
+                return  # preemption: the caller checkpoints
             self.eval_metrics.update(self.eval_step(self.state, src, tgt))
             self.eval_batches += 1
 
-    def fit(self, train_ds, test_ds=None) -> None:
+    def _restore(self) -> None:
+        def fallback(step, exc):
+            self.log_fn(f"checkpoint at step {step} unreadable ({type(exc).__name__}); falling back")
+
+        restored = self.checkpoint.restore_latest(self.state, on_fallback=fallback)
+        if restored is not None:
+            self.state = restored
+            self.log_fn(f"restored checkpoint at step {self.state.step}")
+
+    def fit(
+        self,
+        train_ds,
+        test_ds=None,
+        epoch_callback: Callable[[int, "Trainer"], object] | None = None,
+    ) -> None:
+        """Train the epochs left after the restored step: a run restored at
+        step s resumes at epoch ``s // len(train_ds)`` (a mid-epoch
+        checkpoint replays its epoch from the start, the (seed,
+        epoch)-keyed data order and (seed, step)-keyed dropout as the
+        uninterrupted run had them). ``epoch_callback(epoch, trainer)``
+        runs after each epoch's eval and before its checkpoint; a truthy
+        return stops the run after that checkpoint."""
         cfg = self.train_cfg
+        if self.checkpoint is not None:
+            self._restore()
         step = self.state.step
-        for epoch in range(cfg.epochs):
-            self.train_metrics.reset()
-            epoch_start = time.perf_counter()
-            for src, tgt in train_ds.batches(epoch):
-                t0 = time.perf_counter()
-                self.state, m = self.train_step(self.state, src, tgt)
-                synchronize(self.device)
-                self.step_seconds.append(time.perf_counter() - t0)
-                self.tokens += tgt.shape[0] * max(tgt.shape[1] - 1, 1)
-                self.train_metrics.update(m)
-                step += 1
-                if cfg.log_every_steps and step % cfg.log_every_steps == 0:
-                    self.log_fn(
-                        f"epoch {epoch + 1} step {step} loss {self.train_metrics.loss:.4f} "
-                        f"acc {self.train_metrics.accuracy:.4f} "
-                        f"grad_norm {float(m['grad_norm']):.4f}"
-                    )
-                every = cfg.eval_every_steps
-                if test_ds is not None and every and step % every == 0:
-                    self.evaluate(test_ds.batches(epoch), max_batches=cfg.eval_max_batches or None)
-                    self.log_fn(
-                        f"  eval loss {self.eval_metrics.loss:.4f} "
-                        f"acc {self.eval_metrics.accuracy:.4f}"
-                    )
-            epoch_loss = self.train_metrics.loss
-            if test_ds is not None:
-                self.evaluate(test_ds.batches(epoch))
-            synchronize(self.device)
+        start_epoch = 0
+        if step and len(train_ds):
+            start_epoch = min(step // len(train_ds), cfg.epochs)
+            if start_epoch:
+                self.log_fn(f"resuming at epoch {start_epoch + 1}/{cfg.epochs} (step {step})")
+        if cfg.early_stop_patience and self._early_stop_marker_exists():
             self.log_fn(
-                f"epoch {epoch + 1}/{cfg.epochs} done in {time.perf_counter() - epoch_start:.1f}s: "
-                f"loss {epoch_loss:.4f} acc {self.train_metrics.accuracy:.4f}"
-                + (f"; eval loss {self.eval_metrics.loss:.4f}" if test_ds is not None else "")
+                "early-stop marker present in checkpoint dir; not training further "
+                "(delete the EARLY_STOPPED file to continue)"
             )
+            return
+        best_eval, epochs_since_best = float("inf"), 0
+        if cfg.early_stop_patience:
+            best_eval, epochs_since_best = self._load_plateau_state(step)
+            if epochs_since_best:
+                self.log_fn(
+                    f"resumed early-stop window: best eval {best_eval:.4f}, "
+                    f"{epochs_since_best} epoch(s) without improvement"
+                )
+        with PreemptionGuard() as guard:
+            for epoch in range(start_epoch, cfg.epochs):
+                self.train_metrics.reset()
+                epoch_start = time.perf_counter()
+                for src, tgt in train_ds.batches(epoch):
+                    t0 = time.perf_counter()
+                    self.state, m = self.train_step(self.state, src, tgt)
+                    synchronize(self.device)
+                    self.step_seconds.append(time.perf_counter() - t0)
+                    self.tokens += tgt.shape[0] * max(tgt.shape[1] - 1, 1)
+                    self.train_metrics.update(m)
+                    step += 1
+                    if guard.should_stop:
+                        self._preempt(step, guard)
+                        return
+                    if cfg.log_every_steps and step % cfg.log_every_steps == 0:
+                        self.log_fn(
+                            f"epoch {epoch + 1} step {step} loss {self.train_metrics.loss:.4f} "
+                            f"acc {self.train_metrics.accuracy:.4f} "
+                            f"grad_norm {float(m['grad_norm']):.4f}"
+                        )
+                    every = cfg.eval_every_steps
+                    if test_ds is not None and every and step % every == 0:
+                        self.evaluate(test_ds.batches(epoch),
+                                      max_batches=cfg.eval_max_batches or None, guard=guard)
+                        self.log_fn(
+                            f"  eval loss {self.eval_metrics.loss:.4f} "
+                            f"acc {self.eval_metrics.accuracy:.4f}"
+                        )
+                epoch_loss = self.train_metrics.loss
+                if guard.should_stop:
+                    self._preempt(step, guard)
+                    return
+                if test_ds is not None:
+                    self.evaluate(test_ds.batches(epoch), guard=guard)
+                    if guard.should_stop:
+                        self._preempt(step, guard)
+                        return
+                synchronize(self.device)
+                self.log_fn(
+                    f"epoch {epoch + 1}/{cfg.epochs} done in {time.perf_counter() - epoch_start:.1f}s: "
+                    f"loss {epoch_loss:.4f} acc {self.train_metrics.accuracy:.4f}"
+                    + (f"; eval loss {self.eval_metrics.loss:.4f}" if test_ds is not None else "")
+                )
+                callback_stop = bool(epoch_callback(epoch, self)) if epoch_callback else False
+                stop_early = False
+                if cfg.early_stop_patience and test_ds is not None and self.eval_metrics.weight > 0:
+                    if self.eval_metrics.loss < best_eval - 1e-6:
+                        best_eval, epochs_since_best = self.eval_metrics.loss, 0
+                    else:
+                        epochs_since_best += 1
+                        stop_early = epochs_since_best >= cfg.early_stop_patience
+                self._best_eval, self._epochs_since_best = best_eval, epochs_since_best
+                if self.checkpoint is not None and (
+                    (epoch + 1) % cfg.checkpoint_every_epochs == 0
+                    or epoch + 1 == cfg.epochs or stop_early or callback_stop
+                ):
+                    self.checkpoint.save(self.state)
+                    if cfg.early_stop_patience:
+                        self._save_plateau_state(step)
+                if stop_early:
+                    self.log_fn(
+                        f"early stop after epoch {epoch + 1}: eval loss has not improved for "
+                        f"{epochs_since_best} epoch(s) (best {best_eval:.4f})"
+                    )
+                    self._mark_early_stopped(epoch + 1)
+                    break
+                if callback_stop:
+                    self.log_fn(f"stop requested by epoch callback after epoch {epoch + 1}")
+                    break
+        if self.checkpoint is not None:
+            self.checkpoint.wait()  # the last save is durable before fit returns
+
+    def _preempt(self, step: int, guard: PreemptionGuard) -> None:
+        """On SIGTERM/SIGINT: save, wait until the save is durable, report."""
+        prefix = f"preemption (signal {guard.signal_received}) at step {step}: "
+        if self.checkpoint is None:
+            self.log_fn(prefix + "no checkpoint manager configured, state lost")
+            return
+        path = self.checkpoint.save(self.state)
+        self.checkpoint.wait()
+        if self.train_cfg.early_stop_patience:
+            self._save_plateau_state(step)
+        if path is None:
+            self.log_fn(prefix + "checkpoint written by primary process")
+        else:
+            self.log_fn(prefix + f"checkpoint saved to {path}")
+
+    # The plateau window and the early-stop marker live beside the
+    # checkpoints, written by the primary process, read by every process,
+    # so that a resumed run keeps its patience window and a relaunch after
+    # an early stop does not train past it.
+    def _sidecar(self, name: str) -> str | None:
+        return None if self.checkpoint is None else os.path.join(self.checkpoint.directory, name)
+
+    def _load_plateau_state(self, step: int) -> tuple[float, int]:
+        path = self._sidecar("plateau.json")
+        if path is None or not os.path.exists(path):
+            return float("inf"), 0
+        try:
+            with open(path) as f:
+                d = json.load(f)
+        except (ValueError, OSError):
+            return float("inf"), 0
+        if int(d.get("step", -1)) > step:
+            # Written after the restored checkpoint (an older one was
+            # restored): its counts describe evals this run will redo.
+            return float("inf"), 0
+        return float(d.get("best_eval", float("inf"))), int(d.get("epochs_since_best", 0))
+
+    def _save_plateau_state(self, step: int) -> None:
+        path = self._sidecar("plateau.json")
+        if path is None or not self.checkpoint.is_primary:
+            return
+        with open(f"{path}.tmp", "w") as f:
+            json.dump({"step": step, "best_eval": self._best_eval,
+                       "epochs_since_best": self._epochs_since_best}, f)
+        os.replace(f"{path}.tmp", path)
+
+    def _early_stop_marker_exists(self) -> bool:
+        path = self._sidecar("EARLY_STOPPED")
+        return path is not None and os.path.exists(path)
+
+    def _mark_early_stopped(self, epoch: int) -> None:
+        path = self._sidecar("EARLY_STOPPED")
+        if path is None or not self.checkpoint.is_primary:
+            return
+        with open(path, "w") as f:
+            f.write(f"early stop after epoch {epoch}\n")
