@@ -6,7 +6,7 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in eight phases:
+runs on the CPU). It prints one JSON line per check, in nine phases:
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -59,8 +59,10 @@ runs on the CPU). It prints one JSON line per check, in eight phases:
    the encoder's non-causal self-attention over ragged key lengths with a
    row of PAD only, whose rows must come back with out = 0, lse = MASKED
    and zero gradients exactly; the decoder's causal S 63; the big and tiny
-   presets' encoders), bf16 and fp32, each with a planted fault (the first
-   real key of every sequence taken for padding, where not causal); then
+   presets' encoders; the length buckets' widths, encoder S 16 / 32 / 48
+   and causal decoder S 15 / 31 / 47), bf16 and fp32, each with a planted
+   fault (the first real key of every sequence taken for padding, where
+   not causal); then
    ``transformer_tpu_torch.cli.train --preset base --attention_impl flash
    --sequence_length 64 --epochs 1`` (Transformer-base at full width on the
    bundled corpus), whose flash counters must equal 12 launches of each
@@ -102,7 +104,22 @@ runs on the CPU). It prints one JSON line per check, in eight phases:
    ``cli.translate`` (greedy, 8 sentences) and ``cli.evaluate --limit
    200`` on it; and one fp32 step (2 + 2 layers, B 64, kernels on) with
    ``--grad_accum 2`` against the whole batch, held to the fp32 step's
-   limits.
+   limits;
+9. dispatch: ``cli.train --preset base --attention_impl flash
+   --sequence_length 64`` on the same 1,300 pairs: E 2 epochs at
+   ``--steps_per_dispatch 1`` (eager steps), D the same at 8 (each step a
+   replay of one captured CUDA graph): D must end with E's parameters bit
+   for bit (else within 1e-6 of each leaf's largest value, the leaves
+   named), with E's flash counters and one capture; RD 1 epoch at 8,
+   relaunched to 2, must log the resume and end as D; BK one epoch at
+   ``--length_buckets 16,32,48,64 --steps_per_dispatch 8``, one capture
+   per width its epoch holds; then ``--preset long4k --remat_policy dots``
+   at 1 and 4 steps a dispatch and full remat at 4, each bit for bit
+   phase 5's full-remat export (peak memory above each run's start). Every run's counters are held as in phase 8 (long4k's as in
+   phase 5). Each of E, D, BK and the dots runs reports step median, mean
+   and first step, capture time per shape, real target tokens per
+   second, peak allocated memory and a profiled window (one dispatch, or
+   3 single steps): wall, device time, busy share and launch calls.
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -688,14 +705,14 @@ def flash_inputs(b, s_q, s_k, h, h_kv, d, dtype, padded, seed=SEED, lengths=None
     return q, k, v, do, torch.from_numpy(mask).cuda()
 
 
-def sentence_lengths(b, s, seed=SEED, empty_row=False):
-    """Ragged key lengths of a batch of B sentences padded to S: from 2
-    (a sentence's BOS and EOS) to S, the last row 0 (all PAD) with
-    ``empty_row``. (A sequence of one key has gradients that are 0 up to
-    rounding, which a relative reading cannot judge.)"""
+def sentence_lengths(b, s, seed=SEED, empty_row=False, shortest=2):
+    """Ragged key lengths of a batch of B sentences padded to S: from
+    ``shortest`` (2: a sentence's BOS and EOS) to S, the last row 0 (all
+    PAD) with ``empty_row``. (A sequence of one key has gradients that are
+    0 up to rounding, which a relative reading cannot judge.)"""
     import numpy as np
 
-    lengths = np.random.default_rng(seed + 7).integers(2, s + 1, size=b)
+    lengths = np.random.default_rng(seed + 7).integers(shortest, s + 1, size=b)
     lengths[0] = s
     if empty_row:
         lengths[-1] = 0
@@ -1897,6 +1914,7 @@ def fp32_ring_check(tok, train_ds, layers: int = 2, sp: int = 4):
 
 
 S2S_LEN = 64  # --sequence_length of the seq2seq main path (bench.py's seq)
+BUCKETS = (16, 32, 48, 64)  # phase 9's --length_buckets
 
 
 def seq2seq_flash_checks():
@@ -1923,6 +1941,21 @@ def seq2seq_flash_checks():
             check_flash("tiny encoder", dtype, b, s, s, 4, 4, 32, False, None, True,
                         lengths=sentence_lengths(b, s, seed=SEED + 3, empty_row=True)),
         ]
+        # The length buckets' widths (phase 9, --length_buckets 16,32,48,64):
+        # the encoder at S 16, 32, 48 over ragged lengths up to S, the
+        # decoder causal at S 15, 31, 47 over lengths from 3. (On a causal
+        # sequence of 2 keys the off-by-one fault's bf16 dK can land within
+        # 0.002 of the true one on some head, so that fault cannot be read
+        # there; the kernel's own readings at 2 keys are held by the
+        # encoder cases and the S 63 decoder case.)
+        for w in BUCKETS[:-1]:
+            recs += [
+                check_flash(f"bucket {w} encoder", dtype, b, w, w, 8, 8, 64, False, None, True,
+                            lengths=sentence_lengths(b, w, seed=SEED + w, empty_row=True)),
+                check_flash(f"bucket {w} decoder", dtype, b, w - 1, w - 1, 8, 8, 64, True, None,
+                            True, lengths=sentence_lengths(b, w - 1, seed=SEED + w + 1,
+                                                           shortest=3)),
+            ]
         if bf16:
             timed = {"encoder": timed_enc, "decoder": timed_dec}
     return recs, timed
@@ -2592,6 +2625,301 @@ def checkpoints_path(src_vocab, tgt_vocab):
 
 
 # --------------------------------------------------------------------------
+# phase 9: steps_per_dispatch (the step replayed from a CUDA graph), length
+# buckets and the "dots" remat policy
+
+
+def dispatch_argv(data, src_vocab, tgt_vocab, root, name, epochs, k, *extra):
+    """``cli.train --preset base --attention_impl flash --sequence_length
+    64 --steps_per_dispatch k`` on the cut corpus, checkpointing to
+    ``root/name``."""
+    return [
+        "--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
+        "--steps_per_dispatch", str(k), "--epochs", str(epochs), "--dataset_path", data,
+        "--src_vocab_file", src_vocab, "--tgt_vocab_file", tgt_vocab,
+        "--ckpt_path", os.path.join(root, name), "--export_path", os.path.join(root, f"{name}_export"),
+        "--eval_bleu", "false", "--device", "cuda", *extra,
+    ]
+
+
+def memory_mark() -> int:
+    """Collect what earlier runs left for the garbage collector, reset the
+    peak and return the bytes still allocated: a run's peak above this
+    mark is its own."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def dispatch_fit(argv, launches: dict, epoch_steps: int):
+    """``ckpt_fit`` (counters held to 12 launches of each kernel a step, 12
+    forward launches an eval batch, 6 for the sample translation) with the
+    run's captures, peak memory and real target tokens per second of its
+    last epoch (``epoch_steps`` steps)."""
+    import torch
+
+    mark = memory_mark()
+    trainer, logs, rec = ckpt_fit(argv, launches)
+    graph = trainer.graph
+    last = trainer.step_seconds[-epoch_steps:]
+    rec.update({
+        "steps_per_dispatch": trainer.train_cfg.steps_per_dispatch,
+        "dispatches": [k for k, _ in trainer.dispatches],
+        "captures": 0 if graph is None else len(graph.captures),
+        "capture_s_by_shape": [] if graph is None else [
+            {"src": list(sig[0]), "tgt": list(sig[1]), "seconds": sec}
+            for sig, sec in graph.captures],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "peak_above_start_bytes": torch.cuda.max_memory_allocated() - mark,
+        "target_tokens_per_s_last_epoch": trainer.train_metrics.weight / sum(last),
+        "eval_loss": trainer.eval_metrics.loss,
+    })
+    if not (math.isfinite(rec["train_loss"]) and math.isfinite(rec["eval_loss"])):
+        raise SystemExit(f"dispatch: non-finite loss: {rec}")
+    return trainer, logs, rec
+
+
+def window_profile(trainer, batches, k, label):
+    """Busy share of one window of the run's own step: one ``k``-step
+    dispatch (k > 1: the replayed graph) or 3 single steps (k = 1), on the
+    host clock, then a second window under ``torch.profiler`` for the
+    device time and the host's launch calls. ``batches`` holds three
+    windows' worth of one shape."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = k if k > 1 else 3
+
+    def window(part):
+        if k > 1:
+            src, tgt = np.stack([b[0] for b in part]), np.stack([b[1] for b in part])
+            trainer.state, _ = trainer.multi_step(trainer.state, src, tgt)
+        else:
+            for src, tgt in part:
+                trainer.state, _ = trainer.train_step(trainer.state, src, tgt)
+
+    window(batches[:n])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window(batches[n : 2 * n])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    tokens = sum(int((tgt[:, 1:] != 0).sum()) for _, tgt in batches[n : 2 * n])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window(batches[2 * n : 3 * n])
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    averages = prof.key_averages()
+    device_us = sum(dev_us(e) for e in averages
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    launch_calls = {e.key: e.count for e in averages
+                    if "Launch" in e.key and e.key.startswith("cu")}
+    rec = {
+        "phase": "dispatch", "step": "window_profile", "run": label, "card": nvidia_smi_line(),
+        "steps": n, "steps_per_dispatch": k, "wall_ms": wall_ms, "wall_ms_per_step": wall_ms / n,
+        "target_tokens": tokens, "target_tokens_per_s": tokens / wall_ms * 1e3,
+        "device_ms": device_us / 1e3 if device_us else "not measured",
+        "device_ms_per_step": device_us / 1e3 / n if device_us else "not measured",
+        "device_busy_share": device_us / 1e3 / wall_ms if device_us else "not measured",
+        "launch_calls": launch_calls,
+        "launch_calls_per_step": {name: c / n for name, c in launch_calls.items()},
+        "timers": "wall: host clock around one window ending in a synchronize; device: "
+                  "torch.profiler's device time over a second window of the same size",
+    }
+    emit(rec)
+    return rec
+
+
+def batches_of_width(train_ds, width, count, epochs=12):
+    """``count`` train batches ``width`` columns wide, from successive
+    epochs' orders."""
+    out = []
+    for epoch in range(epochs):
+        out += [b for b in train_ds.batches(epoch) if b[1].shape[1] == width]
+        if len(out) >= count:
+            return out[:count]
+    raise SystemExit(f"dispatch: fewer than {count} batches of width {width}")
+
+
+def dispatch_path(src_vocab, tgt_vocab, full_export):
+    """E: base for 2 epochs at ``--steps_per_dispatch 1`` (eager steps). D:
+    the same at 8 (groups of 8, 8 and 4 an epoch, each step a replay of
+    the one captured graph): its parameters must equal E's bit for bit
+    (else within 1e-6 of each leaf's largest value, the differing leaves
+    named) and its flash counters E's. RD: 1 epoch at 8, relaunched to 2,
+    must log the resume and end with D's parameters. BK: one epoch at
+    ``--length_buckets 16,32,48,64 --steps_per_dispatch 8``: one capture
+    per bucket that occurs. Then long4k with ``--remat_policy dots`` at 1
+    and at 4 steps a dispatch against phase 5's full-remat export
+    (``full_export``): bit for bit. E, D, BK and the dots runs each get a
+    profiled window, and long4k with full remat at 4 steps a dispatch too
+    (the same memory mark and card state as the dots runs). Returns the
+    flash launches of the phase's runs."""
+    import statistics
+
+    import torch
+
+    from transformer_tpu_torch.cli import train
+    from transformer_tpu_torch.convert import load_export, params_digest
+    from transformer_tpu_torch.data.pipeline import load_dataset, load_lm_splits
+    from transformer_tpu_torch.models.transformer import flatten
+
+    data = cut_corpus(CKPT_PAIRS)
+    root = fresh_dir("ckpt", "dispatch")
+    launches = {fn.__name__: 0 for fn in flash_counters()}
+    train_ds = load_dataset(data, src_vocab, tgt_vocab, batch_size=64,
+                            sequence_length=S2S_LEN)[0]
+    n = len(train_ds)
+
+    def argv(name, epochs, k, *extra):
+        return dispatch_argv(data, src_vocab, tgt_vocab, root, name, epochs, k, *extra)
+
+    # E and D
+    e, _, e_rec = dispatch_fit(argv("e", 2, 1), launches, n)
+    e_params = {k: v.detach().clone() for k, v in flatten(e.state.params).items()}
+    profiles = {"E": window_profile(e, batches_of_width(train_ds, S2S_LEN, 9), 1, "E")}
+    del e
+    torch.cuda.empty_cache()
+    d, _, d_rec = dispatch_fit(argv("d", 2, 8), launches, n)
+    diff = {key: ((v.detach() - e_params[key]).abs().max()
+                  / e_params[key].abs().max().clamp_min(1e-30)).item()
+            for key, v in flatten(d.state.params).items()}
+    profiles["D"] = window_profile(d, batches_of_width(train_ds, S2S_LEN, 24), 8, "D")
+    del d, e_params
+    torch.cuda.empty_cache()
+    rec = {
+        "phase": "dispatch", "step": "eager_vs_replay", "card": nvidia_smi_line(),
+        "steps_per_epoch": n, "E": e_rec, "D": d_rec,
+        "bit_identical": d_rec["params_sha256"] == e_rec["params_sha256"],
+        "worst_leaf_rel_diff": max(diff.values()),
+        "differing_leaves": sorted(k for k, v in diff.items() if v),
+        "launches_equal": d_rec["launches"] == e_rec["launches"],
+    }
+    emit(rec)
+    groups = [min(8, n - i) for i in range(0, n, 8)] * 2
+    if d_rec["dispatches"] != groups or e_rec["dispatches"] != [1] * 2 * n:
+        raise SystemExit(f"dispatch: D dispatched {d_rec['dispatches']}, expected {groups}")
+    if not rec["launches_equal"] or d_rec["captures"] != 1 or e_rec["captures"] != 0:
+        raise SystemExit(f"dispatch: counters or captures differ between E and D: {rec}")
+    if not rec["bit_identical"] and rec["worst_leaf_rel_diff"] > 1e-6:
+        raise SystemExit(f"dispatch: D's parameters differ from E's beyond 1e-6: {rec}")
+
+    # RD: resumed at K 8
+    _, _, rd1_rec = dispatch_fit(argv("rd", 1, 8), launches, n)
+    rd, rd_logs, rd_rec = dispatch_fit(argv("rd", 2, 8), launches, n)
+    resumed = (f"restored checkpoint at step {n}" in rd_logs
+               and f"resuming at epoch 2/2 (step {n})" in rd_logs)
+    rec = {"phase": "dispatch", "step": "resume", "card": nvidia_smi_line(),
+           "RD_epoch_1": rd1_rec, "RD_relaunch": rd_rec, "resumed": resumed,
+           "equals_D": rd_rec["params_sha256"] == d_rec["params_sha256"]}
+    emit(rec)
+    if not (resumed and rec["equals_D"] and rd_rec["final_step"] == 2 * n):
+        raise SystemExit(f"dispatch: the run resumed at K 8 does not end as D: {rec}")
+    del rd
+    torch.cuda.empty_cache()
+
+    # BK: length buckets
+    bk_ds = load_dataset(data, src_vocab, tgt_vocab, batch_size=64, sequence_length=S2S_LEN,
+                         length_buckets=BUCKETS)[0]
+    widths = sorted({tgt.shape[1] for _, tgt in bk_ds.batches(0)})
+    bk, _, bk_rec = dispatch_fit(
+        argv("bk", 1, 8, "--length_buckets", ",".join(map(str, BUCKETS))), launches, len(bk_ds))
+    captured = sorted(c["tgt"][1] for c in bk_rec["capture_s_by_shape"])
+    wide = max(widths, key=lambda w: sum(1 for _, t in bk_ds.batches(0) if t.shape[1] == w))
+    profiles["BK"] = window_profile(bk, batches_of_width(bk_ds, wide, 24), 8, f"BK width {wide}")
+    rec = {"phase": "dispatch", "step": "buckets", "card": nvidia_smi_line(), "BK": bk_rec,
+           "bucket_batches": {w: sum(1 for _, t in bk_ds.batches(0) if t.shape[1] == w)
+                              for w in widths},
+           "widths_in_epoch": widths, "captured_widths": captured,
+           "padded_positions_per_epoch": sum(t.size for _, t in bk_ds.batches(0)),
+           "flat_positions_per_epoch": n * 64 * S2S_LEN}
+    emit(rec)
+    if captured != widths:
+        raise SystemExit(f"dispatch: BK captured widths {captured}, its epoch has {widths}")
+    del bk
+    torch.cuda.empty_cache()
+
+    # long4k under the "dots" policy at K 1 and K 4, and full remat at K 4,
+    # each against phase 5's full remat at K 1
+    want = params_digest(load_export(full_export, device="cuda")[0])
+    lm_ds = load_lm_splits(os.path.join(ROOT, "data"), tgt_vocab, batch_size=4,
+                           sequence_length=4096)[0]
+    dots = {}
+    for policy, k in (("dots", 1), ("dots", 4), ("full", 4)):
+        name = f"{policy} K{k}"
+        lm_argv = ["--preset", "long4k", "--remat_policy", policy, "--steps_per_dispatch", str(k),
+                   "--epochs", "1", "--dataset_path", os.path.join(ROOT, "data"),
+                   "--tgt_vocab_file", tgt_vocab,
+                   "--export_path", os.path.join(root, f"{policy}{k}_export"),
+                   "--ckpt_path", os.path.join(root, f"{policy}{k}"), "--device", "cuda"]
+        logs: list[str] = []
+        read_flash_counters(reset=True)
+        mark = memory_mark()
+        t0 = time.perf_counter()
+        tr = train.main(lm_argv, log_fn=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_flash_counters()
+        for kernel, count in got.items():
+            launches[kernel] += count
+        cfg, steps = tr.model_cfg, len(tr.step_seconds)
+        expect = {"flash_fwd": cfg.num_layers * (2 * steps + tr.eval_batches),
+                  "flash_dq": cfg.num_layers * steps, "flash_dkdv": cfg.num_layers * steps}
+        ms = [t * 1e3 for t in tr.step_seconds]
+        dots[name] = {
+            "argv": lm_argv, "steps_per_dispatch": k, "steps": steps,
+            "dispatches": [j for j, _ in tr.dispatches],
+            "wall_s": wall, "step_ms_median": statistics.median(ms),
+            "step_ms_mean": statistics.mean(ms), "step_ms_first": ms[0],
+            "captures": 0 if tr.graph is None else len(tr.graph.captures),
+            "capture_s_by_shape": [] if tr.graph is None else [
+                {"tgt": list(sig[1]), "seconds": sec} for sig, sec in tr.graph.captures],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "peak_above_start_bytes": torch.cuda.max_memory_allocated() - mark,
+            "target_positions_per_s": tr.tokens / sum(tr.step_seconds),
+            "target_tokens_per_s": tr.train_metrics.weight / sum(tr.step_seconds),
+            "train_loss": tr.train_metrics.loss, "launches": got, "expected_launches": expect,
+            "params_sha256": params_digest(tr.state.params), "equals_full_remat":
+                params_digest(tr.state.params) == want,
+        }
+        profiles[f"long4k {name}"] = window_profile(
+            tr, list(lm_ds.batches(1))[: 3 * (k if k > 1 else 3)], k, f"long4k {name}")
+        del tr
+        torch.cuda.empty_cache()
+    rec = {"phase": "dispatch", "step": "dots", "card": nvidia_smi_line(),
+           "phase_5_full_remat_params_sha256": want, **dots}
+    emit(rec)
+    for name, r in dots.items():
+        if r["launches"] != r["expected_launches"] or not math.isfinite(r["train_loss"]):
+            raise SystemExit(f"dispatch: long4k {name}: {r}")
+        if not r["equals_full_remat"] or r["captures"] != (1 if r["steps_per_dispatch"] > 1 else 0):
+            raise SystemExit(f"dispatch: long4k {name} differs from phase 5's full remat: {rec}")
+    emit({"phase": "dispatch", "step": "summary", "card": nvidia_smi_line(),
+          "runs": {
+              label: {key: r.get(key) for key in (
+                  "steps_per_dispatch", "step_ms_median", "step_ms_mean", "step_ms_first",
+                  "captures", "capture_s_by_shape", "target_tokens_per_s_last_epoch",
+                  "target_tokens_per_s", "max_memory_allocated_bytes", "peak_above_start_bytes")}
+              for label, r in (("E", e_rec), ("D", d_rec), ("BK", bk_rec),
+                               *((f"long4k {n}", r) for n, r in dots.items()))},
+          "windows": {label: {key: p[key] for key in (
+              "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+              "target_tokens_per_s", "launch_calls_per_step")}
+              for label, p in profiles.items()}})
+    fresh_dir("ckpt", "dispatch")
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2763,6 +3091,9 @@ def main() -> int:
     # 8. checkpoints, resume, preemption and export on the base path
     ckpt_launches = checkpoints_path(src_vocab, vocab_path)
 
+    # 9. steps_per_dispatch as CUDA-graph replays, buckets, dots
+    disp_launches = dispatch_path(src_vocab, vocab_path, os.path.join(BUILD_DIR, "train_export"))
+
     def summary(name, main_rec, recs, replaces):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
                                          "share_of_bound_warm") if k in main_rec}
@@ -2792,7 +3123,7 @@ def main() -> int:
         recs = [f_main] + f_recs + s2s_recs
         by_path = {"train": train_launches[name], "sp_train": sp["launches"][name],
                    "seq2seq_train": s2s_launches[name], "translate": tr_launches[name],
-                   "ckpt": ckpt_launches[name]}
+                   "ckpt": ckpt_launches[name], "dispatch": disp_launches[name]}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",

@@ -144,6 +144,53 @@ def test_distributed_trainer_matches_jax(jax_run, tmp_path, dp, sp, remat):
             assert diff.mean() <= 1e-5 and diff.max() <= 1e-2, (key, diff.mean(), diff.max())
 
 
+def _dispatch_worker(rank, world, port, init, batches, out_dir):
+    """Steps 1-2 as one ``steps_per_dispatch`` 2 dispatch, step 3 alone."""
+    from transformer_tpu_torch.parallel.distributed import DistributedTrainer
+
+    mesh = make_mesh(MeshConfig(seq=world), join_job(rank, world, port))
+    cfg = ModelConfig(**{**MODEL, "attention_impl": "ring"})
+    tcfg = TrainConfig(**TRAIN, steps_per_dispatch=2)
+    state = create_train_state(cfg, tcfg, params=params_from_numpy(init, cfg, device="cpu"))
+    logs = []
+    trainer = DistributedTrainer(cfg, tcfg, mesh, state=state, log_fn=logs.append)
+    stacked = np.stack(batches[:2])
+    trainer.state, m = trainer.multi_step(trainer.state, stacked, stacked)
+    sums = [float(m[k]) for k in ("loss_sum", "weight", "correct")]
+    trainer.state, _ = trainer.train_step(trainer.state, None, batches[2])
+    params = {k: v.detach().numpy() for k, v in flatten(trainer.state.params).items()}
+    np.savez(os.path.join(out_dir, f"{rank}.npz"), sums=sums, step=trainer.state.step,
+             logs=np.asarray(logs), **params)
+    torch.distributed.destroy_process_group()
+
+
+def test_distributed_steps_per_dispatch_matches_jax(jax_run, tmp_path):
+    """``steps_per_dispatch`` 2 over 2 gloo processes (ring, sp 2): the
+    dispatch runs uncaptured (and says so once), and three steps land on
+    the JAX step's params within the limits above."""
+    from transformer_tpu.train.schedule import noam_schedule as j_noam
+
+    init, _, _, want_params = jax_run
+    spawn(_dispatch_worker, 2, init, _batches(3), str(tmp_path))
+    runs = [np.load(tmp_path / f"{r}.npz") for r in range(2)]
+    for run in runs:
+        assert int(run["step"]) == 3 and np.array_equal(run["sums"], runs[0]["sums"])
+        for key in want_params:
+            assert np.array_equal(run[key], runs[0][key]), key
+    assert [str(x) for x in runs[0]["logs"] if "uncaptured" in str(x)] == [
+        "steps_per_dispatch 2: the steps of a dispatch run uncaptured (transport gloo: its "
+        "sums go through host memory, which a CUDA graph cannot capture)"
+    ]
+    assert len(runs[1]["logs"]) == len(runs[0]["logs"])  # the test logs every rank
+    sched = j_noam(MODEL["d_model"], TRAIN["warmup_steps"])
+    lr_sum = sum(float(sched(s)) for s in range(3))
+    for key, want in want_params.items():
+        diff = np.abs(runs[0][key] - want) / lr_sum
+        assert diff.max() <= 2.0, key
+        if not key.endswith("self_mha/key/bias"):
+            assert diff.mean() <= 1e-5 and diff.max() <= 1e-2, (key, diff.mean(), diff.max())
+
+
 # --------------------------------------------------------------------------
 # dropout: the global draws
 

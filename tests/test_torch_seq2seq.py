@@ -307,21 +307,46 @@ def small_corpus(tmp_path_factory):
     return tmp
 
 
-def test_seq2seq_batches_equal_jax(small_corpus):
-    kw = dict(batch_size=8, sequence_length=40, target_vocab_size=500, seed=5)
-    vocab = [str(small_corpus / f"{side}.subwords") for side in ("src", "tgt")]
-    got_train, got_test, got_src, got_tgt = load_dataset(str(small_corpus), *vocab, **kw)
-    want_train, want_test, want_src, want_tgt = j_load_dataset(str(small_corpus), *vocab, **kw)
-    assert got_src.vocab_size == want_src.vocab_size and got_tgt.vocab_size == want_tgt.vocab_size
-    assert got_train.num_examples == want_train.num_examples < 200  # the length filter acted
-    assert len(got_train) == len(want_train) > 0
-    for epoch in (0, 1):
-        got, want = list(got_train.batches(epoch)), list(want_train.batches(epoch))
-        assert len(got) == len(want)
+def _overlap_corpus(small_corpus, tmp_path):
+    """``small_corpus`` with its first 20 test pairs appended to the train
+    split (the bundled test split is drawn from the train corpus too)."""
+    for side in ("src", "tgt"):
+        test = (small_corpus / f"{side}-test.txt").read_text(encoding="utf-8").splitlines(True)
+        train = (small_corpus / f"{side}-train.txt").read_text(encoding="utf-8")
+        (tmp_path / f"{side}-train.txt").write_text(train + "".join(test[:20]), encoding="utf-8")
+        (tmp_path / f"{side}-test.txt").write_text("".join(test), encoding="utf-8")
+    return tmp_path
+
+
+def test_seq2seq_batches_equal_jax(small_corpus, tmp_path):
+    """The flat batches, and with ``exclude_test_overlap`` on a corpus
+    whose train split holds 20 test pairs: the same pairs dropped."""
+    kw = dict(batch_size=8, target_vocab_size=500, seed=5)
+    overlap = _overlap_corpus(small_corpus, tmp_path)
+    counts = {}
+    # At 96 tokens most of the appended pairs pass the length filter.
+    for corpus, exclude, length in ((small_corpus, False, 40), (overlap, True, 96)):
+        kw["sequence_length"] = length
+        vocab = [str(corpus / f"{side}.subwords") for side in ("src", "tgt")]
+        got_train, got_test, got_src, got_tgt = load_dataset(
+            str(corpus), *vocab, **kw, exclude_test_overlap=exclude)
+        want_train, want_test, want_src, want_tgt = j_load_dataset(
+            str(corpus), *vocab, **kw, exclude_test_overlap=exclude)
+        assert got_src.vocab_size == want_src.vocab_size
+        assert got_tgt.vocab_size == want_tgt.vocab_size
+        assert got_train.num_examples == want_train.num_examples < 200  # the length filter acted
+        assert len(got_train) == len(want_train) > 0
+        counts[exclude] = got_train.num_examples
+        for epoch in (0, 1):
+            got, want = list(got_train.batches(epoch)), list(want_train.batches(epoch))
+            assert len(got) == len(want)
+            for (gs, gt), (ws, wt) in zip(got, want):
+                assert np.array_equal(gs, ws) and np.array_equal(gt, wt)
+                assert gs.dtype == ws.dtype and gt.dtype == wt.dtype
+        got, want = list(got_test.batches(0)), list(want_test.batches(0))
+        assert len(got) == len(want) > 0
         for (gs, gt), (ws, wt) in zip(got, want):
             assert np.array_equal(gs, ws) and np.array_equal(gt, wt)
-            assert gs.dtype == ws.dtype and gt.dtype == wt.dtype
-    got, want = list(got_test.batches(0)), list(want_test.batches(0))
-    assert len(got) == len(want) > 0
-    for (gs, gt), (ws, wt) in zip(got, want):
-        assert np.array_equal(gs, ws) and np.array_equal(gt, wt)
+    kept = load_dataset(str(overlap), *[str(overlap / f"{s}.subwords") for s in ("src", "tgt")],
+                        **kw)[0].num_examples
+    assert counts[True] < kept  # the exclusion acted

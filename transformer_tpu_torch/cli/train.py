@@ -21,7 +21,11 @@ export (``params.npz`` + ``config.json``, the JAX export layout) loads
 in ``cli.translate``/``cli.evaluate`` or ``cli.serve``. Flags keep the JAX CLI's names and defaults, and
 ``--preset`` fills the flags not given explicitly; argparse replaces
 absl. ``--export_path`` (default ``model``) and ``--device`` (default
-``cuda``) are the port's own. Masked-LM training raises until its slice.
+``cuda``) are the port's own. ``--steps_per_dispatch K`` runs K steps a
+host dispatch (on the card by replaying a CUDA graph of the step, one per
+batch shape), ``--length_buckets`` (seq2seq) pads each batch to the
+smallest fitting width, ``--remat_policy dots`` keeps the dense products'
+outputs under ``--remat``. Masked-LM training raises until its slice.
 """
 
 from __future__ import annotations
@@ -93,11 +97,17 @@ _FLAGS: dict[str, tuple] = {
     "attention_window": (int, 0, "sliding-window causal attention (0 = full)"),
     "dtype": (str, "bfloat16", "compute dtype"),
     "remat": (_bool, False, "rematerialize each layer in the backward"),
-    "remat_policy": (str, "full", "full (dots is not ported)"),
+    "remat_policy": (str, "full", "what remat may keep: 'full' recomputes everything; 'dots' "
+                     "keeps the dense products' outputs and recomputes the rest"),
     "eval_max_batches": (int, 8, "cap on in-loop eval batches (0 = all)"),
     "grad_accum": (int, 1, "gradient-accumulation micro-steps per optimizer update (1 = off)"),
     "loss_chunks": (int, 1, "vocab projection + CE over this many sequence slices (1 = off)"),
-    "steps_per_dispatch": (int, 1, "steps per dispatch (only 1 is ported)"),
+    "steps_per_dispatch": (int, 1, "optimizer steps per host dispatch (1 = off); on the card "
+                           "each replays the step's CUDA graph, with no synchronize between "
+                           "them; log/eval/preemption granularity becomes this many steps"),
+    "length_buckets": (str, "", "seq2seq: comma-separated ascending batch widths (e.g. "
+                       "'16,32,48,64', last <= sequence_length); batches pad to the smallest "
+                       "fitting bucket, one CUDA graph per bucket ('' = off)"),
     "seed": (int, 0, "seed of the init, the shuffle and dropout"),
     "eval_bleu": (_bool, True, "seq2seq: corpus BLEU on the test split after training"),
     "bleu_limit": (int, 200, "score only the first N test pairs (0 = all)"),
@@ -163,11 +173,20 @@ def checkpoint_manager(args: argparse.Namespace, train_cfg):
     return cls(train_cfg.ckpt_path, train_cfg.max_ckpt_keep)
 
 
+def length_buckets(args: argparse.Namespace) -> tuple[int, ...]:
+    return tuple(int(x) for x in args.length_buckets.split(",") if x.strip())
+
+
 def load_data(args: argparse.Namespace, train_cfg, log_fn=print):
     """(train, test, tokenizer) LM splits; builds the vocabulary file when
     it is missing."""
     from transformer_tpu_torch.data.pipeline import load_lm_splits
 
+    if length_buckets(args):
+        raise ValueError(
+            "--length_buckets applies to the seq2seq pipeline only; LM windows are "
+            "already fixed-width (drop the flag with --decoder_only)"
+        )
     train_ds, test_ds, tok = load_lm_splits(
         args.dataset_path, args.tgt_vocab_file, batch_size=train_cfg.batch_size,
         sequence_length=train_cfg.sequence_length,
@@ -190,6 +209,7 @@ def load_pairs(args: argparse.Namespace, train_cfg, log_fn=print):
         args.dataset_path, args.src_vocab_file, args.tgt_vocab_file,
         batch_size=train_cfg.batch_size, sequence_length=train_cfg.sequence_length,
         target_vocab_size=args.target_vocab_size, seed=train_cfg.seed,
+        length_buckets=length_buckets(args),
     )
     log_fn(
         f"data: {train_ds.num_examples} train pairs ({len(train_ds)} batches), "
@@ -253,6 +273,13 @@ def main(argv: list[str] | None = None, log_fn=print):
     trainer = Trainer(model_cfg, train_cfg, state, log_fn=log_fn,
                       checkpoint=checkpoint_manager(args, train_cfg))
     trainer.fit(train_ds, test_ds)
+    if trainer.graph is not None:
+        log_fn(
+            f"steps_per_dispatch {train_cfg.steps_per_dispatch}: "
+            f"{len(trainer.graph.captures)} CUDA graph capture(s) ("
+            + ", ".join(f"src {sig[0]} tgt {sig[1]} in {sec:.2f}s"
+                        for sig, sec in trainer.graph.captures) + ")"
+        )
     if args.decoder_only:
         report_and_export(trainer, test_ds, args.export_path, log_fn)
         return trainer

@@ -4,12 +4,13 @@ Port of the parts of ``transformer_tpu/data/pipeline.py`` that
 ``cli.train`` runs: the parallel-corpus reader, the tokenizer
 build-or-load, the seq2seq dataset of ``load_dataset`` on its in-memory
 path (BOS/EOS framing, the filter that drops a train pair with either side
-longer than ``sequence_length``, the test split cut to fit), the
-causal-LM dataset (the corpus as one EOS-separated token stream cut into
-BOS-prefixed windows) and the flat in-memory batcher of ``Seq2SeqDataset``
-with its (seed, epoch)-keyed shuffle. Batches are numpy int32 arrays equal
-to the JAX package's, element for element. Length buckets, the native C++
-loader, prefetch and streaming are not ported: they raise.
+longer than ``sequence_length``, ``exclude_test_overlap``, the test split
+cut to fit), the causal-LM dataset (the corpus as one EOS-separated token
+stream cut into BOS-prefixed windows) and the in-memory batcher of
+``Seq2SeqDataset``, flat or in length buckets, with its (seed,
+epoch)-keyed shuffle. Batches are numpy int32 arrays equal to the JAX
+package's, element for element. The native C++ loader, prefetch and
+streaming are not ported: they raise.
 """
 
 from __future__ import annotations
@@ -81,10 +82,18 @@ def _round_up(n: int, multiple: int = 8) -> int:
 
 @dataclasses.dataclass
 class Seq2SeqDataset:
-    """In-memory dataset yielding fixed-shape (B, L) int32 (src, tgt)
-    batches: the flat batcher of the JAX twin. ``drop_remainder=False``
-    pads the last batch with empty rows (index -1), which come out all PAD
-    and carry no metric weight."""
+    """In-memory dataset yielding (B, L) int32 (src, tgt) batches: the
+    batcher of the JAX twin. ``drop_remainder=False`` pads the last batch
+    with empty rows (index -1), which come out all PAD and carry no metric
+    weight.
+
+    ``length_buckets``: an ascending tuple of widths, the last at most the
+    dataset's width. Each example lands in the smallest bucket that fits
+    ``max(len(src), len(tgt))``; batches form within a bucket, pad to its
+    width on both sides, and come in a (seed, epoch)-shuffled order across
+    buckets, so one epoch mixes widths. Short sentences stop paying for the
+    full width, and the step takes one shape per bucket (one CUDA graph
+    each under ``steps_per_dispatch``). () = one fixed width."""
 
     src: list[np.ndarray]
     tgt: list[np.ndarray]
@@ -94,39 +103,90 @@ class Seq2SeqDataset:
     shuffle: bool = True
     seed: int = 0
     drop_remainder: bool = True
+    length_buckets: tuple[int, ...] = ()
 
     def __post_init__(self) -> None:
         if len(self.src) != len(self.tgt):
             raise ValueError("src/tgt example count mismatch")
+        if self.length_buckets:
+            self.length_buckets = tuple(sorted(self.length_buckets))
+            if self.length_buckets[-1] > max(self.src_len, self.tgt_len):
+                raise ValueError(
+                    f"largest bucket {self.length_buckets[-1]} exceeds the "
+                    f"dataset width {max(self.src_len, self.tgt_len)}"
+                )
+            lengths = np.asarray([max(len(s), len(t)) for s, t in zip(self.src, self.tgt)])
+            if lengths.size and int(lengths.max()) > self.length_buckets[-1]:
+                # Refused rather than cut: cutting would drop sentences' EOS.
+                n_over = int((lengths > self.length_buckets[-1]).sum())
+                raise ValueError(
+                    f"{n_over} examples exceed the largest length bucket "
+                    f"{self.length_buckets[-1]} (longest is {int(lengths.max())}); make "
+                    "the last bucket as wide as the length filter (sequence_length)"
+                )
+            which = np.searchsorted(np.asarray(self.length_buckets), lengths)
+            self._bucket_members = [
+                np.flatnonzero(which == b) for b in range(len(self.length_buckets))
+            ]
+
+    def _batches_per_bucket(self, n: int) -> int:
+        full, rem = divmod(n, self.batch_size)
+        return full + (1 if rem and not self.drop_remainder else 0)
 
     def __len__(self) -> int:
-        full, rem = divmod(len(self.src), self.batch_size)
-        return full + (1 if rem and not self.drop_remainder else 0)
+        if self.length_buckets:
+            return sum(self._batches_per_bucket(len(m)) for m in self._bucket_members)
+        return self._batches_per_bucket(len(self.src))
 
     @property
     def num_examples(self) -> int:
         return len(self.src)
 
+    def _fill(self, idx: np.ndarray) -> np.ndarray:
+        if len(idx) < self.batch_size:
+            fill = np.full(self.batch_size - len(idx), -1, dtype=np.int64)
+            idx = np.concatenate([idx, fill])
+        return idx
+
     def batches(self, epoch: int = 0) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        if self.length_buckets:
+            yield from self._bucketed_batches(epoch)
+            return
         order = np.arange(len(self.src))
         if self.shuffle:
             epoch_rng(self.seed, epoch).shuffle(order)
         stop = len(order) - (self.batch_size - 1 if self.drop_remainder else 0)
         for start in range(0, stop, self.batch_size):
-            idx = order[start : start + self.batch_size]
-            if len(idx) < self.batch_size:
-                fill = np.full(self.batch_size - len(idx), -1, dtype=np.int64)
-                idx = np.concatenate([idx, fill])
-            yield self._pad(idx)
+            yield self._pad(self._fill(order[start : start + self.batch_size]))
 
-    def _pad(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        src = np.full((len(idx), self.src_len), PAD_ID, dtype=np.int32)
-        tgt = np.full((len(idx), self.tgt_len), PAD_ID, dtype=np.int32)
+    def _bucketed_batches(self, epoch: int) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Batches formed inside each bucket (members permuted per bucket),
+        then the plan of (width, rows) shuffled across buckets, both from
+        the one (seed, epoch) generator, in the JAX twin's order of draws."""
+        rng = epoch_rng(self.seed, epoch)
+        plan: list[tuple[int, np.ndarray]] = []
+        for b, members in enumerate(self._bucket_members):
+            perm = members[rng.permutation(len(members))] if self.shuffle else members
+            for k in range(self._batches_per_bucket(len(perm))):
+                rows = self._fill(perm[k * self.batch_size : (k + 1) * self.batch_size])
+                plan.append((self.length_buckets[b], rows))
+        if self.shuffle:
+            rng.shuffle(plan)
+        for width, rows in plan:
+            yield self._pad(rows, width, width)
+
+    def _pad(
+        self, idx: np.ndarray, src_len: int | None = None, tgt_len: int | None = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        src_len = self.src_len if src_len is None else src_len
+        tgt_len = self.tgt_len if tgt_len is None else tgt_len
+        src = np.full((len(idx), src_len), PAD_ID, dtype=np.int32)
+        tgt = np.full((len(idx), tgt_len), PAD_ID, dtype=np.int32)
         for row, i in enumerate(idx):
             if i < 0:
                 continue  # padding row
-            s = self.src[i][: self.src_len]
-            t = self.tgt[i][: self.tgt_len]
+            s = self.src[i][:src_len]
+            t = self.tgt[i][:tgt_len]
             src[row, : len(s)] = s
             tgt[row, : len(t)] = t
         return src, tgt
@@ -208,20 +268,36 @@ def load_dataset(
     seed: int = 0,
     prefetch: bool = False,
     length_buckets: tuple[int, ...] = (),
+    exclude_test_overlap: bool = False,
     streaming: bool = False,
 ) -> tuple[Seq2SeqDataset, Seq2SeqDataset | None, SubwordTokenizer, SubwordTokenizer]:
     """Seq2seq train (+ test, when the split exists) datasets and both
     tokenizers, built from (or saved to) the vocab files. Train pairs with
     either side longer than ``sequence_length`` after BOS/EOS framing are
-    dropped."""
-    if streaming or prefetch or length_buckets:
+    dropped; ``length_buckets`` batches the train split in buckets
+    (``Seq2SeqDataset``).
+
+    ``exclude_test_overlap`` drops every train pair whose exact (src, tgt)
+    line pair also appears in the test split (the bundled test split is
+    drawn from the train corpus, so BLEU on it is otherwise in-sample). The
+    vocabularies are still built from the whole train files, so the
+    ``*.subwords`` files are the same either way."""
+    if streaming or prefetch:
         raise NotImplementedError(
-            "streaming, the native prefetching loader and length buckets are not "
-            "ported; the port batches the corpus in memory"
+            "streaming and the native prefetching loader are not ported; the port "
+            "batches the corpus in memory"
         )
     src_lines, tgt_lines = read_parallel_corpus(dataset_path, "train")
     src_tok = load_or_build_tokenizer(src_vocab_file, src_lines, target_vocab_size)
     tgt_tok = load_or_build_tokenizer(tgt_vocab_file, tgt_lines, target_vocab_size)
+    if exclude_test_overlap:
+        try:
+            held = set(zip(*read_parallel_corpus(dataset_path, "test")))
+        except FileNotFoundError:
+            held = set()
+        if held:
+            pairs = [(s, t) for s, t in zip(src_lines, tgt_lines) if (s, t) not in held]
+            src_lines, tgt_lines = [s for s, _ in pairs], [t for _, t in pairs]
     src_ids = _encode_and_frame(src_lines, src_tok)
     tgt_ids = _encode_and_frame(tgt_lines, tgt_tok)
     keep = [
@@ -231,6 +307,7 @@ def load_dataset(
     train = Seq2SeqDataset(
         [src_ids[i] for i in keep], [tgt_ids[i] for i in keep], batch_size=batch_size,
         src_len=sequence_length, tgt_len=sequence_length, shuffle=True, seed=seed,
+        length_buckets=tuple(length_buckets),
     )
     test = _build_test_split(dataset_path, src_tok, tgt_tok, batch_size, sequence_length)
     return train, test, src_tok, tgt_tok

@@ -92,10 +92,14 @@ def embed_prologue(
         )
     dtype = cfg.compute_dtype
     x = embedding_lookup(embedding, ids, dtype)
-    x = x * torch.tensor(cfg.d_model**0.5, dtype=dtype, device=x.device)
+    # Constants and int offsets are made on the device, not copied from the
+    # host, so a CUDA graph can capture the prologue.
+    x = x * torch.full((), cfg.d_model**0.5, dtype=dtype, device=x.device)
     if cfg.position_scheme == "sinusoidal":
-        offset = torch.as_tensor(position_offset, device=ids.device).long()
-        offset = torch.clamp(offset, 0, cfg.max_position).reshape(-1, 1)
+        if isinstance(position_offset, torch.Tensor):
+            offset = torch.clamp(position_offset.long(), 0, cfg.max_position).reshape(-1, 1)
+        else:
+            offset = min(max(int(position_offset), 0), cfg.max_position)
         positions = offset + torch.arange(seq_len, device=ids.device)[None, :]
         x = x + sinusoidal_rows(positions, cfg.d_model, dtype)
     return dropout(generator, x, cfg.dropout_rate, deterministic, dropout_slice)

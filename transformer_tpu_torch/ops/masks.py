@@ -27,7 +27,9 @@ def attention_bias(mask: torch.Tensor | None, dtype=torch.float32):
     if mask is None:
         return None
     zero = torch.zeros((), dtype=dtype, device=mask.device)
-    return torch.where(mask, zero, torch.tensor(NEG_INF, dtype=dtype, device=mask.device))
+    # Filled on the device (no copy from a host scalar), so a CUDA graph
+    # can capture it.
+    return torch.where(mask, zero, torch.full((), NEG_INF, dtype=dtype, device=mask.device))
 
 
 def make_padding_mask(ids: torch.Tensor, pad_id: int = PAD_ID) -> torch.Tensor:

@@ -7,12 +7,15 @@ compute casts to the caller's dtype exactly where the JAX twin does.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 Params = dict
 
@@ -49,13 +52,94 @@ def layernorm_apply(
     return out.to(orig_dtype)
 
 
+def key_seed(key: tuple[int, ...]) -> int:
+    """The 63-bit generator seed of an integer dropout key."""
+    return int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0]) >> 1
+
+
+class DropoutTape:
+    """The dropout generators of one train step under CUDA-graph capture.
+
+    A capture records the kernels of the step but not the host's seeds: a
+    generator made and seeded on the host while capturing would draw the
+    capture step's masks at every replay. So the step runs once with the
+    tape recording (a real, eager step: the key of each
+    ``dropout_generator`` call, in call order, the recompute of a
+    rematerialized layer included), then ``arm`` makes one generator per
+    call and registers it with the graph, the capture takes them in the
+    same order (checking each key against the recorded one), and
+    ``reseed`` seeds each from the real key before every replay. Keys
+    must start with ``base`` (the trainer's (seed, step)); ``reseed``
+    swaps that prefix for the replayed step's. The replay then draws the
+    masks the eager step draws for the same key, bit for bit."""
+
+    def __init__(self, base: tuple[int, ...]) -> None:
+        self.base = tuple(base)
+        self.suffixes: list[tuple[int, ...]] = []
+        self.generators: list[torch.Generator] | None = None
+        self._next = 0
+
+    def generator(self, key: tuple[int, ...], device) -> torch.Generator:
+        key = tuple(key)
+        if key[: len(self.base)] != self.base:
+            raise ValueError(f"dropout key {key} does not extend the step's key {self.base}")
+        suffix = key[len(self.base) :]
+        if self.generators is None:
+            self.suffixes.append(suffix)
+            return torch.Generator(device=device).manual_seed(key_seed(key))
+        i, self._next = self._next, self._next + 1
+        if i >= len(self.suffixes) or self.suffixes[i] != suffix:
+            raise RuntimeError(
+                f"the captured step's dropout call {i} has key suffix {suffix}, its warm-up "
+                f"run's {self.suffixes[i] if i < len(self.suffixes) else 'none'}"
+            )
+        return self.generators[i]
+
+    def arm(self, graph, device) -> None:
+        """One generator per recorded call, registered with ``graph``
+        (before its capture begins)."""
+        self.generators = [torch.Generator(device=device) for _ in self.suffixes]
+        for g in self.generators:
+            graph.register_generator_state(g)
+        self.reseed(self.base)
+
+    def check_complete(self) -> None:
+        if self._next != len(self.suffixes):
+            raise RuntimeError(
+                f"the captured step made {self._next} dropout calls, its warm-up run "
+                f"{len(self.suffixes)}"
+            )
+
+    def reseed(self, base: tuple[int, ...]) -> None:
+        for g, suffix in zip(self.generators, self.suffixes):
+            g.manual_seed(key_seed(tuple(base) + suffix))
+
+
+_TAPE: contextvars.ContextVar[DropoutTape | None] = contextvars.ContextVar(
+    "dropout_tape", default=None
+)
+
+
+@contextlib.contextmanager
+def dropout_tape(tape: DropoutTape):
+    """Route ``dropout_generator`` through ``tape`` inside the block."""
+    token = _TAPE.set(tape)
+    try:
+        yield tape
+    finally:
+        _TAPE.reset(token)
+
+
 def dropout_generator(key: tuple[int, ...], device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded from an integer key, e.g.
     (seed, step, layer, site). A layer that seeds its dropout this way
     draws the same masks each time it runs, so the recompute of a
-    checkpointed layer sees the forward's masks."""
-    seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0]) >> 1
-    return torch.Generator(device=device).manual_seed(seed)
+    checkpointed layer sees the forward's masks. Under a ``DropoutTape``
+    (a train step being captured) the tape hands the generator out."""
+    tape = _TAPE.get()
+    if tape is not None:
+        return tape.generator(key, device)
+    return torch.Generator(device=device).manual_seed(key_seed(key))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,26 +188,43 @@ def dropout(
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+_aten = torch.ops.aten
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """JAX's ``dots_with_no_batch_dims_saveable`` in torch's terms: keep
+    the outputs of the products with no batch dimension (the dense layers'
+    ``mm``/``addmm``, and the attention projections' einsums, which torch
+    runs as a ``bmm`` over a batch of 1), recompute everything else:
+    attention's batched products, the flash kernel calls, the elementwise
+    ops and dropout's draws."""
+    if op in (_aten.mm.default, _aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    if op is _aten.bmm.default and args[0].shape[0] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_layer(fn, cfg):
     """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): its
-    activations are recomputed in the backward instead of kept. Policy
-    "full" only; "dots" (keep matmul outputs) is not ported. Dropout inside
+    activations are recomputed in the backward instead of kept; with
+    ``remat_policy="dots"`` the outputs of the products ``dots_policy``
+    picks are kept and only the rest is recomputed (the same gradients
+    either way). Dropout inside
     ``fn`` must come from generators seeded per call (``dropout_generator``),
     since the global RNG state is not replayed. The recompute runs in a
     copy of the context variables of the forward call (the
-    sequence-parallel context among them), since the backward runs outside
-    the ``with`` blocks that set them."""
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported; the port rematerializes "
-            "with policy 'full'"
-        )
+    sequence-parallel context and the dropout tape among them), since the
+    backward runs outside the ``with`` blocks that set them."""
+    extra = {}
+    if cfg.remat_policy == "dots":  # else "full" (ModelConfig allows no other)
+        extra["context_fn"] = functools.partial(create_selective_checkpoint_contexts, dots_policy)
 
     def checkpointed(*args, **kwargs):
         ctx = contextvars.copy_context()
         return torch.utils.checkpoint.checkpoint(
             lambda *a, **k: ctx.run(fn, *a, **k), *args, use_reentrant=False,
-            preserve_rng_state=False, **kwargs,
+            preserve_rng_state=False, **extra, **kwargs,
         )
 
     return checkpointed

@@ -3,7 +3,8 @@
 Layout matches the JAX twin (``transformer_tpu/ops/positional.py``): the
 first d_model/2 channels carry sin of the even-channel angles and the last
 d_model/2 carry cos of the odd-channel angles, concatenated block-wise,
-not interleaved.
+not interleaved. Constants are filled on the device, never copied from a
+host scalar, so a CUDA graph can capture the functions.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 def _angle_rates(d_model: int, device) -> torch.Tensor:
     channels = torch.arange(d_model, dtype=torch.float32, device=device)[None, :]
     return torch.pow(
-        torch.tensor(10000.0, dtype=torch.float32, device=device),
+        torch.full((), 10000.0, dtype=torch.float32, device=device),
         -(2.0 * torch.floor(channels / 2.0)) / d_model,
     )
 
@@ -51,7 +52,7 @@ def apply_rope(
     head_dim = x.shape[-1]
     half = head_dim // 2
     inv_freq = torch.pow(
-        torch.tensor(base, dtype=torch.float32, device=x.device),
+        torch.full((), base, dtype=torch.float32, device=x.device),
         -torch.arange(0, half, dtype=torch.float32, device=x.device) / half,
     )
     angles = positions.to(torch.float32)[..., None] * inv_freq  # (.., S, D/2)

@@ -17,7 +17,12 @@ them; here every process runs the same step on its own part:
 - the loss is normalised by the global token count (or global batch);
   gradients and metric sums are summed over all processes before
   ``grad_norm`` and Adam, so every process takes the same update;
-- the parameters are broadcast from rank 0 at start.
+- the parameters are broadcast from rank 0 at start;
+- with ``steps_per_dispatch`` = K > 1 the K steps of a dispatch are the
+  single-process trainer's (one staged copy, metrics summed on the device,
+  one synchronize a dispatch) but run uncaptured: over gloo the sums go
+  through host memory, which a CUDA graph cannot capture, and capture over
+  NCCL is not ported yet.
 """
 
 from __future__ import annotations
@@ -154,4 +159,13 @@ class DistributedTrainer(Trainer):
             forward_loss=_seq_parallel_forward_loss(mesh), sum_across=mesh.all_reduce_sum_,
             checkpoint=checkpoint,
         )
+        if train_cfg.steps_per_dispatch > 1:
+            why = {
+                "gloo": "its sums go through host memory, which a CUDA graph cannot capture",
+                "nccl": "capture over NCCL is not ported yet",
+            }.get(mesh.process.transport, "the distributed trainer does not capture its steps")
+            log_fn(
+                f"steps_per_dispatch {train_cfg.steps_per_dispatch}: the steps of a dispatch "
+                f"run uncaptured (transport {mesh.process.transport}: {why})"
+            )
 

@@ -102,7 +102,8 @@ def chunked_cross_entropy_from_hidden(
     loss_sum, weight, correct = zero, zero, zero
     for i in range(num_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
-        ls, w, c = checkpoint(chunk_sums, hidden[:, sl], targets[:, sl], use_reentrant=False)
+        ls, w, c = checkpoint(chunk_sums, hidden[:, sl], targets[:, sl], use_reentrant=False,
+                              preserve_rng_state=False)  # no randomness; capturable
         loss_sum, weight, correct = loss_sum + ls, weight + w, correct + c
     divisor = weight if total_weight is None else total_weight
     loss = _normalize(loss_sum, divisor, normalization, batch_size)

@@ -8,7 +8,11 @@ parameter dict so that it follows optax's ``clip_by_global_norm`` ->
 ``scale_by_adam`` -> ``add_decayed_weights`` (adamw, masked) ->
 ``scale_by_learning_rate`` chain operation for operation: bias-corrected
 moments, ``eps`` outside the square root, and ``lr = schedule(count)`` at
-the count before the update (0 on the first). "adafactor" is not ported.
+the count before the update (0 on the first). The moments and the
+parameters are updated in place, and the per-update scalars (the bias
+corrections and the learning rate) are computed on the host and read from
+device memory, so a CUDA graph of the step stays valid from one update to
+the next. "adafactor" is not ported.
 
 ``state_to_flat``/``state_from_flat`` give the state the JAX
 ``TrainState``'s flat checkpoint names, the ones optax's state tree takes
@@ -96,33 +100,76 @@ class Adam:
             path=chain + "0", schedule_path=chain + ("2" if self.adamw else "1"),
         )
 
+    def scalars(self, count: int) -> np.ndarray:
+        """The per-update scalars of the update after ``count`` updates, as
+        (3,) fp32: the bias corrections ``1 - b1^(count+1)`` and ``1 -
+        b2^(count+1)`` (fp32 powers, as the jitted optax step rounds
+        them) and ``-schedule(count)``. The host computes them; the update
+        reads them from device memory, so a captured step reads each
+        replay's own values."""
+        n = count + 1
+        one = torch.tensor(1.0, dtype=torch.float32)
+        bc1 = one - torch.tensor(self.b1, dtype=torch.float32) ** n
+        bc2 = one - torch.tensor(self.b2, dtype=torch.float32) ** n
+        return np.asarray([float(bc1), float(bc2), -self.schedule(count)], dtype=np.float32)
+
+    def _clip(self, grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        if self.max_grad_norm <= 0:
+            return grads
+        g_norm = global_norm(grads.values())
+        keep = g_norm < self.max_grad_norm
+        return {k: torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
+                for k, g in grads.items()}
+
+    def _leaf_update(self, name, g, mu, nu, p, scalars) -> torch.Tensor:
+        """Moves ``mu`` and ``nu`` in place; returns the leaf's update.
+        ``b1·mu + (1-b1)·g`` rounds as optax's ``(1-b1)·g + b1·mu``."""
+        mu.mul_(self.b1).add_((1 - self.b1) * g)
+        nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
+        u = (mu / scalars[0]) / (torch.sqrt(nu / scalars[1]) + self.eps)
+        if self.adamw and decays(name, p):
+            u = u + self.weight_decay * p.detach()
+        return u * scalars[2]
+
+    def _scalars_on(self, count: int, scalars, like: torch.Tensor) -> torch.Tensor:
+        if scalars is None:
+            return torch.from_numpy(self.scalars(count)).to(like.device)
+        return scalars
+
     def update(
         self, grads: dict[str, torch.Tensor], state: AdamState,
         params: dict[str, torch.Tensor] | None = None,
+        scalars: torch.Tensor | None = None,
     ) -> tuple[dict[str, torch.Tensor], AdamState]:
-        """(updates to add to the params, the new state); adamw reads
-        ``params``."""
-        if self.max_grad_norm > 0:
-            g_norm = global_norm(grads.values())
-            keep = g_norm < self.max_grad_norm
-            grads = {
-                k: torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
-                for k, g in grads.items()
-            }
-        count = state.count + 1
-        one = torch.tensor(1.0, dtype=torch.float32)
-        bc1 = float(one - torch.tensor(self.b1, dtype=torch.float32) ** count)
-        bc2 = float(one - torch.tensor(self.b2, dtype=torch.float32) ** count)
-        step_size = -self.schedule(state.count)
-        mu, nu, updates = {}, {}, {}
-        for k, g in grads.items():
-            mu[k] = (1 - self.b1) * g + self.b1 * state.mu[k]
-            nu[k] = (1 - self.b2) * (g * g) + self.b2 * state.nu[k]
-            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
-            if self.adamw and decays(k, params[k]):
-                u = u + self.weight_decay * params[k].detach()
-            updates[k] = step_size * u
-        return updates, dataclasses.replace(state, count=count, mu=mu, nu=nu)
+        """(updates to add to the params, the new state), the moments moved
+        in place; adamw reads ``params``. ``scalars`` is
+        ``self.scalars(state.count)`` on the grads' device (made here when
+        None)."""
+        grads = self._clip(grads)
+        scalars = self._scalars_on(state.count, scalars, next(iter(grads.values())))
+        updates = {
+            k: self._leaf_update(k, g, state.mu[k], state.nu[k], None if params is None
+                                 else params[k], scalars)
+            for k, g in grads.items()
+        }
+        return updates, dataclasses.replace(state, count=state.count + 1)
+
+    def step_(
+        self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
+        state: AdamState, scalars: torch.Tensor | None = None,
+    ) -> AdamState:
+        """``update`` added to ``params`` in place, a leaf at a time (no
+        whole second copy of the parameters); returns the new state. Every
+        tensor it touches keeps its address, so a CUDA graph of the step
+        replays onto the same parameters and moments."""
+        grads = self._clip(grads)
+        scalars = self._scalars_on(state.count, scalars, next(iter(grads.values())))
+        with torch.no_grad():
+            for k, g in grads.items():
+                params[k].add_(
+                    self._leaf_update(k, g, state.mu[k], state.nu[k], params[k], scalars)
+                )
+        return dataclasses.replace(state, count=state.count + 1)
 
 
 def make_optimizer(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Adam:

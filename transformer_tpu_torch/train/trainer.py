@@ -6,14 +6,17 @@ decoder, ``tgt[:, 1:]`` scored): ``make_train_step`` (teacher-forcing
 shift, forward with dropout keyed on (seed, step), masked CE, backward,
 Adam with the pre-clip ``grad_norm`` metric; with ``grad_accum_steps``
 micro-steps summed in the loss-sum domain and divided once; with
-``loss_chunks`` the chunked CE), ``make_eval_step``, ``MetricAccumulator``
+``loss_chunks`` the chunked CE), ``make_eval_step``,
+``make_multistep_train_step`` (``steps_per_dispatch``: K steps a host
+dispatch, their batches and per-update scalars staged on the device in one
+copy, the metrics summed on the device; on the card the step replays a
+CUDA graph, ``train/graph.py``), ``_dispatch_groups``, ``MetricAccumulator``
 and ``Trainer.fit``: restore before training, resume at the right epoch,
 periodic logging, bounded in-loop eval, the full end-of-epoch eval, the
 plateau early stop, checkpoints on a cadence and on SIGTERM/SIGINT. The
 steps take two hooks that ``parallel.distributed.DistributedTrainer``
 fills: the forward-and-loss function, and a sum across processes for the
-gradients and the metric sums. Telemetry, tracing and multi-step dispatch
-are not ported: ``steps_per_dispatch > 1`` raises.
+gradients and the metric sums. Telemetry and tracing are not ported.
 """
 
 from __future__ import annotations
@@ -46,12 +49,29 @@ def _check_supported(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
             "the port trains decoder-only LMs and seq2seq models with the causal "
             "objective; masked-LM training is a later slice"
         )
-    if train_cfg.steps_per_dispatch > 1:
-        raise NotImplementedError("steps_per_dispatch > 1 is not ported yet")
 
 
 def _batch(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x)).to(device=device, dtype=torch.long)
+
+
+def stage(arrays: list[np.ndarray], scalars: np.ndarray, device) -> list[torch.Tensor]:
+    """``arrays`` (integer batches) and ``scalars`` (fp32) on ``device`` in
+    one host-to-device copy: packed as 32-bit words into one buffer (pinned
+    on the host for a CUDA device), returned as views of the copy in their
+    shapes, int32 and fp32."""
+    parts = [np.ascontiguousarray(a, dtype=np.int32) for a in arrays]
+    parts.append(np.ascontiguousarray(scalars, dtype=np.float32).view(np.int32))
+    flat = torch.from_numpy(np.concatenate([a.ravel() for a in parts]))
+    device = torch.device(device)
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    out, at = [], 0
+    for a in parts:
+        out.append(flat[at : at + a.size].view(a.shape))
+        at += a.size
+    out[-1] = out[-1].view(torch.float32)
+    return out
 
 
 def _source(src, model_cfg: ModelConfig, device) -> torch.Tensor | None:
@@ -120,12 +140,17 @@ def make_train_step(
     sum_across: Callable[[list[torch.Tensor]], None] | None = None,
 ) -> Callable[[TrainState, Any, Any], tuple[TrainState, dict]]:
     """``step(state, src, tgt) -> (state, metrics)``: ``loss_and_grads``
-    with dropout keyed on (seed, step), then Adam, updating the params in
-    place. Metrics are device scalars (``loss``, ``loss_sum``, ``weight``,
-    ``correct``, ``grad_norm``); nothing here waits for the device. With
+    with dropout keyed on (seed, step), then Adam, updating the params and
+    its moments in place. Metrics are device scalars (``loss``,
+    ``loss_sum``, ``weight``, ``correct``, ``grad_norm``); nothing here
+    waits for the device. With
     ``sum_across`` (an in-place sum over processes) the gradients and the
     metrics are summed before ``grad_norm`` and Adam, so every process
-    takes the same update and reports the same metrics.
+    takes the same update and reports the same metrics. ``step.core(state,
+    src, tgt, scalars)`` is the same step on device tensors, with Adam's
+    per-update scalars read from the device (``step.scalars(state, k)``
+    gives the next k updates' on the host): the function a CUDA graph
+    captures.
 
     With ``grad_accum_steps`` = n > 1 the batch runs as n micro-batches of
     B / n rows (n must divide B), micro-step i's dropout keyed on (seed,
@@ -137,30 +162,32 @@ def make_train_step(
     accum = max(1, train_cfg.grad_accum_steps)
     forward = forward_loss or _forward_loss
 
-    def apply(state, leaves, grads, metrics):
+    def apply(state, leaves, grads, metrics, scalars):
         metrics["grad_norm"] = global_norm(grads.values())
-        updates, opt_state = tx.update(grads, state.opt_state, leaves)
-        with torch.no_grad():
-            for name, p in leaves.items():
-                p.add_(updates[name])
+        if isinstance(tx, Adam):
+            opt_state = tx.step_(leaves, grads, state.opt_state, scalars)
+        else:  # any optimizer with optax's update(grads, state, params)
+            updates, opt_state = tx.update(grads, state.opt_state, leaves)
+            with torch.no_grad():
+                for name, p in leaves.items():
+                    p.add_(updates[name])
         return TrainState(state.step + 1, state.params, opt_state), metrics
 
-    def train_step(state: TrainState, src, tgt):
+    def core(state: TrainState, src, tgt, scalars):
         leaves = flatten(state.params)
-        device = next(iter(leaves.values())).device
+        tgt, src = tgt.long(), None if src is None else src.long()
+        if accum > 1:
+            return accum_core(state, leaves, src, tgt, scalars)
         metrics, grads = loss_and_grads(
-            state.params, _batch(tgt, device), model_cfg, train_cfg,
-            (train_cfg.seed, state.step), forward_loss=forward_loss,
-            src=_source(src, model_cfg, device),
+            state.params, tgt, model_cfg, train_cfg, (train_cfg.seed, state.step),
+            forward_loss=forward_loss, src=src,
         )
         if sum_across is not None:
             sum_across([*grads.values(), *metrics.values()])
-        return apply(state, leaves, grads, metrics)
+        return apply(state, leaves, grads, metrics, scalars)
 
-    def accum_train_step(state: TrainState, src, tgt):
-        leaves = flatten(state.params)
-        device = next(iter(leaves.values())).device
-        tgt, src = _batch(tgt, device), _source(src, model_cfg, device)
+    def accum_core(state: TrainState, leaves, src, tgt, scalars):
+        device = tgt.device
         if tgt.shape[0] % accum:
             raise ValueError(f"grad_accum_steps {accum} must divide the batch {tgt.shape[0]}")
         mb = tgt.shape[0] // accum
@@ -184,12 +211,80 @@ def make_train_step(
             sum_across([*grads.values(), *sums.values()])
         if train_cfg.loss_normalization == "tokens":
             denom = torch.clamp(sums["weight"], min=1.0)
-        else:
-            denom = torch.tensor(float(train_cfg.batch_size), device=device)
+        else:  # filled on the device: no copy from the host, capturable
+            denom = torch.full((), float(train_cfg.batch_size), device=device)
         grads = {k: g / denom for k, g in grads.items()}
-        return apply(state, leaves, grads, {"loss": sums["loss_sum"] / denom, **sums})
+        return apply(state, leaves, grads, {"loss": sums["loss_sum"] / denom, **sums}, scalars)
 
-    return accum_train_step if accum > 1 else train_step
+    def scalars(state: TrainState, k: int = 1) -> np.ndarray:
+        """(k, n) fp32: Adam's per-update scalars of the next k updates
+        (no columns for another optimizer)."""
+        if not isinstance(tx, Adam):
+            return np.zeros((k, 0), np.float32)
+        return np.stack([tx.scalars(state.opt_state.count + i) for i in range(k)])
+
+    def train_step(state: TrainState, src, tgt):
+        device = next(iter(flatten(state.params).values())).device
+        return core(state, _source(src, model_cfg, device), _batch(tgt, device),
+                    torch.from_numpy(scalars(state)[0]).to(device))
+
+    train_step.core, train_step.scalars = core, scalars
+    train_step.uses_src = not model_cfg.decoder_only
+    return train_step
+
+
+def _dispatch_metrics(sums: dict, k: int, loss_normalization: str, batch_size: int) -> dict:
+    """The K steps' summed metrics in ``MetricAccumulator.update``'s form,
+    with ``loss`` normalised as one step's is and ``grad_norm`` the mean
+    over the K steps."""
+    out = {key: sums[key] for key in ("loss_sum", "weight", "correct")}
+    if loss_normalization == "batch" and batch_size:
+        # The mean of the K per-step losses, each loss_sum / B.
+        out["loss"] = out["loss_sum"] / float(batch_size * k)
+    else:
+        out["loss"] = out["loss_sum"] / torch.clamp(out["weight"], min=1.0)
+    if "grad_norm" in sums:
+        out["grad_norm"] = sums["grad_norm"] / k
+    return out
+
+
+def make_multistep_train_step(
+    step_fn: Callable,
+    loss_normalization: str = "tokens",
+    batch_size: int = 0,
+    run: Callable | None = None,
+) -> Callable[[TrainState, Any, Any], tuple[TrainState, dict]]:
+    """K optimizer steps per host dispatch (``steps_per_dispatch``):
+    ``multistep(state, src, tgt)`` with (K, B, S) stacked batches.
+
+    The twin of the JAX package's ``lax.scan`` over ``step_fn``. The K
+    batches and K rows of Adam's per-update scalars go to the device in
+    one copy (``stage``); then ``run`` (default ``step_fn.core``; on the
+    card a ``graph.CapturedStep`` replaying the step's CUDA graph) takes
+    the K steps back to back, with nothing waiting for the device. Dropout
+    stays keyed on (seed, step) per step, so the K steps are exactly K
+    calls of ``step_fn``. Metrics come back summed on the device over the
+    K steps (``loss_sum``, ``weight``, ``correct``; ``loss`` as one step
+    normalises it; ``grad_norm`` the mean), in the form
+    ``MetricAccumulator.update`` takes."""
+    run = run or step_fn.core
+
+    def multistep(state: TrainState, src, tgt):
+        device = next(iter(flatten(state.params).values())).device
+        k = tgt.shape[0]
+        arrays = [tgt] + ([src] if step_fn.uses_src else [])
+        staged = stage(arrays, step_fn.scalars(state, k), device)
+        tgts, srcs, scals = staged[0], staged[1] if step_fn.uses_src else None, staged[-1]
+        sums = None
+        for i in range(k):
+            state, m = run(state, None if srcs is None else srcs[i], tgts[i], scals[i])
+            if sums is None:
+                sums = {key: v.clone() for key, v in m.items()}  # run's may be reused
+            else:
+                sums = {key: sums[key] + m[key] for key in sums}
+        return state, _dispatch_metrics(sums, k, loss_normalization, batch_size)
+
+    return multistep
 
 
 def make_eval_step(
@@ -260,14 +355,48 @@ class MetricAccumulator:
         return self.correct / max(self.weight, 1.0)
 
 
+def _dispatch_groups(batches, k: int):
+    """Group consecutive same-shape batches into stacks of up to ``k``:
+    yields ``(src, tgt, n)`` with src/tgt stacked to (n, B, S) when n > 1,
+    or the single batch unstacked when a group has one member (a shape
+    change mid-group, the epoch's tail). Length-bucketed batches group by
+    bucket; each distinct signature costs one capture on the card."""
+    buf: list = []
+    sig = None
+    for b in batches:
+        s = (b[0].shape, b[1].shape)
+        if buf and s != sig:
+            yield _stack_group(buf)
+            buf = []
+        buf.append(b)
+        sig = s
+        if len(buf) == k:
+            yield _stack_group(buf)
+            buf = []
+    if buf:
+        yield _stack_group(buf)
+
+
+def _stack_group(buf: list):
+    if len(buf) == 1:
+        src, tgt = buf[0]
+        return src, tgt, 1
+    return np.stack([b[0] for b in buf]), np.stack([b[1] for b in buf]), len(buf)
+
+
 class Trainer:
     """Epoch-driven training loop on one device.
 
-    Each train step ends in a device synchronize, so ``step_seconds`` holds
-    the wall time of every step (host enqueue plus device work). With a
-    ``checkpoint`` manager, ``fit`` restores the newest intact checkpoint
-    before training and saves on its cadence, on early stop and on
-    SIGTERM/SIGINT."""
+    Each host dispatch (one step, or ``steps_per_dispatch`` = K steps) ends
+    in a device synchronize: ``step_seconds`` holds every step's wall time
+    (host enqueue plus device work; a K-step dispatch's time divided by its
+    steps), ``dispatches`` each dispatch's (steps, seconds). With K > 1 on
+    the card the steps replay a CUDA graph of the step (``graph``, a
+    ``CapturedStep``; one capture per batch signature); on the CPU, or with
+    the gradients summed across processes (the ``sum_across`` hook), the
+    same K-step dispatch runs uncaptured. With a ``checkpoint`` manager,
+    ``fit`` restores the newest intact checkpoint before training and
+    saves on its cadence, on early stop and on SIGTERM/SIGINT."""
 
     def __init__(
         self,
@@ -290,7 +419,21 @@ class Trainer:
         self.train_metrics = MetricAccumulator()
         self.eval_metrics = MetricAccumulator()
         self.device = resolve_device(next(iter(flatten(state.params).values())).device)
+        distributed = sum_across is not None
+        self.graph = self.multi_step = None
+        # The distributed trainer runs its K-step dispatch whatever
+        # enable_function says, as the JAX one always jits its own.
+        if train_cfg.steps_per_dispatch > 1 and (train_cfg.enable_function or distributed):
+            if self.device.type == "cuda" and not distributed:
+                from transformer_tpu_torch.train.graph import CapturedStep
+
+                self.graph = CapturedStep(self.train_step.core, train_cfg.seed, self.device)
+            self.multi_step = make_multistep_train_step(
+                self.train_step, train_cfg.loss_normalization, train_cfg.batch_size,
+                run=self.graph,
+            )
         self.step_seconds: list[float] = []
+        self.dispatches: list[tuple[int, float]] = []
         self.tokens = 0
         self.eval_batches = 0
         self._best_eval = float("inf")
@@ -332,6 +475,13 @@ class Trainer:
         runs after each epoch's eval and before its checkpoint; a truthy
         return stops the run after that checkpoint."""
         cfg = self.train_cfg
+        if cfg.steps_per_dispatch > 1 and self.multi_step is None:
+            raise ValueError(
+                "steps_per_dispatch > 1 requires enable_function=True on the "
+                "single-process Trainer: the multi-step dispatch replays a captured "
+                "CUDA graph of the step; in eager-debug mode it would silently fall "
+                "back to single-step dispatch"
+            )
         if self.checkpoint is not None:
             self._restore()
         step = self.state.step
@@ -358,25 +508,43 @@ class Trainer:
             for epoch in range(start_epoch, cfg.epochs):
                 self.train_metrics.reset()
                 epoch_start = time.perf_counter()
-                for src, tgt in train_ds.batches(epoch):
+                batches = train_ds.batches(epoch)
+                if self.multi_step is not None:
+                    groups = _dispatch_groups(batches, cfg.steps_per_dispatch)
+                else:
+                    groups = ((s, t, 1) for s, t in batches)
+                for src, tgt, k in groups:
                     t0 = time.perf_counter()
-                    self.state, m = self.train_step(self.state, src, tgt)
+                    if self.multi_step is None:
+                        self.state, m = self.train_step(self.state, src, tgt)
+                        tokens = tgt.shape[0] * max(tgt.shape[1] - 1, 1)
+                    else:
+                        if k == 1:  # a group of one replays the step too
+                            src, tgt = np.asarray(src)[None], np.asarray(tgt)[None]
+                        self.state, m = self.multi_step(self.state, src, tgt)
+                        tokens = k * tgt.shape[1] * max(tgt.shape[2] - 1, 1)
                     synchronize(self.device)
-                    self.step_seconds.append(time.perf_counter() - t0)
-                    self.tokens += tgt.shape[0] * max(tgt.shape[1] - 1, 1)
+                    seconds = time.perf_counter() - t0
+                    self.dispatches.append((k, seconds))
+                    self.step_seconds.extend([seconds / k] * k)
+                    self.tokens += tokens
                     self.train_metrics.update(m)
-                    step += 1
+                    prev_step, step = step, step + k
                     if guard.should_stop:
                         self._preempt(step, guard)
                         return
-                    if cfg.log_every_steps and step % cfg.log_every_steps == 0:
+                    # Boundary-crossing, so that a K-step dispatch that jumps
+                    # over a log or eval step still logs or evaluates; for
+                    # k == 1 this is step % N == 0.
+                    every = cfg.log_every_steps
+                    if every and step // every != prev_step // every:
                         self.log_fn(
                             f"epoch {epoch + 1} step {step} loss {self.train_metrics.loss:.4f} "
                             f"acc {self.train_metrics.accuracy:.4f} "
                             f"grad_norm {float(m['grad_norm']):.4f}"
                         )
                     every = cfg.eval_every_steps
-                    if test_ds is not None and every and step % every == 0:
+                    if test_ds is not None and every and step // every != prev_step // every:
                         self.evaluate(test_ds.batches(epoch),
                                       max_batches=cfg.eval_max_batches or None, guard=guard)
                         self.log_fn(
