@@ -6,7 +6,8 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in nine phases:
+runs on the CPU). It prints one JSON line per check, in ten phases (the
+tenth runs right after the fourth, on its export):
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -43,11 +44,11 @@ runs on the CPU). It prints one JSON line per check, in nine phases:
    in one process at the main shape against the whole-sequence kernels;
 4. serving: a long4k-width decoder-only LM (random weights from a seed,
    written as an export) serves JSONL requests through
-   ``transformer_tpu_torch.cli.serve`` with the paged KV pool; both decode
-   kernels' launch counters must equal layers x decode forwards. Then a
-   few decode forwards at fp32 compare the kernels with their plain
-   versions, and a profiled window of decode steps shows where a step's
-   time goes;
+   ``transformer_tpu_torch.cli.serve`` with the paged KV pool, each step
+   replayed from a CUDA graph; both decode kernels' launch counters must
+   equal layers x decode forwards. Then a few decode forwards at fp32
+   compare the kernels with their plain versions, and profiled windows of
+   decode steps, eager and replayed, show where a step's time goes;
 5. training: ``transformer_tpu_torch.cli.train --preset long4k --epochs 1``
    on the bundled corpus at full width; the three flash kernels' launch
    counters must equal the count that steps and eval batches imply, the
@@ -119,7 +120,30 @@ runs on the CPU). It prints one JSON line per check, in nine phases:
    phase 5). Each of E, D, BK and the dots runs reports step median, mean
    and first step, capture time per shape, real target tokens per
    second, peak allocated memory and a profiled window (one dispatch, or
-   3 single steps): wall, device time, busy share and launch calls.
+   3 single steps): wall, device time, busy share and launch calls;
+10. speculative decoding and the prefix cache: kernel B at S_q 5 (k 4 + 1)
+   on the main path's lengths over the 257-entry table, with rows
+   straddling its splits, and int8; kernel A at M 20 (4 slots x 5), relu
+   post-LN; each with its planted fault. Whether a row's bits depend on
+   the rows sharing its call (the forward's products, kernels B and A;
+   bf16 and fp32; reported). Phase 4's 14 requests with
+   ``--speculate_k 4``, under the n-gram drafter and with
+   ``--draft_checkpoint`` set to the export itself: greedy answers
+   byte-identical to phase 4's (bf16 products and both kernels give each
+   row the same bits at any row count), drafted and accepted printed. 16
+   requests sharing a 512-token prefix of data/tgt-test.txt (tails of
+   16-200 tokens, ``max_new`` 32), served twice through one scheduler
+   without and with ``--prefix_cache_mb 256``, in bf16 and fp32, and in
+   fp32 at 2 slots over a ``--kv_pool_blocks`` too small for the device
+   tier: the second pass must hit every request's block-aligned prompt,
+   the spill must happen, and the fp32 answers must equal the cache-off
+   ones (the bf16 ones that differ are counted: a hit moves the suffix's
+   first positions from decode steps to the prefill, which rounds
+   otherwise in bf16). Then the decode (k 0) and verify (k 4, rows with
+   drafts) forwards replayed from their graphs against
+   ``paged_decode_forward`` on copies of the pools, 20 steps each: logits
+   and pools bit for bit, launch counts equal, one capture each; and a
+   window of each, replayed and eager.
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -1344,11 +1368,7 @@ def main_path(tok, vocab_path):
     })
     reqs = make_requests(tok)
     lines = "".join(json.dumps(r) + "\n" for r in reqs)
-    argv = [
-        "--export_path", export, "--tgt_vocab_file", vocab_path,
-        "--serve_slots", "4", "--prefix_block", "16", "--prefill_chunk", "64",
-        "--device", "cuda",
-    ]
+    argv = serve_argv(export, vocab_path)
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
     paged_flash_attention.launches = 0
@@ -1378,6 +1398,7 @@ def main_path(tok, vocab_path):
         "generated_tokens": st["generated_tokens"],
         "tokens_per_s": st["generated_tokens"] / wall,
         "serve_wall_s": wall,
+        "captures": [{"shape": list(sig), "seconds": sec} for sig, sec in sched.forward.captures],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
     emit(rec)
@@ -1388,7 +1409,17 @@ def main_path(tok, vocab_path):
     for name, count in launches.items():
         if count <= 0 or count != want:
             raise SystemExit(f"{name} launched {count} times, expected {want}")
-    return cfg, export, reqs, launches
+    return cfg, export, reqs, launches, answers, rec
+
+
+def serve_argv(export, vocab_path, *extra) -> list[str]:
+    """``cli.serve``'s flags on the main path (4 slots, 16-token blocks,
+    64-token prefill chunks), plus ``extra``."""
+    return [
+        "--export_path", export, "--tgt_vocab_file", vocab_path,
+        "--serve_slots", "4", "--prefix_block", "16", "--prefill_chunk", "64",
+        "--device", "cuda", *extra,
+    ]
 
 
 def fp32_decode_check(cfg, export, tok, reqs, steps: int = 4):
@@ -1445,27 +1476,14 @@ def fp32_decode_check(cfg, export, tok, reqs, steps: int = 4):
         raise SystemExit(f"fp32 decode check failed: {rec}")
 
 
-def decode_profile(export, tok, reqs, steps: int = 20):
-    """Where a main-path decode step's time goes: four slots busy with the
-    longest prompts, ``steps`` decode steps timed on the host clock, then
-    the same number under ``torch.profiler`` for device time by kernel.
-    Device busy share = summed kernel time / unprofiled wall time."""
+def step_window(sched, steps: int) -> dict:
+    """Where a serving step's time goes: ``steps`` steps timed on the host
+    clock (ending in a synchronize), then as many under ``torch.profiler``
+    for device time by kernel and the host's launch calls. Device busy
+    share = summed kernel time / unprofiled wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from transformer_tpu_torch.convert import load_export
-    from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
-
-    params, cfg = load_export(export, device="cuda")
-    sched = ContinuousScheduler(
-        params, cfg, tok, num_slots=4, prefill_chunk=64, kv_block=16, device="cuda"
-    )
-    longest = sorted(reqs, key=lambda r: -len(r["prompt"]))[:4]
-    for r in longest:
-        sched.submit({"prompt": r["prompt"], "max_new": 64})
-    sched.admit()
-    for _ in range(5):
-        sched.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -1482,8 +1500,9 @@ def decode_profile(export, tok, reqs, steps: int = 20):
 
     # Kernels only: an aten op's own entry repeats the time of the kernels
     # it launched.
+    averages = prof.key_averages()
     events = [
-        e for e in prof.key_averages()
+        e for e in averages
         if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0
     ]
     total_us = sum(dev_us(e) for e in events)
@@ -1497,18 +1516,54 @@ def decode_profile(export, tok, reqs, steps: int = 20):
         for name, keys in names.items()
     }
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    rec = {
-        "phase": "main", "step": "decode_profile", "steps": steps, "slots_busy": 4,
+    launch_calls = {e.key: e.count / steps for e in averages
+                    if "Launch" in e.key and e.key.startswith("cu")}
+    return {
+        "steps": steps, "slots_busy": len(sched._active),
         "positions": sorted(st.pos for st in sched._active.values()),
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms if events else "not measured",
         "device_busy_share": device_ms / wall_ms if events else "not measured",
         "kernel_share_of_device_time": shares if events else "not measured",
+        "launch_calls_per_step": launch_calls,
         "top_kernels": [
             {"name": e.key[:80], "ms_per_step": dev_us(e) / steps / 1e3,
              "calls_per_step": e.count / steps}
             for e in top
         ],
+    }
+
+
+def decode_profile(export, tok, reqs, steps: int = 20):
+    """The main path's decode step, eager and replayed from its CUDA graph
+    (``serve/graph.py``), in one scheduler: four slots busy with the
+    longest prompts, a window of each (``step_window``), eager first."""
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    params, cfg = load_export(export, device="cuda")
+    sched = ContinuousScheduler(
+        params, cfg, tok, num_slots=4, prefill_chunk=64, kv_block=16, device="cuda"
+    )
+    longest = sorted(reqs, key=lambda r: -len(r["prompt"]))[:4]
+    for r in longest:
+        sched.submit({"prompt": r["prompt"], "max_new": 64})
+    sched.admit()
+    graph = sched.forward
+    sched.forward = graph.eager
+    for _ in range(5):
+        sched.step()
+    eager = step_window(sched, steps)
+    sched.forward = graph
+    for _ in range(5):
+        sched.step()
+    replayed = step_window(sched, steps)
+    rec = {
+        "phase": "main", "step": "decode_profile", "card": nvidia_smi_line(),
+        "eager": eager, "graph": replayed,
+        "captures": [{"shape": list(sig), "seconds": sec} for sig, sec in graph.captures],
+        "timers": "wall: host clock around the window ending in a synchronize; device: "
+                  "torch.profiler's kernel time over a second window of the same size",
     }
     emit(rec)
     return rec
@@ -2920,6 +2975,358 @@ def dispatch_path(src_vocab, tgt_vocab, full_export):
 
 
 # --------------------------------------------------------------------------
+# phase 10: speculative decoding, the prefix cache, and the decode and
+# verify forwards replayed from CUDA graphs
+
+SPEC_K = 4
+
+
+def verify_kernel_checks():
+    """Kernels B and A at the verify step's shapes: S_q = k + 1 rows per
+    slot on the main path's lengths, over a table 257 entries wide (the
+    slot budget 4097 + k slack over 16-token blocks), and rows straddling
+    the 128-position splits (126-130, 254-258, 380-384); kernel A at M =
+    4 slots x (k + 1) = 20 rows, not a multiple of its 8-row chunk. Each
+    reads its planted fault (``check_paged_attention``,
+    ``check_fused_ln_ffn``)."""
+    w = SPEC_K + 1
+    slot_blocks = -(-(4097 + SPEC_K) // 16)
+    b_recs = [
+        check_paged_attention(f"verify s_q={w} main path", w, 8, 8, [1001, 311, 701, 131],
+                              False, nmax=slot_blocks),
+        check_paged_attention(f"verify s_q={w} straddling splits", w, 8, 8, [131, 259, 5, 385],
+                              False, nmax=slot_blocks),
+        check_paged_attention(f"verify s_q={w} int8", w, 8, 8, [1001, 311, 701, 131], True,
+                              nmax=slot_blocks),
+    ]
+    a_rec = check_fused_ln_ffn(f"verify relu post m={4 * w}", 4 * w, "relu", "post")
+    return b_recs, a_rec
+
+
+def row_invariance(seed: int = SEED) -> dict:
+    """Whether row r of a call depends on how many rows share the call,
+    at the decode forward's long4k shapes, bf16 and fp32: a q/k/v
+    projection (einsum over (N, S_q, 512) x (512, 8, 64)) and the
+    vocabulary projection (x (512, 32768)) at 4 x 5 rows against each of
+    the 5 columns alone (4 rows), kernel B at S_q 5 against each row alone
+    at its own length, kernel A at M 20 against 4. The speculative
+    answers can equal the plain path's bit for bit only where every entry
+    is invariant."""
+    import torch
+
+    from transformer_tpu_torch.kernels.paged_flash import paged_flash_attention
+    from transformer_tpu_torch.ops.ffn import fused_ln_ffn
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    n, w, d, dff = 4, SPEC_K + 1, 512, 2048
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = rand(n, w, d).to(dt)
+        wq, wl = rand(d, 8, 64, scale=0.05).to(dt), rand(d, 32768, scale=0.05).to(dt)
+        q_all = torch.einsum("bsm,mhd->bshd", x, wq)
+        l_all = x @ wl
+        table = (torch.randperm(4 * 257, generator=g, device="cuda")[: n * 257] + 1)
+        table = table.reshape(n, 257).to(torch.int32)
+        k, v = rand(1 + 4 * 257, 16, 8, 64).to(dt), rand(1 + 4 * 257, 16, 8, 64).to(dt)
+        index = torch.tensor([1001, 311, 701, 126], dtype=torch.int32, device="cuda")
+        q = rand(n, w, 8, 64).to(dt)
+        b_all = paged_flash_attention(q, k, v, table, index + w)
+        ffn = {"in": {"kernel": rand(d, dff, scale=0.04).to(dt), "bias": rand(dff).to(dt)},
+               "out": {"kernel": rand(dff, d, scale=0.04).to(dt), "bias": rand(d).to(dt)}}
+        ln = {"scale": rand(d) + 1.0, "bias": rand(d, scale=0.1)}
+        kw = dict(activation="relu", norm_scheme="post")
+        a_all = fused_ln_ffn(ln, ffn, x, **kw)
+        cols = range(w)
+        out[str(dt).split(".")[1]] = {
+            "qkv_projection": all(torch.equal(
+                q_all[:, j:j + 1], torch.einsum("bsm,mhd->bshd", x[:, j:j + 1].contiguous(), wq))
+                for j in cols),
+            "vocabulary_projection": all(torch.equal(l_all[:, j], x[:, j].contiguous() @ wl)
+                                         for j in cols),
+            "paged_attention": all(torch.equal(b_all[:, j:j + 1], paged_flash_attention(
+                q[:, j:j + 1].contiguous(), k, v, table, index + j + 1)) for j in cols),
+            "fused_ln_ffn": all(torch.equal(a_all[:, j:j + 1], fused_ln_ffn(
+                ln, ffn, x[:, j:j + 1].contiguous(), **kw)) for j in cols),
+        }
+    rec = {"phase": "speculative", "step": "row_invariance", "card": nvidia_smi_line(),
+           "rows": f"{n} x {w} against {n} x 1", **out}
+    emit(rec)
+    return rec
+
+
+def serve_passes(argv, passes) -> tuple:
+    """Build ``cli.serve``'s scheduler from ``argv`` and serve each list of
+    ``passes`` through the CLI's loop in turn (one cache and pool across
+    them). Kernel B and A counters are set to 0 before and read after;
+    returns (scheduler, [(answers, stats of the pass, wall s)], launches)."""
+    import queue
+
+    import torch
+
+    from transformer_tpu_torch.cli import serve
+    from transformer_tpu_torch.kernels.paged_flash import paged_flash_attention
+    from transformer_tpu_torch.ops.ffn import fused_ln_ffn
+
+    sched = serve.build_scheduler(serve.build_parser().parse_args(argv))
+    paged_flash_attention.launches = 0
+    fused_ln_ffn.launches = 0
+    runs = []
+    for reqs in passes:
+        before = dict(sched.stats)
+        q: queue.Queue = queue.Queue()
+        for r in reqs:
+            q.put(json.dumps(r) + "\n")
+        q.put(None)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        serve.serve_continuous(q, sched, out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(([json.loads(line) for line in out.getvalue().splitlines()],
+                     {k: sched.stats[k] - before[k] for k in sched.stats}, wall))
+    launches = {"paged_attention": paged_flash_attention.launches,
+                "fused_ln_ffn": fused_ln_ffn.launches}
+    want = sched.cfg.num_layers * sched.stats["steps"]
+    for name, count in launches.items():
+        if count != want or count <= 0:
+            raise SystemExit(f"{name} launched {count} times in {argv}, expected {want}")
+    return sched, runs, launches
+
+
+def speculative_path(export, vocab_path, reqs, plain_answers, plain_rec):
+    """Phase 4's 14 requests with ``--speculate_k 4``: the n-gram drafter,
+    then ``--draft_checkpoint`` set to the served export itself. Greedy
+    answers must be byte-identical to phase 4's; sampled ones answered."""
+    launches = {}
+    greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
+    for label, extra in (("ngram", ()), ("draft_checkpoint", ("--draft_checkpoint", export))):
+        argv = serve_argv(export, vocab_path, "--speculate_k", str(SPEC_K), *extra)
+        sched, [(answers, st, wall)], counts = serve_passes(argv, [reqs])
+        launches[label] = counts
+        differing = [i for i in greedy if answers[i] != plain_answers[i]]
+        rec = {
+            "phase": "speculative", "step": "serve", "drafter": label, "argv": argv,
+            "card": nvidia_smi_line(), "requests": len(reqs),
+            "errors": [a for a in answers if "error" in a],
+            "greedy_requests": len(greedy), "greedy_differing": differing,
+            "drafted": st["drafted"], "accepted": st["accepted"],
+            "accepted_share": st["accepted"] / max(1, st["drafted"]),
+            "verify_steps": st["steps"], "plain_decode_steps": plain_rec["decode_forwards"],
+            "generated_tokens": st["generated_tokens"],
+            "tokens_per_s": st["generated_tokens"] / wall, "serve_wall_s": wall,
+            "plain_serve_wall_s": plain_rec["serve_wall_s"],
+            "verify_step_ms": st["decode_s"] / max(1, st["steps"]) * 1e3,
+            "launches": counts, "expected_launches": sched.cfg.num_layers * st["steps"],
+            "captures": [{"shape": list(sig), "seconds": sec}
+                         for sig, sec in sched.forward.captures],
+        }
+        emit(rec)
+        if rec["errors"] or len(answers) != len(reqs) or differing or not st["drafted"]:
+            raise SystemExit(f"speculative serving ({label}) failed: {rec}")
+        del sched
+    return launches
+
+
+def prefix_requests(tok, n: int = 16) -> list[dict]:
+    """``n`` greedy requests sharing one 512-token prefix (the first words
+    of data/tgt-test.txt), each with its own tail of 16 to 200 tokens from
+    further on in the file, ``max_new`` 32."""
+    with open(os.path.join(ROOT, "data", "tgt-test.txt"), encoding="utf-8") as f:
+        words = f.read().split()
+
+    def take(start, tokens):
+        out = []
+        while len(tok.encode(" ".join(out))) < tokens:
+            out.append(words[(start + len(out)) % len(words)])
+        return out
+
+    prefix = take(0, 512)
+    tails = [16 + round(i * (200 - 16) / (n - 1)) for i in range(n)]
+    return [{"prompt": " ".join(prefix + take(4000 + 400 * i, t)), "max_new": 32}
+            for i, t in enumerate(tails)]
+
+
+def fp32_export(export) -> str:
+    """The export with its config's dtype set to float32 (the same
+    parameters, linked): the model served in fp32."""
+    path = fresh_dir("smoke_export_fp32")
+    os.makedirs(path)
+    with open(os.path.join(export, "config.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({**config, "dtype": "float32"}, f)
+    os.link(os.path.join(export, "params.npz"), os.path.join(path, "params.npz"))
+    return path
+
+
+def prefix_path(export, vocab_path, tok):
+    """16 requests sharing a 512-token prefix, served twice through one
+    scheduler: without the cache, with ``--prefix_cache_mb 256``, and (fp32,
+    2 slots) with the cache over a pool too small to keep the device tier,
+    which must spill to the host tier. The second pass must hit every request's
+    block-aligned prompt (``floor((L - 1) / 16) * 16`` tokens). In fp32
+    every answer with the cache must equal the answer without it. In bf16
+    the differing answers are counted, not held: a hit moves the suffix's
+    first positions from decode steps to the prefill forward, which rounds
+    differently in bf16 (the JAX package's rule, ``n = m +
+    prefill_len_for(L - m)``)."""
+    reqs = prefix_requests(tok)
+    lengths = [len(tok.encode(r["prompt"])) + 1 for r in reqs]
+    aligned = sum((L - 1) // 16 * 16 for L in lengths)
+    ids = [tok.encode(r["prompt"]) for r in reqs]
+    shared = min(next((j for j, (a, b) in enumerate(zip(x, ids[0])) if a != b), len(x))
+                 for x in ids[1:])
+    # The spill runs at 2 slots over the sink and the blocks two slots can
+    # reach without sharing (after a spill a slot restoring the prefix
+    # from the host holds its own copy): every live slot fits, the device
+    # tier's donations (a block per 16 prompt tokens past the shared ones,
+    # and those) do not. At 4 slots that bound leaves room for the tier.
+    pool = 1 + 2 * -(-(max(lengths) + 32) // 16)
+    export32 = fp32_export(export)
+    cache = ("--prefix_cache_mb", "256")
+    two = ("--serve_slots", "2")
+    runs, launches = {}, {}
+    for label, path, extra in (
+        ("bf16 off", export, ()), ("bf16 cache", export, cache),
+        ("fp32 off", export32, ()), ("fp32 cache", export32, cache),
+        ("fp32 off 2 slots", export32, two),
+        ("fp32 spill 2 slots", export32, (*two, *cache, "--kv_pool_blocks", str(pool))),
+    ):
+        sched, passes, counts = serve_passes(serve_argv(path, vocab_path, *extra), [reqs, reqs])
+        launches[label] = counts
+        pc = sched.prefix_cache
+        runs[label] = {
+            "argv_extra": list(extra),
+            "passes": [
+                {"wall_s": wall, "steps": st["steps"], "prefill_tokens": st["prefill_tokens"],
+                 "prefix_hit_tokens": st["prefix_hit_tokens"],
+                 "prefix_alias_tokens": st["prefix_alias_tokens"],
+                 "host_restored_tokens": st["host_restored_tokens"],
+                 "kv_spilled_blocks": st["kv_spilled_blocks"],
+                 "kv_preempted": st["kv_preempted"],
+                 "generated_tokens": st["generated_tokens"],
+                 "prefill_ms": st["prefill_s"] * 1e3,
+                 "errors": [a for a in answers if "error" in a]}
+                for answers, st, wall in passes],
+            "answers": [a for answers, _, _ in passes for a in answers],
+            "cache_stats": None if pc is None else dict(pc.stats),
+            "launches": counts,
+        }
+        del sched, pc
+    differing = {
+        label: [i for i, (a, b) in enumerate(zip(runs[label]["answers"], runs[off]["answers"]))
+                if a != b]
+        for label, off in (("bf16 cache", "bf16 off"), ("fp32 cache", "fp32 off"),
+                           ("fp32 spill 2 slots", "fp32 off 2 slots"))}
+    rec = {
+        "phase": "prefix_cache", "step": "serve", "card": nvidia_smi_line(),
+        "requests": len(reqs), "prompt_tokens": lengths, "shared_prefix_tokens": shared + 1,
+        "pass_2_block_aligned_tokens": aligned, "spill_pool_blocks": pool,
+        **{label: {k: v for k, v in r.items() if k != "answers"} for label, r in runs.items()},
+        "differing_from_off": differing,
+    }
+    emit(rec)
+    failed = [label for label, r in runs.items()
+              if any(p["errors"] for p in r["passes"]) or len(r["answers"]) != 2 * len(reqs)]
+    if failed or differing["fp32 cache"] or differing["fp32 spill 2 slots"]:
+        raise SystemExit(f"prefix cache: answers differ or failed ({failed}): {rec}")
+    for label in ("bf16 cache", "fp32 cache"):
+        if runs[label]["passes"][1]["prefix_hit_tokens"] != aligned:
+            raise SystemExit(f"prefix cache: {label}'s second pass hit "
+                             f"{runs[label]['passes'][1]['prefix_hit_tokens']} of {aligned}")
+    if not sum(p["kv_spilled_blocks"] for p in runs["fp32 spill 2 slots"]["passes"]):
+        raise SystemExit(f"prefix cache: no block spilled over a {pool}-block pool")
+    return launches
+
+
+def graph_path(export, tok, reqs, steps: int = 20):
+    """The decode (k 0) and verify (k 4) forwards replayed from their CUDA
+    graphs against the eager forward: four slots on the longest prompts,
+    ``steps`` steps each checked (the logits of the replay and of
+    ``paged_decode_forward`` on a copy of the pools before it, bit for
+    bit; the pools after; the launch counts), verify steps once every
+    prompt tail is in (so the rows carry drafts); then a window of each,
+    replayed and eager (``step_window``)."""
+    import torch
+
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.kernels import launch_counts
+    from transformer_tpu_torch.models.paged_decode import paged_decode_forward
+    from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    params, cfg = load_export(export, device="cuda")
+    longest = sorted(reqs, key=lambda r: -len(r["prompt"]))[:4]
+    out = {}
+    for k in (0, SPEC_K):
+        sched = ContinuousScheduler(params, cfg, tok, num_slots=4, prefill_chunk=64,
+                                    kv_block=16, speculate_k=k, device="cuda")
+        for r in longest:
+            sched.submit({"prompt": r["prompt"], "max_new": 600})
+        sched.admit()
+        while k and any(st.pos < st.prompt_len for st in sched._active.values()):
+            sched.step()
+        graph = sched.forward
+        checks = []
+
+        def checked(toks, table, index, graph=graph, sched=sched, checks=checks):
+            ref = [{key: t.clone() for key, t in p.items()} for p in sched.pools]
+            c0 = launch_counts()
+            got = graph(toks, table, index).clone()
+            c1 = launch_counts()
+            want, _ = paged_decode_forward(
+                sched.params, torch.from_numpy(toks).cuda(), ref,
+                torch.from_numpy(table).to(torch.int32).cuda(),
+                torch.from_numpy(index).to(torch.int32).cuda(), sched.cfg,
+                block_tokens=sched.block_tokens,
+            )
+            c2 = launch_counts()
+            checks.append({
+                "logits_equal": torch.equal(got, want),
+                "logits_max_abs_diff": (got.float() - want.float()).abs().max().item(),
+                "pools_equal": all(torch.equal(p[key], r[key])
+                                   for p, r in zip(sched.pools, ref) for key in p),
+                "launches_equal": {n: c1[n] - c0[n] for n in c1} == {n: c2[n] - c1[n] for n in c1},
+                "launches": {n: c1[n] - c0[n] for n in c1 if c1[n] - c0[n]},
+            })
+            return got
+
+        sched.forward = checked
+        drafted = sched.stats["drafted"]
+        for _ in range(steps):
+            sched.step()
+        sched.forward = graph
+        replayed = step_window(sched, steps)
+        sched.forward = graph.eager
+        eager = step_window(sched, steps)
+        label = "verify" if k else "decode"
+        out[label] = {
+            "speculate_k": k, "checked_steps": len(checks),
+            "all_bit_identical": all(c["logits_equal"] and c["pools_equal"] for c in checks),
+            "launches_equal": all(c["launches_equal"] for c in checks),
+            "launches_per_step": checks[-1]["launches"] if checks else None,
+            "worst_logits_abs_diff": max(c["logits_max_abs_diff"] for c in checks),
+            "drafted_in_checked_steps": sched.stats["drafted"] - drafted,
+            "captures": [{"shape": list(sig), "seconds": sec} for sig, sec in graph.captures],
+            "graph": replayed, "eager": eager,
+        }
+        del sched, graph
+        torch.cuda.empty_cache()
+    rec = {"phase": "graphs", "step": "replay_vs_eager", "card": nvidia_smi_line(), **out}
+    emit(rec)
+    for label, r in out.items():
+        if not (r["checked_steps"] == steps and r["all_bit_identical"] and r["launches_equal"]
+                and len(r["captures"]) == 1):
+            raise SystemExit(f"graphs: the replayed {label} forward differs from eager: {r}")
+    if not out["verify"]["drafted_in_checked_steps"]:
+        raise SystemExit("graphs: the checked verify steps carried no drafts")
+    return rec
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3056,9 +3463,22 @@ def main() -> int:
 
     # 4. serving
     tok, vocab_path = vocab()
-    cfg, export, reqs, launches = main_path(tok, vocab_path)
+    cfg, export, reqs, launches, plain_answers, serve_rec = main_path(tok, vocab_path)
     fp32_decode_check(cfg, export, tok, reqs)
     decode_profile(export, tok, reqs)
+
+    # 10. speculative decoding, the prefix cache and the replayed decode
+    # and verify forwards (on phase 4's export, while it is at hand)
+    vb_recs, va_rec = verify_kernel_checks()
+    row_invariance()
+    spec_launches = speculative_path(export, vocab_path, reqs, plain_answers, serve_rec)
+    prefix_launches = prefix_path(export, vocab_path, tok)
+    graph_path(export, tok, reqs)
+    serve_launches = {
+        "serve": launches,
+        **{f"speculative {k}": v for k, v in spec_launches.items()},
+        **{f"prefix {k}": v for k, v in prefix_launches.items()},
+    }
 
     # 5. training on one card
     trainer, train_ds, train_launches, single = train_path(vocab_path)
@@ -3094,13 +3514,18 @@ def main() -> int:
     # 9. steps_per_dispatch as CUDA-graph replays, buckets, dots
     disp_launches = dispatch_path(src_vocab, vocab_path, os.path.join(BUILD_DIR, "train_export"))
 
-    def summary(name, main_rec, recs, replaces):
+    def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
                                          "share_of_bound_warm") if k in main_rec}
+        by_path = {path: counts[name] for path, counts in serve_launches.items()}
         return {
             "name": name, "route": "cuda",
             "source": f"transformer_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "verify_shape": {key: verify_rec[key] for key in (
+                "case", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                "bound_ms", "bound_by", "share_of_bound")},
             "max_abs_err": max(r["max_abs_err"] for r in recs + [main_rec]),
             "max_err": max(r["max_abs_err"] for r in recs + [main_rec]),
             "max_rel_err": max(r["max_rel_err"] for r in recs + [main_rec])
@@ -3152,10 +3577,10 @@ def main() -> int:
 
     print(smi, flush=True)
     emit({"kernels": [
-        summary("paged_attention", b_main, b_recs,
-                "transformer_tpu/kernels/paged_flash.py:62 _paged_kernel"),
-        summary("fused_ln_ffn", a_main, a_recs,
-                "transformer_tpu/ops/ffn.py:112 _fused_kernel"),
+        summary("paged_attention", b_main, b_recs + vb_recs,
+                "transformer_tpu/kernels/paged_flash.py:62 _paged_kernel", vb_recs[0]),
+        summary("fused_ln_ffn", a_main, a_recs + [va_rec],
+                "transformer_tpu/ops/ffn.py:112 _fused_kernel", va_rec),
         flash_summary("flash_fwd", ("out",)),
         flash_summary("flash_dq", ("dq",)),
         flash_summary("flash_dkdv", ("dk", "dv")),

@@ -46,6 +46,7 @@ from transformer_tpu_torch.kernels.flash_attention import (
     flash_ring_step,
     flash_ring_step_plain,
 )
+from transformer_tpu_torch.kernels import launch_counts
 from transformer_tpu_torch.kernels.paged_flash import (
     paged_flash_attention,
     paged_flash_attention_plain,
@@ -54,6 +55,7 @@ from transformer_tpu_torch.models.paged_decode import paged_decode_forward
 from transformer_tpu_torch.models.transformer import init_params
 from transformer_tpu_torch.ops.attention import _quantize_kv, init_block_pool
 from transformer_tpu_torch.ops.ffn import fused_ln_ffn, fused_ln_ffn_plain
+from transformer_tpu_torch.serve.graph import CapturedForward
 
 pytestmark = pytest.mark.cuda
 
@@ -227,6 +229,49 @@ def test_decode_forward_kernels_match_reference(cuda, kv_cache_int8):
     assert paged_flash_attention.launches == before[0] + cfg.num_layers
     assert fused_ln_ffn.launches == before[1] + cfg.num_layers
     np.testing.assert_allclose(outs[0].cpu().numpy(), outs[1].cpu().numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("s_q", [1, 4], ids=["decode", "verify"])
+def test_captured_forward_replays_equal_the_eager_forward(cuda, s_q, dtype):
+    """``serve/graph.py``: the first call of a shape (eager on a side
+    stream, then the capture) and three replays, each with new tokens,
+    table and positions, against the eager forward on copies of the same
+    pools: logits and pools bit for bit, the same launch counts."""
+    cfg = ModelConfig(
+        num_layers=2, d_model=64, num_heads=4, dff=128, input_vocab_size=60,
+        target_vocab_size=60, max_position=128, decoder_only=True,
+        dtype=dtype, dropout_rate=0.0,
+    )
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pools = []
+    for _ in range(cfg.num_layers):
+        pool = init_block_pool(12, 16, cfg.kv_heads, cfg.head_dim, cfg.compute_dtype,
+                               device="cuda")
+        for buf in pool.values():
+            buf.copy_(torch.rand(buf.shape, generator=gen, device="cuda") * 0.05)
+        pools.append(pool)
+    fwd = CapturedForward(params, pools, cfg, 16, cuda)
+    rng = np.random.default_rng(2)
+    for step in range(4):
+        toks = rng.integers(1, 60, (3, s_q))
+        table = np.stack([rng.permutation(np.arange(1, 12))[:4] for _ in range(3)])
+        table[2] = 0  # a free slot on the sink
+        index = np.asarray([rng.integers(0, 60), rng.integers(0, 60), 0])
+        ref = [{k: v.clone() for k, v in p.items()} for p in pools]
+        before = launch_counts()
+        want = CapturedForward(params, ref, cfg, 16, cuda).eager(toks, table, index)
+        mid = launch_counts()
+        got = fwd(toks, table, index).clone()
+        after = launch_counts()
+        assert torch.equal(got, want), step
+        for p, r in zip(pools, ref):
+            for key in p:
+                assert torch.equal(p[key], r[key]), (step, key)
+        assert {k: after[k] - mid[k] for k in after} == {k: mid[k] - before[k] for k in mid}
+        assert mid["paged_flash_attention"] - before["paged_flash_attention"] == cfg.num_layers
+    assert [sig for sig, _ in fwd.captures] == [(3, s_q, 4)]
 
 
 FLASH_CASES = {

@@ -2,19 +2,23 @@
 
     python -m transformer_tpu_torch.cli.serve --export_path=model \
         --tgt_vocab_file=tgt.subwords --serve_slots=4 --prefix_block=16 \
-        --prefill_chunk=64 [--device=cuda]
+        --prefill_chunk=64 [--speculate_k=4 [--draft_checkpoint=draft]] \
+        [--prefix_cache_mb=256] [--device=cuda]
 
 Each input line is ``{"prompt": ..., "max_new": N, "temperature": T,
-"top_k": K, "top_p": P, "seed": S}`` (all but ``prompt`` optional) or a raw
-line, taken as the prompt. One answer line per request, in request order:
-``{"continuation": ...}`` or ``{"error": ..., "code": ...}``; a malformed
-line answers an error and never stops the loop.
+"top_k": K, "top_p": P, "seed": S, "cache_prefix": false, "speculate":
+false}`` (all but ``prompt`` optional) or a raw line, taken as the prompt.
+One answer line per request, in request order: ``{"continuation": ...}``
+or ``{"error": ..., "code": ...}``; a malformed line answers an error and
+never stops the loop.
 
 Port of ``transformer_tpu/cli/serve.py``'s continuous-batching path with
 ``--kv_layout paged --decode_kernel paged_flash``: a decoder-only export
 (``params.npz`` + ``config.json``, the JAX export layout) served by the
-paged-KV scheduler on the CUDA kernels. Flags keep the JAX CLI's names;
-argparse replaces absl.
+paged-KV scheduler on the CUDA kernels, with speculative decoding
+(``--speculate_k``, ``--draft_checkpoint``, ``--draft_ngram``) and the
+prefix cache (``--prefix_cache_mb``, ``--prefix_verify_checksums``). Flags
+keep the JAX CLI's names; argparse replaces absl.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import json
 import queue
 import sys
 import threading
+
+from transformer_tpu_torch.cli.train import _bool
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,8 +46,29 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill_chunk", type=int, default=0,
                     help="prefill prompts in chunks of this many tokens "
                          "(0 = one forward)")
+    ap.add_argument("--speculate_k", type=int, default=0,
+                    help="speculative decoding lookahead: a drafter proposes up to "
+                         "this many tokens per step and one verify forward scores "
+                         "them all (greedy answers unchanged; sampled requests use "
+                         "rejection-sampling acceptance); 0 = off")
+    ap.add_argument("--draft_checkpoint", default="",
+                    help="export directory of a small draft model sharing the "
+                         "target tokenizer ('' = the model-free n-gram drafter)")
+    ap.add_argument("--draft_ngram", type=int, default=3,
+                    help="longest suffix n-gram the model-free drafter matches "
+                         "against earlier context (without --draft_checkpoint)")
+    ap.add_argument("--prefix_cache_mb", type=int, default=0,
+                    help="host-memory budget (MiB) of the cross-request prefix KV "
+                         "cache: prompt KV kept as block-aligned blocks in a radix "
+                         "trie, restored instead of forwarded again (greedy answers "
+                         "unchanged); 0 = off")
     ap.add_argument("--prefix_block", type=int, default=16,
-                    help="KV pool block size in tokens")
+                    help="KV pool block size in tokens, and the prefix cache's "
+                         "matching granularity")
+    ap.add_argument("--prefix_verify_checksums", type=_bool, nargs="?", const=True,
+                    default=True,
+                    help="re-verify each matched prefix-cache block's crc32 at "
+                         "admission (a corrupt block is dropped, not restored)")
     ap.add_argument("--kv_pool_blocks", type=int, default=0,
                     help="KV pool size in blocks (0 = every slot can reach "
                          "--serve_max_total)")
@@ -121,13 +148,15 @@ def serve_continuous(q: queue.Queue, sched, out) -> None:
             print(json.dumps(resp), file=out, flush=True)
 
 
-def main(argv: list[str] | None = None, stdin=None, stdout=None):
-    """Serve until stdin ends; returns the scheduler (for its stats)."""
-    args = build_parser().parse_args(argv)
+def build_scheduler(args: argparse.Namespace):
+    """The scheduler the flags describe: the export on the device, the
+    drafter (``--speculate_k``) and the prefix cache (``--prefix_cache_mb``)."""
     from transformer_tpu_torch.convert import load_export
     from transformer_tpu_torch.data.tokenizer import SubwordTokenizer
     from transformer_tpu_torch.device import resolve_device
+    from transformer_tpu_torch.serve.prefix_cache import PrefixCache
     from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
+    from transformer_tpu_torch.serve.speculative import drafter_from_flags
 
     device = resolve_device(args.device)
     params, cfg = load_export(
@@ -138,16 +167,38 @@ def main(argv: list[str] | None = None, stdin=None, stdout=None):
     if args.serve_slots < 1:
         raise SystemExit("--serve_slots must be >= 1 (continuous batching)")
     tok = SubwordTokenizer.load(args.tgt_vocab_file)
-    sched = ContinuousScheduler(
+    drafter = None
+    if args.speculate_k > 0:
+        drafter = drafter_from_flags(
+            args.draft_checkpoint, args.draft_ngram,
+            args.serve_max_total or cfg.max_position + 1,
+            eos_id=tok.eos_id, target_vocab_size=cfg.target_vocab_size, device=device,
+        )
+    prefix_cache = None
+    if args.prefix_cache_mb > 0:
+        prefix_cache = PrefixCache(
+            cfg, block_tokens=args.prefix_block, budget_mb=args.prefix_cache_mb,
+            verify_checksums=args.prefix_verify_checksums,
+        )
+    return ContinuousScheduler(
         params, cfg, tok,
         num_slots=args.serve_slots,
         max_total=args.serve_max_total or None,
         prefill_chunk=args.prefill_chunk,
         default_max_new=args.max_len,
+        speculate_k=args.speculate_k,
+        drafter=drafter,
+        prefix_cache=prefix_cache,
         kv_block=args.prefix_block,
         kv_pool_blocks=args.kv_pool_blocks,
         device=device,
     )
+
+
+def main(argv: list[str] | None = None, stdin=None, stdout=None):
+    """Serve until stdin ends; returns the scheduler (for its stats)."""
+    args = build_parser().parse_args(argv)
+    sched = build_scheduler(args)
     q: queue.Queue = queue.Queue(maxsize=max(1, args.serve_slots) * 8)
     reader = threading.Thread(
         target=_reader, args=(stdin or sys.stdin, q), daemon=True

@@ -6,7 +6,10 @@ that address a block pool through per-slot tables.
 refcounts, copy-on-write splits, the pinned sink block 0, and
 ``check_consistency``. Only ``table_device`` differs (it uploads a torch
 tensor). The helpers below it are the tensor versions of
-``gather_block_views`` / ``scatter_rows`` / ``block_row_ids``.
+``gather_block_views`` / ``scatter_rows`` / ``block_row_ids``, and of the
+scheduler's block programs ``_pool_read_block`` / ``_pool_write_blocks`` /
+``_pool_copy_blocks`` over the per-layer pools, which the prefix cache's
+device tier and copy-on-write use.
 
 Block 0 is the SINK: permanently pinned, never allocated. Unmapped table
 entries point at it, and free slots' decode steps write into it.
@@ -18,6 +21,8 @@ import threading
 
 import numpy as np
 import torch
+
+from transformer_tpu_torch.ops.attention import kv_buffer_keys
 
 
 class KVPoolExhausted(RuntimeError):
@@ -338,3 +343,67 @@ def block_row_ids(table: torch.Tensor, index: torch.Tensor, s_q: int, block_toke
         table.long(), 1, torch.clamp(pos // block_tokens, 0, nmax - 1)
     )
     return blk * block_tokens + pos % block_tokens
+
+
+# ==========================================================================
+# whole blocks: the prefix cache's host format and copy-on-write
+#
+# A host block is one pool block per layer as a dict of numpy arrays of
+# shape (1, B, H_kv, D) (scales (1, B, H_kv, 1)) in the pool's storage
+# layout: int8 codes and fp32 scales as stored, fp32 rows as fp32, and
+# bf16 rows as their raw 16-bit patterns in int16 (numpy has no bfloat16),
+# so a block written back is bit-identical to the one read.
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().to("cpu", copy=True)  # a copy on the CPU too: never a view of the pool
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+def _to_pool(a: np.ndarray, buf: torch.Tensor) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if buf.dtype == torch.bfloat16:
+        t = t.view(torch.bfloat16)
+    if t.dtype != buf.dtype or tuple(t.shape[1:]) != tuple(buf.shape[1:]):
+        raise ValueError(
+            f"host block {tuple(t.shape)} {t.dtype} does not fit pool blocks "
+            f"{tuple(buf.shape[1:])} {buf.dtype}"
+        )
+    return t.to(buf.device)
+
+
+def pool_read_block(pools: list[dict], bid: int) -> list[dict[str, np.ndarray]]:
+    """Pool block ``bid`` of every layer in the host block format (a spill
+    to the prefix cache's host tier)."""
+    return [
+        {key: _to_host(pool[key][bid : bid + 1]) for key in kv_buffer_keys(pool)}
+        for pool in pools
+    ]
+
+
+def pool_write_blocks(pools: list[dict], bids: list[int], blocks: list[list[dict]]) -> None:
+    """Write host blocks into pool blocks ``bids`` in place, with one
+    copy to the device per buffer: ``blocks[i]`` (per layer) goes to block
+    ``bids[i]`` (the restore of host-tier prefix hits)."""
+    if not bids:
+        return
+    for li, pool in enumerate(pools):
+        index = torch.tensor(bids, dtype=torch.long, device=pool["k"].device)
+        for key in kv_buffer_keys(pool):
+            rows = np.concatenate([blk[li][key] for blk in blocks], axis=0)
+            pool[key].index_copy_(0, index, _to_pool(rows, pool[key]))
+
+
+def pool_copy_blocks(pools: list[dict], src: list[int], dst: list[int]) -> None:
+    """Copy pool blocks ``src`` onto ``dst`` in place on the device, every
+    layer and buffer (the copy-on-write split of a shared block)."""
+    if not src:
+        return
+    for pool in pools:
+        device = pool["k"].device
+        s = torch.tensor(src, dtype=torch.long, device=device)
+        d = torch.tensor(dst, dtype=torch.long, device=device)
+        for key in kv_buffer_keys(pool):
+            pool[key].index_copy_(0, d, pool[key].index_select(0, s))

@@ -4,7 +4,8 @@ and the cached self-attention of prefill.
 Port of the parts of ``transformer_tpu/ops/attention.py`` the serving,
 training and seq2seq slices run: the cache-free ``mha_apply`` (with
 ``precomputed_kv`` for cross-attention), ``project_kv``, the full-length
-dense decode cache and its cached self-attention. Layouts are the JAX package's: activations
+dense decode cache and its cached self-attention, and the cache's block
+slice, insert and rollback (the speculative drafter's cache). Layouts are the JAX package's: activations
 (B, S, H, D); q/k/v kernels (d_model, H, D); the out kernel
 (H, D, d_model). KV caches and pools are dicts with the JAX key names
 (``k``/``v``, plus fp32 ``k_scale``/``v_scale`` for int8 storage, plus
@@ -201,6 +202,32 @@ def _store_kv(cache, k, v, index: int):
         vals = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
     for key in kv_buffer_keys(cache):
         cache[key][:, index : index + s_q] = vals[key]
+
+
+def slice_kv_blocks(cache: dict[str, Any], start: int, n: int) -> dict[str, torch.Tensor]:
+    """Rows ``[start, start + n)`` of every KV buffer, in the cache's own
+    storage layout (bf16 rows as bf16, int8 codes with their fp32 scales,
+    GQA at the kv-head count): the export half of a block round trip, so
+    ``insert_kv_blocks`` writes back exactly the bits the cache held."""
+    return {key: cache[key][:, start : start + n].clone() for key in kv_buffer_keys(cache)}
+
+
+def insert_kv_blocks(cache: dict[str, Any], blocks: dict[str, torch.Tensor], start: int):
+    """Write ``slice_kv_blocks`` rows back at buffer rows ``[start, start +
+    n)``, in place and without conversion; ``index`` is left to the
+    caller. Returns ``cache``."""
+    for key in kv_buffer_keys(cache):
+        rows = blocks[key]
+        cache[key][:, start : start + rows.shape[1]] = rows
+    return cache
+
+
+def rollback_cache(cache: dict[str, Any], index: int) -> dict[str, Any]:
+    """Rollback by index: the buffers stay, ``index`` moves back. Rows at
+    or past it are hidden by the offset causal mask of every later read,
+    and the next write at them overwrites them (int8 rows re-quantized
+    with their scales)."""
+    return dict(cache, index=int(index))
 
 
 def init_cache(

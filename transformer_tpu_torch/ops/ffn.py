@@ -164,10 +164,12 @@ def check_kernel_args(
 
 
 # Scratch of the kernel, kept per device across calls: the cluster partials
-# (grown when a call needs more) and one last-cluster ticket per row chunk,
-# zeroed once here and left at zero by every launch. Calls on one device
-# share it, so they must run in order on one stream, as the decode step's
-# do.
+# and one last-cluster ticket per row chunk, zeroed once here and left at
+# zero by every launch. The partials are sized for MAX_ROWS rows at first
+# use (grown only for a wider d or dff), so calls of every row count share
+# one buffer and a CUDA graph that captured it never sees it freed. Calls
+# on one device share it, so they must run in order on one stream, as the
+# decode step's do.
 _WORKSPACE: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -234,7 +236,7 @@ def fused_ln_ffn(
     m, dff = xf.shape[0], ffn["in"]["kernel"].shape[1]
     lib = build.load("fused_ln_ffn", _SIGNATURES)
     out = torch.empty_like(xf)
-    partial, tickets = _workspace(x.device, dff // (slab_cols(dtype) * CLUSTER) * m * d)
+    partial, tickets = _workspace(x.device, dff // (slab_cols(dtype) * CLUSTER) * MAX_ROWS * d)
     gate = ffn["gate"] if gated else {"kernel": None, "bias": None}
     status = lib.fused_ln_ffn(
         _CODES[dtype], _ptr(xf), _ptr(ffn["in"]["kernel"]), _ptr(ffn["in"]["bias"]),

@@ -6,19 +6,30 @@ A reduced port of ``transformer_tpu/serve/scheduler.py``
 
 - every slot's KV lives in ONE block pool per layer, addressed through
   per-slot block tables (``kernels/kv_pool.KVPool``, block 0 the sink);
-- admission at step boundaries: a queued request takes a free slot and its
-  prompt is chunk-prefilled through a gathered dense view of the slot's
-  blocks, whose written rows are then scattered back into the pool; a
-  prompt longer than its power-of-two prefill bucket feeds its tail one
-  token per decode step;
+- admission at step boundaries: a queued request takes a free slot, the
+  longest block-aligned prefix of its prompt that the prefix cache holds
+  is restored (``serve/prefix_cache.py``: device-tier blocks aliased into
+  the table, host-tier blocks written into fresh ones), and the rest is
+  chunk-prefilled through a gathered dense view of the slot's blocks,
+  whose written rows are then scattered back into the pool; a prompt
+  longer than its power-of-two prefill bucket feeds its tail through the
+  steps;
 - each step is ONE ``paged_decode_forward`` over every slot (free slots
-  write only the sink), on the two CUDA kernels;
-- a slot retires on EOS or when its ``max_new`` budget is spent, and is
-  recycled at the next step boundary.
+  write only the sink), on the two CUDA kernels, replayed from a CUDA
+  graph on the card (``serve/graph.py``): one token per slot, or with
+  ``speculate_k`` a verify step that feeds each slot's pending token plus
+  up to k lookahead tokens (prompt tail, then drafts) and keeps the
+  longest accepted prefix (``serve/speculative.py``); the rejected tail
+  rolls back by table truncation;
+- a slot retires on EOS or when its ``max_new`` budget is spent, donates
+  its prompt blocks to the prefix cache's device tier, and is recycled at
+  the next step boundary. Pool exhaustion spills the device tier to the
+  host tier first, then preempts the requesting slot.
 
-Left out here (later slices): speculative decoding, the prefix cache,
-fault injection and circuit breakers, deadlines and cancellation,
-telemetry/tracing/SLOs, live weight upgrades, the dense layout, MoE.
+Left out here (later slices): the dense layout and ``decode_kernel=
+"xla"``, fault injection and circuit breakers, deadlines, cancellation,
+backpressure and admission retries, telemetry/tracing/SLOs, live weight
+upgrades, MoE.
 """
 
 from __future__ import annotations
@@ -31,19 +42,30 @@ import numpy as np
 import torch
 
 from transformer_tpu_torch.config import PAD_ID, ModelConfig
+from transformer_tpu_torch.data.seeding import keyed_rng
 from transformer_tpu_torch.device import resolve_device, synchronize
 from transformer_tpu_torch.kernels.kv_pool import (
     KVPool,
     KVPoolExhausted,
     gather_block_views,
+    pool_copy_blocks,
+    pool_read_block,
+    pool_write_blocks,
     scatter_rows,
 )
-from transformer_tpu_torch.models.paged_decode import (
-    check_paged_flash_config,
-    paged_decode_forward,
-)
+from transformer_tpu_torch.models.paged_decode import check_paged_flash_config
 from transformer_tpu_torch.models.transformer import transformer_prefill
 from transformer_tpu_torch.ops.attention import init_block_pool, kv_buffer_keys
+from transformer_tpu_torch.serve.graph import CapturedForward
+from transformer_tpu_torch.serve.prefix_cache import PrefixCorruptionError
+from transformer_tpu_torch.serve.speculative import (
+    NgramDrafter,
+    build_verify_row,
+    filtered_probs,
+    judge_row,
+    sampled_accept,
+    verify_row_picks,
+)
 from transformer_tpu_torch.train.decode import (
     _detokenize_rows,
     prefill_len_for,
@@ -107,13 +129,18 @@ class _Active:
     top_k: int
     top_p: float
     seed: int
+    spec: bool = False         # drafts for this request (speculate_k > 0)
+    dstate: object = None      # the drafter's per-request state
+    use_prefix: bool = False   # reads and feeds the prefix cache
 
 
 class ContinuousScheduler:
     """Step-level continuous batching over ``num_slots`` paged KV slots.
 
     ``submit`` queues LM requests (dicts with ``prompt`` and optional
-    ``max_new`` / ``temperature`` / ``top_k`` / ``top_p`` / ``seed``);
+    ``max_new`` / ``temperature`` / ``top_k`` / ``top_p`` / ``seed``, and
+    ``cache_prefix`` / ``speculate``, which opt a request out of the prefix
+    cache or out of drafting);
     ``submit_done`` reserves an output position for an already-answered
     response. ``admit`` / ``step`` / ``drain_ready`` are the streaming API
     the serve CLI drives; ``run`` serves a fixed list to completion.
@@ -130,6 +157,9 @@ class ContinuousScheduler:
         max_total: int | None = None,
         prefill_chunk: int = 0,
         default_max_new: int = 64,
+        speculate_k: int = 0,
+        drafter=None,
+        prefix_cache=None,
         kv_block: int = 16,
         kv_pool_blocks: int = 0,
         device="cuda",
@@ -137,6 +167,12 @@ class ContinuousScheduler:
         check_paged_flash_config(cfg)
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        if prefix_cache is not None:
+            # Pool blocks and prefix-cache blocks are one unit: a
+            # device-tier hit aliases trie-held pool blocks into a table.
+            kv_block = prefix_cache.block_tokens
         if kv_block < 1:
             raise ValueError(f"kv_block must be >= 1, got {kv_block}")
         self.device = resolve_device(device)
@@ -146,11 +182,17 @@ class ContinuousScheduler:
         self.prefill_chunk = prefill_chunk
         self.default_max_new = default_max_new
         self.max_total = max_total or cfg.max_position + 1
+        self.speculate_k = speculate_k
+        # k > 0 with no drafter given: the model-free n-gram drafter.
+        self.drafter = drafter if drafter is not None or not speculate_k else NgramDrafter()
+        self.prefix_cache = prefix_cache
         self.block_tokens = kv_block
-        self.slot_blocks = -(-self.max_total // kv_block)
-        # Prefill views are gathered at slot_blocks * B rows and sliced to
-        # max_total, the dense layout's buffer length.
-        self.buf_len = self.max_total
+        # speculate_k rows of slack: a verify step writes k + 1 positions
+        # even from the slot's last budgeted position. Prefill views are
+        # gathered at slot_blocks * B rows and sliced to this length, the
+        # dense layout's buffer length; admission budgets use max_total.
+        self.buf_len = self.max_total + speculate_k
+        self.slot_blocks = -(-self.buf_len // kv_block)
         num_blocks = kv_pool_blocks or (1 + num_slots * self.slot_blocks)
         self.alloc = KVPool(num_blocks, kv_block, num_slots, self.slot_blocks)
         self.pools = [
@@ -160,6 +202,14 @@ class ContinuousScheduler:
             )
             for _ in range(cfg.num_layers)
         ]
+        self.forward = CapturedForward(self.params, self.pools, cfg, kv_block, self.device)
+        if prefix_cache is not None:
+            # The device tier: retiring slots donate their prompt blocks by
+            # reference, hits alias them back, and pool pressure spills the
+            # least recently used ones to the host tier.
+            prefix_cache.attach_device_pool(
+                self.alloc, lambda bid: pool_read_block(self.pools, bid)
+            )
         self._free = list(range(num_slots))
         self._active: dict[int, _Active] = {}
         self._queue: deque[_Pending] = deque()
@@ -170,6 +220,13 @@ class ContinuousScheduler:
             "admitted": 0, "steps": 0, "max_active": 0, "kv_preempted": 0,
             "prompt_tokens": 0, "prefill_tokens": 0, "prefill_forwards": 0,
             "prefill_s": 0.0, "decode_s": 0.0, "generated_tokens": 0,
+            # speculation: draft tokens fed to verify steps, and those kept
+            "drafted": 0, "accepted": 0,
+            # the prefix cache: prompt tokens restored (no forward), of
+            # them aliased from the device tier, the rest written from the
+            # host tier; pool blocks freed by spilling the device tier
+            "prefix_hit_tokens": 0, "prefix_alias_tokens": 0,
+            "host_restored_tokens": 0, "kv_spilled_blocks": 0,
         }
 
     # ---- intake ------------------------------------------------------------
@@ -244,40 +301,64 @@ class ContinuousScheduler:
             raise ValueError(
                 f"top_k={top_k} exceeds the vocab size {cfg.target_vocab_size}"
             )
-        n = prefill_len_for(L, self.prefill_chunk)
+        use_prefix = self.prefix_cache is not None and bool(req.get("cache_prefix", True))
+        hit, m = None, 0
+        if use_prefix:
+            # Match the prompt less its last token: at least one token goes
+            # through the forward, whose logits make the first pick.
+            try:
+                hit = self.prefix_cache.match(ids[: L - 1])
+                m = hit.tokens
+            except PrefixCorruptionError:
+                pass  # the corrupt subtree is gone: this admission prefills in full
+        n = m + prefill_len_for(L - m, self.prefill_chunk)
         slot = self._free.pop()
+        aliased = 0
         try:
-            self.alloc.ensure(slot, n)
+            if m:
+                aliased = self._restore(slot, hit)
+            self._alloc_call(lambda: self.alloc.ensure(slot, n))
+            self._cow(slot, m, n)
             t0 = time.perf_counter()
-            logits = self._prefill(slot, ids[:n])
+            logits = self._prefill(slot, ids[m:n], m)
             synchronize(self.device)
             self.stats["prefill_s"] += time.perf_counter() - t0
         except BaseException:
             self.alloc.free_slot(slot)
             self._free.append(slot)
             raise
+        finally:
+            if hit is not None:
+                hit.release()
         chunk = self.prefill_chunk
         self.stats["prompt_tokens"] += L
-        self.stats["prefill_tokens"] += n
-        self.stats["prefill_forwards"] += -(-n // chunk) if chunk > 0 else 1
+        self.stats["prefill_tokens"] += n - m
+        self.stats["prefill_forwards"] += -(-(n - m) // chunk) if chunk > 0 else 1
+        self.stats["prefix_hit_tokens"] += m
+        self.stats["prefix_alias_tokens"] += aliased
+        self.stats["host_restored_tokens"] += m - aliased
+        spec = bool(self.speculate_k) and bool(req.get("speculate", True))
         st = _Active(
             order=p.order, ids=ids, prompt_len=L, pos=n, cur=PAD_ID,
             emitted=[], max_new=max_new, sample=sample,
             temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+            spec=spec, dstate=self.drafter.start(ids) if spec else None,
+            use_prefix=use_prefix,
         )
         self._active[slot] = st
         self.stats["admitted"] += 1
         self.stats["max_active"] = max(self.stats["max_active"], len(self._active))
         if n < L:
-            st.cur = ids[n]  # the prompt tail feeds token by token
+            st.cur = ids[n]  # the prompt tail feeds through the steps
         else:
             self._consume_pick(slot, st, self._pick(logits, [st], [n - 1])[0])
 
-    def _prefill(self, slot: int, prompt: list[int]) -> torch.Tensor:
-        """Chunked prefill of ``prompt`` (positions 0..n-1) into ``slot``:
-        gather the slot's blocks into a dense (1, buf_len, H_kv, D) view,
-        run the cached prefill forward over it, then scatter the n written
-        rows back into the pool. Returns the (1, V) next-token logits."""
+    def _prefill(self, slot: int, prompt: list[int], start: int) -> torch.Tensor:
+        """Chunked prefill of ``prompt`` at positions ``start ..`` into
+        ``slot``: gather the slot's blocks (a restored prefix included)
+        into a dense (1, buf_len, H_kv, D) view, run the cached prefill
+        forward over it from ``start``, then scatter the written rows back
+        into the pool. Returns the (1, V) next-token logits."""
         table = self.alloc.table_device(self.device)
         row = table[slot : slot + 1]
         caches = [
@@ -286,46 +367,79 @@ class ContinuousScheduler:
                     key: gather_block_views(pool[key], row, self.buf_len)
                     for key in kv_buffer_keys(pool)
                 },
-                "index": 0,
+                "index": start,
             }
             for pool in self.pools
         ]
         toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
         logits, caches = transformer_prefill(
-            self.params, toks, caches, 0, self.cfg, chunk=self.prefill_chunk
+            self.params, toks, caches, start, self.cfg, chunk=self.prefill_chunk
         )
         n = len(prompt)
-        pos = torch.arange(n, device=self.device)
+        pos = start + torch.arange(n, device=self.device)
         blk = row[0].long()[torch.clamp(pos // self.block_tokens, 0, self.slot_blocks - 1)]
         rids = blk * self.block_tokens + pos % self.block_tokens
         for pool, cache in zip(self.pools, caches):
             for key in kv_buffer_keys(pool):
-                scatter_rows(pool[key], rids, cache[key][0, :n])
+                scatter_rows(pool[key], rids, cache[key][0, start : start + n])
         return logits
 
-    # ---- stepping ----------------------------------------------------------
+    # ---- paged KV and the prefix cache --------------------------------------
 
-    def _pick(self, logits: torch.Tensor, states: list[_Active], positions: list[int]):
-        """Next tokens for ``logits`` rows (one per state): greedy rows in one
-        argmax; each sampled row with a generator seeded from (seed,
-        position), so a request's draws do not depend on its neighbours."""
-        picks = sample_token(logits).tolist()
-        for i, (st, position) in enumerate(zip(states, positions)):
-            if st.sample:
-                gen = torch.Generator(device=logits.device)
-                gen.manual_seed((st.seed * 1_000_003 + position) % (1 << 63))
-                picks[i] = int(sample_token(
-                    logits[i : i + 1], gen, sample=True,
-                    temperature=st.temperature, top_k=st.top_k, top_p=st.top_p,
-                )[0])
-        return picks
+    def _alloc_call(self, fn):
+        """Run an allocator mutation with one spill-and-retry rung: on pool
+        exhaustion the prefix cache's device tier releases its least
+        recently used blocks (spilling their data to the host tier), then
+        ``fn`` runs again. Re-raises ``KVPoolExhausted`` when live slots
+        hold the whole pool."""
+        try:
+            return fn()
+        except KVPoolExhausted:
+            if self.prefix_cache is None:
+                raise
+            freed = self.prefix_cache.release_device_blocks(max(1, self.slot_blocks))
+            self.stats["kv_spilled_blocks"] += freed
+            if not freed:
+                raise
+            return fn()
 
-    def step(self) -> None:
-        """Advance every occupied slot one token with ONE pooled forward;
-        retire finished slots. No-op when the pool is idle."""
+    def _cow(self, slot: int, start: int, end: int) -> None:
+        """Copy-on-write before writing positions ``[start, end)``: a table
+        block shared with the device tier or another slot is split (a
+        fresh block takes its entry, its contents copied on the device)."""
+        pairs = self._alloc_call(lambda: self.alloc.make_writable(slot, start, end))
+        pool_copy_blocks(self.pools, [s for s, _ in pairs], [d for _, d in pairs])
+
+    def _restore(self, slot: int, hit) -> int:
+        """Restore a matched prefix into ``slot``'s table: device-tier
+        nodes alias their pool block (no copy, no forward); host-tier nodes
+        take a fresh block, all written in one batch, which the device tier
+        then adopts so the next hit aliases. Returns the aliased tokens."""
+        aliased = 0
+        host_bids, host_payload, adopt = [], [], []
+        for node, bid, blocks in hit.paged_plan():
+            if bid is not None:
+                self._alloc_call(lambda b=bid: self.alloc.extend(slot, bid=b))
+                aliased += self.block_tokens
+            else:
+                _, new_bid = self._alloc_call(lambda: self.alloc.extend(slot))
+                host_bids.append(new_bid)
+                host_payload.append(blocks)
+                adopt.append((node, new_bid))
+        pool_write_blocks(self.pools, host_bids, host_payload)
+        for node, bid in adopt:
+            self.prefix_cache.adopt_device(node, bid)
+        return aliased
+
+    def _prepare(self, width: int) -> None:
+        """Before a step: blocks covering every occupied slot's writes
+        ``[pos, pos + width)``, split where shared. Exhaustion (after the
+        spill) preempts the slot with a ``resource`` answer carrying its
+        partial continuation."""
         for slot, st in list(self._active.items()):
             try:
-                self.alloc.ensure(slot, st.pos + 1)
+                self._alloc_call(lambda: self.alloc.ensure(slot, st.pos + width))
+                self._cow(slot, st.pos, st.pos + width)
             except KVPoolExhausted as e:
                 self.stats["kv_preempted"] += 1
                 self._retire(slot, st, error_answer(
@@ -333,8 +447,36 @@ class ContinuousScheduler:
                     f"kv pool exhausted after {len(st.emitted)} of "
                     f"{st.max_new} tokens: {e}",
                 ))
+
+    # ---- stepping ----------------------------------------------------------
+
+    def _pick(self, logits: torch.Tensor, states: list[_Active], positions: list[int]):
+        """Next tokens for ``logits`` rows (one per state): greedy rows in one
+        argmax; each sampled row with a generator keyed (seed, position),
+        so a request's draws do not depend on its neighbours."""
+        picks = sample_token(logits).tolist()
+        for i, (st, position) in enumerate(zip(states, positions)):
+            if st.sample:
+                picks[i] = verify_row_picks(
+                    logits[i : i + 1], st.seed, position, st.temperature,
+                    sample=True, top_k=st.top_k, top_p=st.top_p,
+                )[0]
+        return picks
+
+    def step(self) -> None:
+        """Advance every occupied slot with ONE pooled forward: one token
+        on the plain path, up to ``speculate_k + 1`` on the verify path.
+        Retires finished slots; no-op when the pool is idle."""
+        if self._active:
+            self._prepare(self.speculate_k + 1)
         if not self._active:
             return
+        if self.speculate_k:
+            self._step_verify()
+        else:
+            self._step_plain()
+
+    def _step_plain(self) -> None:
         t0 = time.perf_counter()
         N = self.num_slots
         toks = np.full((N, 1), PAD_ID, np.int64)
@@ -342,15 +484,7 @@ class ContinuousScheduler:
         for slot, st in self._active.items():
             toks[slot, 0] = st.cur
             positions[slot] = st.pos
-        logits, self.pools = paged_decode_forward(
-            self.params,
-            torch.from_numpy(toks).to(self.device),
-            self.pools,
-            self.alloc.table_device(self.device),
-            torch.from_numpy(positions).to(self.device),
-            self.cfg,
-            block_tokens=self.block_tokens,
-        )
+        logits = self.forward(toks, self.alloc.table, positions)
         slots = list(self._active)
         states = [self._active[s] for s in slots]
         rows = torch.tensor(slots, device=self.device)
@@ -363,6 +497,88 @@ class ContinuousScheduler:
                 st.cur = st.ids[st.pos]  # still consuming the prompt tail
                 continue
             self._consume_pick(slot, st, tokv)
+
+    def _step_verify(self) -> None:
+        """One speculative verify step: every occupied slot feeds its
+        pending token plus up to ``speculate_k`` lookahead tokens (the
+        prompt tail first, then drafts) through ONE forward of static
+        width W = k + 1 (rows padded, free slots riding along). The longest
+        accepted prefix is kept and the rejected tail rolled back by table
+        truncation; stale rows past a slot's position stay masked until a
+        later write covers them. Greedy answers equal the plain path's."""
+        t0 = time.perf_counter()
+        N, W = self.num_slots, self.speculate_k + 1
+        toks = np.full((N, W), PAD_ID, np.int64)
+        positions = np.zeros((N,), np.int32)
+        rows: dict[int, tuple[list[int], int]] = {}
+        for slot, st in self._active.items():
+            row, n_drafted = build_verify_row(
+                st.ids + st.emitted, st.pos, self.speculate_k,
+                self.drafter if st.spec else None, st.dstate,
+            )
+            rows[slot] = (row, n_drafted)
+            toks[slot, : len(row)] = row
+            positions[slot] = st.pos
+        logits = self.forward(toks, self.alloc.table, positions)
+        greedy = torch.argmax(logits, dim=-1).tolist()  # (N, W)
+        drafted = accepted = 0
+        for slot, st in list(self._active.items()):
+            row, n_drafted = rows[slot]
+            pos0 = st.pos
+            if st.sample:
+                def pick(j, _st=st, _slot=slot, _p=pos0):
+                    return verify_row_picks(
+                        logits[_slot, j : j + 1], _st.seed, _p + j, _st.temperature,
+                        sample=True, top_k=_st.top_k, top_p=_st.top_p,
+                    )[0]
+            else:
+                def pick(j, _row=greedy[slot]):
+                    return _row[j]
+            if st.sample and n_drafted:
+                # Rejection sampling needs the target's probabilities: only
+                # this slot's (W, V) rows come back to the host.
+                slot_logits = logits[slot].float().cpu().numpy()
+
+                def accept(j, draft, _l=slot_logits, _st=st, _p=pos0):
+                    probs = filtered_probs(_l[j], _st.temperature, _st.top_k, _st.top_p)
+                    return sampled_accept(probs, draft, keyed_rng(_st.seed, _p + j))
+            else:
+                def accept(j, draft, _pick=pick):
+                    tok = _pick(j)
+                    return tok == draft, tok
+            emitted, keep, n_accepted = judge_row(row, pos0, st.prompt_len, accept, pick)
+            # Only drafts whose emissions are consumed count as accepted.
+            n_accepted = min(n_accepted, self._consumable(st, emitted))
+            drafted += n_drafted
+            accepted += n_accepted
+            st.pos += keep
+            if not emitted:
+                st.cur = st.ids[st.pos]  # every fed position was prompt
+                continue
+            for tok in emitted:
+                self._consume_pick(slot, st, tok)
+                if slot not in self._active:
+                    break  # retired (EOS / budget): the row's tail is dropped
+        for slot, st in self._active.items():
+            self.alloc.truncate(slot, st.pos)
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["steps"] += 1
+        self.stats["drafted"] += drafted
+        self.stats["accepted"] += accepted
+
+    def _consumable(self, st: _Active, emitted: list[int]) -> int:
+        """How many of a verify row's emissions ``_consume_pick`` takes
+        before the slot retires (the finishing token included): its
+        EOS/budget rules without their effects."""
+        n, cnt = 0, len(st.emitted)
+        for tok in emitted:
+            n += 1
+            if tok == self.tok.eos_id or cnt >= st.max_new:
+                break
+            cnt += 1
+            if cnt >= st.max_new:
+                break
+        return n
 
     def _consume_pick(self, slot: int, st: _Active, tokv: int) -> None:
         """Retire on EOS or a spent budget, else feed ``tokv`` next."""
@@ -377,6 +593,15 @@ class ContinuousScheduler:
             st.cur = tokv
 
     def _finish(self, slot: int, st: _Active) -> None:
+        if self.prefix_cache is not None and st.use_prefix:
+            # Donate the block-aligned prompt region to the device tier by
+            # reference before the slot's table is released.
+            B = self.block_tokens
+            aligned = (st.prompt_len // B) * B
+            if aligned:
+                self.prefix_cache.insert_device(
+                    st.ids, aligned, [int(b) for b in self.alloc.table[slot][: aligned // B]]
+                )
         text = _detokenize_rows(
             np.asarray([st.emitted], np.int32) if st.emitted
             else np.zeros((1, 0), np.int32),
