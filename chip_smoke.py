@@ -6,8 +6,8 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in ten phases (the
-tenth runs right after the fourth, on its export):
+runs on the CPU). It prints one JSON line per check, in eleven phases (the
+tenth runs right after the fourth, on its export; the eleventh last):
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -40,8 +40,13 @@ tenth runs right after the fourth, on its export):
    ring step reads its own two planted faults (no rescaling of acc when the
    maximum moves, 10 rows of a tile unfolded), and also runs from a fresh
    carry with a band of -100, where the rows that see no key must keep m =
-   -1e30, l = 0 and acc = 0 bit for bit; and a ring of 4 is replayed
+   -1e30, l = 0 and acc = 0 bit for bit; a ring of 4 is replayed
    in one process at the main shape against the whole-sequence kernels;
+   and the training kernels run at phase 11's shapes, bf16 and fp32: the
+   flash kernels at B 16 (a quarter of the seq2seq batch), at 2 heads a
+   process (Ulysses; B 64 x S 64, and long4k's B 4 x S 4096 in bf16), the
+   ring step at chunks of 16 over ragged sentences, where a chunk of
+   padding only must leave the carry as it found it, bit for bit;
 4. serving: a long4k-width decoder-only LM (random weights from a seed,
    written as an export) serves JSONL requests through
    ``transformer_tpu_torch.cli.serve`` with the paged KV pool, each step
@@ -77,13 +82,13 @@ tenth runs right after the fourth, on its export):
    and the tiny, big and tied presets for an epoch of 1280 pairs;
 7. sequence-parallel training: ``torch.distributed.run`` starts four
    processes of ``transformer_tpu_torch.cli.distributed_train --preset
-   long4k --attention_impl ring --sp 4 --epochs 1`` on this one card (gloo,
-   staged through host memory); the counters of the ring step and both
-   backward kernels must equal what steps, hops and eval batches imply, the
-   losses must be within 0.01 of phase 5's, and every rank's parameters
-   and the export must be bit-identical. Then one fp32 step at full width
-   (2 layers) over a ring of four processes compares with the
-   single-process flash step;
+   long4k --attention_impl ring --sp 4 --epochs 1 --consistency_check`` on
+   this one card (gloo, staged through host memory); each rank's counters
+   of the ring step and both backward kernels must equal what steps, hops
+   and eval batches imply, the losses must be within 0.01 of phase 5's,
+   and every rank's parameters and the export must be bit-identical. Then
+   one fp32 step at full width (2 layers) over a ring of four processes
+   compares with the single-process flash step;
 8. checkpoints: ``cli.train --preset base --attention_impl flash
    --sequence_length 64 --grad_accum 2`` on the first 1,300 corpus pairs
    (20 steps an epoch), each run with its own ``--ckpt_path``: U trains 2
@@ -142,8 +147,25 @@ tenth runs right after the fourth, on its export):
    otherwise in bf16). Then the decode (k 0) and verify (k 4, rows with
    drafts) forwards replayed from their graphs against
    ``paged_decode_forward`` on copies of the pools, 20 steps each: logits
-   and pools bit for bit, launch counts equal, one capture each; and a
-   window of each, replayed and eager.
+   and pools bit for bit, launch counts equal, one capture each; a window
+   of each, replayed and eager; and phase 4's requests served in fp32
+   without and with ``--speculate_k 4``, the greedy answers that differ
+   counted (fp32 products are not row-invariant on the card);
+11. seq2seq over processes: ``cli.distributed_train --preset base
+   --sequence_length 64 --epochs 1 --consistency_check`` on the 1,300
+   pairs as four processes on this card (gloo), under ``--dp 4`` (flash),
+   ``--attention_impl ring --sp 4`` and ``--attention_impl ulysses --sp
+   4``: each rank's flash and ring counters must equal what steps, hops
+   and eval batches imply (plus rank 0's sample translation), every rank
+   must end with the same parameters (the consistency check passing after
+   the epoch and at the end) and every step's loss must be within 0.01 of
+   phase 9's E in its first epoch (``cli.train``, the same flags and
+   seed); the dp 4 export is translated and scored. Then long4k with
+   ``--attention_impl ulysses --sp 4``, held to phase 5 as phase 7 holds
+   the ring, and one fp32 step (2 + 2 layers, B 64) under each of the
+   three meshes against the single-process flash step. Each run reports
+   its step median and first step, real target tokens a second across the
+   job, staged bytes by kind, the consistency check's time and its wall.
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -321,16 +343,22 @@ def kernel_us(fn, calls: int = 50) -> dict:
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            out[e.key[:90]] = us / calls
-    return out or "not measured"
+    # The first profiler session of a process can come back without device
+    # events (the first case profiled once read "not measured"), so an
+    # empty session is taken once more.
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                out[e.key[:90]] = us / calls
+        if out:
+            return out
+    return "not measured"
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -1119,7 +1147,7 @@ def ring_faults(carry, want, rows=10):
 
 
 def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=False,
-                    fresh=False):
+                    fresh=False, lengths=None):
     """flash_ring_step against flash_ring_step_plain for one hop from the
     carry an earlier, unmasked hop left (``fresh``: from the carry a ring
     starts with, m = MASKED, l = 0, acc = 0). Read per row: the finalised
@@ -1128,7 +1156,10 @@ def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=
     the worst row (from a fresh carry there is nothing to rescale, so only
     the unfolded rows are planted). From a fresh carry, every row that sees
     no key in the hop must come back with m = MASKED, l = 0 and acc = 0
-    exactly."""
+    exactly. With ``lengths`` (the visiting chunk's real keys per
+    sequence, as sentences padded over a sequence split leave them) some
+    sequences' chunks are padding only: their carry must come back as it
+    went in, bit for bit."""
     import torch
 
     from transformer_tpu_torch.kernels.flash_attention import (
@@ -1138,7 +1169,7 @@ def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=
     from transformer_tpu_torch.kernels.paged_flash import MASKED
 
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
-    q, k, v, _, mask = flash_inputs(b, c, c, h, h_kv, d, dt, padded)
+    q, k, v, _, mask = flash_inputs(b, c, c, h, h_kv, d, dt, padded, lengths=lengths)
     _, k0, v0, _, _ = flash_inputs(b, c, c, h, h_kv, d, dt, False, seed=SEED + 1)
     start = (torch.full((b, h, c), MASKED, device="cuda"), torch.zeros((b, h, c), device="cuda"),
              torch.zeros((b, c, h, d), device="cuda"))
@@ -1178,10 +1209,19 @@ def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=
         readings["sentinel"] = sentinel
         ok = ok and sentinel["rows_without_a_key"] > 0 and all(
             sentinel[k] for k in ("m_is_masked", "l_is_zero", "acc_is_zero"))
+    if lengths is not None:
+        idle = ~mask.any(dim=1)  # sequences whose visiting chunk is padding only
+        readings["padding_chunks"] = {
+            "sequences": int(idle.sum().item()),
+            "carry_bit_identical": all(torch.equal(g[idle], c0[idle]) for g, c0 in zip(got, carry)),
+        }
+        ok = ok and readings["padding_chunks"]["sequences"] > 0 and readings[
+            "padding_chunks"]["carry_bit_identical"]
     rec = {
         "phase": "kernels", "kernel": "flash_ring_step", "case": label, "dtype": dtype,
         "b": b, "c": c, "h": h, "h_kv": h_kv, "d": d, "causal": causal, "band": band,
         "padded": padded, "fresh_carry": fresh, "readings": readings,
+        "key_lengths": None if lengths is None else [int(n) for n in lengths],
         "max_abs_err": (got_out.float() - want_out.float()).abs().max().item(),
         "tolerance": {"out_row_rel": tol, "l_row_rel": tol, "lse_abs": 1e-4, "m_abs": 1e-4},
         "planted_faults_worst_row": faults,
@@ -1792,85 +1832,121 @@ def train_profile(trainer, train_ds, steps: int = 3, phase: str = "train"):
 
 def sp_train_path(vocab_path, single, sp: int = 4):
     """``cli.distributed_train --preset long4k --attention_impl ring --sp 4
-    --epochs 1`` under ``torch.distributed.run``: four processes on this
-    one card, so the transport is gloo through host memory. The kernel
-    counters of each process start at 0 with it and are read from its
-    report at the end. Losses must be within 0.01 of the single-card run
-    of phase 5 (same seed, same dropout draws)."""
+    --epochs 1 --consistency_check`` under ``torch.distributed.run``: four
+    processes on this one card, so the transport is gloo through host
+    memory (``dist_fit``). Rank r folds its own chunk and the r before it:
+    6 x (r + 1) ring steps a forward (each twice a step under remat), and
+    as many dQ and dK/dV a step. Losses must be within 0.01 of the
+    single-card run of phase 5 (same seed, same dropout draws)."""
+    export = os.path.join(BUILD_DIR, "sp_train_export")
+    args = [
+        "--preset", "long4k", "--attention_impl", "ring", "--sp", str(sp), "--epochs", "1",
+        "--consistency_check", "--dataset_path", os.path.join(ROOT, "data"),
+        "--tgt_vocab_file", vocab_path, "--export_path", export,
+        "--ckpt_path", fresh_dir("ckpt", "sp_train"), "--device", "cuda",
+    ]
+    layers = single["config"]["num_layers"]
+
+    def want(rank, steps, evals):
+        hops = layers * (rank + 1)
+        return {"flash_fwd": 0, "flash_ring_step": hops * (2 * steps + evals),
+                "flash_dq": hops * steps, "flash_dkdv": hops * steps}
+
+    rec, _ = dist_fit("sp_train", "fit", args, want, export, procs=sp)
+    hold_to_single(rec, single)
+    return rec
+
+
+def hold_to_single(rec, single):
+    """A long4k run over processes against phase 5's single-card run: the
+    same steps and eval batches, train and eval loss within 0.01."""
+    held = {key: rec[key] for key in ("steps", "eval_batches", "train_loss", "eval_loss")}
+    want = {key: single[key] for key in held}
+    emit({"phase": rec["phase"], "step": f"{rec['step']} against phase 5", "got": held,
+          "single_card": want, "limit": 0.01})
+    if not (held["steps"] == want["steps"] and held["eval_batches"] == want["eval_batches"]
+            and abs(held["train_loss"] - want["train_loss"]) <= 0.01
+            and abs(held["eval_loss"] - want["eval_loss"]) <= 0.01):
+        raise SystemExit(f"{rec['step']}: not within 0.01 of phase 5's losses: {held} / {want}")
+
+
+def distributed_run(args, procs: int, name: str, timeout: int = 600):
+    """``cli.distributed_train`` with ``args`` under ``torch.distributed.run``
+    in ``procs`` processes on this one card (gloo through host memory),
+    each rank's report gathered with ``--metrics_json``. The kernel
+    counters of each process start at 0 with it. Returns (the finished
+    process, the ranks' reports, wall seconds); a failed run fails the
+    script."""
+    report_path = os.path.join(BUILD_DIR, f"{name}_report.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(procs), "-m", "transformer_tpu_torch.cli.distributed_train", *args,
+           "--metrics_json", report_path]
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(
+            f"{name}: cli.distributed_train failed (exit {proc.returncode}):\n"
+            f"{proc.stdout[-4000:]}\n{proc.stderr[-6000:]}"
+        )
+    with open(report_path) as f:
+        return proc, json.load(f)["ranks"], wall
+
+
+def dist_fit(phase, name, args, want_fn, export, procs: int = 4):
+    """One ``distributed_run``, held: every rank's kernel counters equal
+    ``want_fn(rank, steps, eval_batches)``, every rank ends with the same
+    parameters (and the export loads back to them), the consistency check
+    ran after each epoch and at the end and passed, the losses are finite
+    and every rank read the same ones. Returns the record (step times,
+    real target tokens a second across the job, staged bytes by kind, the
+    check's time, wall) and the counters summed over the ranks."""
     import statistics
 
     from transformer_tpu_torch.convert import load_export, params_digest
 
-    export = os.path.join(BUILD_DIR, "sp_train_export")
-    report_path = os.path.join(BUILD_DIR, "sp_train_report.json")
-    args = [
-        "--preset", "long4k", "--attention_impl", "ring", "--sp", str(sp), "--epochs", "1",
-        "--dataset_path", os.path.join(ROOT, "data"), "--tgt_vocab_file", vocab_path,
-        "--export_path", export, "--ckpt_path", fresh_dir("ckpt", "sp_train"),
-        "--device", "cuda", "--metrics_json", report_path,
-    ]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(sp), "-m", "transformer_tpu_torch.cli.distributed_train", *args]
-    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"}
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise SystemExit(
-            f"sequence-parallel training failed (exit {proc.returncode}):\n"
-            f"{proc.stdout[-4000:]}\n{proc.stderr[-6000:]}"
-        )
-    with open(report_path) as f:
-        report = json.load(f)
-    ranks = report["ranks"]
-    cfg = single["config"]
-    steps, evals = len(ranks[0]["step_seconds"]), ranks[0]["eval_batches"]
+    proc, ranks, wall = distributed_run(args, procs, name)
+    r0 = ranks[0]
+    steps, evals = len(r0["step_seconds"]), r0["eval_batches"]
     per_rank = {r["rank"]: r["launches"] for r in ranks}
-    launches = {name: sum(r[name] for r in per_rank.values()) for name in per_rank[0]}
-    hops = sum(r + 1 for r in range(sp))  # rank r folds its own chunk and the r before it
-    layers = cfg["num_layers"]
-    want = {
-        "flash_fwd": 0,
-        "flash_ring_step": layers * hops * (2 * steps + evals),  # remat: each forward twice
-        "flash_dq": layers * hops * steps,
-        "flash_dkdv": layers * hops * steps,
-    }
-    params, loaded_cfg = load_export(export, device="cuda")
-    digest = params_digest(params)
-    ms = [t * 1e3 for t in ranks[0]["step_seconds"]]
-    train_loss, eval_loss = ranks[0]["train_loss"], ranks[0]["eval_loss"]
+    want = {r: want_fn(r, steps, evals) for r in per_rank}
+    launches = {k: sum(c[k] for c in per_rank.values()) for k in per_rank[0]}
+    params, _ = load_export(export, device="cuda")
+    ms = [t * 1e3 for t in r0["step_seconds"]]
+    consistency = [r["consistency_check"] for r in ranks]
     rec = {
-        "phase": "sp_train", "step": "fit", "argv": args, "processes": sp,
-        "transport": ranks[0]["transport"], "card": nvidia_smi_line(),
-        "devices": [r["device"] for r in ranks],
+        "phase": phase, "step": name, "argv": args, "processes": procs,
+        "card": nvidia_smi_line(), "transport": r0["transport"], "steps": steps,
+        "eval_batches": evals, "step_ms_first": ms[0],
+        "step_ms_median": statistics.median(ms[1:] or ms), "step_ms_all": ms,
+        "target_tokens": r0["target_tokens"],
+        "target_tokens_per_s": r0["target_tokens"] / sum(r0["step_seconds"]),
         "staged_bytes_per_rank": [r["staged_bytes"] for r in ranks],
-        "steps": steps, "eval_batches": evals,
-        "step_ms_mean": statistics.mean(ms), "step_ms_median": statistics.median(ms),
-        "step_ms_first": ms[0], "step_ms_all": ms,
-        "tokens_per_s": ranks[0]["tokens"] / sum(ranks[0]["step_seconds"]),
-        "wall_s": wall, "train_loss": train_loss, "eval_loss": eval_loss,
-        "single_card_train_loss": single["train_loss"],
-        "single_card_eval_loss": single["eval_loss"],
-        "launches_per_rank": per_rank, "launches": launches, "expected_launches": want,
-        "export_loads_back": digest == ranks[0]["params_sha256"],
+        "staged_bytes_per_step_rank0": {k: v / steps for k, v in r0["staged_bytes"].items()},
+        "consistency_check": consistency, "wall_s": wall,
+        "train_loss": r0["train_loss"], "eval_loss": r0["eval_loss"], "losses": r0["losses"],
+        "launches_per_rank": per_rank, "expected_launches_per_rank": want,
+        "launches": launches,
         "ranks_hold_the_same_params": len({r["params_sha256"] for r in ranks}) == 1,
-        "logs": proc.stdout.splitlines()[-12:],
+        "export_loads_back": params_digest(params) == r0["params_sha256"],
+        "logs": [ln for ln in proc.stdout.splitlines() if not ln.startswith("sample")][-14:],
     }
     emit(rec)
+    del params
     if rec["transport"] != "gloo":
-        raise SystemExit(f"{sp} processes on one card must use gloo, got {rec['transport']}")
-    if not (abs(train_loss - single["train_loss"]) <= 0.01
-            and abs(eval_loss - single["eval_loss"]) <= 0.01):
-        raise SystemExit(f"sequence-parallel losses {train_loss}/{eval_loss} are not within "
-                         f"0.01 of the single-card {single['train_loss']}/{single['eval_loss']}")
-    if steps != single["steps"] or evals != single["eval_batches"] or loaded_cfg.num_layers != layers:
-        raise SystemExit(f"sequence-parallel run took {steps} steps / {evals} evals")
-    for name, count in launches.items():
-        if count != want[name] or (want[name] and count <= 0):
-            raise SystemExit(f"{name} launched {count} times in the ring, expected {want[name]}")
-    if not (rec["export_loads_back"] and rec["ranks_hold_the_same_params"]):
-        raise SystemExit("the ranks' params differ, or the export does not load back to them")
-    return rec
+        raise SystemExit(f"{name}: {procs} processes on one card must use gloo")
+    if per_rank != want:
+        raise SystemExit(f"{name}: launches {per_rank}, expected {want}")
+    if not (rec["ranks_hold_the_same_params"] and rec["export_loads_back"]):
+        raise SystemExit(f"{name}: the ranks' params differ, or the export does not load back")
+    if not all(c["passed"] and c["checks"] == 2 for c in consistency):
+        raise SystemExit(f"{name}: the consistency check did not run twice and pass: {consistency}")
+    if any(r["losses"] != r0["losses"] for r in ranks) or not all(
+            math.isfinite(x) for x in r0["losses"] + [r0["eval_loss"]]):
+        raise SystemExit(f"{name}: the ranks' losses differ or are not finite")
+    return rec, launches
 
 
 def _fp32_ring_worker(rank, world, port, vocab_size, tgt, layers, out_path):
@@ -2151,7 +2227,7 @@ def source_sentences(n: int) -> list[str]:
         return [next(f).strip() for _ in range(n)]
 
 
-def translate_path(export, src_vocab, tgt_vocab, batch_size: int = 64):
+def translate_path(export, src_vocab, tgt_vocab, batch_size: int = 64, phase: str = "seq2seq"):
     """``cli.translate`` on the trained export, greedy and ``--beam 4``, on
     8 test sentences read from stdin, then ``cli.evaluate --limit 200 --beam 1``, with the
     flash counters set to 0 just before and read just after (6 forward
@@ -2186,7 +2262,7 @@ def translate_path(export, src_vocab, tgt_vocab, batch_size: int = 64):
     evaluate_batches = -(-200 // batch_size)
     want = {"flash_fwd": 6 * (2 + evaluate_batches), "flash_dq": 0, "flash_dkdv": 0}
     rec = {
-        "phase": "seq2seq", "step": "translate", "sentences": 8,
+        "phase": phase, "step": "translate", "sentences": 8,
         "greedy_wall_s": times[1], "beam4_wall_s": times[4], "evaluate_wall_s": eval_s,
         "greedy": outputs[1], "beam4": outputs[4], "evaluate_json_line": line,
         "launches": launches, "expected_launches": want,
@@ -2362,6 +2438,7 @@ def ckpt_fit(argv, phase_launches: dict):
         "step_ms_mean": statistics.mean(ms), "step_ms_first": ms[0],
         "launches": launches, "expected_launches": want,
         "train_loss": trainer.train_metrics.loss, "params_sha256": params_digest(trainer.state.params),
+        "losses": trainer.losses,
         "logs": [ln for ln in logs if not ln.startswith("sample translation")],
     }
     if launches != want:
@@ -2818,7 +2895,8 @@ def dispatch_path(src_vocab, tgt_vocab, full_export):
     (``full_export``): bit for bit. E, D, BK and the dots runs each get a
     profiled window, and long4k with full remat at 4 steps a dispatch too
     (the same memory mark and card state as the dots runs). Returns the
-    flash launches of the phase's runs."""
+    flash launches of the phase's runs and E's record (phase 11 holds its
+    per-step losses)."""
     import statistics
 
     import torch
@@ -2971,7 +3049,7 @@ def dispatch_path(src_vocab, tgt_vocab, full_export):
               "target_tokens_per_s", "launch_calls_per_step")}
               for label, p in profiles.items()}})
     fresh_dir("ckpt", "dispatch")
-    return launches
+    return launches, {**e_rec, "steps_per_epoch": n}
 
 
 # --------------------------------------------------------------------------
@@ -3128,6 +3206,39 @@ def speculative_path(export, vocab_path, reqs, plain_answers, plain_rec):
         if rec["errors"] or len(answers) != len(reqs) or differing or not st["drafted"]:
             raise SystemExit(f"speculative serving ({label}) failed: {rec}")
         del sched
+    return launches
+
+
+def fp32_speculative_check(export, vocab_path, reqs):
+    """Phase 4's requests served in fp32 without and with ``--speculate_k
+    4`` (the n-gram drafter). Reported, not held: fp32 products are not
+    row-invariant on the card, so a verify row may round otherwise than
+    the decode row it replaces; the greedy answers that differ are
+    counted."""
+    export32 = fp32_export(export)
+    greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
+    runs, launches = {}, {}
+    for label, extra in (("fp32 plain", ()), ("fp32 ngram", ("--speculate_k", str(SPEC_K)))):
+        sched, [(answers, st, wall)], counts = serve_passes(
+            serve_argv(export32, vocab_path, *extra), [reqs])
+        runs[label] = (answers, st, wall)
+        launches[label] = counts
+        del sched
+    plain, spec = runs["fp32 plain"][0], runs["fp32 ngram"][0]
+    st, wall = runs["fp32 ngram"][1], runs["fp32 ngram"][2]
+    rec = {
+        "phase": "speculative", "step": "fp32", "card": nvidia_smi_line(),
+        "requests": len(reqs), "greedy_requests": len(greedy),
+        "greedy_differing": [i for i in greedy if spec[i] != plain[i]],
+        "errors": [a for a in plain + spec if "error" in a],
+        "drafted": st["drafted"], "accepted": st["accepted"],
+        "accepted_share": st["accepted"] / max(1, st["drafted"]), "verify_steps": st["steps"],
+        "plain_steps": runs["fp32 plain"][1]["steps"], "serve_wall_s": wall,
+        "plain_serve_wall_s": runs["fp32 plain"][2], "launches": launches,
+    }
+    emit(rec)
+    if rec["errors"] or len(spec) != len(reqs) or not st["drafted"]:
+        raise SystemExit(f"fp32 speculative serving failed: {rec}")
     return launches
 
 
@@ -3327,6 +3438,231 @@ def graph_path(export, tok, reqs, steps: int = 20):
 
 
 # --------------------------------------------------------------------------
+# phase 11: seq2seq training over processes (data × sequence parallel)
+
+
+def dist_kernel_checks():
+    """The training kernels at the shapes phase 11 gives them, bf16 and
+    fp32, each with its plain-version comparison and planted faults: the
+    flash kernels at B 16 (a quarter of the batch under ``--dp 4``: the
+    encoder at S 64 over ragged lengths with a row of PAD only, the
+    decoder causal at S 63), and at 2 heads a process (Ulysses at ``--sp
+    4``: B 64 over the whole S 64, the decoder's 63 padded to 64; and
+    long4k's B 4, S 4096, bf16); the ring step at chunks of 16 (ring ``--sp
+    4``): an encoder hop (not causal) over the third chunk of ragged
+    source sentences, from an earlier hop's carry and from a fresh one,
+    where the sequences that ended before the chunk visit with padding
+    only and must leave the carry bit for bit; and the decoder's diagonal
+    hop (causal) over the second chunk of ragged targets."""
+    import numpy as np
+
+    b, s, c = 64, S2S_LEN, S2S_LEN // 4
+    flash, ring = [], []
+    for dtype in ("bfloat16", "float32"):
+        flash += [
+            check_flash("dp4 encoder b=16", dtype, 16, s, s, 8, 8, 64, False, None, True,
+                        lengths=sentence_lengths(16, s, seed=SEED + 11, empty_row=True)),
+            check_flash("dp4 decoder b=16 s=63", dtype, 16, s - 1, s - 1, 8, 8, 64, True, None,
+                        True, lengths=sentence_lengths(16, s - 1, seed=SEED + 12, shortest=3)),
+            check_flash("ulysses encoder h=2", dtype, b, s, s, 2, 2, 64, False, None, True,
+                        lengths=sentence_lengths(b, s, seed=SEED + 13, empty_row=True)),
+            check_flash("ulysses decoder h=2 s=64", dtype, b, s, s, 2, 2, 64, True, None, True,
+                        lengths=sentence_lengths(b, s - 1, seed=SEED + 14, shortest=3)),
+        ]
+        enc = np.clip(sentence_lengths(b, s, seed=SEED + 15) - 2 * c, 0, c)
+        dec = np.clip(sentence_lengths(b, s - 1, seed=SEED + 16, shortest=3) - c, 0, c)
+        ring += [
+            check_ring_step("ring c=16 encoder hop, chunks of PAD", dtype, b, c, 8, 8, 64, False,
+                            None, True, lengths=enc),
+            check_ring_step("ring c=16 encoder first hop, chunks of PAD", dtype, b, c, 8, 8, 64,
+                            False, None, True, fresh=True, lengths=enc),
+            check_ring_step("ring c=16 decoder diagonal hop", dtype, b, c, 8, 8, 64, True, None,
+                            True, lengths=dec),
+        ]
+    flash.append(check_flash("ulysses long4k h=2", "bfloat16", 4, 4096, 4096, 2, 2, 64, True,
+                             None, True))
+    return flash, ring
+
+
+def dist_argv(data, src_vocab, tgt_vocab, root, name, impl, *mesh):
+    """``cli.distributed_train --preset base --attention_impl impl
+    --sequence_length 64 --epochs 1 --consistency_check`` on the cut
+    corpus over ``mesh`` (``--dp 4`` or ``--sp 4``)."""
+    return [
+        "--preset", "base", "--attention_impl", impl, "--sequence_length", str(S2S_LEN),
+        "--epochs", "1", "--consistency_check", *mesh, "--dataset_path", data,
+        "--src_vocab_file", src_vocab, "--tgt_vocab_file", tgt_vocab,
+        "--ckpt_path", os.path.join(root, name), "--export_path", os.path.join(root, f"{name}_export"),
+        "--eval_bleu", "false", "--device", "cuda",
+    ]
+
+
+def hold_losses(rec, want_losses, label):
+    """Every step's loss within 0.01 of the single-process run's."""
+    got = rec["losses"]
+    diff = [abs(a - b) for a, b in zip(got, want_losses)]
+    rec_h = {"phase": "s2s_dist", "step": f"{rec['step']} losses against {label}",
+             "steps": len(got), "reference_steps": len(want_losses),
+             "worst_step_diff": max(diff), "step_diffs": diff, "limit": 0.01}
+    emit(rec_h)
+    if len(got) != len(want_losses) or max(diff) > 0.01:
+        raise SystemExit(f"{rec['step']}: losses not within 0.01 of {label}: {rec_h}")
+    return rec_h
+
+
+def _fp32_mesh_worker(rank, world, port, model_kw, batch, out_path):
+    """One rank of the fp32 parity check: one seq2seq step's loss and
+    gradients (summed over the processes) under dp 4 with flash, ring sp 4
+    and Ulysses sp 4 in turn, written by rank 0."""
+    import torch
+
+    from transformer_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
+    from transformer_tpu_torch.models.transformer import flatten, init_params
+    from transformer_tpu_torch.parallel.distributed import _seq_parallel_forward_loss
+    from transformer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from transformer_tpu_torch.train.trainer import loss_and_grads
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    process = initialize_distributed("cuda", log_fn=lambda *_: None)
+    src, tgt = (torch.from_numpy(a).to(process.device, torch.long) for a in batch)
+    out = {}
+    for label, impl, mesh_cfg in (("dp4 flash", "flash", MeshConfig(data=world)),
+                                  ("ring sp4", "ring", MeshConfig(seq=world)),
+                                  ("ulysses sp4", "ulysses", MeshConfig(seq=world))):
+        mesh = make_mesh(mesh_cfg, process)
+        cfg = ModelConfig(**{**model_kw, "attention_impl": impl})
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), device=process.device)
+        for p in flatten(params).values():
+            p.requires_grad_(True)
+        t0 = time.perf_counter()
+        metrics, grads = loss_and_grads(params, tgt, cfg, TrainConfig(batch_size=64), None,
+                                        forward_loss=_seq_parallel_forward_loss(mesh), src=src)
+        mesh.all_reduce_sum_([*grads.values(), *metrics.values()])
+        torch.cuda.synchronize()
+        out[label] = {"loss": float(metrics["loss"]), "seconds": time.perf_counter() - t0,
+                      "grads": {k: g.cpu() for k, g in grads.items()}}
+        del params, metrics, grads
+    if rank == 0:
+        torch.save(out, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def s2s_fp32_mesh_check(model_cfg, batch, layers: int = 2, procs: int = 4):
+    """One fp32 seq2seq step at base width (2 + 2 layers, B 64, S 64,
+    dropout 0, kernels on) over four processes on this card, under dp 4
+    (flash), ring sp 4 and Ulysses sp 4, each against the single-process
+    flash step from the same init and batch, held to the fp32 step's
+    limits (``hold_to_train_tol``)."""
+    import dataclasses as dc
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from transformer_tpu_torch.config import TrainConfig
+    from transformer_tpu_torch.models.transformer import flatten, init_params
+    from transformer_tpu_torch.train.trainer import loss_and_grads
+
+    cfg = dc.replace(model_cfg, num_layers=layers, dtype="float32", dropout_rate=0.0,
+                     attention_impl="flash")
+    model_kw = dc.asdict(cfg)
+    out_path = os.path.join(BUILD_DIR, "fp32_mesh_grads.pt")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(_fp32_mesh_worker, args=(procs, port, model_kw, batch, out_path), nprocs=procs,
+             join=True)
+    spawn_s = time.perf_counter() - t0
+    runs = torch.load(out_path)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    for p in flatten(params).values():
+        p.requires_grad_(True)
+    src, tgt = (torch.from_numpy(a).to("cuda", torch.long) for a in batch)
+    metrics, want = loss_and_grads(params, tgt, cfg, TrainConfig(batch_size=64), None, src=src)
+    want_run = (float(metrics["loss"]), want)
+    recs = []
+    for label, run in runs.items():
+        got = {k: g.cuda() for k, g in run["grads"].items()}
+        recs.append(hold_to_train_tol(
+            {"phase": "s2s_dist", "step": "fp32_mesh_check", "mesh": label, "layers": layers,
+             "batch": 64, "processes": procs, "step_seconds": run["seconds"],
+             "spawn_seconds": spawn_s},
+            (run["loss"], got), want_run, f"fp32 {label} step against the single-process step"))
+    return recs
+
+
+def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
+    """Phase 11. Transformer-base (6 + 6 layers, d 512, 8 x 64, dff 2048,
+    bf16, batch 64, dropout 0.1) trained for an epoch of the 1,300 cut pairs
+    (20 steps) through ``cli.distributed_train --consistency_check`` by
+    four processes on this card, under ``--dp 4`` (flash), ``--sp 4`` with
+    ring attention and ``--sp 4`` with Ulysses: counters per rank (flash:
+    12 of each kernel a step, 12 forward an eval batch, 6 more on rank 0
+    for the epilogue's sample translation; ring: rank r folds 6 x 4
+    encoder hops and 6 x (r + 1) decoder hops a forward, and as many dQ
+    and dK/dV a step), bit-identical ranks, and every step's loss within
+    0.01 of phase 9's E (``cli.train``, the same flags and seed) in its
+    first epoch. The dp 4 export is translated (greedy and beam 4, 8
+    sentences) and scored (``cli.evaluate --limit 200``). Then long4k with
+    ``--attention_impl ulysses --sp 4`` for an epoch, held to phase 5's
+    losses within 0.01, and the fp32 step under each mesh against the
+    single-process step. Returns the flash and ring counters of the
+    phase's main-path runs."""
+    data = cut_corpus(CKPT_PAIRS)
+    root = fresh_dir("ckpt", "s2s_dist")
+    launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0, "flash_ring_step": 0}
+    e_losses = e_rec["losses"][: e_rec["steps_per_epoch"]]
+    hops = {r: 6 * 4 + 6 * (r + 1) for r in range(4)}  # encoder: every hop; decoder: causal
+
+    def flash_want(rank, steps, evals):
+        return {"flash_fwd": 12 * (steps + evals) + (6 if rank == 0 else 0),
+                "flash_ring_step": 0, "flash_dq": 12 * steps, "flash_dkdv": 12 * steps}
+
+    def ring_want(rank, steps, evals):
+        return {"flash_fwd": 6 if rank == 0 else 0,
+                "flash_ring_step": hops[rank] * (steps + evals),
+                "flash_dq": hops[rank] * steps, "flash_dkdv": hops[rank] * steps}
+
+    recs = {}
+    for name, impl, mesh, want_fn in (("dp4_flash", "flash", ("--dp", "4"), flash_want),
+                                      ("ring_sp4", "ring", ("--sp", "4"), ring_want),
+                                      ("ulysses_sp4", "ulysses", ("--sp", "4"), flash_want)):
+        args = dist_argv(data, src_vocab, tgt_vocab, root, name, impl, *mesh)
+        rec, counts = dist_fit("s2s_dist", name, args, want_fn,
+                               os.path.join(root, f"{name}_export"))
+        hold_losses(rec, e_losses, "phase 9's E, epoch 1")
+        recs[name] = rec
+        for key, n in counts.items():
+            launches[key] += n
+    tr_launches, tr_rec = translate_path(os.path.join(root, "dp4_flash_export"), src_vocab,
+                                         tgt_vocab, phase="s2s_dist")
+    for key, n in tr_launches.items():
+        launches[key] += n
+
+    # long4k over Ulysses
+    export = os.path.join(root, "long4k_ulysses_export")
+    args = ["--preset", "long4k", "--attention_impl", "ulysses", "--sp", "4", "--epochs", "1",
+            "--consistency_check", "--dataset_path", os.path.join(ROOT, "data"),
+            "--tgt_vocab_file", tgt_vocab, "--export_path", export,
+            "--ckpt_path", os.path.join(root, "long4k_ulysses"), "--device", "cuda"]
+    layers = single["config"]["num_layers"]
+
+    def long4k_want(rank, steps, evals):  # remat: each forward twice in a step
+        return {"flash_fwd": layers * (2 * steps + evals), "flash_ring_step": 0,
+                "flash_dq": layers * steps, "flash_dkdv": layers * steps}
+
+    rec, counts = dist_fit("s2s_dist", "long4k_ulysses_sp4", args, long4k_want, export)
+    for key, n in counts.items():
+        launches[key] += n
+    hold_to_single(rec, single)
+    recs["long4k_ulysses_sp4"] = rec
+    return launches, recs, tr_rec
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3460,6 +3796,10 @@ def main() -> int:
         check_ring_step("fp32 d=32 gqa band=0", "float32", 2, 777, 4, 2, 32, False, 0, False),
     ]
     ring_replay()
+    # ... and at phase 11's shapes (B 16, 2 heads a process, chunks of 16)
+    d_flash, d_ring = dist_kernel_checks()
+    f_recs += d_flash
+    r_recs += d_ring
 
     # 4. serving
     tok, vocab_path = vocab()
@@ -3472,6 +3812,7 @@ def main() -> int:
     vb_recs, va_rec = verify_kernel_checks()
     row_invariance()
     spec_launches = speculative_path(export, vocab_path, reqs, plain_answers, serve_rec)
+    spec_launches.update(fp32_speculative_check(export, vocab_path, reqs))
     prefix_launches = prefix_path(export, vocab_path, tok)
     graph_path(export, tok, reqs)
     serve_launches = {
@@ -3495,7 +3836,9 @@ def main() -> int:
         src_vocab, vocab_path
     )
     train_profile(s2s_trainer, s2s_train_ds, phase="seq2seq")
-    seq2seq_fp32_check(s2s_trainer, next(iter(s2s_train_ds.batches(0))))
+    s2s_batch = next(iter(s2s_train_ds.batches(0)))
+    s2s_cfg = s2s_trainer.model_cfg
+    seq2seq_fp32_check(s2s_trainer, s2s_batch)
     tr_launches, _ = translate_path(s2s_export, src_vocab, vocab_path)
     fp32_decode_tokens_check(s2s_trainer, src_tok, tok)
     del s2s_trainer
@@ -3512,7 +3855,14 @@ def main() -> int:
     ckpt_launches = checkpoints_path(src_vocab, vocab_path)
 
     # 9. steps_per_dispatch as CUDA-graph replays, buckets, dots
-    disp_launches = dispatch_path(src_vocab, vocab_path, os.path.join(BUILD_DIR, "train_export"))
+    disp_launches, e_rec = dispatch_path(src_vocab, vocab_path,
+                                         os.path.join(BUILD_DIR, "train_export"))
+
+    # 11. seq2seq over four processes on this card: dp 4, ring sp 4,
+    # Ulysses sp 4, long4k over Ulysses, and the fp32 step under each mesh
+    dist_launches, _, _ = s2s_dist_path(src_vocab, vocab_path, e_rec, single)
+    s2s_fp32_mesh_check(s2s_cfg, s2s_batch)
+    fresh_dir("ckpt", "s2s_dist")
 
     def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
@@ -3548,7 +3898,8 @@ def main() -> int:
         recs = [f_main] + f_recs + s2s_recs
         by_path = {"train": train_launches[name], "sp_train": sp["launches"][name],
                    "seq2seq_train": s2s_launches[name], "translate": tr_launches[name],
-                   "ckpt": ckpt_launches[name], "dispatch": disp_launches[name]}
+                   "ckpt": ckpt_launches[name], "dispatch": disp_launches[name],
+                   "s2s_dist": dist_launches[name]}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",
@@ -3588,8 +3939,9 @@ def main() -> int:
             "name": "flash_ring_step", "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES["flash_ring_step"],
-            "launches": sp["launches"]["flash_ring_step"],
-            "launches_by_path": {"sp_train": sp["launches"]["flash_ring_step"]},
+            "launches": sp["launches"]["flash_ring_step"] + dist_launches["flash_ring_step"],
+            "launches_by_path": {"sp_train": sp["launches"]["flash_ring_step"],
+                                 "s2s_dist": dist_launches["flash_ring_step"]},
             "max_abs_err": max(r["max_abs_err"] for r in r_recs),
             "max_reading": max(r["readings"]["out"] for r in r_recs),
             "tolerance": {k: v["out"] for k, v in FLASH_TOL.items()},

@@ -26,7 +26,9 @@ at 1e-2 of its head's RMS row norm.
 Ring step: the finalised ``acc / l`` of one hop from a non-trivial carry,
 per row as ``out`` (1e-5 relative fp32, 2e-2 bf16), and its lse 1e-4
 absolute; the banded backward as the gradients above. A ring of one
-against ``flash_attention``: 1e-4 per row, fp32.
+against ``flash_attention``: 1e-4 per row, fp32. A chunk whose keys are
+all padding leaves the ring carry bit for bit (bf16 and fp32, chunks of
+16), and Ulysses over a ring of one is ``flash_attention`` bit for bit.
 """
 
 import numpy as np
@@ -446,3 +448,40 @@ def test_ring_of_one_runs_the_ring_kernels(cuda):
     assert (flash_dq.launches, flash_dkdv.launches) == (before[1] + 2, before[2] + 2)
     for got, want in zip(*grads):
         assert _rel_per_row(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_ring_step_over_a_chunk_of_padding_leaves_the_carry(cuda, dtype):
+    rng = np.random.default_rng(2)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+
+    b, c, h, d = 8, 16, 8, 64
+    q, k0, v0, k, v = (t(b, c, h, d) for _ in range(5))
+    fresh = (torch.full((b, h, c), -1e30, device="cuda"), torch.zeros((b, h, c), device="cuda"),
+             torch.zeros((b, c, h, d), device="cuda"))
+    carry = flash_ring_step_plain(q, k0, v0, None, *fresh)
+    mask = torch.ones((b, c), dtype=torch.bool, device="cuda")
+    mask[1::2] = False  # every other sequence visits with padding only
+    got = [x.clone() for x in carry]
+    flash_ring_step(q, k, v, mask, *got)
+    for g, c0 in zip(got, carry):
+        assert torch.equal(g[1::2], c0[1::2])
+        assert not torch.equal(g[0::2], c0[0::2])
+
+
+def test_ulysses_over_a_ring_of_one_is_flash_attention(cuda):
+    from transformer_tpu_torch.parallel.ring_attention import ulysses_attention
+
+    (q, k, v, do), kw = _flash_case("bf16_causal_pad", seed=5)
+    outs = []
+    for fn in (ulysses_attention, None):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        if fn is None:
+            out = flash_attention(*leaves, kv_mask=kw["kv_mask"], causal=True)
+        else:
+            out = fn(*leaves, group=None, kv_mask=kw["kv_mask"], causal=True)
+        outs.append((out, *torch.autograd.grad(out, leaves, do)))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)

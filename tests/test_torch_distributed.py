@@ -16,8 +16,9 @@ over gloo processes against the JAX package's one-device train step.
   ``convert.load_export`` reads and logs an eval loss; as a console script
   in a world of one it exits 0.
 - The transport rule on layouts, the rank -> (data, seq) map, and the
-  guards: ring attention without a context, ``--tp 2``, ``--sp 2`` with
-  flash attention.
+  guards: ring attention without a context, ``--tp 2`` (LM and seq2seq),
+  ``--sp 2`` with flash attention, encoder-only models, Ulysses over heads
+  the seq axis does not divide; seq2seq models and Ulysses are admitted.
 
 Workers are module-level functions run in spawned processes (gloo on the
 CPU, one thread each); they import no JAX.
@@ -343,11 +344,25 @@ def test_ring_attention_without_a_context_raises():
 
 def test_guards(tmp_path):
     from transformer_tpu_torch.cli import distributed_train
-    from transformer_tpu_torch.parallel.distributed import DistributedTrainer
+    from transformer_tpu_torch.parallel.distributed import DistributedTrainer, check_mesh
 
-    with pytest.raises(NotImplementedError, match="--tp > 1"):
-        distributed_train.main(["--tp", "2", "--decoder_only", "--device", "cpu",
-                                "--ckpt_path", str(tmp_path / "ckpt")])
+    for extra in (["--decoder_only"], []):  # LM and seq2seq alike
+        with pytest.raises(NotImplementedError, match="--tp > 1"):
+            distributed_train.main(["--tp", "2", *extra, "--device", "cpu",
+                                    "--ckpt_path", str(tmp_path / "ckpt")])
+    # Seq2seq models and Ulysses are admitted; encoder-only models and
+    # heads that the seq axis does not divide are not.
+    s2s = ModelConfig(**{**MODEL, "decoder_only": False})
+    trainer = DistributedTrainer(s2s, TrainConfig(**TRAIN), _fake_mesh(MeshConfig()))
+    assert trainer.train_step.uses_src
+    check_mesh(ModelConfig(**{**MODEL, "decoder_only": False, "attention_impl": "ulysses"}),
+               TrainConfig(**TRAIN), _fake_mesh(MeshConfig(seq=2)))
+    with pytest.raises(ValueError, match="divisible by the seq axis"):
+        check_mesh(ModelConfig(**{**MODEL, "attention_impl": "ulysses"}),
+                   TrainConfig(**TRAIN), _fake_mesh(MeshConfig(seq=8)))
+    with pytest.raises(NotImplementedError, match="encoder-only"):
+        check_mesh(ModelConfig(**{**MODEL, "decoder_only": False, "encoder_only": True}),
+                   TrainConfig(**TRAIN), _fake_mesh(MeshConfig()))
     with pytest.raises(ValueError, match="needs a sequence-parallel attention impl"):
         DistributedTrainer(ModelConfig(**MODEL), TrainConfig(**TRAIN),
                            _fake_mesh(MeshConfig(seq=2)))

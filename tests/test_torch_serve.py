@@ -7,7 +7,12 @@ slots, more requests than slots, chunked prefill with prompt tails fed
 through decode steps, prompts ending mid-block. Greedy answers must be
 token-identical (fp32). Then ``transformer_tpu_torch.cli.serve --device
 cpu`` over an export written by JAX ``export_params`` answers the same
-JSONL, plus the routing and parse errors the JAX CLI gives.
+JSONL, plus the routing and parse errors the JAX CLI gives. A pool too
+small for two prompts at once makes the second request find it
+exhausted at admission: with ``admission_retries`` (backoff 0) it waits
+in the queue and is answered once the first slot retires, as JAX's is,
+with the same retry count; at 0 retries both answer ``transient`` with
+the same message.
 """
 
 import io
@@ -146,3 +151,57 @@ def test_sampled_requests_are_seeded_and_independent_of_neighbours(vocab):
     alone = serve_with([])
     assert alone == serve_with([{"prompt": "qr st", "max_new": 5}])
     assert alone == serve_with([dict(req, seed=6), {"prompt": "kl", "max_new": 3}])
+
+
+# Two slots over 1 + 3 blocks of 4 tokens. Each prompt (8 tokens with BOS)
+# prefills into 2 blocks, so the second finds one block free at admission:
+# the pool is exhausted until the first, whose decode takes the third
+# block, retires after its second token.
+RETRY_REQUESTS = [
+    {"prompt": "ab cd ef gh ij kl mn", "max_new": 2},
+    {"prompt": "mn op qr st ab cd ef", "max_new": 3},
+]
+RETRY = dict(num_slots=2, max_total=48, default_max_new=4, kv_pool_blocks=4,
+             retry_backoff_ms=0.0)
+
+
+@pytest.mark.parametrize("retries", [2, 0])
+def test_admission_retries_on_an_exhausted_pool_match_jax(vocab, retries):
+    jcfg, tcfg, jparams, tparams = _both(vocab)
+    jsched = JScheduler(jparams, jcfg, vocab[0], kv_layout="paged", kv_block=4,
+                        decode_kernel="paged_flash", admission_retries=retries, **RETRY)
+    want = jsched.run([dict(r) for r in RETRY_REQUESTS])
+    sched = ContinuousScheduler(tparams, tcfg, vocab[1], kv_block=4, device="cpu",
+                                admission_retries=retries, **RETRY)
+    got = sched.run([dict(r) for r in RETRY_REQUESTS])
+    assert got == want
+    assert sched.stats["retries"] == jsched.stats["retries"]
+    if retries:
+        assert sched.stats["retries"] == 1
+        assert all("continuation" in r for r in got)
+    else:
+        assert sched.stats["retries"] == 0
+        assert got[1]["code"] == "transient" and "kv pool exhausted" in got[1]["error"]
+        assert "continuation" in got[0]
+    sched.alloc.check_consistency()
+    assert sched.alloc.used_blocks == 0
+
+
+def test_cli_admission_retry_flags(vocab, tmp_path):
+    jcfg, _, jparams, _ = _both(vocab)
+    export = str(tmp_path / "export")
+    export_params(jparams, jcfg, export)
+    lines = "".join(json.dumps(r) + "\n" for r in RETRY_REQUESTS)
+    answers = {}
+    for retries in ("2", "0"):
+        out = io.StringIO()
+        sched = serve.main(
+            ["--export_path", export, "--tgt_vocab_file", vocab[2], "--serve_slots", "2",
+             "--serve_max_total", "48", "--prefix_block", "4", "--max_len", "4",
+             "--kv_pool_blocks", "4", "--admission_retries", retries, "--device", "cpu"],
+            stdin=io.StringIO(lines), stdout=out,
+        )
+        answers[retries] = [json.loads(line) for line in out.getvalue().splitlines()]
+        assert sched.admission_retries == int(retries) and sched.retry_backoff_ms == 20.0
+    assert all("continuation" in r for r in answers["2"])
+    assert answers["0"][1]["code"] == "transient"

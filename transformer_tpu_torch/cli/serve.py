@@ -17,8 +17,9 @@ Port of ``transformer_tpu/cli/serve.py``'s continuous-batching path with
 (``params.npz`` + ``config.json``, the JAX export layout) served by the
 paged-KV scheduler on the CUDA kernels, with speculative decoding
 (``--speculate_k``, ``--draft_checkpoint``, ``--draft_ngram``) and the
-prefix cache (``--prefix_cache_mb``, ``--prefix_verify_checksums``). Flags
-keep the JAX CLI's names; argparse replaces absl.
+prefix cache (``--prefix_cache_mb``, ``--prefix_verify_checksums``) and admission
+retries (``--admission_retries``). Flags keep the JAX CLI's names;
+argparse replaces absl.
 """
 
 from __future__ import annotations
@@ -76,6 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="store the KV pool as int8 codes with fp32 scales")
     ap.add_argument("--max_len", type=int, default=64,
                     help="default max generated tokens per request")
+    ap.add_argument("--admission_retries", type=int, default=2,
+                    help="bounded retries (with jittered exponential backoff) when "
+                         "the KV pool is exhausted at admission; exhausted retries "
+                         "answer a structured 'transient' error")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -191,6 +196,7 @@ def build_scheduler(args: argparse.Namespace):
         prefix_cache=prefix_cache,
         kv_block=args.prefix_block,
         kv_pool_blocks=args.kv_pool_blocks,
+        admission_retries=args.admission_retries,
         device=device,
     )
 

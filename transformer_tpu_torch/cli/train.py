@@ -93,7 +93,8 @@ _FLAGS: dict[str, tuple] = {
     "position_scheme": (str, "sinusoidal", "sinusoidal | rope"),
     "decoder_only": (_bool, False, "causal-LM mode (default: seq2seq translation)"),
     "objective": (str, "causal", "causal (mlm is not ported)"),
-    "attention_impl": (str, "xla", "xla | flash | ring (ring: cli.distributed_train --sp > 1)"),
+    "attention_impl": (str, "xla", "xla | flash | ring | ulysses (ring, ulysses: "
+                       "cli.distributed_train --sp > 1)"),
     "attention_window": (int, 0, "sliding-window causal attention (0 = full)"),
     "dtype": (str, "bfloat16", "compute dtype"),
     "remat": (_bool, False, "rematerialize each layer in the backward"),
@@ -239,6 +240,18 @@ def model_config(args: argparse.Namespace, vocab: int, input_vocab: int | None =
     )
 
 
+def load_for_model(args: argparse.Namespace, train_cfg, log_fn=print):
+    """(train, test, model config, tokenizers) of the flags: LM windows and
+    (tok,) with ``--decoder_only``, else sentence pairs and (src tok, tgt
+    tok)."""
+    if args.decoder_only:
+        train_ds, test_ds, tok = load_data(args, train_cfg, log_fn)
+        return train_ds, test_ds, model_config(args, tok.model_vocab_size), (tok,)
+    train_ds, test_ds, src_tok, tgt_tok = load_pairs(args, train_cfg, log_fn)
+    cfg = model_config(args, tgt_tok.model_vocab_size, src_tok.model_vocab_size)
+    return train_ds, test_ds, cfg, (src_tok, tgt_tok)
+
+
 def report_and_export(trainer, test_ds, export_path: str, log_fn=print) -> None:
     """Eval loss and perplexity of the final epoch's full eval (per target
     token, for seq2seq too), then the export."""
@@ -253,6 +266,31 @@ def report_and_export(trainer, test_ds, export_path: str, log_fn=print) -> None:
     log_fn(f"exported params to {export_path}")
 
 
+def epilogue(trainer, test_ds, toks, args, log_fn=print) -> None:
+    """After the fit (``cli.distributed_train`` runs it on rank 0): an LM
+    reports its eval loss and writes the export; a seq2seq model first
+    translates a sample sentence, and after the export scores BLEU on the
+    first ``--bleu_limit`` test pairs (``--eval_bleu``)."""
+    if args.decoder_only:
+        report_and_export(trainer, test_ds, args.export_path, log_fn)
+        return
+    from transformer_tpu_torch.train.decode import translate
+    from transformer_tpu_torch.train.evaluate import bleu_on_test_files
+
+    src_tok, tgt_tok = toks
+    params, cfg, train_cfg = trainer.state.params, trainer.model_cfg, trainer.train_cfg
+    sample = "he go to school"
+    out = translate(params, cfg, src_tok, tgt_tok, sample, max_len=train_cfg.sequence_length)
+    log_fn(f"sample translation {sample!r} -> {out[0]!r}")
+    report_and_export(trainer, test_ds, args.export_path, log_fn)
+    if args.eval_bleu:
+        bleu_on_test_files(
+            params, cfg, src_tok, tgt_tok, args.dataset_path,
+            batch_size=train_cfg.batch_size, max_len=train_cfg.sequence_length,
+            limit=args.bleu_limit, log_fn=log_fn,
+        )
+
+
 def main(argv: list[str] | None = None, log_fn=print):
     """Train and export (seq2seq: then translate and score); returns the
     trainer."""
@@ -263,12 +301,7 @@ def main(argv: list[str] | None = None, log_fn=print):
 
     device = resolve_device(args.device)
     train_cfg = train_config(args)
-    if args.decoder_only:
-        train_ds, test_ds, tok = load_data(args, train_cfg, log_fn)
-        model_cfg = model_config(args, tok.model_vocab_size)
-    else:
-        train_ds, test_ds, src_tok, tgt_tok = load_pairs(args, train_cfg, log_fn)
-        model_cfg = model_config(args, tgt_tok.model_vocab_size, src_tok.model_vocab_size)
+    train_ds, test_ds, model_cfg, toks = load_for_model(args, train_cfg, log_fn)
     state = create_train_state(model_cfg, train_cfg, device=device)
     trainer = Trainer(model_cfg, train_cfg, state, log_fn=log_fn,
                       checkpoint=checkpoint_manager(args, train_cfg))
@@ -280,23 +313,7 @@ def main(argv: list[str] | None = None, log_fn=print):
             + ", ".join(f"src {sig[0]} tgt {sig[1]} in {sec:.2f}s"
                         for sig, sec in trainer.graph.captures) + ")"
         )
-    if args.decoder_only:
-        report_and_export(trainer, test_ds, args.export_path, log_fn)
-        return trainer
-    from transformer_tpu_torch.train.decode import translate
-    from transformer_tpu_torch.train.evaluate import bleu_on_test_files
-
-    sample = "he go to school"
-    out = translate(trainer.state.params, model_cfg, src_tok, tgt_tok, sample,
-                    max_len=train_cfg.sequence_length)
-    log_fn(f"sample translation {sample!r} -> {out[0]!r}")
-    report_and_export(trainer, test_ds, args.export_path, log_fn)
-    if args.eval_bleu:
-        bleu_on_test_files(
-            trainer.state.params, model_cfg, src_tok, tgt_tok, args.dataset_path,
-            batch_size=train_cfg.batch_size, max_len=train_cfg.sequence_length,
-            limit=args.bleu_limit, log_fn=log_fn,
-        )
+    epilogue(trainer, test_ds, toks, args, log_fn)
     return trainer
 
 

@@ -590,9 +590,12 @@ __device__ __forceinline__ void key_flags(uint32_t* dst, const uint8_t* mask_row
 // and writes out = acc / l and lse; the ring step (Carry = true) reads the
 // carry of its rows first (m in natural units, taken to log2 units; acc
 // straight into the accumulator's registers) and writes it back
-// unnormalised, m in natural units again. The sentinel m = -1e30 maps to
-// kMasked and back exactly, so a row that has still seen no key keeps it
-// bit for bit. Each carry row is read and written by the CTA that owns it,
+// unnormalised, m in natural units again. A row whose running maximum the
+// hop leaves where it was (every key it sees scores below it, or it sees
+// none: a chunk of padding only) writes back the m it read, bit for bit,
+// so a padding-only chunk leaves the whole carry as it found it; the
+// sentinel m = -1e30 is such a row until it sees a key. Each carry row is
+// read and written by the CTA that owns it,
 // so the in-place update needs no atomics. A ring CTA that sees no k tile
 // returns at once: its carry stays as it is and it issues no TMA.
 template <int D, bool Carry>
@@ -653,6 +656,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // m in log2 units
+  float m_read[2] = {kMasked, kMasked}, m_read2[2] = {kMasked, kMasked};  // the carry's m, as read and in log2
   const int64_t qs = static_cast<int64_t>(h) * D;
   const int64_t stat_row = (static_cast<int64_t>(b) * h + head) * s_q;  // into (B, H, S_q)
   if (Carry) {
@@ -662,6 +666,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       if (row >= s_q) continue;
       const float mi = m_io[stat_row + row];
       m[i] = mi == kMasked ? kMasked : mi * kLog2e;
+      m_read[i] = mi;
+      m_read2[i] = m[i];
       l[i] = l_io[stat_row + row];
       const float* arow = acc_io + (static_cast<int64_t>(b) * s_q + row) * qs + head * D;
 #pragma unroll
@@ -780,7 +786,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
         *reinterpret_cast<float2*>(arow + 8 * j + c0) =
             make_float2(o[4 * j + 2 * i], o[4 * j + 2 * i + 1]);
       if (lane % 4 == 0) {
-        m_io[stat_row + row] = m[i] == kMasked ? kMasked : m[i] * kLn2;
+        // The running maximum only grows: unchanged means equal.
+        m_io[stat_row + row] = m[i] == m_read2[i] ? m_read[i] : m[i] * kLn2;
         l_io[stat_row + row] = l[i];
       }
       continue;

@@ -88,7 +88,7 @@ def decoder_layer_apply(
                 params["cross_mha"], h, enc_out, cross_mask, precomputed_kv=cross_kv,
             )
 
-        x = _sublayer(cfg, params["ln2"], x, cross_attn, gens[2], deterministic)
+        x = _sublayer(cfg, params["ln2"], x, cross_attn, gens[2], deterministic, dropout_slice)
     x = _sublayer(
         cfg, params["ln_ffn"], x, lambda h: _ffn_sublayer_apply(params, h, cfg),
         gens[1], deterministic, dropout_slice,

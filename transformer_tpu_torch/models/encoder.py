@@ -113,10 +113,12 @@ def encoder_layer_apply(
     key: tuple[int, ...] | None = None,
     deterministic: bool = True,
     reference: bool = False,
+    dropout_slice: GlobalSlice | None = None,
 ) -> torch.Tensor:
     """One encoder layer: self-attention under the (B, 1, 1, S) key-padding
     ``mask`` with ``impl=cfg.attention_impl`` and no causality, then the
-    FFN. ``reference`` runs the flash kernels' plain versions."""
+    FFN. ``reference`` runs the flash kernels' plain versions; dropout
+    draws over the global activation that ``dropout_slice`` places x in."""
 
     def attn(h):
         return mha_apply(
@@ -125,10 +127,10 @@ def encoder_layer_apply(
         )
 
     g_attn, g_ffn = _generators(key, 2, cfg, deterministic, x.device)
-    x = _sublayer(cfg, params["ln1"], x, attn, g_attn, deterministic)
+    x = _sublayer(cfg, params["ln1"], x, attn, g_attn, deterministic, dropout_slice)
     return _sublayer(
         cfg, params["ln2"], x, lambda h: _ffn_sublayer_apply(params, h, cfg), g_ffn,
-        deterministic,
+        deterministic, dropout_slice,
     )
 
 
@@ -140,16 +142,22 @@ def encoder_apply(
     key: tuple[int, ...] | None = None,
     deterministic: bool = True,
     reference: bool = False,
+    position_offset: int = 0,
+    dropout_slice: GlobalSlice | None = None,
 ) -> torch.Tensor:
-    """(B, S) source ids -> (B, S, d_model) encodings. Dropout sites are
-    keyed ``key + (0, site)`` for the prologue and ``key + (layer + 1,
-    site)`` per layer. With ``cfg.remat`` each layer runs under
-    ``remat_layer`` whenever gradients are recorded."""
+    """(B, S) source ids at positions ``position_offset ..`` -> (B, S,
+    d_model) encodings. Dropout sites are keyed ``key + (0, site)`` for the
+    prologue and ``key + (layer + 1, site)`` per layer, and draw over the
+    global activation that ``dropout_slice`` places the ids in (a data ×
+    sequence split, as in ``decoder_apply``). With ``cfg.remat`` each layer
+    runs under ``remat_layer`` whenever gradients are recorded."""
     (g_embed,) = _generators(_subkey(key, 0), 1, cfg, deterministic, ids.device)
-    x = embed_prologue(params["embedding"], ids, cfg, 0, g_embed, deterministic)
+    x = embed_prologue(params["embedding"], ids, cfg, position_offset, g_embed, deterministic,
+                       dropout_slice)
 
     def layer_call(layer, x, layer_key):
-        return encoder_layer_apply(layer, x, mask, cfg, layer_key, deterministic, reference)
+        return encoder_layer_apply(layer, x, mask, cfg, layer_key, deterministic, reference,
+                                   dropout_slice)
 
     if cfg.remat and torch.is_grad_enabled():
         layer_call = remat_layer(layer_call, cfg)

@@ -18,6 +18,8 @@ port keeps two tensors, the decoder's a copy of the encoder's at init.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Any
 
 import torch
@@ -188,6 +190,10 @@ def transformer_hidden_apply(
     pad_id: int = PAD_ID,
     position_offset: int = 0,
     dropout_slice: GlobalSlice | None = None,
+    *,
+    src_offset: int = 0,
+    src_slice: GlobalSlice | None = None,
+    source_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(B, S) target ids -> (B, S, d_model) decoder hiddens, before the
     vocab projection. Decoder-only: ``inp`` is ignored; the self-mask is
@@ -196,27 +202,47 @@ def transformer_hidden_apply(
     mask, which also masks cross-attention; encoder dropout is keyed ``key
     + (0,)`` and decoder dropout ``key + (1,)``. ``key`` seeds dropout
     when not ``deterministic``; ``reference`` runs the flash kernels'
-    plain versions. Under sequence parallelism (decoder-only) ``tar`` is
-    this process's chunk: ``position_offset`` is its first global position
-    and ``dropout_slice`` its place in the global batch."""
+    plain versions.
+
+    Under a data × sequence split, ``tar`` (and ``inp``) are this
+    process's part: ``position_offset`` and ``dropout_slice`` place the
+    target part in the global batch, ``src_offset`` and ``src_slice`` the
+    source part (each side is padded to its own multiple of ``seq``). With
+    a sequence-parallel context active over more than one process, the
+    encoder output is gathered to the whole source once, before the
+    decoder stack (``parallel.seq_context.gather_sequence``), and
+    cross-attention reads it under ``source_mask``, the whole source's
+    (B, 1, 1, S_src) padding mask."""
     if cfg.encoder_only:
         raise NotImplementedError(
             "encoder-only (masked-LM) models are a later slice of the port"
         )
     self_mask = make_padding_mask(tar, pad_id)
-    kw = dict(self_mask=self_mask, deterministic=deterministic, reference=reference)
+    kw = dict(self_mask=self_mask, deterministic=deterministic, reference=reference,
+              position_offset=position_offset, dropout_slice=dropout_slice)
     if cfg.decoder_only:
-        x, _ = decoder_apply(
-            params["decoder"], tar, cfg, position_offset=position_offset, key=key,
-            dropout_slice=dropout_slice, **kw,
-        )
+        x, _ = decoder_apply(params["decoder"], tar, cfg, key=key, **kw)
         return x
     if inp is None:
         raise ValueError("a seq2seq model needs the source ids")
-    enc_mask = make_padding_mask(inp, pad_id)
-    enc_out = encoder_apply(
-        params["encoder"], inp, enc_mask, cfg, _subkey(key, 0), deterministic, reference
+    from transformer_tpu_torch.parallel.seq_context import (
+        current_seq_context, gather_sequence, sequence_parallel,
     )
+
+    enc_mask = make_padding_mask(inp, pad_id)
+    ctx = current_seq_context()
+    # The source chunk starts at its own offset (rope rotates at it).
+    with (contextlib.nullcontext() if ctx is None
+          else sequence_parallel(dataclasses.replace(ctx, offset=src_offset))):
+        enc_out = encoder_apply(
+            params["encoder"], inp, enc_mask, cfg, _subkey(key, 0), deterministic, reference,
+            position_offset=src_offset, dropout_slice=src_slice,
+        )
+    if ctx is not None and ctx.size > 1:
+        if source_mask is None:
+            raise ValueError("under sequence parallelism cross-attention needs the whole "
+                             "source's padding mask (source_mask)")
+        enc_out, enc_mask = gather_sequence(enc_out, ctx), source_mask
     x, _ = decoder_apply(
         params["decoder"], tar, cfg, enc_out=enc_out, cross_mask=enc_mask,
         key=_subkey(key, 1), **kw,

@@ -7,13 +7,15 @@ them; here every process runs the same step on its own part:
 
 - every process reads the same global batch and keeps its slice: rows by
   its ``data`` coordinate and, with ``seq > 1``, one sequence chunk by its
-  ``seq`` coordinate, after the teacher-forcing input is padded with PAD
-  to a multiple of ``seq`` (4095 -> 4096 at long4k); the padded
-  positions' logits are dropped;
+  ``seq`` coordinate, after the teacher-forcing input (and a seq2seq
+  model's source, on its own) is padded with PAD to a multiple of ``seq``
+  (4095 -> 4096 at long4k); the padded positions' logits are dropped;
 - the forward runs under the sequence-parallel context at the chunk's
-  global offset, so ``mha_apply(impl="ring")`` rings over the process
-  group of this ``seq`` ring; dropout draws the global masks
-  (``ops.nn.GlobalSlice``);
+  global offset, so ``mha_apply(impl="ring" | "ulysses")`` runs its core
+  over the process group of this ``seq`` ring; a seq2seq decoder's
+  cross-attention reads the encoder output gathered to the whole source
+  under the whole source's padding mask; dropout draws the global masks
+  (``ops.nn.GlobalSlice``), on the source and target sides each;
 - the loss is normalised by the global token count (or global batch);
   gradients and metric sums are summed over all processes before
   ``grad_norm`` and Adam, so every process takes the same update;
@@ -33,6 +35,7 @@ import torch
 
 from transformer_tpu_torch.config import PAD_ID, ModelConfig, TrainConfig
 from transformer_tpu_torch.models.transformer import flatten, transformer_hidden_apply
+from transformer_tpu_torch.ops.masks import make_padding_mask
 from transformer_tpu_torch.ops.nn import GlobalSlice
 from transformer_tpu_torch.parallel.mesh import Mesh
 from transformer_tpu_torch.parallel.seq_context import SeqParallelContext, sequence_parallel
@@ -41,45 +44,52 @@ from transformer_tpu_torch.train.state import TrainState, create_train_state
 from transformer_tpu_torch.train.trainer import Trainer, loss_from_hidden
 
 
+def _pad_to(batch: torch.Tensor, multiple: int) -> torch.Tensor:
+    extra = (-batch.shape[1]) % multiple
+    return torch.nn.functional.pad(batch, (0, extra), value=PAD_ID) if extra else batch
+
+
 def put_batch(batch: torch.Tensor, mesh: Mesh) -> tuple[torch.Tensor, int, int]:
     """This process's part of a global (B, S) batch: its rows, and with
     ``seq > 1`` its chunk of the sequence padded with PAD to a multiple of
     ``seq``. Returns (part, first global row, first global position)."""
     sp, dp = mesh.shape["seq"], mesh.shape["data"]
+    batch = _pad_to(batch, sp)
     b, s = batch.shape
-    extra = (-s) % sp
-    if extra:
-        batch = torch.nn.functional.pad(batch, (0, extra), value=PAD_ID)
-    rows, chunk = b // dp, (s + extra) // sp
+    rows, chunk = b // dp, s // sp
     row, col = mesh.index("data") * rows, mesh.index("seq") * chunk
     return batch[row : row + rows, col : col + chunk], row, col
 
 
 def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
     """The ``forward_loss`` hook of ``Trainer``: the teacher-forcing shift
-    on the global batch, this process's part of it, the forward under the
-    sequence-parallel context (when ``seq > 1``), and the masked CE
-    (chunked with ``loss_chunks > 1``) over the part's real positions,
-    normalised globally."""
+    on the global batch, this process's part of it (and of a seq2seq
+    source), the forward under the sequence-parallel context (when ``seq >
+    1``), and the masked CE (chunked with ``loss_chunks > 1``) over the
+    part's real positions, normalised globally."""
     sp = mesh.shape["seq"]
 
     def forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=None):
-        if src is not None:
-            raise NotImplementedError(
-                "seq2seq models are not trained over processes in the port yet"
-            )
         inp, out = tgt[:, :-1], tgt[:, 1:]
         inp_part, row, col = put_batch(inp, mesh)
         out_part, _, _ = put_batch(out, mesh)
-        region = GlobalSlice(inp.shape[0], inp.shape[1], row, col)
+        rows = inp_part.shape[0]
         kw = dict(key=key, deterministic=key is None, reference=reference,
-                  position_offset=col, dropout_slice=region)
+                  position_offset=col,
+                  dropout_slice=GlobalSlice(inp.shape[0], inp.shape[1], row, col))
+        src_part = None
+        if src is not None:
+            src_part, _, src_col = put_batch(src, mesh)
+            kw.update(src_offset=src_col,
+                      src_slice=GlobalSlice(src.shape[0], src.shape[1], row, src_col))
+            if sp > 1:  # every process holds the whole batch: the whole source's mask
+                kw["source_mask"] = make_padding_mask(_pad_to(src, sp)[row : row + rows])
         if sp > 1:
             ctx = SeqParallelContext(mesh.seq_group, mesh.index("seq"), sp, col)
             with sequence_parallel(ctx):
-                hidden = transformer_hidden_apply(params, None, inp_part, model_cfg, **kw)
+                hidden = transformer_hidden_apply(params, src_part, inp_part, model_cfg, **kw)
         else:
-            hidden = transformer_hidden_apply(params, None, inp_part, model_cfg, **kw)
+            hidden = transformer_hidden_apply(params, src_part, inp_part, model_cfg, **kw)
         real = min(inp_part.shape[1], inp.shape[1] - col)  # drop the padded positions
         total = (out != PAD_ID).sum().float()  # every process holds the whole batch
         return loss_from_hidden(
@@ -92,10 +102,9 @@ def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
 def check_mesh(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh) -> None:
     """The JAX trainer's checks, and the axes and models the port does not
     run over processes."""
-    if not model_cfg.decoder_only:
+    if model_cfg.encoder_only:
         raise NotImplementedError(
-            "the port trains seq2seq models on one card (cli.train); over processes "
-            "it trains decoder-only LMs"
+            "encoder-only (masked-LM) models are not trained over processes in the port yet"
         )
     shape = mesh.shape
     others = {a: n for a, n in shape.items() if a not in ("data", "seq") and n > 1}
@@ -125,9 +134,10 @@ def check_mesh(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh) -> No
                 f"{model_cfg.attention_impl!r} attention would all-gather "
                 "the sequence and defeat the axis"
             )
-        if model_cfg.attention_impl == "ulysses":
-            raise NotImplementedError(
-                "attention_impl='ulysses' is not ported yet; use attention_impl='ring'"
+        if model_cfg.attention_impl == "ulysses" and model_cfg.num_heads % shape["seq"]:
+            raise ValueError(
+                f"ulysses needs num_heads ({model_cfg.num_heads}) divisible by the seq axis "
+                f"({shape['seq']})"
             )
 
 

@@ -130,6 +130,12 @@ class Mesh:
             dist.barrier()
 
 
+def staged(device: torch.device, group) -> bool:
+    """Whether a collective of ``group`` on ``device`` tensors goes through
+    host memory: CUDA tensors under gloo."""
+    return device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
 def _collective(flat: torch.Tensor, op, transport: str) -> torch.Tensor:
     stage = transport == "gloo" and flat.device.type == "cuda"
     buf = flat.cpu() if stage else flat
@@ -150,9 +156,10 @@ def _unpack_into(flat: torch.Tensor, tensors: list[torch.Tensor]) -> None:
 
 
 # Bytes copied device -> host and host -> device for gloo, by kind
-# ("ring" for ring_attention.ring_shift, "collectives" for the sums and
+# ("ring" for ring_attention.ring_shift, "ulysses" for its all-to-alls,
+# "gather" for seq_context.gather_sequence, "collectives" for the sums and
 # broadcasts above), since the last reset.
-staged_bytes = {"ring": 0, "collectives": 0}
+staged_bytes = {"ring": 0, "ulysses": 0, "gather": 0, "collectives": 0}
 
 
 def make_mesh(cfg: MeshConfig, process: Process) -> Mesh:

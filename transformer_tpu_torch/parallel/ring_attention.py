@@ -18,8 +18,10 @@ makes the same shifts in the same order, hops it skips included: under
 remat the ring forward runs again inside the backward, and a rank that
 missed a shift would leave its neighbours waiting for ever.
 
-Ulysses (two all-to-alls around full-sequence flash attention) is not
-ported; ``seq_context.seq_parallel_attention`` raises for it.
+``ulysses_attention`` is the other sequence-parallel core: one
+all-to-all turns the (B, C, H, D) chunks into (B, S, H/P, D) head blocks,
+the whole-sequence flash kernels run on them, and one all-to-all turns
+the output back; the backward of each all-to-all is the inverse one.
 """
 
 from __future__ import annotations
@@ -40,6 +42,28 @@ from transformer_tpu_torch.kernels.paged_flash import MASKED
 from transformer_tpu_torch.parallel import mesh as _mesh
 
 
+def _pack(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """The tensors' bytes in one uint8 buffer, each on a TMA_ALIGN-byte
+    boundary, so that every piece views back as its dtype and k/v views
+    can feed the bf16 kernels' tensor maps."""
+    parts = []
+    for t in tensors:
+        raw = t.contiguous().reshape(-1).view(torch.uint8)
+        parts += [raw, raw.new_zeros((-raw.numel()) % TMA_ALIGN)]
+    return torch.cat(parts)
+
+
+def _unpack(buf: torch.Tensor, like: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The inverse of ``_pack``: views of ``buf`` in the shapes and dtypes
+    of ``like``."""
+    out, off = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(buf[off : off + n].view(t.dtype).reshape(t.shape))
+        off += n + (-n) % TMA_ALIGN
+    return out
+
+
 def ring_shift(tensors: list, group: Any, offset: int = 1) -> list:
     """Each rank of ``group``'s ring sends ``tensors`` to ring rank +
     ``offset`` and returns what ring rank − ``offset`` sent: one
@@ -53,15 +77,8 @@ def ring_shift(tensors: list, group: Any, offset: int = 1) -> list:
     dst = dist.get_global_rank(group, (me + offset) % size)
     src = dist.get_global_rank(group, (me - offset) % size)
     device = tensors[0].device
-    # Segments on TMA_ALIGN-byte boundaries, so that every piece views back
-    # as its dtype and k/v views can feed the bf16 kernels' tensor maps.
-    parts, sizes = [], []
-    for t in tensors:
-        raw = t.contiguous().reshape(-1).view(torch.uint8)
-        sizes.append(raw.numel())
-        parts += [raw, raw.new_zeros((-raw.numel()) % TMA_ALIGN)]
-    send = torch.cat(parts)
-    stage = device.type == "cuda" and dist.get_backend(group) == "gloo"
+    send = _pack(tensors)
+    stage = _mesh.staged(device, group)
     if stage:
         send = send.cpu()
     recv = torch.empty_like(send)
@@ -73,11 +90,7 @@ def ring_shift(tensors: list, group: Any, offset: int = 1) -> list:
     if stage:
         _mesh.staged_bytes["ring"] += 2 * recv.numel()
         recv = recv.to(device)
-    out, off = [], 0
-    for t, n in zip(tensors, sizes):
-        out.append(recv[off : off + n].view(t.dtype).reshape(t.shape))
-        off += n + (-n) % TMA_ALIGN
-    return out
+    return _unpack(recv, tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +198,122 @@ class _Ring(torch.autograd.Function):
         if hops < cfg.size:
             dk, dv = ring_shift([dk, dv], cfg.group, offset=cfg.size - (hops - 1))
         return None, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def _all_to_all(parts: list[list[torch.Tensor]], group: Any, kind: str) -> list[list[torch.Tensor]]:
+    """Each rank of ``group`` sends ``parts[j]`` (a list of tensors, of the
+    same shapes and dtypes for every j and on every rank) to ring rank j
+    and returns ``recv``, where ``recv[i]`` is what ring rank i sent here:
+    one ``all_to_all_single`` over the tensors packed (``_pack``) into one
+    byte buffer per destination. Under gloo, CUDA tensors are copied to the
+    host and back (``mesh.staged_bytes[kind]`` counts both copies)."""
+    size = len(parts)
+    if group is None or size == 1:
+        return [list(p) for p in parts]
+    device = parts[0][0].device
+    send = torch.stack([_pack(p) for p in parts])  # (P, bytes per destination)
+    stage = _mesh.staged(device, group)
+    if stage:
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if stage:
+        _mesh.staged_bytes[kind] += 2 * recv.numel()
+        recv = recv.to(device)
+    return [_unpack(recv[i], parts[0]) for i in range(size)]
+
+
+def _seq_to_heads(tensors: list[torch.Tensor], group: Any, size: int,
+                  whole: list[torch.Tensor] = ()) -> list[torch.Tensor]:
+    """(B, C, heads, D) chunks -> (B, S, heads / P, D) head blocks: ring
+    rank j gets head block j of every chunk, in chunk order. Each (B, C,
+    ...) tensor of ``whole`` goes to every rank in the same exchange and
+    comes back gathered to (B, S, ...)."""
+    parts = [[t.unflatten(2, (size, -1))[:, :, j] for t in tensors] + list(whole)
+             for j in range(size)]
+    recv = _all_to_all(parts, group, "ulysses")
+    return [torch.cat([r[n] for r in recv], dim=1) for n in range(len(parts[0]))]
+
+
+def _heads_to_seq(tensors: list[torch.Tensor], group: Any, size: int) -> list[torch.Tensor]:
+    """The inverse of ``_seq_to_heads``: (B, S, heads / P, D) head blocks
+    -> (B, C, heads, D) chunks."""
+    parts = [[t.unflatten(1, (size, -1))[:, j] for t in tensors] for j in range(size)]
+    recv = _all_to_all(parts, group, "ulysses")
+    return [torch.cat([r[n] for r in recv], dim=2) for n in range(len(tensors))]
+
+
+class _SeqToHeads(torch.autograd.Function):
+    """q, k, v chunks -> their head blocks over the whole sequence, and the
+    key mask chunks gathered to (B, S) in the same exchange."""
+
+    @staticmethod
+    def forward(ctx, group, size, q, k, v, kv_mask):
+        ctx.group, ctx.size = group, size
+        if kv_mask is None:
+            return (*_seq_to_heads([q, k, v], group, size), None)
+        out = _seq_to_heads([q, k, v], group, size, whole=[kv_mask])
+        ctx.mark_non_differentiable(out[3])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv, _):
+        dq, dk, dv = _heads_to_seq([dq, dk, dv], ctx.group, ctx.size)
+        return None, None, dq, dk, dv, None
+
+
+class _HeadsToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, size, out):
+        ctx.group, ctx.size = group, size
+        return _heads_to_seq([out], group, size)[0]
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return None, None, _seq_to_heads([d_out], ctx.group, ctx.size)[0]
+
+
+def ulysses_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    group: Any,
+    kv_mask: torch.Tensor | None = None,
+    causal: bool = False,
+    window: int = 0,
+) -> torch.Tensor:
+    """Ulysses sequence parallelism over the processes of ``group``;
+    differentiable. Port of the JAX package's ``ulysses_attention``.
+
+    ``q`` (B, C, H, D) and ``k``/``v`` (B, C, H_kv, D) are this process's
+    chunks, chunk i on ring rank i. One all-to-all gives ring rank j head
+    block j of every chunk, (B, S, H/P, D) for q and (B, S, H_kv/P, D) for
+    k/v (query block j pairs with kv block j: the local groups are the
+    global ones), with the (B, C) key masks gathered to (B, S) in the same
+    exchange; the whole-sequence ``flash_attention`` runs on them (the
+    causal flag and the window apply unchanged), and one all-to-all back
+    returns (B, C, H, D) in q's dtype. H and H_kv must be multiples of the
+    ring size (``seq_context.seq_parallel_attention`` repeats the kv heads
+    first when H_kv is not). ``group`` None is a ring of one."""
+    from transformer_tpu_torch.kernels.flash_attention import flash_attention
+
+    check_args(q, k, v, kv_mask, causal, window)
+    size = 1 if group is None else dist.get_world_size(group)
+    h, h_kv = q.shape[2], k.shape[2]
+    if h % size:
+        raise ValueError(f"ulysses needs num_heads ({h}) divisible by the seq axis ({size})")
+    if h_kv % size:
+        raise ValueError(
+            f"ulysses with grouped kv needs kv heads ({h_kv}) divisible by "
+            f"the seq axis ({size}); repeat kv to full heads first"
+        )
+    if kv_mask is not None:
+        kv_mask = kv_mask.expand(q.shape[0], q.shape[1]).contiguous()
+    q_full, k_full, v_full, mask_full = _SeqToHeads.apply(group, size, q, k, v, kv_mask)
+    out = flash_attention(q_full, k_full, v_full, kv_mask=mask_full, causal=causal,
+                          window=window)
+    return _HeadsToSeq.apply(group, size, out)
 
 
 def ring_attention(

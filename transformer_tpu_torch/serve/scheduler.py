@@ -24,17 +24,20 @@ A reduced port of ``transformer_tpu/serve/scheduler.py``
 - a slot retires on EOS or when its ``max_new`` budget is spent, donates
   its prompt blocks to the prefix cache's device tier, and is recycled at
   the next step boundary. Pool exhaustion spills the device tier to the
-  host tier first, then preempts the requesting slot.
+  host tier first; at admission it then becomes a ``TransientError``,
+  retried ``admission_retries`` times after a jittered ``backoff_ms``
+  each (the request waits in the queue meanwhile) before it answers
+  ``transient``; during a step it preempts the requesting slot.
 
 Left out here (later slices): the dense layout and ``decode_kernel=
 "xla"``, fault injection and circuit breakers, deadlines, cancellation,
-backpressure and admission retries, telemetry/tracing/SLOs, live weight
-upgrades, MoE.
+backpressure, telemetry/tracing/SLOs, live weight upgrades, MoE.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import random
 import time
 from collections import deque
 
@@ -73,13 +76,18 @@ from transformer_tpu_torch.train.decode import (
 )
 
 
+class TransientError(RuntimeError):
+    """An admission failure worth a bounded, jittered retry (pool
+    pressure), as opposed to a validation error, which no retry fixes."""
+
+
 def error_answer(code: str, message: str) -> dict:
     return {"error": message, "code": code}
 
 
 def classify_error(exc: BaseException) -> str:
     """Exception -> error code for admission-time failures."""
-    if isinstance(exc, KVPoolExhausted):
+    if isinstance(exc, TransientError):
         return "transient"
     if isinstance(exc, (ValueError, TypeError, KeyError)):
         return "validation"
@@ -107,10 +115,22 @@ def compute_params(params, cfg: ModelConfig, device: torch.device):
     return walk(params)
 
 
+def backoff_ms(base_ms: float, attempt: int, order: int) -> float:
+    """The wait before admission retry ``attempt`` (0-based) of request
+    ``order``: ``base_ms`` doubled per attempt, times a jitter in [0.5,
+    1.5) drawn from (order, attempt), so same-tick failures do not retry
+    in lockstep and a run replays exactly. A copy of the JAX package's
+    ``serve.resilience.backoff_ms``."""
+    jitter = 0.5 + random.Random(f"backoff|{order}|{attempt}").random()
+    return base_ms * (2 ** attempt) * jitter
+
+
 @dataclasses.dataclass
 class _Pending:
     order: int
     req: dict
+    attempts: int = 0          # admission retries taken
+    not_before: float = 0.0    # perf_counter time before which admit() skips it
 
 
 @dataclasses.dataclass
@@ -162,6 +182,8 @@ class ContinuousScheduler:
         prefix_cache=None,
         kv_block: int = 16,
         kv_pool_blocks: int = 0,
+        admission_retries: int = 2,
+        retry_backoff_ms: float = 20.0,
         device="cuda",
     ):
         check_paged_flash_config(cfg)
@@ -183,6 +205,8 @@ class ContinuousScheduler:
         self.default_max_new = default_max_new
         self.max_total = max_total or cfg.max_position + 1
         self.speculate_k = speculate_k
+        self.admission_retries = max(0, admission_retries)
+        self.retry_backoff_ms = retry_backoff_ms
         # k > 0 with no drafter given: the model-free n-gram drafter.
         self.drafter = drafter if drafter is not None or not speculate_k else NgramDrafter()
         self.prefix_cache = prefix_cache
@@ -217,7 +241,7 @@ class ContinuousScheduler:
         self._next_order = 0
         self._emit_next = 0
         self.stats = {
-            "admitted": 0, "steps": 0, "max_active": 0, "kv_preempted": 0,
+            "admitted": 0, "steps": 0, "max_active": 0, "kv_preempted": 0, "retries": 0,
             "prompt_tokens": 0, "prefill_tokens": 0, "prefill_forwards": 0,
             "prefill_s": 0.0, "decode_s": 0.0, "generated_tokens": 0,
             # speculation: draft tokens fed to verify steps, and those kept
@@ -264,15 +288,37 @@ class ContinuousScheduler:
     def admit(self) -> None:
         """Fill free slots from the queue. A request that fails validation,
         encoding or allocation answers with its error alone; it never
-        enters the pool."""
+        enters the pool. A ``TransientError`` (the pool exhausted after
+        the spill) is retried up to ``admission_retries`` times, each after
+        a jittered ``backoff_ms``; entries still waiting out their backoff
+        are skipped this tick and go back to the front of the queue. With
+        no slot occupied and every queued request waiting, it sleeps until
+        the first is due (at most 50 ms), so that drive loops do not spin."""
+        now = time.perf_counter()
+        deferred: list[_Pending] = []
         while self._free and self._queue:
             p = self._queue.popleft()
+            if p.not_before > now:
+                deferred.append(p)
+                continue
             try:
                 self._start(p)
+            except TransientError as e:
+                if p.attempts < self.admission_retries:
+                    p.attempts += 1
+                    wait = backoff_ms(self.retry_backoff_ms, p.attempts - 1, p.order)
+                    p.not_before = now + wait / 1e3
+                    deferred.append(p)
+                    self.stats["retries"] += 1
+                    continue
+                self._done[p.order] = error_answer("transient", f"{type(e).__name__}: {e}")
             except Exception as e:  # noqa: BLE001 — per-request isolation: any admission failure answers this request alone
                 self._done[p.order] = error_answer(
                     classify_error(e), f"{type(e).__name__}: {e}"
                 )
+        self._queue.extendleft(reversed(deferred))
+        if not self._active and deferred and len(deferred) == len(self._queue):
+            time.sleep(min(min(p.not_before for p in deferred) - now, 0.05))
 
     def _start(self, p: _Pending) -> None:
         req, cfg = p.req, self.cfg
@@ -315,10 +361,13 @@ class ContinuousScheduler:
         slot = self._free.pop()
         aliased = 0
         try:
-            if m:
-                aliased = self._restore(slot, hit)
-            self._alloc_call(lambda: self.alloc.ensure(slot, n))
-            self._cow(slot, m, n)
+            try:
+                if m:
+                    aliased = self._restore(slot, hit)
+                self._alloc_call(lambda: self.alloc.ensure(slot, n))
+                self._cow(slot, m, n)
+            except KVPoolExhausted as e:  # pool pressure: retryable
+                raise TransientError(str(e)) from e
             t0 = time.perf_counter()
             logits = self._prefill(slot, ids[m:n], m)
             synchronize(self.device)

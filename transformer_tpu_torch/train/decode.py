@@ -10,9 +10,14 @@ test reads one flag from the device per generated position. Beams pick
 their K best candidates with a stable descending sort of the flattened
 scores, so equal scores go to the lower flat index first, as
 ``lax.top_k`` orders them (``torch.topk`` promises no order among ties).
+Decoding runs in one process: a model trained with a sequence-parallel
+attention impl ("ring", "ulysses") encodes its source with the
+whole-sequence flash kernels, which is what a ring of one process runs.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -98,6 +103,8 @@ def _dummy_rows(ids: torch.Tensor) -> torch.Tensor:
 
 
 def _encode_source(params, src_ids: torch.Tensor, cfg: ModelConfig, reference: bool):
+    if cfg.attention_impl in ("ring", "ulysses"):  # one process: the ring of one
+        cfg = dataclasses.replace(cfg, attention_impl="flash")
     enc_mask = make_padding_mask(src_ids)
     return encoder_apply(params["encoder"], src_ids, enc_mask, cfg, reference=reference), enc_mask
 

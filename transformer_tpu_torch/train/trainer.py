@@ -390,7 +390,8 @@ class Trainer:
     Each host dispatch (one step, or ``steps_per_dispatch`` = K steps) ends
     in a device synchronize: ``step_seconds`` holds every step's wall time
     (host enqueue plus device work; a K-step dispatch's time divided by its
-    steps), ``dispatches`` each dispatch's (steps, seconds). With K > 1 on
+    steps), ``dispatches`` each dispatch's (steps, seconds), ``losses``
+    each dispatch's train loss (read after the synchronize). With K > 1 on
     the card the steps replay a CUDA graph of the step (``graph``, a
     ``CapturedStep``; one capture per batch signature); on the CPU, or with
     the gradients summed across processes (the ``sum_across`` hook), the
@@ -434,6 +435,7 @@ class Trainer:
             )
         self.step_seconds: list[float] = []
         self.dispatches: list[tuple[int, float]] = []
+        self.losses: list[float] = []
         self.tokens = 0
         self.eval_batches = 0
         self._best_eval = float("inf")
@@ -527,6 +529,7 @@ class Trainer:
                     seconds = time.perf_counter() - t0
                     self.dispatches.append((k, seconds))
                     self.step_seconds.extend([seconds / k] * k)
+                    self.losses.append(float(m["loss"]))
                     self.tokens += tokens
                     self.train_metrics.update(m)
                     prev_step, step = step, step + k
