@@ -6,8 +6,9 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in eleven phases (the
-tenth runs right after the fourth, on its export; the eleventh last):
+runs on the CPU). It prints one JSON line per check, in twelve phases (the
+tenth runs right after the fourth, on its export; the eleventh and the
+twelfth last):
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -165,7 +166,31 @@ tenth runs right after the fourth, on its export; the eleventh last):
    the ring, and one fp32 step (2 + 2 layers, B 64) under each of the
    three meshes against the single-process flash step. Each run reports
    its step median and first step, real target tokens a second across the
-   job, staged bytes by kind, the consistency check's time and its wall.
+   job, staged bytes by kind, the consistency check's time and its wall;
+12. the grouped serving path, ``cli.generate`` and admission control, on
+   phases 6's and 4's exports: ``transformer_tpu_torch.cli.serve
+   --serve_batch 64`` on the Transformer-base export (flash encoder)
+   answers 48 raw lines of data/src-test.txt (greedy), 16 ``{"src": ...,
+   "beam": 4}`` lines, a malformed line and a ``prompt`` line: every answer
+   must be ``translate``'s on the group the server formed, the two errors
+   JAX's ``serve_lines`` lines (no ``code``), and ``flash_fwd`` must have
+   launched 6 times per ``translate`` call (member retries included);
+   the answers that differ from ``cli.translate``'s are counted. Then
+   ``cli.generate --max_new 32`` on phase 4's 14 prompts and the same
+   through ``cli.serve --serve_slots 0`` (dense caches, plain cached
+   attention: timed, tokens a second, time a tick), ``speculative_generate``
+   at k 4 on the 4 shortest (its stats), a profiled window of their batch
+   through ``generate`` (device time and busy share a tick), and the
+   answers that disagree with phase
+   4's or with batch-1 ``generate``'s counted. Last, phase 4's export
+   served with ``--max_backlog 4`` by the replayed scheduler: phase 4's 14
+   requests at once (10 answer ``backpressure``), two with ``deadline_ms``
+   0, one queued and one in-flight request cancelled through ``cancel()``
+   and one with ``max_new`` 512 whose 120 ms deadline expires
+   mid-generation: the codes and counts must be the expected ones, aborted
+   answers carry ``partial``, completed answers are byte-identical to
+   phase 4's, the pool's free blocks are back at their start and kernels B
+   and A launched layers x decode forwards.
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -3663,6 +3688,370 @@ def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
 
 
 # --------------------------------------------------------------------------
+# phase 12: the grouped serving path, cli.generate, admission control
+
+
+GROUPED_GREEDY, GROUPED_BEAM = 48, 16  # data/src-test.txt lines served raw / at beam 4
+GEN_NEW = 32  # max_new of phase 12's LM runs
+DEADLINE_MS = 120  # the mid-generation deadline (max_new 512 at ~1 ms a replayed step)
+
+
+def grouped_translate_path(export, src_vocab, tgt_vocab):
+    """Phase 12, the translator behind ``cli.serve``: phase 6's
+    Transformer-base export (flash encoder, bf16) at ``--serve_batch 64``
+    answers the first 48 lines of data/src-test.txt as raw lines (greedy),
+    the next 16 as ``{"src": ..., "beam": 4}``, one malformed line and one
+    ``prompt`` line. ``translate`` is wrapped to record every call (each
+    signature group, and each member of a group retried alone); the flash
+    counters are set to 0 just before serving and read just after: 6
+    forward launches (the encoder) per call. Every answer must be what
+    ``translate`` gives its sentence in the group the server formed (run
+    again here), the two errors the lines JAX's ``serve_lines`` answers
+    (no ``code``). Then ``cli.translate`` on the same 48 and 16 sentences
+    (batch 64 rows each), the answers that differ counted (reported: the
+    row padding differs). Returns the flash counters."""
+    import torch
+
+    from transformer_tpu_torch.cli import serve
+    from transformer_tpu_torch.cli import translate as cli_translate
+    from transformer_tpu_torch.convert import load_export, load_export_config
+    from transformer_tpu_torch.data.tokenizer import SubwordTokenizer
+    from transformer_tpu_torch.train import decode
+
+    sentences = source_sentences(GROUPED_GREEDY + GROUPED_BEAM)
+    greedy, beam = sentences[:GROUPED_GREEDY], sentences[GROUPED_GREEDY:]
+    malformed = '{"src": "he goes'
+    lines = [*greedy, *(json.dumps({"src": s, "beam": 4}) for s in beam), malformed,
+             json.dumps({"prompt": greedy[0]})]
+    try:
+        json.loads(malformed)
+        raise SystemExit("the malformed line parsed")
+    except json.JSONDecodeError as e:
+        want_errors = [{"error": f"JSONDecodeError: {e}"},
+                       {"error": "seq2seq export serves 'src', not 'prompt'"}]
+    calls = []
+    real = decode.translate
+
+    def recorded(params, cfg, src_tok, tgt_tok, sents, **kw):
+        call = {"sentences": list(sents), "kw": kw}
+        calls.append(call)
+        t0 = time.perf_counter()
+        call["out"] = real(params, cfg, src_tok, tgt_tok, sents, **kw)
+        torch.cuda.synchronize()
+        call["seconds"] = time.perf_counter() - t0
+        return call["out"]
+
+    argv = ["--export_path", export, "--src_vocab_file", src_vocab, "--tgt_vocab_file",
+            tgt_vocab, "--max_len", str(S2S_LEN), "--serve_batch", "64", "--device", "cuda"]
+    out = io.StringIO()
+    decode.translate = recorded
+    try:
+        read_flash_counters(reset=True)
+        t0 = time.perf_counter()
+        batches = serve.main(argv, stdin=io.StringIO("".join(x + "\n" for x in lines)),
+                             stdout=out)
+        torch.cuda.synchronize()
+        main_wall = time.perf_counter() - t0
+        launches = read_flash_counters()
+    finally:
+        decode.translate = real
+    answers = [json.loads(x) for x in out.getvalue().splitlines()]
+    layers = load_export_config(export).num_layers
+    want_launches = {"flash_fwd": layers * len(calls), "flash_dq": 0, "flash_dkdv": 0}
+    # Each group the server formed, translated again: the answers must be
+    # those of translate on the same sentences in the same groups.
+    params, cfg = load_export(export, device="cuda")
+    toks = (SubwordTokenizer.load(src_vocab), SubwordTokenizer.load(tgt_vocab))
+    rerun = {}
+    for call in calls:
+        if "out" not in call:
+            continue
+        again = real(params, cfg, *toks, call["sentences"], **call["kw"])
+        for s, text in zip(call["sentences"], again):
+            rerun.setdefault((s, call["kw"]["beam_size"]), set()).add(text)
+    wrong = [i for i, (s, b) in enumerate([(s, 1) for s in greedy] + [(s, 4) for s in beam])
+             if answers[i].get("translation") not in rerun.get((s, b), set())]
+    common = ["--export_path", export, "--src_vocab_file", src_vocab, "--tgt_vocab_file",
+              tgt_vocab, "--max_len", str(S2S_LEN), "--device", "cuda"]
+    direct = (
+        cli_translate.main(common, stdin=io.StringIO("\n".join(greedy) + "\n"),
+                           stdout=io.StringIO())
+        + cli_translate.main(common + ["--beam", "4"], stdin=io.StringIO("\n".join(beam) + "\n"),
+                             stdout=io.StringIO())
+    )
+    served_s = sum(b["seconds"] for b in batches)
+    rec = {
+        "phase": "serve_grouped", "step": "translator", "card": nvidia_smi_line(),
+        "argv": argv, "requests": len(lines), "answers": len(answers),
+        "batches": batches, "serve_s": served_s, "main_wall_s": main_wall,
+        "requests_per_s": len(lines) / served_s,
+        "translate_calls": [{"rows": len(c["sentences"]), "beam": c["kw"]["beam_size"],
+                             "seconds": c.get("seconds")} for c in calls],
+        "launches": launches, "expected_launches": want_launches,
+        "error_answers": answers[-2:], "expected_errors": want_errors,
+        "answers_not_translate": wrong,
+        "differ_from_cli_translate": sum(
+            1 for a, d in zip(answers, direct) if a.get("translation") != d),
+    }
+    emit(rec)
+    if len(answers) != len(lines) or answers[-2:] != want_errors or wrong:
+        raise SystemExit(f"grouped serving of the translator failed: {rec}")
+    if any("code" in a for a in answers) or any("error" in a for a in answers[:-2]):
+        raise SystemExit(f"grouped answers carry errors or codes: {answers}")
+    if launches != want_launches or not calls:
+        raise SystemExit(f"flash launches {launches}, expected {want_launches}")
+    return launches
+
+
+def generate_path(export, vocab_path, tok, reqs, plain_answers):
+    """Phase 12, the LM over dense caches: ``cli.generate --max_new 32`` on
+    phase 4's 14 prompts (one batch of 16 rows), then the same prompts as
+    greedy ``{"prompt": ..., "max_new": 32}`` lines through ``cli.serve
+    --serve_slots 0 --serve_batch 64`` (the grouped path); wall time and
+    generated tokens a second of each (``lm_generate`` wrapped to count
+    its tokens, ``transformer_decode_step`` to count the loop's ticks). For
+    the 4 shortest prompts: ``speculative_generate`` at k 4 (n-gram
+    drafter), its ``verify_forwards`` / ``drafted`` / ``accepted``, batch-1
+    ``generate``, and a profiled window of their batch
+    (``generate_window``). Counted, not gated (cached
+    attention is plain, and bf16 rounds otherwise than kernels B and A):
+    grouped answers that differ from ``cli.generate``'s; greedy answers
+    that disagree with phase 4's paged-kernel answers over their common
+    tokens; batched and speculative answers that differ from batch-1."""
+    import torch
+
+    from transformer_tpu_torch.cli import generate as cli_generate
+    from transformer_tpu_torch.cli import serve
+    from transformer_tpu_torch.config import PAD_ID
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.kernels.paged_flash import paged_flash_attention
+    from transformer_tpu_torch.ops.ffn import fused_ln_ffn
+    from transformer_tpu_torch.serve.speculative import speculative_generate
+    from transformer_tpu_torch.train import decode
+
+    prompts = [r["prompt"] for r in reqs]
+    runs = []
+    ticks = [0]  # decode steps (one a tick of lm_generate's loop)
+    real, real_step = decode.lm_generate, decode.transformer_decode_step
+
+    def counted(params, ids, cfg, *a, **kw):
+        torch.cuda.synchronize()
+        t0, ticks0 = time.perf_counter(), ticks[0]
+        out = real(params, ids, cfg, *a, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs.append({"rows": ids.shape[0], "width": ids.shape[1],
+                     "tokens": int((out != PAD_ID).sum()), "seconds": seconds,
+                     "ticks": ticks[0] - ticks0,
+                     "ms_per_tick": seconds / max(1, ticks[0] - ticks0) * 1e3})
+        return out
+
+    def counted_step(*a, **kw):
+        ticks[0] += 1
+        return real_step(*a, **kw)
+
+    paged_flash_attention.launches = 0
+    fused_ln_ffn.launches = 0
+    decode.lm_generate, decode.transformer_decode_step = counted, counted_step
+    try:
+        t0 = time.perf_counter()
+        generated = cli_generate.main(
+            ["--export_path", export, "--vocab_file", vocab_path, "--max_new", str(GEN_NEW),
+             "--device", "cuda"], stdin=io.StringIO("\n".join(prompts) + "\n"),
+            stdout=io.StringIO())
+        gen_wall = time.perf_counter() - t0
+        gen_runs = list(runs)
+        lines = "".join(json.dumps({"prompt": p, "max_new": GEN_NEW}) + "\n" for p in prompts)
+        out = io.StringIO()
+        batches = serve.main(["--export_path", export, "--tgt_vocab_file", vocab_path,
+                              "--serve_slots", "0", "--serve_batch", "64", "--device", "cuda"],
+                             stdin=io.StringIO(lines), stdout=out)
+        grouped = [json.loads(x).get("continuation") for x in out.getvalue().splitlines()]
+        grouped_runs = runs[len(gen_runs):]
+        params, cfg = load_export(export, device="cuda")
+        short = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:4]
+        spec, single = [], []
+        for i in short:
+            ids = [tok.bos_id, *tok.encode(prompts[i])]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, stats = speculative_generate(params, cfg, ids, GEN_NEW, tok.eos_id,
+                                               speculate_k=SPEC_K)
+            torch.cuda.synchronize()
+            spec.append({"prompt": i, "prompt_tokens": len(ids), "tokens": len(toks),
+                         "seconds": time.perf_counter() - t0, **stats,
+                         "text": tok.decode([t for t in toks if t not in (PAD_ID, tok.eos_id)])})
+            single.append(decode.generate(params, cfg, tok, [prompts[i]], max_new=GEN_NEW)[0])
+        window = generate_window(lambda: decode.generate(
+            params, cfg, tok, [prompts[i] for i in short], max_new=GEN_NEW), ticks)
+    finally:
+        decode.lm_generate, decode.transformer_decode_step = real, real_step
+    ba_launches = {"paged_attention": paged_flash_attention.launches,
+                   "fused_ln_ffn": fused_ln_ffn.launches}
+    greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
+
+    def disagree(a, b):  # over their common prefix: max_new differs
+        return not (a.startswith(b) or b.startswith(a))
+
+    gen_tokens = sum(r["tokens"] for r in gen_runs)
+    gen_s = sum(r["seconds"] for r in gen_runs)
+    grouped_tokens = sum(r["tokens"] for r in grouped_runs)
+    grouped_s = sum(b["seconds"] for b in batches)
+    rec = {
+        "phase": "serve_grouped", "step": "generate", "card": nvidia_smi_line(),
+        "prompts": len(prompts), "max_new": GEN_NEW,
+        "generate": {"wall_s": gen_wall, "lm_generate_s": gen_s, "tokens": gen_tokens,
+                     "tokens_per_s": gen_tokens / gen_s, "runs": gen_runs},
+        "grouped_serve": {"serve_s": grouped_s, "tokens": grouped_tokens,
+                          "tokens_per_s": grouped_tokens / grouped_s,
+                          "requests_per_s": len(prompts) / grouped_s, "batches": batches,
+                          "runs": grouped_runs},
+        "grouped_differ_from_generate": [i for i in range(len(prompts))
+                                         if grouped[i] != generated[i]],
+        "greedy_disagree_with_phase4": [i for i in greedy if disagree(
+            generated[i], plain_answers[i]["continuation"])],
+        "speculative_k4": [{k: v for k, v in s.items() if k != "text"} for s in spec],
+        "speculative_differ_from_batch1": [s["prompt"] for s, b in zip(spec, single)
+                                           if s["text"] != b],
+        "batched_differ_from_batch1": [i for i, b in zip(short, single) if generated[i] != b],
+        "window_4_shortest": window,
+        "paged_kernel_launches": ba_launches,
+    }
+    emit(rec)
+    if len(generated) != len(prompts) or len(grouped) != len(prompts) or None in grouped:
+        raise SystemExit(f"cli.generate / grouped LM serving failed: {rec}")
+    if not any(generated) or not all(s["verify_forwards"] for s in spec):
+        raise SystemExit(f"generation produced nothing: {rec}")
+    if any(ba_launches.values()):
+        raise SystemExit(f"the dense path launched the paged kernels: {ba_launches}")
+    return rec
+
+
+def generate_window(fn, ticks) -> dict:
+    """Where a tick of ``lm_generate``'s eager loop goes: ``fn`` (one
+    ``generate`` call) timed on the host clock, then again under
+    ``torch.profiler``: device time and busy share per tick (summed
+    kernel time over the unprofiled wall), the top kernels, and the host's
+    launch and synchronize calls per tick. ``ticks`` counts decode steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0, ticks0 = time.perf_counter(), ticks[0]
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = max(1, ticks[0] - ticks0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+    device_ms = sum(dev_us(e) for e in events) / n / 1e3
+    return {
+        "ticks": n, "wall_ms_per_tick": wall / n * 1e3,
+        "device_ms_per_tick": device_ms if events else "not measured",
+        "device_busy_share": device_ms / (wall / n * 1e3) if events else "not measured",
+        "host_calls_per_tick": {e.key: e.count / n for e in averages
+                                if e.key in ("cudaLaunchKernel", "cudaStreamSynchronize",
+                                             "cudaMemcpyAsync", "cudaDeviceSynchronize")},
+        "top_kernels": [{"name": e.key[:80], "ms_per_tick": dev_us(e) / n / 1e3,
+                         "calls_per_tick": e.count / n}
+                        for e in sorted(events, key=dev_us, reverse=True)[:6]],
+    }
+
+
+def admission_path(export, vocab_path, reqs, plain_answers):
+    """Phase 12, admission control on the replayed scheduler: phase 4's
+    export through ``cli.serve``'s scheduler with ``--max_backlog 4`` (4
+    slots, every step a CUDA-graph replay). Phase 4's 14 requests at once
+    (4 queue, 10 answer ``backpressure``); two with ``deadline_ms`` 0 and
+    one more queued behind the full slots, which ``cancel()`` takes back
+    (all three answered at the next step boundary); request 2 cancelled in
+    flight once it has emitted tokens; then a request with ``max_new`` 512
+    and a ``deadline_ms`` of 120 that expires mid-generation. Codes and
+    counts must be the expected ones, aborted answers that emitted tokens
+    must carry ``partial``, every answer that completes must be
+    byte-identical to phase 4's, the pool's free blocks must be back at
+    their starting count, and kernels B and A must have launched layers x
+    decode forwards (counters set to 0 just before, read just after)."""
+    import torch
+
+    from transformer_tpu_torch.cli import serve
+    from transformer_tpu_torch.kernels.paged_flash import paged_flash_attention
+    from transformer_tpu_torch.ops.ffn import fused_ln_ffn
+
+    argv = serve_argv(export, vocab_path, "--max_backlog", "4")
+    sched = serve.build_scheduler(serve.build_parser().parse_args(argv))
+    free0 = sched.alloc.free_blocks
+    paged_flash_attention.launches = 0
+    fused_ln_ffn.launches = 0
+    t0 = time.perf_counter()
+    orders = [sched.submit(dict(r)) for r in reqs]
+    sched.admit()
+    expired = [sched.submit({**reqs[1], "deadline_ms": 0}) for _ in range(2)]
+    queued = sched.submit(dict(reqs[5]))
+    cancels = [sched.cancel(queued)]
+    sched.step()  # the sweep answers the deadline pair and the queued cancel
+    in_flight = orders[2]
+    while not any(st.order == in_flight and st.emitted for st in sched._active.values()):
+        sched.admit()
+        sched.step()
+    cancels.append(sched.cancel(in_flight))
+    sched.step()
+    late = sched.submit({"prompt": reqs[4]["prompt"], "max_new": 512,
+                         "deadline_ms": DEADLINE_MS})
+    while sched.busy:
+        sched.admit()
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    answers = sched.drain_ready()
+    launches = {"paged_attention": paged_flash_attention.launches,
+                "fused_ln_ffn": fused_ln_ffn.launches}
+    want_launches = sched.cfg.num_layers * sched.stats["steps"]
+    sched.alloc.check_consistency()
+    codes = [a.get("code", "ok") for a in answers]
+    want_codes = (["ok", "ok", "cancelled", "ok"] + ["backpressure"] * 10
+                  + ["deadline", "deadline", "cancelled", "deadline"])
+    completed = [o for o in orders[:4] if o != in_flight]
+    rec = {
+        "phase": "serve_grouped", "step": "admission", "card": nvidia_smi_line(), "argv": argv,
+        "codes": codes, "expected_codes": want_codes, "cancel_accepted": cancels,
+        "stats": {k: sched.stats[k] for k in ("deadline_expired", "cancelled", "backpressure",
+                                              "admitted", "steps", "generated_tokens")},
+        "in_flight_cancel": answers[in_flight], "late_deadline": answers[late],
+        "queue_deadlines": [answers[o] for o in expired],
+        "completed_identical_to_phase4": [answers[o] == plain_answers[o] for o in completed],
+        "free_blocks": {"start": free0, "end": sched.alloc.free_blocks},
+        "launches": launches, "expected_launches": want_launches,
+        "wall_s": wall, "steps": sched.stats["steps"],
+        "captures": [{"shape": list(sig), "seconds": sec} for sig, sec in sched.forward.captures],
+    }
+    emit(rec)
+    late_msg = answers[late].get("error", "")
+    ok = (
+        codes == want_codes and all(cancels) and all(rec["completed_identical_to_phase4"])
+        and "partial" in answers[in_flight] and "partial" in answers[late]
+        and re.fullmatch(r"deadline_ms elapsed after \d+ of 512 tokens", late_msg)
+        and all("in the admission queue" in answers[o]["error"] for o in expired)
+        and sched.stats["backpressure"] == 10 and sched.stats["deadline_expired"] == 3
+        and sched.stats["cancelled"] == 2 and sched.alloc.free_blocks == free0
+    )
+    if not ok:
+        raise SystemExit(f"admission control failed: {rec}")
+    for name, count in launches.items():
+        if count <= 0 or count != want_launches:
+            raise SystemExit(f"{name} launched {count} times, expected {want_launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3864,6 +4253,13 @@ def main() -> int:
     s2s_fp32_mesh_check(s2s_cfg, s2s_batch)
     fresh_dir("ckpt", "s2s_dist")
 
+    # 12. the translator behind cli.serve (phase 6's export, the grouped
+    # path), cli.generate and speculative_generate over dense caches and
+    # admission control on the replayed scheduler (phase 4's export)
+    grouped_launches = grouped_translate_path(s2s_export, src_vocab, vocab_path)
+    generate_path(export, vocab_path, tok, reqs, plain_answers)
+    serve_launches["admission"] = admission_path(export, vocab_path, reqs, plain_answers)
+
     def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
                                          "share_of_bound_warm") if k in main_rec}
@@ -3899,7 +4295,7 @@ def main() -> int:
         by_path = {"train": train_launches[name], "sp_train": sp["launches"][name],
                    "seq2seq_train": s2s_launches[name], "translate": tr_launches[name],
                    "ckpt": ckpt_launches[name], "dispatch": disp_launches[name],
-                   "s2s_dist": dist_launches[name]}
+                   "s2s_dist": dist_launches[name], "serve_grouped": grouped_launches[name]}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",

@@ -68,13 +68,18 @@ def export_params(params, cfg: ModelConfig, path: str, quantize: str = "") -> No
     checkpoint.export_params(params, cfg, path, quantize=quantize)
 
 
+def load_export_config(path: str) -> ModelConfig:
+    """The model config of an export directory, without its weights."""
+    with open(os.path.join(path, "config.json")) as f:
+        return config_from_json(ModelConfig, f.read())
+
+
 def load_export(path: str, kv_cache_int8: bool = False, device="cuda"):
     """(params, cfg) from an export directory (either package's).
     ``kv_cache_int8`` opts the served model into the int8 KV pool."""
     import dataclasses
 
-    with open(os.path.join(path, "config.json")) as f:
-        cfg = config_from_json(ModelConfig, f.read())
+    cfg = load_export_config(path)
     if kv_cache_int8:
         cfg = dataclasses.replace(cfg, kv_cache_int8=True)
     with np.load(os.path.join(path, "params.npz")) as data:

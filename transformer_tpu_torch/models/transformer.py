@@ -2,7 +2,7 @@
 projection, prefill and the decode step.
 
 Port of ``transformer_hidden_apply``, ``transformer_apply``,
-``project_logits``, ``transformer_prefill`` and
+``project_logits``, ``transformer_prefill``, ``transformer_verify`` and
 ``transformer_decode_step`` from ``transformer_tpu/models/transformer.py``
 for decoder-only LMs and seq2seq (encoder-decoder) models, plus
 ``param_spec`` (the JAX package's parameter tree, flattened with its
@@ -293,6 +293,25 @@ def transformer_prefill(
         enc_out=enc_out, cross_mask=cross_mask, cross_kvs=cross_kvs,
     )
     return project_logits(params, x_last[:, None, :], cfg)[:, -1, :], caches
+
+
+def transformer_verify(
+    params: Params,
+    tokens: torch.Tensor,
+    caches: list[dict[str, Any]],
+    position: int,
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, list[dict[str, Any]]]:
+    """Speculative decoding's verify forward over dense caches: (B, W)
+    candidate tokens at positions ``position .. position + W - 1`` ->
+    ((B, W, V) logits of EVERY fed position, updated caches).
+    ``logits[:, j]`` is the next-token distribution after ``tokens[:, :j +
+    1]``, which the acceptance rule compares with ``tokens[:, j + 1]``.
+    The S_q > 1 cache write is ``transformer_prefill``'s; unlike prefill,
+    every position is projected to the vocab. Rejected candidates roll back
+    with ``ops.attention.rollback_cache`` (decoder-only models)."""
+    x, caches = decoder_apply(params["decoder"], tokens, cfg, caches, position_offset=position)
+    return project_logits(params, x, cfg), caches
 
 
 def transformer_decode_step(

@@ -27,17 +27,27 @@ A reduced port of ``transformer_tpu/serve/scheduler.py``
   host tier first; at admission it then becomes a ``TransientError``,
   retried ``admission_retries`` times after a jittered ``backoff_ms``
   each (the request waits in the queue meanwhile) before it answers
-  ``transient``; during a step it preempts the requesting slot.
+  ``transient``; during a step it preempts the requesting slot;
+- the request lifecycle: ``deadline_ms`` (a queued request past it
+  answers ``deadline`` without taking a slot; an in-flight one is aborted
+  at the next step boundary, or right after its prefill), ``cancel(order)``
+  from any thread (executed at the next step boundary: ``cancelled``) and
+  ``max_backlog`` (a submission past that many queued requests answers
+  ``backpressure`` at once). An aborted slot returns its blocks to the
+  pool, donates nothing to the prefix cache, and its answer carries the
+  tokens emitted so far as ``partial``. Client threads and the scheduler
+  loop share the queue under one intake lock.
 
 Left out here (later slices): the dense layout and ``decode_kernel=
-"xla"``, fault injection and circuit breakers, deadlines, cancellation,
-backpressure, telemetry/tracing/SLOs, live weight upgrades, MoE.
+"xla"``, fault injection and circuit breakers, telemetry/tracing/SLOs,
+live weight upgrades, ``shutdown``, MoE.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
+import threading
 import time
 from collections import deque
 
@@ -131,6 +141,8 @@ class _Pending:
     req: dict
     attempts: int = 0          # admission retries taken
     not_before: float = 0.0    # perf_counter time before which admit() skips it
+    t_enqueue: float = 0.0     # perf_counter time of submission
+    deadline: float | None = None  # perf_counter time past which it expires
 
 
 @dataclasses.dataclass
@@ -152,15 +164,17 @@ class _Active:
     spec: bool = False         # drafts for this request (speculate_k > 0)
     dstate: object = None      # the drafter's per-request state
     use_prefix: bool = False   # reads and feeds the prefix cache
+    deadline: float | None = None  # perf_counter time past which it aborts
 
 
 class ContinuousScheduler:
     """Step-level continuous batching over ``num_slots`` paged KV slots.
 
     ``submit`` queues LM requests (dicts with ``prompt`` and optional
-    ``max_new`` / ``temperature`` / ``top_k`` / ``top_p`` / ``seed``, and
-    ``cache_prefix`` / ``speculate``, which opt a request out of the prefix
-    cache or out of drafting);
+    ``max_new`` / ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` /
+    ``deadline_ms``, and ``cache_prefix`` / ``speculate``, which opt a
+    request out of the prefix cache or out of drafting) and returns the
+    request's order; ``cancel(order)`` asks for its cancellation;
     ``submit_done`` reserves an output position for an already-answered
     response. ``admit`` / ``step`` / ``drain_ready`` are the streaming API
     the serve CLI drives; ``run`` serves a fixed list to completion.
@@ -184,6 +198,7 @@ class ContinuousScheduler:
         kv_pool_blocks: int = 0,
         admission_retries: int = 2,
         retry_backoff_ms: float = 20.0,
+        max_backlog: int = 0,
         device="cuda",
     ):
         check_paged_flash_config(cfg)
@@ -207,6 +222,7 @@ class ContinuousScheduler:
         self.speculate_k = speculate_k
         self.admission_retries = max(0, admission_retries)
         self.retry_backoff_ms = retry_backoff_ms
+        self.max_backlog = max(0, max_backlog)
         # k > 0 with no drafter given: the model-free n-gram drafter.
         self.drafter = drafter if drafter is not None or not speculate_k else NgramDrafter()
         self.prefix_cache = prefix_cache
@@ -240,8 +256,17 @@ class ContinuousScheduler:
         self._done: dict[int, dict] = {}
         self._next_order = 0
         self._emit_next = 0
+        # Client threads (submit, cancel) and the scheduler loop share the
+        # queue, the order counter, the done map and the cancellations
+        # under this lock; iterating a deque is not atomic.
+        self._intake_lock = threading.Lock()
+        self._cancel_pending: dict[int, str] = {}
+        # Queued requests that carry a deadline: 0 keeps the expiry scan
+        # off the step path.
+        self._queued_deadlines = 0
         self.stats = {
             "admitted": 0, "steps": 0, "max_active": 0, "kv_preempted": 0, "retries": 0,
+            "deadline_expired": 0, "cancelled": 0, "backpressure": 0,
             "prompt_tokens": 0, "prefill_tokens": 0, "prefill_forwards": 0,
             "prefill_s": 0.0, "decode_s": 0.0, "generated_tokens": 0,
             # speculation: draft tokens fed to verify steps, and those kept
@@ -256,16 +281,124 @@ class ContinuousScheduler:
     # ---- intake ------------------------------------------------------------
 
     def submit(self, req: dict) -> int:
-        order = self._next_order
-        self._next_order += 1
-        self._queue.append(_Pending(order=order, req=req))
+        """Queue ``req``; returns its order (its answer's output position).
+        Past ``max_backlog`` queued requests it answers ``backpressure`` at
+        once instead. A ``deadline_ms`` that does not parse is left to
+        admission, which answers it as a validation error."""
+        now = time.perf_counter()
+        with self._intake_lock:
+            order = self._next_order
+            self._next_order += 1
+            if self.max_backlog and len(self._queue) >= self.max_backlog:
+                self.stats["backpressure"] += 1
+                self._done[order] = error_answer(
+                    "backpressure",
+                    f"admission queue is full ({self.max_backlog} requests); "
+                    "retry after a backoff",
+                )
+                return order
+            deadline = None
+            try:
+                d = req.get("deadline_ms")
+                if d is not None:
+                    deadline = now + float(d) / 1e3
+            except (TypeError, ValueError):
+                pass  # _start parses it again and answers the validation error
+            self._queue.append(_Pending(order=order, req=req, t_enqueue=now, deadline=deadline))
+            if deadline is not None:
+                self._queued_deadlines += 1
         return order
 
     def submit_done(self, resp: dict) -> int:
-        order = self._next_order
-        self._next_order += 1
-        self._done[order] = resp
+        with self._intake_lock:
+            order = self._next_order
+            self._next_order += 1
+            self._done[order] = resp
         return order
+
+    def cancel(self, order: int, message: str = "cancelled by client") -> bool:
+        """Ask for the cancellation of a queued or in-flight request (any
+        thread). It is executed by the scheduler loop at the next step
+        boundary: the queue entry is dropped or the slot freed, and a
+        ``cancelled`` error answers at the request's position. Returns
+        False when ``order`` is unknown, already answered or already being
+        cancelled; a request that completes first answers normally."""
+        with self._intake_lock:
+            if (
+                order in self._done
+                or order >= self._next_order
+                or order < self._emit_next
+                or order in self._cancel_pending
+            ):
+                return False
+            self._cancel_pending[order] = message
+        return True
+
+    def _answer_cancelled(self, p: _Pending, message: str) -> None:
+        """Answer a cancellation caught before admission."""
+        self.stats["cancelled"] += 1
+        self._done[p.order] = error_answer("cancelled", message)
+
+    def _answer_expired(self, p: _Pending, now: float) -> None:
+        """A queued request's deadline passed before a slot freed."""
+        self.stats["deadline_expired"] += 1
+        self._done[p.order] = error_answer(
+            "deadline",
+            f"deadline_ms elapsed after {round((now - p.t_enqueue) * 1e3)}ms "
+            "in the admission queue",
+        )
+
+    def _expire(self, now: float) -> None:
+        """The sweep at a step boundary: queued requests past their
+        deadline answer without a slot, registered cancellations of queued
+        requests answer, and in-flight ones (cancelled or past their
+        deadline) are aborted."""
+        expired_q: list[_Pending] = []
+        if self._queued_deadlines:
+            with self._intake_lock:
+                expired_q = [p for p in self._queue
+                             if p.deadline is not None and now >= p.deadline]
+                for p in expired_q:
+                    self._queue.remove(p)
+                    self._queued_deadlines -= 1
+        for p in expired_q:
+            self._answer_expired(p, now)
+        pending: dict[int, str] = {}
+        cancelled_q: list[_Pending] = []
+        if self._cancel_pending:
+            with self._intake_lock:
+                pending = dict(self._cancel_pending)
+                cancelled_q = [p for p in self._queue if p.order in pending]
+                for p in cancelled_q:
+                    self._queue.remove(p)
+                    if p.deadline is not None:
+                        self._queued_deadlines -= 1
+        for p in cancelled_q:
+            self._answer_cancelled(p, pending[p.order])
+        for slot, st in list(self._active.items()):
+            if st.order in pending:
+                self._abort(slot, st, "cancelled", pending[st.order])
+            elif st.deadline is not None and now >= st.deadline:
+                self._abort(
+                    slot, st, "deadline",
+                    f"deadline_ms elapsed after {len(st.emitted)} of {st.max_new} tokens",
+                )
+        if pending:
+            # Drop the registrations that are answered (here, or normally
+            # before the sweep: the benign race cancel() describes).
+            with self._intake_lock:
+                for order in pending:
+                    if order in self._done or order < self._emit_next:
+                        self._cancel_pending.pop(order, None)
+
+    def _abort(self, slot: int, st: _Active, code: str, message: str) -> None:
+        """Free an occupied slot without retiring it normally (deadline or
+        cancellation): its blocks go back to the pool and its table row to
+        the sink, so later steps write nothing of it; nothing is donated to
+        the prefix cache (admission released its hit already); the answer
+        is a ``code`` error carrying the emitted tokens as ``partial``."""
+        self.stats["deadline_expired" if code == "deadline" else "cancelled"] += 1
+        self._retire(slot, st, error_answer(code, message))
 
     @property
     def busy(self) -> bool:
@@ -296,10 +429,24 @@ class ContinuousScheduler:
         the first is due (at most 50 ms), so that drive loops do not spin."""
         now = time.perf_counter()
         deferred: list[_Pending] = []
-        while self._free and self._queue:
-            p = self._queue.popleft()
+        while self._free:
+            with self._intake_lock:
+                if not self._queue:
+                    break
+                p = self._queue.popleft()
+                if p.deadline is not None:
+                    self._queued_deadlines -= 1
             if p.not_before > now:
                 deferred.append(p)
+                continue
+            if p.deadline is not None and now >= p.deadline:
+                self._answer_expired(p, now)
+                continue
+            with self._intake_lock:
+                cancel_msg = self._cancel_pending.pop(p.order, None)
+            if cancel_msg is not None:
+                # Cancelled before admission: no prefill, no slot.
+                self._answer_cancelled(p, cancel_msg)
                 continue
             try:
                 self._start(p)
@@ -316,8 +463,11 @@ class ContinuousScheduler:
                 self._done[p.order] = error_answer(
                     classify_error(e), f"{type(e).__name__}: {e}"
                 )
-        self._queue.extendleft(reversed(deferred))
-        if not self._active and deferred and len(deferred) == len(self._queue):
+        with self._intake_lock:
+            self._queue.extendleft(reversed(deferred))
+            self._queued_deadlines += sum(1 for p in deferred if p.deadline is not None)
+            idle = not self._active and deferred and len(deferred) == len(self._queue)
+        if idle:
             time.sleep(min(min(p.not_before for p in deferred) - now, 0.05))
 
     def _start(self, p: _Pending) -> None:
@@ -338,6 +488,11 @@ class ContinuousScheduler:
                 "or raise --serve_max_total"
             )
         max_new = min(max_new, self.max_total - 1 - L)
+        deadline = None
+        if req.get("deadline_ms") is not None:
+            # float() raising ("soon") answers a validation error for this
+            # request alone.
+            deadline = p.t_enqueue + float(req["deadline_ms"]) / 1e3
         temperature = float(req.get("temperature", 0.0))
         sample = temperature > 0.0
         top_k = int(req.get("top_k", 0)) if sample else 0
@@ -392,11 +547,16 @@ class ContinuousScheduler:
             emitted=[], max_new=max_new, sample=sample,
             temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
             spec=spec, dstate=self.drafter.start(ids) if spec else None,
-            use_prefix=use_prefix,
+            use_prefix=use_prefix, deadline=deadline,
         )
         self._active[slot] = st
         self.stats["admitted"] += 1
         self.stats["max_active"] = max(self.stats["max_active"], len(self._active))
+        if deadline is not None and time.perf_counter() >= deadline:
+            # The prefill alone spent the budget: answer now rather than
+            # decode tokens the client has given up on.
+            self._abort(slot, st, "deadline", "deadline_ms elapsed during prefill")
+            return
         if n < L:
             st.cur = ids[n]  # the prompt tail feeds through the steps
         else:
@@ -515,7 +675,9 @@ class ContinuousScheduler:
     def step(self) -> None:
         """Advance every occupied slot with ONE pooled forward: one token
         on the plain path, up to ``speculate_k + 1`` on the verify path.
-        Retires finished slots; no-op when the pool is idle."""
+        Retires finished slots; no-op when the pool is idle. The deadline
+        and cancellation sweep runs first."""
+        self._expire(time.perf_counter())
         if self._active:
             self._prepare(self.speculate_k + 1)
         if not self._active:

@@ -18,8 +18,10 @@ to the accepted history by rollback by index).
 The numpy parts (``NgramDrafter``, ``build_verify_row``, ``judge_row``,
 ``filtered_probs``, ``sampled_accept``) are copies of the JAX package's.
 ``verify_row_picks`` keys each row's generator by (seed, position + j), as
-the scheduler's plain pick keys a row by (seed, position). Left out: the
-standalone ``speculative_generate`` loop and the drafter fault points.
+the scheduler's plain pick keys a row by (seed, position).
+``speculative_generate`` is the standalone batch-1 loop over dense KV
+caches (``models/transformer.py`` ``transformer_verify``; cached
+attention is plain, as in JAX). Left out: the drafter fault points.
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ import numpy as np
 import torch
 
 from transformer_tpu_torch.config import ModelConfig
+from transformer_tpu_torch.data.seeding import keyed_rng
 from transformer_tpu_torch.models.decoder import init_decoder_caches
-from transformer_tpu_torch.models.transformer import transformer_prefill
+from transformer_tpu_torch.models.transformer import transformer_prefill, transformer_verify
 from transformer_tpu_torch.ops.attention import rollback_cache
-from transformer_tpu_torch.train.decode import prefill_len_for, sample_token
+from transformer_tpu_torch.train.decode import _bucket, prefill_len_for, sample_token
 
 
 class Drafter(Protocol):
@@ -355,3 +358,109 @@ def verify_row_picks(
         )[0])
         for j in range(logits.shape[0])
     ]
+
+
+# --------------------------------------------------------------------------
+# standalone speculative generation (batch-1 host loop)
+
+
+@torch.no_grad()
+def speculative_generate(
+    params,
+    cfg: ModelConfig,
+    prompt_ids: Sequence[int],
+    max_new: int,
+    eos_id: int,
+    *,
+    speculate_k: int,
+    drafter: Drafter | None = None,
+    sample: bool = False,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    seed: int = 0,
+    prefill_chunk: int = 0,
+) -> tuple[list[int], dict]:
+    """Batch-1 speculative continuation of a BOS-led prompt over dense KV
+    caches. Returns ``(tokens, stats)``: the generated stream (EOS
+    included when generated) and ``verify_forwards`` / ``drafted`` /
+    ``accepted``. Greedy tokens equal ``lm_generate``'s; sampled ones keep
+    plain sampling's distribution (rejection acceptance).
+
+    The cache buffer is a power of two with ``speculate_k`` rows of slack,
+    so a verify row straddling the budget writes in bounds. The prefill
+    stops one short of the prompt, so the first pick is a verify
+    forward's; each verify rolls the cache back to the accepted prefix."""
+    if cfg.attention_window:
+        raise ValueError(
+            "speculative decoding cannot roll back a rolling-window cache "
+            "(attention_window configs serve non-speculatively)"
+        )
+    if speculate_k < 1:
+        raise ValueError(f"speculate_k must be >= 1, got {speculate_k}")
+    ids = [int(t) for t in prompt_ids]
+    L = len(ids)
+    if L < 1:
+        raise ValueError("prompt must carry at least the BOS token")
+    max_new = min(max_new, cfg.max_position - L)
+    if drafter is None:
+        drafter = NgramDrafter()
+    buf = _bucket(L + max_new + 1 + speculate_k, cfg.max_position + 1 + speculate_k, floor=8)
+    device = params["decoder"]["embedding"]["table"].device
+    caches = init_decoder_caches(cfg, 1, buf, device=device)
+    stats = {"verify_forwards": 0, "drafted": 0, "accepted": 0}
+    if max_new < 1:
+        return [], stats
+    history = list(ids)
+    pos = 0
+    n = min(prefill_len_for(L, prefill_chunk), L - 1)
+    if n >= 1:
+        _, caches = transformer_prefill(
+            params, torch.tensor([ids[:n]], dtype=torch.long, device=device), caches, 0, cfg,
+            chunk=prefill_chunk,
+        )
+        pos = n
+    dstate = drafter.start(ids)
+    out: list[int] = []
+    finished = False
+    while not finished:
+        # Cap the row so its writes stay inside the cache buffer.
+        k_row = min(speculate_k, buf - pos - 1)
+        row, n_drafted = build_verify_row(history, pos, k_row, drafter, dstate)
+        stats["drafted"] += n_drafted
+        toks = torch.tensor([row], dtype=torch.long, device=device)
+        logits, caches = transformer_verify(params, toks, caches, pos, cfg)
+        stats["verify_forwards"] += 1
+        picks = verify_row_picks(
+            logits[0], seed, pos, temperature, sample=sample, top_k=top_k, top_p=top_p
+        )
+        if sample:
+            logits_np = logits[0].float().cpu().numpy()
+
+            def accept(j, draft, _p=pos):
+                probs = filtered_probs(logits_np[j], temperature, top_k, top_p)
+                return sampled_accept(probs, draft, keyed_rng(seed, _p + j))
+        else:
+            def accept(j, draft):
+                return picks[j] == draft, picks[j]
+
+        emitted, keep, n_accepted = judge_row(row, pos, L, accept, lambda j: picks[j])
+        n_consumed = 0
+        for tok in emitted:
+            if len(out) >= max_new:
+                finished = True
+                break
+            n_consumed += 1
+            out.append(int(tok))
+            if tok == eos_id:
+                finished = True
+                break
+        # Only consumed emissions count as accepted (a row's tail past EOS
+        # or the budget was judged, never emitted).
+        stats["accepted"] += min(n_accepted, n_consumed)
+        if finished:
+            break
+        pos += keep
+        history = ids + out
+        caches = [rollback_cache(c, pos) for c in caches]
+    return out, stats

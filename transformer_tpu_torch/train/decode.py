@@ -1,10 +1,17 @@
-"""Decoding: token picking, prompt bucketing, and seq2seq translation.
+"""Decoding: token picking, prompt bucketing, seq2seq translation and LM
+continuation.
 
 Port of ``sample_token``, ``_detokenize_rows``, ``prefill_len_for``,
-``_dummy_rows``, ``greedy_decode``, ``beam_search_decode``, ``_bucket``,
-``_pad_batch`` and ``translate`` from ``transformer_tpu/train/decode.py``.
+``_dummy_rows``, ``greedy_decode``, ``lm_generate``, ``beam_search_decode``,
+``lm_generate_speculative``, ``_bucket``, ``_pad_batch``, ``generate`` and
+``translate`` from ``transformer_tpu/train/decode.py``.
 Sampling draws from an explicit ``torch.Generator``; greedy picks are
-argmax and need none. The JAX twin's early-exit ``while_loop`` is a
+argmax and need none. ``lm_generate``'s sampled pick at tick ``t`` draws
+from the generator keyed (seed, t) (``serve.speculative.pick_generator``),
+the key the continuous scheduler gives a slot's pick at position ``t``, so
+a batch-1 sampled ``generate`` answers as the scheduler does (JAX folds
+``t`` into one threefry key; its draws cannot be reproduced). The JAX
+twin's early-exit ``while_loop`` is a
 Python loop here that stops once every row (or beam) has finished; its
 test reads one flag from the device per generated position. Beams pick
 their K best candidates with a stable descending sort of the flattened
@@ -150,6 +157,86 @@ def greedy_decode(
 
 
 @torch.no_grad()
+def lm_generate(
+    params,
+    prompt_ids: torch.Tensor,
+    cfg: ModelConfig,
+    max_new: int,
+    eos_id: int,
+    seed: int = 0,
+    sample: bool = False,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    prefill_len: int = 0,
+    prefill_chunk: int = 0,
+) -> torch.Tensor:
+    """Causal-LM continuation: (B, P) BOS-led prompts (PAD on the right)
+    -> (B, max_new) generated ids over dense KV caches.
+
+    ``prefill_len = n > 0`` runs the first ``n`` prompt positions through
+    ``transformer_prefill`` (in ``prefill_chunk`` pieces); the loop then
+    feeds one token per row per tick: the rest of each row's prompt, then
+    its picks. ``n`` must not exceed the shortest real row's prompt
+    (``generate`` computes it). Tick ``t`` picks the token of position
+    ``t + 1`` from position ``t``'s logits; a row stops at EOS (later
+    positions PAD), all-PAD bucketing rows start finished, and the loop
+    exits once every row has finished. ``sample`` draws with
+    ``sample_token`` from the generator keyed (seed, t)."""
+    from transformer_tpu_torch.serve.speculative import pick_generator
+
+    batch, prompt_len = prompt_ids.shape
+    dev = prompt_ids.device
+    total = prompt_len + max_new
+    caches = init_decoder_caches(cfg, batch, total + 1, device=dev)
+    prompt_lens = (prompt_ids != PAD_ID).sum(dim=1, keepdim=True)
+    toks = torch.full((batch, total - 1), PAD_ID, dtype=torch.long, device=dev)
+
+    def advance(t, logits, finished):
+        """Selection tick t: the token for position t + 1 (the next prompt
+        token while in the prompt, else the pick), finished rows frozen to
+        PAD, the emission stored at column t."""
+        if sample:
+            sampled = sample_token(
+                logits, pick_generator(seed, t, dev), sample=True,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+            )
+        else:
+            sampled = sample_token(logits)
+        in_prompt = (t + 1) < prompt_lens
+        nxt_prompt = prompt_ids[:, min(t + 1, prompt_len - 1)][:, None]
+        nxt = torch.where(in_prompt, nxt_prompt, sampled[:, None])
+        nxt = torch.where(finished, torch.full_like(nxt, PAD_ID), nxt)
+        finished = finished | (~in_prompt & (nxt == eos_id))
+        toks[:, t] = torch.where(in_prompt, torch.full_like(nxt, PAD_ID), nxt)[:, 0]
+        return nxt, finished
+
+    finished = _dummy_rows(prompt_ids)
+    # Clamp the prefill below the last tick (total - 1) so the hoisted
+    # selection tick has a column to write.
+    n = min(prefill_len, prompt_len, total - 1)
+    if n >= 1:
+        logits, caches = transformer_prefill(
+            params, prompt_ids[:, :n], caches, 0, cfg, chunk=prefill_chunk
+        )
+        # Tick n - 1's selection (the prefill's last logits are its logits);
+        # ticks 0 .. n - 2 were all in the prompt and emitted PAD.
+        tok, finished = advance(n - 1, logits, finished)
+        t = n
+    else:
+        tok, t = prompt_ids[:, :1], 0
+    while t < total - 1 and not bool(finished.all()):
+        logits, caches = transformer_decode_step(params, tok, caches, t, cfg)
+        tok, finished = advance(t, logits, finished)
+        t += 1
+    # toks[:, t] holds the token of position t + 1; a row's generation
+    # starts at its prompt length. Clamp both ends: an all-PAD dummy row
+    # has prompt length 0.
+    cols = prompt_lens - 1 + torch.arange(max_new, device=dev)[None, :]
+    return torch.gather(toks, 1, torch.clamp(cols, 0, total - 2))
+
+
+@torch.no_grad()
 def beam_search_decode(
     params,
     src_ids: torch.Tensor,
@@ -229,6 +316,94 @@ def beam_search_decode(
     lengths = torch.clamp((tokens_buf != PAD_ID).sum(dim=-1).float(), min=1.0)
     best = torch.argmax(scores / ((5.0 + lengths) / 6.0) ** alpha, dim=1)
     return tokens_buf[torch.arange(batch, device=dev), best]
+
+
+def lm_generate_speculative(
+    params,
+    prompt_ids,
+    cfg: ModelConfig,
+    max_new: int,
+    eos_id: int,
+    *,
+    speculate_k: int,
+    drafter=None,
+    sample: bool = False,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    seed: int = 0,
+    prefill_chunk: int = 0,
+) -> tuple[list[int], dict]:
+    """Batch-1 speculative counterpart of ``lm_generate``: ``(tokens,
+    stats)`` from ``serve.speculative.speculative_generate`` (greedy tokens
+    equal ``lm_generate``'s; ``drafter=None`` is the n-gram drafter)."""
+    from transformer_tpu_torch.serve.speculative import speculative_generate
+
+    return speculative_generate(
+        params, cfg, prompt_ids, max_new, eos_id,
+        speculate_k=speculate_k, drafter=drafter, sample=sample,
+        temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+        prefill_chunk=prefill_chunk,
+    )
+
+
+def generate(
+    params,
+    cfg: ModelConfig,
+    tokenizer,
+    prompts: str | list[str],
+    max_new: int = 64,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    seed: int = 0,
+    prefill_chunk: int = 0,
+    speculate_k: int = 0,
+    drafter=None,
+) -> list[str]:
+    """Text in, continuation text out, for decoder-only models, on the
+    params' device. Prompts are BOS-led, padded to a power-of-two width
+    (at least 8, capped at ``cfg.max_position``) and a power-of-two batch
+    of rows; the prefix the shortest prompt covers (``prefill_len_for``)
+    is prefilled in one pass. ``temperature`` 0 is greedy, above 0 samples
+    (with optional top-k and top-p). ``max_new`` is clamped to the
+    position budget; a prompt that leaves none raises. ``speculate_k > 0``
+    runs each prompt alone through ``lm_generate_speculative``."""
+    if not cfg.decoder_only:
+        raise ValueError("generate() is for decoder_only models; use translate()")
+    if isinstance(prompts, str):
+        prompts = [prompts]
+    encoded = [[tokenizer.bos_id, *tokenizer.encode(p)] for p in prompts]
+    longest = max(len(e) for e in encoded)
+    if longest >= cfg.max_position:
+        raise ValueError(
+            f"a prompt encodes to {longest} tokens but the model's "
+            f"max_position is {cfg.max_position}; shorten the prompt"
+        )
+    max_new = min(max_new, cfg.max_position - longest)
+    sample = temperature > 0.0
+    if speculate_k > 0:
+        texts = []
+        for e in encoded:
+            toks, _ = lm_generate_speculative(
+                params, e, cfg, max_new, tokenizer.eos_id,
+                speculate_k=speculate_k, drafter=drafter, sample=sample,
+                temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+                prefill_chunk=prefill_chunk,
+            )
+            texts.extend(_detokenize_rows([toks] if toks else [[PAD_ID]], 1, tokenizer))
+        return texts
+    width = _bucket(longest, cfg.max_position, floor=8)
+    ids, n = _pad_batch(encoded, width)
+    device = params["decoder"]["embedding"]["table"].device
+    shortest = min(len(e) for e in encoded)
+    out = lm_generate(
+        params, torch.from_numpy(ids).to(device=device, dtype=torch.long), cfg, max_new,
+        tokenizer.eos_id, seed=seed, sample=sample, temperature=temperature, top_k=top_k,
+        top_p=top_p, prefill_len=prefill_len_for(shortest, prefill_chunk),
+        prefill_chunk=prefill_chunk,
+    )
+    return _detokenize_rows(out.cpu().tolist(), n, tokenizer)
 
 
 def _bucket(n: int, cap: int, floor: int = 16) -> int:
