@@ -6,9 +6,9 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in twelve phases (the
-tenth runs right after the fourth, on its export; the eleventh and the
-twelfth last):
+runs on the CPU). It prints one JSON line per check, in thirteen phases
+(the tenth runs right after the fourth, on its export; the eleventh, the
+twelfth and the thirteenth last):
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -90,22 +90,25 @@ twelfth last):
    and every rank's parameters and the export must be bit-identical. Then
    one fp32 step at full width (2 layers) over a ring of four processes
    compares with the single-process flash step;
-8. checkpoints: ``cli.train --preset base --attention_impl flash
-   --sequence_length 64 --grad_accum 2`` on the first 1,300 corpus pairs
+8. checkpoints: ``cli.train --preset base --num_layers 2 --attention_impl
+   flash --sequence_length 64 --grad_accum 2`` (Transformer-base's width,
+   its depth cut to 2 + 2 layers: the phase holds its runs to each other)
+   on the first 1,300 corpus pairs
    (20 steps an epoch), each run with its own ``--ckpt_path``: U trains 2
    epochs; R trains 1, then is relaunched for 2 on the same path and must
    log the restore and ``resuming at epoch 2/2 (step 20)`` and end with
    U's parameters bit for bit (else U runs again and R is held to the
-   U-to-U spread); every run's flash counters must equal 24 launches of
-   each kernel a step (12 per micro-step), 12 forward launches an eval
-   batch and 6 for the sample translation. P runs U's flags with
+   U-to-U spread); every run's flash counters must equal 8 launches of
+   each kernel a step (4 per micro-step), 4 forward launches an eval
+   batch and 2 for the sample translation. P runs U's flags with
    ``--async_checkpoint`` in a subprocess that gets SIGTERM once it logs
    the end of epoch 1: its log must name a step S in epoch 2 whose
    checkpoint verifies against its manifest, a relaunch must resume at
    epoch 2 and end at S + 20, and after one byte of the newest arrays.npz
    is flipped the next relaunch must fall back to S. Then the save stall
    (sync and async), the async write's time to durable, restore + verify
-   and the checkpoint's bytes at full width; ``cli.export --average_last 2
+   and the checkpoint's bytes at full width, 2 + 2 layers;
+   ``cli.export --average_last 2
    --quantize int8`` from R, every leaf within half a quantization step
    of the fp32 average and the file under 1/2.5 of fp32's;
    ``cli.translate`` (greedy, 8 sentences) and ``cli.evaluate --limit
@@ -190,7 +193,35 @@ twelfth last):
    mid-generation: the codes and counts must be the expected ones, aborted
    answers carry ``partial``, completed answers are byte-identical to
    phase 4's, the pool's free blocks are back at their start and kernels B
-   and A launched layers x decode forwards.
+   and A launched layers x decode forwards;
+13. the JAX server's default layouts, rolling-window caches and the
+   circuit breakers (``layouts_path``, ``windowed_path``,
+   ``breaker_path``): phase 4's export and 14 requests served under
+   ``--kv_layout dense`` and ``--kv_layout paged --decode_kernel xla``,
+   plain and at ``--speculate_k 4``: the two layouts' answers must be
+   byte-identical, kernels B and A must not launch, every step must go
+   through the run's one captured graph (replays counted); the answers
+   that differ from phase 4's and a profiled window per layout beside
+   phase 10's kernel step are reported; phase 10's shared-prefix requests
+   twice on the dense layout with ``--prefix_cache_mb 64`` must hit. Then
+   long4k with ``--attention_window 1024`` at 2 layers (its depth cut: the
+   batch-1 ``generate`` it is held to runs ~3,900 eager ticks a dtype)
+   trained for one epoch on 3,000 corpus lines (the flash kernels' band
+   path, counted) and served on the
+   dense layout's rolling 1024-row buffers at ``--prefill_chunk 512``:
+   phase 4's 14 requests and two of about 1,500 and 3,000 tokens; in fp32
+   the answers must equal batch-1 ``cli.generate``'s (bf16 differences
+   counted), and ``--kv_layout paged``, ``--speculate_k`` and
+   ``--prefix_cache_mb`` must each raise the JAX package's message. Last,
+   the breaker drill on ``--kv_layout paged --decode_kernel paged_flash
+   --speculate_k 4 --prefix_cache_mb 64 --breaker_threshold 2`` over a
+   pool that forces the prefix tier to spill, with a test clock and
+   ``BREAKER_SPEC`` armed: every request answered once, in order, with
+   JAX's codes; both breakers closed -> open -> half_open -> closed; a
+   spill, a host-restored hit, a corrupt block caught; then, both
+   closed, phase 4's greedy answers byte-identical; slots, pins and pool
+   blocks back at their start; kernels B and A launched layers x
+   forwards.
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -1477,13 +1508,18 @@ def main_path(tok, vocab_path):
     return cfg, export, reqs, launches, answers, rec
 
 
-def serve_argv(export, vocab_path, *extra) -> list[str]:
+PAGED_FLASH = ("--kv_layout", "paged", "--decode_kernel", "paged_flash")
+PAGED_FLASH_KW = dict(kv_layout="paged", decode_kernel="paged_flash")
+
+
+def serve_argv(export, vocab_path, *extra, layout=PAGED_FLASH) -> list[str]:
     """``cli.serve``'s flags on the main path (4 slots, 16-token blocks,
-    64-token prefill chunks), plus ``extra``."""
+    64-token prefill chunks, the paged pool on kernels B and A unless
+    ``layout`` names another), plus ``extra``."""
     return [
         "--export_path", export, "--tgt_vocab_file", vocab_path,
         "--serve_slots", "4", "--prefix_block", "16", "--prefill_chunk", "64",
-        "--device", "cuda", *extra,
+        *layout, "--device", "cuda", *extra,
     ]
 
 
@@ -1501,7 +1537,7 @@ def fp32_decode_check(cfg, export, tok, reqs, steps: int = 4):
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     sched = ContinuousScheduler(
         params, cfg32, tok, num_slots=4, prefill_chunk=64, kv_block=16,
-        device="cuda",
+        device="cuda", **PAGED_FLASH_KW,
     )
     for r in reqs[:4]:
         sched.submit({"prompt": r["prompt"], "max_new": 64})
@@ -1608,7 +1644,8 @@ def decode_profile(export, tok, reqs, steps: int = 20):
 
     params, cfg = load_export(export, device="cuda")
     sched = ContinuousScheduler(
-        params, cfg, tok, num_slots=4, prefill_chunk=64, kv_block=16, device="cuda"
+        params, cfg, tok, num_slots=4, prefill_chunk=64, kv_block=16, device="cuda",
+        **PAGED_FLASH_KW,
     )
     longest = sorted(reqs, key=lambda r: -len(r["prompt"]))[:4]
     for r in longest:
@@ -2255,9 +2292,9 @@ def source_sentences(n: int) -> list[str]:
 def translate_path(export, src_vocab, tgt_vocab, batch_size: int = 64, phase: str = "seq2seq"):
     """``cli.translate`` on the trained export, greedy and ``--beam 4``, on
     8 test sentences read from stdin, then ``cli.evaluate --limit 200 --beam 1``, with the
-    flash counters set to 0 just before and read just after (6 forward
-    launches, the encoder, per translate call). Greedy and beam are timed
-    on the host clock."""
+    flash counters set to 0 just before and read just after (a forward
+    launch per encoder layer per translate call and per evaluate batch).
+    Greedy and beam are timed on the host clock."""
     import torch
 
     from transformer_tpu_torch.cli import evaluate
@@ -2285,7 +2322,9 @@ def translate_path(export, src_vocab, tgt_vocab, batch_size: int = 64, phase: st
     launches = read_flash_counters()
     line = out.getvalue().strip()
     evaluate_batches = -(-200 // batch_size)
-    want = {"flash_fwd": 6 * (2 + evaluate_batches), "flash_dq": 0, "flash_dkdv": 0}
+    with open(os.path.join(export, "config.json")) as f:
+        layers = json.load(f)["num_layers"]
+    want = {"flash_fwd": layers * (2 + evaluate_batches), "flash_dq": 0, "flash_dkdv": 0}
     rec = {
         "phase": phase, "step": "translate", "sentences": 8,
         "greedy_wall_s": times[1], "beam4_wall_s": times[4], "evaluate_wall_s": eval_s,
@@ -2360,10 +2399,14 @@ def fp32_decode_tokens_check(trainer, src_tok, tgt_tok, layers: int = 2):
     return rec
 
 
+PRESET_LAYERS = 2  # the presets' depth, cut (big and tied have 6 + 6 at full depth)
+
+
 def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 1280):
     """The tiny, big and tied presets through ``cli.train --attention_impl
     flash`` for one epoch on the first ``pairs`` corpus pairs (and 64 test
-    pairs), BLEU off: losses finite, every flash kernel launched."""
+    pairs), BLEU off, at their widths and ``PRESET_LAYERS`` layers: losses
+    finite, every flash kernel launched."""
     import shutil as sh
 
     import torch
@@ -2375,7 +2418,8 @@ def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 1280):
     for preset in ("tiny", "big", "tied"):
         src_v, tgt_v = (joint_vocab, joint_vocab) if preset == "tied" else (src_vocab, tgt_vocab)
         export = os.path.join(BUILD_DIR, f"seq2seq_{preset}_export")
-        argv = ["--preset", preset, "--attention_impl", "flash", "--sequence_length",
+        argv = ["--preset", preset, "--num_layers", str(PRESET_LAYERS),
+                "--attention_impl", "flash", "--sequence_length",
                 str(S2S_LEN), "--epochs", "1", "--dataset_path", data, "--src_vocab_file", src_v,
                 "--tgt_vocab_file", tgt_v, "--export_path", export, "--eval_bleu", "false",
                 "--ckpt_path", fresh_dir("ckpt", preset), "--device", "cuda"]
@@ -2413,13 +2457,17 @@ def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 1280):
 # 1,300 corpus pairs leave 1,293 under the 64-token filter: 20 steps of 64
 # an epoch (the first 1,280 leave 19).
 CKPT_PAIRS = 1300
+CKPT_LAYERS = 2  # encoder and decoder layers of phases 8, 9 and 11's Transformer-base
 
 
 def ckpt_argv(data, src_vocab, tgt_vocab, root, name, epochs, *extra):
     """``cli.train --preset base --attention_impl flash --sequence_length
-    64 --grad_accum 2`` on the cut corpus, checkpointing to ``root/name``."""
+    64 --grad_accum 2`` on the cut corpus, checkpointing to ``root/name``;
+    its depth cut to 2 + 2 layers (the phase holds its runs to each other,
+    not to another phase's, and the cut keeps the script in its time)."""
     return [
-        "--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
+        "--preset", "base", "--num_layers", str(CKPT_LAYERS), "--attention_impl", "flash",
+        "--sequence_length", str(S2S_LEN),
         "--grad_accum", "2", "--epochs", str(epochs), "--dataset_path", data,
         "--src_vocab_file", src_vocab, "--tgt_vocab_file", tgt_vocab,
         "--ckpt_path", os.path.join(root, name), "--export_path", os.path.join(root, f"{name}_export"),
@@ -2430,9 +2478,10 @@ def ckpt_argv(data, src_vocab, tgt_vocab, root, name, epochs, *extra):
 def ckpt_fit(argv, phase_launches: dict):
     """One ``cli.train`` run in this process with the flash counters set to
     0 just before and read just after (added to ``phase_launches``), held
-    to 12 launches of each kernel a micro-step (24 a step at
-    ``--grad_accum 2``), 12 forward launches an eval batch and 6 for the
-    epilogue's sample translation. Returns (trainer, logs, record)."""
+    to a launch of each kernel a layer a micro-step (two at ``--grad_accum
+    2``), a forward launch a layer an eval batch and one a decoder layer
+    for the epilogue's sample translation. Returns (trainer, logs,
+    record)."""
     import statistics
 
     import torch
@@ -2711,9 +2760,10 @@ def checkpoints_path(src_vocab, tgt_vocab):
     emit(rec)
 
     # export: the average of R's two checkpoints, int8 and fp32
-    common = ["--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
-              "--src_vocab_file", src_vocab, "--tgt_vocab_file", tgt_vocab,
-              "--ckpt_path", r_mgr.directory, "--average_last", "2", "--device", "cuda"]
+    common = ["--preset", "base", "--num_layers", str(CKPT_LAYERS), "--attention_impl", "flash",
+              "--sequence_length", str(S2S_LEN), "--src_vocab_file", src_vocab,
+              "--tgt_vocab_file", tgt_vocab, "--ckpt_path", r_mgr.directory,
+              "--average_last", "2", "--device", "cuda"]
     q8, fp = os.path.join(root, "q8_export"), os.path.join(root, "fp32_export")
     t0 = time.perf_counter()
     steps = cli_export.main(common + ["--quantize", "int8", "--export_path", q8],
@@ -2789,9 +2839,11 @@ def checkpoints_path(src_vocab, tgt_vocab):
 def dispatch_argv(data, src_vocab, tgt_vocab, root, name, epochs, k, *extra):
     """``cli.train --preset base --attention_impl flash --sequence_length
     64 --steps_per_dispatch k`` on the cut corpus, checkpointing to
-    ``root/name``."""
+    ``root/name``; its depth cut to 2 + 2 layers as phase 8's (phase 11
+    holds its losses to E's, at the same depth)."""
     return [
-        "--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
+        "--preset", "base", "--num_layers", str(CKPT_LAYERS), "--attention_impl", "flash",
+        "--sequence_length", str(S2S_LEN),
         "--steps_per_dispatch", str(k), "--epochs", str(epochs), "--dataset_path", data,
         "--src_vocab_file", src_vocab, "--tgt_vocab_file", tgt_vocab,
         "--ckpt_path", os.path.join(root, name), "--export_path", os.path.join(root, f"{name}_export"),
@@ -2814,8 +2866,9 @@ def memory_mark() -> int:
 
 
 def dispatch_fit(argv, launches: dict, epoch_steps: int):
-    """``ckpt_fit`` (counters held to 12 launches of each kernel a step, 12
-    forward launches an eval batch, 6 for the sample translation) with the
+    """``ckpt_fit`` (counters held to a launch of each kernel a layer a
+    step, a forward launch a layer an eval batch, one a decoder layer for
+    the sample translation) with the
     run's captures, peak memory and real target tokens per second of its
     last epoch (``epoch_steps`` steps)."""
     import torch
@@ -3164,7 +3217,8 @@ def row_invariance(seed: int = SEED) -> dict:
 def serve_passes(argv, passes) -> tuple:
     """Build ``cli.serve``'s scheduler from ``argv`` and serve each list of
     ``passes`` through the CLI's loop in turn (one cache and pool across
-    them). Kernel B and A counters are set to 0 before and read after;
+    them). Kernel B and A counters are set to 0 before and read after (and
+    must read layers x steps on the paged_flash layout, 0 on the others);
     returns (scheduler, [(answers, stats of the pass, wall s)], launches)."""
     import queue
 
@@ -3193,9 +3247,12 @@ def serve_passes(argv, passes) -> tuple:
                      {k: sched.stats[k] - before[k] for k in sched.stats}, wall))
     launches = {"paged_attention": paged_flash_attention.launches,
                 "fused_ln_ffn": fused_ln_ffn.launches}
-    want = sched.cfg.num_layers * sched.stats["steps"]
+    # Kernels B and A run on the paged_flash layout only: layers x steps
+    # there, none on the dense and gathered-view layouts.
+    kernels = sched.decode_kernel == "paged_flash"
+    want = sched.cfg.num_layers * sched.stats["steps"] if kernels else 0
     for name, count in launches.items():
-        if count != want or count <= 0:
+        if count != want or (kernels and count <= 0):
             raise SystemExit(f"{name} launched {count} times in {argv}, expected {want}")
     return sched, runs, launches
 
@@ -3239,7 +3296,8 @@ def fp32_speculative_check(export, vocab_path, reqs):
     4`` (the n-gram drafter). Reported, not held: fp32 products are not
     row-invariant on the card, so a verify row may round otherwise than
     the decode row it replaces; the greedy answers that differ are
-    counted."""
+    counted. Returns the launches and both runs' answers (phase 13 holds
+    its fp32 runs to them)."""
     export32 = fp32_export(export)
     greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
     runs, launches = {}, {}
@@ -3264,7 +3322,7 @@ def fp32_speculative_check(export, vocab_path, reqs):
     emit(rec)
     if rec["errors"] or len(spec) != len(reqs) or not st["drafted"]:
         raise SystemExit(f"fp32 speculative serving failed: {rec}")
-    return launches
+    return launches, {"plain": plain, "ngram": spec}
 
 
 def prefix_requests(tok, n: int = 16) -> list[dict]:
@@ -3286,10 +3344,10 @@ def prefix_requests(tok, n: int = 16) -> list[dict]:
             for i, t in enumerate(tails)]
 
 
-def fp32_export(export) -> str:
+def fp32_export(export, name: str = "smoke_export_fp32") -> str:
     """The export with its config's dtype set to float32 (the same
-    parameters, linked): the model served in fp32."""
-    path = fresh_dir("smoke_export_fp32")
+    parameters, linked) in ``build/<name>``: the model served in fp32."""
+    path = fresh_dir(name)
     os.makedirs(path)
     with open(os.path.join(export, "config.json")) as f:
         config = json.load(f)
@@ -3399,7 +3457,8 @@ def graph_path(export, tok, reqs, steps: int = 20):
     out = {}
     for k in (0, SPEC_K):
         sched = ContinuousScheduler(params, cfg, tok, num_slots=4, prefill_chunk=64,
-                                    kv_block=16, speculate_k=k, device="cuda")
+                                    kv_block=16, speculate_k=k, device="cuda",
+                                    **PAGED_FLASH_KW)
         for r in longest:
             sched.submit({"prompt": r["prompt"], "max_new": 600})
         sched.admit()
@@ -3511,10 +3570,12 @@ def dist_kernel_checks():
 
 def dist_argv(data, src_vocab, tgt_vocab, root, name, impl, *mesh):
     """``cli.distributed_train --preset base --attention_impl impl
-    --sequence_length 64 --epochs 1 --consistency_check`` on the cut
-    corpus over ``mesh`` (``--dp 4`` or ``--sp 4``)."""
+    --sequence_length 64 --epochs 1 --consistency_check`` at phase 9's
+    depth (``CKPT_LAYERS`` + ``CKPT_LAYERS``) on the cut corpus over
+    ``mesh`` (``--dp 4`` or ``--sp 4``)."""
     return [
-        "--preset", "base", "--attention_impl", impl, "--sequence_length", str(S2S_LEN),
+        "--preset", "base", "--num_layers", str(CKPT_LAYERS), "--attention_impl", impl,
+        "--sequence_length", str(S2S_LEN),
         "--epochs", "1", "--consistency_check", *mesh, "--dataset_path", data,
         "--src_vocab_file", src_vocab, "--tgt_vocab_file", tgt_vocab,
         "--ckpt_path", os.path.join(root, name), "--export_path", os.path.join(root, f"{name}_export"),
@@ -3620,14 +3681,15 @@ def s2s_fp32_mesh_check(model_cfg, batch, layers: int = 2, procs: int = 4):
 
 
 def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
-    """Phase 11. Transformer-base (6 + 6 layers, d 512, 8 x 64, dff 2048,
-    bf16, batch 64, dropout 0.1) trained for an epoch of the 1,300 cut pairs
+    """Phase 11. Transformer-base (d 512, 8 x 64, dff 2048, bf16, batch 64,
+    dropout 0.1; its depth cut to L + L = 2 + 2 layers, as phase 9's)
+    trained for an epoch of the 1,300 cut pairs
     (20 steps) through ``cli.distributed_train --consistency_check`` by
     four processes on this card, under ``--dp 4`` (flash), ``--sp 4`` with
     ring attention and ``--sp 4`` with Ulysses: counters per rank (flash:
-    12 of each kernel a step, 12 forward an eval batch, 6 more on rank 0
-    for the epilogue's sample translation; ring: rank r folds 6 x 4
-    encoder hops and 6 x (r + 1) decoder hops a forward, and as many dQ
+    2L of each kernel a step, 2L forward an eval batch, L more on rank 0
+    for the epilogue's sample translation; ring: rank r folds L x 4
+    encoder hops and L x (r + 1) decoder hops a forward, and as many dQ
     and dK/dV a step), bit-identical ranks, and every step's loss within
     0.01 of phase 9's E (``cli.train``, the same flags and seed) in its
     first epoch. The dp 4 export is translated (greedy and beam 4, 8
@@ -3640,14 +3702,15 @@ def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
     root = fresh_dir("ckpt", "s2s_dist")
     launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0, "flash_ring_step": 0}
     e_losses = e_rec["losses"][: e_rec["steps_per_epoch"]]
-    hops = {r: 6 * 4 + 6 * (r + 1) for r in range(4)}  # encoder: every hop; decoder: causal
+    L = CKPT_LAYERS
+    hops = {r: L * 4 + L * (r + 1) for r in range(4)}  # encoder: every hop; decoder: causal
 
     def flash_want(rank, steps, evals):
-        return {"flash_fwd": 12 * (steps + evals) + (6 if rank == 0 else 0),
-                "flash_ring_step": 0, "flash_dq": 12 * steps, "flash_dkdv": 12 * steps}
+        return {"flash_fwd": 2 * L * (steps + evals) + (L if rank == 0 else 0),
+                "flash_ring_step": 0, "flash_dq": 2 * L * steps, "flash_dkdv": 2 * L * steps}
 
     def ring_want(rank, steps, evals):
-        return {"flash_fwd": 6 if rank == 0 else 0,
+        return {"flash_fwd": L if rank == 0 else 0,
                 "flash_ring_step": hops[rank] * (steps + evals),
                 "flash_dq": hops[rank] * steps, "flash_dkdv": hops[rank] * steps}
 
@@ -4052,6 +4115,444 @@ def admission_path(export, vocab_path, reqs, plain_answers):
 
 
 # --------------------------------------------------------------------------
+# phase 13: the JAX server's default layouts (dense; paged through gathered
+# views), rolling-window caches for a windowed model, and the circuit
+# breakers under injected faults
+
+LAYOUT_FLAGS = {
+    "dense": ("--kv_layout", "dense", "--decode_kernel", "xla"),
+    "paged_xla": ("--kv_layout", "paged", "--decode_kernel", "xla"),
+}
+WINDOW = 1024  # --attention_window of phase 13's windowed long4k
+WINDOW_CHUNK = 512  # its --prefill_chunk
+WINDOW_PAIRS = 3000  # corpus pairs its training reads (a few steps)
+WINDOW_LAYERS = 2  # its depth, cut: its batch-1 generate runs ~3,900 eager ticks a dtype
+
+
+def replayed(sched, steps: int) -> dict:
+    """How a run's steps reached the card: replays of a captured graph,
+    and the captures (each shape's first step runs eagerly, then is
+    captured). Every step goes through the graph: replays + captures ==
+    steps."""
+    graph = sched.forward
+    return {"steps": steps, "replays": graph.replays,
+            "captures": [{"shape": list(sig), "seconds": sec} for sig, sec in graph.captures],
+            "every_step_through_the_graph": graph.replays + len(graph.captures) == steps}
+
+
+def layout_profile(export, tok, reqs, layout, steps: int = 20) -> dict:
+    """``decode_profile``'s replayed window on another layout: four slots
+    on the longest prompts, 5 warm steps, then ``step_window``."""
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    params, cfg = load_export(export, device="cuda")
+    kw = dict(zip(layout[::2], layout[1::2]))
+    sched = ContinuousScheduler(
+        params, cfg, tok, num_slots=4, prefill_chunk=64, kv_block=16, device="cuda",
+        kv_layout=kw["--kv_layout"], decode_kernel=kw["--decode_kernel"],
+    )
+    for r in sorted(reqs, key=lambda r: -len(r["prompt"]))[:4]:
+        sched.submit({"prompt": r["prompt"], "max_new": 64})
+    sched.admit()
+    for _ in range(5):
+        sched.step()
+    return step_window(sched, steps)
+
+
+def layouts_path(export, vocab_path, tok, reqs, plain_answers, graph_rec, fp32_answers):
+    """Phase 4's export and 14 requests under ``--kv_layout dense`` and
+    ``--kv_layout paged --decode_kernel xla``, plain and at ``--speculate_k
+    4`` (n-gram). Gates: the two layouts' answers byte-identical (the
+    gathered views run the dense step at the dense shapes), kernels B and
+    A launched 0 times, every step a replay of the run's one captured graph.
+    Reported: answers that differ from phase 4's paged_flash answers (plain
+    attention rounds otherwise than kernel B in bf16), and per layout a
+    profiled window of four busy slots beside phase 10's replayed kernel
+    step. Gate, in fp32: the dense layout's greedy answers equal phase
+    10's fp32 answers on kernels B and A (``fp32_answers["plain"]``), the
+    path that shares no code with the dense step's attention and FFN.
+    Then phase 10's 16 shared-prefix requests on the dense layout,
+    once without the cache and twice with ``--prefix_cache_mb 64``: the
+    second pass must hit (the stacked host blocks restored into the
+    slot); reported, the prefill tokens each forwards and the answers
+    that differ from the run without the cache."""
+    runs, differing = {}, {}
+    for name, layout in LAYOUT_FLAGS.items():
+        for k in (0, SPEC_K):
+            extra = ("--speculate_k", str(k)) if k else ()
+            argv = serve_argv(export, vocab_path, *extra, layout=layout)
+            sched, [(answers, st, wall)], counts = serve_passes(argv, [reqs])
+            label = f"{name} k={k}"
+            runs[label] = {
+                "answers": answers, "errors": [a for a in answers if "error" in a],
+                "launches": counts, "wall_s": wall, **replayed(sched, st["steps"]),
+                "step_ms": st["decode_s"] / max(1, st["steps"]) * 1e3,
+                "prefill_ms": st["prefill_s"] * 1e3, "generated_tokens": st["generated_tokens"],
+                "tokens_per_s": st["generated_tokens"] / wall,
+                "drafted": st["drafted"], "accepted": st["accepted"],
+            }
+            differing[label] = [i for i, a in enumerate(answers) if a != plain_answers[i]]
+            del sched
+    same = {f"k={k}": runs[f"dense k={k}"]["answers"] == runs[f"paged_xla k={k}"]["answers"]
+            for k in (0, SPEC_K)}
+    greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
+    _, [(answers32, st32, wall32)], counts32 = serve_passes(
+        serve_argv(fp32_export(export), vocab_path, layout=LAYOUT_FLAGS["dense"]), [reqs])
+    dense32 = {
+        "wall_s": wall32, "steps": st32["steps"], "launches": counts32,
+        "errors": [a for a in answers32 if "error" in a], "answers": len(answers32),
+        "greedy_differing_from_fp32_paged_flash": [
+            i for i in greedy if answers32[i] != fp32_answers["plain"][i]],
+        "sampled_differing_from_fp32_paged_flash": [
+            i for i in range(len(reqs))
+            if i not in greedy and answers32[i] != fp32_answers["plain"][i]],
+    }
+    profiles = {name: layout_profile(export, tok, reqs, layout)
+                for name, layout in LAYOUT_FLAGS.items()}
+    profiles["paged_flash (phase 10)"] = graph_rec["decode"]["graph"]
+    preqs = prefix_requests(tok)
+    _, [(off_answers, off, _)], _ = serve_passes(
+        serve_argv(export, vocab_path, layout=LAYOUT_FLAGS["dense"]), [preqs])
+    argv = serve_argv(export, vocab_path, "--prefix_cache_mb", "64", layout=LAYOUT_FLAGS["dense"])
+    sched, passes, counts = serve_passes(argv, [preqs, preqs])
+    prefix = {
+        "argv": argv, "launches": counts, "prefill_tokens_without_cache": off["prefill_tokens"],
+        "answers_differing_from_without_cache": [
+            i for i, (a, b) in enumerate(zip(passes[1][0], off_answers)) if a != b],
+        "passes": [{"prefill_tokens": st["prefill_tokens"],
+                    "prefix_hit_tokens": st["prefix_hit_tokens"],
+                    "prefill_forwards": st["prefill_forwards"], "wall_s": wall,
+                    "errors": [a for a in answers if "error" in a]}
+                   for answers, st, wall in passes],
+        "answers_equal_across_passes": passes[0][0] == passes[1][0],
+        "cache_stats": dict(sched.prefix_cache.stats),
+    }
+    del sched
+    rec = {
+        "phase": "layouts", "step": "serve", "card": nvidia_smi_line(),
+        **{label: {k: v for k, v in r.items() if k != "answers"} for label, r in runs.items()},
+        "dense_equals_paged_xla": same, "differing_from_phase4_paged_flash": differing,
+        "fp32_dense": dense32, "profiles": profiles, "prefix_dense": prefix,
+        "timers": "step_ms: host clock per step of the run; profiles: step_window (wall: host "
+                  "clock, device: torch.profiler kernel time)",
+    }
+    emit(rec)
+    bad = [label for label, r in runs.items()
+           if r["errors"] or len(r["answers"]) != len(reqs) or not r["every_step_through_the_graph"]
+           or len(r["captures"]) != 1 or any(r["launches"].values())]
+    if bad or not all(same.values()):
+        raise SystemExit(f"layouts: {bad or 'dense and paged-xla answers differ'}: {rec}")
+    if (dense32["errors"] or dense32["answers"] != len(reqs)
+            or dense32["greedy_differing_from_fp32_paged_flash"]):
+        raise SystemExit(f"layouts: fp32 dense answers differ from fp32 paged_flash's: {dense32}")
+    if not prefix["passes"][1]["prefix_hit_tokens"] or any(p["errors"] for p in prefix["passes"]):
+        raise SystemExit(f"layouts: no prefix hit on the dense layout: {prefix}")
+    return rec
+
+
+def prompt_of(tok, tokens: int, start: int) -> str:
+    """A prompt of about ``tokens`` tokens: words of data/tgt-test.txt
+    from word ``start`` on."""
+    with open(os.path.join(ROOT, "data", "tgt-test.txt"), encoding="utf-8") as f:
+        words = f.read().split()
+    out = []
+    while len(tok.encode(" ".join(out))) < tokens - 1:
+        out.append(words[(start + len(out)) % len(words)])
+    return " ".join(out)
+
+
+def windowed_train(vocab_path):
+    """``cli.train --preset long4k --num_layers 2 --attention_window 1024``
+    for one epoch on the first ``WINDOW_PAIRS`` corpus lines: the flash
+    kernels on their band path at full width, counted (set to 0 just
+    before, read just after); the export."""
+    import torch
+
+    from transformer_tpu_torch.cli import train
+    from transformer_tpu_torch.kernels.flash_attention import flash_dkdv, flash_dq, flash_fwd
+
+    export = os.path.join(BUILD_DIR, "windowed_export")
+    argv = ["--preset", "long4k", "--num_layers", str(WINDOW_LAYERS),
+            "--attention_window", str(WINDOW), "--epochs", "1",
+            "--dataset_path", cut_corpus(WINDOW_PAIRS), "--tgt_vocab_file", vocab_path,
+            "--export_path", export, "--ckpt_path", fresh_dir("ckpt", "windowed"),
+            "--device", "cuda"]
+    flash_fwd.launches = flash_dq.launches = flash_dkdv.launches = 0
+    t0 = time.perf_counter()
+    trainer = train.main(argv, log_fn=lambda _: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_fwd.launches, "flash_dq": flash_dq.launches,
+                "flash_dkdv": flash_dkdv.launches}
+    cfg = trainer.model_cfg
+    steps, evals = len(trainer.step_seconds), trainer.eval_batches
+    want = {"flash_fwd": cfg.num_layers * ((2 if cfg.remat else 1) * steps + evals),
+            "flash_dq": cfg.num_layers * steps, "flash_dkdv": cfg.num_layers * steps}
+    rec = {"phase": "windowed", "step": "train", "card": nvidia_smi_line(), "argv": argv,
+           "window": cfg.attention_window,
+           "steps": steps, "eval_batches": evals, "wall_s": wall,
+           "step_ms": [t * 1e3 for t in trainer.step_seconds],
+           "train_loss": trainer.train_metrics.loss, "launches": launches,
+           "expected_launches": want}
+    emit(rec)
+    del trainer
+    torch.cuda.empty_cache()
+    if cfg.attention_window != WINDOW or steps < 1 or not math.isfinite(rec["train_loss"]):
+        raise SystemExit(f"windowed training failed: {rec}")
+    if launches != want or not all(launches.values()):
+        raise SystemExit(f"windowed training: flash launches {launches}, expected {want}")
+    return export, launches
+
+
+def windowed_path(vocab_path, tok, reqs):
+    """The windowed long4k export served on the dense layout (rolling
+    1024-row buffers) at ``--prefill_chunk 512``: phase 4's 14 requests
+    and two of about 1,500 and 3,000 tokens, so buffers wrap in prefill
+    and in decode. Gate, in fp32: the answers equal ``cli.generate``'s,
+    each request alone (batch 1, its max_new and sampling flags). bf16:
+    the answers that differ from batch-1 ``cli.generate`` are counted.
+    Gate: ``--kv_layout paged``, ``--speculate_k`` and
+    ``--prefix_cache_mb`` on this export each raise the JAX package's
+    message. ``cli.generate``'s answers are its call, ``decode.generate``
+    (prefill chunk 0), made here on params loaded and cast to the compute
+    dtype once (the CLI loads the export per call)."""
+    import torch
+
+    from transformer_tpu_torch.cli import serve
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.serve.scheduler import compute_params
+    from transformer_tpu_torch.train import decode
+
+    export, train_launches = windowed_train(vocab_path)
+    wreqs = [dict(r) for r in reqs] + [
+        {"prompt": prompt_of(tok, 1500, 2000), "max_new": 32},
+        {"prompt": prompt_of(tok, 3000, 5000), "max_new": 32},
+    ]
+    lengths = [len(tok.encode(r["prompt"])) + 1 for r in wreqs]
+    out = {}
+    for dtype, path in (("float32", fp32_export(export, "windowed_export_fp32")),
+                        ("bfloat16", export)):
+        argv = serve_argv(path, vocab_path, "--prefill_chunk", str(WINDOW_CHUNK),
+                          layout=LAYOUT_FLAGS["dense"])
+        sched, [(answers, st, wall)], counts = serve_passes(argv, [wreqs])
+        buf = sched.pools[0]["k"].shape[1]
+        run = replayed(sched, st["steps"])
+        del sched
+        params, cfg = load_export(path, device="cuda")
+        # Cast once to the compute dtype: the values every call's own cast
+        # gives (the scheduler does the same), without the casts' launches.
+        params = compute_params(params, cfg, torch.device("cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = [
+            decode.generate(params, cfg, tok, [r["prompt"]], max_new=r["max_new"],
+                            temperature=r.get("temperature", 0.0), top_k=r.get("top_k", 0),
+                            top_p=r.get("top_p", 1.0), seed=r.get("seed", 0))[0]
+            for r in wreqs
+        ]
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+        del params
+        out[dtype] = {
+            "buffer_rows": buf, "wall_s": wall, "generate_wall_s": gen_wall,
+            "steps": st["steps"], "prefill_tokens": st["prefill_tokens"],
+            "generated_tokens": st["generated_tokens"], "launches": counts, **run,
+            "errors": [a for a in answers if "error" in a],
+            "differing_from_batch1_generate": [
+                i for i, (a, g) in enumerate(zip(answers, single)) if a.get("continuation") != g],
+        }
+    refusals = {}
+    params, cfg = load_export(export, device="cuda")
+    loaded = (params, cfg, tok, torch.device("cuda"))
+    for label, extra in (("kv_layout paged", ("--kv_layout", "paged")),
+                         ("speculate_k", ("--speculate_k", str(SPEC_K))),
+                         ("prefix_cache_mb", ("--prefix_cache_mb", "64"))):
+        argv = serve_argv(export, vocab_path, layout=LAYOUT_FLAGS["dense"]) + list(extra)
+        try:
+            serve.build_scheduler(serve.build_parser().parse_args(argv), loaded)
+            refusals[label] = None
+        except ValueError as e:
+            refusals[label] = str(e)
+    expected = {
+        "kv_layout paged": "kv_layout='paged' cannot serve a rolling-window cache",
+        "speculate_k": "speculative decoding cannot roll back a rolling-window cache",
+        "prefix_cache_mb": "prefix cache cannot serve a rolling-window cache",
+    }
+    rec = {"phase": "windowed", "step": "serve", "card": nvidia_smi_line(), "window": WINDOW,
+           "prefill_chunk": WINDOW_CHUNK, "prompt_tokens": lengths, "requests": len(wreqs),
+           "train_launches": train_launches, **out, "refusals": refusals}
+    emit(rec)
+    fp32 = out["float32"]
+    if (fp32["errors"] or out["bfloat16"]["errors"] or fp32["differing_from_batch1_generate"]
+            or fp32["buffer_rows"] != WINDOW or not fp32["every_step_through_the_graph"]
+            or any(fp32["launches"].values())):
+        raise SystemExit(f"windowed serving failed: {rec}")
+    for label, prefix in expected.items():
+        if not (refusals[label] or "").startswith(prefix):
+            raise SystemExit(f"windowed: {label} not refused with the JAX message: {refusals}")
+    return train_launches
+
+
+# The drill's faults: the second admission fails (a retried transient);
+# the third and fourth prefix matches fail (the prefix breaker opens at
+# threshold 2); the first match that finds a host block finds it corrupt;
+# the first two proposals fail (the speculative breaker opens: pass B
+# sends the shortest prompts first, whose rows draft from the first step,
+# so no slot still feeding a prompt tail records a success between them);
+# the third proposal stalls.
+BREAKER_SPEC = ("serve.prefill:at=2;prefix.match:at=3+4;prefix.corrupt:at=1;"
+                "draft.propose:at=1+2;draft.slow:at=3,ms=5")
+BREAKER_COOLDOWN = 10.0  # test-clock seconds; the drive loop adds 1 a step
+BREAKER_CACHE_MB = 128  # the host tier's budget: in fp32, the blocks 64 MB hold in bf16
+
+
+def breaker_path(export, vocab_path, tok, reqs, fp32_answers):
+    """Phase 4's export served in fp32 (where a prefix hit never changes an
+    answer, as phase 10's fp32 prefix gate holds) on ``--kv_layout paged --decode_kernel paged_flash
+    --speculate_k 4 --prefix_cache_mb 128 --breaker_threshold 2`` over a
+    pool of just the blocks four live slots need, with a test clock that
+    the drive loop advances a second a step. Pass A (no faults) fills the
+    prefix cache's device tier past the pool, which spills it to the host
+    tier; passes B (shortest prompt first) and C (phase 4's order) replay
+    phase 4's requests under ``BREAKER_SPEC`` (hits on spilled blocks
+    restore from the host, one of them corrupt); then, the plane disarmed
+    and both breakers closed, pass D sends them with ``cache_prefix``
+    false and pass E with the cache, which serves E from what the fault
+    passes left in it. Gates: every request answered once, in order, each
+    failure with a JAX error code; each breaker went closed -> open ->
+    half_open -> closed; a spill, a host-restored hit and the faults
+    ``serve.prefill``, ``prefix.corrupt`` and ``draft.slow`` fired; pass
+    D's greedy answers byte-identical to phase 4's requests served in fp32
+    at k 4 (phase 10's fp32 n-gram run, ``fp32_answers["ngram"]``); pass E
+    hits the cache and its greedy answers equal pass D's; free slots, the
+    trie's pins and (with the device tier released) the pool's free blocks
+    back at their start; kernels B and A launched layers x forwards (set
+    to 0 before pass A, read after pass E). Reported: pass B and C's
+    greedy answers that differ from the reference."""
+    import torch
+
+    from transformer_tpu_torch.cli import serve
+    from transformer_tpu_torch.kernels.paged_flash import paged_flash_attention
+    from transformer_tpu_torch.ops.ffn import fused_ln_ffn
+    from transformer_tpu_torch.serve import resilience
+
+    lengths = [len(tok.encode(r["prompt"])) + 1 for r in reqs]
+    # The pool: the sink and the blocks the four largest requests need at
+    # once (prompt, max_new and a verify row's slack), nothing for the
+    # device tier, which must spill.
+    need = sorted(-(-(L + r["max_new"] + SPEC_K + 1) // 16) for L, r in zip(lengths, reqs))
+    pool = 1 + sum(need[-4:])
+    clock = [0.0]
+    argv = serve_argv(fp32_export(export), vocab_path, "--speculate_k", str(SPEC_K),
+                      "--prefix_cache_mb", str(BREAKER_CACHE_MB),
+                      "--kv_pool_blocks", str(pool), "--breaker_threshold", "2",
+                      "--breaker_cooldown", str(BREAKER_COOLDOWN))
+    sched = serve.build_scheduler(serve.build_parser().parse_args(argv),
+                                  breaker_clock=lambda: clock[0])
+    cache = sched.prefix_cache
+    free0, slots0 = sched.alloc.free_blocks, sorted(sched._free)
+    passes = {}
+
+    def run(label, index, **extra):
+        before = dict(sched.stats)
+        orders = [sched.submit(dict(reqs[i], **extra)) for i in index]
+        answers = []
+        t0 = time.perf_counter()
+        while sched.busy:
+            sched.admit()
+            sched.step()
+            clock[0] += 1.0
+            answers.extend(sched.drain_ready())
+        answers.extend(sched.drain_ready())
+        torch.cuda.synchronize()
+        passes[label] = {
+            "index": index, "orders": orders, "answers": answers,
+            "wall_s": time.perf_counter() - t0,
+            "stats": {k: sched.stats[k] - before[k] for k in sched.stats},
+            "breakers": {name: b.state for name, b in sched.breakers.items()},
+        }
+
+    paged_flash_attention.launches = 0
+    fused_ln_ffn.launches = 0
+    in_order = list(range(len(reqs)))
+    run("A", in_order)
+    plane = resilience.FaultPlane.parse(BREAKER_SPEC)
+    with resilience.active(plane):
+        run("B", sorted(in_order, key=lambda i: lengths[i]))
+        run("C", in_order)
+    run("D", in_order, cache_prefix=False)
+    run("E", in_order)
+    launches = {"paged_attention": paged_flash_attention.launches,
+                "fused_ln_ffn": fused_ln_ffn.launches}
+    want_launches = sched.cfg.num_layers * sched.stats["steps"]
+    greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
+    reference = fp32_answers["ngram"]
+    ladder = {}
+    for name in sched.breakers:
+        moves = [(old, new) for n, old, new in sched.breaker_log if n == name]
+        steps = [("closed", "open"), ("open", "half_open"), ("half_open", "closed")]
+        it = iter(moves)
+        ladder[name] = {"transitions": moves, "full_ladder": all(m in it for m in steps)}
+    sched.alloc.check_consistency()
+    pins = cache.outstanding_refs()
+    tier_holds_the_rest = sched.alloc.used_blocks == cache.stats["device_blocks"]
+    cache.release_device_blocks(1 << 30, spill=False)
+    in_order = all(
+        p["orders"] == list(range(p["orders"][0], p["orders"][0] + len(reqs)))
+        and len(p["answers"]) == len(reqs) for p in passes.values())
+    codes_ok = all(("continuation" in a) or (a.get("code") in resilience.ERROR_CODES)
+                   for p in passes.values() for a in p["answers"])
+    fired = sorted({point for point, _ in plane.fired_log})
+    spilled = sum(p["stats"]["kv_spilled_blocks"] for p in passes.values())
+    host_restored = sum(passes[x]["stats"]["host_restored_tokens"] for x in ("B", "C"))
+    rec = {
+        "phase": "breakers", "step": "drill", "card": nvidia_smi_line(), "argv": argv,
+        "fault_spec": BREAKER_SPEC, "pool_blocks": pool, "fired": plane.fired_log,
+        "passes": {label: {
+            "wall_s": p["wall_s"], "breakers_after": p["breakers"],
+            "codes": [a.get("code", "ok") for a in p["answers"]],
+            "greedy_differing_from_reference": [
+                i for j, i in enumerate(p["index"])
+                if i in greedy and p["answers"][j] != reference[i]],
+            "stats": {k: p["stats"][k] for k in (
+                "admitted", "steps", "retries", "prefix_hit_tokens", "prefix_alias_tokens",
+                "host_restored_tokens", "kv_spilled_blocks", "kv_preempted", "drafted",
+                "accepted", "spec_breaker_open_steps", "prefix_breaker_open_admissions")},
+        } for label, p in passes.items()},
+        "reference": "phase 4's requests in fp32 at k 4 (phase 10's fp32 n-gram run)",
+        "greedy_E_differing_from_D": [
+            i for i in greedy if passes["E"]["answers"][i] != passes["D"]["answers"][i]],
+        "breaker_ladder": ladder,
+        "breaker_stats": {name: dict(b.stats) for name, b in sched.breakers.items()},
+        "corrupt_blocks": cache.stats["corrupt_blocks"],
+        "answered_once_in_order": in_order, "codes_ok": codes_ok,
+        "free_slots": {"start": slots0, "end": sorted(sched._free)},
+        "free_blocks": {"start": free0, "end_tier_released": sched.alloc.free_blocks},
+        "outstanding_refs": pins, "tier_holds_every_used_block": tier_holds_the_rest,
+        "launches": launches, "expected_launches": want_launches,
+    }
+    emit(rec)
+    ok = (
+        in_order and codes_ok and all(r["full_ladder"] for r in ladder.values())
+        and all(state == "closed" for state in passes["C"]["breakers"].values())
+        and {"serve.prefill", "prefix.corrupt", "draft.slow"} <= set(fired)
+        and spilled > 0 and host_restored > 0
+        and not rec["passes"]["D"]["greedy_differing_from_reference"]
+        and not rec["greedy_E_differing_from_D"]
+        and passes["E"]["stats"]["prefix_hit_tokens"] > 0
+        and sorted(sched._free) == slots0 and pins == 0 and tier_holds_the_rest
+        and sched.alloc.free_blocks == free0
+    )
+    if not ok:
+        raise SystemExit(f"breakers: the drill failed: {rec}")
+    for name, count in launches.items():
+        if count <= 0 or count != want_launches:
+            raise SystemExit(f"{name} launched {count} times, expected {want_launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4069,6 +4570,15 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing ({e}); run from a checkout",
               file=sys.stderr)
         return 1
+
+    # Each phase's seconds on the host clock, emitted as it ends.
+    started = [time.perf_counter()] * 2
+
+    def lap(name):
+        now = time.perf_counter()
+        emit({"phase": "clock", "done": name, "seconds": now - started[1],
+              "elapsed_s": now - started[0]})
+        started[1] = now
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4097,6 +4607,7 @@ def main() -> int:
         },
     })
     sass_hgmma(list(reports))
+    lap("1-2 device, build")
 
     # 3. kernels against their plain versions, long4k shapes
     spread = [1, 100, 517, 1024, 1700, 2048, 3001, 4096]
@@ -4139,6 +4650,9 @@ def main() -> int:
         check_flash("bf16 causal padded", "bfloat16", 2, 1000, 1000, 8, 8, 64, True, None, True),
         check_flash("bf16 gqa h_kv=2 window=256", "bfloat16", 2, 2048, 2048, 8, 2, 64,
                     True, 256, False),
+        # phase 13's windowed training: long4k's shape, causal, band 1024
+        check_flash(f"bf16 causal band={WINDOW} (windowed)", "bfloat16", 4, 4095, 4095, 8, 8, 64,
+                    True, WINDOW, False),
         check_flash("bf16 cross s_q=512 s_k=1500 padded", "bfloat16", 2, 512, 1500, 8, 8, 64,
                     False, None, True),
         check_flash("fp32 d=32 causal", "float32", 2, 777, 777, 4, 4, 32, True, None, False),
@@ -4189,26 +4703,30 @@ def main() -> int:
     d_flash, d_ring = dist_kernel_checks()
     f_recs += d_flash
     r_recs += d_ring
+    lap("3 kernels")
 
     # 4. serving
     tok, vocab_path = vocab()
     cfg, export, reqs, launches, plain_answers, serve_rec = main_path(tok, vocab_path)
     fp32_decode_check(cfg, export, tok, reqs)
     decode_profile(export, tok, reqs)
+    lap("4 serving")
 
     # 10. speculative decoding, the prefix cache and the replayed decode
     # and verify forwards (on phase 4's export, while it is at hand)
     vb_recs, va_rec = verify_kernel_checks()
     row_invariance()
     spec_launches = speculative_path(export, vocab_path, reqs, plain_answers, serve_rec)
-    spec_launches.update(fp32_speculative_check(export, vocab_path, reqs))
+    fp32_launches, fp32_answers = fp32_speculative_check(export, vocab_path, reqs)
+    spec_launches.update(fp32_launches)
     prefix_launches = prefix_path(export, vocab_path, tok)
-    graph_path(export, tok, reqs)
+    graph_rec = graph_path(export, tok, reqs)
     serve_launches = {
         "serve": launches,
         **{f"speculative {k}": v for k, v in spec_launches.items()},
         **{f"prefix {k}": v for k, v in prefix_launches.items()},
     }
+    lap("10 speculation, prefix cache, graphs")
 
     # 5. training on one card
     trainer, train_ds, train_launches, single = train_path(vocab_path)
@@ -4216,6 +4734,7 @@ def main() -> int:
     train_profile(trainer, train_ds)
     del trainer
     torch.cuda.empty_cache()
+    lap("5 training")
 
     # 6. seq2seq: the flash kernels at its shapes, Transformer-base trained
     # for an epoch and scored, fp32 checks, translation, the other presets
@@ -4234,24 +4753,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, joint_vocab = vocab(side="joint")
     presets_path(src_vocab, vocab_path, joint_vocab)
+    lap("6 seq2seq")
 
     # 7. sequence-parallel training over four processes on this card
     sp = sp_train_path(vocab_path, single)
     fp32_ring_check(tok, train_ds)
     fresh_dir("ckpt")  # the earlier runs' checkpoints
+    lap("7 sequence parallel")
 
     # 8. checkpoints, resume, preemption and export on the base path
     ckpt_launches = checkpoints_path(src_vocab, vocab_path)
+    lap("8 checkpoints")
 
     # 9. steps_per_dispatch as CUDA-graph replays, buckets, dots
     disp_launches, e_rec = dispatch_path(src_vocab, vocab_path,
                                          os.path.join(BUILD_DIR, "train_export"))
+    lap("9 dispatch")
 
     # 11. seq2seq over four processes on this card: dp 4, ring sp 4,
     # Ulysses sp 4, long4k over Ulysses, and the fp32 step under each mesh
     dist_launches, _, _ = s2s_dist_path(src_vocab, vocab_path, e_rec, single)
     s2s_fp32_mesh_check(s2s_cfg, s2s_batch)
     fresh_dir("ckpt", "s2s_dist")
+    lap("11 seq2seq over processes")
 
     # 12. the translator behind cli.serve (phase 6's export, the grouped
     # path), cli.generate and speculative_generate over dense caches and
@@ -4259,6 +4783,17 @@ def main() -> int:
     grouped_launches = grouped_translate_path(s2s_export, src_vocab, vocab_path)
     generate_path(export, vocab_path, tok, reqs, plain_answers)
     serve_launches["admission"] = admission_path(export, vocab_path, reqs, plain_answers)
+    lap("12 grouped, generate, admission")
+
+    # 13. the JAX server's default layouts (dense; paged through gathered
+    # views), long4k with a 1024 window trained and served on rolling
+    # caches, and the circuit breakers under injected faults
+    layouts_path(export, vocab_path, tok, reqs, plain_answers, graph_rec, fp32_answers)
+    lap("13 layouts")
+    windowed_launches = windowed_path(vocab_path, tok, reqs)
+    lap("13 windowed")
+    serve_launches["breakers"] = breaker_path(export, vocab_path, tok, reqs, fp32_answers)
+    lap("13 breakers")
 
     def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
@@ -4295,7 +4830,8 @@ def main() -> int:
         by_path = {"train": train_launches[name], "sp_train": sp["launches"][name],
                    "seq2seq_train": s2s_launches[name], "translate": tr_launches[name],
                    "ckpt": ckpt_launches[name], "dispatch": disp_launches[name],
-                   "s2s_dist": dist_launches[name], "serve_grouped": grouped_launches[name]}
+                   "s2s_dist": dist_launches[name], "serve_grouped": grouped_launches[name],
+                   "windowed_train": windowed_launches[name]}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",

@@ -69,7 +69,7 @@ def _pair(lm, **kw):
     """(JAX scheduler, port scheduler) over the same weights."""
     return (JScheduler(lm["jparams"], lm["jcfg"], lm["jtok"], **kw),
             ContinuousScheduler(lm["params"], lm["cfg"], lm["tok"], kv_block=4, device="cpu",
-                                **kw))
+                                kv_layout="paged", decode_kernel="paged_flash", **kw))
 
 
 def _same(got, want):
@@ -204,7 +204,8 @@ def test_backpressure_bound(lm):
 def test_abort_after_a_prefix_hit_leaks_nothing(lm):
     cache = PrefixCache(lm["cfg"], block_tokens=4, budget_mb=4)
     s = ContinuousScheduler(lm["params"], lm["cfg"], lm["tok"], num_slots=2, kv_block=4,
-                            prefix_cache=cache, device="cpu")
+                            prefix_cache=cache, kv_layout="paged", decode_kernel="paged_flash",
+                            device="cpu")
     prompt = "ab cd ef gh ij kl mn ab cd ef gh ij"
     first = s.run([{"prompt": prompt, "max_new": 3}])
     donated = cache.stats["device_blocks"]
@@ -297,6 +298,7 @@ def test_cli_max_backlog_and_deadlines_match_jax(lm, tmp_path, capsys):
     out = io.StringIO()
     sched = serve.main(["--export_path", export, "--tgt_vocab_file", lm["vocab"],
                         "--serve_slots", "1", "--max_backlog", "3", "--prefix_block", "4",
+                        "--kv_layout", "paged", "--decode_kernel", "paged_flash",
                         "--device", "cpu"], stdin=io.StringIO("\n".join(lines) + "\n"),
                        stdout=out)
     got = [json.loads(line) for line in out.getvalue().splitlines()]

@@ -199,7 +199,8 @@ def test_sampled_generate_equals_the_scheduler(vocab, model, seed):
     _, tcfg, _, params = model
     kw = dict(temperature=0.9, top_k=20, top_p=0.95)
     sched = ContinuousScheduler(params, tcfg, vocab[1], num_slots=2, kv_block=4,
-                                prefill_chunk=4, device="cpu")
+                                prefill_chunk=4, kv_layout="paged",
+                                decode_kernel="paged_flash", device="cpu")
     answers = sched.run([{"prompt": p, "max_new": MAX_NEW, "seed": seed, **kw}
                          for p in PROMPTS])
     got = [generate(params, tcfg, vocab[1], [p], max_new=MAX_NEW, seed=seed, prefill_chunk=4,

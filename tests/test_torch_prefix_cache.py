@@ -98,7 +98,8 @@ def _serve(vocab, models, name, *, k=0, chunk=0, pc=None, passes=2, reqs=REQUEST
     _, tcfg, _, tparams = models[name]
     sched = ContinuousScheduler(
         tparams, tcfg, vocab[1], kv_block=4, device="cpu", speculate_k=k,
-        prefill_chunk=chunk, prefix_cache=pc, **{**COMMON, **kw},
+        prefill_chunk=chunk, prefix_cache=pc, kv_layout="paged", decode_kernel="paged_flash",
+        **{**COMMON, **kw},
     )
     got = []
     for _ in range(passes):
@@ -402,7 +403,7 @@ def test_cli_flags_serve_the_plain_answers(vocab, models, tmp_path):
     lines = "".join(json.dumps(r) + "\n" for r in REQUESTS * 2)
     base = ["--export_path", export, "--tgt_vocab_file", vocab[2], "--serve_slots", "2",
             "--serve_max_total", "48", "--prefix_block", "4", "--max_len", "4",
-            "--device", "cpu"]
+            "--kv_layout", "paged", "--decode_kernel", "paged_flash", "--device", "cpu"]
 
     def run(*extra):
         out = io.StringIO()

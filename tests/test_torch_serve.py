@@ -41,6 +41,7 @@ REQUESTS = [
     {"prompt": "st qr op mn kl", "max_new": 8},
 ]
 COMMON = dict(num_slots=2, max_total=48, default_max_new=4, prefill_chunk=3)
+PAGED = dict(kv_layout="paged", decode_kernel="paged_flash")
 
 
 def _cfg_kw(tok, **kw):
@@ -90,7 +91,8 @@ def test_tokenizers_agree(vocab):
 def test_scheduler_greedy_token_identical_to_jax(vocab, variant):
     jcfg, tcfg, jparams, tparams = _both(vocab, **variant)
     want = _jax_answers(vocab, jcfg, jparams)
-    sched = ContinuousScheduler(tparams, tcfg, vocab[1], kv_block=4, device="cpu", **COMMON)
+    sched = ContinuousScheduler(tparams, tcfg, vocab[1], kv_block=4, device="cpu", **PAGED,
+                                **COMMON)
     got = sched.run([dict(r) for r in REQUESTS])
     assert got == want
     assert any(r.get("continuation") for r in got), "vacuous: every answer empty"
@@ -111,7 +113,8 @@ def test_cli_serves_jax_export(vocab, tmp_path):
         [
             "--export_path", export, "--tgt_vocab_file", vocab[2],
             "--serve_slots", "2", "--serve_max_total", "48", "--prefill_chunk", "3",
-            "--prefix_block", "4", "--max_len", "4", "--device", "cpu",
+            "--prefix_block", "4", "--max_len", "4", "--kv_layout", "paged",
+            "--decode_kernel", "paged_flash", "--device", "cpu",
         ],
         stdin=io.StringIO("\n".join(lines) + "\n"), stdout=out,
     )
@@ -127,7 +130,8 @@ def test_cli_serves_jax_export(vocab, tmp_path):
 
 def test_admission_errors_answer_alone(vocab):
     _, tcfg, _, tparams = _both(vocab)
-    sched = ContinuousScheduler(tparams, tcfg, vocab[1], kv_block=4, device="cpu", **COMMON)
+    sched = ContinuousScheduler(tparams, tcfg, vocab[1], kv_block=4, device="cpu", **PAGED,
+                                **COMMON)
     got = sched.run([
         {"prompt": "ab " * 60},  # over the 48-token slot budget
         {"prompt": "ab cd", "max_new": 2},
@@ -144,7 +148,7 @@ def test_sampled_requests_are_seeded_and_independent_of_neighbours(vocab):
 
     def serve_with(neighbours):
         sched = ContinuousScheduler(
-            tparams, tcfg, vocab[1], kv_block=4, device="cpu", **COMMON
+            tparams, tcfg, vocab[1], kv_block=4, device="cpu", **PAGED, **COMMON
         )
         return sched.run([dict(req)] + neighbours)[0]
 
@@ -172,7 +176,7 @@ def test_admission_retries_on_an_exhausted_pool_match_jax(vocab, retries):
                         decode_kernel="paged_flash", admission_retries=retries, **RETRY)
     want = jsched.run([dict(r) for r in RETRY_REQUESTS])
     sched = ContinuousScheduler(tparams, tcfg, vocab[1], kv_block=4, device="cpu",
-                                admission_retries=retries, **RETRY)
+                                admission_retries=retries, **PAGED, **RETRY)
     got = sched.run([dict(r) for r in RETRY_REQUESTS])
     assert got == want
     assert sched.stats["retries"] == jsched.stats["retries"]
@@ -198,7 +202,8 @@ def test_cli_admission_retry_flags(vocab, tmp_path):
         sched = serve.main(
             ["--export_path", export, "--tgt_vocab_file", vocab[2], "--serve_slots", "2",
              "--serve_max_total", "48", "--prefix_block", "4", "--max_len", "4",
-             "--kv_pool_blocks", "4", "--admission_retries", retries, "--device", "cpu"],
+             "--kv_pool_blocks", "4", "--admission_retries", retries, "--kv_layout", "paged",
+             "--decode_kernel", "paged_flash", "--device", "cpu"],
             stdin=io.StringIO(lines), stdout=out,
         )
         answers[retries] = [json.loads(line) for line in out.getvalue().splitlines()]

@@ -207,7 +207,8 @@ def test_sampled_lm_request_runs_alone_as_the_scheduler_answers(lm, monkeypatch)
     # ignored there) in one group.
     assert sorted(sizes) == [(1, 0.9), (1, 0.9), (1, 0.9), (2, 0.0)]
     sched = ContinuousScheduler(lm["params"], lm["cfg"], lm["tok"][1], num_slots=2,
-                                kv_block=4, device="cpu")
+                                kv_block=4, kv_layout="paged", decode_kernel="paged_flash",
+                                device="cpu")
     want = sched.run([json.loads(line) for line in lines])
     assert got == want
     assert got[0] == got[1] and got[0] != got[2]

@@ -91,7 +91,8 @@ def _port(vocab, models, name, k, chunk=3, drafter=None, reqs=REQUESTS):
     _, tcfg, _, tparams = models[name]
     sched = ContinuousScheduler(
         tparams, tcfg, vocab[1], kv_block=4, device="cpu", speculate_k=k,
-        drafter=drafter, prefill_chunk=chunk, **COMMON,
+        drafter=drafter, prefill_chunk=chunk, kv_layout="paged", decode_kernel="paged_flash",
+        **COMMON,
     )
     return sched.run([dict(r) for r in reqs]), sched
 

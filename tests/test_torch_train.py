@@ -339,7 +339,8 @@ def test_cli_train_exports_a_servable_model(tmp_path):
     assert cfg.decoder_only and cfg.attention_impl == "flash" and cfg.max_position == 64
     out = io.StringIO()
     serve.main(["--export_path", export, "--tgt_vocab_file", vocab, "--serve_slots", "2",
-                "--prefix_block", "4", "--max_len", "4", "--device=cpu"],
+                "--prefix_block", "4", "--max_len", "4", "--kv_layout", "paged",
+                "--decode_kernel", "paged_flash", "--device=cpu"],
                stdin=io.StringIO('{"prompt": "the house"}\n'), stdout=out)
     answer = json.loads(out.getvalue())
     assert "continuation" in answer, answer

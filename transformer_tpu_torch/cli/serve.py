@@ -5,8 +5,10 @@
         [--serve_batch=8] [--beam=1] [--device=cuda]            # seq2seq
     python -m transformer_tpu_torch.cli.serve --export_path=model \
         --tgt_vocab_file=tgt.subwords --serve_slots=4 --prefix_block=16 \
-        --prefill_chunk=64 [--speculate_k=4 [--draft_checkpoint=draft]] \
-        [--prefix_cache_mb=256] [--max_backlog=0] [--device=cuda]  # LM
+        --prefill_chunk=64 [--kv_layout=dense|paged] \
+        [--decode_kernel=xla|paged_flash] [--speculate_k=4 \
+        [--draft_checkpoint=draft]] [--prefix_cache_mb=256] \
+        [--max_backlog=0] [--fault_spec=...] [--device=cuda]     # LM
 
 Each input line is a JSON object or a raw line:
 
@@ -28,14 +30,20 @@ stdin lines; each round drains up to ``--serve_batch`` lines already
 queued (it never waits for more), groups them by decode signature (kind,
 max_len and beam, or the sampling parameters) and runs ONE ``translate``
 or ``generate`` per group (``serve_lines``). Its errors carry no ``code``.
-LM exports at ``--serve_slots`` > 0 take the continuous path: the
-paged-KV scheduler on the CUDA kernels (``--kv_layout paged
---decode_kernel paged_flash`` in the JAX CLI), with speculative decoding
+LM exports at ``--serve_slots`` > 0 take the continuous path
+(``serve/scheduler.py``) on the layout ``--kv_layout`` and
+``--decode_kernel`` name, with the JAX CLI's defaults: the dense slot
+pool (``dense``, the only layout that serves an ``attention_window``
+model, through rolling caches), the paged pool through gathered views
+(``paged`` + ``xla``), or the paged pool read in place by the CUDA
+kernels (``paged`` + ``paged_flash``); with speculative decoding
 (``--speculate_k``, ``--draft_checkpoint``, ``--draft_ngram``), the
 prefix cache (``--prefix_cache_mb``, ``--prefix_verify_checksums``),
-admission retries (``--admission_retries``), deadlines and cancellation
-(``deadline_ms``; ``ContinuousScheduler.cancel``) and backpressure
-(``--max_backlog``); its errors carry a ``code``. Encoder-only
+admission retries (``--admission_retries``), circuit breakers
+(``--breaker_threshold``, ``--breaker_cooldown``), fault injection
+(``--fault_spec``, armed before the scheduler is built), deadlines and
+cancellation (``deadline_ms``; ``ContinuousScheduler.cancel``) and
+backpressure (``--max_backlog``); its errors carry a ``code``. Encoder-only
 (masked-LM) exports and ``fill`` requests are not served yet. Flags keep
 the JAX CLI's names; argparse replaces absl.
 """
@@ -97,9 +105,24 @@ def build_parser() -> argparse.ArgumentParser:
                     default=True,
                     help="re-verify each matched prefix-cache block's crc32 at "
                          "admission (a corrupt block is dropped, not restored)")
+    ap.add_argument("--kv_layout", choices=("dense", "paged"), default="dense",
+                    help="per-slot KV storage of the continuous path: 'dense' "
+                         "reserves max_total rows per slot (the reference layout, "
+                         "and the only one serving attention_window models through "
+                         "rolling caches); 'paged' backs every slot from ONE block "
+                         "pool through per-slot block tables (resident KV "
+                         "proportional to used tokens, prefix-cache hits restored "
+                         "by block-table aliasing), answers byte-identical")
     ap.add_argument("--kv_pool_blocks", type=int, default=0,
-                    help="KV pool size in blocks (0 = every slot can reach "
-                         "--serve_max_total)")
+                    help="paged KV pool size in blocks of --prefix_block tokens "
+                         "(0 = every slot can reach --serve_max_total)")
+    ap.add_argument("--decode_kernel", choices=("xla", "paged_flash"), default="xla",
+                    help="decode/verify forward of the paged layout: 'xla' gathers "
+                         "a dense view of each slot's KV through the block table "
+                         "(plain torch ops: the bitwise parity reference); "
+                         "'paged_flash' runs the CUDA kernels that read pool blocks "
+                         "in place plus the fused residual+LN+FFN kernel (requires "
+                         "--kv_layout paged and no attention_window)")
     ap.add_argument("--max_backlog", type=int, default=0,
                     help="bounded admission backpressure on the continuous path: "
                          "submissions beyond this many queued requests answer a "
@@ -108,6 +131,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="bounded retries (with jittered exponential backoff) when "
                          "the KV pool is exhausted at admission; exhausted retries "
                          "answer a structured 'transient' error")
+    ap.add_argument("--breaker_threshold", type=int, default=3,
+                    help="consecutive faults before a serving circuit breaker "
+                         "(speculative decoding / prefix cache) fails its subsystem "
+                         "open to the plain byte-parity path")
+    ap.add_argument("--breaker_cooldown", type=float, default=30.0,
+                    help="seconds an open circuit breaker waits before one "
+                         "half-open re-probe of its subsystem")
+    ap.add_argument("--fault_spec", default="",
+                    help="deterministic fault injection for chaos drills, e.g. "
+                         "'serve.prefill:p=0.25,seed=7;draft.slow:every=3,ms=40' "
+                         "(serve/resilience.py grammar); '' = disarmed")
     return ap
 
 
@@ -319,11 +353,12 @@ def serve_grouped(q: queue.Queue, params, cfg, src_tok, tgt_tok, args, out) -> l
     return batches
 
 
-def build_scheduler(args: argparse.Namespace, loaded=None):
+def build_scheduler(args: argparse.Namespace, loaded=None, breaker_clock=time.monotonic):
     """The continuous scheduler the flags describe: the export on the
     device, the drafter (``--speculate_k``) and the prefix cache
     (``--prefix_cache_mb``). ``loaded`` = (params, cfg, tokenizer, device)
-    when the caller has them already."""
+    when the caller has them already; ``breaker_clock`` is the breakers'
+    clock (a test clock makes their cooldowns deterministic)."""
     from transformer_tpu_torch.serve.prefix_cache import PrefixCache
     from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
     from transformer_tpu_torch.serve.speculative import drafter_from_flags
@@ -356,10 +391,15 @@ def build_scheduler(args: argparse.Namespace, loaded=None):
         speculate_k=args.speculate_k,
         drafter=drafter,
         prefix_cache=prefix_cache,
+        kv_layout=args.kv_layout,
         kv_block=args.prefix_block,
         kv_pool_blocks=args.kv_pool_blocks,
+        decode_kernel=args.decode_kernel,
         admission_retries=args.admission_retries,
         max_backlog=args.max_backlog,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_s=args.breaker_cooldown,
+        breaker_clock=breaker_clock,
         device=device,
     )
 
@@ -381,9 +421,21 @@ def _load(args: argparse.Namespace):
 def main(argv: list[str] | None = None, stdin=None, stdout=None):
     """Serve until stdin ends. Returns the scheduler on the continuous
     path (for its stats), else the grouped loop's batch records."""
+    args = build_parser().parse_args(argv)
+    if not args.fault_spec:
+        return _serve(args, stdin, stdout)
+    from transformer_tpu_torch.serve import resilience
+
+    # Armed before any subsystem starts (the points fire per (seed, point,
+    # call index), so a drill replays exactly), disarmed when serving ends.
+    with resilience.active(resilience.FaultPlane.parse(args.fault_spec)):
+        print(f"fault plane armed: {args.fault_spec}", file=sys.stderr)
+        return _serve(args, stdin, stdout)
+
+
+def _serve(args: argparse.Namespace, stdin, stdout):
     from transformer_tpu_torch.data.tokenizer import SubwordTokenizer
 
-    args = build_parser().parse_args(argv)
     params, cfg, tgt_tok, device = _load(args)
     continuous = cfg.decoder_only and args.serve_slots > 0
     sched = build_scheduler(args, (params, cfg, tgt_tok, device)) if continuous else None

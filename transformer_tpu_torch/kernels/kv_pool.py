@@ -355,30 +355,39 @@ def block_row_ids(table: torch.Tensor, index: torch.Tensor, s_q: int, block_toke
 # so a block written back is bit-identical to the one read.
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's rows in the host block format (a copy)."""
     t = t.detach().to("cpu", copy=True)  # a copy on the CPU too: never a view of the pool
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.numpy()
 
 
-def _to_pool(a: np.ndarray, buf: torch.Tensor) -> torch.Tensor:
+def host_to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host-format array back to a tensor of ``dtype`` on ``device``:
+    bf16 from its int16 bit patterns, every other type as stored (bits
+    unchanged; no conversion)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
-    if buf.dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
         t = t.view(torch.bfloat16)
-    if t.dtype != buf.dtype or tuple(t.shape[1:]) != tuple(buf.shape[1:]):
+    if t.dtype != dtype:
+        raise ValueError(f"host rows of {t.dtype} do not fit a {dtype} buffer")
+    return t.to(device)
+
+
+def _to_pool(a: np.ndarray, buf: torch.Tensor) -> torch.Tensor:
+    if tuple(a.shape[1:]) != tuple(buf.shape[1:]):
         raise ValueError(
-            f"host block {tuple(t.shape)} {t.dtype} does not fit pool blocks "
-            f"{tuple(buf.shape[1:])} {buf.dtype}"
+            f"host block {tuple(a.shape)} does not fit pool blocks {tuple(buf.shape[1:])}"
         )
-    return t.to(buf.device)
+    return host_to_tensor(a, buf.dtype, buf.device)
 
 
 def pool_read_block(pools: list[dict], bid: int) -> list[dict[str, np.ndarray]]:
     """Pool block ``bid`` of every layer in the host block format (a spill
     to the prefix cache's host tier)."""
     return [
-        {key: _to_host(pool[key][bid : bid + 1]) for key in kv_buffer_keys(pool)}
+        {key: to_host(pool[key][bid : bid + 1]) for key in kv_buffer_keys(pool)}
         for pool in pools
     ]
 

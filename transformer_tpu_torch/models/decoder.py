@@ -6,7 +6,8 @@ self-attention over a per-layer cache, or cache-free under the structural
 causal flag and the padding self-mask; for seq2seq models the
 cross-attention sublayer over the encoder output; the FFN), the stack
 with dropout and per-layer remat, the chunked single-pass prefill, the
-decode caches and the precomputed cross-attention K/V. Cross-attention
+decode caches (a rolling O(window) buffer for ``attention_window``
+models) and the precomputed cross-attention K/V. Cross-attention
 always takes the plain path, whatever ``cfg.attention_impl`` says, as in
 the JAX twin.
 """
@@ -69,6 +70,7 @@ def decoder_layer_apply(
         if cache is not None:
             out, box[0] = cached_self_attention(
                 params["self_mha"], h, cache, rope=cfg.position_scheme == "rope",
+                window=cfg.attention_window,
             )
             return out
         return mha_apply(
@@ -119,10 +121,6 @@ def decoder_apply(
     that ``dropout_slice`` places the ids in (a data × sequence split).
     With ``cfg.remat`` the cache-free layers run under ``remat_layer``
     whenever gradients are recorded."""
-    if caches is not None and cfg.attention_window:
-        raise NotImplementedError(
-            "sliding-window attention over a cache (rolling caches) is a later slice of the port"
-        )
     (g_embed,) = _generators(_subkey(key, 0), 1, cfg, deterministic, ids.device)
     x = embed_prologue(
         params["embedding"], ids, cfg, position_offset, g_embed, deterministic, dropout_slice
@@ -166,12 +164,16 @@ def decoder_prefill(
     cross_kvs: list[CrossKV] | None = None,
 ) -> tuple[torch.Tensor, list[dict[str, Any]]]:
     """Teacher-forced prefill of (B, n) ``tokens`` at positions ``start ..
-    start + n - 1``, in ``chunk``-sized forwards (0 = one forward). Returns
-    the (B, d_model) hidden state of the last position and the caches."""
+    start + n - 1``, in ``chunk``-sized forwards (0 = one forward). A
+    rolling cache caps the chunk at its buffer length (the attention
+    layer's invariant). Returns the (B, d_model) hidden state of the last
+    position and the caches."""
     n = tokens.shape[1]
     if n < 1:
         raise ValueError(f"prefill needs at least one token, got {n}")
     chunk = chunk if chunk > 0 else n
+    if caches and "rolling" in caches[0]:
+        chunk = min(chunk, caches[0]["k"].shape[1])
     x_last = None
     for off in range(0, n, chunk):
         width = min(chunk, n - off)
@@ -187,15 +189,12 @@ def decoder_prefill(
 def init_decoder_caches(
     cfg: ModelConfig, batch_size: int, max_len: int, device="cpu"
 ) -> list[dict[str, Any]]:
-    """One full-length self-attention KV cache per decoder layer (int8 with
-    ``cfg.kv_cache_int8``), starting at position 0."""
-    if cfg.attention_window:
-        raise NotImplementedError(
-            "sliding-window attention over a cache (rolling caches) is a later slice of the port"
-        )
+    """One self-attention KV cache per decoder layer (int8 with
+    ``cfg.kv_cache_int8``; a rolling O(window) buffer with
+    ``cfg.attention_window``), starting at position 0."""
     return [
         init_cache(batch_size, max_len, cfg.kv_heads, cfg.head_dim, cfg.compute_dtype,
-                   quantize=cfg.kv_cache_int8, device=device)
+                   quantize=cfg.kv_cache_int8, device=device, window=cfg.attention_window)
         for _ in range(cfg.num_layers)
     ]
 

@@ -1,0 +1,110 @@
+"""Circuit breaker: the graceful-degradation primitive.
+
+Port of ``transformer_tpu/obs/breaker.py`` (standard library only). The
+serving-facing surface re-exports it from
+``transformer_tpu_torch.serve.resilience``, which owns the rest of the
+fault-tolerance story (fault plane, error taxonomy).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+#: Gauge encoding of breaker state.
+BREAKER_STATE_VALUE = {"closed": 0.0, "half_open": 1.0, "open": 2.0}
+
+
+class CircuitBreaker:
+    """Fail a flaky subsystem OPEN to its fallback path, then re-probe.
+
+    closed --K consecutive failures--> open --cooldown--> half_open
+    half_open --success--> closed;  half_open --failure--> open (again)
+
+    ``allow()`` is the gate callers consult before using the protected
+    subsystem: True while closed (and for the half-open probe once the
+    cooldown elapsed), False while open. ``record_failure()`` returns True
+    exactly when this call OPENED the breaker (callers warn once per
+    outage, not once per fault). ``clock`` is injectable so tests drive
+    cooldowns deterministically; transitions reach ``on_transition(name,
+    old, new)`` OUTSIDE the internal lock.
+
+    Thread-safe.
+    """
+
+    def __init__(
+        self,
+        name: str,
+        threshold: int = 3,
+        cooldown_s: float = 5.0,
+        clock=time.monotonic,
+        on_transition=None,
+    ):
+        if threshold < 1:
+            raise ValueError(f"threshold must be >= 1, got {threshold}")
+        self.name = name
+        self.threshold = threshold
+        self.cooldown_s = cooldown_s
+        self._clock = clock
+        self._on_transition = on_transition
+        self._lock = threading.Lock()
+        self._state = "closed"
+        self._failures = 0       # consecutive, since the last success
+        self._opened_at = 0.0
+        self.stats = {"failures": 0, "opens": 0, "closes": 0}
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def _transition(self, new: str) -> tuple[str, str]:
+        old, self._state = self._state, new
+        return old, new
+
+    def _notify(self, moved: tuple[str, str] | None) -> None:
+        if moved and self._on_transition is not None:
+            self._on_transition(self.name, *moved)
+
+    def allow(self) -> bool:
+        moved = None
+        with self._lock:
+            if self._state == "open":
+                if self._clock() - self._opened_at < self.cooldown_s:
+                    return False
+                moved = self._transition("half_open")
+        self._notify(moved)
+        return True
+
+    def record_failure(self) -> bool:
+        """Count one fault; True iff this call tripped closed/half_open ->
+        open (the "warn once per outage" edge)."""
+        moved = None
+        with self._lock:
+            self.stats["failures"] += 1
+            self._failures += 1
+            if self._state == "half_open" or (
+                self._state == "closed" and self._failures >= self.threshold
+            ):
+                moved = self._transition("open")
+                self._opened_at = self._clock()
+                self.stats["opens"] += 1
+        self._notify(moved)
+        return moved is not None
+
+    def record_success(self) -> None:
+        if self._state == "closed" and self._failures == 0:
+            return  # steady-state fast path: no lock on the healthy road
+        moved = None
+        with self._lock:
+            if self._state == "open":
+                # An OPEN breaker recovers only through its half-open
+                # probe: a success from work admitted before the trip
+                # (another slot in the same step) must not bypass the
+                # cooldown, or an intermittent fault flaps it every step.
+                return
+            self._failures = 0
+            if self._state == "half_open":
+                moved = self._transition("closed")
+                self.stats["closes"] += 1
+        self._notify(moved)

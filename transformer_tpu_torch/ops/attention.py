@@ -3,13 +3,17 @@ and the cached self-attention of prefill.
 
 Port of the parts of ``transformer_tpu/ops/attention.py`` the serving,
 training and seq2seq slices run: the cache-free ``mha_apply`` (with
-``precomputed_kv`` for cross-attention), ``project_kv``, the full-length
-dense decode cache and its cached self-attention, and the cache's block
-slice, insert and rollback (the speculative drafter's cache). Layouts are the JAX package's: activations
-(B, S, H, D); q/k/v kernels (d_model, H, D); the out kernel
-(H, D, d_model). KV caches and pools are dicts with the JAX key names
-(``k``/``v``, plus fp32 ``k_scale``/``v_scale`` for int8 storage, plus
-``index`` for a cache).
+``precomputed_kv`` for cross-attention), ``project_kv``, the decode
+caches (full-length, or a rolling O(window) buffer for
+``attention_window`` models) and their cached self-attention, and the
+cache's block slice, insert and rollback (the prefix cache and the
+speculative drafter), which refuse a rolling cache. Layouts are the JAX
+package's: activations (B, S, H, D); q/k/v kernels (d_model, H, D); the
+out kernel (H, D, d_model). KV caches and pools are dicts with the JAX
+key names (``k``/``v``, plus fp32 ``k_scale``/``v_scale`` for int8
+storage, plus ``index`` for a cache and ``rolling`` for a rolling one).
+A cache's ``index`` is an int, or a (B,) tensor of per-row positions (the
+slot pool's batched step, every slot at its own position).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from transformer_tpu_torch.ops.masks import (
     attention_bias,
     make_cache_prefix_mask,
     make_causal_mask,
+    make_rolling_prefill_mask,
 )
 from transformer_tpu_torch.ops.nn import Params
 
@@ -190,18 +195,46 @@ def kv_buffer_keys(cache: dict[str, Any]) -> tuple[str, ...]:
     return ("k", "v")
 
 
-def _store_kv(cache, k, v, index: int):
-    """Write new (B, S_q, H, D) k/v into ``cache`` rows [index, index+S_q),
-    in place (int8 caches quantize into codes + scales)."""
+def _store_kv(cache, k, v, rows):
+    """Write new (B, S_q, H, D) k/v into ``cache`` in place, int8 caches
+    quantizing into codes + scales: at buffer rows ``[rows, rows + S_q)``
+    of every batch row when ``rows`` is an int, else at the (B|1, S_q)
+    tensor ``rows`` of buffer rows per batch row (one batched scatter).
+    Returns k/v as a later read of the cache sees them (the int8 round
+    trip; the inputs otherwise)."""
     s_q = k.shape[1]
     if "k_scale" in cache:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
         vals = {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
+        dtype = k.dtype
+        seen = (kq.to(dtype) * ks.to(dtype), vq.to(dtype) * vs.to(dtype))
     else:
         vals = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+        seen = (k, v)
+    if not isinstance(rows, int):
+        rows = rows.long().expand(k.shape[0], s_q)
+        batch = torch.arange(k.shape[0], device=k.device)[:, None].expand_as(rows)
     for key in kv_buffer_keys(cache):
-        cache[key][:, index : index + s_q] = vals[key]
+        if isinstance(rows, int):
+            cache[key][:, rows : rows + s_q] = vals[key]
+        else:
+            cache[key][batch, rows] = vals[key]
+    return seen
+
+
+def _require_positional_buffers(cache: dict[str, Any], op: str) -> None:
+    """Refuse a rolling-window cache in an operation that addresses buffer
+    rows by absolute position: a rolling buffer stores position ``p`` at
+    slot ``p % buf_len`` and evicts on wrap, so row ranges are neither
+    stable nor complete (the JAX package's policy and message)."""
+    if "rolling" in cache:
+        raise ValueError(
+            f"{op} cannot address a rolling-window cache by position: the "
+            "window buffer evicts rows on wrap (slot p % buf_len), so "
+            "absolute-position rows are neither stable nor complete — serve "
+            "this config without attention_window"
+        )
 
 
 def slice_kv_blocks(cache: dict[str, Any], start: int, n: int) -> dict[str, torch.Tensor]:
@@ -209,6 +242,7 @@ def slice_kv_blocks(cache: dict[str, Any], start: int, n: int) -> dict[str, torc
     storage layout (bf16 rows as bf16, int8 codes with their fp32 scales,
     GQA at the kv-head count): the export half of a block round trip, so
     ``insert_kv_blocks`` writes back exactly the bits the cache held."""
+    _require_positional_buffers(cache, "slice_kv_blocks")
     return {key: cache[key][:, start : start + n].clone() for key in kv_buffer_keys(cache)}
 
 
@@ -216,6 +250,7 @@ def insert_kv_blocks(cache: dict[str, Any], blocks: dict[str, torch.Tensor], sta
     """Write ``slice_kv_blocks`` rows back at buffer rows ``[start, start +
     n)``, in place and without conversion; ``index`` is left to the
     caller. Returns ``cache``."""
+    _require_positional_buffers(cache, "insert_kv_blocks")
     for key in kv_buffer_keys(cache):
         rows = blocks[key]
         cache[key][:, start : start + rows.shape[1]] = rows
@@ -226,7 +261,10 @@ def rollback_cache(cache: dict[str, Any], index: int) -> dict[str, Any]:
     """Rollback by index: the buffers stay, ``index`` moves back. Rows at
     or past it are hidden by the offset causal mask of every later read,
     and the next write at them overwrites them (int8 rows re-quantized
-    with their scales)."""
+    with their scales). A rolling cache is refused: a speculative write at
+    ``p`` evicted slot ``p % buf_len``, which may still be in the window
+    after the rollback."""
+    _require_positional_buffers(cache, "rollback_cache")
     return dict(cache, index=int(index))
 
 
@@ -238,15 +276,33 @@ def init_cache(
     dtype=torch.bfloat16,
     quantize: bool = False,
     device="cpu",
+    window: int = 0,
 ) -> dict[str, Any]:
-    """A fresh full-length decode cache for ``cached_self_attention``:
-    (B, max_len, H, D) k/v in ``dtype``, or int8 codes with one fp32 scale
-    per (position, head) row, and ``index`` 0. Rolling (windowed) caches
-    are not ported."""
-    return dict(
-        init_block_pool(batch_size, max_len, num_heads, head_dim, dtype, quantize, device),
+    """A fresh decode cache for ``cached_self_attention``: (B, buf_len, H,
+    D) k/v in ``dtype``, or int8 codes with one fp32 scale per (position,
+    head) row, and ``index`` 0. ``buf_len`` is ``max_len``, or with
+    ``window > 0`` (``attention_window``) a ROLLING buffer of
+    ``min(window, max_len)`` slots, marked by its ``rolling`` key (the
+    requested window): each write goes to slot ``index % buf_len``, so a
+    windowed decode reads O(window) rows at any context length."""
+    buf_len = min(window, max_len) if window else max_len
+    cache = dict(
+        init_block_pool(batch_size, buf_len, num_heads, head_dim, dtype, quantize, device),
         index=0,
     )
+    if window:
+        cache["rolling"] = int(window)
+    return cache
+
+
+def _read_kv(cache: dict[str, Any], dtype, copy: bool = False):
+    """The whole buffer as attention reads it: dequantized int8, else in
+    ``dtype`` (``copy``: never the buffer itself, which the caller is
+    about to write)."""
+    if "k_scale" in cache:
+        return (cache["k"].to(dtype) * cache["k_scale"].to(dtype),
+                cache["v"].to(dtype) * cache["v_scale"].to(dtype))
+    return cache["k"].to(dtype, copy=copy), cache["v"].to(dtype, copy=copy)
 
 
 def cached_self_attention(
@@ -255,36 +311,77 @@ def cached_self_attention(
     cache: dict[str, Any],
     *,
     rope: bool = False,
+    window: int = 0,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
-    """``mha_apply`` on its full-length-cache path: project (B, S_q, d)
-    inputs, write the new K/V at ``cache["index"]`` (an int), attend over the
-    whole buffer under the offset causal prefix mask. The buffers are
-    updated in place; returns (output, cache with the index advanced)."""
+    """``mha_apply`` on its cache path: project (B, S_q, d) inputs, write
+    the new K/V at ``cache["index"]`` (an int, or (B,) per-row positions)
+    and attend. The buffers are updated in place; returns (output, cache
+    with the index advanced).
+
+    Full-length cache: the write lands at rows ``index ..``, attention runs
+    over the whole buffer under the offset causal prefix mask (banded by
+    ``window`` when one is given). Rolling cache (``init_cache(window=)``):
+    one token writes slot ``index % buf_len`` and attends every slot that
+    holds a real position (all of them once the index wraps); a chunk of
+    S_q > 1 (prefill, at most ``buf_len`` wide) first attends the
+    buffer's pre-chunk slots plus its own keys under
+    ``make_rolling_prefill_mask``, then writes, so no chunk token evicts a
+    position an earlier chunk token still sees."""
     dtype = x.dtype
     q = _project(params["query"], x, dtype)
     k = _project(params["key"], x, dtype)
     v = _project(params["value"], x, dtype)
-    idx = int(cache["index"])
+    idx = cache["index"]
+    per_row = isinstance(idx, torch.Tensor)
+    if not per_row:
+        idx = int(idx)
     s_q = x.shape[1]
+    steps = torch.arange(s_q, device=x.device)
+    positions = idx.long()[:, None] + steps[None, :] if per_row else idx + steps
     if rope:
         from transformer_tpu_torch.ops.positional import apply_rope
 
-        positions = idx + torch.arange(s_q, device=x.device)
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
     buf_len = cache["k"].shape[1]
-    if idx + s_q > buf_len:
-        raise ValueError(
-            f"cache write [{idx}, {idx + s_q}) exceeds the buffer ({buf_len})"
-        )
-    _store_kv(cache, k, v, idx)
-    if "k_scale" in cache:
-        k = cache["k"].to(dtype) * cache["k_scale"].to(dtype)
-        v = cache["v"].to(dtype) * cache["v_scale"].to(dtype)
+    rolling = "rolling" in cache
+    if rolling and s_q > 1:
+        if s_q > buf_len:
+            raise ValueError(
+                f"rolling-window prefill chunks must fit the window "
+                f"buffer: got s_q={s_q} > buf_len={buf_len} (split the "
+                "prefill into chunks of at most the window size)"
+            )
+        k_old, v_old = _read_kv(cache, dtype, copy=True)
+        mask = make_rolling_prefill_mask(idx, s_q, buf_len, device=x.device)
+        rows = (positions if per_row else positions[None]) % buf_len
+        k_new, v_new = _store_kv(cache, k, v, rows)
+        k = torch.cat([k_old, k_new], dim=1)
+        v = torch.cat([v_old, v_new], dim=1)
     else:
-        k = cache["k"].to(dtype)
-        v = cache["v"].to(dtype)
-    mask = make_cache_prefix_mask(idx, s_q, buf_len, device=x.device)
+        if rolling:
+            rows = (positions if per_row else positions[None]) % buf_len
+        elif per_row:
+            # Written in bounds by construction: the slot pool keeps
+            # speculate_k rows of slack past the admission budget.
+            rows = positions
+        else:
+            rows = idx
+            if rows + s_q > buf_len:
+                raise ValueError(
+                    f"cache write [{rows}, {rows + s_q}) exceeds the buffer ({buf_len})"
+                )
+        _store_kv(cache, k, v, rows)
+        k, v = _read_kv(cache, dtype)
+        if rolling:
+            # Slots holding a real position: those <= index until the
+            # index wraps, then all (the newest write evicted the only
+            # position that left the band).
+            slots = torch.arange(buf_len, device=x.device)[None, None, None, :]
+            at = idx.long().reshape(-1, 1, 1, 1) if per_row else idx
+            mask = (slots <= at) | (at >= buf_len)
+        else:
+            mask = make_cache_prefix_mask(idx, s_q, buf_len, window, device=x.device)
     out = dot_product_attention(q, k, v, mask)
     return out_project(params["out"], out, dtype), dict(cache, index=idx + s_q)
 

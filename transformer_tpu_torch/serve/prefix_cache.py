@@ -16,6 +16,9 @@ dicts) kept as the JAX package's:
   interior nodes are never evicted.
 - **Integrity.** Every host block carries a crc32, verified at match; a
   corrupt block drops its subtree and raises ``PrefixCorruptionError``.
+- **Dense restore.** ``PrefixHit.stacked`` concatenates a hit's host
+  blocks into one power-of-two padded run, which the dense slot pool's
+  ``_slot_restore`` writes into a slot in one copy.
 - **Device tier.** With the scheduler's ``KVPool`` attached, a node may
   hold a refcounted pool block id instead of (or beside) host bytes: a
   retiring slot donates its prompt blocks by reference (``insert_device``)
@@ -25,8 +28,9 @@ dicts) kept as the JAX package's:
   blocks and re-adopted (``adopt_device``).
 
 One ``threading.Lock`` guards every trie mutation, pin and the byte
-accounting; device reads run outside it. Left out: the fault points of
-``serve/resilience.py``, the dense layout's ``PrefixHit.stacked`` and
+accounting; device reads run outside it. The fault points
+``prefix.match``, ``prefix.corrupt`` and ``prefix.insert``
+(``serve/resilience.py``) sit where the JAX package has them. Left out:
 ``hot_prefixes`` (the fleet's cache warming).
 """
 
@@ -40,6 +44,7 @@ from typing import Callable, Sequence
 import numpy as np
 
 from transformer_tpu_torch.config import ModelConfig
+from transformer_tpu_torch.serve.resilience import fired, maybe_fail
 
 
 class PrefixCorruptionError(RuntimeError):
@@ -98,6 +103,37 @@ class PrefixHit:
     tokens: int
     _nodes: list[_Node]
     _cache: "PrefixCache"
+
+    def stacked(self, cap_tokens: int) -> list[dict[str, np.ndarray]] | None:
+        """The matched host blocks concatenated along the position axis
+        and padded to a POWER-OF-TWO block count (clamped to
+        ``cap_tokens``, the slot buffer length): per layer, (1, width, H,
+        D) buffers in the host block format. The padded widths are few,
+        O(log(max_total / block)); pad rows are zeros at positions ``>=
+        tokens``, which the offset causal mask hides and the suffix
+        prefill overwrites. Runs without the cache lock: the nodes are
+        pinned and their blocks immutable. A dense-layout hit holds host
+        blocks only (the device tier needs the paged pool)."""
+        if not self._nodes:
+            return None
+        B = self._cache.block_tokens
+        blocks = len(self._nodes)
+        padded = 1
+        while padded < blocks:
+            padded *= 2
+        width = min(padded * B, cap_tokens)
+        out: list[dict[str, np.ndarray]] = []
+        for layer in range(len(self._nodes[0].blocks)):
+            per_key: dict[str, np.ndarray] = {}
+            for key in self._nodes[0].blocks[layer]:
+                parts = [n.blocks[layer][key] for n in self._nodes]
+                if width > blocks * B:
+                    shape = list(parts[0].shape)
+                    shape[1] = width - blocks * B
+                    parts.append(np.zeros(shape, dtype=parts[0].dtype))
+                per_key[key] = np.concatenate(parts, axis=1)
+            out.append(per_key)
+        return out
 
     def paged_plan(self) -> "list[tuple[_Node, int | None, list | None]]":
         """Per matched node, the paged restore source: ``(node,
@@ -199,6 +235,7 @@ class PrefixCache:
         — NO device read, NO host copy. Nodes the trie already holds just
         refresh recency (and adopt the device id if they were host-only).
         Returns 0 (the host byte budget is untouched)."""
+        maybe_fail("prefix.insert")
         B = self.block_tokens
         with self._lock:
             if self._pool is None:
@@ -332,7 +369,13 @@ class PrefixCache:
         drops its whole subtree and raises :class:`PrefixCorruptionError`
         with zero pins left outstanding, so bit rot in stored KV can never
         be silently restored into a slot. ``verify_checksums=False`` at
-        construction trades that guarantee back for the crc pass."""
+        construction trades that guarantee back for the crc pass.
+
+        Fault points: ``prefix.match`` raises before the walk;
+        ``prefix.corrupt`` flips one byte of the first matched HOST block
+        (device-tier blocks have no host bytes), which the checksum pass
+        must then catch."""
+        maybe_fail("prefix.match")
         B = self.block_tokens
         with self._lock:
             self._clock += 1
@@ -350,6 +393,14 @@ class PrefixCache:
                 child.refs += 1
                 nodes.append(child)
                 node = child
+        corrupt_target = next((n for n in nodes if n.blocks is not None), None)
+        if corrupt_target is not None and fired("prefix.corrupt"):
+            layer = corrupt_target.blocks[0]
+            key = next(iter(sorted(layer)))
+            arr = layer[key]
+            raw = np.frombuffer(arr.tobytes(), np.uint8).copy()
+            raw[0] ^= 0xFF
+            layer[key] = np.frombuffer(raw.tobytes(), arr.dtype).reshape(arr.shape)
         if self.verify_checksums:
             for bad in nodes:
                 if bad.blocks is None:
@@ -422,6 +473,7 @@ class PrefixCache:
         the duplicate fetch is discarded. The descend path stays pinned
         across the unlock — the parent a new block attaches to can never be
         evicted mid-fetch."""
+        maybe_fail("prefix.insert")
         B = self.block_tokens
         node, evicted, pinned = self._root, 0, []
         with self._lock:

@@ -21,7 +21,9 @@ The numpy parts (``NgramDrafter``, ``build_verify_row``, ``judge_row``,
 the scheduler's plain pick keys a row by (seed, position).
 ``speculative_generate`` is the standalone batch-1 loop over dense KV
 caches (``models/transformer.py`` ``transformer_verify``; cached
-attention is plain, as in JAX). Left out: the drafter fault points.
+attention is plain, as in JAX). Both drafters' ``propose`` pass the fault
+points ``draft.propose`` (raises) and ``draft.slow`` (stalls) first, as
+the JAX package's do.
 """
 
 from __future__ import annotations
@@ -37,7 +39,17 @@ from transformer_tpu_torch.data.seeding import keyed_rng
 from transformer_tpu_torch.models.decoder import init_decoder_caches
 from transformer_tpu_torch.models.transformer import transformer_prefill, transformer_verify
 from transformer_tpu_torch.ops.attention import rollback_cache
+from transformer_tpu_torch.serve.resilience import maybe_fail
 from transformer_tpu_torch.train.decode import _bucket, prefill_len_for, sample_token
+
+
+def _drafter_fault_points() -> None:
+    """The drafter's fault points: ``draft.propose`` (a failing drafter:
+    the scheduler's speculative breaker fails speculation open to the
+    plain path) and ``draft.slow`` (a stalling one: trips the scheduler's
+    ``drafter_slow_ms`` budget). No-ops without an armed plane."""
+    maybe_fail("draft.propose")
+    maybe_fail("draft.slow")
 
 
 class Drafter(Protocol):
@@ -92,6 +104,7 @@ class NgramDrafter:
         return ctx
 
     def propose(self, state: _NgramState | None, context: Sequence[int], k: int) -> list[int]:
+        _drafter_fault_points()
         if state is None:
             state = _NgramState()
         ctx = self._index(state, context)
@@ -169,6 +182,7 @@ class ModelDrafter:
         return logits
 
     def propose(self, state: _DraftState, context: Sequence[int], k: int) -> list[int]:
+        _drafter_fault_points()
         ctx = [int(t) for t in context]
         # The draft's own buffer and position budget caps the lookahead.
         k = min(k, self.max_total - 1 - len(ctx), self.cfg.max_position - len(ctx))

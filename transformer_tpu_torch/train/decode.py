@@ -180,9 +180,11 @@ def lm_generate(
     its picks. ``n`` must not exceed the shortest real row's prompt
     (``generate`` computes it). Tick ``t`` picks the token of position
     ``t + 1`` from position ``t``'s logits; a row stops at EOS (later
-    positions PAD), all-PAD bucketing rows start finished, and the loop
-    exits once every row has finished. ``sample`` draws with
-    ``sample_token`` from the generator keyed (seed, t)."""
+    positions PAD) or once it has picked its ``max_new``-th token (later
+    ticks would pick tokens the result never reads), all-PAD bucketing
+    rows start finished, and the loop exits once every row has finished.
+    ``sample`` draws with ``sample_token`` from the generator keyed (seed,
+    t)."""
     from transformer_tpu_torch.serve.speculative import pick_generator
 
     batch, prompt_len = prompt_ids.shape
@@ -209,8 +211,10 @@ def lm_generate(
         nxt = torch.where(finished, torch.full_like(nxt, PAD_ID), nxt)
         finished = finished | (~in_prompt & (nxt == eos_id))
         toks[:, t] = torch.where(in_prompt, torch.full_like(nxt, PAD_ID), nxt)[:, 0]
-        return nxt, finished
+        return nxt, finished | (t >= last_tick)
 
+    # A row's last kept pick is the token of position prompt_len + max_new - 1.
+    last_tick = prompt_lens + (max_new - 2)
     finished = _dummy_rows(prompt_ids)
     # Clamp the prefill below the last tick (total - 1) so the hoisted
     # selection tick has a column to write.
