@@ -6,9 +6,9 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in thirteen phases
-(the tenth runs right after the fourth, on its export; the eleventh, the
-twelfth and the thirteenth last):
+runs on the CPU). It prints one JSON line per check, in fourteen phases
+(the tenth runs right after the fourth, on its export; the eleventh to
+the fourteenth last):
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -70,10 +70,11 @@ twelfth and the thirteenth last):
    and causal decoder S 15 / 31 / 47), bf16 and fp32, each with a planted
    fault (the first real key of every sequence taken for padding, where
    not causal); then
-   ``transformer_tpu_torch.cli.train --preset base --attention_impl flash
-   --sequence_length 64 --epochs 1`` (Transformer-base at full width on the
-   bundled corpus), whose flash counters must equal 12 launches of each
-   kernel a train step, 12 forward launches an eval batch and 6 a
+   ``transformer_tpu_torch.cli.train --preset base --num_layers 2
+   --attention_impl flash --sequence_length 64 --epochs 1``
+   (Transformer-base at full width, its depth cut to 2 + 2 layers, on the
+   bundled corpus), whose flash counters must equal 4 launches of each
+   kernel a train step, 4 forward launches an eval batch and 2 a
    translate call of the epilogue's sample translation and BLEU on 200
    test pairs; a profiled window of its train steps; one fp32 train step
    (2 + 2 layers) kernels against plain versions; ``cli.translate``
@@ -221,7 +222,26 @@ twelfth and the thirteenth last):
    spill, a host-restored hit, a corrupt block caught; then, both
    closed, phase 4's greedy answers byte-identical; slots, pins and pool
    blocks back at their start; kernels B and A launched layers x
-   forwards.
+   forwards;
+14. the serving fleet (``fleet_path``): ``cli.router``'s Router over two
+   replica worker processes sharing the card (``serve/replica.py``, the
+   dense layout, no kernel launched), on phase 4's export: in fp32, phase
+   4's 14 requests and phase 10's 16 shared-prefix requests (greedy
+   answers byte-identical to phase 13's fp32 dense answers and to a
+   single fp32 scheduler's; every shared-prefix request on one worker);
+   a worker SIGKILLed after its first answer (every request answered
+   once, as before; the supervisor's respawn warmed from the survivor and
+   admitted: its time to recover); a checkpoint with a flipped byte
+   refused before any worker is touched; ``route.canary`` rolling a
+   canary back; a live upgrade to long4k's widths from seed 1 under
+   traffic (old- and new-tagged answers each equal their weights' single
+   scheduler; no capture after warm-up, no serving tensor moved by a
+   flip; the flip's milliseconds); ``--disaggregate`` with one prefill
+   and one decode worker (phase 10's answers byte-identical, the KV
+   handoff's bytes and seconds) and ``--fault_spec ckpt.swap:at=1``
+   aborting a flip with the old weights serving; the same traffic on a
+   bf16 fleet, reported. ``python3 chip_smoke.py --only fleet`` runs this
+   phase alone (its references computed there).
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -2107,6 +2127,7 @@ def fp32_ring_check(tok, train_ds, layers: int = 2, sp: int = 4):
 
 
 S2S_LEN = 64  # --sequence_length of the seq2seq main path (bench.py's seq)
+S2S_LAYERS = 2  # phase 6's base depth, cut from 6 + 6 to keep the script in its time
 BUCKETS = (16, 32, 48, 64)  # phase 9's --length_buckets
 
 
@@ -2171,11 +2192,13 @@ def read_flash_counters(reset: bool = False) -> dict:
 def seq2seq_train_path(src_vocab, tgt_vocab):
     """``cli.train --preset base --attention_impl flash --sequence_length
     64 --epochs 1`` on the bundled corpus: Transformer-base at full width
-    (6 + 6 layers, d 512, 8 heads, dff 2048, bf16, batch 64, dropout 0.1),
-    then the epilogue's sample translation, export and BLEU on 200 test
-    pairs. The flash counters are set to 0 just before and read just
-    after: 12 forward, 12 dQ and 12 dK/dV launches a train step, 12
-    forward launches an eval batch, 6 (the encoder) a translate call."""
+    (d 512, 8 heads, dff 2048, bf16, batch 64, dropout 0.1), its depth cut
+    to ``S2S_LAYERS`` + ``S2S_LAYERS`` layers to keep the script in its
+    time, then the epilogue's sample translation, export and BLEU on 200
+    test pairs. The flash counters are set to 0 just before and read just
+    after: 2 × layers forward, dQ and dK/dV launches a train step, as many
+    forward launches an eval batch, layers (the encoder) a translate
+    call."""
     import statistics
 
     import torch
@@ -2188,7 +2211,8 @@ def seq2seq_train_path(src_vocab, tgt_vocab):
     data = os.path.join(ROOT, "data")
     export = os.path.join(BUILD_DIR, "seq2seq_export")
     argv = [
-        "--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
+        "--preset", "base", "--num_layers", str(S2S_LAYERS), "--attention_impl", "flash",
+        "--sequence_length", str(S2S_LEN),
         "--epochs", "1", "--dataset_path", data, "--src_vocab_file", src_vocab,
         "--tgt_vocab_file", tgt_vocab, "--export_path", export,
         "--ckpt_path", fresh_dir("ckpt", "seq2seq"), "--device", "cuda",
@@ -4248,7 +4272,7 @@ def layouts_path(export, vocab_path, tok, reqs, plain_answers, graph_rec, fp32_a
         raise SystemExit(f"layouts: fp32 dense answers differ from fp32 paged_flash's: {dense32}")
     if not prefix["passes"][1]["prefix_hit_tokens"] or any(p["errors"] for p in prefix["passes"]):
         raise SystemExit(f"layouts: no prefix hit on the dense layout: {prefix}")
-    return rec
+    return rec, answers32
 
 
 def prompt_of(tok, tokens: int, start: int) -> str:
@@ -4553,6 +4577,472 @@ def breaker_path(export, vocab_path, tok, reqs, fp32_answers):
 
 
 # --------------------------------------------------------------------------
+# phase 14: the serving fleet (cli.router over replica worker processes)
+
+# cli.router's flags on the fleet: 2 workers of 4 slots, the main path's
+# 16-token blocks and 64-token prefill chunks, a 256 MB prefix cache;
+# affinity hashed over 512-token blocks (phase 10's shared prefix, so its
+# requests share one key whatever their tails) with a slack that keeps 16
+# queued requests on their affine worker.
+FLEET_FLAGS = ("--replicas", "2", "--serve_slots", "4", "--prefix_block", "16",
+               "--prefill_chunk", "64", "--prefix_cache_mb", "256", "--affinity_block", "512",
+               "--affinity_slack", "16", "--device", "cuda")
+# The upgrade's canary: a 2 s window judged on availability (and on a TTFT
+# bound loose enough that queueing on a shared card never reads as burn).
+CANARY_FLAGS = ("--canary_window", "2",
+                "--canary_slo", "availability:windows=5+30;ttft_p95:threshold=30,windows=5+30")
+
+
+class FleetEvents:
+    """The router's event sink: each event with its host-clock time."""
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, kind, **fields):
+        self.events.append({"kind": kind, "t": time.perf_counter(), **fields})
+
+    def of(self, kind, **match):
+        return [e for e in self.events if e["kind"] == kind
+                and all(e.get(k) == v for k, v in match.items())]
+
+
+def fleet(export, vocab_path, *extra):
+    """``cli.router``'s fleet for ``export``: its flags parsed, its workers
+    spawned (they start in parallel), its Router returned with an event
+    sink."""
+    from transformer_tpu_torch.cli import router as cli
+
+    args = cli.build_parser().parse_args(
+        ["--export_path", export, "--tgt_vocab_file", vocab_path, *FLEET_FLAGS, *extra])
+    events = FleetEvents()
+    router = cli.build_router(args, telemetry=events)
+    return router, events, args
+
+
+def route(router, reqs):
+    """``reqs`` through ``cli.router``'s line loop (``route_lines``); the
+    answers in order."""
+    import queue
+
+    from transformer_tpu_torch.cli.router import route_lines
+
+    q: queue.Queue = queue.Queue()
+    for r in reqs:
+        q.put(r if isinstance(r, str) else json.dumps(r))
+    q.put(None)
+    out = io.StringIO()
+    route_lines(q, router, out)
+    return [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def pump_until(router, cond, seconds, what, also=()):
+    """Pump ``router`` (and, without waiting, the routers ``also``) until
+    ``cond()``; returns the answers drained meanwhile."""
+    deadline = time.perf_counter() + seconds
+    answers = []
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise SystemExit(f"fleet: {what} did not happen within {seconds} s")
+        router.pump()
+        for other in also:
+            other.pump(timeout=0)
+        answers.extend(router.drain_ready())
+    return answers
+
+
+def serve_beside(router, reqs, also, seconds=120):
+    """``reqs`` through ``router``'s ``submit`` / ``pump``, the routers
+    ``also`` pumped beside it; the answers in order."""
+    for r in reqs:
+        router.submit(dict(r))
+    return pump_until(router, lambda: not router.busy, seconds, "serving", also)
+
+
+def serve_waves(router, reqs, until, seconds, what):
+    """Submit ``reqs`` again and again (a wave once the last is answered)
+    until ``until()``, pumping; returns [(order, answer)] of every wave."""
+    deadline = time.perf_counter() + seconds
+    got, orders = [], [router.submit(dict(r)) for r in reqs]
+    while not (until() and not router.busy):
+        if time.perf_counter() > deadline:
+            up = router._upgrader
+            raise SystemExit(f"fleet: {what} did not happen within {seconds} s: rollout "
+                             f"{up.state} {up.stats}, router {router.stats}, "
+                             f"{len(got)} answers: {got[-3:]}")
+        if not router.busy:
+            orders += [router.submit(dict(r)) for r in reqs]
+        router.pump()
+        got.extend(router.drain_ready())
+    got.extend(router.drain_ready())
+    return list(zip(orders, got))
+
+
+def by_replica(events, orders):
+    """The replica each order was last dispatched to."""
+    last = {e["order"]: e["replica"] for e in events.of("route.dispatch")}
+    return {o: last.get(o) for o in orders}
+
+
+def single_scheduler(export_or_params, tok, reqs, cfg=None, cache_mb=0):
+    """A single fp32 dense scheduler with the fleet's flags: the reference."""
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.serve.prefix_cache import PrefixCache
+    from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    if cfg is None:
+        params, cfg = load_export(export_or_params, device="cuda")
+    else:
+        params = export_or_params
+    cache = PrefixCache(cfg, block_tokens=16, budget_mb=cache_mb) if cache_mb else None
+    sched = ContinuousScheduler(params, cfg, tok, num_slots=4, prefill_chunk=64, kv_block=16,
+                                prefix_cache=cache, device="cuda")
+    return sched.run([dict(r) for r in reqs])
+
+
+def fleet_path(export, vocab_path, tok, reqs, dense32):
+    """Phase 14, the serving fleet: ``cli.router``'s Router over two
+    ``serve/replica.py`` worker processes sharing the card, on the dense
+    layout, serving phase 4's export (fp32 unless said otherwise).
+
+    Fleet A carries steps 1-3, fleet B (``--disaggregate``) step 4, and a
+    bf16 fleet the reported bf16 traffic; the three spawn together, and
+    fleets B and C serve while fleet A's supervisor respawns its victim
+    (fleet A pumped beside them).
+    1. phase 4's 14 requests, then phase 10's 16 shared-prefix requests:
+       greedy answers byte-identical to phase 13's fp32 dense answers
+       (``dense32``) and, for the shared-prefix ones, to a single fp32
+       dense scheduler's; every shared-prefix request on one worker; the
+       bf16 fleet's answers reported.
+    2. phase 4's requests again, one worker SIGKILLed after its first
+       answer: each answered once, as in step 1; the supervisor's respawn
+       ready and admitted with warmed prefix tokens; its time to recover.
+    3. the fault drills and the live upgrade to long4k's widths from seed
+       1 (a params-only checkpoint through the port's CheckpointManager):
+       a copy with one byte flipped in ``arrays.npz`` refused before any
+       worker is touched; ``route.canary`` burning the first rollout's
+       canary, rolled back, its answers old again; then the rollout at
+       ``--canary_window 2`` reaching ``done`` under traffic (phase 4's
+       requests with ``cache_prefix`` false): old-tagged answers equal
+       ``dense32``, new-tagged ones a single fp32 scheduler's on the new
+       weights; every worker's graph captures unchanged by the flips and
+       no serving tensor moved; the flip's milliseconds.
+    4. fleet B (one prefill and one decode worker, ``--fault_spec
+       ckpt.swap:at=1``): phase 10's requests byte-identical to step 1's,
+       the decode worker prefilling under a block + 1 tokens a request,
+       the handoff's bytes and seconds; then an upgrade whose flip
+       ``ckpt.swap`` aborts (``upgraded ok=false``, the rollout failed,
+       the old weights serving)."""
+    import signal
+
+    import torch
+
+    from transformer_tpu_torch.models.transformer import init_params
+    from transformer_tpu_torch.serve import resilience
+    from transformer_tpu_torch.serve.upgrade import verify_checkpoint
+    from transformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    export32 = fp32_export(export, name="fleet_export_fp32")
+    preqs = prefix_requests(tok)
+    greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
+    t0 = time.perf_counter()
+    fleet_a, ev_a, _ = fleet(export32, vocab_path, *CANARY_FLAGS)
+    fleet_b, ev_b, _ = fleet(export32, vocab_path, "--disaggregate", "--fault_spec",
+                             "ckpt.swap:at=1")
+    fleet_c, ev_c, _ = fleet(export, vocab_path)
+    # The references while the workers start: a single fp32 dense
+    # scheduler on phase 10's traffic, and the upgrade target.
+    pref_want = single_scheduler(export32, tok, preqs, cache_mb=256)
+    bf16_want = single_scheduler(export, tok, reqs + preqs, cache_mb=256)
+    from transformer_tpu_torch.convert import load_export_config
+
+    cfg32 = load_export_config(export32)
+    new_params = init_params(cfg32, torch.Generator().manual_seed(1), device="cuda")
+    ckpt = CheckpointManager(fresh_dir("fleet_ckpt"), is_primary=True).save(new_params, step=1)
+    new_version = verify_checkpoint(ckpt)[1]
+    nocache = [{**r, "cache_prefix": False} for r in reqs]
+    new_want = single_scheduler(new_params, tok, nocache, cfg=cfg32)
+    del new_params
+    corrupt = fresh_dir("fleet_ckpt_corrupt")
+    shutil.copytree(ckpt, corrupt)
+    flipped_at = flip_byte(os.path.join(corrupt, "arrays.npz"))
+    ref_s = time.perf_counter() - t0
+    sup_a = fleet_a._sup
+    up_a = fleet_a._upgrader
+    try:
+        # ---- 1. serve -------------------------------------------------------
+        t0 = time.perf_counter()
+        ans1 = route(fleet_a, reqs)
+        t_reqs = time.perf_counter() - t0
+        order0 = len(reqs)
+        t0 = time.perf_counter()
+        pans1 = route(fleet_a, preqs)
+        t_preqs = time.perf_counter() - t0
+        pref_replicas = set(by_replica(ev_a, range(order0, order0 + len(preqs))).values())
+        # ---- 2. failover ----------------------------------------------------
+        base = fleet_a.stats["answered"]
+        answered_before = [l.answered for l in fleet_a.links]
+        # The respawn's stages on the host clock: the kill, the failover,
+        # the supervisor's spawn call, the replacement's admission.
+        spawn_calls, spawn0 = [], sup_a._spawn
+        sup_a._spawn = lambda *a: (spawn_calls.append(time.perf_counter()), spawn0(*a))[1]
+        t_kill = None
+        for r in reqs:
+            fleet_a.submit(dict(r))
+        got2, victim = [], None
+        deadline = time.perf_counter() + 60
+        while fleet_a.busy:
+            if time.perf_counter() > deadline:
+                raise SystemExit(f"fleet: the failover traffic was not answered: {fleet_a.stats}")
+            fleet_a.pump()
+            got2.extend(fleet_a.drain_ready())
+            if victim is None:
+                for link, before in zip(fleet_a.links, answered_before):
+                    if link.answered > before and link.inflight > 0:
+                        victim, t_kill = link, time.perf_counter()
+                        os.kill(link.pid(), signal.SIGKILL)
+                        break
+        got2.extend(fleet_a.drain_ready())
+        # While fleet A's supervisor brings the victim back, the bf16 fleet
+        # serves and fleet B runs step 4; fleet A is pumped beside them.
+        t0 = time.perf_counter()
+        bf16 = serve_beside(fleet_c, reqs + preqs, (fleet_a,))
+        t_bf16 = time.perf_counter() - t0
+        with resilience.active(resilience.FaultPlane.parse("ckpt.swap:at=1")):
+            t0 = time.perf_counter()
+            pans5 = serve_beside(fleet_b, preqs, (fleet_a,))
+            t_dis = time.perf_counter() - t0
+            handoffs_done = fleet_b.stats["prefill_handoffs"]
+            handoffs = []
+            for order in range(len(preqs)):
+                stamps = [e["t"] for e in ev_b.of("route.dispatch", order=order)]
+                if len(stamps) == 2:
+                    handoffs.append(stamps[1] - stamps[0])
+            up_b = fleet_b._upgrader
+            swap_start = fleet_b.start_upgrade(ckpt)
+            pump_until(fleet_b, lambda: up_b.state in ("failed", "rolled_back", "done"), 60,
+                       "the ckpt.swap abort", (fleet_a,))
+            after_abort = serve_beside(fleet_b, preqs[:4], (fleet_a,))
+        pump_until(fleet_a, lambda: sup_a.stats["respawns"] >= 1
+                   and len(fleet_a.healthy_links) == 2, 120, "the respawn")
+        t_failover = ev_a.of("route.failover")[-1]["t"] if victim else None
+        t_admitted = ev_a.of("route.spawn")[-1]["t"] if victim else None
+        serve = {
+            "requests": len(reqs) + len(preqs), "wall_s": {"phase4": t_reqs, "prefix": t_preqs},
+            "errors": [a for a in ans1 + pans1 if "error" in a],
+            "greedy_differing_from_phase13_fp32_dense": [
+                i for i in greedy if ans1[i] != dense32[i]],
+            "sampled_differing_from_phase13_fp32_dense": [
+                i for i in range(len(reqs)) if i not in greedy and ans1[i] != dense32[i]],
+            "prefix_differing_from_single_scheduler": [
+                i for i, (a, b) in enumerate(zip(pans1, pref_want)) if a != b],
+            "prefix_replicas": sorted(pref_replicas),
+            "bf16": {"wall_s": t_bf16, "errors": [a for a in bf16 if "error" in a],
+                     "greedy_differing_from_single_bf16_scheduler": [
+                         i for i, (a, b) in enumerate(zip(bf16, bf16_want))
+                         if a != b and (i >= len(reqs) or i in greedy)],
+                     "greedy_differing_from_fp32_fleet": [
+                         i for i, (a, b) in enumerate(zip(bf16, ans1 + pans1))
+                         if a != b and (i >= len(reqs) or i in greedy)]},
+        }
+        fleet_c.shutdown()
+        failover = {
+            "victim": victim.name if victim else None,
+            "failed_over_orders": [e["orders"] for e in ev_a.of("route.failover")],
+            "answers": len(got2), "answered_by_router": fleet_a.stats["answered"] - base,
+            "duplicates": fleet_a.stats["duplicate_answers"],
+            "redispatched": fleet_a.stats["redispatched"],
+            "greedy_differing_from_step1": [i for i in greedy if got2[i] != ans1[i]],
+            "sampled_differing_from_step1": [
+                i for i in range(len(reqs)) if i not in greedy and got2[i] != ans1[i]],
+            "errors": [a for a in got2 if "error" in a],
+            "supervisor": dict(sup_a.stats), "time_to_recover_s": list(sup_a.heal_times),
+            "recovery_stages_s": None if not (victim and spawn_calls) else {
+                "kill_to_failover": t_failover - t_kill,
+                "failover_to_spawn": spawn_calls[0] - t_failover,
+                "spawn_to_admitted": t_admitted - spawn_calls[0],
+                "kill_to_admitted": t_admitted - t_kill},
+            "spawn_events": [{k: v for k, v in e.items() if k != "t"}
+                             for e in ev_a.of("route.spawn")],
+        }
+        # ---- 3. the refusals and the live upgrade -----------------------------
+        versions0 = [l.wv for l in fleet_a.links]
+        refused = fleet_a.start_upgrade(corrupt)
+        refusal = {"status": refused, "flipped_byte_at": flipped_at,
+                   "versions_unchanged": [l.wv for l in fleet_a.links] == versions0,
+                   "coordinator_state": up_a.state}
+        with resilience.active(resilience.FaultPlane.parse("route.canary:at=1")):
+            t0 = time.perf_counter()
+            started = fleet_a.start_upgrade(ckpt)
+            pump_until(fleet_a, lambda: up_a.state == "canary", 60, "the burn rollout's canary")
+            canary = fleet_a.links[up_a._canary]
+            waves_burn = serve_waves(
+                fleet_a, nocache, lambda: up_a.state in ("rolled_back", "failed"), 60,
+                "the canary's burn rollback")
+            after_burn = serve_waves(fleet_a, nocache, lambda: True, 60, "the wave after it")
+            t_burn = time.perf_counter() - t0
+        who = by_replica(ev_a, [o for o, _ in after_burn])
+        burn = {
+            "started": started, "final_state": up_a.state, "stats": dict(up_a.stats),
+            "canary": canary.name, "wall_s": t_burn,
+            "new_tagged_during": sum(1 for _, a in waves_burn if "weight_version" in a),
+            "after": {"answers": len(after_burn),
+                      "tagged": [a.get("weight_version") for _, a in after_burn if
+                                 "weight_version" in a],
+                      "by_canary": sum(1 for o, _ in after_burn if who[o] == canary.name),
+                      "greedy_differing_from_dense32": [
+                          i for i, (_, a) in enumerate(after_burn)
+                          if i % len(reqs) in greedy and a != dense32[i % len(reqs)]]},
+            "during_greedy_differing": [
+                i for i, (_, a) in enumerate(waves_burn) if i % len(reqs) in greedy and a != (
+                    {**new_want[i % len(reqs)], "weight_version": new_version}
+                    if "weight_version" in a else dense32[i % len(reqs)])],
+        }
+        t0 = time.perf_counter()
+        started = fleet_a.start_upgrade(ckpt)
+        waves = serve_waves(fleet_a, nocache, lambda: up_a.state in ("done", "failed",
+                                                                     "rolled_back"), 90,
+                            "the rollout")
+        t_upgrade = time.perf_counter() - t0
+        new_tagged = [(i, a) for i, (_, a) in enumerate(waves) if "weight_version" in a]
+        old_tagged = [(i, a) for i, (_, a) in enumerate(waves) if "weight_version" not in a]
+        upgrade = {
+            "started": started, "final_state": up_a.state, "stats": dict(up_a.stats),
+            "wall_s": t_upgrade, "answers": len(waves),
+            "new_tagged": len(new_tagged), "old_tagged": len(old_tagged),
+            "new_greedy_differing": [
+                i for i, a in new_tagged if i % len(reqs) in greedy
+                and a != {**new_want[i % len(reqs)], "weight_version": new_version}],
+            "old_greedy_differing": [
+                i for i, a in old_tagged if i % len(reqs) in greedy
+                and a != dense32[i % len(reqs)]],
+            "errors": [a for _, a in waves if "error" in a],
+            "versions": [l.wv for l in fleet_a.links], "target_version": new_version,
+            "events": [{k: v for k, v in e.items() if k not in ("t", "evidence", "replicas")}
+                       for e in ev_a.events if e["kind"] in ("route.upgrade", "route.canary")],
+        }
+        # ---- 4. (run during step 2's respawn) ---------------------------------
+        cfg = cfg32
+        kv_token_bytes = cfg.num_layers * 2 * cfg.kv_heads * cfg.head_dim * 4
+        handoff_tokens = [
+            (len(tok.encode(r["prompt"])) + 1) // 16 * 16 for r in preqs]
+        disagg = {
+            "wall_s": t_dis, "answers": len(pans5),
+            "differing_from_step1": [i for i, (a, b) in enumerate(zip(pans5, pans1)) if a != b],
+            "errors": [a for a in pans5 if "error" in a],
+            "prefill_handoffs": handoffs_done,
+            "redispatched": fleet_b.stats["redispatched"],
+            "handoff_s": {"median": sorted(handoffs)[len(handoffs) // 2] if handoffs else None,
+                          "max": max(handoffs, default=None), "count": len(handoffs),
+                          "timer": "host clock from the prefill dispatch to the decode "
+                                   "dispatch (prefill, export, JSON, both pipes)"},
+            "handoff_kv_bytes_per_request": [t * kv_token_bytes for t in handoff_tokens],
+            "handoff_kv_bytes_note": "block-aligned prompt tokens x layers x K,V x heads x "
+                                     "head_dim x 4 B (fp32); base64 on the wire adds 1/3",
+            "swap_abort": {
+                "start": swap_start, "final_state": up_b.state, "stats": dict(up_b.stats),
+                "failed_events": [e.get("error") for e in ev_b.of("route.upgrade",
+                                                                  phase="failed")],
+                "versions": [l.wv for l in fleet_b.links],
+                "after_differing": [i for i, a in enumerate(after_abort) if a != pans1[i]],
+            },
+        }
+    finally:
+        for r in (fleet_a, fleet_b, fleet_c):
+            r.shutdown()
+    finals = {f"A/{l.name}": l.final_stats for l in fleet_a.links}
+    finals.update({f"B/{l.name}": l.final_stats for l in fleet_b.links})
+    finals.update({f"C/{l.name}": l.final_stats for l in fleet_c.links})
+    workers = {
+        name: None if st is None else {
+            k: st.get(k) for k in ("admitted", "steps", "prefill_tokens", "prefix_hit_tokens",
+                                   "swaps", "swap_s", "graph_captures", "warm_captures",
+                                   "params_moved", "generated_tokens", "decode_s")}
+        for name, st in finals.items()
+    }
+    swaps = [st for st in workers.values() if st and st["swaps"]]
+    flip_ms = [st["swap_s"] / st["swaps"] * 1e3 for st in swaps]
+    decode_b = finals.get("B/replica1") or {}
+    disagg["decode_worker_prefill_tokens"] = decode_b.get("prefill_tokens")
+    disagg["decode_worker_admitted"] = decode_b.get("admitted")
+    rec = {
+        "phase": "fleet", "step": "serve", "card": nvidia_smi_line(), "flags": FLEET_FLAGS,
+        "references_s": ref_s, "serve": serve, "failover": failover, "refusal": refusal,
+        "canary_burn": burn, "upgrade": upgrade, "disaggregation": disagg, "workers": workers,
+        "flip_ms": flip_ms, "seconds": time.perf_counter() - t_phase,
+        "timers": "host clock (perf_counter) in this process; flip_ms: the worker's host clock "
+                  "around the in-place copies, ending in a synchronize",
+    }
+    emit(rec)
+    failed = []
+    if serve["errors"] or len(ans1) != len(reqs) or len(pans1) != len(preqs):
+        failed.append("step 1 errors")
+    if serve["greedy_differing_from_phase13_fp32_dense"]:
+        failed.append("step 1 greedy answers differ from phase 13's fp32 dense")
+    if serve["prefix_differing_from_single_scheduler"]:
+        failed.append("step 1 shared-prefix answers differ from a single scheduler's")
+    if len(pref_replicas) != 1:
+        failed.append("the shared-prefix requests rode more than one worker")
+    if (victim is None or failover["errors"] or len(got2) != len(reqs)
+            or failover["answered_by_router"] != len(reqs)
+            or failover["greedy_differing_from_step1"]
+            or sup_a.stats["respawns"] != 1 or sup_a.stats["warmed_tokens"] <= 0):
+        failed.append("step 2 failover")
+    if (refused.get("ok") is not False or not refusal["versions_unchanged"]
+            or up_a.stats["rejected"] != 1):
+        failed.append("the corrupt checkpoint was not refused before the workers")
+    if (burn["final_state"] != "rolled_back" or burn["after"]["tagged"]
+            or burn["after"]["greedy_differing_from_dense32"] or burn["during_greedy_differing"]
+            or not burn["after"]["by_canary"] or not burn["new_tagged_during"]):
+        failed.append("the route.canary burn rollback")
+    if (upgrade["final_state"] != "done" or upgrade["errors"] or not upgrade["new_tagged"]
+            or upgrade["new_greedy_differing"] or upgrade["old_greedy_differing"]
+            or upgrade["versions"] != [new_version] * 2):
+        failed.append("the live upgrade")
+    if (disagg["errors"] or disagg["differing_from_step1"]
+            or disagg["prefill_handoffs"] != len(preqs)
+            or not disagg["decode_worker_admitted"]
+            or disagg["decode_worker_prefill_tokens"] >= disagg["decode_worker_admitted"] * 17):
+        failed.append("disaggregation")
+    sa = disagg["swap_abort"]
+    if (sa["final_state"] != "failed" or not sa["failed_events"]
+            or "ckpt.swap" not in (sa["failed_events"][0] or "")
+            or any(v is not None for v in sa["versions"]) or sa["after_differing"]):
+        failed.append("the ckpt.swap abort")
+    for name, st in workers.items():
+        if st is None:
+            if name != f"A/{failover['victim']}":
+                failed.append(f"{name} sent no final stats")
+            continue
+        if st["graph_captures"] != st["warm_captures"] or st["params_moved"]:
+            failed.append(f"{name} captured after warm-up or moved a serving tensor")
+    if not swaps:
+        failed.append("no worker flipped")
+    if failed:
+        raise SystemExit(f"fleet: {failed}: {rec}")
+    return rec
+
+
+def fleet_only() -> None:
+    """Phase 14 alone (``python3 chip_smoke.py --only fleet``): phase 4's
+    export written from the seed (no serving through the kernels) and the
+    fp32 dense reference computed here instead of taken from phase 13."""
+    import torch
+
+    from transformer_tpu_torch.convert import export_params
+    from transformer_tpu_torch.models.transformer import init_params
+
+    tok, vocab_path = vocab()
+    cfg = long4k_config(tok.model_vocab_size)
+    export = os.path.join(BUILD_DIR, "smoke_export")
+    export_params(init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda"), cfg,
+                  export)
+    reqs = make_requests(tok)
+    fleet_path(export, vocab_path, tok, reqs, single_scheduler(fp32_export(export), tok, reqs))
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4570,6 +5060,9 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing ({e}); run from a checkout",
               file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--only", "fleet"]:
+        fleet_only()
+        return 0
 
     # Each phase's seconds on the host clock, emitted as it ends.
     started = [time.perf_counter()] * 2
@@ -4788,12 +5281,18 @@ def main() -> int:
     # 13. the JAX server's default layouts (dense; paged through gathered
     # views), long4k with a 1024 window trained and served on rolling
     # caches, and the circuit breakers under injected faults
-    layouts_path(export, vocab_path, tok, reqs, plain_answers, graph_rec, fp32_answers)
+    _, dense32 = layouts_path(export, vocab_path, tok, reqs, plain_answers, graph_rec,
+                              fp32_answers)
     lap("13 layouts")
     windowed_launches = windowed_path(vocab_path, tok, reqs)
     lap("13 windowed")
     serve_launches["breakers"] = breaker_path(export, vocab_path, tok, reqs, fp32_answers)
     lap("13 breakers")
+
+    # 14. the serving fleet: cli.router over replica worker processes on
+    # this card (phase 4's export; no kernel launches: the dense layout)
+    fleet_path(export, vocab_path, tok, reqs, dense32)
+    lap("14 fleet")
 
     def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",

@@ -600,6 +600,29 @@ class PrefixCache:
                 self.stats["device_blocks"] -= 1
         return evicted
 
+    def hot_prefixes(self, limit: int = 8) -> "list[tuple[int, ...]]":
+        """The ``limit`` most recently used maximal stored prefixes, as
+        token-id tuples (each a whole root-to-leaf block path): what a
+        fleet replica exports to warm a respawned peer
+        (``serve/replica.py`` ``export_state``). Injecting a leaf path
+        stores every block along it, so the leaves cover the whole trie.
+        Recency is the leaf's ``last_used``, the clock eviction reads. The
+        payloads are read later through :meth:`match`, which verifies and
+        pins as usual."""
+        leaves: list[tuple[int, tuple[int, ...]]] = []
+        with self._lock:
+            stack = [(self._root, ())]
+            while stack:
+                node, path = stack.pop()
+                if not node.children and (
+                    node.blocks is not None or node.device_block is not None
+                ):
+                    leaves.append((node.last_used, path))
+                for child in node.children.values():
+                    stack.append((child, path + child.edge))
+        leaves.sort(key=lambda t: -t[0])
+        return [path for _, path in leaves[: max(0, limit)]]
+
     # ---- introspection ----------------------------------------------------
 
     @property

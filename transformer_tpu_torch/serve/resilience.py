@@ -7,12 +7,18 @@ Port of ``transformer_tpu/serve/resilience.py`` (standard library only):
   ``FAULT_POINTS`` is the JAX package's whole set, so a spec that parses
   there parses here. The points with a site in the port are
   ``serve.prefill`` (the scheduler's admission), ``prefix.match`` /
-  ``prefix.corrupt`` / ``prefix.insert`` (the prefix cache) and
-  ``draft.propose`` / ``draft.slow`` (both drafters); ``obs.emit``,
-  ``ckpt.write``, ``data.prefetch``, ``ckpt.swap`` and the ``route.*``
-  points parse but fire nowhere until the modules that hold them are
-  ported. Armed by ``cli.serve --fault_spec`` or :func:`active`; a
-  disarmed plane costs one module-global ``None`` check per site.
+  ``prefix.corrupt`` / ``prefix.insert`` (the prefix cache),
+  ``draft.propose`` / ``draft.slow`` (both drafters), ``ckpt.swap`` (the
+  scheduler's weight flip), and the fleet's ``route.spawn`` (the
+  supervisor's respawn), ``route.hb`` (a heartbeat at the router),
+  ``route.upgrade`` (the rollout's per-replica swap) and ``route.canary``
+  (the canary's per-version SLO split); ``obs.emit``, ``ckpt.write``,
+  ``data.prefetch`` and ``route.takeover`` parse but fire nowhere until
+  the modules that hold them are ported (the port's telemetry, its
+  checkpoint writer and prefetch thread, ``serve/standby.py``). Armed by
+  ``cli.serve --fault_spec``, ``cli.router --fault_spec`` (in the router
+  and in every worker it spawns) or :func:`active`; a disarmed plane
+  costs one module-global ``None`` check per site.
 - **Deterministic schedules**: every rule fires as a pure function of
   ``(seed, point, call index)``, the JAX plane's function, so one spec
   fires at the same calls in both packages.
@@ -54,12 +60,12 @@ FAULT_POINTS = frozenset({
     "obs.emit",         # the event log's write (no site in the port yet)
     "ckpt.write",       # a checkpoint commit (no site in the port yet)
     "data.prefetch",    # the prefetch worker (no site in the port yet)
-    "route.spawn",      # the fleet's replica (re)spawn (no site yet)
-    "route.hb",         # a replica heartbeat at the router (no site yet)
-    "route.takeover",   # the standby's takeover handshake (no site yet)
-    "ckpt.swap",        # the step-boundary weight flip (no site yet)
-    "route.upgrade",    # the rollout's per-replica swap (no site yet)
-    "route.canary",     # the canary's per-version SLO split (no site yet)
+    "route.spawn",      # raise inside the supervisor's replica (re)spawn
+    "route.hb",         # swallow a replica heartbeat at the router
+    "route.takeover",   # the standby's takeover handshake (no site in the port yet)
+    "ckpt.swap",        # abort the scheduler's step-boundary weight flip
+    "route.upgrade",    # raise inside the rollout's per-replica swap dispatch
+    "route.canary",     # mark a canary answer bad in the per-version SLO split
 })
 
 

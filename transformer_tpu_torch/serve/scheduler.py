@@ -77,10 +77,25 @@ The rest is the JAX scheduler's:
   its answer carries the tokens emitted so far as ``partial``. Client
   threads and the scheduler loop share the queue under one intake lock.
 
+- live weights (the JAX two-version param slot): ``stage_params`` checks
+  a new weight set against the serving one (same flat names, per-leaf
+  shapes and stored dtypes) and casts it to the compute dtype on the
+  device; admission pauses while a stage is pending, and at the first
+  drained step boundary ``_maybe_swap`` copies the serving values into a
+  resident second buffer and the staged values into the serving tensors,
+  in place. The captured graphs read the serving tensors' addresses, so a
+  flip re-captures nothing and no step can mix versions.
+  ``stage_rollback`` stages the resident previous set; ``ckpt.swap`` (the
+  fault plane) aborts a flip with the old weights serving. Every answer
+  carries its admission-time ``weight_version`` (when the scheduler has
+  one), and ``span_tap`` receives each answer's span dict (``order``,
+  ``prompt_tokens``, ``new_tokens``, ``queue_s``, ``total_s``, ``ttft_s``,
+  ``prefill_s``, ``forwards``, ``prefix_hit_tokens``, ``weight_version``).
+
 Greedy answers equal ``serve_batch=1`` sequential serving (each request
 alone through ``train.decode.generate``), as in the JAX package. Left out
-here (later slices): telemetry/tracing/SLOs, live weight upgrades, the
-sharded replica, MoE.
+here (later slices): telemetry/tracing and the scheduler's own SLO engine,
+the sharded replica, MoE.
 """
 
 from __future__ import annotations
@@ -110,7 +125,12 @@ from transformer_tpu_torch.kernels.kv_pool import (
 )
 from transformer_tpu_torch.models.decoder import init_decoder_caches
 from transformer_tpu_torch.models.paged_decode import check_paged_flash_config
-from transformer_tpu_torch.models.transformer import transformer_prefill, transformer_verify
+from transformer_tpu_torch.models.transformer import (
+    flatten,
+    transformer_prefill,
+    transformer_verify,
+    unflatten,
+)
 from transformer_tpu_torch.ops.attention import (
     init_block_pool,
     insert_kv_blocks,
@@ -141,11 +161,13 @@ from transformer_tpu_torch.train.decode import (
 )
 
 
-def compute_params(params, cfg: ModelConfig, device: torch.device):
+def compute_params(params, cfg: ModelConfig, device: torch.device, own: bool = False):
     """The params as serving reads them: every kernel, bias and embedding
     cast once to the compute dtype (every use casts it there anyway, so the
     values are the same ones a per-call cast gives), LayerNorm parameters
-    kept as stored (``layernorm_apply`` reads them in fp32)."""
+    kept as stored (``layernorm_apply`` reads them in fp32). With ``own``
+    no leaf is one of the caller's tensors (a weight flip writes into
+    them)."""
     dtype = cfg.compute_dtype
 
     def walk(node, is_ln=False):
@@ -157,9 +179,28 @@ def compute_params(params, cfg: ModelConfig, device: torch.device):
         if isinstance(node, list):
             return [walk(v, is_ln) for v in node]
         t = node.to(device)
-        return t if is_ln else t.to(dtype)
+        t = t if is_ln else t.to(dtype)
+        return t.clone() if own and t is node else t
 
     return walk(params)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype under its numpy name (``float32``, ``bfloat16``)."""
+    return str(dtype).removeprefix("torch.")
+
+
+def as_tensor(leaf) -> torch.Tensor:
+    """A staged leaf as a tensor: tensors as they are, numpy arrays without
+    a copy (bf16 from its 2-byte words, as checkpoints store it)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    a = np.ascontiguousarray(leaf)
+    if not a.flags.writeable:
+        a = a.copy()
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 # --------------------------------------------------------------------------
@@ -318,6 +359,16 @@ class _Active:
     dstate: object = None      # the drafter's per-request state
     use_prefix: bool = False   # reads and feeds the prefix cache
     deadline: float | None = None  # perf_counter time past which it aborts
+    prefix_hit: int = 0        # prompt positions restored from the cache
+    wv: str | None = None      # the weight_version it was admitted under
+    forwards: int = 0          # decode forwards it rode (prefill excluded)
+    drafted: int = 0
+    accepted: int = 0
+    # The span clock (perf_counter): enqueue, admit, prefill done, first token.
+    t_enqueue: float = 0.0
+    t_admit: float = 0.0
+    t_prefill: float | None = None
+    t_first: float | None = None
 
 
 class ContinuousScheduler:
@@ -364,6 +415,8 @@ class ContinuousScheduler:
         kv_block: int = 16,
         kv_pool_blocks: int = 0,
         decode_kernel: str = "xla",
+        weight_version: str | None = None,
+        span_tap=None,
         device="cuda",
     ):
         # The JAX scheduler's checks, in its order and with its messages.
@@ -417,7 +470,17 @@ class ContinuousScheduler:
         self.kv_layout, self.decode_kernel = kv_layout, decode_kernel
         self.device = resolve_device(device)
         self.cfg, self.tok = cfg, tokenizer
-        self.params = compute_params(params, cfg, self.device)
+        # The stored form of every leaf (what a staged set must match) and
+        # the serving tensors by flat name (what a flip writes into).
+        self._stored = {k: (tuple(v.shape), v.dtype) for k, v in flatten(params).items()}
+        self.params = compute_params(params, cfg, self.device, own=True)
+        self._serving = flatten(self.params)
+        self.weight_version = weight_version
+        self._staged: tuple[dict | None, str] | None = None  # (set, or None = the previous; version)
+        self._prev: dict[str, torch.Tensor] | None = None  # the resident previous set
+        self._prev_version: str | None = None
+        self._swap_events: deque[dict] = deque()
+        self._span_tap = span_tap
         self.num_slots = num_slots
         self.prefill_chunk = prefill_chunk
         self.default_max_new = default_max_new
@@ -507,6 +570,8 @@ class ContinuousScheduler:
             # the plain path an open breaker selects: verify steps that ran
             # with no drafter, admissions that skipped the prefix cache
             "spec_breaker_open_steps": 0, "prefix_breaker_open_admissions": 0,
+            # live weights: flips landed, and their seconds on the host clock
+            "swaps": 0, "swap_s": 0.0,
         }
 
     def _step_program(self):
@@ -524,6 +589,125 @@ class ContinuousScheduler:
 
     def _on_breaker_transition(self, name: str, old: str, new: str) -> None:
         self.breaker_log.append((name, old, new))
+
+    def warm_up(self) -> None:
+        """Run the step forward once with every slot free, so that on the
+        card its graph is captured before traffic (the fleet's replica
+        does this before it reports ready). Free slots write PAD at
+        position 0 of their own rows (dense) or into the sink block
+        (paged), which admission overwrites."""
+        if self._active:
+            raise RuntimeError("warm_up runs before any request is admitted")
+        width = self.speculate_k + 1
+        self.forward(
+            np.full((self.num_slots, width), PAD_ID, np.int64), self._table(),
+            np.zeros((self.num_slots,), np.int32),
+        )
+
+    # ---- live weights: the two-version param slot ---------------------------
+
+    def stored_template(self):
+        """The serving tree in its stored form, as shape-and-dtype-only
+        (``meta``) tensors: what a checkpoint must match to be staged."""
+        return unflatten({
+            k: torch.empty(shape, dtype=dtype, device="meta")
+            for k, (shape, dtype) in self._stored.items()
+        })
+
+    def stage_params(self, params, version: str) -> None:
+        """Stage a new weight set for the next drained step boundary. It
+        must be a twin of the serving one: the same flat names, per-leaf
+        shapes and stored dtypes. Any mismatch raises here, before
+        anything is scheduled, and serving is untouched. The set is cast
+        to the compute dtype on the device now, on this thread's stream
+        (the one the step graphs replay on), off the serving tensors.
+        While a stage is pending, admission pauses: requests in flight
+        finish on their admission-time weights."""
+        new = {k: as_tensor(v) for k, v in flatten(params).items()}
+        if sorted(new) != sorted(self._stored):
+            raise ValueError(
+                f"staged weights for version {version!r} have a different "
+                "pytree structure than the serving params — a swap would "
+                "recompile (or crash) every program; refuse it"
+            )
+        mismatched = []
+        for key, (shape, dtype) in self._stored.items():
+            t = new[key]
+            if tuple(t.shape) != shape or t.dtype != dtype:
+                mismatched.append(
+                    f"{key}: {tuple(t.shape)}/{dtype_name(t.dtype)} != "
+                    f"{shape}/{dtype_name(dtype)}"
+                )
+        if mismatched:
+            raise ValueError(
+                f"staged weights for version {version!r} mismatch the "
+                f"serving spec on {len(mismatched)} leaf/leaves "
+                f"({'; '.join(mismatched[:3])}) — refused before any swap "
+                "was scheduled"
+            )
+        staged = flatten(compute_params(unflatten(new), self.cfg, self.device))
+        self._staged = (staged, str(version))
+
+    def stage_rollback(self) -> str:
+        """Stage the resident previous weights (the second buffer a flip
+        left behind); the flip then exchanges the two sets in place.
+        Returns the version being rolled back to; raises when no flip
+        ever landed."""
+        if self._prev is None:
+            raise ValueError(
+                "no resident previous weights to roll back to (no swap has "
+                "completed on this scheduler)"
+            )
+        self._staged = (None, self._prev_version)
+        return self._prev_version
+
+    @property
+    def swap_pending(self) -> bool:
+        return self._staged is not None
+
+    def consume_swap_events(self) -> list[dict]:
+        """Drain the flips landed or aborted since the last call (the
+        replica worker forwards them to the router as ``upgraded``)."""
+        out = list(self._swap_events)
+        self._swap_events.clear()
+        return out
+
+    def _maybe_swap(self) -> None:
+        """The step-boundary flip, once no slot is occupied: the serving
+        values go to the resident previous buffer and the staged values
+        into the serving tensors, by ``copy_`` (a rollback exchanges the
+        two sets leaf by leaf). Every tensor keeps its storage, so the
+        captured graphs replay the new weights. The ``ckpt.swap`` fault
+        point aborts the flip with the old weights still serving."""
+        if self._staged is None or self._active:
+            return
+        staged, version = self._staged
+        self._staged = None
+        try:
+            maybe_fail("ckpt.swap")
+        except OSError as e:
+            self._swap_events.append({
+                "ok": False, "version": version, "error": f"{type(e).__name__}: {e}",
+            })
+            return
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if self._prev is None:
+                self._prev = {k: torch.empty_like(t) for k, t in self._serving.items()}
+            for key, t in self._serving.items():
+                prev = self._prev[key]
+                if staged is None:
+                    held = t.clone()
+                    t.copy_(prev)
+                    prev.copy_(held)
+                else:
+                    prev.copy_(t)
+                    t.copy_(staged[key])
+        synchronize(self.device)
+        self.stats["swaps"] += 1
+        self.stats["swap_s"] += time.perf_counter() - t0
+        self._prev_version, self.weight_version = self.weight_version, version
+        self._swap_events.append({"ok": True, "version": version})
 
     # ---- intake ------------------------------------------------------------
 
@@ -671,6 +855,10 @@ class ContinuousScheduler:
         return len(self._queue)
 
     @property
+    def active_count(self) -> int:
+        return len(self._active)
+
+    @property
     def ready_count(self) -> int:
         return len(self._done)
 
@@ -689,7 +877,10 @@ class ContinuousScheduler:
         entries still waiting out their backoff are skipped this tick and
         go back to the front of the queue. With no slot occupied and every
         queued request waiting, it sleeps until the first is due (at most
-        50 ms), so that drive loops do not spin."""
+        50 ms), so that drive loops do not spin. While a weight stage is pending
+        nothing is admitted (the quiesce before the flip)."""
+        if self._staged is not None:
+            return
         now = time.perf_counter()
         deferred: list[_Pending] = []
         while self._free:
@@ -794,6 +985,7 @@ class ContinuousScheduler:
         n_suffix = prefill_len_for(L - m, self.prefill_chunk)
         n = m + n_suffix
         slot = self._free.pop()
+        t_admit = time.perf_counter()
         aliased = 0
         try:
             if m:
@@ -851,7 +1043,8 @@ class ContinuousScheduler:
             emitted=[], max_new=max_new, sample=sample,
             temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
             spec=spec, dstate=self.drafter.start(ids) if spec else None,
-            use_prefix=use_prefix, deadline=deadline,
+            use_prefix=use_prefix, deadline=deadline, prefix_hit=m, wv=self.weight_version,
+            t_enqueue=p.t_enqueue or t_admit, t_admit=t_admit, t_prefill=time.perf_counter(),
         )
         self._active[slot] = st
         self.stats["admitted"] += 1
@@ -963,6 +1156,7 @@ class ContinuousScheduler:
         Retires finished slots; no-op when the pool is idle. The deadline
         and cancellation sweep runs first."""
         self._expire(time.perf_counter())
+        self._maybe_swap()  # a no-op unless a stage waits and no slot is occupied
         if self._active and self.paged:
             self._prepare(self.speculate_k + 1)
         if not self._active:
@@ -992,9 +1186,12 @@ class ContinuousScheduler:
         self.stats["steps"] += 1
         for slot, st, tokv in zip(slots, states, picks):
             st.pos += 1
+            st.forwards += 1
             if st.pos < st.prompt_len:
                 st.cur = st.ids[st.pos]  # still consuming the prompt tail
                 continue
+            if st.pos == st.prompt_len and not st.emitted:
+                st.t_prefill = time.perf_counter()  # the tail's last token went in
             self._consume_pick(slot, st, tokv)
 
     def _step_verify(self) -> None:
@@ -1072,10 +1269,15 @@ class ContinuousScheduler:
             n_accepted = min(n_accepted, self._consumable(st, emitted))
             drafted += n_drafted
             accepted += n_accepted
+            st.forwards += 1
+            st.drafted += n_drafted
+            st.accepted += n_accepted
             st.pos += keep  # the rollback: the rejected tail's rows stay masked
             if not emitted:
                 st.cur = st.ids[st.pos]  # every fed position was prompt
                 continue
+            if not st.emitted:
+                st.t_prefill = time.perf_counter()  # a tail-fed prompt's first pick
             for tok in emitted:
                 self._consume_pick(slot, st, tok)
                 if slot not in self._active:
@@ -1108,6 +1310,8 @@ class ContinuousScheduler:
             self._finish(slot, st)
             return
         st.emitted.append(tokv)
+        if st.t_first is None:
+            st.t_first = time.perf_counter()
         self.stats["generated_tokens"] += 1
         if len(st.emitted) >= st.max_new:
             self._finish(slot, st)
@@ -1144,12 +1348,42 @@ class ContinuousScheduler:
             1, self.tok,
         )[0]
         self._retire(slot, st, {"continuation": text})
+        if self._span_tap is not None:
+            self._span_tap(self._span(st))
+
+    def _span(self, st: _Active) -> dict:
+        """The answer-boundary span dict of a finished request (the JAX
+        ``serve.request`` span's fields)."""
+        now = time.perf_counter()
+        span = {
+            "order": st.order,
+            "prompt_tokens": st.prompt_len,
+            "new_tokens": len(st.emitted),
+            "queue_s": round(st.t_admit - st.t_enqueue, 6),
+            "total_s": round(now - st.t_enqueue, 6),
+        }
+        if st.forwards:
+            span["forwards"] = st.forwards
+        if st.spec:
+            span["drafted"] = st.drafted
+            span["draft_accepted"] = st.accepted
+        if self.prefix_cache is not None and st.use_prefix:
+            span["prefix_hit_tokens"] = st.prefix_hit
+        if st.wv is not None:
+            span["weight_version"] = st.wv
+        if st.t_prefill is not None:
+            span["prefill_s"] = round(st.t_prefill - st.t_admit, 6)
+        if st.t_first is not None:
+            span["ttft_s"] = round(st.t_first - st.t_enqueue, 6)
+        return span
 
     def _retire(self, slot: int, st: _Active, resp: dict) -> None:
         if "error" in resp and st.emitted:
             resp["partial"] = _detokenize_rows(
                 np.asarray([st.emitted], np.int32), 1, self.tok
             )[0]
+        if st.wv is not None:
+            resp["weight_version"] = st.wv
         self._done[st.order] = resp
         del self._active[slot]
         if self.paged:
