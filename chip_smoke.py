@@ -6,9 +6,9 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in fourteen phases
+runs on the CPU). It prints one JSON line per check, in fifteen phases
 (the tenth runs right after the fourth, on its export; the eleventh to
-the fourteenth last):
+the fifteenth last):
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -241,7 +241,30 @@ the fourteenth last):
    handoff's bytes and seconds) and ``--fault_spec ckpt.swap:at=1``
    aborting a flip with the old weights serving; the same traffic on a
    bf16 fleet, reported. ``python3 chip_smoke.py --only fleet`` runs this
-   phase alone (its references computed there).
+   phase alone (its references computed there);
+15. the encoder-only masked LM (``mlm_path``): the three flash kernels at
+   its shape (B 64 x S 128, 8 heads of 64, bidirectional, a ragged key
+   tail with a row of PAD only), bf16 and fp32, against their plain
+   versions with phase 3's limits and planted faults, timed beside SDPA
+   with the same key mask and the bound; ``cli.train --preset base
+   --objective mlm --attention_impl flash --sequence_length 128
+   --batch_size 64 --steps_per_dispatch 8`` for an epoch of the bundled
+   German side (noam warmup cut to 100): the loss must fall, each kernel
+   launched a layer a step and the forward a layer an eval batch; step
+   median, tokens and masked tokens a second; the first 8 steps run again
+   from the seed eagerly and through a captured step (masks drawn from
+   the generators registered with the graph) must give bit-identical
+   losses and parameters, and the run's first dispatch loss; a profiled
+   window (busy share); ``--optimizer adafactor`` at 2 layers for two
+   epochs: the loss must fall, the optimizer state under half the
+   parameters, the last checkpoint restored bit for bit; then the base
+   export behind ``cli.serve``: 16 fill lines of data/tgt-test.txt (one or
+   two words masked, ``top_k`` 5) and a malformed line, in bf16 and fp32,
+   flash and xla: ``flash_fwd`` a layer a ``fill_mask`` call (none with
+   xla); fp32 flash and xla lines equal with their probabilities taken out
+   and the probabilities within 1e-5 (the gate); the bf16 argmax fills
+   that differ counted. ``python3 chip_smoke.py --only mlm`` runs this
+   phase alone.
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -2918,12 +2941,14 @@ def dispatch_fit(argv, launches: dict, epoch_steps: int):
     return trainer, logs, rec
 
 
-def window_profile(trainer, batches, k, label):
+def window_profile(trainer, batches, k, label, phase="dispatch"):
     """Busy share of one window of the run's own step: one ``k``-step
     dispatch (k > 1: the replayed graph) or 3 single steps (k = 1), on the
     host clock, then a second window under ``torch.profiler`` for the
     device time and the host's launch calls. ``batches`` holds three
-    windows' worth of one shape."""
+    windows' worth of one shape. Target tokens are the non-PAD ids the
+    loss can score: past the teacher-forcing shift, or (the masked LM)
+    the whole window."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2944,7 +2969,8 @@ def window_profile(trainer, batches, k, label):
     window(batches[n : 2 * n])
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    tokens = sum(int((tgt[:, 1:] != 0).sum()) for _, tgt in batches[n : 2 * n])
+    shift = 0 if trainer.train_cfg.objective == "mlm" else 1
+    tokens = sum(int((tgt[:, shift:] != 0).sum()) for _, tgt in batches[n : 2 * n])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         window(batches[2 * n : 3 * n])
         torch.cuda.synchronize()
@@ -2958,7 +2984,7 @@ def window_profile(trainer, batches, k, label):
     launch_calls = {e.key: e.count for e in averages
                     if "Launch" in e.key and e.key.startswith("cu")}
     rec = {
-        "phase": "dispatch", "step": "window_profile", "run": label, "card": nvidia_smi_line(),
+        "phase": phase, "step": "window_profile", "run": label, "card": nvidia_smi_line(),
         "steps": n, "steps_per_dispatch": k, "wall_ms": wall_ms, "wall_ms_per_step": wall_ms / n,
         "target_tokens": tokens, "target_tokens_per_s": tokens / wall_ms * 1e3,
         "device_ms": device_us / 1e3 if device_us else "not measured",
@@ -3368,17 +3394,23 @@ def prefix_requests(tok, n: int = 16) -> list[dict]:
             for i, t in enumerate(tails)]
 
 
-def fp32_export(export, name: str = "smoke_export_fp32") -> str:
-    """The export with its config's dtype set to float32 (the same
-    parameters, linked) in ``build/<name>``: the model served in fp32."""
+def export_variant(export, name: str, **config) -> str:
+    """The export with ``config`` overriding fields of its config (the
+    same parameters, linked) in ``build/<name>``."""
     path = fresh_dir(name)
     os.makedirs(path)
     with open(os.path.join(export, "config.json")) as f:
-        config = json.load(f)
+        base = json.load(f)
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({**config, "dtype": "float32"}, f)
+        json.dump({**base, **config}, f)
     os.link(os.path.join(export, "params.npz"), os.path.join(path, "params.npz"))
     return path
+
+
+def fp32_export(export, name: str = "smoke_export_fp32") -> str:
+    """The export with its config's dtype set to float32: the model served
+    in fp32."""
+    return export_variant(export, name, dtype="float32")
 
 
 def prefix_path(export, vocab_path, tok):
@@ -5024,6 +5056,378 @@ def fleet_path(export, vocab_path, tok, reqs, dense32):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 15: the encoder-only masked LM (BERT's recipe on the base width)
+
+MLM_LEN = 128  # BERT pre-trains at S 128 for most of its steps
+MLM_K = 8  # --steps_per_dispatch of the base MLM run
+# Noam's warmup, cut from the CLI's 60,000 so that the loss moves within
+# an epoch of ~24 steps (the flag exists in both packages).
+MLM_WARMUP = "100"
+MLM_ADAFACTOR_LAYERS = 2  # the Adafactor run's depth, cut: a second, shorter run
+MLM_REQUESTS = 16
+
+
+def mlm_lengths(b=64, s=MLM_LEN, seed=SEED):
+    """Key lengths of a batch of B LM windows of S: full windows, except a
+    ragged tail of 8 rows (the split's last window and padding rows), one
+    of them PAD only."""
+    import numpy as np
+
+    lengths = np.full(b, s)
+    lengths[-8:] = np.random.default_rng(seed + 15).integers(2, s, size=8)
+    lengths[-1] = 0
+    return lengths
+
+
+def mlm_flash_checks():
+    """The three flash kernels at the MLM's shape (B 64 x S 128, 8 heads of
+    64, bidirectional, a ragged key tail) in bf16 and fp32 against their
+    plain versions, with phase 3's limits and planted faults, timed (bf16
+    and fp32): kernel time, the plain version's, SDPA's with the same key
+    mask (forward; its backward for dQ and dK/dV), each kernel's device
+    time by ``kernel_us`` and the bound from this run's inputs."""
+    recs = {}
+    for dtype in ("bfloat16", "float32"):
+        rec = check_flash(f"mlm B 64 S {MLM_LEN} bidirectional ragged tail {dtype}", dtype, 64,
+                          MLM_LEN, MLM_LEN, 8, 8, 64, False, None, False, timed=True,
+                          lengths=mlm_lengths(), device_timed=True)
+        recs[dtype] = rec
+        emit({
+            "phase": "mlm", "step": "flash_kernels", "dtype": dtype, "card": nvidia_smi_line(),
+            "max_abs_err": rec["max_abs_err"], "readings": rec["readings"],
+            "tolerance": rec["tolerance"], "kernel_ms": rec["ms"],
+            "kernel_device_ms": rec.get("device_ms"), "plain_ms": rec["plain_ms"],
+            "sdpa_ms": rec["library_ms"], "sdpa_device_ms": rec.get("library_device_ms"),
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "share_of_bound": rec["share_of_bound"],
+            "share_of_bound_device": rec.get("share_of_bound_device"),
+        })
+    return recs
+
+
+def mlm_argv(vocab_path, name, *extra):
+    """``cli.train --preset base --objective mlm --attention_impl flash
+    --sequence_length 128 --batch_size 64 --steps_per_dispatch 8`` on the
+    bundled German side, checkpointing to a fresh ``build/ckpt/<name>``."""
+    return [
+        "--preset", "base", "--objective", "mlm", "--attention_impl", "flash",
+        "--sequence_length", str(MLM_LEN), "--batch_size", "64", "--epochs", "1",
+        "--steps_per_dispatch", str(MLM_K), "--warmup_steps", MLM_WARMUP,
+        "--dataset_path", os.path.join(ROOT, "data"), "--tgt_vocab_file", vocab_path,
+        "--ckpt_path", fresh_dir("ckpt", name),
+        "--export_path", os.path.join(BUILD_DIR, f"{name}_export"), "--device", "cuda", *extra,
+    ]
+
+
+def mlm_fit(argv, label):
+    """One ``cli.train --objective mlm`` run in this process, the flash
+    counters set to 0 just before and read just after: a launch of each
+    kernel a layer a step and a forward launch a layer an eval batch (no
+    epilogue decode). The loss of its last dispatch must be below its
+    first's. Returns (trainer, record, the run's train split)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from transformer_tpu_torch.cli import train
+    from transformer_tpu_torch.models.transformer import flatten
+
+    logs: list[str] = []
+    torch.cuda.reset_peak_memory_stats()
+    read_flash_counters(reset=True)
+    t0 = time.perf_counter()
+    trainer = train.main(argv, log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_flash_counters()
+    cfg, tcfg = trainer.model_cfg, trainer.train_cfg
+    steps, evals, layers = len(trainer.step_seconds), trainer.eval_batches, cfg.num_layers
+    want = {"flash_fwd": layers * (steps + evals), "flash_dq": layers * steps,
+            "flash_dkdv": layers * steps}
+    ms = [t * 1e3 for t in trainer.step_seconds]
+    later = ms[MLM_K:] or ms  # past the first dispatch (its warm-up step and capture)
+    median_s = statistics.median(later) / 1e3
+    flags = train.resolve_flags(argv)
+    train_ds, _, _, _ = train.load_for_model(flags, train.train_config(flags), lambda *_: None)
+    # Rates of a steady step: the last epoch's mean positions, real tokens
+    # and masked tokens a step over the median step.
+    last = [np.asarray(t) for _, t in train_ds.batches(tcfg.epochs - 1)]
+    real = sum(int((t != 0).sum()) for t in last) / len(last)
+    masked = trainer.train_metrics.weight / len(last)
+    opt = trainer.state.opt_state
+    rec = {
+        "phase": "mlm", "step": "fit", "run": label, "card": nvidia_smi_line(), "argv": argv,
+        "config": dataclasses.asdict(cfg), "optimizer": tcfg.optimizer,
+        "train_windows": train_ds.num_examples, "steps": steps, "eval_batches": evals,
+        "dispatches": [k for k, _ in trainer.dispatches],
+        "captures": 0 if trainer.graph is None else len(trainer.graph.captures),
+        "step_ms_first": ms[0], "step_ms_median": median_s * 1e3,
+        "step_ms_mean": statistics.mean(later),
+        "positions_per_s": last[0].size / median_s, "tokens_per_s": real / median_s,
+        "masked_tokens_per_s": masked / median_s, "masked_share": masked / real,
+        "rates": "the last epoch's mean a step over the median step past the first dispatch",
+        "dispatch_losses": trainer.losses, "train_loss": trainer.train_metrics.loss,
+        "train_acc": trainer.train_metrics.accuracy, "eval_loss": trainer.eval_metrics.loss,
+        "param_elements": sum(p.numel() for p in flatten(trainer.state.params).values()),
+        "optimizer_state_elements": sum(t.numel() for t in opt.tensors()),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "fit_wall_s": wall, "launches": launches, "expected_launches": want,
+        "logs": logs[-6:],
+    }
+    emit(rec)
+    losses = trainer.losses
+    if not all(math.isfinite(x) for x in losses + [rec["eval_loss"]]):
+        raise SystemExit(f"mlm {label}: non-finite loss: {rec}")
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        raise SystemExit(f"mlm {label}: the loss did not fall: {losses}")
+    if launches != want or launches["flash_fwd"] <= 0:
+        raise SystemExit(f"mlm {label}: flash launches {launches}, expected {want}")
+    return trainer, rec, train_ds
+
+
+def mlm_replay_check(trainer, train_ds):
+    """The first ``MLM_K`` steps of the base run twice from the seed's
+    init, on the epoch's first batches: eagerly (``step.core``) and
+    through a ``graph.CapturedStep`` (the first step eager, then a capture
+    and 7 replays, the masks drawn from the generators registered with the
+    graph). The per-step losses and the parameters after the K steps must
+    be bit-identical, and the K steps' dispatch loss must equal the
+    ``cli.train`` run's first one bit for bit."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from transformer_tpu_torch.convert import params_digest
+    from transformer_tpu_torch.train.graph import CapturedStep
+    from transformer_tpu_torch.train.state import create_train_state
+    from transformer_tpu_torch.train.trainer import _dispatch_metrics, make_train_step, stage
+
+    cfg, tcfg = trainer.model_cfg, trainer.train_cfg
+    tgts = np.stack([t for _, t in itertools.islice(train_ds.batches(0), MLM_K)])
+    device = torch.device("cuda")
+
+    def run(captured):
+        state = create_train_state(cfg, tcfg, device=device)
+        step = make_train_step(cfg, tcfg)
+        fn = CapturedStep(step.core, tcfg.seed, device) if captured else step.core
+        staged_tgt, scalars = stage([tgts], step.scalars(state, MLM_K), device)
+        losses, sums = [], None
+        for i in range(MLM_K):
+            state, m = fn(state, None, staged_tgt[i], scalars[i])
+            losses.append(m["loss"].clone())
+            sums = ({k: v.clone() for k, v in m.items()} if sums is None
+                    else {k: sums[k] + m[k] for k in sums})
+        torch.cuda.synchronize()
+        dispatch = float(_dispatch_metrics(sums, MLM_K, tcfg.loss_normalization,
+                                           tcfg.batch_size)["loss"])
+        captures = len(fn.captures) if captured else 0
+        return torch.stack(losses).cpu(), params_digest(state.params), dispatch, captures
+
+    eager, replayed = run(False), run(True)
+    rec = {
+        "phase": "mlm", "step": "replay_vs_eager", "steps": MLM_K,
+        "eager_losses": eager[0].tolist(), "replayed_losses": replayed[0].tolist(),
+        "losses_bit_identical": bool(torch.equal(eager[0], replayed[0])),
+        "params_bit_identical": eager[1] == replayed[1], "captures": replayed[3],
+        "dispatch_loss": replayed[2], "cli_first_dispatch_loss": trainer.losses[0],
+        "cli_first_dispatch_equal": replayed[2] == trainer.losses[0],
+        "masks_differ_by_step": len(set(eager[0].tolist())) == MLM_K,
+    }
+    emit(rec)
+    if not (rec["losses_bit_identical"] and rec["params_bit_identical"]
+            and rec["cli_first_dispatch_equal"] and replayed[3] == 1):
+        raise SystemExit(f"mlm: the replayed steps are not the eager ones: {rec}")
+
+
+def mlm_adafactor_path(vocab_path):
+    """``--optimizer adafactor`` on the same path, its depth cut to
+    ``MLM_ADAFACTOR_LAYERS`` layers, two epochs: the loss must fall, the
+    optimizer state must hold under half the parameter count (factored
+    second moments; JAX's ``test_state_is_factored``), and the run's last
+    checkpoint must restore bit for bit into a fresh state. Returns the
+    run's flash launches."""
+    import numpy as np
+
+    from transformer_tpu_torch.train.checkpoint import CheckpointManager, snapshot
+    from transformer_tpu_torch.train.state import create_train_state
+
+    argv = mlm_argv(vocab_path, "mlm_adafactor", "--optimizer", "adafactor", "--num_layers",
+                    str(MLM_ADAFACTOR_LAYERS), "--epochs", "2")
+    trainer, rec, _ = mlm_fit(argv, "adafactor")
+    t0 = time.perf_counter()
+    template = create_train_state(trainer.model_cfg, trainer.train_cfg, device="cuda")
+    restored = CheckpointManager(argv[argv.index("--ckpt_path") + 1]).restore_latest(template)
+    got, want = snapshot(restored), snapshot(trainer.state)
+    same = sorted(got) == sorted(want) and all(
+        np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes() for k in want)
+    out = {
+        "phase": "mlm", "step": "adafactor_state", "param_elements": rec["param_elements"],
+        "optimizer_state_elements": rec["optimizer_state_elements"],
+        "state_over_params": rec["optimizer_state_elements"] / rec["param_elements"],
+        "checkpoint_round_trip_bit_identical": same, "restore_s": time.perf_counter() - t0,
+        "restored_step": restored.step,
+    }
+    emit(out)
+    if not same or not out["state_over_params"] < 0.5:
+        raise SystemExit(f"mlm adafactor: {out}")
+    return rec["launches"]
+
+
+def mlm_requests(n=MLM_REQUESTS) -> list[str]:
+    """``n`` fill lines: test-split German sentences of 6 to 20 words with
+    one word (even lines) or two (odd lines) replaced by [MASK], ``top_k``
+    5, and one malformed line last."""
+    lines = []
+    with open(os.path.join(ROOT, "data", "tgt-test.txt"), encoding="utf-8") as f:
+        for text in f:
+            words = text.split()
+            if not 6 <= len(words) <= 20:  # well inside max_position 128
+                continue
+            i = len(lines)
+            words[len(words) // 2] = "[MASK]"
+            if i % 2:
+                words[1] = "[MASK]"
+            lines.append(json.dumps({"fill": " ".join(words), "top_k": 5}))
+            if len(lines) == n:
+                break
+    return lines + ['{"fill": "der [MASK]']
+
+
+def mlm_serve(export, vocab_path, lines):
+    """``cli.serve`` on ``export`` (grouped: an encoder-only export) with
+    every line queued, ``fill_mask`` wrapped to count its calls and the
+    flash counters set to 0 just before and read just after. Returns
+    (answers, record)."""
+    import torch
+
+    from transformer_tpu_torch.cli import serve
+    from transformer_tpu_torch.train import decode
+
+    calls = []
+    real = decode.fill_mask
+
+    def counted(params, cfg, tok, texts, **kw):
+        calls.append(len(texts))
+        return real(params, cfg, tok, texts, **kw)
+
+    argv = ["--export_path", export, "--tgt_vocab_file", vocab_path, "--serve_batch",
+            str(len(lines)), "--device", "cuda"]
+    out = io.StringIO()
+    decode.fill_mask = counted
+    try:
+        read_flash_counters(reset=True)
+        batches = serve.main(argv, stdin=io.StringIO("".join(x + "\n" for x in lines)),
+                             stdout=out)
+        torch.cuda.synchronize()
+        launches = read_flash_counters()
+    finally:
+        decode.fill_mask = real
+    answers = out.getvalue().splitlines()
+    served_s = sum(b["seconds"] for b in batches)
+    return answers, {"answers": len(answers), "fill_mask_calls": calls, "launches": launches,
+                     "serve_s": served_s, "requests_per_s": len(lines) / served_s}
+
+
+def _without_probs(line: str):
+    ans = json.loads(line)
+    if "candidates" not in ans:
+        return json.dumps(ans), []
+    probs = [p for cands in ans["candidates"] for _, p in cands]
+    bare = {**ans, "candidates": [[t for t, _ in cands] for cands in ans["candidates"]]}
+    return json.dumps(bare), probs
+
+
+def mlm_serve_path(export, vocab_path):
+    """The trained base MLM's export behind ``cli.serve``: 16 fill lines
+    and a malformed one, in bf16 and fp32, with the flash attention impl
+    (the export's) and with xla. The flash runs must launch ``flash_fwd``
+    a layer a ``fill_mask`` call, the xla runs none. Every fill line
+    answers ``filled`` and one 5-candidate list a marker, the malformed
+    line JAX's ``JSONDecodeError`` answer. fp32 (the gate): flash's and
+    xla's lines with their probabilities taken out byte-identical, the
+    probabilities within 1e-5 (the two attention impls sum in another
+    order, so the last bits of a probability may differ); the lines that
+    are byte-identical whole are counted. bf16: the argmax fills that
+    differ between flash and xla are counted. Returns the flash launches
+    of the bf16 flash run (the path's)."""
+    from transformer_tpu_torch.convert import load_export_config
+
+    lines = mlm_requests()
+    layers = load_export_config(export).num_layers
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        for impl in ("flash", "xla"):
+            path = export_variant(export, f"mlm_export_{dtype}_{impl}", dtype=dtype,
+                                  attention_impl=impl)
+            answers, rec = mlm_serve(path, vocab_path, lines)
+            want = {"flash_fwd": layers * len(rec["fill_mask_calls"]) if impl == "flash" else 0,
+                    "flash_dq": 0, "flash_dkdv": 0}
+            parsed = [json.loads(a) for a in answers]
+            well_formed = len(parsed) == len(lines) and all(
+                "filled" in a and len(a["candidates"]) == json.loads(ln)["fill"].count("[MASK]")
+                and all(len(c) == 5 for c in a["candidates"])
+                for a, ln in zip(parsed[:-1], lines[:-1])
+            ) and parsed[-1].get("error", "").startswith("JSONDecodeError")
+            rec.update({"phase": "mlm", "step": "serve", "dtype": dtype, "impl": impl,
+                        "card": nvidia_smi_line(), "expected_launches": want,
+                        "well_formed": well_formed, "sample": parsed[:2]})
+            emit(rec)
+            if rec["launches"] != want or not well_formed:
+                raise SystemExit(f"mlm serving {dtype} {impl}: {rec}")
+            runs[dtype, impl] = (answers, rec)
+    f32 = [_without_probs(a) for a in runs["float32", "flash"][0]]
+    x32 = [_without_probs(a) for a in runs["float32", "xla"][0]]
+    prob_err = max((abs(p - q) for (_, a), (_, b) in zip(f32, x32) for p, q in zip(a, b)),
+                   default=0.0)
+    bf = [json.loads(a).get("filled") for a in runs["bfloat16", "flash"][0]]
+    bx = [json.loads(a).get("filled") for a in runs["bfloat16", "xla"][0]]
+    rec = {
+        "phase": "mlm", "step": "serve_flash_vs_xla", "requests": len(lines),
+        "fp32_lines_equal_without_probs": all(a[0] == b[0] for a, b in zip(f32, x32)),
+        "fp32_prob_max_abs_diff": prob_err,
+        "fp32_lines_byte_identical": sum(a == b for a, b in zip(runs["float32", "flash"][0],
+                                                                runs["float32", "xla"][0])),
+        "bf16_argmax_fills_differ": sum(a != b for a, b in zip(bf, bx)),
+    }
+    emit(rec)
+    if not (rec["fp32_lines_equal_without_probs"] and prob_err <= 1e-5):
+        raise SystemExit(f"mlm serving: fp32 flash and xla answers differ: {rec}")
+    return runs["bfloat16", "flash"][1]["launches"]
+
+
+def mlm_path(vocab_path):
+    """Phase 15: the flash kernels at the MLM's shape, the base MLM trained
+    for an epoch (its replayed steps held to eager ones), a profiled
+    window, Adafactor, and the export behind ``cli.serve``. Returns the
+    flash launches by path."""
+    import torch
+
+    recs = mlm_flash_checks()
+    argv = mlm_argv(vocab_path, "mlm")
+    trainer, fit_rec, train_ds = mlm_fit(argv, "base")
+    launches = {"mlm_train": fit_rec["launches"]}
+    mlm_replay_check(trainer, train_ds)
+    window_profile(trainer, batches_of_width(train_ds, MLM_LEN, 3 * MLM_K), MLM_K, "mlm base",
+                   phase="mlm")
+    export = argv[argv.index("--export_path") + 1]
+    del trainer
+    torch.cuda.empty_cache()
+    launches["mlm_adafactor"] = mlm_adafactor_path(vocab_path)
+    torch.cuda.empty_cache()
+    launches["mlm_fill"] = mlm_serve_path(export, vocab_path)
+    return launches, recs["bfloat16"]
+
+
+def mlm_only() -> None:
+    """Phase 15 alone (``python3 chip_smoke.py --only mlm``)."""
+    _, vocab_path = vocab()
+    launches, _ = mlm_path(vocab_path)
+    emit({"phase": "mlm", "launches_by_path": launches})
+
+
 def fleet_only() -> None:
     """Phase 14 alone (``python3 chip_smoke.py --only fleet``): phase 4's
     export written from the seed (no serving through the kernels) and the
@@ -5062,6 +5466,9 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--only", "fleet"]:
         fleet_only()
+        return 0
+    if sys.argv[1:] == ["--only", "mlm"]:
+        mlm_only()
         return 0
 
     # Each phase's seconds on the host clock, emitted as it ends.
@@ -5294,6 +5701,12 @@ def main() -> int:
     fleet_path(export, vocab_path, tok, reqs, dense32)
     lap("14 fleet")
 
+    # 15. the encoder-only masked LM: the flash kernels at its shape, the
+    # base MLM trained (replayed steps held to eager ones), Adafactor, and
+    # fill requests through cli.serve
+    mlm_launches, mlm_timed = mlm_path(vocab_path)
+    lap("15 mlm")
+
     def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
                                          "share_of_bound_warm") if k in main_rec}
@@ -5330,7 +5743,8 @@ def main() -> int:
                    "seq2seq_train": s2s_launches[name], "translate": tr_launches[name],
                    "ckpt": ckpt_launches[name], "dispatch": disp_launches[name],
                    "s2s_dist": dist_launches[name], "serve_grouped": grouped_launches[name],
-                   "windowed_train": windowed_launches[name]}
+                   "windowed_train": windowed_launches[name],
+                   **{path: counts[name] for path, counts in mlm_launches.items()}}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",
@@ -5351,10 +5765,14 @@ def main() -> int:
                     "bound_ms", "bound_by", "share_of_bound", "share_of_bound_device")}
                 for part, rec in s2s_timed.items()
             },
+            "mlm": {key: pick(mlm_timed, key) for key in (
+                "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                "bound_by", "share_of_bound", "share_of_bound_device")},
             "timers": {"ms": "cuda_ms (device-bound at the main shape)", "library_ms": "cuda_ms",
                        "seq2seq": "ms, plain_ms, library_ms: cuda_ms (the host's time per call "
                                   "at B 64, S 64); device_ms, library_device_ms: kernel_us "
-                                  "(profiler device time per call)"},
+                                  "(profiler device time per call)",
+                       "mlm": "as seq2seq, at B 64, S 128, bidirectional, bf16"},
         }
 
     print(smi, flush=True)

@@ -17,8 +17,9 @@ over gloo processes against the JAX package's one-device train step.
   in a world of one it exits 0.
 - The transport rule on layouts, the rank -> (data, seq) map, and the
   guards: ring attention without a context, ``--tp 2`` (LM and seq2seq),
-  ``--sp 2`` with flash attention, encoder-only models, Ulysses over heads
-  the seq axis does not divide; seq2seq models and Ulysses are admitted.
+  ``--sp 2`` with flash attention, encoder-only models over ``seq`` (JAX's
+  message), Ulysses over heads the seq axis does not divide; seq2seq
+  models, encoder-only models over ``data`` and Ulysses are admitted.
 
 Workers are module-level functions run in spawned processes (gloo on the
 CPU, one thread each); they import no JAX.
@@ -350,8 +351,9 @@ def test_guards(tmp_path):
         with pytest.raises(NotImplementedError, match="--tp > 1"):
             distributed_train.main(["--tp", "2", *extra, "--device", "cpu",
                                     "--ckpt_path", str(tmp_path / "ckpt")])
-    # Seq2seq models and Ulysses are admitted; encoder-only models and
-    # heads that the seq axis does not divide are not.
+    # Seq2seq models, encoder-only models over data and Ulysses are
+    # admitted; encoder-only models over seq (JAX's message) and heads that
+    # the seq axis does not divide are not.
     s2s = ModelConfig(**{**MODEL, "decoder_only": False})
     trainer = DistributedTrainer(s2s, TrainConfig(**TRAIN), _fake_mesh(MeshConfig()))
     assert trainer.train_step.uses_src
@@ -360,9 +362,12 @@ def test_guards(tmp_path):
     with pytest.raises(ValueError, match="divisible by the seq axis"):
         check_mesh(ModelConfig(**{**MODEL, "attention_impl": "ulysses"}),
                    TrainConfig(**TRAIN), _fake_mesh(MeshConfig(seq=8)))
-    with pytest.raises(NotImplementedError, match="encoder-only"):
-        check_mesh(ModelConfig(**{**MODEL, "decoder_only": False, "encoder_only": True}),
-                   TrainConfig(**TRAIN), _fake_mesh(MeshConfig()))
+    mlm = ModelConfig(**{**MODEL, "decoder_only": False, "encoder_only": True})
+    check_mesh(mlm, TrainConfig(**TRAIN), _fake_mesh(MeshConfig(data=2)))
+    with pytest.raises(ValueError, match="pipe and seq are not wired for the encoder-only"):
+        check_mesh(ModelConfig(**{**MODEL, "decoder_only": False, "encoder_only": True,
+                                  "attention_impl": "ring"}),
+                   TrainConfig(**TRAIN), _fake_mesh(MeshConfig(seq=2)))
     with pytest.raises(ValueError, match="needs a sequence-parallel attention impl"):
         DistributedTrainer(ModelConfig(**MODEL), TrainConfig(**TRAIN),
                            _fake_mesh(MeshConfig(seq=2)))

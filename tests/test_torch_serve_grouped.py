@@ -13,7 +13,8 @@ alone and answers as the port's continuous scheduler does at its seed.
 ``tests/test_flags.py`` counts it), once more per member of a poisoned
 group. ``cli.serve.main --device cpu`` serves a seq2seq export (always
 grouped, whatever ``--serve_slots`` says) and an LM export at
-``--serve_slots 0``, and refuses an encoder-only export.
+``--serve_slots 0``, and an encoder-only export (grouped) answers JAX's
+routing errors to ``prompt`` and ``src`` requests.
 """
 
 import io
@@ -261,8 +262,23 @@ def test_main_serves_an_lm_export_at_zero_slots(lm):
 
 
 def test_main_refuses_an_encoder_only_export(tmp_path):
-    kw = _model_kw(40, 40, encoder_only=True)
-    jcfg = JConfig(**kw)
-    export_params(transformer_init(jax.random.PRNGKey(0), jcfg), jcfg, str(tmp_path))
-    with pytest.raises(SystemExit, match="encoder-only .masked-LM. exports and 'fill' requests"):
-        serve.main(["--export_path", str(tmp_path), "--device", "cpu"], stdin=io.StringIO(""))
+    """An encoder-only export refuses every request kind but 'fill', with
+    JAX's routing errors, and answers fills as JAX does."""
+    tok = _tokenizers(TGT_CORPUS, tmp_path / "tgt.subwords")
+    v = tok[0].model_vocab_size + 1  # + [MASK]
+    jcfg = JConfig(**_model_kw(v, v, encoder_only=True))
+    jparams = transformer_init(jax.random.PRNGKey(0), jcfg)
+    export_params(jparams, jcfg, str(tmp_path / "export"))
+    lines = [json.dumps({"prompt": "er geht"}), json.dumps({"src": "he goes"}),
+             json.dumps({"fill": "er [MASK]", "top_k": 1})]
+    want = j_serve.serve_lines(lines, jparams, jcfg, tok[0], tok[0])
+    out = io.StringIO()
+    serve.main(["--export_path", str(tmp_path / "export"), "--tgt_vocab_file", tok[2],
+                "--device", "cpu"], stdin=io.StringIO("".join(f"{ln}\n" for ln in lines)),
+               stdout=out)
+    got = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    assert got[:2] == want[:2] == [{"error": "fill-mask export serves 'fill', not 'prompt'"},
+                                   {"error": "fill-mask export serves 'fill', not 'src'"}]
+    assert got[2]["filled"] == want[2]["filled"]
+    assert [c[0][0] for c in got[2]["candidates"]] == [c[0][0] for c in want[2]["candidates"]]
+    assert abs(got[2]["candidates"][0][0][1] - want[2]["candidates"][0][0][1]) <= 1e-5

@@ -55,7 +55,7 @@ def main(argv: list[str] | None = None, log_fn=print) -> list[int]:
             f"no checkpoint at step {args.step} under {args.ckpt_path!r} (available: {available})"
         )
     tgt_vocab = SubwordTokenizer.load(args.tgt_vocab_file).model_vocab_size
-    src_vocab = None if args.decoder_only else (
+    src_vocab = None if train.lm_mode(args) else (
         SubwordTokenizer.load(args.src_vocab_file).model_vocab_size
     )
     model_cfg = train.model_config(args, tgt_vocab, src_vocab)

@@ -18,18 +18,22 @@ Each input line is a JSON object or a raw line:
                                             (+ temperature, top_k, top_p,
                                             seed, deadline_ms, cache_prefix,
                                             speculate)
+    {"fill": "the [MASK] house", "top_k": 5}  masked-LM fill (encoder-only)
     he goes to school                       raw line: the export's kind
 
 One answer line per request, in request order: ``{"translation": ...}``,
-``{"continuation": ...}`` or ``{"error": ...}``; a malformed line answers
-an error and never stops the loop.
+``{"continuation": ...}``, ``{"filled": ..., "candidates": [[[token,
+prob], ...], ...]}`` or ``{"error": ...}``; a malformed line answers an
+error and never stops the loop.
 
-Port of ``transformer_tpu/cli/serve.py``. Seq2seq exports, and LM exports
-at ``--serve_slots 0``, take the grouped path: a reader thread queues
+Port of ``transformer_tpu/cli/serve.py``. Seq2seq and encoder-only
+(masked-LM) exports, and LM exports at ``--serve_slots 0``, take the
+grouped path: a reader thread queues
 stdin lines; each round drains up to ``--serve_batch`` lines already
 queued (it never waits for more), groups them by decode signature (kind,
-max_len and beam, or the sampling parameters) and runs ONE ``translate``
-or ``generate`` per group (``serve_lines``). Its errors carry no ``code``.
+max_len and beam, the sampling parameters, or a fill's top_k) and runs
+ONE ``translate``, ``generate`` or ``fill_mask`` per group
+(``serve_lines``). Its errors carry no ``code``.
 LM exports at ``--serve_slots`` > 0 take the continuous path
 (``serve/scheduler.py``) on the layout ``--kv_layout`` and
 ``--decode_kernel`` name, with the JAX CLI's defaults: the dense slot
@@ -43,8 +47,7 @@ admission retries (``--admission_retries``), circuit breakers
 (``--breaker_threshold``, ``--breaker_cooldown``), fault injection
 (``--fault_spec``, armed before the scheduler is built), deadlines and
 cancellation (``deadline_ms``; ``ContinuousScheduler.cancel``) and
-backpressure (``--max_backlog``); its errors carry a ``code``. Encoder-only
-(masked-LM) exports and ``fill`` requests are not served yet. Flags keep
+backpressure (``--max_backlog``); its errors carry a ``code``. Flags keep
 the JAX CLI's names; argparse replaces absl.
 """
 
@@ -59,11 +62,6 @@ import time
 
 from transformer_tpu_torch.cli.train import _bool
 from transformer_tpu_torch.cli.translate import add_export_flags
-
-_ENCODER_ONLY = (
-    "encoder-only (masked-LM) exports and 'fill' requests are a later slice "
-    "of the port, with the masked-LM objective"
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -157,13 +155,24 @@ def _parse_line(line: str, model_cfg) -> dict:
         if not isinstance(req, dict):
             raise ValueError("request must be a JSON object")
         return req
+    if model_cfg.encoder_only:
+        return {"fill": line}
     return {"prompt" if model_cfg.decoder_only else "src": line}
 
 
 def _signature(req: dict, model_cfg, default_max_len: int, default_beam: int) -> tuple | None:
     """The grouping key: requests of one group run as ONE decode call.
     None = a kind mismatch (answered alone with the routing message).
-    A stray 'fill' key beside 'src' or 'prompt' is ignored."""
+    A stray 'fill' key beside 'src' or 'prompt' is ignored by the other
+    kinds' exports."""
+    if model_cfg.encoder_only:
+        if "fill" not in req:
+            return None
+        top_k = int(req.get("top_k", 5))
+        if not 1 <= top_k <= 100:
+            # Raised, so this request answers with the message.
+            raise ValueError(f"top_k must be in [1, 100], got {top_k}")
+        return ("fill", top_k)
     if "src" in req:
         if model_cfg.decoder_only:
             return None
@@ -192,7 +201,8 @@ def serve_lines(
     prefill_chunk: int = 0,
 ) -> list[dict]:
     """Answer a batch of request lines with one decode per signature
-    group, in input order: ``translate`` for ``src`` groups, ``generate``
+    group, in input order: ``fill_mask`` for ``fill`` groups (the answers'
+    candidates as lists), ``translate`` for ``src`` groups, ``generate``
     for ``prompt`` groups (a sampled request alone, so its draws do not
     depend on its neighbours and equal the continuous scheduler's). A
     malformed line answers ``{"error": "<Type>: <msg>"}``, a kind mismatch
@@ -201,11 +211,11 @@ def serve_lines(
     continuous path's."""
     from transformer_tpu_torch.train import decode
 
-    if model_cfg.encoder_only:
-        raise NotImplementedError(_ENCODER_ONLY)
     responses: list[dict | None] = [None] * len(lines)
     groups: dict[tuple, list[tuple[int, dict]]] = {}
-    kind, served_key = ("LM", "prompt") if model_cfg.decoder_only else ("seq2seq", "src")
+    kind = ("fill-mask" if model_cfg.encoder_only
+            else "LM" if model_cfg.decoder_only else "seq2seq")
+    served_key = {"fill-mask": "fill", "LM": "prompt", "seq2seq": "src"}[kind]
     for i, line in enumerate(lines):
         try:
             req = _parse_line(line, model_cfg)
@@ -227,6 +237,12 @@ def serve_lines(
         groups.setdefault(sig, []).append((i, req))
 
     def run_group(sig, members) -> list[dict]:
+        if sig[0] == "fill":
+            outs = decode.fill_mask(params, model_cfg, tgt_tok,
+                                    [str(req["fill"]) for _, req in members], top_k=sig[1])
+            return [{"filled": o["filled"],
+                     "candidates": [[[t, p] for t, p in cands] for cands in o["candidates"]]}
+                    for o in outs]
         if sig[0] == "src":
             _, max_len, beam = sig
             outs = decode.translate(
@@ -405,15 +421,12 @@ def build_scheduler(args: argparse.Namespace, loaded=None, breaker_clock=time.mo
 
 
 def _load(args: argparse.Namespace):
-    """(params, cfg, target tokenizer, device) of the export; encoder-only
-    exports are refused before their weights load."""
-    from transformer_tpu_torch.convert import load_export, load_export_config
+    """(params, cfg, target tokenizer, device) of the export."""
+    from transformer_tpu_torch.convert import load_export
     from transformer_tpu_torch.data.tokenizer import SubwordTokenizer
     from transformer_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
-    if load_export_config(args.export_path).encoder_only:
-        raise SystemExit(_ENCODER_ONLY)
     params, cfg = load_export(args.export_path, kv_cache_int8=args.kv_cache_int8, device=device)
     return params, cfg, SubwordTokenizer.load(args.tgt_vocab_file), device
 
@@ -452,7 +465,7 @@ def _serve(args: argparse.Namespace, stdin, stdout):
         result = sched
     else:
         src_tok = tgt_tok
-        if not cfg.decoder_only:
+        if not (cfg.decoder_only or cfg.encoder_only):
             src_tok = (tgt_tok if args.src_vocab_file == args.tgt_vocab_file
                        else SubwordTokenizer.load(args.src_vocab_file))
         result = serve_grouped(q, params, cfg, src_tok, tgt_tok, args, out)

@@ -1,18 +1,24 @@
 """Train a seq2seq translator on a parallel corpus, or a decoder-only LM
-on its target side.
+or an encoder-only masked LM on its target side.
 
     python -m transformer_tpu_torch.cli.train --preset base --epochs 1 \
         --dataset_path data --src_vocab_file src_vocab.subwords \
         --tgt_vocab_file tgt_vocab.subwords [--export_path model] [--device cuda]
     python -m transformer_tpu_torch.cli.train --preset long4k --epochs 1 \
         --dataset_path data --tgt_vocab_file tgt_vocab.subwords
+    python -m transformer_tpu_torch.cli.train --preset base --objective mlm \
+        --attention_impl flash --sequence_length 128 --epochs 1 \
+        --dataset_path data --tgt_vocab_file tgt_vocab.subwords
 
 Port of ``transformer_tpu/cli/train.py``. Seq2seq (the default): load (or
 build) both vocabularies and the sentence pairs, fit, translate a sample
 sentence, write the export, then score BLEU on the first ``--bleu_limit``
-test pairs (``--eval_bleu``). LM mode (``--decoder_only``): the LM windows
-of the target side, then eval loss and perplexity from the final epoch's
-full eval, and the export. As the JAX CLI does, both always checkpoint,
+test pairs (``--eval_bleu``). LM mode (``--decoder_only``, or
+``--objective mlm``, which trains an encoder-only model on the same
+windows, masked afresh every step, with the vocabulary one id larger for
+[MASK]): the LM windows of the target side, then eval loss and
+perplexity from the final epoch's full eval (the MLM's over its constant
+eval masks), and the export. As the JAX CLI does, both always checkpoint,
 to ``--ckpt_path`` (default ``model_dist`` in the working directory):
 the newest intact checkpoint there is restored before training, so a
 relaunch with the same path resumes (after a finished run it trains
@@ -25,7 +31,8 @@ absl. ``--export_path`` (default ``model``) and ``--device`` (default
 host dispatch (on the card by replaying a CUDA graph of the step, one per
 batch shape), ``--length_buckets`` (seq2seq) pads each batch to the
 smallest fitting width, ``--remat_policy dots`` keeps the dense products'
-outputs under ``--remat``. Masked-LM training raises until its slice.
+outputs under ``--remat``. ``--optimizer adafactor`` trains with
+optax's Adafactor.
 """
 
 from __future__ import annotations
@@ -84,7 +91,7 @@ _FLAGS: dict[str, tuple] = {
     "label_smoothing": (float, 0.0, "label smoothing epsilon"),
     "loss_normalization": (str, "tokens", "tokens | batch"),
     "max_grad_norm": (float, 0.0, "global-norm gradient clip (0 = off)"),
-    "optimizer": (str, "adam", "adam | adamw (adafactor is not ported)"),
+    "optimizer": (str, "adam", "adam | adafactor | adamw"),
     "weight_decay": (float, 0.0, "adamw weight decay"),
     "tie_embeddings": (_bool, False, "share src/tgt embedding tables"),
     "tie_output": (_bool, False, "tie the output projection to the embedding"),
@@ -92,7 +99,12 @@ _FLAGS: dict[str, tuple] = {
     "ffn_activation": (str, "relu", "FFN activation"),
     "position_scheme": (str, "sinusoidal", "sinusoidal | rope"),
     "decoder_only": (_bool, False, "causal-LM mode (default: seq2seq translation)"),
-    "objective": (str, "causal", "causal (mlm is not ported)"),
+    "objective": (str, "causal", "training objective: 'causal' (teacher-forcing seq2seq / "
+                  "LM) or 'mlm' (BERT-style masked-LM on an encoder-only model: trains on "
+                  "target-side LM windows like --decoder_only, masks dynamically in-step, "
+                  "reserves the top input id for [MASK])"),
+    "mlm_mask_rate": (float, 0.15, "fraction of non-pad positions selected per MLM step "
+                      "(80/10/10 mask/random/keep split within the selection)"),
     "attention_impl": (str, "xla", "xla | flash | ring | ulysses (ring, ulysses: "
                        "cli.distributed_train --sp > 1)"),
     "attention_window": (int, 0, "sliding-window causal attention (0 = full)"),
@@ -141,12 +153,15 @@ def resolve_flags(
     values = {name: spec[1] for name, spec in flags.items()}
     values.update(preset)
     values.update(explicit)
-    if values["objective"] != "causal":
-        raise NotImplementedError(
-            "the port trains with the causal objective (seq2seq or --decoder_only); "
-            "masked-LM training is a later slice"
-        )
+    if values["objective"] not in ("causal", "mlm"):
+        raise ValueError(f"--objective must be 'causal' or 'mlm', got {values['objective']!r}")
     return argparse.Namespace(**values)
+
+
+def lm_mode(args: argparse.Namespace) -> bool:
+    """LM windows of the target side: the causal decoder-only LM and the
+    encoder-only masked LM."""
+    return args.decoder_only or args.objective == "mlm"
 
 
 def train_config(args: argparse.Namespace):
@@ -161,7 +176,8 @@ def train_config(args: argparse.Namespace):
         optimizer=args.optimizer, weight_decay=args.weight_decay, seed=args.seed,
         eval_max_batches=args.eval_max_batches, grad_accum_steps=args.grad_accum,
         loss_chunks=args.loss_chunks, steps_per_dispatch=args.steps_per_dispatch,
-        objective=args.objective, early_stop_patience=args.early_stop_patience,
+        objective=args.objective, mlm_mask_rate=args.mlm_mask_rate,
+        early_stop_patience=args.early_stop_patience,
         max_ckpt_keep=args.max_ckpt_keep, ckpt_path=args.ckpt_path,
     )
 
@@ -185,8 +201,9 @@ def load_data(args: argparse.Namespace, train_cfg, log_fn=print):
 
     if length_buckets(args):
         raise ValueError(
-            "--length_buckets applies to the seq2seq pipeline only; LM windows are "
-            "already fixed-width (drop the flag with --decoder_only)"
+            "--length_buckets applies to the seq2seq pipeline only; LM "
+            "windows are already fixed-width (drop the flag with "
+            "--decoder_only / --objective=mlm)"
         )
     train_ds, test_ds, tok = load_lm_splits(
         args.dataset_path, args.tgt_vocab_file, batch_size=train_cfg.batch_size,
@@ -223,17 +240,24 @@ def load_pairs(args: argparse.Namespace, train_cfg, log_fn=print):
 def model_config(args: argparse.Namespace, vocab: int, input_vocab: int | None = None):
     """The model of the flags: ``vocab`` target ids, and ``input_vocab``
     source ids (default ``vocab``); ``max_position`` is
-    ``max(sequence_length, 64)``, as the JAX CLI sets it."""
+    ``max(sequence_length, 64)``, as the JAX CLI sets it. ``--objective
+    mlm`` makes it encoder-only, with one id space one larger than the
+    tokenizer's: the top id is [MASK]."""
     from transformer_tpu_torch.config import ModelConfig
 
+    input_vocab = vocab if input_vocab is None else input_vocab
+    if args.objective == "mlm":
+        input_vocab += 1
+        vocab = input_vocab
     return ModelConfig(
         num_layers=args.num_layers, d_model=args.d_model, num_heads=args.num_heads,
         num_kv_heads=args.num_kv_heads, dff=args.dff,
-        input_vocab_size=vocab if input_vocab is None else input_vocab,
+        input_vocab_size=input_vocab,
         target_vocab_size=vocab, dropout_rate=args.dropout_rate,
         max_position=max(args.sequence_length, 64), norm_scheme=args.norm_scheme,
         position_scheme=args.position_scheme, decoder_only=args.decoder_only,
-        tie_embeddings=args.tie_embeddings, tie_output=args.tie_output,
+        encoder_only=args.objective == "mlm", tie_embeddings=args.tie_embeddings,
+        tie_output=args.tie_output,
         ffn_activation=args.ffn_activation, dtype=args.dtype,
         attention_impl=args.attention_impl, attention_window=args.attention_window,
         remat=args.remat, remat_policy=args.remat_policy,
@@ -242,9 +266,9 @@ def model_config(args: argparse.Namespace, vocab: int, input_vocab: int | None =
 
 def load_for_model(args: argparse.Namespace, train_cfg, log_fn=print):
     """(train, test, model config, tokenizers) of the flags: LM windows and
-    (tok,) with ``--decoder_only``, else sentence pairs and (src tok, tgt
-    tok)."""
-    if args.decoder_only:
+    (tok,) with ``--decoder_only`` or ``--objective mlm``, else sentence
+    pairs and (src tok, tgt tok)."""
+    if lm_mode(args):
         train_ds, test_ds, tok = load_data(args, train_cfg, log_fn)
         return train_ds, test_ds, model_config(args, tok.model_vocab_size), (tok,)
     train_ds, test_ds, src_tok, tgt_tok = load_pairs(args, train_cfg, log_fn)
@@ -268,10 +292,10 @@ def report_and_export(trainer, test_ds, export_path: str, log_fn=print) -> None:
 
 def epilogue(trainer, test_ds, toks, args, log_fn=print) -> None:
     """After the fit (``cli.distributed_train`` runs it on rank 0): an LM
-    reports its eval loss and writes the export; a seq2seq model first
-    translates a sample sentence, and after the export scores BLEU on the
-    first ``--bleu_limit`` test pairs (``--eval_bleu``)."""
-    if args.decoder_only:
+    or a masked LM reports its eval loss and writes the export; a seq2seq
+    model first translates a sample sentence, and after the export scores
+    BLEU on the first ``--bleu_limit`` test pairs (``--eval_bleu``)."""
+    if lm_mode(args):
         report_and_export(trainer, test_ds, args.export_path, log_fn)
         return
     from transformer_tpu_torch.train.decode import translate

@@ -164,9 +164,9 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training-engine knobs; see the JAX twin for what each field means.
-    The port's trainer runs the plain single-card path: it raises on
-    ``grad_accum_steps``/``steps_per_dispatch``/``loss_chunks`` > 1, on
-    ``optimizer`` other than "adam" and on ``objective="mlm"``."""
+    The pipeline-parallel fields (``pp_microbatches``, ``pp_schedule``)
+    and ``buffer_size`` are validated but not used: the port has no pipe
+    axis and no streaming loader yet."""
 
     batch_size: int = 64
     sequence_length: int = 50

@@ -4,7 +4,9 @@ projection, prefill and the decode step.
 Port of ``transformer_hidden_apply``, ``transformer_apply``,
 ``project_logits``, ``transformer_prefill``, ``transformer_verify`` and
 ``transformer_decode_step`` from ``transformer_tpu/models/transformer.py``
-for decoder-only LMs and seq2seq (encoder-decoder) models, plus
+for decoder-only LMs, seq2seq (encoder-decoder) models and encoder-only
+masked LMs (the encoder stack under the key-padding mask alone, with the
+vocabulary head; no decode path), plus
 ``param_spec`` (the JAX package's parameter tree, flattened with its
 checkpoint naming) and ``init_params`` (a random init of that tree from a
 ``torch.Generator``; same distributions as the JAX init, different
@@ -84,15 +86,13 @@ def param_spec(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
     """Flat key -> (shape, init) in the JAX checkpoint naming
     (``decoder/layers/0/self_mha/query/kernel``), encoder first. init is
     one of "normal_embed", "glorot", "glorot_out", "zeros", "ones", and
-    "tied" for a decoder table that starts as a copy of the encoder's."""
-    if cfg.encoder_only:
-        raise NotImplementedError(
-            "the port holds decoder-only LMs and seq2seq models; encoder-only "
-            "(masked-LM) models are a later slice"
-        )
+    "tied" for a decoder table that starts as a copy of the encoder's.
+    An encoder-only model has the encoder tower alone."""
     spec: dict[str, tuple[tuple[int, ...], str]] = {}
     decoder_embed = "normal_embed"
-    if not cfg.decoder_only:
+    if cfg.encoder_only:
+        spec.update(_stack_spec("encoder", cfg, cfg.input_vocab_size, "normal_embed"))
+    elif not cfg.decoder_only:
         if cfg.tie_embeddings:
             if cfg.input_vocab_size != cfg.target_vocab_size:
                 raise ValueError(
@@ -101,7 +101,8 @@ def param_spec(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
                 )
             decoder_embed = "tied"
         spec.update(_stack_spec("encoder", cfg, cfg.input_vocab_size, "normal_embed"))
-    spec.update(_stack_spec("decoder", cfg, cfg.target_vocab_size, decoder_embed))
+    if not cfg.encoder_only:
+        spec.update(_stack_spec("decoder", cfg, cfg.target_vocab_size, decoder_embed))
     if not cfg.tie_output:
         spec["final/kernel"] = ((cfg.d_model, cfg.target_vocab_size), "glorot")
         spec["final/bias"] = ((cfg.target_vocab_size,), "zeros")
@@ -173,9 +174,11 @@ def init_params(
 
 
 def project_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(..., d_model) hiddens -> (..., V) raw logits, tied or untied."""
+    """(..., d_model) hiddens -> (..., V) raw logits, tied (through the
+    one tower's table) or untied."""
     if cfg.tie_output:
-        return embedding_attend(params["decoder"]["embedding"], x)
+        tower = "encoder" if cfg.encoder_only else "decoder"
+        return embedding_attend(params[tower]["embedding"], x)
     return dense_apply(params["final"], x)
 
 
@@ -198,6 +201,10 @@ def transformer_hidden_apply(
     """(B, S) target ids -> (B, S, d_model) decoder hiddens, before the
     vocab projection. Decoder-only: ``inp`` is ignored; the self-mask is
     ``make_padding_mask(tar)``, ANDed with causality inside attention.
+    Encoder-only: ``inp`` is ignored; ``tar`` goes through the encoder
+    stack under ``make_padding_mask(tar)`` alone (bidirectional), its
+    dropout keyed as the encoder's (``key + (0, site)``, ``key + (layer +
+    1, site)``).
     Seq2seq: ``inp`` (B, S_src) goes through the encoder under its padding
     mask, which also masks cross-attention; encoder dropout is keyed ``key
     + (0,)`` and decoder dropout ``key + (1,)``. ``key`` seeds dropout
@@ -213,11 +220,12 @@ def transformer_hidden_apply(
     decoder stack (``parallel.seq_context.gather_sequence``), and
     cross-attention reads it under ``source_mask``, the whole source's
     (B, 1, 1, S_src) padding mask."""
-    if cfg.encoder_only:
-        raise NotImplementedError(
-            "encoder-only (masked-LM) models are a later slice of the port"
-        )
     self_mask = make_padding_mask(tar, pad_id)
+    if cfg.encoder_only:
+        return encoder_apply(
+            params["encoder"], tar, self_mask, cfg, key, deterministic, reference,
+            position_offset=position_offset, dropout_slice=dropout_slice,
+        )
     kw = dict(self_mask=self_mask, deterministic=deterministic, reference=reference,
               position_offset=position_offset, dropout_slice=dropout_slice)
     if cfg.decoder_only:

@@ -9,7 +9,11 @@ them; here every process runs the same step on its own part:
   its ``data`` coordinate and, with ``seq > 1``, one sequence chunk by its
   ``seq`` coordinate, after the teacher-forcing input (and a seq2seq
   model's source, on its own) is padded with PAD to a multiple of ``seq``
-  (4095 -> 4096 at long4k); the padded positions' logits are dropped;
+  (4095 -> 4096 at long4k); the padded positions' logits are dropped. An
+  encoder-only model's masked-LM batch is masked on the whole global batch
+  first, from the step's generator, so each process's rows carry the
+  masks the one-process step draws for them (``seq`` > 1 is refused for
+  it, as in JAX);
 - the forward runs under the sequence-parallel context at the chunk's
   global offset, so ``mha_apply(impl="ring" | "ulysses")`` runs its core
   over the process group of this ``seq`` ring; a seq2seq decoder's
@@ -41,7 +45,7 @@ from transformer_tpu_torch.parallel.mesh import Mesh
 from transformer_tpu_torch.parallel.seq_context import SeqParallelContext, sequence_parallel
 from transformer_tpu_torch.train.checkpoint import CheckpointManager
 from transformer_tpu_torch.train.state import TrainState, create_train_state
-from transformer_tpu_torch.train.trainer import Trainer, loss_from_hidden
+from transformer_tpu_torch.train.trainer import Trainer, _prepare_batch, loss_from_hidden
 
 
 def _pad_to(batch: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -63,14 +67,16 @@ def put_batch(batch: torch.Tensor, mesh: Mesh) -> tuple[torch.Tensor, int, int]:
 
 def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
     """The ``forward_loss`` hook of ``Trainer``: the teacher-forcing shift
-    on the global batch, this process's part of it (and of a seq2seq
-    source), the forward under the sequence-parallel context (when ``seq >
-    1``), and the masked CE (chunked with ``loss_chunks > 1``) over the
-    part's real positions, normalised globally."""
+    (or the MLM's masking) on the global batch, this process's part of it
+    (and of a seq2seq source), the forward under the sequence-parallel
+    context (when ``seq > 1``), and the masked CE (chunked with
+    ``loss_chunks > 1``) over the part's real positions, normalised
+    globally."""
     sp = mesh.shape["seq"]
 
-    def forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=None):
-        inp, out = tgt[:, :-1], tgt[:, 1:]
+    def forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=None,
+                     prepared=None):
+        inp, out, key = prepared or _prepare_batch(model_cfg, train_cfg, tgt, key)
         inp_part, row, col = put_batch(inp, mesh)
         out_part, _, _ = put_batch(out, mesh)
         rows = inp_part.shape[0]
@@ -100,13 +106,14 @@ def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
 
 
 def check_mesh(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh) -> None:
-    """The JAX trainer's checks, and the axes and models the port does not
-    run over processes."""
-    if model_cfg.encoder_only:
-        raise NotImplementedError(
-            "encoder-only (masked-LM) models are not trained over processes in the port yet"
-        )
+    """The JAX trainer's checks, and the axes the port does not run over
+    processes."""
     shape = mesh.shape
+    if model_cfg.encoder_only and (shape["pipe"] > 1 or shape["seq"] > 1):
+        raise ValueError(
+            "encoder_only models support data/fsdp/model/expert mesh axes; "
+            "pipe and seq are not wired for the encoder-only forward"
+        )
     others = {a: n for a, n in shape.items() if a not in ("data", "seq") and n > 1}
     if others or mesh.cfg.dcn_data > 1:
         raise NotImplementedError(

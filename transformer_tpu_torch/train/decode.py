@@ -3,8 +3,9 @@ continuation.
 
 Port of ``sample_token``, ``_detokenize_rows``, ``prefill_len_for``,
 ``_dummy_rows``, ``greedy_decode``, ``lm_generate``, ``beam_search_decode``,
-``lm_generate_speculative``, ``_bucket``, ``_pad_batch``, ``generate`` and
-``translate`` from ``transformer_tpu/train/decode.py``.
+``lm_generate_speculative``, ``_bucket``, ``_pad_batch``, ``generate``,
+``translate``, ``fill_mask`` and ``_fill_mask_topk`` from
+``transformer_tpu/train/decode.py``.
 Sampling draws from an explicit ``torch.Generator``; greedy picks are
 argmax and need none. ``lm_generate``'s sampled pick at tick ``t`` draws
 from the generator keyed (seed, t) (``serve.speculative.pick_generator``),
@@ -33,6 +34,7 @@ from transformer_tpu_torch.config import PAD_ID, ModelConfig
 from transformer_tpu_torch.models.decoder import init_decoder_caches, precompute_cross_kvs
 from transformer_tpu_torch.models.encoder import encoder_apply
 from transformer_tpu_torch.models.transformer import (
+    transformer_apply,
     transformer_decode_step,
     transformer_prefill,
 )
@@ -446,7 +448,12 @@ def translate(
     rows; an over-long source raises unless ``truncate`` or ``src_len``
     clips it (keeping its EOS). ``beam_size > 1`` runs beam search with
     length penalty ``alpha``."""
-    if cfg.encoder_only or cfg.decoder_only:
+    if cfg.encoder_only:
+        raise ValueError(
+            "encoder_only (MLM) models have no autoregressive decode path; "
+            "score them with transformer_apply / the mlm eval step"
+        )
+    if cfg.decoder_only:
         raise ValueError("translate() needs a seq2seq (encoder-decoder) model")
     if isinstance(sentences, str):
         sentences = [sentences]
@@ -475,3 +482,85 @@ def translate(
     else:
         out = greedy_decode(params, src_t, cfg, max_len, *ids)
     return _detokenize_rows(out.cpu().tolist(), n, tgt_tokenizer)
+
+
+def fill_mask(
+    params,
+    cfg: ModelConfig,
+    tokenizer,
+    texts: str | list[str],
+    top_k: int = 5,
+    marker: str = "[MASK]",
+) -> list[dict]:
+    """Masked-token inference for an encoder-only (MLM) model, on the
+    params' device. Each text holds one or more ``marker``s, split out at
+    text level (the tokenizer never sees them) and fed as the model's
+    [MASK] id (``input_vocab_size - 1``) after a BOS. Returns one dict per
+    text: ``{"filled": <the text with every marker replaced by its argmax
+    token>, "candidates": [[(token text, prob), ...top_k], ...one per
+    marker]}``. PAD, [MASK], BOS and EOS are excluded from the
+    distribution. Widths and batches pad to powers of two, as
+    ``translate``'s; only the (B, W, top_k) picks leave the device."""
+    if not cfg.encoder_only:
+        raise ValueError(
+            "fill_mask() is for encoder_only (MLM) models; seq2seq/LM "
+            "exports decode with translate()/generate()"
+        )
+    if isinstance(texts, str):
+        texts = [texts]
+    mask_id = cfg.input_vocab_size - 1
+    encoded: list[list[int]] = []
+    for t in texts:
+        parts = t.split(marker)
+        if len(parts) < 2:
+            raise ValueError(f"no {marker!r} marker in {t!r}")
+        ids = [tokenizer.bos_id]
+        for i, part in enumerate(parts):
+            if i:
+                ids.append(mask_id)
+            if part:
+                ids.extend(tokenizer.encode(part))
+        encoded.append(ids)
+    longest = max(len(e) for e in encoded)
+    if longest > cfg.max_position:
+        raise ValueError(
+            f"a text encodes to {longest} tokens but the model's "
+            f"max_position is {cfg.max_position}"
+        )
+    if not 1 <= top_k <= 100:
+        raise ValueError(f"top_k must be in [1, 100], got {top_k}")
+    width = _bucket(longest, cfg.max_position)
+    ids, n = _pad_batch(encoded, width)
+    device = params["encoder"]["embedding"]["table"].device
+    vals, idx = _fill_mask_topk(
+        params, torch.from_numpy(ids).to(device=device, dtype=torch.long), cfg, top_k,
+        (PAD_ID, mask_id, int(tokenizer.bos_id), int(tokenizer.eos_id)),
+    )
+    vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+    out = []
+    for row in range(n):
+        row_ids = ids[row].copy()
+        cands = []
+        for pos in np.nonzero(row_ids == mask_id)[0]:
+            cands.append([
+                (tokenizer.decode([int(idx[row, pos, k])]).strip(), float(vals[row, pos, k]))
+                for k in range(top_k)
+            ])
+            row_ids[pos] = int(idx[row, pos, 0])
+        toks = [int(t) for t in row_ids if t not in (PAD_ID, tokenizer.bos_id, tokenizer.eos_id)]
+        out.append({"filled": tokenizer.decode(toks), "candidates": cands})
+    return out
+
+
+@torch.no_grad()
+def _fill_mask_topk(params, ids: torch.Tensor, cfg: ModelConfig, top_k: int, excluded_ids):
+    """One bidirectional forward -> per-position top-k (probs, ids) of the
+    fp32 softmax with ``excluded_ids`` removed, both (B, W, top_k) on the
+    device. Equal probabilities go to the lower id first, as
+    ``lax.top_k`` orders them (a stable descending sort)."""
+    logits = transformer_apply(params, None, ids, cfg).float()
+    excluded = torch.zeros(logits.shape[-1], dtype=torch.float32, device=logits.device)
+    excluded[list(excluded_ids)] = -float("inf")
+    probs = torch.softmax(logits + excluded, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :top_k], idx[..., :top_k]

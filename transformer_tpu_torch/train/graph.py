@@ -16,13 +16,14 @@ step of the run (and it builds and loads the kernels, makes cuBLAS's
 workspace for the stream, and records the step's dropout keys). The graph
 is captured right after it, on the same stream, into the memory pool all
 of this step's graphs share; the capture launches nothing. Each replay
-then copies its step's batch and per-update scalars (the bias corrections
-and the learning rate, ``Adam.scalars``) into the graph's static inputs,
-reseeds the step's dropout generators from the real (seed, step) key
-(``ops.nn.DropoutTape``), and replays. The parameters and Adam's moments
-are updated in place, so the graph stays valid from step to step; a
-state whose tensors are not the captured ones (a restore into new
-tensors) is captured anew. Launch counters run in Python, so at capture
+then copies its step's batch and per-update scalars (Adam's bias
+corrections or Adafactor's decay, and the learning rate: the optimizer's
+``scalars``) into the graph's static inputs, reseeds the step's dropout
+generators, and the MLM's masking generator, from the real (seed, step)
+key (``ops.nn.DropoutTape``), and replays. The parameters and the
+optimizer's state are updated in place, so the graph stays valid from
+step to step; a state whose tensors are not the captured ones (a restore
+into new tensors) is captured anew. Launch counters run in Python, so at capture
 the graph's launches are counted and taken back off, and every replay
 adds them again. A capture or a replay that fails raises: nothing falls
 back to the eager step.
@@ -43,18 +44,14 @@ from transformer_tpu_torch.ops.nn import DropoutTape, dropout_tape
 
 def advanced(state):
     """``state`` one step on: what a replay does to the host's mirror of
-    the step and of Adam's count (the tensors moved on the device)."""
+    the step and of the optimizer's count (the tensors moved on the device)."""
     opt = dataclasses.replace(state.opt_state, count=state.opt_state.count + 1)
     return dataclasses.replace(state, step=state.step + 1, opt_state=opt)
 
 
 def _addresses(state) -> tuple[int, ...]:
-    opt = state.opt_state
-    return tuple(
-        t.data_ptr()
-        for leaves in (flatten(state.params), opt.mu, opt.nu)
-        for t in leaves.values()
-    )
+    return tuple(t.data_ptr() for t in [*flatten(state.params).values(),
+                                         *state.opt_state.tensors()])
 
 
 @dataclasses.dataclass

@@ -1,23 +1,34 @@
-"""Train state and the optimizer.
+"""Train state and the optimizers.
 
-Port of ``transformer_tpu/train/state.py`` for ``optimizer="adam"`` and
-``"adamw"``: ``TrainState`` (step, params, optimizer state), the
-learning-rate schedule and Adam with optional global-norm clipping and
-decoupled weight decay, written as plain tensor arithmetic over the flat
-parameter dict so that it follows optax's ``clip_by_global_norm`` ->
-``scale_by_adam`` -> ``add_decayed_weights`` (adamw, masked) ->
-``scale_by_learning_rate`` chain operation for operation: bias-corrected
-moments, ``eps`` outside the square root, and ``lr = schedule(count)`` at
-the count before the update (0 on the first). The moments and the
-parameters are updated in place, and the per-update scalars (the bias
-corrections and the learning rate) are computed on the host and read from
-device memory, so a CUDA graph of the step stays valid from one update to
-the next. "adafactor" is not ported.
+Port of ``transformer_tpu/train/state.py``: ``TrainState`` (step, params,
+optimizer state), the learning-rate schedule, and the three optimizers
+with optional global-norm clipping, written as plain tensor arithmetic
+over the flat parameter dict so that each follows its optax chain
+operation for operation:
+
+- Adam / AdamW: ``clip_by_global_norm`` -> ``scale_by_adam`` ->
+  ``add_decayed_weights`` (adamw, masked) -> ``scale_by_learning_rate``:
+  bias-corrected moments, ``eps`` outside the square root;
+- Adafactor, ``optax.adafactor(learning_rate=schedule)`` with optax
+  0.2.6's defaults: ``clip_by_global_norm`` -> ``scale_by_factored_rms``
+  (second moments factored into row and column means over the two largest
+  dims of a leaf when both hold at least 128, decay ``1 - (count + 1) **
+  -0.8``, ``eps`` 1e-30 added to the squared gradient) ->
+  ``clip_by_block_rms(1.0)`` -> ``scale_by_learning_rate(flip_sign=False)``
+  -> ``scale_by_param_block_rms`` (``min_scale`` 1e-3) -> the sign flip;
+  no momentum, no weight decay.
+
+``lr = schedule(count)`` at the count before the update (0 on the first).
+The moments and the parameters are updated in place, and the per-update
+scalars (Adam's bias corrections and learning rate, Adafactor's decay and
+learning rate) are computed on the host and read from device memory, so a
+CUDA graph of the step stays valid from one update to the next.
 
 ``state_to_flat``/``state_from_flat`` give the state the JAX
 ``TrainState``'s flat checkpoint names, the ones optax's state tree takes
-(``step``, ``params/<name>``, ``opt_state/0/mu/<name>``, ...), so a
-checkpoint written by either package restores in the other.
+(``step``, ``params/<name>``, ``opt_state/0/mu/<name>``,
+``opt_state/0/v_row/<name>``, ...), so a checkpoint written by either
+package restores in the other.
 """
 
 from __future__ import annotations
@@ -49,6 +60,31 @@ class AdamState:
     # schedule to index 2; clipping nests the chain under index 1.
     path: str = "opt_state/0"
     schedule_path: str = "opt_state/1"
+    FIELDS = ("mu", "nu")
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every state tensor, in a fixed order."""
+        return [t for f in self.FIELDS for t in getattr(self, f).values()]
+
+
+@dataclasses.dataclass
+class AdafactorState:
+    """optax's ``FactoredState``: per leaf, the row and column means of
+    the squared gradients (factored leaves; ``(1,)`` zeros elsewhere) or
+    their whole average (``v``; ``(1,)`` zeros for factored leaves)."""
+
+    count: int
+    v_row: dict[str, torch.Tensor]
+    v_col: dict[str, torch.Tensor]
+    v: dict[str, torch.Tensor]
+    # adafactor's chain is (scale_by_factored_rms, clip_by_block_rms,
+    # schedule, scale_by_param_block_rms, scale): only index 0 and the
+    # schedule's count at index 2 hold leaves; clipping nests it under 1.
+    path: str = "opt_state/0"
+    schedule_path: str = "opt_state/2"
+    FIELDS = ("v_row", "v_col", "v")
+
+    tensors = AdamState.tensors
 
 
 @dataclasses.dataclass
@@ -72,13 +108,73 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
 
 
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
+    """optax.clip_by_global_norm: every gradient scaled by ``max_norm /
+    norm`` when the global norm reaches ``max_norm`` (0 = off)."""
+    if max_norm <= 0:
+        return grads
+    g_norm = global_norm(grads.values())
+    keep = g_norm < max_norm
+    return {k: torch.where(keep, g, (g / g_norm) * max_norm) for k, g in grads.items()}
+
+
+def _chain_prefix(max_grad_norm: float) -> str:
+    """Where the optimizer's chain sits in the flat names: clipping nests
+    it under index 1 of an outer chain."""
+    return "opt_state/1/" if max_grad_norm > 0 else "opt_state/"
+
+
 def decays(name: str, p: torch.Tensor) -> bool:
     """adamw's decay mask: leaves of rank >= 2 not named ``bias`` (the
     pre-split attention biases are 2-D and still exempt)."""
     return p.dim() >= 2 and name.rsplit(SEP, 1)[-1] != "bias"
 
 
-class Adam:
+class _Optimizer:
+    """The update loop the optimizers share: global-norm clipping
+    (``max_grad_norm`` > 0), then each leaf's ``_leaf_update`` (which
+    moves that leaf's optimizer state in place) under the update's
+    per-update ``scalars``."""
+
+    max_grad_norm = 0.0
+
+    def _clip_and_scalars(self, grads, state, scalars):
+        grads = clip_by_global_norm(grads, self.max_grad_norm)
+        if scalars is None:
+            device = next(iter(grads.values())).device
+            scalars = torch.from_numpy(self.scalars(state.count)).to(device)
+        return grads, scalars
+
+    def update(
+        self, grads: dict[str, torch.Tensor], state,
+        params: dict[str, torch.Tensor] | None = None,
+        scalars: torch.Tensor | None = None,
+    ):
+        """(updates to add to the params, the new state), the state moved
+        in place. ``scalars`` is ``self.scalars(state.count)`` on the
+        grads' device (made here when None)."""
+        grads, scalars = self._clip_and_scalars(grads, state, scalars)
+        updates = {k: self._leaf_update(k, g, state, None if params is None else params[k],
+                                        scalars)
+                   for k, g in grads.items()}
+        return updates, dataclasses.replace(state, count=state.count + 1)
+
+    def step_(
+        self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor], state,
+        scalars: torch.Tensor | None = None,
+    ):
+        """``update`` added to ``params`` in place, a leaf at a time (no
+        whole second copy of the parameters); returns the new state. Every
+        tensor it touches keeps its address, so a CUDA graph of the step
+        replays onto the same parameters and optimizer state."""
+        grads, scalars = self._clip_and_scalars(grads, state, scalars)
+        with torch.no_grad():
+            for k, g in grads.items():
+                params[k].add_(self._leaf_update(k, g, state, params[k], scalars))
+        return dataclasses.replace(state, count=state.count + 1)
+
+
+class Adam(_Optimizer):
     """optax.adam(schedule, b1, b2, eps), or optax.adamw with the same and
     ``weight_decay`` on the leaves ``decays`` picks (``adamw=True``),
     optionally chained after optax.clip_by_global_norm(max_grad_norm), on
@@ -94,7 +190,7 @@ class Adam:
 
     def init(self, params: dict[str, torch.Tensor]) -> AdamState:
         mu = {k: torch.zeros_like(p) for k, p in params.items()}
-        chain = "opt_state/1/" if self.max_grad_norm > 0 else "opt_state/"
+        chain = _chain_prefix(self.max_grad_norm)
         return AdamState(
             0, mu, {k: torch.zeros_like(p) for k, p in params.items()},
             path=chain + "0", schedule_path=chain + ("2" if self.adamw else "1"),
@@ -113,73 +209,110 @@ class Adam:
         bc2 = one - torch.tensor(self.b2, dtype=torch.float32) ** n
         return np.asarray([float(bc1), float(bc2), -self.schedule(count)], dtype=np.float32)
 
-    def _clip(self, grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        if self.max_grad_norm <= 0:
-            return grads
-        g_norm = global_norm(grads.values())
-        keep = g_norm < self.max_grad_norm
-        return {k: torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
-                for k, g in grads.items()}
-
-    def _leaf_update(self, name, g, mu, nu, p, scalars) -> torch.Tensor:
-        """Moves ``mu`` and ``nu`` in place; returns the leaf's update.
-        ``b1·mu + (1-b1)·g`` rounds as optax's ``(1-b1)·g + b1·mu``."""
+    def _leaf_update(self, k, g, state: AdamState, p, scalars) -> torch.Tensor:
+        """Moves the leaf's ``mu`` and ``nu`` in place; returns its update.
+        ``b1·mu + (1-b1)·g`` rounds as optax's ``(1-b1)·g + b1·mu``; adamw
+        reads ``p``."""
+        mu, nu = state.mu[k], state.nu[k]
         mu.mul_(self.b1).add_((1 - self.b1) * g)
         nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
         u = (mu / scalars[0]) / (torch.sqrt(nu / scalars[1]) + self.eps)
-        if self.adamw and decays(name, p):
+        if self.adamw and decays(k, p):
             u = u + self.weight_decay * p.detach()
         return u * scalars[2]
 
-    def _scalars_on(self, count: int, scalars, like: torch.Tensor) -> torch.Tensor:
-        if scalars is None:
-            return torch.from_numpy(self.scalars(count)).to(like.device)
-        return scalars
 
-    def update(
-        self, grads: dict[str, torch.Tensor], state: AdamState,
-        params: dict[str, torch.Tensor] | None = None,
-        scalars: torch.Tensor | None = None,
-    ) -> tuple[dict[str, torch.Tensor], AdamState]:
-        """(updates to add to the params, the new state), the moments moved
-        in place; adamw reads ``params``. ``scalars`` is
-        ``self.scalars(state.count)`` on the grads' device (made here when
-        None)."""
-        grads = self._clip(grads)
-        scalars = self._scalars_on(state.count, scalars, next(iter(grads.values())))
-        updates = {
-            k: self._leaf_update(k, g, state.mu[k], state.nu[k], None if params is None
-                                 else params[k], scalars)
-            for k, g in grads.items()
-        }
-        return updates, dataclasses.replace(state, count=state.count + 1)
-
-    def step_(
-        self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
-        state: AdamState, scalars: torch.Tensor | None = None,
-    ) -> AdamState:
-        """``update`` added to ``params`` in place, a leaf at a time (no
-        whole second copy of the parameters); returns the new state. Every
-        tensor it touches keeps its address, so a CUDA graph of the step
-        replays onto the same parameters and moments."""
-        grads = self._clip(grads)
-        scalars = self._scalars_on(state.count, scalars, next(iter(grads.values())))
-        with torch.no_grad():
-            for k, g in grads.items():
-                params[k].add_(
-                    self._leaf_update(k, g, state.mu[k], state.nu[k], params[k], scalars)
-                )
-        return dataclasses.replace(state, count=state.count + 1)
+def factored_dims(shape, min_dim_size_to_factor: int = 128) -> tuple[int, int] | None:
+    """optax's ``_factored_dims``: (second-largest dim, largest dim) of a
+    leaf of rank >= 2 whose second-largest dim holds at least
+    ``min_dim_size_to_factor``, else None. numpy's argsort, as optax's, so
+    ties pick the same dims."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
-def make_optimizer(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Adam:
-    if train_cfg.optimizer not in ("adam", "adamw"):
-        raise NotImplementedError(
-            f"optimizer={train_cfg.optimizer!r} is not ported yet; the port trains with "
-            "adam or adamw"
-        )
+class Adafactor(_Optimizer):
+    """optax.adafactor(learning_rate=schedule) with optax 0.2.6's defaults
+    (see the module docstring), optionally chained after
+    optax.clip_by_global_norm(max_grad_norm), on flat dicts of tensors."""
+
+    # optax 0.2.6's defaults, the only values the JAX package uses.
+    MIN_DIM_SIZE_TO_FACTOR = 128
+    DECAY_RATE = 0.8
+    CLIPPING_THRESHOLD = 1.0
+    MIN_SCALE = 1e-3  # scale_by_param_block_rms
+    EPS = 1e-30
+
+    def __init__(self, schedule, max_grad_norm: float = 0.0):
+        self.schedule, self.max_grad_norm = schedule, max_grad_norm
+
+    def _dims(self, p: torch.Tensor):
+        return factored_dims(tuple(p.shape), self.MIN_DIM_SIZE_TO_FACTOR)
+
+    def init(self, params: dict[str, torch.Tensor]) -> AdafactorState:
+        rows, cols, full = {}, {}, {}
+        for k, p in params.items():
+            dims = self._dims(p)
+            one = torch.zeros((1,), dtype=p.dtype, device=p.device)
+            if dims is None:
+                rows[k], cols[k], full[k] = one, one.clone(), torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                rows[k] = torch.zeros(shape[:d0] + shape[d0 + 1:], dtype=p.dtype, device=p.device)
+                cols[k] = torch.zeros(shape[:d1] + shape[d1 + 1:], dtype=p.dtype, device=p.device)
+                full[k] = one
+        chain = _chain_prefix(self.max_grad_norm)
+        return AdafactorState(0, rows, cols, full, path=chain + "0", schedule_path=chain + "2")
+
+    def scalars(self, count: int) -> np.ndarray:
+        """The per-update scalars of the update after ``count`` updates, as
+        (2,) fp32: the second moments' decay ``1 - (count + 1) ** -0.8``
+        and ``-schedule(count)``. The power is numpy's fp32 one, which
+        rounds as XLA's does on the CPU (torch's fp32 power is an ulp off at
+        32 of the first 5,000 counts)."""
+        decay = np.float32(1.0) - np.float32(count + 1) ** np.float32(-self.DECAY_RATE)
+        return np.asarray([decay, -self.schedule(count)], dtype=np.float32)
+
+    def _leaf_update(self, k, g, state: AdafactorState, p, scalars) -> torch.Tensor:
+        """Moves the leaf's second moments in place; returns its update,
+        which reads ``p`` (the block RMS scale)."""
+        if p is None:
+            raise ValueError("adafactor's update needs the params")
+        decay = scalars[0]
+        grad_sqr = g * g + self.EPS
+        dims = self._dims(p)
+        if dims is None:
+            v = state.v[k]
+            v.mul_(decay).add_((1.0 - decay) * grad_sqr)
+            u = g * v ** -0.5
+        else:
+            d1, d0 = dims
+            v_row, v_col = state.v_row[k], state.v_col[k]
+            v_row.mul_(decay).add_((1.0 - decay) * grad_sqr.mean(dim=d0))
+            v_col.mul_(decay).add_((1.0 - decay) * grad_sqr.mean(dim=d1))
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+        u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.CLIPPING_THRESHOLD, min=1.0)
+        u = u * scalars[1]  # -lr: the learning rate and the final sign flip
+        p = p.detach()
+        rms = torch.sqrt(torch.mean(p * p))
+        return u * torch.where(rms <= self.MIN_SCALE, torch.full_like(rms, self.MIN_SCALE), rms)
+
+
+def make_optimizer(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Adam | Adafactor:
+    """The optimizer ``train_cfg.optimizer`` names, under the schedule and
+    (``max_grad_norm`` > 0) after global-norm clipping."""
+    schedule = make_lr_schedule(model_cfg, train_cfg)
+    if train_cfg.optimizer == "adafactor":
+        return Adafactor(schedule, train_cfg.max_grad_norm)
     return Adam(
-        make_lr_schedule(model_cfg, train_cfg), train_cfg.adam_beta1, train_cfg.adam_beta2,
+        schedule, train_cfg.adam_beta1, train_cfg.adam_beta2,
         train_cfg.adam_epsilon, train_cfg.max_grad_norm, train_cfg.weight_decay,
         adamw=train_cfg.optimizer == "adamw",
     )
@@ -212,8 +345,8 @@ def state_to_flat(state: TrainState) -> dict[str, Any]:
     flat: dict[str, Any] = {"step": np.asarray(state.step, np.int32)}
     flat.update({f"params/{k}": v for k, v in flatten(state.params).items()})
     flat[f"{opt.path}/count"] = np.asarray(opt.count, np.int32)
-    flat.update({f"{opt.path}/mu/{k}": v for k, v in opt.mu.items()})
-    flat.update({f"{opt.path}/nu/{k}": v for k, v in opt.nu.items()})
+    for field in opt.FIELDS:
+        flat.update({f"{opt.path}/{field}/{k}": v for k, v in getattr(opt, field).items()})
     flat[f"{opt.schedule_path}/count"] = np.asarray(opt.count, np.int32)
     return flat
 
@@ -227,13 +360,11 @@ def state_from_flat(flat: dict[str, Any], template: TrainState) -> TrainState:
     if int(flat[f"{opt.schedule_path}/count"]) != count:
         raise ValueError(
             f"the schedule's count {int(flat[f'{opt.schedule_path}/count'])} differs from "
-            f"adam's {count}"
+            f"the optimizer's {count}"
         )
-    names = list(opt.mu)
+    names = list(getattr(opt, opt.FIELDS[0]))
     params = {k: flat[f"params/{k}"].requires_grad_(True) for k in names}
-    state = dataclasses.replace(
-        opt, count=count,
-        mu={k: flat[f"{opt.path}/mu/{k}"] for k in names},
-        nu={k: flat[f"{opt.path}/nu/{k}"] for k in names},
-    )
+    state = dataclasses.replace(opt, count=count, **{
+        field: {k: flat[f"{opt.path}/{field}/{k}"] for k in names} for field in opt.FIELDS
+    })
     return TrainState(int(flat["step"]), unflatten(params), state)

@@ -2,10 +2,13 @@
 
 Port of ``transformer_tpu/train/trainer.py`` for decoder-only LMs and
 seq2seq models (``src`` into the encoder, ``tgt[:, :-1]`` into the
-decoder, ``tgt[:, 1:]`` scored): ``make_train_step`` (teacher-forcing
-shift, forward with dropout keyed on (seed, step), masked CE, backward,
-Adam with the pre-clip ``grad_norm`` metric; with ``grad_accum_steps``
-micro-steps summed in the loss-sum domain and divided once; with
+decoder, ``tgt[:, 1:]`` scored) under the causal objective, and
+encoder-only models under the masked-LM one (``_prepare_batch``: the
+whole window masked from the step's generator, the masked positions
+scored): ``make_train_step`` (the shift or the masking, forward with
+dropout keyed on (seed, step), masked CE, backward, the optimizer (Adam,
+AdamW or Adafactor) with the pre-clip ``grad_norm`` metric; with
+``grad_accum_steps`` micro-steps summed in the loss-sum domain and divided once; with
 ``loss_chunks`` the chunked CE), ``make_eval_step``,
 ``make_multistep_train_step`` (``steps_per_dispatch``: K steps a host
 dispatch, their batches and per-update scalars staged on the device in one
@@ -37,18 +40,57 @@ from transformer_tpu_torch.models.transformer import (
     project_logits,
     transformer_hidden_apply,
 )
+from transformer_tpu_torch.ops.nn import dropout_generator, key_seed
 from transformer_tpu_torch.train.checkpoint import CheckpointManager
 from transformer_tpu_torch.train.loss import chunked_cross_entropy_from_hidden, masked_cross_entropy
-from transformer_tpu_torch.train.state import Adam, TrainState, global_norm, make_optimizer
+from transformer_tpu_torch.train.mlm import mask_tokens
+from transformer_tpu_torch.train.state import (
+    Adafactor,
+    Adam,
+    TrainState,
+    global_norm,
+    make_optimizer,
+)
 from transformer_tpu_torch.utils.preemption import PreemptionGuard
 
 
-def _check_supported(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
-    if train_cfg.objective != "causal" or model_cfg.encoder_only:
-        raise NotImplementedError(
-            "the port trains decoder-only LMs and seq2seq models with the causal "
-            "objective; masked-LM training is a later slice"
+def _check_objective(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
+    if (train_cfg.objective == "mlm") != model_cfg.encoder_only:
+        raise ValueError(
+            "objective='mlm' and ModelConfig.encoder_only go together "
+            "(the masked-LM loss needs the bidirectional encoder stack, and "
+            "an encoder-only model has no causal shift to train on): got "
+            f"objective={train_cfg.objective!r}, "
+            f"encoder_only={model_cfg.encoder_only}"
         )
+
+
+def _prepare_batch(model_cfg: ModelConfig, train_cfg: TrainConfig, tgt: torch.Tensor, key):
+    """-> (model input, labels, forward key) of one step's (B, L) batch.
+
+    causal: the teacher-forcing shift, dropout keyed on ``key``. mlm: the
+    whole window masked (``train.mlm.mask_tokens``) from the generator
+    keyed ``key + (0,)``, dropout keyed ``key + (1,)``, as the JAX twin
+    splits the step key in two; eval (``key`` None) masks from a constant
+    generator seeded from ``train_cfg.seed``, so every eval scores the
+    same positions. Under a CUDA graph capture the masking generator is
+    the tape's (``ops.nn.DropoutTape``), reseeded every replay. The ids
+    never selected nor drawn are ``mlm_excluded_ids``, by default BOS and
+    EOS, the two ids below [MASK] in the MLM vocabulary's layout."""
+    if train_cfg.objective != "mlm":
+        return tgt[:, :-1], tgt[:, 1:], key
+    if key is None:
+        gen = torch.Generator(device=tgt.device).manual_seed(key_seed((train_cfg.seed,)))
+        fwd_key = None
+    else:
+        gen, fwd_key = dropout_generator(tuple(key) + (0,), tgt.device), tuple(key) + (1,)
+    mask_id = model_cfg.input_vocab_size - 1
+    excluded = train_cfg.mlm_excluded_ids
+    if excluded is None:
+        excluded = (mask_id - 2, mask_id - 1)
+    inp, labels = mask_tokens(tgt, gen, model_cfg.input_vocab_size, train_cfg.mlm_mask_rate,
+                              excluded)
+    return inp, labels, fwd_key
 
 
 def _batch(x, device) -> torch.Tensor:
@@ -74,10 +116,15 @@ def stage(arrays: list[np.ndarray], scalars: np.ndarray, device) -> list[torch.T
     return out
 
 
+def uses_source(model_cfg: ModelConfig) -> bool:
+    """Whether the model reads a source batch: seq2seq only (an LM batch's
+    src repeats its tgt)."""
+    return not (model_cfg.decoder_only or model_cfg.encoder_only)
+
+
 def _source(src, model_cfg: ModelConfig, device) -> torch.Tensor | None:
-    """The source batch on ``device`` for a seq2seq model, else None (an LM
-    batch's src repeats its tgt)."""
-    return None if model_cfg.decoder_only else _batch(src, device)
+    """The source batch on ``device`` for a seq2seq model, else None."""
+    return _batch(src, device) if uses_source(model_cfg) else None
 
 
 def loss_from_hidden(params, hidden, targets, model_cfg, train_cfg, total_weight=None):
@@ -97,15 +144,19 @@ def loss_from_hidden(params, hidden, targets, model_cfg, train_cfg, total_weight
     return masked_cross_entropy(project_logits(params, hidden, model_cfg), targets, **kw)
 
 
-def _forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=None):
+def _forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=None,
+                  prepared=None):
     """Feed ``tgt[:, :-1]`` (and, seq2seq, ``src`` to the encoder), predict
-    ``tgt[:, 1:]``: (loss, metric sums). Dropout is keyed on ``key``; None
-    runs deterministically."""
+    ``tgt[:, 1:]``, or under the MLM objective feed the masked window and
+    predict the masked positions: (loss, metric sums). Dropout is keyed on
+    ``key``; None runs deterministically. ``prepared`` is
+    ``_prepare_batch``'s (input, labels, forward key), made once for a
+    batch whose micro-batches share its masks; None prepares ``tgt``."""
+    inp, labels, key = prepared or _prepare_batch(model_cfg, train_cfg, tgt, key)
     hidden = transformer_hidden_apply(
-        params, src, tgt[:, :-1], model_cfg, key=key, deterministic=key is None,
-        reference=reference,
+        params, src, inp, model_cfg, key=key, deterministic=key is None, reference=reference,
     )
-    return loss_from_hidden(params, hidden, tgt[:, 1:], model_cfg, train_cfg)
+    return loss_from_hidden(params, hidden, labels, model_cfg, train_cfg)
 
 
 def loss_and_grads(
@@ -123,10 +174,12 @@ def loss_and_grads(
     (metrics, grads by flat parameter name). ``reference`` runs the flash
     kernels' plain versions, to hold the kernels against them.
     ``forward_loss`` replaces the single-process forward (same signature
-    as ``_forward_loss``)."""
+    as ``_forward_loss``); the batch is prepared (shifted or masked) here,
+    on the whole batch every process holds."""
     leaves = flatten(params)
     loss, metrics = (forward_loss or _forward_loss)(
-        params, tgt, model_cfg, train_cfg, key, reference, src=src
+        params, tgt, model_cfg, train_cfg, key, reference, src=src,
+        prepared=_prepare_batch(model_cfg, train_cfg, tgt, key),
     )
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}, grads
@@ -135,36 +188,39 @@ def loss_and_grads(
 def make_train_step(
     model_cfg: ModelConfig,
     train_cfg: TrainConfig,
-    tx: Adam | None = None,
+    tx: Adam | Adafactor | None = None,
     forward_loss: Callable | None = None,
     sum_across: Callable[[list[torch.Tensor]], None] | None = None,
 ) -> Callable[[TrainState, Any, Any], tuple[TrainState, dict]]:
     """``step(state, src, tgt) -> (state, metrics)``: ``loss_and_grads``
-    with dropout keyed on (seed, step), then Adam, updating the params and
-    its moments in place. Metrics are device scalars (``loss``,
+    with dropout (and the MLM's masks) keyed on (seed, step), then the
+    optimizer (``train_cfg.optimizer``), updating the params and its state
+    in place. Metrics are device scalars (``loss``,
     ``loss_sum``, ``weight``, ``correct``, ``grad_norm``); nothing here
     waits for the device. With
     ``sum_across`` (an in-place sum over processes) the gradients and the
-    metrics are summed before ``grad_norm`` and Adam, so every process
-    takes the same update and reports the same metrics. ``step.core(state,
-    src, tgt, scalars)`` is the same step on device tensors, with Adam's
-    per-update scalars read from the device (``step.scalars(state, k)``
-    gives the next k updates' on the host): the function a CUDA graph
-    captures.
+    metrics are summed before ``grad_norm`` and the update, so every
+    process takes the same update and reports the same metrics.
+    ``step.core(state, src, tgt, scalars)`` is the same step on device
+    tensors, with the optimizer's per-update scalars read from the device
+    (``step.scalars(state, k)`` gives the next k updates' on the host): the
+    function a CUDA graph captures.
 
     With ``grad_accum_steps`` = n > 1 the batch runs as n micro-batches of
     B / n rows (n must divide B), micro-step i's dropout keyed on (seed,
-    step, i): each one's gradient of its loss *sum* is added up, and the
-    total divided once by the whole batch's non-PAD token count ("tokens")
-    or the batch size ("batch"), so the update is the whole batch's."""
-    _check_supported(model_cfg, train_cfg)
+    step, i) (MLM: the whole batch masked once, from (seed, step, 0), and
+    micro-step i's dropout keyed on (seed, step, 1, i)): each one's
+    gradient of its loss *sum* is added up, and the total divided once by
+    the whole batch's non-PAD token count ("tokens") or the batch size
+    ("batch"), so the update is the whole batch's."""
+    _check_objective(model_cfg, train_cfg)
     tx = tx or make_optimizer(model_cfg, train_cfg)
     accum = max(1, train_cfg.grad_accum_steps)
     forward = forward_loss or _forward_loss
 
     def apply(state, leaves, grads, metrics, scalars):
         metrics["grad_norm"] = global_norm(grads.values())
-        if isinstance(tx, Adam):
+        if hasattr(tx, "step_"):  # the port's optimizers: in place
             opt_state = tx.step_(leaves, grads, state.opt_state, scalars)
         else:  # any optimizer with optax's update(grads, state, params)
             updates, opt_state = tx.update(grads, state.opt_state, leaves)
@@ -191,12 +247,16 @@ def make_train_step(
         if tgt.shape[0] % accum:
             raise ValueError(f"grad_accum_steps {accum} must divide the batch {tgt.shape[0]}")
         mb = tgt.shape[0] // accum
+        inp, labels, fwd_key = _prepare_batch(model_cfg, train_cfg, tgt,
+                                              (train_cfg.seed, state.step))
         grads = sums = None
         for i in range(accum):
             rows = slice(i * mb, (i + 1) * mb)
+            micro_key = tuple(fwd_key) + (i,)
             _, m = forward(
-                state.params, tgt[rows], model_cfg, train_cfg, (train_cfg.seed, state.step, i),
+                state.params, tgt[rows], model_cfg, train_cfg, micro_key,
                 src=None if src is None else src[rows],
+                prepared=(inp[rows], labels[rows], micro_key),
             )
             g = torch.autograd.grad(m["loss_sum"], list(leaves.values()))
             m = {k: v.detach() for k, v in m.items()}
@@ -217,9 +277,9 @@ def make_train_step(
         return apply(state, leaves, grads, {"loss": sums["loss_sum"] / denom, **sums}, scalars)
 
     def scalars(state: TrainState, k: int = 1) -> np.ndarray:
-        """(k, n) fp32: Adam's per-update scalars of the next k updates
-        (no columns for another optimizer)."""
-        if not isinstance(tx, Adam):
+        """(k, n) fp32: the optimizer's per-update scalars of the next k
+        updates (no columns for an optimizer without them)."""
+        if not hasattr(tx, "scalars"):
             return np.zeros((k, 0), np.float32)
         return np.stack([tx.scalars(state.opt_state.count + i) for i in range(k)])
 
@@ -229,7 +289,7 @@ def make_train_step(
                     torch.from_numpy(scalars(state)[0]).to(device))
 
     train_step.core, train_step.scalars = core, scalars
-    train_step.uses_src = not model_cfg.decoder_only
+    train_step.uses_src = uses_source(model_cfg)
     return train_step
 
 
@@ -258,12 +318,12 @@ def make_multistep_train_step(
     ``multistep(state, src, tgt)`` with (K, B, S) stacked batches.
 
     The twin of the JAX package's ``lax.scan`` over ``step_fn``. The K
-    batches and K rows of Adam's per-update scalars go to the device in
-    one copy (``stage``); then ``run`` (default ``step_fn.core``; on the
-    card a ``graph.CapturedStep`` replaying the step's CUDA graph) takes
-    the K steps back to back, with nothing waiting for the device. Dropout
-    stays keyed on (seed, step) per step, so the K steps are exactly K
-    calls of ``step_fn``. Metrics come back summed on the device over the
+    batches and K rows of the optimizer's per-update scalars go to the
+    device in one copy (``stage``); then ``run`` (default ``step_fn.core``;
+    on the card a ``graph.CapturedStep`` replaying the step's CUDA graph)
+    takes the K steps back to back, with nothing waiting for the device.
+    Dropout (and the MLM's masks) stay keyed on (seed, step) per step, so
+    the K steps are exactly K calls of ``step_fn``. Metrics come back summed on the device over the
     K steps (``loss_sum``, ``weight``, ``correct``; ``loss`` as one step
     normalises it; ``grad_norm`` the mean), in the form
     ``MetricAccumulator.update`` takes."""
@@ -293,16 +353,18 @@ def make_eval_step(
     forward_loss: Callable | None = None,
     sum_across: Callable[[list[torch.Tensor]], None] | None = None,
 ) -> Callable[[TrainState, Any, Any], dict]:
-    """Forward-only ``eval(state, src, tgt) -> metrics`` (no dropout);
-    the hooks as in ``make_train_step``."""
-    _check_supported(model_cfg, train_cfg)
+    """Forward-only ``eval(state, src, tgt) -> metrics`` (no dropout;
+    MLM: the constant eval masks); the hooks as in ``make_train_step``."""
+    _check_objective(model_cfg, train_cfg)
 
     @torch.no_grad()
     def eval_step(state: TrainState, src, tgt):
         device = next(iter(flatten(state.params).values())).device
+        tgt = _batch(tgt, device)
         loss, metrics = (forward_loss or _forward_loss)(
-            state.params, _batch(tgt, device), model_cfg, train_cfg, None,
+            state.params, tgt, model_cfg, train_cfg, None,
             src=_source(src, model_cfg, device),
+            prepared=_prepare_batch(model_cfg, train_cfg, tgt, None),
         )
         metrics = {"loss": loss, **metrics}
         if sum_across is not None:
@@ -519,12 +581,12 @@ class Trainer:
                     t0 = time.perf_counter()
                     if self.multi_step is None:
                         self.state, m = self.train_step(self.state, src, tgt)
-                        tokens = tgt.shape[0] * max(tgt.shape[1] - 1, 1)
+                        tokens = tgt.shape[0] * self._width(tgt.shape[1])
                     else:
                         if k == 1:  # a group of one replays the step too
                             src, tgt = np.asarray(src)[None], np.asarray(tgt)[None]
                         self.state, m = self.multi_step(self.state, src, tgt)
-                        tokens = k * tgt.shape[1] * max(tgt.shape[2] - 1, 1)
+                        tokens = k * tgt.shape[1] * self._width(tgt.shape[2])
                     synchronize(self.device)
                     seconds = time.perf_counter() - t0
                     self.dispatches.append((k, seconds))
@@ -597,6 +659,11 @@ class Trainer:
                     break
         if self.checkpoint is not None:
             self.checkpoint.wait()  # the last save is durable before fit returns
+
+    def _width(self, length: int) -> int:
+        """Positions a (B, length) batch feeds the model: the whole window
+        under the MLM objective, one fewer under the causal shift."""
+        return length if self.train_cfg.objective == "mlm" else max(length - 1, 1)
 
     def _preempt(self, step: int, guard: PreemptionGuard) -> None:
         """On SIGTERM/SIGINT: save, wait until the save is durable, report."""
