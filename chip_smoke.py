@@ -6,9 +6,9 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in fifteen phases
+runs on the CPU). It prints one JSON line per check, in sixteen phases
 (the tenth runs right after the fourth, on its export; the eleventh to
-the fifteenth last):
+the sixteenth last):
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -264,7 +264,36 @@ the fifteenth last):
    xla); fp32 flash and xla lines equal with their probabilities taken out
    and the probabilities within 1e-5 (the gate); the bf16 argmax fills
    that differ counted. ``python3 chip_smoke.py --only mlm`` runs this
-   phase alone.
+   phase alone. The bf16 MLM forward is also timed cold: the graph's
+   calls cycle through 16 copies of q, k, v (more than the L2 holds), as
+   kernel A's cold timer, beside SDPA's cold time;
+16. the trainer's command line (``paper_path``): the native library
+   (``transformer_tpu_torch/native``) built with g++ from the checkout
+   (seconds), and both 2^15 vocabularies built by its BPE trainer, which
+   must equal the Python-built ones of build/vocab/ piece for piece (both
+   times printed); ``cli.train --preset base --attention_impl flash
+   --sequence_length 64 --epochs 1 --warmup_steps 4000`` at full depth
+   (6 + 6) on the data path's defaults, so through the native loader: its epoch and batch counts
+   must show it ran, the epoch's rows must be examples of the corpus
+   once each (an epoch without the remainder dropped holds the same
+   multiset of rows as the numpy path's), the loss must fall, and the
+   flash counters must equal 12 launches of each kernel a step, 12
+   forward launches an eval batch and 6 a translate call; step median,
+   BLEU on 200 test pairs, a profiled window (busy share), and each
+   loader's epoch iterated alone (the host's wait for a batch); the
+   source paper's command line at 2 + 2 layers, ``--preset base
+   --enable_function=true --per_replica_batch_size 64 --streaming
+   --buffer_size 1000 --epochs 1`` (xla attention, as the paper's) over
+   tfds-format vocabulary files written with ``TfdsSubwordTokenizer.save``
+   (the corpus's frequent tokens, then its alphabet and the escape
+   characters): the buffer's peak at most 1,000 examples, the loss
+   falling, every data/src-test.txt line round-tripping through the tfds
+   tokenizer; and ``cli.translate --attention_out`` on 8 test sentences:
+   on the streaming export JAX's keys, every map row summing to 1 within
+   1e-2 and decoder block 1 zero above the diagonal; on the base flash
+   export the ids and the cross-attention (block 2) maps only, as the
+   JAX dump writes for flash, and 6 + 8 x 12 forward launches.
+   ``python3 chip_smoke.py --only paper`` runs this phase alone.
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -1444,7 +1473,9 @@ def long4k_config(vocab_size: int, **overrides):
 def vocab(target_size: int = 2**15, side: str = "tgt"):
     """The port's tokenizer built from data/{side}-train.txt (``side``
     "joint": both sides, one id space for tied tables) at the CLI's
-    default target size, cached under build/vocab/."""
+    default target size by the Python BPE trainer (phase 16 holds the
+    native one to it), cached under build/vocab/."""
+    from transformer_tpu_torch import native
     from transformer_tpu_torch.data.tokenizer import SubwordTokenizer, iter_lines
 
     path = os.path.join(BUILD_DIR, "vocab", f"{side}-train-{target_size}.subwords")
@@ -1454,7 +1485,12 @@ def vocab(target_size: int = 2**15, side: str = "tgt"):
     if os.path.exists(path):
         tok, built = SubwordTokenizer.load(path), False
     else:
-        tok = SubwordTokenizer.build_from_corpus(iter_lines(*files), target_vocab_size=target_size)
+        saved, native._lib = native._lib, False  # the Python trainer
+        try:
+            tok = SubwordTokenizer.build_from_corpus(iter_lines(*files),
+                                                     target_vocab_size=target_size)
+        finally:
+            native._lib = saved
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tok.save(path)
         built = True
@@ -5080,6 +5116,43 @@ def mlm_lengths(b=64, s=MLM_LEN, seed=SEED):
     return lengths
 
 
+def mlm_fwd_cold(rec) -> dict:
+    """The bf16 MLM forward timed cold, as kernel A is: COLD_COPIES copies
+    of q, k, v and the key mask (16 x 25 MB, more than the 50 MB L2), the
+    graph's calls cycling through them, so each call reads its inputs from
+    HBM; SDPA with the same key mask alike, and both warm on the same timer
+    (one copy). Adds the readings to ``rec``."""
+    import torch
+    import torch.nn.functional as F
+
+    from transformer_tpu_torch.kernels.flash_attention import flash_fwd
+
+    copies = [flash_inputs(64, MLM_LEN, MLM_LEN, 8, 8, 64, torch.bfloat16, False,
+                           seed=SEED + 100 + i, lengths=mlm_lengths())
+              for i in range(COLD_COPIES)]
+    fwd = [lambda c=c: flash_fwd(c[0], c[1], c[2], kv_mask=c[4], causal=False, band=None)
+           for c in copies]
+    transposed = [(*(x.transpose(1, 2).contiguous() for x in c[:3]), c[4][:, None, None, :])
+                  for c in copies]
+    sdpa = [lambda t=t: F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=t[3])
+            for t in transposed]
+    iters = 3 * COLD_COPIES
+    bound = rec["bound_ms"]["flash_fwd"]
+    cold = {
+        "device_ms_cold": cuda_graph_ms(cycling(fwd), iters=iters),
+        "library_device_ms_cold": cuda_graph_ms(cycling(sdpa), iters=iters),
+        "device_ms_warm_graph": cuda_graph_ms(fwd[0], iters=iters),
+        "library_device_ms_warm_graph": cuda_graph_ms(sdpa[0], iters=iters),
+    }
+    cold["share_of_bound_cold"] = bound / cold["device_ms_cold"]
+    emit({"phase": "mlm", "step": "flash_fwd_cold", "card": nvidia_smi_line(),
+          "bound_ms": bound, **cold,
+          "timer": f"cuda_graph_ms, {iters} calls cycling through {COLD_COPIES} input copies "
+                   "(cold) or on one copy (warm_graph, L2-resident)"})
+    rec.update(cold)
+    return cold
+
+
 def mlm_flash_checks():
     """The three flash kernels at the MLM's shape (B 64 x S 128, 8 heads of
     64, bidirectional, a ragged key tail) in bf16 and fp32 against their
@@ -5103,6 +5176,7 @@ def mlm_flash_checks():
             "share_of_bound": rec["share_of_bound"],
             "share_of_bound_device": rec.get("share_of_bound_device"),
         })
+    mlm_fwd_cold(recs["bfloat16"])
     return recs
 
 
@@ -5421,6 +5495,349 @@ def mlm_path(vocab_path):
     return launches, recs["bfloat16"]
 
 
+# --------------------------------------------------------------------------
+# phase 16: the trainer's command line (native data path, the paper's flags)
+
+PAPER_LAYERS = 2  # depth of the paper's command-line run (step 3), cut
+# The base run's noam warmup: the Transformer paper's 4,000 (at the CLI's
+# 60,000 the learning rate stays under 5e-7 for the whole epoch, and the
+# falling loss the phase gates on would be a few thousandths).
+PAPER_WARMUP = "4000"
+PAPER_BUFFER = 1000  # its --buffer_size
+PAPER_TFDS_WORDS = 8000  # frequent tokens in the hand-built tfds vocabularies
+ATTENTION_SENTENCES = 8
+
+
+def native_build() -> dict:
+    """Build the native library from the checkout's sources with g++ (any
+    earlier build removed first) and load it."""
+    from transformer_tpu_torch import native
+
+    shutil.rmtree(native.library_path().parent, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = native._build()
+    seconds = time.perf_counter() - t0
+    native._lib = None
+    rec = {"phase": "paper", "step": "native_build", "seconds": seconds,
+           "library": str(path), "loaded": native.get_lib() is not None,
+           "cxx": os.environ.get("CXX", "g++")}
+    emit(rec)
+    if path is None or not rec["loaded"]:
+        raise SystemExit("the native library did not build or load from the checkout")
+    return rec
+
+
+def native_vocabs(paths: dict) -> dict:
+    """Both 2^15 vocabularies built by the native BPE trainer, each held to
+    the Python-built one at ``paths[side]`` piece for piece."""
+    from transformer_tpu_torch.data.tokenizer import SubwordTokenizer, iter_lines
+
+    out = {}
+    for side, path in paths.items():
+        want = SubwordTokenizer.load(path)
+        t0 = time.perf_counter()
+        got = SubwordTokenizer.build_from_corpus(
+            iter_lines(os.path.join(ROOT, "data", f"{side}-train.txt")), target_vocab_size=2**15)
+        out[side] = {"native_seconds": time.perf_counter() - t0, "pieces": len(got.subwords),
+                     "equal": got.subwords == want.subwords}
+    emit({"phase": "paper", "step": "native_vocabs", **out,
+          "python_seconds": "the vocab lines' seconds (built=true)"})
+    for side, rec in out.items():
+        if not rec["equal"]:
+            raise SystemExit(f"the native BPE trainer's {side} vocabulary differs from the "
+                             "Python trainer's")
+    return out
+
+
+def example_rows(batches):
+    """The multiset of (src, tgt) rows of some batches, fill rows left out."""
+    from collections import Counter
+
+    rows = Counter()
+    for src, tgt in batches:
+        for s, t in zip(src, tgt):
+            if s.any() or t.any():
+                rows[(s.tobytes(), t.tobytes())] += 1
+    return rows
+
+
+def loader_checks(train_ds, steps: int) -> dict:
+    """The native loader ran the fit (one epoch, ``steps`` batches), its
+    epoch holds corpus examples once each, and a whole epoch (remainder
+    kept) holds the numpy path's multiset of rows; then each loader's epoch
+    iterated alone, timed (the host's wait for a batch)."""
+    from transformer_tpu_torch.data.pipeline import Seq2SeqDataset
+
+    loader = train_ds.native_loader() if train_ds.prefetch else None
+    if loader is None:
+        raise SystemExit("cli.train's defaults did not batch through the native loader")
+    counts = {"epochs": loader.epochs, "batches": loader.batches}
+    if counts != {"epochs": 1, "batches": steps} or steps != len(train_ds):
+        raise SystemExit(f"the native loader ran {counts}, the fit {steps} steps of "
+                         f"{len(train_ds)}")
+    kw = dict(batch_size=train_ds.batch_size, src_len=train_ds.src_len,
+              tgt_len=train_ds.tgt_len, seed=train_ds.seed, drop_remainder=False)
+    whole_native = Seq2SeqDataset(train_ds.src, train_ds.tgt, prefetch=True, **kw)
+    whole_python = Seq2SeqDataset(train_ds.src, train_ds.tgt, **kw)
+    every = example_rows(whole_python.batches(0))
+    trained = example_rows(train_ds.batches(0))
+    same_multiset = example_rows(whole_native.batches(0)) == every
+    within = all(n <= every[row] for row, n in trained.items())
+    waits = {}
+    for name, ds in (("native", whole_native), ("python", whole_python)):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in ds.batches(1))
+        waits[name] = (time.perf_counter() - t0) / n * 1e3
+    rec = {"phase": "paper", "step": "loader", **counts,
+           "trained_rows": sum(trained.values()), "corpus_rows": sum(every.values()),
+           "trained_rows_are_corpus_examples": within,
+           "whole_epoch_same_multiset_as_numpy": same_multiset,
+           "host_ms_per_batch_alone": waits,
+           "timer": "host clock over a whole epoch (remainder kept) iterated with no step"}
+    emit(rec)
+    if not (same_multiset and within and sum(trained.values()) == steps * train_ds.batch_size):
+        raise SystemExit(f"the native loader's rows are not the corpus's: {rec}")
+    return rec
+
+
+def falls(losses, n: int = 10) -> tuple[float, float]:
+    """Mean of the first and the last ``n`` losses; raises unless it fell."""
+    first, last = sum(losses[:n]) / len(losses[:n]), sum(losses[-n:]) / len(losses[-n:])
+    if not (math.isfinite(last) and last < first):
+        raise SystemExit(f"the loss did not fall: {first} -> {last}")
+    return first, last
+
+
+def paper_base_path(src_vocab, tgt_vocab):
+    """Step 2: ``cli.train --preset base --attention_impl flash
+    --sequence_length 64 --epochs 1`` at full depth on the defaults, so
+    through the native loader, with its gates; returns (export, flash
+    launches, record)."""
+    import statistics
+
+    import torch
+
+    from transformer_tpu_torch.cli import train
+
+    data = os.path.join(ROOT, "data")
+    export = os.path.join(BUILD_DIR, "paper_base_export")
+    argv = [
+        "--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
+        "--warmup_steps", PAPER_WARMUP,
+        "--epochs", "1", "--dataset_path", data, "--src_vocab_file", src_vocab,
+        "--tgt_vocab_file", tgt_vocab, "--export_path", export,
+        "--ckpt_path", fresh_dir("ckpt", "paper_base"),
+    ]
+    logs: list[str] = []
+    read_flash_counters(reset=True)
+    t0 = time.perf_counter()
+    trainer = train.main(argv, log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_flash_counters()
+    cfg, steps, evals = trainer.model_cfg, len(trainer.step_seconds), trainer.eval_batches
+    match = re.match(r"test BLEU ([-0-9.naif]+) on (\d+) pairs",
+                     next((ln for ln in logs if ln.startswith("test BLEU")), ""))
+    bleu_pairs = int(match.group(2)) if match else 0
+    translate_calls = 1 + -(-bleu_pairs // trainer.train_cfg.batch_size)
+    layers = 2 * cfg.num_layers
+    want = {"flash_fwd": layers * (steps + evals) + cfg.num_layers * translate_calls,
+            "flash_dq": layers * steps, "flash_dkdv": layers * steps}
+    ms = [t * 1e3 for t in trainer.step_seconds]
+    first, last = falls(trainer.losses)
+    rec = {
+        "phase": "paper", "step": "base_fit", "argv": argv, "card": nvidia_smi_line(),
+        "layers": [cfg.num_layers, cfg.num_layers], "d_model": cfg.d_model,
+        "steps": steps, "eval_batches": evals, "step_ms_first": ms[0],
+        "step_ms_median": statistics.median(ms[1:]), "step_ms_mean": statistics.mean(ms[1:]),
+        "target_tokens_per_s": trainer.train_metrics.weight / sum(trainer.step_seconds),
+        "loss_first_10": first, "loss_last_10": last,
+        "eval_loss": trainer.eval_metrics.loss,
+        "bleu": float(match.group(1)) if match else float("nan"), "bleu_pairs": bleu_pairs,
+        "fit_and_epilogue_wall_s": wall, "launches": launches, "expected_launches": want,
+        "data_log": next((ln for ln in logs if ln.startswith("data:")), ""),
+    }
+    emit(rec)
+    if bleu_pairs != 200 or not math.isfinite(rec["bleu"]):
+        raise SystemExit(f"paper base: BLEU {rec['bleu']} on {bleu_pairs} pairs")
+    for name, count in launches.items():
+        if count <= 0 or count != want[name]:
+            raise SystemExit(f"{name} launched {count} times on the base path, expected "
+                             f"{want[name]}")
+    rec["loader"] = loader_checks(trainer.train_ds, steps)
+    rec["profile"] = train_profile(trainer, trainer.train_ds, phase="paper")
+    del trainer
+    torch.cuda.empty_cache()
+    return export, launches, rec
+
+
+def tfds_vocab(side: str) -> str:
+    """A tfds ``SubwordTextEncoder`` file for one side of the corpus, built
+    by hand as the JAX package's test builds its own: the corpus's
+    ``PAPER_TFDS_WORDS`` most frequent tfds tokens with the word-end ``_``,
+    then every character of the corpus and the escape characters; written
+    with ``TfdsSubwordTokenizer.save``."""
+    from collections import Counter
+
+    from transformer_tpu_torch.data.tfds_compat import TfdsSubwordTokenizer, _tokenize
+
+    with open(os.path.join(ROOT, "data", f"{side}-train.txt"), encoding="utf-8") as f:
+        lines = [line.rstrip("\n") for line in f]
+    counts = Counter(token for line in lines for token in _tokenize(line))
+    pieces = [w.replace("\\", "\\\\").replace("_", "\\u") + "_"
+              for w, _ in counts.most_common(PAPER_TFDS_WORDS)]
+    seen = set(pieces)
+    pieces += sorted(({c for line in lines for c in line} | set("\\_u;0123456789")) - seen)
+    path = os.path.join(BUILD_DIR, "vocab", f"tfds-{side}-train.subwords")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    TfdsSubwordTokenizer(pieces).save(path)
+    return path
+
+
+def paper_streaming_path():
+    """Step 3: the source paper's command line at ``PAPER_LAYERS`` +
+    ``PAPER_LAYERS`` layers, streaming over tfds vocab files; returns
+    (export, its vocab files, record)."""
+    import torch
+
+    from transformer_tpu_torch.cli import train
+    from transformer_tpu_torch.data.tfds_compat import TfdsSubwordTokenizer
+    from transformer_tpu_torch.data.tokenizer import SubwordTokenizer
+
+    vocabs = {side: tfds_vocab(side) for side in ("src", "tgt")}
+    src_tok = SubwordTokenizer.load(vocabs["src"])
+    lines = source_sentences(500)
+    round_trips = sum(src_tok.decode(src_tok.encode(line)) == line for line in lines)
+    export = os.path.join(BUILD_DIR, "paper_stream_export")
+    argv = [
+        "--preset", "base", "--num_layers", str(PAPER_LAYERS), "--enable_function=true",
+        "--per_replica_batch_size", "64", "--streaming", "--buffer_size", str(PAPER_BUFFER),
+        "--epochs", "1", "--dataset_path", os.path.join(ROOT, "data"),
+        "--src_vocab_file", vocabs["src"], "--tgt_vocab_file", vocabs["tgt"],
+        "--export_path", export, "--ckpt_path", fresh_dir("ckpt", "paper_stream"),
+    ]
+    logs: list[str] = []
+    read_flash_counters(reset=True)
+    t0 = time.perf_counter()
+    trainer = train.main(argv, log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ds = trainer.train_ds
+    first, last = falls(trainer.losses)
+    ms = sorted(t * 1e3 for t in trainer.step_seconds)
+    rec = {
+        "phase": "paper", "step": "streaming_fit", "argv": argv,
+        "tfds_vocab_sizes": {side: SubwordTokenizer.load(p).vocab_size
+                             for side, p in vocabs.items()},
+        "tfds": isinstance(src_tok, TfdsSubwordTokenizer),
+        "test_lines_round_tripped": round_trips, "test_lines": len(lines),
+        "attention_impl": trainer.model_cfg.attention_impl, "steps": len(ms),
+        "step_ms_median": ms[len(ms) // 2], "peak_buffer_examples": ds.peak_buffer_examples,
+        "peak_resident_examples": ds.peak_resident_examples, "buffer_size": PAPER_BUFFER,
+        "loss_first_10": first, "loss_last_10": last, "wall_s": wall,
+        "flash_launches": read_flash_counters(),
+        "data_log": next((ln for ln in logs if ln.startswith("data:")), ""),
+        "bleu_log": next((ln for ln in logs if ln.startswith("test BLEU")), ""),
+    }
+    emit(rec)
+    if not (rec["tfds"] and round_trips == len(lines)):
+        raise SystemExit(f"tfds tokenizer: {round_trips} of {len(lines)} lines round-trip")
+    if not (0 < ds.peak_buffer_examples <= PAPER_BUFFER
+            and ds.peak_resident_examples <= PAPER_BUFFER + trainer.train_cfg.batch_size):
+        raise SystemExit(f"streaming buffer peaked at {ds.peak_buffer_examples} examples "
+                         f"({ds.peak_resident_examples} resident) of {PAPER_BUFFER}")
+    if not rec["data_log"].startswith(f"data: streaming corpus (buffer {PAPER_BUFFER})"):
+        raise SystemExit(f"cli.train did not stream: {rec['data_log']}")
+    del trainer
+    torch.cuda.empty_cache()
+    return export, vocabs, rec
+
+
+def attention_maps(export, src_vocab, tgt_vocab, name) -> tuple[dict, list]:
+    """``cli.translate --attention_out`` on ``ATTENTION_SENTENCES`` test
+    sentences (stdin); returns the .npz's arrays and the translations."""
+    import numpy as np
+
+    from transformer_tpu_torch.cli import translate
+
+    out_path = os.path.join(BUILD_DIR, f"{name}_maps.npz")
+    sentences = source_sentences(ATTENTION_SENTENCES)
+    outputs = translate.main(
+        ["--export_path", export, "--src_vocab_file", src_vocab, "--tgt_vocab_file", tgt_vocab,
+         "--attention_out", out_path],
+        stdin=io.StringIO("\n".join(sentences) + "\n"), stdout=io.StringIO())
+    with np.load(out_path) as f:
+        return {k: f[k] for k in f.files}, outputs
+
+
+def map_keys(n: int, layers: int, blocks: tuple, encoder: bool) -> list[str]:
+    """The keys of the JAX package's dump: ids, then the maps it keeps."""
+    keys = []
+    for i in range(n):
+        keys += [f"s{i}/src_ids", f"s{i}/tgt_ids"]
+        keys += [f"s{i}/encoder_layer{L}" for L in range(1, layers + 1) if encoder]
+        keys += [f"s{i}/decoder_layer{L}_block{b}" for L in range(1, layers + 1) for b in blocks]
+    return sorted(keys)
+
+
+def attention_maps_path(stream_export, stream_vocabs, base_export, src_vocab, tgt_vocab):
+    """Step 4: the maps of the streaming (xla) export and of the base flash
+    export; returns the flash launches of the flash export's run."""
+    import numpy as np
+
+    n = ATTENTION_SENTENCES
+    xla, _ = attention_maps(stream_export, stream_vocabs["src"], stream_vocabs["tgt"],
+                            "paper_stream")
+    want_keys = map_keys(n, PAPER_LAYERS, (1, 2), encoder=True)
+    sums = max(float(np.abs(v.sum(-1) - 1.0).max()) for k, v in xla.items()
+               if not k.endswith("_ids"))
+    above = max(float(np.abs(np.triu(v, k=1)).max()) for k, v in xla.items()
+                if k.endswith("block1"))
+    read_flash_counters(reset=True)
+    flash, _ = attention_maps(base_export, src_vocab, tgt_vocab, "paper_base")
+    launches = read_flash_counters()
+    layers = 6
+    want_launches = {"flash_fwd": layers + n * 2 * layers, "flash_dq": 0, "flash_dkdv": 0}
+    rec = {
+        "phase": "paper", "step": "attention_out", "sentences": n,
+        "xla_keys_are_jax": sorted(xla) == want_keys, "xla_maps": len(xla) - 2 * n,
+        "xla_worst_row_sum_error": sums, "xla_block1_worst_above_diagonal": above,
+        "flash_keys": sorted({k.split("/", 1)[1] for k in flash}),
+        "flash_keys_are_jax": sorted(flash) == map_keys(n, layers, (2,), encoder=False),
+        "launches": launches, "expected_launches": want_launches,
+    }
+    emit(rec)
+    if not (rec["xla_keys_are_jax"] and sums <= 1e-2 and above == 0.0):
+        raise SystemExit(f"the streaming export's attention maps fail: {rec}")
+    if not rec["flash_keys_are_jax"]:
+        raise SystemExit(f"the flash export's dump holds {rec['flash_keys']}")
+    if launches != want_launches:
+        raise SystemExit(f"--attention_out on the flash export launched {launches}, expected "
+                         f"{want_launches}")
+    return launches
+
+
+def paper_path(vocab_paths: dict) -> tuple[dict, dict]:
+    """Phase 16: the native build and vocabularies, base 6 + 6 through the
+    native loader, the paper's streaming command line over tfds vocab
+    files, and ``--attention_out``. Returns the flash launches by path and
+    the records."""
+    recs = {"build": native_build(), "vocabs": native_vocabs(vocab_paths)}
+    base_export, base_launches, recs["base"] = paper_base_path(vocab_paths["src"],
+                                                               vocab_paths["tgt"])
+    stream_export, stream_vocabs, recs["streaming"] = paper_streaming_path()
+    map_launches = attention_maps_path(stream_export, stream_vocabs, base_export,
+                                       vocab_paths["src"], vocab_paths["tgt"])
+    return {"paper_train": base_launches, "paper_attention_out": map_launches}, recs
+
+
+def paper_only() -> None:
+    """Phase 16 alone (``python3 chip_smoke.py --only paper``): the Python
+    vocabularies built here when build/vocab/ lacks them."""
+    launches, _ = paper_path({side: vocab(side=side)[1] for side in ("src", "tgt")})
+    emit({"phase": "paper", "launches_by_path": launches})
+
+
 def mlm_only() -> None:
     """Phase 15 alone (``python3 chip_smoke.py --only mlm``)."""
     _, vocab_path = vocab()
@@ -5469,6 +5886,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "mlm"]:
         mlm_only()
+        return 0
+    if sys.argv[1:] == ["--only", "paper"]:
+        paper_only()
         return 0
 
     # Each phase's seconds on the host clock, emitted as it ends.
@@ -5707,6 +6127,12 @@ def main() -> int:
     mlm_launches, mlm_timed = mlm_path(vocab_path)
     lap("15 mlm")
 
+    # 16. the trainer's command line: the native library and BPE trainer,
+    # base 6 + 6 through the native loader, the paper's flags streaming
+    # over tfds vocab files, and --attention_out
+    paper_launches, _ = paper_path({"src": src_vocab, "tgt": vocab_path})
+    lap("16 paper")
+
     def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
                                          "share_of_bound_warm") if k in main_rec}
@@ -5744,7 +6170,8 @@ def main() -> int:
                    "ckpt": ckpt_launches[name], "dispatch": disp_launches[name],
                    "s2s_dist": dist_launches[name], "serve_grouped": grouped_launches[name],
                    "windowed_train": windowed_launches[name],
-                   **{path: counts[name] for path, counts in mlm_launches.items()}}
+                   **{path: counts[name] for path, counts in mlm_launches.items()},
+                   **{path: counts[name] for path, counts in paper_launches.items()}}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",
@@ -5767,12 +6194,15 @@ def main() -> int:
             },
             "mlm": {key: pick(mlm_timed, key) for key in (
                 "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
-                "bound_by", "share_of_bound", "share_of_bound_device")},
+                "bound_by", "share_of_bound", "share_of_bound_device",
+                *(("device_ms_cold", "library_device_ms_cold", "share_of_bound_cold")
+                  if name == "flash_fwd" else ()))},
             "timers": {"ms": "cuda_ms (device-bound at the main shape)", "library_ms": "cuda_ms",
                        "seq2seq": "ms, plain_ms, library_ms: cuda_ms (the host's time per call "
                                   "at B 64, S 64); device_ms, library_device_ms: kernel_us "
                                   "(profiler device time per call)",
-                       "mlm": "as seq2seq, at B 64, S 128, bidirectional, bf16"},
+                       "mlm": "as seq2seq, at B 64, S 128, bidirectional, bf16; the "
+                              "forward's *_cold: cuda_graph_ms over 16 input copies"},
         }
 
     print(smi, flush=True)

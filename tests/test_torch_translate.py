@@ -21,7 +21,9 @@ throughout (2 layers, d 64, 4 heads, dff 128).
   flags) writes an export that ``cli.translate`` and ``cli.evaluate``
   read and the JAX package's ``cli/translate.py`` ``load_export`` loads;
   ``cli.evaluate`` prints one JSON line.
-- Without ``--device=cpu`` the new entry points raise: no silent CPU.
+- Without ``--device=cpu`` the new entry points raise: no silent CPU; with
+  it, ``cli.translate --attention_out`` writes JAX's attention-map dump of
+  the same export (the keys, and every map within 1e-5).
 """
 
 import io
@@ -331,6 +333,23 @@ def test_new_entry_points_refuse_cuda_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--preset", "base", "--dataset_path", str(tmp_path),
                     "--ckpt_path", str(tmp_path / "ckpt")])
-    with pytest.raises(NotImplementedError, match="attention_out"):
-        cli_translate.main(["--export_path", str(tmp_path), "--attention_out", "a.npz",
-                            "--device=cpu"])
+    # --attention_out (once refused) writes JAX's dump of the same export.
+    pieces = [*"abcdefghijklmnopqrstuvwxyz_", *(c + "_" for c in "abcdefghijklmnopqrstuvwxyz"),
+              "he_", "go_", "yes_", "the_"]
+    vocab = str(tmp_path / "v.subwords")
+    SubwordTokenizer(pieces).save(vocab)
+    assert SubwordTokenizer.load(vocab).model_vocab_size == VOCAB
+    maps = str(tmp_path / "a.npz")
+    outputs = cli_translate.main(
+        export + ["--src_vocab_file", vocab, "--tgt_vocab_file", vocab, "--max_len", "4",
+                  "--sentences", "he go;yes", "--attention_out", maps, "--device=cpu"],
+        stdout=io.StringIO())
+    from transformer_tpu.train.evaluate import dump_attention_maps as j_dump
+
+    jparams, _ = j_load_export(str(tmp_path))
+    j_dump(jparams, jcfg, JTokenizer.load(vocab), JTokenizer.load(vocab), ["he go", "yes"],
+           outputs, str(tmp_path / "want.npz"))
+    got, want = np.load(maps), np.load(str(tmp_path / "want.npz"))
+    assert sorted(got.files) == sorted(want.files) and len(got.files) == 2 * (2 + 2 * 3)
+    for key in want.files:
+        assert np.abs(got[key] - want[key]).max() <= 1e-5, key

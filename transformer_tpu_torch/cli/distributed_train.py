@@ -14,10 +14,13 @@ data × sequence parallel.
 Port of ``transformer_tpu/cli/distributed_train.py``. The flags are
 ``cli.train``'s plus the mesh: ``--dp`` (0 = every process not used by
 the other axes), ``--sp`` (the sequence split, with ``--attention_impl
-ring`` or ``ulysses``), and ``--fsdp/--tp/--pp/--ep``, which raise above
-1. Without the launcher's environment it runs as a world of one. Each
-process reads the same data (the same global batches in the same order,
-length buckets included) and keeps its part of each batch; rank 0 builds
+ring`` or ``ulysses``), and ``--fsdp/--tp/--pp/--ep/--dcn_data``, which
+raise above 1 (``--pp_microbatches`` and ``--pp_schedule`` away from
+their defaults too). Without the launcher's environment it runs as a
+world of one. Each process reads the same data (the same global batches
+in the same order: the native loader's by default, as ``cli.train``'s,
+length buckets and ``--streaming`` included) and keeps its part of each
+batch; rank 0 builds
 a missing vocabulary before the others read it, logs, and runs the
 epilogue of ``cli.train``: for seq2seq the sample translation, the export
 and ``--eval_bleu``; for an LM the eval loss and the export.
@@ -83,10 +86,15 @@ def main(argv: list[str] | None = None, log_fn=print):
     """Train over the launcher's processes and export from rank 0;
     returns the trainer."""
     args = train.resolve_flags(argv, _FLAGS, __doc__)
-    for name in ("fsdp", "tp", "pp", "ep"):
+    for name in ("fsdp", "tp", "pp", "ep", "dcn_data"):
         if getattr(args, name) > 1:
             raise NotImplementedError(
                 f"--{name} > 1 is not ported yet; the port runs --dp and --sp"
+            )
+    for name in ("pp_microbatches", "pp_schedule"):
+        if getattr(args, name) != _FLAGS[name][1]:
+            raise NotImplementedError(
+                f"--{name} belongs to the pipeline axis (--pp), which is not ported yet"
             )
     import torch.distributed as dist
 

@@ -17,7 +17,7 @@ import argparse
 import json
 import sys
 
-from transformer_tpu_torch.cli.translate import add_export_flags
+from transformer_tpu_torch.cli.translate import add_export_flags, export_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,7 +45,7 @@ def main(argv: list[str] | None = None, stdout=None) -> dict:
         read_lines,
     )
 
-    device = resolve_device(args.device)
+    device = resolve_device(export_device(args))
     params, cfg = load_export(args.export_path, kv_cache_int8=args.kv_cache_int8, device=device)
 
     def log(msg: str) -> None:

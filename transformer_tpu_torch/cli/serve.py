@@ -60,8 +60,8 @@ import sys
 import threading
 import time
 
-from transformer_tpu_torch.cli.train import _bool
-from transformer_tpu_torch.cli.translate import add_export_flags
+from transformer_tpu_torch.cli.train import LATER_SLICE, METRICS_FLAGS, _bool, add_bool_flag
+from transformer_tpu_torch.cli.translate import add_export_flags, export_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,10 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefix_block", type=int, default=16,
                     help="KV pool block size in tokens, and the prefix cache's "
                          "matching granularity")
-    ap.add_argument("--prefix_verify_checksums", type=_bool, nargs="?", const=True,
-                    default=True,
-                    help="re-verify each matched prefix-cache block's crc32 at "
-                         "admission (a corrupt block is dropped, not restored)")
+    add_bool_flag(ap, "prefix_verify_checksums", True,
+                  "re-verify each matched prefix-cache block's crc32 at admission (a "
+                  "corrupt block is dropped, not restored)")
     ap.add_argument("--kv_layout", choices=("dense", "paged"), default="dense",
                     help="per-slot KV storage of the continuous path: 'dense' "
                          "reserves max_total rows per slot (the reference layout, "
@@ -140,7 +139,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="deterministic fault injection for chaos drills, e.g. "
                          "'serve.prefill:p=0.25,seed=7;draft.slow:every=3,ms=40' "
                          "(serve/resilience.py grammar); '' = disarmed")
+    # The JAX server's telemetry flags and --slo_spec: accepted at their
+    # defaults, refused by name away from them (refuse_later_slices).
+    for name, (typ, default) in _LATER_DEFAULTS.items():
+        help_ = f"refused away from {default!r}: the port's telemetry is a later slice"
+        if typ is _bool:
+            add_bool_flag(ap, name, default, help_)
+        else:
+            ap.add_argument(f"--{name}", type=typ, default=default, help=help_)
     return ap
+
+
+_LATER_DEFAULTS = {**METRICS_FLAGS, "slo_spec": (str, "")}
+
+
+def refuse_later_slices(args: argparse.Namespace) -> None:
+    """Refuse, by name, a telemetry flag or ``--slo_spec`` set away from the
+    JAX server's default."""
+    for name, (_, default) in _LATER_DEFAULTS.items():
+        if getattr(args, name) != default:
+            raise SystemExit(f"--{name} {LATER_SLICE}")
 
 
 class _RoutingError(ValueError):
@@ -426,7 +444,7 @@ def _load(args: argparse.Namespace):
     from transformer_tpu_torch.data.tokenizer import SubwordTokenizer
     from transformer_tpu_torch.device import resolve_device
 
-    device = resolve_device(args.device)
+    device = resolve_device(export_device(args))
     params, cfg = load_export(args.export_path, kv_cache_int8=args.kv_cache_int8, device=device)
     return params, cfg, SubwordTokenizer.load(args.tgt_vocab_file), device
 
@@ -435,6 +453,7 @@ def main(argv: list[str] | None = None, stdin=None, stdout=None):
     """Serve until stdin ends. Returns the scheduler on the continuous
     path (for its stats), else the grouped loop's batch records."""
     args = build_parser().parse_args(argv)
+    refuse_later_slices(args)
     if not args.fault_spec:
         return _serve(args, stdin, stdout)
     from transformer_tpu_torch.serve import resilience

@@ -33,6 +33,17 @@ batch shape), ``--length_buckets`` (seq2seq) pads each batch to the
 smallest fitting width, ``--remat_policy dots`` keeps the dense products'
 outputs under ``--remat``. ``--optimizer adafactor`` trains with
 optax's Adafactor.
+
+Every flag of the JAX CLI parses here, with absl's spellings (``--f=v``,
+``--f``, ``--nof``). Seq2seq batches come from the C++ loader
+(``--native_loader``, default true: the JAX CLI's batch order), or with
+``--streaming`` from disk through a ``--buffer_size`` shuffle buffer.
+The reference's ``--enable_function`` (false: no captured steps) and
+``--per_replica_batch_size`` (unused) keep JAX's meaning, ``--platform``
+picks ``--device``, and the mesh flags are accepted and unused (they are
+``cli.distributed_train``'s). ``--moe_experts`` and the telemetry,
+profiler and TensorBoard flags, away from their defaults, are refused by
+name: later slices of the port.
 """
 
 from __future__ import annotations
@@ -62,12 +73,34 @@ _PRESETS: dict[str, dict] = {
 
 
 def _bool(text: str) -> bool:
-    if text.lower() in ("1", "true", "yes"):
+    if text.lower() in ("1", "true", "t", "yes"):
         return True
-    if text.lower() in ("0", "false", "no"):
+    if text.lower() in ("0", "false", "f", "no"):
         return False
     raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
 
+
+def add_bool_flag(ap: argparse.ArgumentParser, name: str, default, help_: str) -> None:
+    """A boolean flag with absl's spellings: ``--name``, ``--name=false``
+    (or ``--name false``) and ``--noname``."""
+    ap.add_argument(f"--{name}", type=_bool, nargs="?", const=True, default=default,
+                    help=help_)
+    ap.add_argument(f"--no{name}", dest=name, action="store_const", const=False,
+                    default=default, help=argparse.SUPPRESS)
+
+
+# The JAX CLIs' telemetry flags (its define_metrics_flags) and the
+# trainers' profiler and TensorBoard flags: name -> (type, default).
+METRICS_FLAGS: dict[str, tuple] = {
+    "metrics_jsonl": (str, ""), "metrics_port": (int, 0), "metrics_interval": (float, 10.0),
+    "trace": (_bool, False), "profile_programs": (_bool, True),
+    "flight_recorder": (_bool, True),
+}
+_PROFILER_FLAGS: dict[str, tuple] = {
+    "profile_dir": (str, ""), "profile_start_step": (int, 2), "profile_num_steps": (int, 3),
+    "tb_log_dir": (str, "logs"),
+}
+LATER_SLICE = "comes with the port's telemetry and profiler (obs/), a later slice of the port"
 
 # name -> (type, default, help); the JAX CLI's defaults.
 _FLAGS: dict[str, tuple] = {
@@ -131,30 +164,97 @@ _FLAGS: dict[str, tuple] = {
     "early_stop_patience": (int, 0, "stop after this many epochs without eval-loss "
                             "improvement (0 = run all epochs)"),
     "device": (str, "cuda", "cuda (default) or cpu"),
+    # The data path.
+    "native_loader": (_bool, True, "seq2seq: batch through the C++ prefetching loader "
+                      "(native/), in its splitmix64 order per (seed, epoch), the JAX CLI's "
+                      "default batch sequence; without the library, or false, the numpy "
+                      "order"),
+    "streaming": (_bool, False, "seq2seq: stream the train corpus from disk through a "
+                  "--buffer_size shuffle buffer instead of loading it (needs the vocab "
+                  "files; no --length_buckets, and the native loader is not used)"),
+    "buffer_size": (int, 100000, "shuffle buffer of --streaming, in examples: bounds host "
+                    "memory (the in-memory paths shuffle whole epochs)"),
+    # The reference's compat flags and the JAX CLI's platform switch.
+    "enable_function": (_bool, True, "false = the reference's eager-debug mode: the step is "
+                        "never captured, and --steps_per_dispatch > 1 is refused"),
+    "per_replica_batch_size": (int, 16, "the reference's compat flag: accepted and unused "
+                               "(the batch is --batch_size), as in the JAX CLI"),
+    "platform": (str, "", "'cpu' runs on the CPU, 'gpu' or 'cuda' on the card (must agree "
+                 "with --device when both are given); '' = --device"),
+    # The JAX CLI's mesh flags: cli.distributed_train reads them; here they
+    # are accepted and unused, as the JAX cli.train leaves them.
+    "dp": (int, 0, "cli.distributed_train's data axis (unused here)"),
+    "fsdp": (int, 1, "cli.distributed_train's fsdp axis (unused here)"),
+    "tp": (int, 1, "cli.distributed_train's tensor axis (unused here)"),
+    "sp": (int, 1, "cli.distributed_train's sequence axis (unused here)"),
+    "pp": (int, 1, "cli.distributed_train's pipeline axis (unused here)"),
+    "ep": (int, 1, "cli.distributed_train's expert axis (unused here)"),
+    "pp_microbatches": (int, 0, "cli.distributed_train's GPipe microbatches (unused here)"),
+    "pp_schedule": (str, "gpipe", "cli.distributed_train's pipeline schedule (unused here)"),
+    "dcn_data": (int, 1, "cli.distributed_train's multi-slice data split (unused here)"),
+    "consistency_check": (_bool, False, "cli.distributed_train's cross-process check "
+                          "(unused here)"),
+    # Flags of later slices: accepted at the JAX CLI's defaults, refused by
+    # name away from them (_LATER).
+    "moe_experts": (int, 0, "refused above 0: MoE is a later slice of the port"),
+    "moe_top_k": (int, 2, "experts each token routes to (with --moe_experts)"),
+    "moe_capacity_factor": (float, 1.25, "expert capacity slack (with --moe_experts)"),
+    "moe_every": (int, 1, "every k-th layer carries the MoE FFN (with --moe_experts)"),
+    "moe_aux_weight": (float, 0.01, "load-balance loss weight (with --moe_experts)"),
+    **{name: (typ, default, "refused away from its default: the port's telemetry and "
+              "profiler are a later slice")
+       for name, (typ, default) in {**METRICS_FLAGS, **_PROFILER_FLAGS}.items()},
 }
+
+# Flags of later slices, refused by name when set away from the JAX CLI's
+# default (as cli.router does).
+_LATER: dict[str, str] = {
+    "moe_experts": "--moe_experts > 0: MoE (ops/moe.py) is a later slice of the port",
+    **{name: f"--{name} {LATER_SLICE}" for name in {**METRICS_FLAGS, **_PROFILER_FLAGS}},
+}
+
+_PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 
 def build_parser(flags: dict[str, tuple] = _FLAGS, doc: str = __doc__) -> argparse.ArgumentParser:
+    """The flags with absl's spellings: ``--name value``, ``--name=value``,
+    and for a boolean also ``--name`` and ``--noname``."""
     ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--preset", default="", choices=["", *sorted(_PRESETS)],
                     help="start from a benchmark config; explicit flags win")
     for name, (typ, _, help_) in flags.items():
-        kw = dict(nargs="?", const=True) if typ is _bool else {}
-        ap.add_argument(f"--{name}", type=typ, default=argparse.SUPPRESS, help=help_, **kw)
+        if typ is _bool:
+            add_bool_flag(ap, name, argparse.SUPPRESS, help_)
+        else:
+            ap.add_argument(f"--{name}", type=typ, default=argparse.SUPPRESS, help=help_)
     return ap
 
 
 def resolve_flags(
     argv: list[str] | None, flags: dict[str, tuple] = _FLAGS, doc: str = __doc__
 ) -> argparse.Namespace:
-    """Defaults, then the preset, then the flags given explicitly."""
+    """Defaults, then the preset, then the flags given explicitly. A flag
+    of a later slice set away from its default is refused by name;
+    ``--platform`` picks ``--device``."""
     explicit = vars(build_parser(flags, doc).parse_args(argv))
-    preset = _PRESETS.get(explicit.pop("preset"), {})
     values = {name: spec[1] for name, spec in flags.items()}
-    values.update(preset)
+    values.update(_PRESETS.get(explicit["preset"], {}))
     values.update(explicit)
     if values["objective"] not in ("causal", "mlm"):
         raise ValueError(f"--objective must be 'causal' or 'mlm', got {values['objective']!r}")
+    for name, message in _LATER.items():
+        if name in flags and values[name] != flags[name][1]:
+            raise SystemExit(message)
+    if values.get("platform"):
+        device = _PLATFORMS.get(values["platform"].lower())
+        if device is None:
+            raise SystemExit(f"--platform {values['platform']!r}: the port runs on 'cpu' or "
+                             "on the card ('gpu' or 'cuda')")
+        given = explicit.get("device")
+        if given is not None and given.split(":")[0] != device:
+            raise SystemExit(f"--platform {values['platform']!r} conflicts with --device "
+                             f"{given!r}")
+        values["device"] = given or device
     return argparse.Namespace(**values)
 
 
@@ -179,6 +279,7 @@ def train_config(args: argparse.Namespace):
         objective=args.objective, mlm_mask_rate=args.mlm_mask_rate,
         early_stop_patience=args.early_stop_patience,
         max_ckpt_keep=args.max_ckpt_keep, ckpt_path=args.ckpt_path,
+        enable_function=args.enable_function, buffer_size=args.buffer_size,
     )
 
 
@@ -220,20 +321,29 @@ def load_data(args: argparse.Namespace, train_cfg, log_fn=print):
 
 def load_pairs(args: argparse.Namespace, train_cfg, log_fn=print):
     """(train, test, src tokenizer, tgt tokenizer) seq2seq splits; builds
-    missing vocabulary files."""
+    missing vocabulary files. Batches through the native loader with
+    ``--native_loader`` (the default), from disk with ``--streaming``."""
     from transformer_tpu_torch.data.pipeline import load_dataset
 
     train_ds, test_ds, src_tok, tgt_tok = load_dataset(
         args.dataset_path, args.src_vocab_file, args.tgt_vocab_file,
         batch_size=train_cfg.batch_size, sequence_length=train_cfg.sequence_length,
         target_vocab_size=args.target_vocab_size, seed=train_cfg.seed,
-        length_buckets=length_buckets(args),
+        # streaming reads line by line and leaves the native loader out: it
+        # needs the in-memory example table
+        prefetch=args.native_loader and not args.streaming,
+        length_buckets=length_buckets(args), streaming=args.streaming,
+        buffer_size=args.buffer_size,
     )
-    log_fn(
-        f"data: {train_ds.num_examples} train pairs ({len(train_ds)} batches), "
-        f"{test_ds.num_examples if test_ds else 0} test pairs, "
-        f"vocabs {src_tok.vocab_size}/{tgt_tok.vocab_size}"
-    )
+    test = (f"{test_ds.num_examples if test_ds else 0} test pairs, "
+            f"vocabs {src_tok.vocab_size}/{tgt_tok.vocab_size}")
+    if args.streaming:
+        # counting the train pairs would cost the corpus pass streaming avoids
+        log_fn(f"data: streaming corpus (buffer {args.buffer_size}), {test}")
+    else:
+        loader = "native loader" if args.native_loader else "numpy order"
+        log_fn(f"data: {train_ds.num_examples} train pairs ({len(train_ds)} batches, "
+               f"{loader}), {test}")
     return train_ds, test_ds, src_tok, tgt_tok
 
 
@@ -317,7 +427,8 @@ def epilogue(trainer, test_ds, toks, args, log_fn=print) -> None:
 
 def main(argv: list[str] | None = None, log_fn=print):
     """Train and export (seq2seq: then translate and score); returns the
-    trainer."""
+    trainer, whose ``train_ds`` is the train split it fit (the native
+    loader's counts, a streaming split's buffer marks)."""
     args = resolve_flags(argv)
     from transformer_tpu_torch.device import resolve_device
     from transformer_tpu_torch.train.state import create_train_state
@@ -329,6 +440,7 @@ def main(argv: list[str] | None = None, log_fn=print):
     state = create_train_state(model_cfg, train_cfg, device=device)
     trainer = Trainer(model_cfg, train_cfg, state, log_fn=log_fn,
                       checkpoint=checkpoint_manager(args, train_cfg))
+    trainer.train_ds = train_ds
     trainer.fit(train_ds, test_ds)
     if trainer.graph is not None:
         log_fn(

@@ -8,8 +8,10 @@ Port of ``transformer_tpu/cli/translate.py``: the export directory
 (``params.npz`` + ``config.json``, either package's) is loaded without the
 training stack and driven end to end: tokenize, greedy or beam decode,
 detokenize. Sentences come from ``--sentences`` (``;``-separated) or one
-per stdin line; one translation is printed per line. ``--attention_out``
-is not ported and raises.
+per stdin line; one translation is printed per line. ``--attention_out
+maps.npz`` then writes each (sentence, translation) pair's attention maps
+(``train/evaluate.py`` ``dump_attention_maps``, the JAX keys).
+``--platform`` (``cpu``, ``gpu``) is the JAX CLI's device switch.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ from __future__ import annotations
 import argparse
 import sys
 
+from transformer_tpu_torch.cli.train import _PLATFORMS, add_bool_flag
 from transformer_tpu_torch.convert import load_export
 
-__all__ = ["build_parser", "load_export", "main", "run"]
+__all__ = ["build_parser", "export_device", "load_export", "main", "run"]
 
 
 def add_export_flags(ap: argparse.ArgumentParser) -> None:
@@ -33,9 +36,28 @@ def add_export_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--max_len", type=int, default=64,
                     help="max generated tokens per sentence")
     ap.add_argument("--beam", type=int, default=1, help="beam size (1 = greedy)")
-    ap.add_argument("--kv_cache_int8", action="store_true",
-                    help="decode with an int8 KV cache (codes with fp32 scales)")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_bool_flag(ap, "kv_cache_int8", False,
+                  "decode with an int8 KV cache (codes with fp32 scales)")
+    ap.add_argument("--platform", default="",
+                    help="'cpu' runs on the CPU, 'gpu' or 'cuda' on the card (must agree "
+                         "with --device when both are given); '' = --device")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+
+def export_device(args: argparse.Namespace) -> str:
+    """The device of an export-consuming CLI: ``--device``, else the one
+    ``--platform`` names, else ``cuda``; a ``--platform`` the port cannot
+    run on, or one that disagrees with ``--device``, is refused."""
+    if not args.platform:
+        return args.device or "cuda"
+    device = _PLATFORMS.get(args.platform.lower())
+    if device is None:
+        raise SystemExit(f"--platform {args.platform!r}: the port runs on 'cpu' or on the "
+                         "card ('gpu' or 'cuda')")
+    if args.device is not None and args.device.split(":")[0] != device:
+        raise SystemExit(f"--platform {args.platform!r} conflicts with --device "
+                         f"{args.device!r}")
+    return args.device or device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,22 +66,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sentences", default="",
                     help="';'-separated sentences (default: stdin lines)")
     ap.add_argument("--attention_out", default="",
-                    help="attention-map dump (not ported; raises when set)")
+                    help="dump per-layer attention maps to this .npz: a teacher-forced "
+                         "forward over (source, translation) saves encoder self-attention "
+                         "and decoder self/cross maps per sentence (the reference's "
+                         "attention_weights; '' = off)")
     return ap
 
 
 def main(argv: list[str] | None = None, stdin=None, stdout=None) -> list[str]:
     """Translate and print; returns the translations."""
     args = build_parser().parse_args(argv)
-    if args.attention_out:
-        raise NotImplementedError(
-            "--attention_out is not ported: the port's attention keeps no weight maps"
-        )
     from transformer_tpu_torch.data.tokenizer import SubwordTokenizer
     from transformer_tpu_torch.device import resolve_device
     from transformer_tpu_torch.train.decode import translate
 
-    device = resolve_device(args.device)
+    device = resolve_device(export_device(args))
     params, cfg = load_export(args.export_path, kv_cache_int8=args.kv_cache_int8, device=device)
     src_tok = SubwordTokenizer.load(args.src_vocab_file)
     tgt_tok = SubwordTokenizer.load(args.tgt_vocab_file)
@@ -75,6 +96,12 @@ def main(argv: list[str] | None = None, stdin=None, stdout=None) -> list[str]:
     out = stdout or sys.stdout
     for text in outputs:
         print(text, file=out)
+    if args.attention_out:
+        from transformer_tpu_torch.train.evaluate import dump_attention_maps
+
+        n = dump_attention_maps(params, cfg, src_tok, tgt_tok, sentences, outputs,
+                                args.attention_out)
+        print(f"wrote {n} attention maps to {args.attention_out}", file=sys.stderr)
     return outputs
 
 

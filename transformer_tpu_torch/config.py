@@ -165,8 +165,9 @@ class ModelConfig:
 class TrainConfig:
     """Training-engine knobs; see the JAX twin for what each field means.
     The pipeline-parallel fields (``pp_microbatches``, ``pp_schedule``)
-    and ``buffer_size`` are validated but not used: the port has no pipe
-    axis and no streaming loader yet."""
+    are validated but not used: the port has no pipe axis yet.
+    ``buffer_size`` is the streaming shuffle buffer the CLI passes to
+    ``load_dataset``."""
 
     batch_size: int = 64
     sequence_length: int = 50

@@ -1,16 +1,18 @@
 """Host-side input pipeline: parallel-corpus pairs and LM windows.
 
-Port of the parts of ``transformer_tpu/data/pipeline.py`` that
-``cli.train`` runs: the parallel-corpus reader, the tokenizer
-build-or-load, the seq2seq dataset of ``load_dataset`` on its in-memory
-path (BOS/EOS framing, the filter that drops a train pair with either side
-longer than ``sequence_length``, ``exclude_test_overlap``, the test split
-cut to fit), the causal-LM dataset (the corpus as one EOS-separated token
-stream cut into BOS-prefixed windows) and the in-memory batcher of
-``Seq2SeqDataset``, flat or in length buckets, with its (seed,
-epoch)-keyed shuffle. Batches are numpy int32 arrays equal to the JAX
-package's, element for element. The native C++ loader, prefetch and
-streaming are not ported: they raise.
+Port of ``transformer_tpu/data/pipeline.py``: the parallel-corpus
+reader, the tokenizer build-or-load (tfds-format vocab files included),
+the seq2seq dataset of ``load_dataset`` (BOS/EOS framing, the filter
+that drops a train pair with either side longer than
+``sequence_length``, ``exclude_test_overlap``, the test split cut to
+fit), the causal-LM dataset (the corpus as one EOS-separated token
+stream cut into BOS-prefixed windows) and ``Seq2SeqDataset``'s batchers:
+in memory, flat or in length buckets, with the (seed, epoch)-keyed numpy
+shuffle; or, with ``prefetch``, the C++ loader (``native/``), whose
+splitmix64 order is the JAX package's default batch order (its
+``--native_loader``). ``streaming=True`` reads the train split from disk
+through a shuffle buffer (``data/streaming.py``). Batches are numpy int32
+arrays equal to the JAX package's, element for element, path for path.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import glob
 import os
+import warnings
 from collections.abc import Iterator
 
 import numpy as np
@@ -59,8 +62,10 @@ def read_parallel_corpus(dataset_path: str, split: str = "train") -> tuple[list[
 
 def load_or_build_tokenizer(
     vocab_file: str, corpus: list[str] | None = None, target_vocab_size: int = 2**15
-) -> SubwordTokenizer:
-    """Load a persisted vocab, else train one from ``corpus`` and save it."""
+):  # -> SubwordTokenizer | tfds_compat.TfdsSubwordTokenizer
+    """Load a persisted vocab (a tfds ``SubwordTextEncoder`` file comes back
+    as a ``TfdsSubwordTokenizer``), else train one from ``corpus`` and save
+    it."""
     if os.path.exists(vocab_file):
         return SubwordTokenizer.load(vocab_file)
     if corpus is None:
@@ -93,7 +98,14 @@ class Seq2SeqDataset:
     width on both sides, and come in a (seed, epoch)-shuffled order across
     buckets, so one epoch mixes widths. Short sentences stop paying for the
     full width, and the step takes one shape per bucket (one CUDA graph
-    each under ``steps_per_dispatch``). () = one fixed width."""
+    each under ``steps_per_dispatch``). () = one fixed width.
+
+    ``prefetch``: batches come from the C++ loader (``native/``), a worker
+    thread filling a ring of batches ahead of the consumer, in its own
+    splitmix64 Fisher-Yates order per (seed, epoch) (buckets: members,
+    then the plan) — the JAX package's ``--native_loader`` order, not the
+    numpy one; the unshuffled order and the padding are the same. Without
+    the library it warns and keeps the numpy order."""
 
     src: list[np.ndarray]
     tgt: list[np.ndarray]
@@ -104,6 +116,8 @@ class Seq2SeqDataset:
     seed: int = 0
     drop_remainder: bool = True
     length_buckets: tuple[int, ...] = ()
+    prefetch: bool = False
+    _native: object = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self) -> None:
         if len(self.src) != len(self.tgt):
@@ -148,7 +162,39 @@ class Seq2SeqDataset:
             idx = np.concatenate([idx, fill])
         return idx
 
+    def native_loader(self):
+        """The C++ loader of these examples (built at first use), or None
+        without the library."""
+        if self._native is None:
+            from transformer_tpu_torch import native
+
+            self._native = native.NativeBatchLoader.create(
+                self.src, self.tgt, self.batch_size, self.batch_size, 0, self.src_len,
+                self.tgt_len, pad_id=PAD_ID, length_buckets=self.length_buckets,
+            ) or False
+        return self._native or None
+
     def batches(self, epoch: int = 0) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        if self.prefetch:
+            loader = self.native_loader()
+            if loader is not None:
+                seed = (self.seed * 0x9E3779B97F4A7C15 + epoch) & (2**64 - 1)
+                yield from loader.epoch(seed, self.shuffle, self.drop_remainder)
+                return
+            warnings.warn(
+                "prefetch requested but the native loader is unavailable; "
+                "falling back to the Python batcher. Its batch order is the "
+                "prefetch=False path's, which differs from the native loader's "
+                "shuffle, so a run changes its batch sequence, and with several "
+                "processes EVERY process must take the same path (all native or "
+                "all fallback) or their global batches desynchronize",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        yield from self._python_batches(epoch)
+
+    def _python_batches(self, epoch: int) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """The in-memory numpy batcher, flat or bucketed."""
         if self.length_buckets:
             yield from self._bucketed_batches(epoch)
             return
@@ -270,23 +316,58 @@ def load_dataset(
     length_buckets: tuple[int, ...] = (),
     exclude_test_overlap: bool = False,
     streaming: bool = False,
+    buffer_size: int = 10000,
 ) -> tuple[Seq2SeqDataset, Seq2SeqDataset | None, SubwordTokenizer, SubwordTokenizer]:
     """Seq2seq train (+ test, when the split exists) datasets and both
     tokenizers, built from (or saved to) the vocab files. Train pairs with
     either side longer than ``sequence_length`` after BOS/EOS framing are
-    dropped; ``length_buckets`` batches the train split in buckets
-    (``Seq2SeqDataset``).
+    dropped; ``length_buckets`` batches the train split in buckets and
+    ``prefetch`` through the C++ loader (``Seq2SeqDataset``).
 
     ``exclude_test_overlap`` drops every train pair whose exact (src, tgt)
     line pair also appears in the test split (the bundled test split is
     drawn from the train corpus, so BLEU on it is otherwise in-sample). The
     vocabularies are still built from the whole train files, so the
-    ``*.subwords`` files are the same either way."""
-    if streaming or prefetch:
-        raise NotImplementedError(
-            "streaming and the native prefetching loader are not ported; the port "
-            "batches the corpus in memory"
+    ``*.subwords`` files are the same either way.
+
+    ``streaming=True`` makes the train split a
+    ``data.streaming.StreamingSeq2SeqDataset``: read and tokenized line by
+    line through a ``buffer_size``-example shuffle buffer (the reference's
+    ``--buffer_size``), so host memory stays O(buffer_size). It needs the
+    vocab files to exist and composes with neither ``prefetch`` nor
+    ``length_buckets``, which need the in-memory example table (the JAX
+    package's refusals). The test split stays in memory."""
+    if streaming:
+        if prefetch or length_buckets:
+            raise ValueError(
+                "streaming=True does not compose with prefetch or "
+                "length_buckets (the native loader and bucket planner need "
+                "the in-memory example table)"
+            )
+        if not (os.path.exists(src_vocab_file) and os.path.exists(tgt_vocab_file)):
+            raise FileNotFoundError(
+                "streaming=True needs pre-built vocab files "
+                f"({src_vocab_file!r}, {tgt_vocab_file!r}): vocabulary "
+                "construction requires its own corpus pass — run once "
+                "without streaming (or build vocabs from a sample) first"
+            )
+        from transformer_tpu_torch.data.streaming import StreamingSeq2SeqDataset
+
+        src_tok = SubwordTokenizer.load(src_vocab_file)
+        tgt_tok = SubwordTokenizer.load(tgt_vocab_file)
+        held: set[tuple[str, str]] = set()
+        if exclude_test_overlap:
+            try:
+                held = set(zip(*read_parallel_corpus(dataset_path, "test")))
+            except FileNotFoundError:
+                pass
+        train = StreamingSeq2SeqDataset(
+            dataset_path, src_tok, tgt_tok, batch_size=batch_size,
+            sequence_length=sequence_length, buffer_size=buffer_size, seed=seed,
+            exclude_pairs=held,
         )
+        test = _build_test_split(dataset_path, src_tok, tgt_tok, batch_size, sequence_length)
+        return train, test, src_tok, tgt_tok
     src_lines, tgt_lines = read_parallel_corpus(dataset_path, "train")
     src_tok = load_or_build_tokenizer(src_vocab_file, src_lines, target_vocab_size)
     tgt_tok = load_or_build_tokenizer(tgt_vocab_file, tgt_lines, target_vocab_size)
@@ -307,7 +388,7 @@ def load_dataset(
     train = Seq2SeqDataset(
         [src_ids[i] for i in keep], [tgt_ids[i] for i in keep], batch_size=batch_size,
         src_len=sequence_length, tgt_len=sequence_length, shuffle=True, seed=seed,
-        length_buckets=tuple(length_buckets),
+        length_buckets=tuple(length_buckets), prefetch=prefetch,
     )
     test = _build_test_split(dataset_path, src_tok, tgt_tok, batch_size, sequence_length)
     return train, test, src_tok, tgt_tok

@@ -1,8 +1,9 @@
 """Subword tokenizer: BPE trained from a corpus, greedy longest-match encode.
 
-A copy of ``transformer_tpu/data/tokenizer.py`` using its pure-Python
-encoder and trainer (the port carries no native C++ helper), so vocab
-files and token ids are interchangeable between the two packages:
+A copy of ``transformer_tpu/data/tokenizer.py``, so vocab files and token
+ids are interchangeable between the two packages. The encoder and the
+BPE trainer run in C++ (``transformer_tpu_torch/native``) when its
+library builds, else in Python; the two give the same pieces and ids.
 
 - id 0 is reserved for padding (never produced by ``encode``);
 - subword ids run 1..vocab_size;
@@ -12,6 +13,8 @@ files and token ids are interchangeable between the two packages:
 Each whitespace-separated word is encoded with a trailing ``"_"`` marker.
 Characters never seen at training time fall back to byte-escape tokens
 ``<0xNN>``, which are always in the alphabet, so ``encode`` is total.
+``SubwordTokenizer.load`` also reads the tfds ``SubwordTextEncoder``
+files of the reference's runs, through ``data/tfds_compat.py``.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ class SubwordTokenizer:
         if len(self._piece_to_id) != len(self.subwords):
             raise ValueError("duplicate subwords in vocabulary")
         self._max_piece_len = max(len(p) for p in self.subwords)
+        self._native = None  # the C++ encoder, built at first use (False = none)
 
     # ------------------------------------------------------------------ sizes
     @property
@@ -108,10 +112,26 @@ class SubwordTokenizer:
                 out.append(match_id)
         return out
 
+    def _native_encoder(self):
+        if self._native is None:
+            # The C++ byte fallback needs every <0xNN> piece (it cannot raise
+            # KeyError as the Python path does on an incomplete hand-built
+            # vocabulary), so it serves full alphabets only.
+            if all(_byte_token(b) in self._piece_to_id for b in range(256)):
+                from transformer_tpu_torch import native
+
+                self._native = native.NativeTokenizer.from_pieces(self.subwords) or False
+            else:
+                self._native = False
+        return self._native or None
+
     def encode(self, text: str) -> list[int]:
         words = text.split()
         if not words:
             return []
+        nat = self._native_encoder()
+        if nat is not None:
+            return nat.encode_words(words)
         ids: list[int] = []
         for word in words:
             ids.extend(self._encode_symbols(_word_to_symbols(word)))
@@ -166,10 +186,17 @@ class SubwordTokenizer:
         """Train BPE until ``target_vocab_size`` pieces (or until no pair
         occurs ``min_pair_count`` times). Incremental pair-count maintenance
         with a lazy max-heap — full recounts per merge would be quadratic and
-        unusable at 2^15 on a 1-core host."""
+        unusable at 2^15 on a 1-core host. The C++ trainer, whose pieces
+        are the same, runs instead when its library builds."""
         word_freq: Counter[str] = Counter()
         for line in corpus:
             word_freq.update(line.split())
+
+        from transformer_tpu_torch import native
+
+        nat = native.NativeTokenizer.train(word_freq, target_vocab_size, min_pair_count)
+        if nat is not None:
+            return cls(nat.pieces())
 
         words: list[list[str]] = []
         freqs: list[int] = []
@@ -267,12 +294,19 @@ class SubwordTokenizer:
 
     @classmethod
     def load(cls, path: str):
-        """Load a vocab file written by ``save`` (either package's). Files in
-        the tfds ``SubwordTextEncoder`` format are not read by the port."""
+        """Load a vocab file written by ``save`` (either package's). A file
+        in the tfds ``SubwordTextEncoder`` format (the reference's
+        ``save_to_file``) is told by its header and comes back as a
+        ``data.tfds_compat.TfdsSubwordTokenizer``, the same interface over
+        the reference's id space."""
         with open(path, encoding="utf-8") as f:
             header = f.readline().rstrip("\n")
+        if header.startswith("### SubwordTextEncoder"):
+            from transformer_tpu_torch.data.tfds_compat import TfdsSubwordTokenizer
+
+            return TfdsSubwordTokenizer.load(path)
         if header != "transformer_tpu_subwords_v1":
-            raise ValueError(f"{path}: not a transformer_tpu subword vocab file")
+            raise ValueError(f"{path}: neither a transformer_tpu nor a tfds subword vocab file")
         with open(path, encoding="utf-8") as f:
             f.readline()  # header
             subwords = [
@@ -284,6 +318,11 @@ class SubwordTokenizer:
 
     def __len__(self) -> int:
         return self.vocab_size
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_native"] = None  # a ctypes handle does not pickle; rebuilt at first use
+        return state
 
 
 def iter_lines(*paths: str) -> Iterator[str]:

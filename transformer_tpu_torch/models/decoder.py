@@ -56,15 +56,18 @@ def decoder_layer_apply(
     deterministic: bool = True,
     reference: bool = False,
     dropout_slice: GlobalSlice | None = None,
-) -> tuple[torch.Tensor, dict[str, Any] | None]:
+    return_weights: bool = False,
+):
     """One decoder layer: (x, updated cache). With a cache, causal
     attention over it (decoding); without, causal self-attention under
     ``self_mask`` (B, 1, 1, S) with dropout keyed on ``key`` (training),
     drawn over the global activation ``dropout_slice`` places x in. A
     seq2seq layer then attends over ``enc_out`` under ``cross_mask``, or
     over its projected ``cross_kv``. Dropout sites: 0 self-attention, 1
-    FFN, 2 cross-attention."""
-    box: list[Any] = [None]
+    FFN, 2 cross-attention. ``return_weights`` (cache-free) returns (x,
+    None, self-attention map, cross-attention map), each None where the
+    path keeps no map."""
+    box: list[Any] = [None, None, None]
 
     def self_attn(h):
         if cache is not None:
@@ -73,11 +76,14 @@ def decoder_layer_apply(
                 window=cfg.attention_window,
             )
             return out
-        return mha_apply(
+        out = mha_apply(
             params["self_mha"], h, h, self_mask, impl=cfg.attention_impl, causal=True,
             window=cfg.attention_window, rope=cfg.position_scheme == "rope",
-            reference=reference,
+            reference=reference, return_weights=return_weights,
         )
+        if return_weights:
+            out, box[1] = out
+        return out
 
     gens = _generators(key, 2 if cfg.decoder_only else 3, cfg, deterministic, x.device)
     x = _sublayer(cfg, params["ln1"], x, self_attn, gens[0], deterministic, dropout_slice)
@@ -86,16 +92,20 @@ def decoder_layer_apply(
             raise ValueError("a seq2seq decoder needs the encoder output (or its cross K/V)")
 
         def cross_attn(h):
-            return mha_apply(
+            out = mha_apply(
                 params["cross_mha"], h, enc_out, cross_mask, precomputed_kv=cross_kv,
+                return_weights=return_weights,
             )
+            if return_weights:
+                out, box[2] = out
+            return out
 
         x = _sublayer(cfg, params["ln2"], x, cross_attn, gens[2], deterministic, dropout_slice)
     x = _sublayer(
         cfg, params["ln_ffn"], x, lambda h: _ffn_sublayer_apply(params, h, cfg),
         gens[1], deterministic, dropout_slice,
     )
-    return x, box[0]
+    return (x, *box) if return_weights else (x, box[0])
 
 
 def decoder_apply(
@@ -113,19 +123,25 @@ def decoder_apply(
     deterministic: bool = True,
     reference: bool = False,
     dropout_slice: GlobalSlice | None = None,
-) -> tuple[torch.Tensor, list[dict[str, Any]] | None]:
+    return_weights: bool = False,
+):
     """(B, S) ids at positions ``position_offset ..`` -> (B, S, d_model)
     hiddens and the updated caches (None on the cache-free path). Dropout
     sites are keyed ``key + (0, site)`` for the prologue and ``key +
     (layer + 1, site)`` per layer, and draw over the global activation
     that ``dropout_slice`` places the ids in (a data × sequence split).
     With ``cfg.remat`` the cache-free layers run under ``remat_layer``
-    whenever gradients are recorded."""
+    whenever gradients are recorded. ``return_weights`` (cache-free)
+    returns (hiddens, None, maps): the JAX twin's
+    ``decoder_layer{L}_block1`` (self) and ``_block2`` (cross) maps of the
+    plain path (cross-attention always has one; self-attention none
+    under flash); its layers never run under remat."""
     (g_embed,) = _generators(_subkey(key, 0), 1, cfg, deterministic, ids.device)
     x = embed_prologue(
         params["embedding"], ids, cfg, position_offset, g_embed, deterministic, dropout_slice
     )
     cross = dict(enc_out=enc_out, cross_mask=cross_mask)
+    maps = {}
     if caches is not None:
         new_caches = []
         for i, (layer, cache) in enumerate(zip(params["layers"], caches)):
@@ -136,19 +152,25 @@ def decoder_apply(
         new_caches = None
 
         def layer_call(layer, x, layer_key):
-            return decoder_layer_apply(
+            out = decoder_layer_apply(
                 layer, x, cfg, self_mask=self_mask, key=layer_key,
                 deterministic=deterministic, reference=reference, dropout_slice=dropout_slice,
-                **cross,
-            )[0]
+                return_weights=return_weights, **cross,
+            )
+            return out if return_weights else out[0]
 
-        if cfg.remat and torch.is_grad_enabled():
+        if cfg.remat and torch.is_grad_enabled() and not return_weights:
             layer_call = remat_layer(layer_call, cfg)
         for i, layer in enumerate(params["layers"]):
             x = layer_call(layer, x, _subkey(key, i + 1))
+            if return_weights:
+                x, _, w1, w2 = x
+                for block, w in ((1, w1), (2, w2)):
+                    if w is not None:
+                        maps[f"decoder_layer{i + 1}_block{block}"] = w
     if cfg.norm_scheme == "pre":
         x = layernorm_apply(params["final_ln"], x, cfg.layernorm_epsilon)
-    return x, new_caches
+    return (x, new_caches, maps) if return_weights else (x, new_caches)
 
 
 def decoder_prefill(

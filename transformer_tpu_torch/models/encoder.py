@@ -114,24 +114,32 @@ def encoder_layer_apply(
     deterministic: bool = True,
     reference: bool = False,
     dropout_slice: GlobalSlice | None = None,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """One encoder layer: self-attention under the (B, 1, 1, S) key-padding
     ``mask`` with ``impl=cfg.attention_impl`` and no causality, then the
     FFN. ``reference`` runs the flash kernels' plain versions; dropout
-    draws over the global activation that ``dropout_slice`` places x in."""
+    draws over the global activation that ``dropout_slice`` places x in.
+    ``return_weights`` returns (x, the attention map or None)."""
+    box = [None]
 
     def attn(h):
-        return mha_apply(
+        out = mha_apply(
             params["mha"], h, h, mask, impl=cfg.attention_impl, causal=False,
             rope=cfg.position_scheme == "rope", reference=reference,
+            return_weights=return_weights,
         )
+        if return_weights:
+            out, box[0] = out
+        return out
 
     g_attn, g_ffn = _generators(key, 2, cfg, deterministic, x.device)
     x = _sublayer(cfg, params["ln1"], x, attn, g_attn, deterministic, dropout_slice)
-    return _sublayer(
+    x = _sublayer(
         cfg, params["ln2"], x, lambda h: _ffn_sublayer_apply(params, h, cfg), g_ffn,
         deterministic, dropout_slice,
     )
+    return (x, box[0]) if return_weights else x
 
 
 def encoder_apply(
@@ -144,25 +152,34 @@ def encoder_apply(
     reference: bool = False,
     position_offset: int = 0,
     dropout_slice: GlobalSlice | None = None,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """(B, S) source ids at positions ``position_offset ..`` -> (B, S,
     d_model) encodings. Dropout sites are keyed ``key + (0, site)`` for the
     prologue and ``key + (layer + 1, site)`` per layer, and draw over the
     global activation that ``dropout_slice`` places the ids in (a data ×
     sequence split, as in ``decoder_apply``). With ``cfg.remat`` each layer
-    runs under ``remat_layer`` whenever gradients are recorded."""
+    runs under ``remat_layer`` whenever gradients are recorded.
+    ``return_weights`` returns (encodings, {"encoder_layer{L}": map}) with
+    the plain path's maps (none under flash), as the JAX twin; its layers
+    never run under remat."""
     (g_embed,) = _generators(_subkey(key, 0), 1, cfg, deterministic, ids.device)
     x = embed_prologue(params["embedding"], ids, cfg, position_offset, g_embed, deterministic,
                        dropout_slice)
 
     def layer_call(layer, x, layer_key):
         return encoder_layer_apply(layer, x, mask, cfg, layer_key, deterministic, reference,
-                                   dropout_slice)
+                                   dropout_slice, return_weights)
 
-    if cfg.remat and torch.is_grad_enabled():
+    if cfg.remat and torch.is_grad_enabled() and not return_weights:
         layer_call = remat_layer(layer_call, cfg)
+    maps = {}
     for i, layer in enumerate(params["layers"]):
         x = layer_call(layer, x, _subkey(key, i + 1))
+        if return_weights:
+            x, w = x
+            if w is not None:
+                maps[f"encoder_layer{i + 1}"] = w
     if cfg.norm_scheme == "pre":
         x = layernorm_apply(params["final_ln"], x, cfg.layernorm_epsilon)
-    return x
+    return (x, maps) if return_weights else x

@@ -197,9 +197,11 @@ def transformer_hidden_apply(
     src_offset: int = 0,
     src_slice: GlobalSlice | None = None,
     source_mask: torch.Tensor | None = None,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """(B, S) target ids -> (B, S, d_model) decoder hiddens, before the
-    vocab projection. Decoder-only: ``inp`` is ignored; the self-mask is
+    vocab projection; with ``return_weights``, (hiddens, the attention
+    maps of ``encoder_apply`` and ``decoder_apply``), as the JAX twin. Decoder-only: ``inp`` is ignored; the self-mask is
     ``make_padding_mask(tar)``, ANDed with causality inside attention.
     Encoder-only: ``inp`` is ignored; ``tar`` goes through the encoder
     stack under ``make_padding_mask(tar)`` alone (bidirectional), its
@@ -225,12 +227,14 @@ def transformer_hidden_apply(
         return encoder_apply(
             params["encoder"], tar, self_mask, cfg, key, deterministic, reference,
             position_offset=position_offset, dropout_slice=dropout_slice,
+            return_weights=return_weights,
         )
     kw = dict(self_mask=self_mask, deterministic=deterministic, reference=reference,
-              position_offset=position_offset, dropout_slice=dropout_slice)
+              position_offset=position_offset, dropout_slice=dropout_slice,
+              return_weights=return_weights)
     if cfg.decoder_only:
-        x, _ = decoder_apply(params["decoder"], tar, cfg, key=key, **kw)
-        return x
+        out = decoder_apply(params["decoder"], tar, cfg, key=key, **kw)
+        return (out[0], out[2]) if return_weights else out[0]
     if inp is None:
         raise ValueError("a seq2seq model needs the source ids")
     from transformer_tpu_torch.parallel.seq_context import (
@@ -244,18 +248,21 @@ def transformer_hidden_apply(
           else sequence_parallel(dataclasses.replace(ctx, offset=src_offset))):
         enc_out = encoder_apply(
             params["encoder"], inp, enc_mask, cfg, _subkey(key, 0), deterministic, reference,
-            position_offset=src_offset, dropout_slice=src_slice,
+            position_offset=src_offset, dropout_slice=src_slice, return_weights=return_weights,
         )
+    enc_maps = {}
+    if return_weights:
+        enc_out, enc_maps = enc_out
     if ctx is not None and ctx.size > 1:
         if source_mask is None:
             raise ValueError("under sequence parallelism cross-attention needs the whole "
                              "source's padding mask (source_mask)")
         enc_out, enc_mask = gather_sequence(enc_out, ctx), source_mask
-    x, _ = decoder_apply(
+    out = decoder_apply(
         params["decoder"], tar, cfg, enc_out=enc_out, cross_mask=enc_mask,
         key=_subkey(key, 1), **kw,
     )
-    return x
+    return (out[0], {**enc_maps, **out[2]}) if return_weights else out[0]
 
 
 def transformer_apply(
@@ -269,14 +276,18 @@ def transformer_apply(
     pad_id: int = PAD_ID,
     position_offset: int = 0,
     dropout_slice: GlobalSlice | None = None,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """(B, S) target ids (and, seq2seq, (B, S_src) source ids) -> (B, S, V)
-    raw logits (the JAX twin also returns attention maps; the port has
-    none)."""
+    raw logits; with ``return_weights``, (logits, the attention maps), as
+    the JAX twin returns them."""
     x = transformer_hidden_apply(
         params, inp, tar, cfg, key, deterministic, reference, pad_id, position_offset,
-        dropout_slice,
+        dropout_slice, return_weights=return_weights,
     )
+    if return_weights:
+        x, maps = x
+        return project_logits(params, x, cfg), maps
     return project_logits(params, x, cfg)
 
 

@@ -3,7 +3,8 @@ and the cached self-attention of prefill.
 
 Port of the parts of ``transformer_tpu/ops/attention.py`` the serving,
 training and seq2seq slices run: the cache-free ``mha_apply`` (with
-``precomputed_kv`` for cross-attention), ``project_kv``, the decode
+``precomputed_kv`` for cross-attention, and ``return_weights`` for the
+attention maps of ``cli.translate --attention_out``), ``project_kv``, the decode
 caches (full-length, or a rolling O(window) buffer for
 ``attention_window`` models) and their cached self-attention, and the
 cache's block slice, insert and rollback (the prefix cache and the
@@ -36,9 +37,11 @@ def dot_product_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     mask: torch.Tensor | None = None,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """softmax(q·kᵀ/√d + bias)·v for (B, S, H, D) queries, softmax in fp32.
-    ``k``/``v`` may carry fewer heads (grouped-query attention)."""
+    ``k``/``v`` may carry fewer heads (grouped-query attention). With
+    ``return_weights`` returns (output, the fp32 (B, H, S_q, S_k) map)."""
     head_dim = q.shape[-1]
     scale = head_dim**-0.5
     H, Hkv = q.shape[2], k.shape[2]
@@ -47,7 +50,8 @@ def dot_product_attention(
         if mask is not None:
             logits = logits + attention_bias(mask)
         weights = torch.softmax(logits, dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", weights.to(q.dtype), v)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights.to(q.dtype), v)
+        return (out, weights) if return_weights else out
     if H % Hkv:
         raise ValueError(f"query heads {H} must be a multiple of kv heads {Hkv}")
     G = H // Hkv
@@ -60,8 +64,10 @@ def dot_product_attention(
             raise ValueError("per-head masks are unsupported with grouped kv heads")
         logits = logits + bias[:, :, None]
     weights = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", weights.to(q.dtype), v)
-    return out.reshape(B, Sq, H, head_dim)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", weights.to(q.dtype), v).reshape(B, Sq, H, head_dim)
+    if return_weights:
+        return out, weights.reshape(B, H, *weights.shape[3:])
+    return out
 
 
 def _project(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -110,9 +116,12 @@ def mha_apply(
     rope: bool = False,
     reference: bool = False,
     precomputed_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """Cache-free multi-head attention: (B, S_q, d) x (B, S_k, d) ->
-    (B, S_q, d). ``precomputed_kv`` carries k/v already projected to
+    (B, S_q, d); with ``return_weights``, (output, the fp32 (B, H, S_q,
+    S_k) attention map), whose map is None under the blockwise impls
+    (flash, ring, ulysses keep none). ``precomputed_kv`` carries k/v already projected to
     (B, S_k, H_kv, D) (cross-attention over a fixed encoder output).
     ``mask`` is a broadcastable bool allowed-mask; ``causal`` is ANDed with
     it (structural under ``impl="flash"`` and ``"ring"``, a dense mask
@@ -154,6 +163,7 @@ def mha_apply(
         q = apply_rope(q, positions)
         if precomputed_kv is None:
             k = apply_rope(k, positions)
+    weights = None
     if impl == "flash":
         from transformer_tpu_torch.kernels.flash_attention import flash_attention
 
@@ -174,8 +184,11 @@ def mha_apply(
         if causal:
             cmask = make_causal_mask(x_q.shape[1], window, device=x_q.device)
             mask = cmask if mask is None else mask & cmask
-        out = dot_product_attention(q, k, v, mask)
-    return out_project(params["out"], out, dtype)
+        out = dot_product_attention(q, k, v, mask, return_weights=return_weights)
+        if return_weights:
+            out, weights = out
+    out = out_project(params["out"], out, dtype)
+    return (out, weights) if return_weights else out
 
 
 def _quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,11 +1,13 @@
 """Model-quality evaluation: corpus BLEU over parallel text, perplexity
 over LM text.
 
-Port of ``read_lines``, ``bleu_on_pairs``, ``bleu_on_test_files`` and
-``perplexity_on_lines`` from ``transformer_tpu/train/evaluate.py``:
-decode every source sentence in fixed-size batches through ``translate``
-and score the detokenized hypotheses with ``utils.bleu.corpus_bleu``; or
-score BOS-led, EOS-terminated lines under a decoder-only LM.
+Port of ``read_lines``, ``bleu_on_pairs``, ``bleu_on_test_files``,
+``perplexity_on_lines`` and ``dump_attention_maps`` from
+``transformer_tpu/train/evaluate.py``: decode every source sentence in
+fixed-size batches through ``translate`` and score the detokenized
+hypotheses with ``utils.bleu.corpus_bleu``; score BOS-led,
+EOS-terminated lines under a decoder-only LM; or write the attention
+maps of (source, translation) pairs.
 """
 
 from __future__ import annotations
@@ -98,6 +100,54 @@ def perplexity_on_lines(
         if log_fn is not None and start // batch_size % 4 == 0:
             log_fn(f"perplexity eval: {start + len(chunk)}/{len(encoded)} scored")
     return math.exp(total_ls / max(total_w, 1.0)), int(total_w)
+
+
+def dump_attention_maps(
+    params,
+    model_cfg: ModelConfig,
+    src_tok,
+    tgt_tok,
+    src_sentences: list[str],
+    tgt_sentences: list[str],
+    out_path: str,
+) -> int:
+    """Save per-layer attention maps for (source, target) sentence pairs:
+    a teacher-forced forward per pair with ``return_weights=True``, written
+    as one ``.npz`` with entries ``s{i}/<map-name>`` (``encoder_layer{L}``,
+    ``decoder_layer{L}_block{1,2}``: (H, S_q, S_k) fp32) plus the token ids
+    (``s{i}/src_ids``, ``s{i}/tgt_ids``; no ``src_ids`` for a decoder-only
+    model, whose forward never sees the source), each side cut to
+    ``max_position``. The keys are the JAX twin's. The blockwise impls
+    (flash, ring, ulysses) keep no self-attention maps, so their exports
+    write the ids and the cross-attention maps, which take the plain path.
+    Returns the number of pairs written."""
+    import numpy as np
+
+    from transformer_tpu_torch.models.transformer import transformer_apply
+
+    if len(src_sentences) != len(tgt_sentences):
+        raise ValueError(
+            f"source/target sentence counts differ: {len(src_sentences)} != "
+            f"{len(tgt_sentences)}"
+        )
+    device = params["decoder" if "decoder" in params else "encoder"]["embedding"]["table"].device
+    arrays: dict[str, np.ndarray] = {}
+    cap = model_cfg.max_position
+    for i, (src, tgt) in enumerate(zip(src_sentences, tgt_sentences)):
+        src_ids = [src_tok.bos_id, *src_tok.encode(src), src_tok.eos_id][:cap]
+        tgt_ids = [tgt_tok.bos_id, *tgt_tok.encode(tgt), tgt_tok.eos_id][:cap]
+        s = torch.tensor([src_ids], dtype=torch.long, device=device)
+        t = torch.tensor([tgt_ids], dtype=torch.long, device=device)
+        with torch.no_grad():
+            _, maps = transformer_apply(params, None if model_cfg.decoder_only else s, t,
+                                        model_cfg, return_weights=True)
+        if not model_cfg.decoder_only:
+            arrays[f"s{i}/src_ids"] = np.asarray(src_ids, np.int32)
+        arrays[f"s{i}/tgt_ids"] = np.asarray(tgt_ids, np.int32)
+        for name, w in maps.items():
+            arrays[f"s{i}/{name}"] = w[0].float().cpu().numpy()
+    np.savez(out_path, **arrays)
+    return len(src_sentences)
 
 
 def bleu_on_test_files(

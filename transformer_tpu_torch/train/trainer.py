@@ -550,8 +550,12 @@ class Trainer:
             self._restore()
         step = self.state.step
         start_epoch = 0
-        if step and len(train_ds):
-            start_epoch = min(step // len(train_ds), cfg.epochs)
+        try:  # a streaming dataset has no length: it restarts at epoch 1
+            steps_per_epoch = len(train_ds)
+        except TypeError:
+            steps_per_epoch = 0
+        if step and steps_per_epoch:
+            start_epoch = min(step // steps_per_epoch, cfg.epochs)
             if start_epoch:
                 self.log_fn(f"resuming at epoch {start_epoch + 1}/{cfg.epochs} (step {step})")
         if cfg.early_stop_patience and self._early_stop_marker_exists():
