@@ -6,9 +6,9 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in sixteen phases
+runs on the CPU). It prints one JSON line per check, in seventeen phases
 (the tenth runs right after the fourth, on its export; the eleventh to
-the sixteenth last):
+the seventeenth last):
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -84,13 +84,17 @@ the sixteenth last):
    and the tiny, big and tied presets for an epoch of 1280 pairs;
 7. sequence-parallel training: ``torch.distributed.run`` starts four
    processes of ``transformer_tpu_torch.cli.distributed_train --preset
-   long4k --attention_impl ring --sp 4 --epochs 1 --consistency_check`` on
-   this one card (gloo, staged through host memory); each rank's counters
-   of the ring step and both backward kernels must equal what steps, hops
-   and eval batches imply, the losses must be within 0.01 of phase 5's,
-   and every rank's parameters and the export must be bit-identical. Then
-   one fp32 step at full width (2 layers) over a ring of four processes
-   compares with the single-process flash step;
+   long4k --num_layers 2 --attention_impl ring --sp 4 --epochs 1
+   --consistency_check`` on this one card (gloo, staged through host
+   memory; long4k's width, its depth cut to 2 layers to make room for
+   phase 17); each rank's counters of the ring step and both
+   backward kernels must equal what steps, hops and eval batches imply,
+   the losses must be within 0.01 of a single-card ``cli.train`` run of
+   the same flags (the phase's first run), and every rank's parameters
+   and the export must be bit-identical. One
+   fp32 step at full width (2 layers) over a ring of four processes
+   compares with the single-process flash step (run in phase 11's four
+   worker processes: one spawn for both phases' fp32 checks);
 8. checkpoints: ``cli.train --preset base --num_layers 2 --attention_impl
    flash --sequence_length 64 --grad_accum 2`` (Transformer-base's width,
    its depth cut to 2 + 2 layers: the phase holds its runs to each other)
@@ -166,9 +170,12 @@ the sixteenth last):
    the epoch and at the end) and every step's loss must be within 0.01 of
    phase 9's E in its first epoch (``cli.train``, the same flags and
    seed); the dp 4 export is translated and scored. Then long4k with
-   ``--attention_impl ulysses --sp 4``, held to phase 5 as phase 7 holds
-   the ring, and one fp32 step (2 + 2 layers, B 64) under each of the
-   three meshes against the single-process flash step. Each run reports
+   ``--num_layers 2 --attention_impl ulysses --sp 4``, held to phase 7's
+   single-card run of its depth as phase 7 holds the ring's, its flash
+   counters to what steps and eval batches imply. Then one fp32 step
+   (2 + 2 layers, B 64) under each of the
+   three meshes against the single-process flash step (the same processes
+   then take phase 7's fp32 ring step). Each run reports
    its step median and first step, real target tokens a second across the
    job, staged bytes by kind, the consistency check's time and its wall;
 12. the grouped serving path, ``cli.generate`` and admission control, on
@@ -293,7 +300,31 @@ the sixteenth last):
    1e-2 and decoder block 1 zero above the diagonal; on the base flash
    export the ids and the cross-attention (block 2) maps only, as the
    JAX dump writes for flash, and 6 + 8 x 12 forward launches.
-   ``python3 chip_smoke.py --only paper`` runs this phase alone.
+   ``python3 chip_smoke.py --only paper`` runs this phase alone;
+17. telemetry (``telemetry_path``): (a) phase 4's 14 requests through
+   ``cli.serve`` on paged_flash with ``--metrics_jsonl --trace`` (the
+   program profiler, the flight recorder and the default SLOs on): the
+   answers byte-identical to phase 4's, the steps, captures, replays and
+   kernel B and A launches equal to phase 4's; ``python -m
+   transformer_tpu_torch.obs summarize`` rendering the ``perf:`` rows,
+   ``obs slo`` the default objectives, ``obs trace`` 14 ``serve.request``
+   roots; the profiler's p50 of ``serve.pool_step_paged_flash`` beside
+   phase 10's replayed step. (b) phase 9's D run (base 2 + 2 layers, K 8,
+   the 1,300 pairs) again with ``--metrics_jsonl --trace --profile_dir
+   --tb_log_dir``: its losses bit-identical to D's, the same captures
+   and flash counters, ``train_steps_total`` the steps taken,
+   ``train.memory``'s peak equal to ``torch.cuda.max_memory_allocated``,
+   the ``torch.profiler`` window naming the three flash kernels and
+   TensorBoard files for train and test. (c) two fp32 replica workers
+   behind ``cli.router`` with ``--metrics_jsonl --trace`` and an idle
+   drain (``--max_replicas 2 --scale_idle 1``) on 8 greedy requests: the
+   answers equal to a single scheduler's, a log a process
+   (``<path>.r0``, ``<path>.r1``), each worker's request spans under the
+   router's, and ``summarize`` over the three logs rendering the
+   ``router:`` and ``fleet:`` lines. Telemetry's overhead: the serve
+   step and the train step with it on and off (phases 4 and 9).
+   ``python3 chip_smoke.py --only telemetry`` runs this phase alone (with
+   phase 4's serving and phase 9's D run as its references).
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -1574,6 +1605,7 @@ def main_path(tok, vocab_path):
         "tokens_per_s": st["generated_tokens"] / wall,
         "serve_wall_s": wall,
         "captures": [{"shape": list(sig), "seconds": sec} for sig, sec in sched.forward.captures],
+        "replays": sched.forward.replays,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
     emit(rec)
@@ -1754,9 +1786,11 @@ def decode_profile(export, tok, reqs, steps: int = 20):
 # phase 5: training
 
 
-def train_path(vocab_path):
-    """``cli.train --preset long4k --epochs 1`` on the bundled corpus, with
-    the flash launch counters set to 0 just before and read just after."""
+def train_path(vocab_path, *extra, name: str = "train"):
+    """``cli.train --preset long4k --epochs 1`` (plus ``extra``) on the
+    bundled corpus, with the flash launch counters set to 0 just before
+    and read just after; ``name`` labels its record, export and
+    checkpoints."""
     import statistics
 
     import torch
@@ -1768,11 +1802,11 @@ def train_path(vocab_path):
     from transformer_tpu_torch.models.transformer import flatten
 
     data = os.path.join(ROOT, "data")
-    export = os.path.join(BUILD_DIR, "train_export")
+    export = os.path.join(BUILD_DIR, f"{name}_export")
     argv = [
         "--preset", "long4k", "--epochs", "1", "--dataset_path", data,
         "--tgt_vocab_file", vocab_path, "--export_path", export,
-        "--ckpt_path", fresh_dir("ckpt", "train"), "--device", "cuda",
+        "--ckpt_path", fresh_dir("ckpt", name), "--device", "cuda", *extra,
     ]
     flags = train.resolve_flags(argv)
     t0 = time.perf_counter()
@@ -1812,7 +1846,7 @@ def train_path(vocab_path):
     ms = [t * 1e3 for t in trainer.step_seconds]
     train_loss, eval_loss = trainer.train_metrics.loss, trainer.eval_metrics.loss
     rec = {
-        "phase": "train", "step": "fit", "argv": argv, "config": dataclasses.asdict(cfg),
+        "phase": name, "step": "fit", "argv": argv, "config": dataclasses.asdict(cfg),
         **windows, "steps": steps, "eval_batches": evals,
         "step_ms_mean": statistics.mean(ms), "step_ms_median": statistics.median(ms),
         "step_ms_first": ms[0], "step_ms_all": ms,
@@ -1971,17 +2005,22 @@ def train_profile(trainer, train_ds, steps: int = 3, phase: str = "train"):
 # phase 7: sequence-parallel training, the main path of the ring
 
 
+SP_LAYERS = 2  # long4k's depth in phase 7 (the width is long4k's)
+
+
 def sp_train_path(vocab_path, single, sp: int = 4):
-    """``cli.distributed_train --preset long4k --attention_impl ring --sp 4
-    --epochs 1 --consistency_check`` under ``torch.distributed.run``: four
-    processes on this one card, so the transport is gloo through host
-    memory (``dist_fit``). Rank r folds its own chunk and the r before it:
-    6 x (r + 1) ring steps a forward (each twice a step under remat), and
-    as many dQ and dK/dV a step. Losses must be within 0.01 of the
-    single-card run of phase 5 (same seed, same dropout draws)."""
+    """``cli.distributed_train --preset long4k --num_layers 2
+    --attention_impl ring --sp 4 --epochs 1 --consistency_check`` under
+    ``torch.distributed.run``: four processes on this one card, so the
+    transport is gloo through host memory (``dist_fit``). Rank r folds its
+    own chunk and the r before it: L x (r + 1) ring steps a forward (each
+    twice a step under remat), and as many dQ and dK/dV a step. Losses
+    must be within 0.01 of ``single``, the single-card run of the same
+    flags (same seed, same dropout draws)."""
     export = os.path.join(BUILD_DIR, "sp_train_export")
     args = [
-        "--preset", "long4k", "--attention_impl", "ring", "--sp", str(sp), "--epochs", "1",
+        "--preset", "long4k", "--num_layers", str(SP_LAYERS), "--attention_impl", "ring",
+        "--sp", str(sp), "--epochs", "1",
         "--consistency_check", "--dataset_path", os.path.join(ROOT, "data"),
         "--tgt_vocab_file", vocab_path, "--export_path", export,
         "--ckpt_path", fresh_dir("ckpt", "sp_train"), "--device", "cuda",
@@ -1999,16 +2038,18 @@ def sp_train_path(vocab_path, single, sp: int = 4):
 
 
 def hold_to_single(rec, single):
-    """A long4k run over processes against phase 5's single-card run: the
-    same steps and eval batches, train and eval loss within 0.01."""
+    """A long4k run over processes (phase 7's ring, phase 11's Ulysses)
+    against the single-card run of its flags: the same steps and eval
+    batches, train and eval loss within 0.01."""
     held = {key: rec[key] for key in ("steps", "eval_batches", "train_loss", "eval_loss")}
     want = {key: single[key] for key in held}
-    emit({"phase": rec["phase"], "step": f"{rec['step']} against phase 5", "got": held,
+    emit({"phase": rec["phase"], "step": f"{rec['step']} against the single card", "got": held,
           "single_card": want, "limit": 0.01})
     if not (held["steps"] == want["steps"] and held["eval_batches"] == want["eval_batches"]
             and abs(held["train_loss"] - want["train_loss"]) <= 0.01
             and abs(held["eval_loss"] - want["eval_loss"]) <= 0.01):
-        raise SystemExit(f"{rec['step']}: not within 0.01 of phase 5's losses: {held} / {want}")
+        raise SystemExit(f"{rec['step']}: not within 0.01 of the single card's losses: "
+                         f"{held} / {want}")
 
 
 def distributed_run(args, procs: int, name: str, timeout: int = 600):
@@ -2090,20 +2131,18 @@ def dist_fit(phase, name, args, want_fn, export, procs: int = 4):
     return rec, launches
 
 
-def _fp32_ring_worker(rank, world, port, vocab_size, tgt, layers, out_path):
-    """One rank of the fp32 ring check: one step's loss and gradients
-    (summed over the ring), written by rank 0."""
+def _fp32_ring_step(process, vocab_size, tgt, layers):
+    """One rank's part of the fp32 ring check: one long4k step's loss and
+    gradients over a ring of the processes (summed over the ring)."""
     import torch
 
     from transformer_tpu_torch.config import MeshConfig, TrainConfig
     from transformer_tpu_torch.models.transformer import flatten, init_params
     from transformer_tpu_torch.parallel.distributed import _seq_parallel_forward_loss
-    from transformer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from transformer_tpu_torch.parallel.mesh import make_mesh
     from transformer_tpu_torch.train.trainer import loss_and_grads
 
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    mesh = make_mesh(MeshConfig(seq=world), initialize_distributed("cuda", log_fn=lambda *_: None))
+    mesh = make_mesh(MeshConfig(seq=process.world_size), process)
     cfg = long4k_config(vocab_size, num_layers=layers, dtype="float32", attention_impl="ring")
     params = init_params(cfg, torch.Generator().manual_seed(SEED), device=mesh.device)
     for p in flatten(params).values():
@@ -2114,38 +2153,23 @@ def _fp32_ring_worker(rank, world, port, vocab_size, tgt, layers, out_path):
         forward_loss=_seq_parallel_forward_loss(mesh),
     )
     mesh.all_reduce_sum_([*grads.values(), *metrics.values()])
-    if rank == 0:
-        torch.save({"loss": float(metrics["loss"]), "grads": {k: g.cpu() for k, g in grads.items()}},
-                   out_path)
-    torch.distributed.destroy_process_group()
+    return {"loss": float(metrics["loss"]), "grads": {k: g.cpu() for k, g in grads.items()}}
 
 
-def fp32_ring_check(tok, train_ds, layers: int = 2, sp: int = 4):
+def fp32_ring_check(tok, tgt, ring, layers: int = 2, sp: int = 4):
     """One fp32 step at full width (2 layers, S 4096, batch 4, dropout 0)
-    from one init: the sp=4 ring (kernels, four processes on this card)
-    against the single-process flash step (kernels). Limits as the fp32
-    train check: loss 1e-5 relative, the worst gradient leaf 1e-3, the key
-    biases' gradient below 1e-3 of the query biases' on both sides."""
-    import socket
-
+    from one init: the sp=4 ring (kernels, four processes on this card:
+    ``ring``, run in phase 11's worker processes, ``_fp32_ring_step``, on
+    the batch ``tgt``) against the single-process flash step (kernels).
+    Limits as the fp32 train check: loss 1e-5 relative, the worst gradient
+    leaf 1e-3, the key biases' gradient below 1e-3 of the query biases' on
+    both sides."""
     import torch
-    import torch.multiprocessing as mp
 
     from transformer_tpu_torch.config import TrainConfig
     from transformer_tpu_torch.models.transformer import flatten, init_params
     from transformer_tpu_torch.train.trainer import loss_and_grads
 
-    _, tgt = next(iter(train_ds.batches(0)))
-    out_path = os.path.join(BUILD_DIR, "fp32_ring_grads.pt")
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    mp.spawn(_fp32_ring_worker, args=(sp, port, tok.model_vocab_size, tgt, layers, out_path),
-             nprocs=sp, join=True)
-    ring_s = time.perf_counter() - t0
-    ring = torch.load(out_path)
     cfg = long4k_config(tok.model_vocab_size, num_layers=layers, dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
     for p in flatten(params).values():
@@ -2173,7 +2197,7 @@ def fp32_ring_check(tok, train_ds, layers: int = 2, sp: int = 4):
         "sequence_length": 4096, "processes": sp, "ring_loss": ring["loss"],
         "flash_loss": want_loss, "loss_rel_diff": loss_rel, "grad_worst_rel": worst,
         "grad_worst_leaf": worst_key, "key_bias_grad_ratio": key_bias, "leaves": len(want),
-        "ring_seconds": ring_s, "tolerance": TRAIN_TOL,
+        "ring_seconds": ring["seconds"], "tolerance": TRAIN_TOL,
     }
     emit(rec)
     if not (loss_rel <= TRAIN_TOL["loss_rel"] and worst <= TRAIN_TOL["grad_rel"]
@@ -2963,6 +2987,7 @@ def dispatch_fit(argv, launches: dict, epoch_steps: int):
     rec.update({
         "steps_per_dispatch": trainer.train_cfg.steps_per_dispatch,
         "dispatches": [k for k, _ in trainer.dispatches],
+        "dispatch_ms": [sec * 1e3 for _, sec in trainer.dispatches],
         "captures": 0 if graph is None else len(graph.captures),
         "capture_s_by_shape": [] if graph is None else [
             {"src": list(sig[0]), "tgt": list(sig[1]), "seconds": sec}
@@ -3059,8 +3084,8 @@ def dispatch_path(src_vocab, tgt_vocab, full_export):
     (``full_export``): bit for bit. E, D, BK and the dots runs each get a
     profiled window, and long4k with full remat at 4 steps a dispatch too
     (the same memory mark and card state as the dots runs). Returns the
-    flash launches of the phase's runs and E's record (phase 11 holds its
-    per-step losses)."""
+    flash launches of the phase's runs and E's and D's records (phase 11
+    holds E's per-step losses, phase 17 D's)."""
     import statistics
 
     import torch
@@ -3213,7 +3238,7 @@ def dispatch_path(src_vocab, tgt_vocab, full_export):
               "target_tokens_per_s", "launch_calls_per_step")}
               for label, p in profiles.items()}})
     fresh_dir("ckpt", "dispatch")
-    return launches, {**e_rec, "steps_per_epoch": n}
+    return launches, {**e_rec, "steps_per_epoch": n}, d_rec
 
 
 # --------------------------------------------------------------------------
@@ -3688,10 +3713,12 @@ def hold_losses(rec, want_losses, label):
     return rec_h
 
 
-def _fp32_mesh_worker(rank, world, port, model_kw, batch, out_path):
-    """One rank of the fp32 parity check: one seq2seq step's loss and
+def _fp32_mesh_worker(rank, world, port, model_kw, batch, ring_job, out_path):
+    """One rank of the fp32 parity checks: one seq2seq step's loss and
     gradients (summed over the processes) under dp 4 with flash, ring sp 4
-    and Ulysses sp 4 in turn, written by rank 0."""
+    and Ulysses sp 4 in turn, then phase 7's long4k ring step
+    (``ring_job`` = (vocab size, batch, layers)), written by rank 0: one
+    spawn of the four processes for both phases' checks."""
     import torch
 
     from transformer_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
@@ -3721,17 +3748,22 @@ def _fp32_mesh_worker(rank, world, port, model_kw, batch, out_path):
         out[label] = {"loss": float(metrics["loss"]), "seconds": time.perf_counter() - t0,
                       "grads": {k: g.cpu() for k, g in grads.items()}}
         del params, metrics, grads
+    t0 = time.perf_counter()
+    out["long4k ring"] = _fp32_ring_step(process, *ring_job)
+    torch.cuda.synchronize()
+    out["long4k ring"]["seconds"] = time.perf_counter() - t0
     if rank == 0:
         torch.save(out, out_path)
     torch.distributed.destroy_process_group()
 
 
-def s2s_fp32_mesh_check(model_cfg, batch, layers: int = 2, procs: int = 4):
+def s2s_fp32_mesh_check(model_cfg, batch, tok, lm_tgt, layers: int = 2, procs: int = 4):
     """One fp32 seq2seq step at base width (2 + 2 layers, B 64, S 64,
     dropout 0, kernels on) over four processes on this card, under dp 4
     (flash), ring sp 4 and Ulysses sp 4, each against the single-process
     flash step from the same init and batch, held to the fp32 step's
-    limits (``hold_to_train_tol``)."""
+    limits (``hold_to_train_tol``); the same processes then take phase 7's
+    fp32 long4k ring step on ``lm_tgt`` (``fp32_ring_check``)."""
     import dataclasses as dc
     import socket
 
@@ -3751,10 +3783,12 @@ def s2s_fp32_mesh_check(model_cfg, batch, layers: int = 2, procs: int = 4):
         port = sock.getsockname()[1]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mp.spawn(_fp32_mesh_worker, args=(procs, port, model_kw, batch, out_path), nprocs=procs,
-             join=True)
+    mp.spawn(_fp32_mesh_worker, args=(procs, port, model_kw, batch,
+                                      (tok.model_vocab_size, lm_tgt, layers), out_path),
+             nprocs=procs, join=True)
     spawn_s = time.perf_counter() - t0
     runs = torch.load(out_path)
+    fp32_ring_check(tok, lm_tgt, runs.pop("long4k ring"), layers, procs)
     params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
     for p in flatten(params).values():
         p.requires_grad_(True)
@@ -3785,11 +3819,10 @@ def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
     and dK/dV a step), bit-identical ranks, and every step's loss within
     0.01 of phase 9's E (``cli.train``, the same flags and seed) in its
     first epoch. The dp 4 export is translated (greedy and beam 4, 8
-    sentences) and scored (``cli.evaluate --limit 200``). Then long4k with
-    ``--attention_impl ulysses --sp 4`` for an epoch, held to phase 5's
-    losses within 0.01, and the fp32 step under each mesh against the
-    single-process step. Returns the flash and ring counters of the
-    phase's main-path runs."""
+    sentences) and scored (``cli.evaluate --limit 200``). Then long4k at
+    2 layers with ``--attention_impl ulysses --sp 4`` for an epoch, held
+    to ``single`` (phase 7's single-card run of its flags) within 0.01.
+    Returns the flash and ring counters of the phase's main-path runs."""
     data = cut_corpus(CKPT_PAIRS)
     root = fresh_dir("ckpt", "s2s_dist")
     launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0, "flash_ring_step": 0}
@@ -3822,12 +3855,13 @@ def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
     for key, n in tr_launches.items():
         launches[key] += n
 
-    # long4k over Ulysses
+    # long4k over Ulysses, at phase 7's depth
     export = os.path.join(root, "long4k_ulysses_export")
-    args = ["--preset", "long4k", "--attention_impl", "ulysses", "--sp", "4", "--epochs", "1",
-            "--consistency_check", "--dataset_path", os.path.join(ROOT, "data"),
-            "--tgt_vocab_file", tgt_vocab, "--export_path", export,
-            "--ckpt_path", os.path.join(root, "long4k_ulysses"), "--device", "cuda"]
+    args = ["--preset", "long4k", "--num_layers", str(SP_LAYERS), "--attention_impl", "ulysses",
+            "--sp", "4", "--epochs", "1", "--consistency_check",
+            "--dataset_path", os.path.join(ROOT, "data"), "--tgt_vocab_file", tgt_vocab,
+            "--export_path", export, "--ckpt_path", os.path.join(root, "long4k_ulysses"),
+            "--device", "cuda"]
     layers = single["config"]["num_layers"]
 
     def long4k_want(rank, steps, evals):  # remat: each forward twice in a step
@@ -4855,6 +4889,34 @@ def fleet_path(export, vocab_path, tok, reqs, dense32):
         # the supervisor's spawn call, the replacement's admission.
         spawn_calls, spawn0 = [], sup_a._spawn
         sup_a._spawn = lambda *a: (spawn_calls.append(time.perf_counter()), spawn0(*a))[1]
+        # The warm-up's stages (the replacement's ready, the survivor's
+        # prefix_state, the replacement's state_injected) and the oldest
+        # heartbeat of a serving link that the liveness sweep saw meanwhile,
+        # against the router's heartbeat timeout and the warm-up's.
+        warm = {"t": {}, "payload_bytes": None, "hb_age_max_s": 0.0}
+
+        def stamp(name, fn):
+            def stamped(link, *msg):
+                warm["t"].setdefault(name, time.perf_counter())
+                if msg and "line" in msg[0]:
+                    warm["payload_bytes"] = len(msg[0]["line"])
+                return fn(link, *msg)
+            return stamped
+
+        sup_a.on_ready = stamp("ready", sup_a.on_ready)
+        sup_a.on_prefix_state = stamp("prefix_state", sup_a.on_prefix_state)
+        sup_a.on_state_injected = stamp("state_injected", sup_a.on_state_injected)
+        sweep0 = fleet_a._sweep_liveness
+
+        def sweep():
+            if "ready" in warm["t"] and any(l.warming for l in fleet_a.links):
+                now = time.monotonic()
+                warm["hb_age_max_s"] = max([warm["hb_age_max_s"], *(
+                    now - l.last_hb for l in fleet_a.links
+                    if not (l.dead or l.warming or l.last_hb is None))])
+            sweep0()
+
+        fleet_a._sweep_liveness = sweep
         t_kill = None
         for r in reqs:
             fleet_a.submit(dict(r))
@@ -4931,6 +4993,13 @@ def fleet_path(export, vocab_path, tok, reqs, dense32):
                 "failover_to_spawn": spawn_calls[0] - t_failover,
                 "spawn_to_admitted": t_admitted - spawn_calls[0],
                 "kill_to_admitted": t_admitted - t_kill},
+            "warm_up": {
+                **{f"spawn_to_{k}_s": t - spawn_calls[0] for k, t in warm["t"].items()
+                   if spawn_calls},
+                "payload_bytes": warm["payload_bytes"],
+                "serving_hb_age_max_s": warm["hb_age_max_s"],
+                "heartbeat_timeout_s": fleet_a.heartbeat_timeout_s,
+                "warm_timeout_s": sup_a.warm_timeout_s},
             "spawn_events": [{k: v for k, v in e.items() if k != "t"}
                              for e in ev_a.of("route.spawn")],
         }
@@ -5831,6 +5900,298 @@ def paper_path(vocab_paths: dict) -> tuple[dict, dict]:
     return {"paper_train": base_launches, "paper_attention_out": map_launches}, recs
 
 
+# --------------------------------------------------------------------------
+# phase 17: telemetry on the serving, training and fleet paths
+
+
+def obs_cli(*args) -> str:
+    """``python -m transformer_tpu_torch.obs`` (host only, no card): its
+    standard output; a failure fails the phase."""
+    proc = subprocess.run([sys.executable, "-m", "transformer_tpu_torch.obs", *args], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+                          text=True, timeout=120)
+    if proc.returncode != 0:
+        raise SystemExit(f"telemetry: obs {args[0]} failed ({proc.returncode}): "
+                         f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def last_snapshot(events) -> dict:
+    snaps = [e["metrics"] for e in events if e["kind"] == "metrics.snapshot"]
+    return snaps[-1] if snaps else {}
+
+
+def telemetry_serve(export, vocab_path, reqs, plain_answers, serve_rec, graph_rec, root):
+    """(a) phase 4's requests through ``cli.serve`` with telemetry and
+    tracing on: the same answers, steps, captures, replays and B/A
+    launches as phase 4's; what ``obs`` renders from the log."""
+    import torch
+
+    from transformer_tpu_torch.cli import serve
+    from transformer_tpu_torch.kernels.paged_flash import paged_flash_attention
+    from transformer_tpu_torch.obs import read_events
+    from transformer_tpu_torch.ops.ffn import fused_ln_ffn
+
+    path = os.path.join(root, "serve.jsonl")
+    argv = serve_argv(export, vocab_path, "--metrics_jsonl", path, "--trace")
+    lines = "".join(json.dumps(r) + "\n" for r in reqs)
+    out = io.StringIO()
+    paged_flash_attention.launches = fused_ln_ffn.launches = 0
+    t0 = time.perf_counter()
+    sched = serve.main(argv, stdin=io.StringIO(lines), stdout=out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": paged_flash_attention.launches,
+                "fused_ln_ffn": fused_ln_ffn.launches}
+    st = sched.stats
+    events = read_events(path)
+    snap = last_snapshot(events)
+    perf = snap.get("perf_seconds_serve_pool_step_paged_flash", {})
+    summary = obs_cli("summarize", path)
+    slo_report = obs_cli("slo", path)
+    trace_path = os.path.join(root, "serve_trace.json")
+    obs_cli("trace", path, "--out", trace_path)
+    with open(trace_path) as f:
+        spans = json.load(f)["traceEvents"]
+    roots = [e for e in spans if e.get("name") == "serve.request"
+             and "parent" not in e.get("args", {})]
+    step_ms = st["decode_s"] / max(1, st["steps"]) * 1e3
+    rec = {
+        "phase": "telemetry", "step": "serve", "card": nvidia_smi_line(), "argv": argv,
+        "answers_identical": out.getvalue() == "".join(
+            json.dumps(a) + "\n" for a in plain_answers),
+        "steps": st["steps"], "steps_phase4": serve_rec["decode_forwards"],
+        "captures": len(sched.forward.captures), "captures_phase4": len(serve_rec["captures"]),
+        "replays": sched.forward.replays, "replays_phase4": serve_rec["replays"],
+        "launches": launches, "launches_phase4": serve_rec["launches"],
+        "events": len(events), "serve_requests": sum(e["kind"] == "serve.request" for e in events),
+        "trace_roots": len(roots), "trace_spans": sum(e.get("ph") == "X" for e in spans),
+        "serve_steps_total": snap.get("serve_steps_total"),
+        "profiler_pool_step_dispatches": perf.get("count"),
+        "profiler_pool_step_p50_ms": (perf.get("p50") or 0) * 1e3 or "not measured",
+        "phase10_replayed_step_wall_ms": (graph_rec or {}).get("decode", {}).get(
+            "graph", {}).get("wall_ms_per_step", "not measured"),
+        "slo_gauges": sorted(k for k in snap if k.startswith("serve_slo_burn_")),
+        "step_ms_on": step_ms, "step_ms_off": serve_rec["decode_step_ms"],
+        "overhead_step_ms": step_ms - serve_rec["decode_step_ms"],
+        "serve_wall_s_on": wall, "serve_wall_s_off": serve_rec["serve_wall_s"],
+        "summarize": summary.splitlines()[:40], "slo": slo_report.splitlines(),
+        "timers": "step_ms: the scheduler's decode seconds over its steps (host clock, each "
+                  "step ending in the picks' readback); profiler p50: obs/profile.py's "
+                  "samples of the same steps",
+    }
+    emit(rec)
+    checks = {
+        "answers byte-identical to phase 4's": rec["answers_identical"],
+        "steps, captures, replays and launches equal phase 4's": (
+            rec["steps"] == rec["steps_phase4"] and rec["captures"] == rec["captures_phase4"]
+            and rec["replays"] == rec["replays_phase4"] and launches == serve_rec["launches"]),
+        "one profiler sample and one serve_steps_total a step": (
+            rec["profiler_pool_step_dispatches"] == rec["steps"] == rec["serve_steps_total"]),
+        "a serve.request event and a trace root a request": (
+            rec["serve_requests"] == rec["trace_roots"] == len(reqs)),
+        "summarize renders perf: and the pool step": (
+            "perf:" in summary and "serve.pool_step_paged_flash" in summary),
+        "obs slo renders the default objectives": all(
+            name in slo_report for name in ("availability", "ttft_p95", "deadline_miss",
+                                            "acceptance_rate")),
+        "the SLO engine's gauges": bool(rec["slo_gauges"]),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"telemetry (serve): {failed}: {rec}")
+    return launches
+
+
+def telemetry_train(src_vocab, tgt_vocab, d_rec, root):
+    """(b) phase 9's D run again, with ``--metrics_jsonl --trace
+    --profile_dir --tb_log_dir``: bit-identical losses, the same captures
+    and flash counters; the counters, memory, profile window and
+    TensorBoard files telemetry wrote."""
+    import statistics
+
+    import torch
+
+    from transformer_tpu_torch.obs import read_events
+
+    data = cut_corpus(CKPT_PAIRS)
+    path = os.path.join(root, "train.jsonl")
+    prof_dir, tb_dir = os.path.join(root, "profile"), os.path.join(root, "tb")
+    window = (8, 8)  # the profile window's first step and length
+    argv = dispatch_argv(data, src_vocab, tgt_vocab, fresh_dir("ckpt", "telemetry"), "d_tel", 2,
+                         8, "--metrics_jsonl", path, "--trace", "--profile_dir", prof_dir,
+                         "--profile_start_step", str(window[0]),
+                         "--profile_num_steps", str(window[1]), "--tb_log_dir", tb_dir)
+
+    def median_outside_window(run):
+        """The step median with the dispatches that start inside the
+        profile window left out (a dispatch's time split over its steps)."""
+        per_step, at = [], 0
+        for k, ms in zip(run["dispatches"], run["dispatch_ms"]):
+            if not window[0] <= at < sum(window):
+                per_step += [ms / k] * k
+            at += k
+        return statistics.median(per_step)
+
+    launches = {fn.__name__: 0 for fn in flash_counters()}
+    trainer, _, rec = dispatch_fit(argv, launches, d_rec["steps"] // d_rec["epochs"])
+    peak = torch.cuda.max_memory_allocated()
+    events = read_events(path)
+    snap = last_snapshot(events)
+    memory = [e for e in events if e["kind"] == "train.memory"]
+    mem_peak = max(s["peak_bytes_in_use"] for e in memory for s in e["devices"].values())
+    profile_files = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, profile_files[0])) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    flash_in_window = {k: sorted(n for n in names if k in n)[:3]
+                       for k in ("flash_fwd", "flash_dq", "flash_dkdv")}
+    stamp = os.listdir(tb_dir)
+    summary = obs_cli("summarize", path)
+    out = {
+        "phase": "telemetry", "step": "train", "card": nvidia_smi_line(), "argv": argv,
+        "losses_identical": rec["losses"] == d_rec["losses"], "steps": trainer.state.step,
+        "captures": rec["captures"], "captures_d": d_rec["captures"],
+        "launches": rec["launches"], "launches_d": d_rec["launches"],
+        "train_steps_total": snap.get("train_steps_total"),
+        "train_step_seconds_count": (snap.get("train_step_seconds") or {}).get("count"),
+        "perf_train_step_dispatches": (snap.get("perf_seconds_train_step") or {}).get("count"),
+        "train_compiled_programs": snap.get("train_compiled_programs"),
+        "memory_peak_bytes": mem_peak, "max_memory_allocated": peak,
+        "profile_kernels": flash_in_window, "profile_files": profile_files,
+        "tensorboard": {s_: sorted(os.listdir(os.path.join(tb_dir, s_))) for s_ in stamp},
+        "event_kinds": sorted({e["kind"] for e in events}),
+        "step_ms_median_on": rec["step_ms_median"], "step_ms_median_off": d_rec["step_ms_median"],
+        "overhead_step_ms": rec["step_ms_median"] - d_rec["step_ms_median"],
+        "step_ms_median_on_outside_profile": median_outside_window(rec),
+        "step_ms_median_off_same_dispatches": median_outside_window(d_rec),
+        "overhead_step_ms_outside_profile": (
+            median_outside_window(rec) - median_outside_window(d_rec)),
+        "step_ms_p50_stepTimer": statistics.median(t * 1e3 for t in trainer.step_seconds),
+        "summarize": summary.splitlines()[:20],
+        "timers": "step_ms: host clock per dispatch up to its device synchronize, over its "
+                  "steps; *_outside_profile: without the dispatches that start in the "
+                  "profile window, in both runs",
+    }
+    emit(out)
+    steps = trainer.state.step
+    checks = {
+        "losses bit-identical to phase 9's D": out["losses_identical"],
+        "captures and flash counters equal D's": (
+            rec["captures"] == d_rec["captures"] and rec["launches"] == d_rec["launches"]),
+        "train_steps_total and the step histogram count the steps": (
+            out["train_steps_total"] == steps == out["train_step_seconds_count"]),
+        "one train.step sample a dispatch": out["perf_train_step_dispatches"] == len(
+            rec["dispatches"]),
+        "train.memory's peak is torch.cuda.max_memory_allocated": mem_peak == peak,
+        "the profile window names the flash kernels": all(flash_in_window.values()),
+        "TensorBoard files for train and test": any(
+            v == ["test", "train"] for v in out["tensorboard"].values()),
+        "summarize renders the train run": f"train: {steps} steps" in summary,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"telemetry (train): {failed}: {out}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+# An idle drain right after the traffic (route.scale, route.retire: the
+# summary's fleet line), under a TTFT objective no shared-card prompt
+# misses (a burn would hold the drain back).
+TEL_FLEET_FLAGS = ("--max_replicas", "2", "--min_replicas", "1", "--scale_idle", "1",
+                   "--scale_cooldown", "0.5", "--slo_spec", "ttft_p95:threshold=60",
+                   "--trace")
+
+
+def telemetry_fleet(export, vocab_path, tok, reqs, root):
+    """(c) two fp32 workers behind ``cli.router`` with ``--metrics_jsonl
+    --trace``: 8 greedy requests answered as a single scheduler answers
+    them, a log a process, the workers' spans under the router's, and the
+    idle drain's ``route.scale`` / ``route.retire`` rendering the
+    ``fleet:`` line."""
+    from transformer_tpu_torch.cli import router as cli
+    from transformer_tpu_torch.cli.train import flags_to_telemetry
+    from transformer_tpu_torch.obs import merge_events
+
+    export32 = fp32_export(export, name="fleet_export_fp32")
+    greedy = [r for r in reqs if "temperature" not in r][:8]
+    path = os.path.join(root, "router.jsonl")
+    args = cli.build_parser().parse_args(["--export_path", export32, "--tgt_vocab_file",
+                                          vocab_path, *FLEET_FLAGS, *TEL_FLEET_FLAGS,
+                                          "--metrics_jsonl", path])
+    telemetry = flags_to_telemetry(args)
+    t0 = time.perf_counter()
+    router = cli.build_router(args, telemetry)
+    want = single_scheduler(export32, tok, greedy, cache_mb=256)
+    try:
+        got = route(router, greedy)
+        serve_s = time.perf_counter() - t0
+        pump_until(router, lambda: any(l.retired for l in router.links), 60, "the idle drain")
+    finally:
+        router.shutdown()
+        telemetry.close()
+    logs = [path, f"{path}.r0", f"{path}.r1"]
+    events, _ = merge_events(logs)
+    spans = {e["span"]: e for e in events if e["kind"] == "trace.span"}
+    roots = [e for e in spans.values() if e["name"] == "serve.request"]
+    summary = obs_cli("summarize", *logs)
+    rec = {
+        "phase": "telemetry", "step": "fleet", "card": nvidia_smi_line(),
+        "answers_equal_single": got == want, "answers": len(got),
+        "logs_exist": [os.path.exists(p) for p in logs],
+        "worker_spans_under_router": sum(
+            spans.get(e.get("parent"), {}).get("name") == "route.request" for e in roots),
+        "route_kinds": sorted({e["kind"] for e in events if e["kind"].startswith("route.")}),
+        "perf_by_worker": [l.final_perf for l in router.links],
+        "serve_s_with_startup": serve_s, "summarize": summary.splitlines(),
+    }
+    emit(rec)
+    checks = {
+        "answers equal a single scheduler's": rec["answers_equal_single"],
+        "a log a process": all(rec["logs_exist"]),
+        "every worker request span under a route.request": (
+            rec["worker_spans_under_router"] == len(roots) == len(greedy)),
+        "summarize renders the router: and fleet: lines": (
+            "router:" in summary and "fleet:" in summary),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"telemetry (fleet): {failed}: {rec}")
+
+
+def telemetry_path(export, vocab_path, tok, reqs, plain_answers, serve_rec, graph_rec,
+                   src_vocab, d_rec):
+    """Phase 17: (a) serving, (b) training, (c) the fleet with telemetry
+    on. Returns the B/A and the flash launches of its main-path runs."""
+    root = fresh_dir("telemetry")
+    os.makedirs(root)
+    serve_launches = telemetry_serve(export, vocab_path, reqs, plain_answers, serve_rec,
+                                     graph_rec, root)
+    train_launches = telemetry_train(src_vocab, vocab_path, d_rec, root)
+    telemetry_fleet(export, vocab_path, tok, reqs, root)
+    return serve_launches, train_launches
+
+
+def telemetry_only() -> None:
+    """Phase 17 alone (``python3 chip_smoke.py --only telemetry``): phase
+    4's serving and phase 9's D run first, as its references."""
+    tok, vocab_path = vocab()
+    _, src_vocab = vocab(side="src")
+    _, export, reqs, _, plain_answers, serve_rec = main_path(tok, vocab_path)
+    data = cut_corpus(CKPT_PAIRS)
+    launches = {fn.__name__: 0 for fn in flash_counters()}
+    trainer, _, d_rec = dispatch_fit(dispatch_argv(data, src_vocab, vocab_path,
+                                                   fresh_dir("ckpt", "dispatch"), "d", 2, 8),
+                                     launches, 20)
+    del trainer
+    serve_launches, train_launches = telemetry_path(
+        export, vocab_path, tok, reqs, plain_answers, serve_rec, None, src_vocab, d_rec)
+    emit({"phase": "telemetry", "launches_by_path": {"serve": serve_launches,
+                                                     "train": train_launches}})
+
+
 def paper_only() -> None:
     """Phase 16 alone (``python3 chip_smoke.py --only paper``): the Python
     vocabularies built here when build/vocab/ lacks them."""
@@ -5889,6 +6250,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "paper"]:
         paper_only()
+        return 0
+    if sys.argv[1:] == ["--only", "telemetry"]:
+        telemetry_only()
         return 0
 
     # Each phase's seconds on the host clock, emitted as it ends.
@@ -6075,9 +6439,13 @@ def main() -> int:
     presets_path(src_vocab, vocab_path, joint_vocab)
     lap("6 seq2seq")
 
-    # 7. sequence-parallel training over four processes on this card
-    sp = sp_train_path(vocab_path, single)
-    fp32_ring_check(tok, train_ds)
+    # 7. sequence-parallel training over four processes on this card, at
+    # long4k's width and 2 layers, against a single-card run of those flags
+    sp_trainer, _, sp_single_launches, sp_single = train_path(
+        vocab_path, "--num_layers", str(SP_LAYERS), name="sp_single")
+    del sp_trainer
+    torch.cuda.empty_cache()
+    sp = sp_train_path(vocab_path, sp_single)
     fresh_dir("ckpt")  # the earlier runs' checkpoints
     lap("7 sequence parallel")
 
@@ -6086,14 +6454,16 @@ def main() -> int:
     lap("8 checkpoints")
 
     # 9. steps_per_dispatch as CUDA-graph replays, buckets, dots
-    disp_launches, e_rec = dispatch_path(src_vocab, vocab_path,
-                                         os.path.join(BUILD_DIR, "train_export"))
+    disp_launches, e_rec, d_rec = dispatch_path(src_vocab, vocab_path,
+                                                os.path.join(BUILD_DIR, "train_export"))
     lap("9 dispatch")
 
     # 11. seq2seq over four processes on this card: dp 4, ring sp 4,
-    # Ulysses sp 4, long4k over Ulysses, and the fp32 step under each mesh
-    dist_launches, _, _ = s2s_dist_path(src_vocab, vocab_path, e_rec, single)
-    s2s_fp32_mesh_check(s2s_cfg, s2s_batch)
+    # Ulysses sp 4; long4k over Ulysses held to phase 7's single card; and
+    # the fp32 step under each mesh
+    dist_launches, _, _ = s2s_dist_path(src_vocab, vocab_path, e_rec, sp_single)
+    # ... and phase 7's fp32 ring step, in the same four processes
+    s2s_fp32_mesh_check(s2s_cfg, s2s_batch, tok, next(iter(train_ds.batches(0)))[1])
     fresh_dir("ckpt", "s2s_dist")
     lap("11 seq2seq over processes")
 
@@ -6133,6 +6503,11 @@ def main() -> int:
     paper_launches, _ = paper_path({"src": src_vocab, "tgt": vocab_path})
     lap("16 paper")
 
+    # 17. telemetry on phase 4's serving, phase 9's D run and a fleet of two
+    serve_launches["telemetry"], tel_train_launches = telemetry_path(
+        export, vocab_path, tok, reqs, plain_answers, serve_rec, graph_rec, src_vocab, d_rec)
+    lap("17 telemetry")
+
     def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
                                          "share_of_bound_warm") if k in main_rec}
@@ -6165,13 +6540,15 @@ def main() -> int:
             return val[name] if isinstance(val, dict) else val
 
         recs = [f_main] + f_recs + s2s_recs
-        by_path = {"train": train_launches[name], "sp_train": sp["launches"][name],
+        by_path = {"train": train_launches[name], "sp_single": sp_single_launches[name],
+                   "sp_train": sp["launches"][name],
                    "seq2seq_train": s2s_launches[name], "translate": tr_launches[name],
                    "ckpt": ckpt_launches[name], "dispatch": disp_launches[name],
                    "s2s_dist": dist_launches[name], "serve_grouped": grouped_launches[name],
                    "windowed_train": windowed_launches[name],
                    **{path: counts[name] for path, counts in mlm_launches.items()},
-                   **{path: counts[name] for path, counts in paper_launches.items()}}
+                   **{path: counts[name] for path, counts in paper_launches.items()},
+                   "telemetry": tel_train_launches[name]}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",

@@ -12,9 +12,9 @@ registry is left alone. Then:
   (``--name=value``, and ``--name`` / ``--noname`` for a boolean): never
   argparse's usage error (exit code 2), and each default is JAX's;
 - away from its default every flag is accepted, or refused with a
-  message that names it (``--moe_experts``, the telemetry and profiler
-  flags, ``--slo_spec``; the unported mesh axes of the distributed
-  trainer);
+  message that names it (``--moe_experts``; the unported mesh axes of the
+  distributed trainer); the telemetry, profiler and TensorBoard flags and
+  ``--slo_spec`` are accepted;
 - ``--platform``: ``cpu`` means the CPU, ``gpu``/``cuda`` the card; any
   other value, or one that disagrees with ``--device``, is refused;
 - ``--enable_function=false`` trains and refuses ``--steps_per_dispatch
@@ -63,11 +63,9 @@ TRAINERS = {
         argv, distributed_train._FLAGS, distributed_train.__doc__),
 }
 # Set away from JAX's default, these are refused with a message naming them.
-REFUSED = {"moe_experts", "metrics_jsonl", "metrics_port", "metrics_interval", "trace",
-           "profile_programs", "flight_recorder", "profile_dir", "profile_start_step",
-           "profile_num_steps", "tb_log_dir"}
-SERVE_REFUSED = {"metrics_jsonl", "metrics_port", "metrics_interval", "trace",
-                 "profile_programs", "flight_recorder", "slo_spec"}
+REFUSED = {"moe_experts"}
+# The server refuses none of JAX's flags.
+SERVE_REFUSED: set[str] = set()
 
 
 def test_the_jax_sets_are_read():
@@ -119,19 +117,15 @@ def test_serve_parses_every_jax_flag(name):
     base = ["--export_path", "x"]
     args = serve.build_parser().parse_args(base + _spell(kind, name, default))
     assert getattr(args, name) == default
-    serve.refuse_later_slices(args)
     if kind in ("enum",) or name == "platform":
         return
     value = _other(kind, default)
     args = serve.build_parser().parse_args(base + _spell(kind, name, value))
     if name in SERVE_REFUSED:
         with pytest.raises(SystemExit, match=f"--{name}"):
-            serve.refuse_later_slices(args)
-        with pytest.raises(SystemExit, match=f"--{name}"):
             serve.main(base + _spell(kind, name, value), stdin=io.StringIO(""))
     else:
         assert getattr(args, name) == value
-        serve.refuse_later_slices(args)
 
 
 def test_enum_values_parse_as_jax_spells_them():

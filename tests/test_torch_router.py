@@ -12,7 +12,13 @@ model's weights (a JAX-written checkpoint through ``--init_ckpt``); their
 greedy answers must be byte-identical to JAX's single
 ``ContinuousScheduler`` on those weights, through a SIGKILL failover and
 through disaggregated prefill/decode. The KV-block wire format
-round-trips between the packages.
+round-trips between the packages. Telemetry: on the same fake-link drill
+both packages' routers, each with its own ``obs.Telemetry`` and tracer,
+emit the same ``route.*`` kinds with the same fields, the same
+``route.request`` spans and the same metric names; a subprocess fleet
+with ``--metrics_jsonl`` per replica (``<path>.r<i>``, as ``cli.router``
+passes it) and ``--trace`` writes one log a process, whose request spans
+join the router's in one trace each.
 """
 
 import json
@@ -36,6 +42,7 @@ from torch_fleet import (
     jax_reference,
     port_model,
     spawn_fleet,
+    telemetry_of,
     write_spec,
 )
 from transformer_tpu.serve import router as jrouter
@@ -461,3 +468,138 @@ def test_disaggregated_prefill_decode(lm, fleet_files):
     decode = router.links[1].final_stats
     assert decode["admitted"] == len(reqs) and decode["prefix_hit_tokens"] > 0
     assert decode["prefill_tokens"] < len(reqs) * (4 + 1), decode
+
+
+# --------------------------------------------------------------------------
+# telemetry
+
+
+def test_route_telemetry_matches_jax_on_the_failover_drill():
+    import io
+
+    def drill(pkg):
+        buf = io.StringIO()
+        tel = telemetry_of(pkg, buf)
+        router, links = _fake_router(pkg, 2, answer=False, encode=None, max_redispatch=1,
+                                     telemetry=tel)
+        router.submit_done({"error": "bad line", "code": "validation"})
+        for _ in range(4):
+            router.submit({"prompt": "p"})
+        router.pump(timeout=0)
+        first = [l for l in links if l.inflight][0]
+        survivor = links[1 - first.index]
+        first.ok = False
+        router.pump(timeout=0)
+        for m in survivor.sent:
+            router.inbox.put((survivor.index, {"type": "answer", "rid": m["rid"],
+                                               "resp": {"continuation": "ok"}}))
+        deadline = time.time() + 10
+        while router.busy and time.time() < deadline:
+            router.pump(timeout=0)
+            router.drain_ready()
+        router.run([])
+        tel.close()
+        events = [json.loads(line) for line in buf.getvalue().splitlines()]
+        route = [(e["kind"], sorted(k for k in e if k != "ts")) for e in events
+                 if e["kind"].startswith("route.")]
+        spans = sorted((e["name"], e.get("lane"), sorted(k for k in e if k != "ts"))
+                       for e in events if e["kind"] == "trace.span")
+        metrics = sorted(k for e in events if e["kind"] == "metrics.snapshot"
+                         for k in e["metrics"])
+        return route, spans, metrics, router.stats
+
+    got = both(drill)
+    assert got["torch"] == got["jax"]
+    route, spans, metrics, stats = got["torch"]
+    assert [k for k, _ in route].count("route.failover") == 1 and stats["failovers"] == 1
+    assert len(spans) == 5 and {"router_dispatch_total", "router_queue_seconds"} <= set(metrics)
+
+
+def test_metrics_jsonl_per_replica_and_joined_traces(lm, fleet_files, tmp_path):
+    import contextlib
+    import io
+
+    import transformer_tpu_torch.obs as tobs
+    from transformer_tpu_torch.obs.__main__ import main as obs_main
+
+    path = str(tmp_path / "router.jsonl")
+    tel = telemetry_of(PACKAGES["torch"], path)
+    router = spawn_fleet(2, _worker(fleet_files, "--trace"), telemetry=tel,
+                         per_replica=lambda i: ["--metrics_jsonl", f"{path}.r{i}"])
+    assert [l.metrics_jsonl for l in router.links] == [f"{path}.r0", f"{path}.r1"]
+    try:
+        out = router.run([dict(r) for r in REQS])
+    finally:
+        router.shutdown()
+        tel.close()
+    assert continuations(out) == continuations(jax_reference(lm, REQS))
+    logs = [path, f"{path}.r0", f"{path}.r1"]
+    assert all(os.path.exists(p) for p in logs)
+    assert all(os.path.exists(f"{p}.flight.json") for p in logs[1:])  # the workers' recorders
+    events, _ = tobs.merge_events(logs)
+    spans = [e for e in events if e["kind"] == "trace.span"]
+    by_id = {e["span"]: e for e in spans}
+    routes = [e for e in spans if e["name"] == "route.request"]
+    roots = [e for e in spans if e["name"] == "serve.request"]
+    assert len(routes) == len(roots) == len(REQS)
+    # Each replica's request span is a child of the router's, in its trace.
+    assert all(by_id[e["parent"]]["name"] == "route.request" for e in roots)
+    assert {e["trace"] for e in roots} == {e["trace"] for e in routes}
+    assert {e["source"] for e in roots} <= {"router.jsonl.r0", "router.jsonl.r1"}
+    assert all(l.final_perf for l in router.links if l.answered)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert obs_main(["summarize", *logs]) == 0
+    report = buf.getvalue()
+    assert "router: 10 requests over" in report and "sources:" in report
+
+
+
+def test_warm_up_export_keeps_heartbeats_flowing(lm):
+    """``export_state`` returns the hottest prefixes as the worker's
+    ``prefix_state`` entries (which inject back into a cold cache) and
+    runs the heartbeat after every prefix, so an export longer than the
+    router's heartbeat timeout does not fail the exporting worker over."""
+    from transformer_tpu_torch.serve.prefix_cache import PrefixCache
+    from transformer_tpu_torch.serve.replica import export_state, inject_blocks
+    from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    params, cfg, tok = port_model(lm)
+    cache = PrefixCache(cfg, block_tokens=4, budget_mb=8)
+    prompts = [PROMPT_A, PROMPT_B, "ab cd ef gh ij kl mn ab"]
+    ContinuousScheduler(params, cfg, tok, num_slots=1, prefix_cache=cache, device="cpu").run(
+        [{"prompt": p, "max_new": 0} for p in prompts])
+    beats = []
+    entries = export_state(cache, 8, lambda: beats.append(len(beats)))
+    assert entries and len(beats) == len(cache.hot_prefixes(8)) >= len(entries)
+    wire = json.loads(json.dumps(entries))
+    cold = PrefixCache(cfg, block_tokens=4, budget_mb=8)
+    assert sum(inject_blocks(cold, e["ids"], e["tokens"], e["blocks"]) for e in wire) == \
+        sum(e["tokens"] for e in entries) > 0
+
+
+def test_warm_up_line_is_forwarded_unparsed():
+    """A worker's ``prefix_state`` line reaches the supervisor as its line
+    (the reader does not parse the warm-up's payload; a torn one is
+    dropped) and goes on to the replacement as the same JSON typed
+    ``inject_state``, the message the JAX router builds from the parse."""
+    import io
+    import queue
+
+    from transformer_tpu_torch.serve.router import (
+        PREFIX_STATE_HEAD,
+        ReplicaProcess,
+        inject_state_line,
+    )
+
+    entries = [{"ids": [1, 5, 9], "tokens": 16, "blocks": [[{"k": {"dtype": "<f4"}}]]}]
+    line = json.dumps({"type": "prefix_state", "entries": entries})
+    link = ReplicaProcess.__new__(ReplicaProcess)
+    link.index, link._proc = 3, type("P", (), {"pid": 42})()
+    inbox: queue.Queue = queue.Queue()
+    link._read_loop(inbox, io.StringIO(f'{line}\n{{"type": "hb"}}\n{line[:40]}\n'))
+    got = [inbox.get_nowait() for _ in range(inbox.qsize())]
+    assert got == [(3, {"type": "prefix_state", "line": line}), (3, {"type": "hb"}),
+                   (3, {"type": "exit", "pid": 42})]
+    assert line.startswith(PREFIX_STATE_HEAD)
+    assert inject_state_line(line) == json.dumps({"type": "inject_state", "entries": entries})

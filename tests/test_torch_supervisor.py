@@ -125,6 +125,55 @@ def test_crash_loop_exhausts_budget_and_serves_n_minus_1():
     assert len(gave_up) == 1 and gave_up[0]["attempts"] == 3
 
 
+def test_warm_up_forwards_the_survivor_line_to_the_replacement():
+    """The port's supervisor takes a ``prefix_state`` reply in its one form,
+    the worker's line, and sends the replacement that line as its
+    ``inject_state``, the same JSON retyped; the replacement's
+    ``state_injected`` admits it with its tokens."""
+    pkg = PACKAGES["torch"]
+    from transformer_tpu_torch.serve.router import inject_state_line
+
+    Fake = fake_link_class(pkg)
+    entries = [{"ids": [1, 5, 9, 2], "tokens": 4, "blocks": [[{"k": {"dtype": "<f4"}}]]}]
+    line = json.dumps({"type": "prefix_state", "entries": entries})
+    forwarded = []
+
+    class Survivor(Fake):
+        def send(self, msg):
+            if msg.get("type") == "export_state":
+                self.router.inbox.put((self.index, {"type": "prefix_state", "line": line}))
+            else:
+                super().send(msg)
+
+    class Replacement(Fake):
+        def send_line(self, got):
+            forwarded.append(got)
+            self.router.inbox.put((self.index, {"type": "state_injected", "tokens": 4}))
+
+    def spawn(index, name, role):
+        link = Replacement(index, name)
+        link.router = router
+        router.inbox.put((index, {"type": "ready", "replica": name}))
+        return link
+
+    clk = [0.0]
+    sup = pkg.Supervisor(spawn, backoff_ms=0.0, clock=lambda: clk[0])
+    links = [Fake(0, "f0"), Survivor(1, "f1")]
+    router = pkg.Router(links, encode=None, supervisor=sup)
+    for link in links:
+        link.router = router
+    links[0].ok = False
+    router.inbox.put((0, {"type": "exit"}))
+    router.pump(timeout=0)
+    for _ in range(4):
+        clk[0] += 40.0
+        router.pump(timeout=0)
+    assert forwarded == [inject_state_line(line)]
+    assert json.loads(forwarded[0]) == {"type": "inject_state", "entries": entries}
+    assert sup.stats["respawns"] == 1 and sup.stats["warmed_tokens"] == 4
+    assert sup._slots[0].phase == "up" and len(router.healthy_links) == 2
+
+
 def test_respawn_storm_via_fault_plane():
     def drill(pkg):
         clk = [0.0]
@@ -479,10 +528,27 @@ def test_cli_router_takes_jax_flags_with_jax_defaults():
     ["--metrics_port", "9100"], ["--trace"],
 ])
 def test_cli_router_refuses_the_later_slices(flag, fleet_files):
-    from transformer_tpu_torch.cli.router import main
+    from transformer_tpu_torch.cli.router import (
+        build_parser,
+        main,
+        refuse_later_slices,
+        replica_jsonl,
+        worker_args,
+    )
 
+    argv = ["--model_spec", fleet_files[0], "--device", "cpu", *flag]
+    if flag[0] in ("--metrics_jsonl", "--metrics_port", "--trace"):
+        # The port's telemetry is accepted: each replica logs to <path>.r<i>.
+        args = build_parser().parse_args(argv)
+        refuse_later_slices(args)
+        tail = worker_args(args, replica_jsonl(args, 1))
+        if flag[0] == "--metrics_jsonl":
+            assert tail[tail.index("--metrics_jsonl") + 1] == "m.jsonl.r1"
+        else:
+            assert "--metrics_jsonl" not in tail and "--trace" not in tail
+        return
     with pytest.raises(SystemExit, match="later slice"):
-        main(["--model_spec", fleet_files[0], "--device", "cpu", *flag], stdin=io.StringIO(""))
+        main(argv, stdin=io.StringIO(""))
 
 
 def test_cli_router_raises_without_a_card_before_spawning(fleet_files, monkeypatch):
@@ -527,3 +593,35 @@ def test_cli_router_serves_lines_and_the_upgrade_control_line(tmp_path, fleet_fi
     assert answers[2]["upgrade"] == str(bad) and answers[2]["ok"] is False
     assert answers[2]["code"] == "upgrade" and "no checkpoint" in answers[2]["error"]
     assert all(l.final_stats is not None for l in router.links)
+
+
+def test_postmortem_salvages_the_flight_dump_of_a_killed_worker(tmp_path):
+    """A worker that died without a wire record leaves its autodump at
+    ``<metrics_jsonl>.flight.json``: the supervisor salvages it into a
+    ``route.postmortem`` event of origin ``file``, once, as JAX's does."""
+
+    def drill(pkg):
+        flight = __import__(f"{pkg.name}.obs.flight", fromlist=["FlightRecorder"])
+        jsonl = str(tmp_path / f"{pkg.name}.r0")
+        rec = flight.FlightRecorder(flight.flight_path_for(jsonl), source="f0")
+        for i in range(3):
+            rec.record("serve.request", {"order": i, "ts": 100.0 + i})
+        rec.dump("auto")
+        clk = [0.0]
+        sup = pkg.Supervisor(lambda index, name, role: (_ for _ in ()).throw(
+            RuntimeError("no respawn here")), max_restarts=1, restart_window_s=1000.0,
+            backoff_ms=0.0, clock=lambda: clk[0])
+        log = EventLogOf(pkg)
+        router, links = _fake_fleet(pkg, 2, supervisor=sup, telemetry=log.telemetry)
+        links[0].metrics_jsonl = jsonl
+        links[0].ok = False
+        router.inbox.put((0, {"type": "exit"}))
+        for _ in range(5):
+            clk[0] += 1.0
+            router.pump(timeout=0)
+        posts = [e for e in log.route() if e["kind"] == "route.postmortem"]
+        return [(e["replica"], e["origin"], e["reason"], [x["order"] for x in
+                 e["record"]["events"]]) for e in posts], sup.stats["postmortems"]
+
+    got = both(drill)
+    assert got["torch"] == got["jax"] == ([("f0", "file", "auto", [0, 1, 2])], 1)

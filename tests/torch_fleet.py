@@ -80,8 +80,10 @@ class Events:
         return [e for e in self.events if e["kind"] == kind]
 
 
-def spawn_fleet(n, worker_args, *, disaggregate=False, telemetry=None, roles=None, **kw):
-    """A port Router over ``n`` port worker processes on the CPU."""
+def spawn_fleet(n, worker_args, *, disaggregate=False, telemetry=None, roles=None,
+                per_replica=None, **kw):
+    """A port Router over ``n`` port worker processes on the CPU;
+    ``per_replica(i)`` adds replica ``i``'s own flags."""
     from transformer_tpu_torch.serve.router import ReplicaProcess, Router
     from transformer_tpu_torch.serve.replica import build_model_from_spec
 
@@ -93,7 +95,8 @@ def spawn_fleet(n, worker_args, *, disaggregate=False, telemetry=None, roles=Non
             role = "prefill" if i == 0 else "decode"
         if roles:
             role = roles[i]
-        links.append(ReplicaProcess.spawn(i, [*worker_args, "--device", "cpu"], role=role))
+        own = per_replica(i) if per_replica else []
+        links.append(ReplicaProcess.spawn(i, [*worker_args, *own, "--device", "cpu"], role=role))
     kw.setdefault("affinity_block", 4)
     kw.setdefault("heartbeat_timeout_s", 30.0)
     router = Router(links, encode=tok.encode, bos_id=tok.bos_id,
@@ -112,6 +115,17 @@ def write_spec(path) -> str:
 # the two packages' router tiers, for the same drill on each
 
 
+def _prefix_state_parsed(entries):
+    """A worker's ``prefix_state`` reply as JAX's reader delivers it."""
+    return {"type": "prefix_state", "entries": entries}
+
+
+def _prefix_state_line(entries):
+    """... and as the port's: the worker's line, unparsed."""
+    return {"type": "prefix_state", "line": json.dumps({"type": "prefix_state",
+                                                        "entries": entries})}
+
+
 def _ns(prefix):
     router = __import__(f"{prefix}.serve.router", fromlist=["Router"])
     sup = __import__(f"{prefix}.serve.supervisor", fromlist=["Supervisor"])
@@ -122,6 +136,8 @@ def _ns(prefix):
         Supervisor=sup.Supervisor, FleetScaler=sup.FleetScaler,
         UpgradeCoordinator=up.UpgradeCoordinator, FaultPlane=res.FaultPlane,
         install=res.install,
+        prefix_state=(_prefix_state_line if hasattr(router, "PREFIX_STATE_HEAD")
+                      else _prefix_state_parsed),
     )
 
 
@@ -155,6 +171,13 @@ class EventLogOf:
         ]
 
 
+def telemetry_of(pkg, sink, trace=True):
+    """``pkg``'s ``obs.Telemetry`` over an ``EventLog`` on ``sink`` (a path
+    or a text stream), with its tracer when ``trace``."""
+    obs = __import__(f"{pkg.name}.obs", fromlist=["Telemetry"])
+    return obs.Telemetry(events=obs.EventLog(sink), interval=1e9, trace=trace)
+
+
 def fake_link_class(pkg):
     """The JAX tests' ``_FakeLink`` (echoes an answer per request unless
     muted; ``ok = False`` is a dead process) over ``pkg``'s ReplicaLink."""
@@ -186,7 +209,12 @@ def fake_link_class(pkg):
                     "type": "answer", "rid": msg["rid"], "resp": {"continuation": self.name},
                 }))
             elif msg.get("type") == "export_state":
-                self.router.inbox.put((self.index, {"type": "prefix_state", "entries": []}))
+                self.router.inbox.put((self.index, pkg.prefix_state([])))
+            elif msg.get("type") == "inject_state":
+                self.router.inbox.put((self.index, {"type": "state_injected", "tokens": 0}))
+
+        def send_line(self, line):
+            self.send(json.loads(line))
 
     return FakeLink
 
@@ -241,7 +269,12 @@ def fake_replica_class(pkg):
                     "type": "upgraded", "ok": True, "version": "vOLD",
                 }))
             elif kind == "export_state":
-                self.router.inbox.put((self.index, {"type": "prefix_state", "entries": []}))
+                self.router.inbox.put((self.index, pkg.prefix_state([])))
+            elif kind == "inject_state":
+                self.router.inbox.put((self.index, {"type": "state_injected", "tokens": 0}))
+
+        def send_line(self, line):
+            self.send(json.loads(line))
 
     return FakeReplica
 

@@ -34,11 +34,15 @@ CPU) is chosen at start-up and logged. ``--metrics_json`` writes every
 rank's step times, dispatch losses, kernel launch counts, staged bytes
 by kind, step, whether it writes checkpoints, the consistency check's
 outcome and time, and a digest of its parameters, gathered on rank 0.
+Rank 0 alone owns the telemetry (``--metrics_jsonl``, ``--trace``, ...),
+the ``--profile_dir`` window and the TensorBoard logs, as in the JAX CLI:
+the metrics it records are already summed over the processes.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -115,8 +119,15 @@ def main(argv: list[str] | None = None, log_fn=print):
         train_ds, test_ds, model_cfg, toks = train.load_for_model(args, train_cfg, log)
         if process.rank == 0:
             mesh.barrier()
-        trainer = DistributedTrainer(model_cfg, train_cfg, mesh, log_fn=log,
-                                     checkpoint=train.checkpoint_manager(args, train_cfg))
+        primary = process.rank == 0
+        telemetry = train.flags_to_telemetry(args, log) if primary else None
+        trainer = DistributedTrainer(
+            model_cfg, train_cfg, mesh, log_fn=log,
+            checkpoint=train.checkpoint_manager(args, train_cfg),
+            log_dir=os.path.join(args.tb_log_dir, train.run_stamp()) if primary else None,
+            profiler=train.flags_to_profiler(args) if primary else None,
+            telemetry=telemetry,
+        )
         consistency = {"enabled": bool(args.consistency_check), "checks": 0, "passed": None,
                        "seconds": 0.0}
 
@@ -136,6 +147,8 @@ def main(argv: list[str] | None = None, log_fn=print):
             consistency["passed"] = True
         else:
             trainer.fit(train_ds, test_ds)
+        if telemetry is not None:
+            telemetry.close()
         if process.rank == 0:
             train.epilogue(trainer, test_ds, toks, args, log)
         if args.metrics_json:

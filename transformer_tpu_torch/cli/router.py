@@ -33,10 +33,20 @@ seconds; the line answers the coordinator's status at its order.
 Answers carry the ``weight_version`` they were admitted under once a
 replica serves a tagged version.
 
+Telemetry: with ``--metrics_jsonl=PATH`` the router logs to PATH (the
+``route.*`` events, ``router_*`` metrics) and each replica to
+``PATH.r<index>``; ``--trace`` traces both, the replicas' request spans
+under the router's, so
+
+    python -m transformer_tpu_torch.obs summarize PATH PATH.r0 PATH.r1
+    python -m transformer_tpu_torch.obs trace PATH PATH.r0 PATH.r1 --out t.json
+
+render the fleet (its ``fleet:`` line) and join each request's spans
+across the processes. ``--metrics_port`` serves the router's
+``/metrics``.
+
 Refused here, naming the later slice: ``--ha`` and ``--standby`` (the
-warm standby, ``serve/standby.py``), ``--mesh`` (``serve/sharded.py``),
-``--metrics_jsonl``, ``--metrics_port`` and ``--trace`` (the port's
-telemetry).
+warm standby, ``serve/standby.py``) and ``--mesh`` (``serve/sharded.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ import queue
 import sys
 import threading
 
+from transformer_tpu_torch.cli.serve import add_metrics_flags
 from transformer_tpu_torch.cli.train import _bool
 
 _REFUSED = {
@@ -56,9 +67,6 @@ _REFUSED = {
                "slice of the port",
     "mesh": "--mesh (sharded replicas) comes with serve/sharded.py, a later slice of the "
             "port",
-    "metrics_jsonl": "--metrics_jsonl comes with the port's telemetry (obs/), a later slice",
-    "metrics_port": "--metrics_port comes with the port's telemetry (obs/), a later slice",
-    "trace": "--trace comes with the port's telemetry (obs/), a later slice",
 }
 
 
@@ -69,16 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     def boolean(name, default, help):
         flag(name, type=_bool, nargs="?", const=True, default=default, help=help)
 
-    # the telemetry flags (the JAX define_metrics_flags): accepted; the
-    # three that would turn telemetry on are refused
-    flag("--metrics_jsonl", default="", help="refused: the port's telemetry is a later slice")
-    flag("--metrics_port", type=int, default=0,
-         help="refused: the port's telemetry is a later slice")
-    flag("--metrics_interval", type=float, default=10.0,
-         help="seconds between metric snapshots (with --metrics_jsonl)")
-    boolean("--trace", False, "refused: the port's telemetry is a later slice")
-    boolean("--profile_programs", True, "per-program profiler (with --metrics_jsonl)")
-    boolean("--flight_recorder", True, "bounded flight recorder (with --metrics_jsonl)")
+    # the telemetry flags (the JAX define_metrics_flags)
+    add_metrics_flags(ap)
     flag("--replicas", type=int, default=2, help="replica worker processes to spawn")
     flag("--export_path", default="model", help="export directory (per replica)")
     flag("--tgt_vocab_file", default="tgt_vocab.subwords",
@@ -174,8 +174,10 @@ def refuse_later_slices(args: argparse.Namespace) -> None:
             raise SystemExit(message)
 
 
-def worker_args(args: argparse.Namespace) -> list[str]:
-    """The replica-worker argv tail every spawned process shares."""
+def worker_args(args: argparse.Namespace, replica_jsonl: str = "") -> list[str]:
+    """The replica-worker argv tail every spawned process shares, plus the
+    replica's own event log (``replica_jsonl``, with ``--trace`` when the
+    router traces)."""
     out = [
         "--serve_slots", str(args.serve_slots),
         "--serve_max_total", str(args.serve_max_total),
@@ -195,9 +197,18 @@ def worker_args(args: argparse.Namespace) -> list[str]:
         out += ["--export_path", args.export_path, "--tgt_vocab_file", args.tgt_vocab_file]
         if args.kv_cache_int8:
             out += ["--kv_cache_int8"]
+    if replica_jsonl:
+        out += ["--metrics_jsonl", replica_jsonl]
+        if args.trace:
+            out += ["--trace"]
     if args.fault_spec:
         out += ["--fault_spec", args.fault_spec]
     return out
+
+
+def replica_jsonl(args: argparse.Namespace, index: int) -> str:
+    """Replica ``index``'s event log: ``<--metrics_jsonl>.r<index>``."""
+    return f"{args.metrics_jsonl}.r{index}" if args.metrics_jsonl else ""
 
 
 def route_lines(q: "queue.Queue", router, out) -> None:
@@ -264,7 +275,7 @@ def spawn_recipe(args: argparse.Namespace):
     from transformer_tpu_torch.serve.router import ReplicaProcess
 
     def spawn(index: int, name: str, role: str, weight_target=None):
-        argv = worker_args(args)
+        argv = worker_args(args, replica_jsonl(args, index))
         if weight_target is not None:
             ckpt_dir, version = weight_target
             argv += ["--init_ckpt", ckpt_dir, "--weight_version", version]
@@ -336,7 +347,8 @@ def build_router(args: argparse.Namespace, telemetry=None):
         role = "both"
         if args.disaggregate:
             role = "prefill" if i == 0 else "decode"
-        links.append(ReplicaProcess.spawn(i, worker_args(args), role=role))
+        links.append(ReplicaProcess.spawn(i, worker_args(args, replica_jsonl(args, i)),
+                                          role=role))
     router = Router(
         links, encode=tok.encode, bos_id=tok.bos_id,
         affinity_block=args.affinity_block or args.prefix_block,
@@ -363,7 +375,10 @@ def main(argv: list[str] | None = None, stdin=None, stdout=None):
 
 
 def _serve(args: argparse.Namespace, stdin, stdout):
-    router = build_router(args)
+    from transformer_tpu_torch.cli.train import flags_to_telemetry
+
+    telemetry = flags_to_telemetry(args, lambda msg: print(msg, file=sys.stderr))
+    router = build_router(args, telemetry)
     print(
         f"router up: {len(router.links)} replica(s) x {args.serve_slots} slots, affinity "
         f"block {args.affinity_block or args.prefix_block}"
@@ -392,6 +407,8 @@ def _serve(args: argparse.Namespace, stdin, stdout):
         route_lines(q, router, stdout or sys.stdout)
     finally:
         router.shutdown()
+        if telemetry is not None:
+            telemetry.close()
     return router
 
 

@@ -49,6 +49,17 @@ admission retries (``--admission_retries``), circuit breakers
 cancellation (``deadline_ms``; ``ContinuousScheduler.cancel``) and
 backpressure (``--max_backlog``); its errors carry a ``code``. Flags keep
 the JAX CLI's names; argparse replaces absl.
+
+Telemetry, as the JAX server's: ``--metrics_jsonl PATH`` streams a
+``serve.request`` event per answer (a ``serve.batch`` per grouped
+batch), periodic ``metrics.snapshot`` events and ``PATH.prom``;
+``--trace`` adds each request's span tree; ``--profile_programs`` the
+``perf_seconds_serve_*`` streams; ``--flight_recorder`` the
+``PATH.flight.json`` dumps; ``--metrics_port`` the ``/metrics`` endpoint.
+With telemetry on, ``--slo_spec`` ('' = ``obs.slo.DEFAULT_SLOS``,
+``none`` = off) evaluates burn rates over the answers
+(``serve_slo_burn_*`` gauges, ``slo.burn`` events). ``python -m
+transformer_tpu_torch.obs summarize PATH`` reads them.
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ import sys
 import threading
 import time
 
-from transformer_tpu_torch.cli.train import LATER_SLICE, METRICS_FLAGS, _bool, add_bool_flag
+from transformer_tpu_torch.cli.train import METRICS_FLAGS, _bool, add_bool_flag, flags_to_telemetry
 from transformer_tpu_torch.cli.translate import add_export_flags, export_device
 
 
@@ -139,26 +150,31 @@ def build_parser() -> argparse.ArgumentParser:
                     help="deterministic fault injection for chaos drills, e.g. "
                          "'serve.prefill:p=0.25,seed=7;draft.slow:every=3,ms=40' "
                          "(serve/resilience.py grammar); '' = disarmed")
-    # The JAX server's telemetry flags and --slo_spec: accepted at their
-    # defaults, refused by name away from them (refuse_later_slices).
-    for name, (typ, default) in _LATER_DEFAULTS.items():
-        help_ = f"refused away from {default!r}: the port's telemetry is a later slice"
+    add_metrics_flags(ap)
+    ap.add_argument("--slo_spec", default="",
+                    help="SLO objectives evaluated as multi-window burn rates over the answer "
+                         "stream, e.g. 'availability:objective=0.999;ttft_p95:threshold=0.5'. "
+                         "'' = the default objectives when telemetry is on; 'none' = off. "
+                         "Surfaced as serve_slo_burn_* gauges + slo.burn events; report "
+                         "offline with `python -m transformer_tpu_torch.obs slo <jsonl>`")
+    return ap
+
+
+def add_metrics_flags(ap: argparse.ArgumentParser) -> None:
+    """The JAX CLIs' telemetry flags (``cli.train``'s ``METRICS_FLAGS``)."""
+    for name, (typ, default, help_) in METRICS_FLAGS.items():
         if typ is _bool:
             add_bool_flag(ap, name, default, help_)
         else:
             ap.add_argument(f"--{name}", type=typ, default=default, help=help_)
-    return ap
 
 
-_LATER_DEFAULTS = {**METRICS_FLAGS, "slo_spec": (str, "")}
+def slos_for(args: argparse.Namespace, telemetry):
+    """The scheduler's ``slos``: the spec given, or with telemetry on the
+    default objectives ('none' parses to no objective)."""
+    from transformer_tpu_torch.obs.slo import DEFAULT_SLOS
 
-
-def refuse_later_slices(args: argparse.Namespace) -> None:
-    """Refuse, by name, a telemetry flag or ``--slo_spec`` set away from the
-    JAX server's default."""
-    for name, (_, default) in _LATER_DEFAULTS.items():
-        if getattr(args, name) != default:
-            raise SystemExit(f"--{name} {LATER_SLICE}")
+    return args.slo_spec or (DEFAULT_SLOS if telemetry else None)
 
 
 class _RoutingError(ValueError):
@@ -314,11 +330,12 @@ def _reader(stream, q: queue.Queue) -> None:
     q.put(None)
 
 
-def serve_continuous(q: queue.Queue, sched, out) -> None:
+def serve_continuous(q: queue.Queue, sched, out, telemetry=None) -> None:
     """Drive the scheduler from the line queue: take whatever is queued,
     admit into free slots, step every occupied slot, write the answers
     that are complete in request order. Blocks on input only when nothing
-    is in flight and nothing waits to be written."""
+    is in flight and nothing waits to be written. Flushes ``telemetry``'s
+    sinks at the end."""
     eof = False
     backlog_cap = max(1, sched.num_slots) * 8
     while not eof or sched.busy:
@@ -348,12 +365,17 @@ def serve_continuous(q: queue.Queue, sched, out) -> None:
         sched.step()
         for resp in sched.drain_ready():
             print(json.dumps(resp), file=out, flush=True)
+    if telemetry is not None:
+        telemetry.maybe_flush(force=True)
 
 
-def serve_grouped(q: queue.Queue, params, cfg, src_tok, tgt_tok, args, out) -> list[dict]:
+def serve_grouped(q: queue.Queue, params, cfg, src_tok, tgt_tok, args, out,
+                  telemetry=None) -> list[dict]:
     """The grouped loop: wait for one line, drain up to ``serve_batch`` that
     are already queued, answer them with ``serve_lines`` and write the
-    answers. Returns one record per drained batch (size, errors, seconds)."""
+    answers. Returns one record per drained batch (size, errors, seconds);
+    with ``telemetry``, each batch is also a ``serve.batch`` event and a
+    ``serve_batch_seconds`` sample."""
     batches = []
     eof = False
     while not eof:
@@ -379,20 +401,31 @@ def serve_grouped(q: queue.Queue, params, cfg, src_tok, tgt_tok, args, out) -> l
             lines, params, cfg, src_tok, tgt_tok, default_max_len=args.max_len,
             default_beam=args.beam, prefill_chunk=args.prefill_chunk,
         )
-        batches.append({"size": len(responses),
-                        "errors": sum(1 for r in responses if "error" in r),
-                        "seconds": time.perf_counter() - t0})
+        batch_s = time.perf_counter() - t0
+        errors = sum(1 for r in responses if "error" in r)
+        batches.append({"size": len(responses), "errors": errors, "seconds": batch_s})
+        if telemetry is not None:
+            reg = telemetry.registry
+            reg.counter("serve_requests_total").inc(len(responses))
+            if errors:
+                reg.counter("serve_errors_total").inc(errors)
+            reg.histogram("serve_batch_seconds", "one grouped decode batch").observe(batch_s)
+            telemetry.emit("serve.batch", size=len(responses), errors=errors,
+                           batch_s=round(batch_s, 6))
+            telemetry.maybe_flush()
         for resp in responses:
             print(json.dumps(resp), file=out, flush=True)
     return batches
 
 
-def build_scheduler(args: argparse.Namespace, loaded=None, breaker_clock=time.monotonic):
+def build_scheduler(args: argparse.Namespace, loaded=None, breaker_clock=time.monotonic,
+                    telemetry=None):
     """The continuous scheduler the flags describe: the export on the
     device, the drafter (``--speculate_k``) and the prefix cache
     (``--prefix_cache_mb``). ``loaded`` = (params, cfg, tokenizer, device)
     when the caller has them already; ``breaker_clock`` is the breakers'
-    clock (a test clock makes their cooldowns deterministic)."""
+    clock (a test clock makes their cooldowns deterministic); ``telemetry``
+    the ``obs.Telemetry`` it records into (with ``slos_for``'s SLOs)."""
     from transformer_tpu_torch.serve.prefix_cache import PrefixCache
     from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
     from transformer_tpu_torch.serve.speculative import drafter_from_flags
@@ -434,6 +467,8 @@ def build_scheduler(args: argparse.Namespace, loaded=None, breaker_clock=time.mo
         breaker_threshold=args.breaker_threshold,
         breaker_cooldown_s=args.breaker_cooldown,
         breaker_clock=breaker_clock,
+        telemetry=telemetry,
+        slos=slos_for(args, telemetry),
         device=device,
     )
 
@@ -453,7 +488,6 @@ def main(argv: list[str] | None = None, stdin=None, stdout=None):
     """Serve until stdin ends. Returns the scheduler on the continuous
     path (for its stats), else the grouped loop's batch records."""
     args = build_parser().parse_args(argv)
-    refuse_later_slices(args)
     if not args.fault_spec:
         return _serve(args, stdin, stdout)
     from transformer_tpu_torch.serve import resilience
@@ -469,8 +503,14 @@ def _serve(args: argparse.Namespace, stdin, stdout):
     from transformer_tpu_torch.data.tokenizer import SubwordTokenizer
 
     params, cfg, tgt_tok, device = _load(args)
+    telemetry = flags_to_telemetry(args, lambda msg: print(msg, file=sys.stderr))
+    if args.slo_spec and args.slo_spec.lower() not in ("none", "off") and telemetry is None:
+        # The engine's whole output is gauges and slo.burn events.
+        print("--slo_spec needs --metrics_jsonl (or --metrics_port) to surface burn rates; "
+              "SLO evaluation disabled for this run", file=sys.stderr)
     continuous = cfg.decoder_only and args.serve_slots > 0
-    sched = build_scheduler(args, (params, cfg, tgt_tok, device)) if continuous else None
+    sched = (build_scheduler(args, (params, cfg, tgt_tok, device), telemetry=telemetry)
+             if continuous else None)
     # Bounded queue: the reader blocks once it is this far ahead, so a
     # piped request file does not pile up in host memory.
     q: queue.Queue = queue.Queue(maxsize=max(1, args.serve_batch) * 8)
@@ -480,14 +520,16 @@ def _serve(args: argparse.Namespace, stdin, stdout):
     reader.start()
     out = stdout or sys.stdout
     if continuous:
-        serve_continuous(q, sched, out)
+        serve_continuous(q, sched, out, telemetry)
         result = sched
     else:
         src_tok = tgt_tok
         if not (cfg.decoder_only or cfg.encoder_only):
             src_tok = (tgt_tok if args.src_vocab_file == args.tgt_vocab_file
                        else SubwordTokenizer.load(args.src_vocab_file))
-        result = serve_grouped(q, params, cfg, src_tok, tgt_tok, args, out)
+        result = serve_grouped(q, params, cfg, src_tok, tgt_tok, args, out, telemetry)
+    if telemetry is not None:
+        telemetry.close()
     reader.join(timeout=5.0)
     return result
 

@@ -41,15 +41,30 @@ Every flag of the JAX CLI parses here, with absl's spellings (``--f=v``,
 The reference's ``--enable_function`` (false: no captured steps) and
 ``--per_replica_batch_size`` (unused) keep JAX's meaning, ``--platform``
 picks ``--device``, and the mesh flags are accepted and unused (they are
-``cli.distributed_train``'s). ``--moe_experts`` and the telemetry,
-profiler and TensorBoard flags, away from their defaults, are refused by
-name: later slices of the port.
+``cli.distributed_train``'s). ``--moe_experts`` above 0 is refused by
+name: MoE is a later slice of the port.
+
+Telemetry, as the JAX CLI's: ``--metrics_jsonl PATH`` streams JSONL
+events (``train.window``, ``train.eval``, ``train.memory``,
+``train.compile``, periodic ``metrics.snapshot``) and rewrites a
+Prometheus exposition at ``PATH.prom`` every ``--metrics_interval``
+seconds; ``--metrics_port`` serves ``/metrics`` and ``/healthz``;
+``--trace`` adds ``trace.span`` events (``train.fit``, ``train.step``,
+``train.eval``, ``ckpt.*``); ``--profile_programs`` (default on) the
+``perf_seconds_train_step`` stream; ``--flight_recorder`` (default on)
+keeps the last events in memory and dumps them to
+``PATH.flight.json``. Read them with ``python -m
+transformer_tpu_torch.obs summarize PATH``. ``--profile_dir`` records a
+``torch.profiler`` window of ``--profile_num_steps`` steps from
+``--profile_start_step``; TensorBoard scalars go under
+``--tb_log_dir/<run stamp>/{train,test}`` (default ``logs``).
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 
 # ``--preset`` values, a copy of transformer_tpu/cli/flags.py _PRESETS.
@@ -89,18 +104,41 @@ def add_bool_flag(ap: argparse.ArgumentParser, name: str, default, help_: str) -
                     default=default, help=argparse.SUPPRESS)
 
 
-# The JAX CLIs' telemetry flags (its define_metrics_flags) and the
-# trainers' profiler and TensorBoard flags: name -> (type, default).
+# The JAX CLIs' telemetry flags (its define_metrics_flags), shared by the
+# trainers, cli.serve, cli.router and the replica worker: name -> (type,
+# default, help).
 METRICS_FLAGS: dict[str, tuple] = {
-    "metrics_jsonl": (str, ""), "metrics_port": (int, 0), "metrics_interval": (float, 10.0),
-    "trace": (_bool, False), "profile_programs": (_bool, True),
-    "flight_recorder": (_bool, True),
+    "metrics_jsonl": (str, "", "write structured telemetry (JSONL events + periodic metric "
+                      "snapshots) to this file; a Prometheus text exposition is rewritten "
+                      "alongside it at <file>.prom. Summarize with `python -m "
+                      "transformer_tpu_torch.obs summarize <file>`. '' = off"),
+    "metrics_port": (int, 0, "serve a Prometheus /metrics (and /healthz) scrape endpoint on "
+                     "this port (0 = off); works with or without --metrics_jsonl"),
+    "metrics_interval": (float, 10.0, "seconds between periodic metric-snapshot flushes (prom "
+                         "file + metrics.snapshot events)"),
+    "trace": (_bool, False, "record hierarchical trace.span events into --metrics_jsonl; "
+              "export with `python -m transformer_tpu_torch.obs trace <file> --out "
+              "trace.json` and load in chrome://tracing / Perfetto. Answers, losses and kernel "
+              "launches are unaffected"),
+    "profile_programs": (_bool, True, "per-program profiler (obs/profile.py): each pool step, "
+                         "verify, prefill and train dispatch, timed up to its device "
+                         "synchronize, into perf_seconds_* histograms and tokens/s gauges; "
+                         "report with `python -m transformer_tpu_torch.obs roofline <file>`"),
+    "flight_recorder": (_bool, True, "bounded flight recorder (obs/flight.py): the last "
+                        "events/spans/snapshots in memory, dumped to "
+                        "<metrics_jsonl>.flight.json on SIGTERM, on close and every 2 s. "
+                        "Needs --metrics_jsonl"),
 }
+# The trainers' profiler and TensorBoard flags.
 _PROFILER_FLAGS: dict[str, tuple] = {
-    "profile_dir": (str, ""), "profile_start_step": (int, 2), "profile_num_steps": (int, 3),
-    "tb_log_dir": (str, "logs"),
+    "profile_dir": (str, "", "record a torch.profiler trace (CUDA kernels on the card) of a "
+                    "window of steps into this dir ('' = off)"),
+    "profile_start_step": (int, 2, "first step of the profile window (after the first step "
+                           "seen)"),
+    "profile_num_steps": (int, 3, "profile window length in steps"),
+    "tb_log_dir": (str, "logs", "TensorBoard log root: each run writes <root>/<stamp>/train "
+                   "and /test"),
 }
-LATER_SLICE = "comes with the port's telemetry and profiler (obs/), a later slice of the port"
 
 # name -> (type, default, help); the JAX CLI's defaults.
 _FLAGS: dict[str, tuple] = {
@@ -194,23 +232,21 @@ _FLAGS: dict[str, tuple] = {
     "dcn_data": (int, 1, "cli.distributed_train's multi-slice data split (unused here)"),
     "consistency_check": (_bool, False, "cli.distributed_train's cross-process check "
                           "(unused here)"),
-    # Flags of later slices: accepted at the JAX CLI's defaults, refused by
-    # name away from them (_LATER).
+    # MoE: accepted at the JAX CLI's defaults, --moe_experts refused by
+    # name above 0 (_LATER).
     "moe_experts": (int, 0, "refused above 0: MoE is a later slice of the port"),
     "moe_top_k": (int, 2, "experts each token routes to (with --moe_experts)"),
     "moe_capacity_factor": (float, 1.25, "expert capacity slack (with --moe_experts)"),
     "moe_every": (int, 1, "every k-th layer carries the MoE FFN (with --moe_experts)"),
     "moe_aux_weight": (float, 0.01, "load-balance loss weight (with --moe_experts)"),
-    **{name: (typ, default, "refused away from its default: the port's telemetry and "
-              "profiler are a later slice")
-       for name, (typ, default) in {**METRICS_FLAGS, **_PROFILER_FLAGS}.items()},
+    **METRICS_FLAGS,
+    **_PROFILER_FLAGS,
 }
 
 # Flags of later slices, refused by name when set away from the JAX CLI's
 # default (as cli.router does).
 _LATER: dict[str, str] = {
     "moe_experts": "--moe_experts > 0: MoE (ops/moe.py) is a later slice of the port",
-    **{name: f"--{name} {LATER_SLICE}" for name in {**METRICS_FLAGS, **_PROFILER_FLAGS}},
 }
 
 _PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
@@ -256,6 +292,65 @@ def resolve_flags(
                              f"{given!r}")
         values["device"] = given or device
     return argparse.Namespace(**values)
+
+
+def flags_to_profiler(args: argparse.Namespace):
+    """``utils.profiling.Profiler`` from the ``--profile_*`` flags, or None
+    when profiling is off."""
+    if not args.profile_dir:
+        return None
+    from transformer_tpu_torch.utils.profiling import Profiler
+
+    return Profiler(args.profile_dir, start_step=args.profile_start_step,
+                    num_steps=args.profile_num_steps)
+
+
+def flags_to_telemetry(args: argparse.Namespace, log_fn=print):
+    """``obs.Telemetry`` from the ``--metrics_*`` flags, or None when
+    telemetry is off (``--metrics_jsonl`` unset and ``--metrics_port`` 0, the
+    zero-overhead default), as the JAX CLI's ``flags_to_telemetry``: the
+    event log behind a sink breaker (3 failures open it, a re-probe after
+    30 s), ``--trace``'s tracer, ``--profile_programs``' profiler, the
+    flight recorder at ``<metrics_jsonl>.flight.json`` with its SIGTERM
+    dump (autodump every 2 s), and the ``/metrics`` endpoint."""
+    if not args.metrics_jsonl and not args.metrics_port:
+        return None
+    from transformer_tpu_torch.obs import EventLog, Telemetry
+    from transformer_tpu_torch.obs.breaker import CircuitBreaker
+
+    events = None
+    if args.metrics_jsonl:
+        events = EventLog(
+            args.metrics_jsonl,
+            breaker=CircuitBreaker("event_sink", threshold=3, cooldown_s=30.0),
+        )
+    if args.trace and events is None:
+        log_fn("--trace needs --metrics_jsonl to record trace.span events; tracing disabled "
+               "for this run")
+    telemetry = Telemetry(
+        events=events,
+        prom_path=f"{args.metrics_jsonl}.prom" if args.metrics_jsonl else None,
+        interval=args.metrics_interval,
+        trace=args.trace and events is not None,
+    )
+    if args.profile_programs:
+        telemetry.arm_profiler()
+    if args.flight_recorder and args.metrics_jsonl:
+        from transformer_tpu_torch.obs.flight import flight_path_for
+
+        recorder = telemetry.arm_flight(flight_path_for(args.metrics_jsonl), autodump_s=2.0)
+        recorder.install_signal_handlers()
+    if args.metrics_port:
+        port = telemetry.start_prometheus_server(args.metrics_port)
+        log_fn(f"Prometheus /metrics (+ /healthz) on port {port}")
+    return telemetry
+
+
+def run_stamp() -> str:
+    """The per-run directory name under ``--tb_log_dir``."""
+    import datetime
+
+    return datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
 
 
 def lm_mode(args: argparse.Namespace) -> bool:
@@ -438,10 +533,15 @@ def main(argv: list[str] | None = None, log_fn=print):
     train_cfg = train_config(args)
     train_ds, test_ds, model_cfg, toks = load_for_model(args, train_cfg, log_fn)
     state = create_train_state(model_cfg, train_cfg, device=device)
+    telemetry = flags_to_telemetry(args, log_fn)
     trainer = Trainer(model_cfg, train_cfg, state, log_fn=log_fn,
-                      checkpoint=checkpoint_manager(args, train_cfg))
+                      checkpoint=checkpoint_manager(args, train_cfg),
+                      log_dir=os.path.join(args.tb_log_dir, run_stamp()),
+                      profiler=flags_to_profiler(args), telemetry=telemetry)
     trainer.train_ds = train_ds
     trainer.fit(train_ds, test_ds)
+    if telemetry is not None:
+        telemetry.close()
     if trainer.graph is not None:
         log_fn(
             f"steps_per_dispatch {train_cfg.steps_per_dispatch}: "

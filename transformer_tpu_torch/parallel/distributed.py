@@ -155,7 +155,9 @@ class DistributedTrainer(Trainer):
     ``state`` defaults to a fresh one from ``train_cfg.seed`` on the mesh's
     device; rank 0's parameters are broadcast to every process. With a
     ``checkpoint`` manager rank 0 writes and every process restores the
-    same checkpoint at the start of ``fit``."""
+    same checkpoint at the start of ``fit``. ``log_dir``, ``profiler`` and
+    ``telemetry`` are ``Trainer``'s (``cli.distributed_train`` gives them to
+    rank 0 alone)."""
 
     def __init__(
         self,
@@ -165,6 +167,9 @@ class DistributedTrainer(Trainer):
         state: TrainState | None = None,
         log_fn: Callable[[str], None] = print,
         checkpoint: CheckpointManager | None = None,
+        log_dir: str | None = None,
+        profiler=None,
+        telemetry=None,
     ) -> None:
         check_mesh(model_cfg, train_cfg, mesh)
         if state is None:
@@ -174,7 +179,7 @@ class DistributedTrainer(Trainer):
         super().__init__(
             model_cfg, train_cfg, state, log_fn,
             forward_loss=_seq_parallel_forward_loss(mesh), sum_across=mesh.all_reduce_sum_,
-            checkpoint=checkpoint,
+            checkpoint=checkpoint, log_dir=log_dir, profiler=profiler, telemetry=telemetry,
         )
         if train_cfg.steps_per_dispatch > 1:
             why = {

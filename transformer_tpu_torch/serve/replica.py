@@ -43,9 +43,10 @@ replica -> router:
     {"type": "state_injected", "tokens": T}
     {"type": "upgrade_staged", "ok": B, "version": V [, "error": E]}
     {"type": "upgraded", "ok": B, "version": V [, "error": E]}
-    {"type": "flight", "record": null}                 (no flight recorder
-                                                       yet: JAX's reply
-                                                       when none is armed)
+    {"type": "flight", "record": {...}|null}          the dump reply: the
+                                                       flight recorder's
+                                                       ring (null when none
+                                                       is armed)
     {"type": "stats", "stats": {...}}                  final, at shutdown
 
 ``rid`` is the router's order for the request: the replica never invents
@@ -63,9 +64,17 @@ with its numpy dtype string and shape: JAX's wire format, so a block
 exported by either package injects into the other (a bf16 array travels
 as ``V2`` words, the port's int16 host form).
 
+Telemetry: with ``--metrics_jsonl PATH`` (the router passes
+``<its path>.r<index>``) the scheduler records into ``PATH`` (the
+program profiler on by default), ``--trace`` adds the span trees, whose
+roots parent under the router's ``route.request`` span through the
+forwarded ``traceparent``, and the flight recorder dumps to
+``PATH.flight.json`` every 0.5 s (what a SIGKILL leaves for the
+supervisor's postmortem), on SIGTERM and on a ``dump`` request. The
+final ``stats`` message then carries the profiler's rows as ``perf``.
+
 Left out (later slices): ``--ha`` and its takeover socket
-(``serve/standby.py``), ``--mesh`` (``serve/sharded.py``),
-``--metrics_jsonl`` / ``--trace`` and the flight recorder (telemetry).
+(``serve/standby.py``), ``--mesh`` (``serve/sharded.py``).
 """
 
 from __future__ import annotations
@@ -83,9 +92,6 @@ _LATER = {
           "a later slice of the port",
     "mesh": "--mesh (sharded replicas) comes with serve/sharded.py, a later slice "
             "of the port",
-    "metrics_jsonl": "--metrics_jsonl comes with the port's telemetry (obs/), a later "
-                     "slice",
-    "trace": "--trace comes with the port's telemetry (obs/), a later slice",
 }
 
 
@@ -199,6 +205,26 @@ def export_blocks(cache, ids: "list[int]") -> "tuple[int, list]":
         hit.release()
 
 
+def export_state(cache, limit: int, beat=None) -> list[dict]:
+    """The ``limit`` hottest cached prefixes as ``prefix_state`` entries
+    (``ids``, ``tokens``, ``blocks``), for warming a respawned replica.
+    ``beat()`` runs after each prefix: an export of many long prefixes
+    takes seconds, longer than the router's heartbeat timeout, and the
+    worker's heartbeats must keep flowing meanwhile (the JAX worker
+    exports in one go and can be failed over mid-export on a slow host)."""
+    entries = []
+    for ids in cache.hot_prefixes(limit):
+        try:
+            tokens, payload = export_blocks(cache, list(ids))
+        except Exception:  # noqa: BLE001 — warm-up is best-effort: skip the prefix
+            tokens = 0
+        if tokens:
+            entries.append({"ids": list(ids), "tokens": tokens, "blocks": payload})
+        if beat is not None:
+            beat()
+    return entries
+
+
 def inject_blocks(cache, ids: "list[int]", tokens: int, payload: list) -> int:
     """Insert a handoff payload into the local ``PrefixCache`` so that the
     next admission of ``ids`` restores it without a forward. Returns the
@@ -244,8 +270,9 @@ def _parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mesh", default="", help="refused: a later slice")
     p.add_argument("--max_backlog", type=int, default=0)
     p.add_argument("--heartbeat_ms", type=float, default=200.0)
-    p.add_argument("--metrics_jsonl", default="", help="refused: a later slice")
-    p.add_argument("--trace", action="store_true", help="refused: a later slice")
+    from transformer_tpu_torch.cli.serve import add_metrics_flags
+
+    add_metrics_flags(p)
     p.add_argument("--fault_spec", default="")
     p.add_argument("--ha", action="store_true", help="refused: a later slice")
     p.add_argument("--init_ckpt", default="",
@@ -278,6 +305,29 @@ def stdin_reader(q: "queue.Queue") -> None:
     q.put(None)
 
 
+def replica_telemetry(args: argparse.Namespace):
+    """The worker's ``obs.Telemetry`` (None without ``--metrics_jsonl``), as
+    the JAX worker builds it: the event log, ``--trace``'s tracer, the
+    program profiler, and a flight recorder that dumps every 0.5 s (a
+    SIGKILL leaves at most half a second of the ring unwritten) and on
+    SIGTERM."""
+    if not args.metrics_jsonl:
+        return None
+    from transformer_tpu_torch.obs import EventLog, Telemetry
+    from transformer_tpu_torch.obs.flight import flight_path_for
+
+    telemetry = Telemetry(events=EventLog(args.metrics_jsonl), trace=args.trace,
+                          interval=args.metrics_interval)
+    if args.profile_programs:
+        telemetry.arm_profiler()
+    if args.flight_recorder:
+        flight = telemetry.arm_flight(flight_path_for(args.metrics_jsonl), autodump_s=0.5)
+        flight.install_signal_handlers()
+    if args.metrics_port:
+        telemetry.start_prometheus_server(args.metrics_port)
+    return telemetry
+
+
 def _load_model(args, device):
     from transformer_tpu_torch.convert import load_export
     from transformer_tpu_torch.data.tokenizer import SubwordTokenizer
@@ -305,6 +355,7 @@ def main(argv=None) -> None:
         resilience.install(resilience.FaultPlane.parse(args.fault_spec))
 
     params, cfg, tok = _load_model(args, device)
+    telemetry = replica_telemetry(args)
     weight_version = args.weight_version or None
     if args.init_ckpt:
         # The bootstrap at the fleet's target version: the checkpoint's
@@ -353,6 +404,7 @@ def main(argv=None) -> None:
         kv_pool_blocks=args.kv_pool_blocks,
         weight_version=weight_version,
         span_tap=lambda span: spans_by_order.__setitem__(span.get("order"), span),
+        telemetry=telemetry,
         device=device,
     )
     del params
@@ -371,7 +423,22 @@ def main(argv=None) -> None:
     out.send(ready)
 
     hb_s = max(args.heartbeat_ms, 1.0) / 1e3
-    last_hb = 0.0
+    hb_at = [0.0]
+
+    def heartbeat() -> None:
+        """An ``hb`` line once ``heartbeat_ms`` has passed since the last:
+        from the loop, and between the prefixes of a warm-up export or
+        inject, which can outlast the router's heartbeat timeout."""
+        now = time.monotonic()
+        if now - hb_at[0] < hb_s:
+            return
+        hb_at[0] = now
+        hb = {"type": "hb", "backlog": sched.backlog,
+              "free": sched.num_slots - sched.active_count, "active": sched.active_count}
+        if sched.weight_version is not None:
+            hb["wv"] = sched.weight_version
+        out.send(hb)
+
     # The scheduler answers in arrival order and this loop is its only
     # submitter: a FIFO of (rid, scheduler order) maps answers back.
     rid_fifo: "list[tuple[int, int]]" = []
@@ -408,18 +475,17 @@ def main(argv=None) -> None:
             sched.shutdown()
             return False
         if kind == "dump":
-            out.send({"type": "flight", "record": None})
+            # Persist the ring and ship it: the supervisor keeps the newest
+            # record for a postmortem.
+            record = None
+            if telemetry is not None and telemetry.flight is not None:
+                record = telemetry.flight.dump("request")
+            out.send({"type": "flight", "record": record})
             return True
         if kind == "export_state":
             entries = []
             if prefix_cache is not None:
-                for ids in prefix_cache.hot_prefixes(int(msg.get("limit", 8))):
-                    try:
-                        tokens, payload = export_blocks(prefix_cache, list(ids))
-                    except Exception:  # noqa: BLE001 — warm-up is best-effort: skip the prefix
-                        continue
-                    if tokens:
-                        entries.append({"ids": list(ids), "tokens": tokens, "blocks": payload})
+                entries = export_state(prefix_cache, int(msg.get("limit", 8)), heartbeat)
             out.send({"type": "prefix_state", "entries": entries})
             return True
         if kind == "upgrade":
@@ -475,6 +541,7 @@ def main(argv=None) -> None:
                     ) if prefix_cache is not None else 0
                 except Exception:  # noqa: BLE001 — a corrupt payload leaves the cache cold
                     pass
+                heartbeat()
             out.send({"type": "state_injected", "tokens": total})
             return True
         if kind not in ("req", "prefill"):
@@ -561,14 +628,7 @@ def main(argv=None) -> None:
         for ev in sched.consume_swap_events():
             # The step-boundary flip (or its ckpt.swap abort) just happened.
             out.send({"type": "upgraded", **ev})
-        now = time.monotonic()
-        if now - last_hb >= hb_s:
-            last_hb = now
-            hb = {"type": "hb", "backlog": sched.backlog,
-                  "free": sched.num_slots - sched.active_count, "active": sched.active_count}
-            if sched.weight_version is not None:
-                hb["wv"] = sched.weight_version
-            out.send(hb)
+        heartbeat()
     flush_answers()
     stats = {
         **dict(sched.stats),
@@ -578,7 +638,13 @@ def main(argv=None) -> None:
             1 for k, t in flatten(sched.params).items() if t.data_ptr() != ptrs[k]
         ),
     }
-    out.send({"type": "stats", "stats": stats})
+    final = {"type": "stats", "stats": stats}
+    if telemetry is not None and telemetry.profiler is not None:
+        # The measured per-program rows, without a parse of the worker's log.
+        final["perf"] = telemetry.profiler.summary()
+    out.send(final)
+    if telemetry is not None:
+        telemetry.close()
 
 
 if __name__ == "__main__":

@@ -12,9 +12,10 @@ Port of ``transformer_tpu/serve/resilience.py`` (standard library only):
   scheduler's weight flip), and the fleet's ``route.spawn`` (the
   supervisor's respawn), ``route.hb`` (a heartbeat at the router),
   ``route.upgrade`` (the rollout's per-replica swap) and ``route.canary``
-  (the canary's per-version SLO split); ``obs.emit``, ``ckpt.write``,
-  ``data.prefetch`` and ``route.takeover`` parse but fire nowhere until
-  the modules that hold them are ported (the port's telemetry, its
+  (the canary's per-version SLO split), and ``obs.emit`` (the event
+  log's write, ``obs/events.py``, through its ``fault_hook`` slot);
+  ``ckpt.write``, ``data.prefetch`` and ``route.takeover`` parse but fire
+  nowhere until the modules that hold them are ported (the port's
   checkpoint writer and prefetch thread, ``serve/standby.py``). Armed by
   ``cli.serve --fault_spec``, ``cli.router --fault_spec`` (in the router
   and in every worker it spawns) or :func:`active`; a disarmed plane
@@ -57,7 +58,7 @@ FAULT_POINTS = frozenset({
     "prefix.insert",    # raise inside PrefixCache.insert / insert_device
     "draft.propose",    # raise inside the drafter's propose
     "draft.slow",       # sleep inside the drafter's propose (ms=N)
-    "obs.emit",         # the event log's write (no site in the port yet)
+    "obs.emit",         # raise inside EventLog.emit's write
     "ckpt.write",       # a checkpoint commit (no site in the port yet)
     "data.prefetch",    # the prefetch worker (no site in the port yet)
     "route.spawn",      # raise inside the supervisor's replica (re)spawn
@@ -213,11 +214,17 @@ def installed() -> FaultPlane | None:
 
 
 def install(plane: FaultPlane | None) -> None:
-    """Make ``plane`` the process-wide fault plane (None = disarm). Install
-    before serving starts (``cli.serve`` arms ``--fault_spec`` before it
-    builds the scheduler; tests use :func:`active`)."""
+    """Make ``plane`` the process-wide fault plane (None = disarm). The
+    event log cannot import this module (obs stays serve-free), so it
+    exposes a ``fault_hook`` slot instead, which installation fills and
+    uninstallation clears. Install before serving starts (``cli.serve``
+    arms ``--fault_spec`` before it builds the scheduler; tests use
+    :func:`active`)."""
     global _PLANE
     _PLANE = plane
+    from transformer_tpu_torch.obs import events
+
+    events.fault_hook = None if plane is None else plane.hook
 
 
 @contextlib.contextmanager

@@ -48,12 +48,16 @@ parses its pipe's lines into the router's inbox queue; every dispatch,
 answer and liveness table belongs to the one thread that runs
 :meth:`Router.pump`.
 
-``telemetry``, where given, is any object with ``emit(kind, **fields)``:
-the router's events (``route.failover``, ``route.revive``,
-``route.dispatch``, and those of the supervisor and the rollout) go
-there. The port's metrics registry and span recorder come with its
-telemetry; the standby's takeover (``seed_takeover``, the HA heartbeat)
-with ``serve/standby.py``.
+``telemetry``, where given, is an ``obs.Telemetry`` (or, in tests, any
+object with ``emit(kind, **fields)``): the router's events
+(``route.failover``, ``route.revive``, ``route.dispatch``, and those of
+the supervisor and the rollout) go there; with a registry, the
+``router_*`` counters, the ``router_queue_seconds`` histogram and the
+fleet-size gauges; with a tracer, one ``route.request`` span per request
+on the ``router`` lane, the parent of the replica's ``serve.request``
+span (its ``traceparent``), so ``python -m transformer_tpu_torch.obs
+trace ROUTER ROUTER.r0 ROUTER.r1`` joins them. The standby's takeover
+(``seed_takeover``, the HA heartbeat) comes with ``serve/standby.py``.
 """
 
 from __future__ import annotations
@@ -127,6 +131,22 @@ def parse_router_line(line: str) -> dict:
     return req
 
 
+# A worker's ``prefix_state`` line (``serve/replica.py`` ``export_state``,
+# written by ``json.dumps``) starts with this. It carries the warm-up's
+# KV (hundreds of MB for long prompts in fp32), so the reader delivers it
+# unparsed, as ``{"type": "prefix_state", "line": <the line>}``, the one
+# form the supervisor takes, which forwards it to the replacement as its
+# ``inject_state`` (``inject_state_line``): parsing it here and encoding it
+# again cost seconds of the warm-up's timeout, on the router's thread.
+PREFIX_STATE_HEAD = '{"type": "prefix_state", '
+
+
+def inject_state_line(prefix_state_line: str) -> str:
+    """A worker's raw ``prefix_state`` line as the ``inject_state`` message
+    for another worker: the same JSON, the type renamed."""
+    return '{"type": "inject_state", ' + prefix_state_line[len(PREFIX_STATE_HEAD):]
+
+
 @dataclasses.dataclass
 class _Tracked:
     """One accepted request, from submit to its one answer."""
@@ -145,6 +165,7 @@ class _Tracked:
     stage: str = "decode"       # disaggregation: "prefill" -> "decode"
     blocks: object = None       # the prefill handoff's payload
     blocks_tokens: int = 0
+    span_root: object = None    # the route.request span (None without a tracer)
 
 
 class ReplicaLink:
@@ -178,9 +199,18 @@ class ReplicaLink:
         self.upgrading = False
         self.wv: str | None = None
         self.final_stats: dict | None = None  # the replica's shutdown report
+        self.final_perf: dict | None = None   # ... and its profiler's rows, if armed
         self.flight_record: dict | None = None  # the last ``dump`` reply's record
+        # Where the worker's event log (and so its flight dumps) lives: the
+        # supervisor salvages <metrics_jsonl>.flight.json after a hard kill.
+        self.metrics_jsonl: str | None = None
 
     def send(self, msg: dict) -> None:
+        raise NotImplementedError
+
+    def send_line(self, line: str) -> None:
+        """Send a message that is already one JSON line (the warm-up's
+        forwarded ``inject_state``)."""
         raise NotImplementedError
 
     def alive(self) -> bool:
@@ -221,7 +251,13 @@ class ReplicaProcess(ReplicaLink):
             sys.executable, "-m", "transformer_tpu_torch.serve.replica",
             "--replica_name", name, "--role", role, *worker_args,
         ]
-        return cls(index, name, argv, role=role)
+        link = cls(index, name, argv, role=role)
+        for i, arg in enumerate(worker_args):
+            if arg == "--metrics_jsonl" and i + 1 < len(worker_args):
+                link.metrics_jsonl = worker_args[i + 1] or None
+            elif arg.startswith("--metrics_jsonl="):
+                link.metrics_jsonl = arg.split("=", 1)[1] or None
+        return link
 
     def start_reader(self, inbox: "queue.Queue") -> None:
         self._reader = threading.Thread(
@@ -235,6 +271,10 @@ class ReplicaProcess(ReplicaLink):
             line = line.strip()
             if not line:
                 continue
+            if line.startswith(PREFIX_STATE_HEAD):
+                if line.endswith("}"):  # else torn by a dying replica
+                    inbox.put((self.index, {"type": "prefix_state", "line": line}))
+                continue
             try:
                 msg = json.loads(line)
             except ValueError:
@@ -246,10 +286,13 @@ class ReplicaProcess(ReplicaLink):
         inbox.put((self.index, {"type": "exit", "pid": self._proc.pid}))
 
     def send(self, msg: dict) -> None:
+        self.send_line(json.dumps(msg))
+
+    def send_line(self, line: str) -> None:
         stdin = self._proc.stdin
         if stdin is None or self._proc.poll() is not None:
             raise BrokenPipeError(f"replica {self.name} is gone")
-        stdin.write(json.dumps(msg) + "\n")
+        stdin.write(line + "\n")
         stdin.flush()
 
     def alive(self) -> bool:
@@ -364,10 +407,29 @@ class Router:
             specs = parse_slo_spec(slos) if isinstance(slos, str) else tuple(slos)
             if specs:
                 self._slo_engine = SLOEngine(
-                    specs, emit=telemetry.emit if telemetry is not None else None,
+                    specs, registry=getattr(telemetry, "registry", None),
+                    emit=telemetry.emit if telemetry is not None else None,
                 )
         # submit -> first dispatch, bounded.
         self.queue_latencies: "deque[float]" = deque(maxlen=65536)
+        self._tracer = getattr(telemetry, "tracer", None)
+        self._reg = getattr(telemetry, "registry", None)
+        if self._reg is not None:
+            reg = self._reg
+            self._m_dispatch = reg.counter("router_dispatch_total",
+                                           "requests dispatched to replicas")
+            self._m_redispatch = reg.counter("router_redispatch_total",
+                                             "failover re-dispatches of in-flight requests")
+            self._m_failover = reg.counter("router_failover_total", "replica failures handled")
+            self._m_answers = reg.counter("router_answers_total", "replica answers accepted")
+            self._m_dup = reg.counter("router_duplicate_answers_total",
+                                      "late/duplicate replica answers dropped by the funnel")
+            self._m_queue_s = reg.histogram("router_queue_seconds", "submit -> first dispatch")
+            self._m_replicas = reg.gauge("router_replicas_live", "replica links currently usable")
+            self._m_replicas.set(len(links))
+            self._m_fleet = reg.gauge("route_fleet_size",
+                                      "healthy serving replicas (live, admitted, not draining)")
+            self._m_fleet.set(len(links))
         if supervisor is not None:
             supervisor.attach(self)
         if scaler is not None:
@@ -391,7 +453,12 @@ class Router:
         both."""
         now = time.perf_counter()
         parent = SpanContext.from_traceparent(req.get("traceparent"))
-        ctx = parent.child() if parent is not None else SpanContext.new()
+        span_root = None
+        if self._tracer is not None:
+            span_root = self._tracer.start_span("route.request", parent=parent, lane="router")
+            ctx = span_root.ctx
+        else:
+            ctx = parent.child() if parent is not None else SpanContext.new()
         affinity = None
         if self.encode is not None:
             try:
@@ -414,6 +481,7 @@ class Router:
                 _Tracked(
                     order=order, req=req, ctx=ctx, t_submit=now, deadline=deadline,
                     affinity=affinity, stage="prefill" if self.disaggregate else "decode",
+                    span_root=span_root,
                 )
             )
         return order
@@ -426,6 +494,14 @@ class Router:
             self._next_order += 1
             self.stats["submitted"] += 1
             self._done[order] = resp
+        if self._tracer is not None:
+            span = self._tracer.start_span("route.request", lane="router")
+            extra = {}
+            if "error" in resp:
+                extra = {"error": resp["error"]}
+                if "code" in resp:
+                    extra["code"] = resp["code"]
+            span.end(order=order, **extra)
         return order
 
     def drain_ready(self) -> list[dict]:
@@ -485,11 +561,13 @@ class Router:
             self.pump()
             out.extend(self.drain_ready())
         out.extend(self.drain_ready())
+        self._flush()
         return out
 
     def shutdown(self) -> None:
         """Close every replica link (a graceful drain where the transport
-        has one), then keep each replica's final ``stats`` report."""
+        has one), keep each replica's final ``stats`` report, and flush
+        telemetry."""
         for link in self.links:
             link.close()
         while True:
@@ -499,6 +577,12 @@ class Router:
                 break
             if msg.get("type") == "stats":
                 self.links[index].final_stats = msg.get("stats")
+                self.links[index].final_perf = msg.get("perf")
+        self._flush()
+
+    def _flush(self) -> None:
+        if hasattr(self._tel, "maybe_flush"):
+            self._tel.maybe_flush(force=True)
 
     # -- fleet management (the supervisor's and the rollout's outlets) --------
 
@@ -514,6 +598,13 @@ class Router:
         link.last_hb = None
         if hasattr(link, "start_reader"):
             link.start_reader(self.inbox)
+        self.on_fleet_change()
+
+    def on_fleet_change(self) -> None:
+        """Refresh the fleet-size gauges after a membership change."""
+        if self._reg is not None:
+            self._m_replicas.set(sum(1 for l in self.links if not l.dead))
+            self._m_fleet.set(len(self.healthy_links))
 
     def append_link(self, link: ReplicaLink) -> None:
         """Grow the fleet by one (a scale-up): a fresh breaker, a fresh
@@ -522,6 +613,7 @@ class Router:
         self.breakers.append(self._breaker(link))
         if hasattr(link, "start_reader"):
             link.start_reader(self.inbox)
+        self.on_fleet_change()
 
     def start_upgrade(self, ckpt: str) -> dict:
         """Begin a rolling weight swap to ``ckpt`` (``--upgrade`` and the
@@ -620,6 +712,7 @@ class Router:
                 self._sup.on_state_injected(link, msg)
         elif kind == "stats":
             link.final_stats = msg.get("stats")
+            link.final_perf = msg.get("perf")
         elif kind == "flight":
             link.flight_record = msg.get("record")
 
@@ -630,6 +723,8 @@ class Router:
             # At most once: already answered (a failover raced a finishing
             # replica), already drained, or never ours.
             self.stats["duplicate_answers"] += 1
+            if self._reg is not None:
+                self._m_dup.inc()
             return
         # Unload the replica the order is assigned to now, not the one that
         # answered: a failed-over victim's late answer releases the
@@ -640,7 +735,7 @@ class Router:
         resp = msg.get("resp")
         if not isinstance(resp, dict):
             resp = error_answer("internal", f"replica {link.name} returned a malformed answer")
-        self._answer(rr, resp, slo=msg.get("slo"))
+        self._answer(rr, resp, replica=link.name, slo=msg.get("slo"))
         self.breakers[link.index].record_success()
 
     def _on_prefilled(self, link: ReplicaLink, msg: dict) -> None:
@@ -694,6 +789,7 @@ class Router:
         link.dead = False
         link.died_at = None
         self.stats["revivals"] += 1
+        self.on_fleet_change()
         self.emit_event("route.revive", replica=link.name)
 
     def _fail_replica(self, index: int, reason: str) -> None:
@@ -722,6 +818,9 @@ class Router:
         with self._intake_lock:
             self._pending.extendleft(reversed(victims))
         self.stats["failovers"] += 1
+        if self._reg is not None:
+            self._m_failover.inc()
+        self.on_fleet_change()
         self.emit_event(
             "route.failover", replica=link.name, reason=reason,
             orders=[rr.order for rr in victims], traces=[rr.ctx.trace_id for rr in victims],
@@ -855,6 +954,11 @@ class Router:
             if redispatch:
                 self.stats["redispatched"] += 1
             progressed = True
+            if self._reg is not None:
+                self._m_dispatch.inc()
+                if redispatch:
+                    self._m_redispatch.inc()
+                self._m_queue_s.observe(now - rr.t_submit)
             self.emit_event(
                 "route.dispatch", order=rr.order, replica=link.name, policy=policy,
                 stage=rr.stage if self.disaggregate else None,
@@ -863,7 +967,7 @@ class Router:
 
     # -- the answer funnel ---------------------------------------------------
 
-    def _answer(self, rr: _Tracked, resp: dict, slo=None) -> None:
+    def _answer(self, rr: _Tracked, resp: dict, replica: str = "", slo=None) -> None:
         with self._intake_lock:
             self._done[rr.order] = resp
         self.stats["answered"] += 1
@@ -882,3 +986,14 @@ class Router:
                 if "code" in resp:
                     sample["code"] = resp["code"]
             self._slo_engine.record(sample)
+        if rr.span_root is not None:
+            extra = {}
+            if "error" in resp:
+                extra["error"] = resp["error"]
+                if "code" in resp:
+                    extra["code"] = resp["code"]
+            rr.span_root.end(order=rr.order, replica=replica,
+                             redispatches=rr.redispatches, **extra)
+            rr.span_root = None
+        if self._reg is not None:
+            self._m_answers.inc()

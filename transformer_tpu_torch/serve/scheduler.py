@@ -92,17 +92,37 @@ The rest is the JAX scheduler's:
   ``prompt_tokens``, ``new_tokens``, ``queue_s``, ``total_s``, ``ttft_s``,
   ``prefill_s``, ``forwards``, ``prefix_hit_tokens``, ``weight_version``).
 
+- telemetry (``telemetry=``, an ``obs.Telemetry``; the JAX scheduler's
+  hooks): ``serve_*`` gauges, counters and histograms, a ``serve.request``
+  event per answer (the span dict above; errors too), ``serve.retry`` per
+  admission retry and ``serve.breaker`` per breaker transition. With its
+  tracer every request is a span tree: ``serve.request`` (under the
+  request's ``traceparent`` when it has one) with ``serve.queue``,
+  ``serve.admit`` (``prefix.match``), ``serve.prefill``
+  (``prefix.restore``), ``serve.decode`` and ``prefix.insert``, and every
+  step a ``scheduler.step`` (verify: ``spec.draft``, ``spec.verify``,
+  ``spec.rollback``). With its profiler each pool step, verify step and
+  slot prefill is recorded under the JAX program names
+  (``serve.pool_step_paged_flash``, ...), timed up to the device
+  synchronize the step already has (the picks' readback; the prefill's
+  synchronize). ``slos`` (specs or a ``--slo_spec`` string) feeds the
+  answers to an ``obs.slo.SLOEngine``: ``serve_slo_burn_*`` gauges and
+  ``slo.burn`` events. Nothing of it runs inside a captured graph, so
+  answers, captures, replays and kernel launches are the same with it on
+  and off.
+
 Greedy answers equal ``serve_batch=1`` sequential serving (each request
 alone through ``train.decode.generate``), as in the JAX package. Left out
-here (later slices): telemetry/tracing and the scheduler's own SLO engine,
-the sharded replica, MoE.
+here (later slices): the sharded replica, MoE.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
+import zlib
 from collections import deque
 
 import numpy as np
@@ -139,6 +159,7 @@ from transformer_tpu_torch.ops.attention import (
 )
 from transformer_tpu_torch.serve.graph import CapturedForward
 from transformer_tpu_torch.serve.resilience import (
+    BREAKER_STATE_VALUE,
     CircuitBreaker,
     TransientError,
     backoff_ms,
@@ -329,6 +350,13 @@ def _slot_prefill_paged(params, pools: list[dict], row: torch.Tensor, prompt: to
     return logits
 
 
+def version_value(tag: str | None) -> float:
+    """The ``serve_weight_version`` gauge's number for a weight_version tag:
+    its crc32 (exact in a float64, the same in every process), 0.0 when
+    untagged."""
+    return float(zlib.crc32(str(tag).encode())) if tag else 0.0
+
+
 @dataclasses.dataclass
 class _Pending:
     order: int
@@ -337,6 +365,13 @@ class _Pending:
     not_before: float = 0.0    # perf_counter time before which admit() skips it
     t_enqueue: float = 0.0     # perf_counter time of submission
     deadline: float | None = None  # perf_counter time past which it expires
+    # Tracing (None without a tracer): the request's root span and its open
+    # lifecycle children; admit and prefill ride here only during an
+    # admission attempt, so a retry or an admission error can close them.
+    span_root: object = None
+    span_queue: object = None
+    span_admit: object = None
+    span_prefill: object = None
 
 
 @dataclasses.dataclass
@@ -369,6 +404,16 @@ class _Active:
     t_admit: float = 0.0
     t_prefill: float | None = None
     t_first: float | None = None
+    # Tracing spans (None without a tracer), taken over from the _Pending:
+    # prefill closes when the last prompt token is in (the t_prefill edge),
+    # decode opens there.
+    span_root: object = None
+    span_prefill: object = None
+    span_decode: object = None
+
+    @property
+    def trace_id(self) -> str | None:
+        return None if self.span_root is None else self.span_root.ctx.trace_id
 
 
 class ContinuousScheduler:
@@ -417,6 +462,8 @@ class ContinuousScheduler:
         decode_kernel: str = "xla",
         weight_version: str | None = None,
         span_tap=None,
+        telemetry=None,
+        slos=None,
         device="cuda",
     ):
         # The JAX scheduler's checks, in its order and with its messages.
@@ -573,6 +620,96 @@ class ContinuousScheduler:
             # live weights: flips landed, and their seconds on the host clock
             "swaps": 0, "swap_s": 0.0,
         }
+        self._init_telemetry(telemetry, slos)
+
+    def _init_telemetry(self, telemetry, slos) -> None:
+        """The JAX scheduler's telemetry: host-side records at the step and
+        admission boundaries the loop already has."""
+        self._tel = telemetry
+        self._tracer = getattr(telemetry, "tracer", None)
+        self._profiler = getattr(telemetry, "profiler", None)
+        # The programs this scheduler runs, under the JAX package's names.
+        kind = ("_paged_flash" if self.decode_kernel == "paged_flash"
+                else "_paged" if self.paged else "")
+        self._prog_step = "serve.pool_step" + kind
+        self._prog_verify = "serve.pool_verify" + kind
+        self._prog_prefill = "serve.slot_prefill" + ("_paged" if self.paged else "")
+        # The trace id of the request whose fault a breaker is recording,
+        # set around admission, drafting and retirement on the scheduler
+        # thread: serve.breaker events carry it.
+        self._breaker_trace: str | None = None
+        self._slo = None
+        if telemetry is not None and slos:
+            from transformer_tpu_torch.obs.slo import SLOEngine, parse_slo_spec
+
+            specs = parse_slo_spec(slos) if isinstance(slos, str) else tuple(slos)
+            if specs:
+                self._slo = SLOEngine(specs, registry=telemetry.registry, emit=telemetry.emit)
+        if telemetry is None:
+            return
+        reg = telemetry.registry
+        self._m_slots_total = reg.gauge("serve_slots_total", "configured KV-cache slots")
+        self._m_slots_total.set(self.num_slots)
+        self._m_weight_version = reg.gauge(
+            "serve_weight_version",
+            "crc32 of the serving weight_version tag (0 = untagged); flips exactly at the "
+            "step-boundary weight swap")
+        self._m_weight_version.set(version_value(self.weight_version))
+        self._m_active = reg.gauge("serve_slots_active", "slots occupied by in-flight requests")
+        self._m_backlog = reg.gauge("serve_backlog", "submitted-but-not-admitted requests")
+        self._m_ready = reg.gauge("serve_ready", "completed responses awaiting drain")
+        self._m_requests = reg.counter("serve_requests_total", "requests submitted (incl. errors)")
+        self._m_admissions = reg.counter("serve_admissions_total", "requests admitted into a slot")
+        self._m_retirements = reg.counter("serve_retirements_total",
+                                          "requests finished and retired")
+        self._m_errors = reg.counter("serve_errors_total", "requests answered with an error")
+        self._m_steps = reg.counter("serve_steps_total", "pool decode steps executed")
+        self._m_tokens = reg.counter("serve_generated_tokens_total", "tokens emitted to clients")
+        self._m_queue_s = reg.histogram("serve_queue_seconds", "submit -> slot admission")
+        self._m_prefill_s = reg.histogram("serve_prefill_seconds",
+                                          "admission -> prompt ingested")
+        self._m_ttft_s = reg.histogram("serve_ttft_seconds", "submit -> first generated token")
+        self._m_total_s = reg.histogram("serve_request_seconds", "submit -> response complete")
+        self._m_step_s = reg.histogram(
+            "serve_step_seconds",
+            "one pool step (all slots): row building, the forward and the picks' readback "
+            "(its device synchronize)")
+        if self.speculate_k:
+            self._m_spec_drafted = reg.counter("serve_spec_drafted_total",
+                                               "draft tokens proposed to verify steps")
+            self._m_spec_accepted = reg.counter("serve_spec_accepted_total",
+                                                "draft tokens the target model accepted")
+            self._m_spec_rejected = reg.counter(
+                "serve_spec_rejected_total", "draft tokens rejected or wasted past a mismatch")
+        if self.prefix_cache is not None:
+            self._m_prefix_hit = reg.counter(
+                "serve_prefix_hit_tokens_total",
+                "prompt tokens restored from the prefix cache (no model forward)")
+            self._m_prefix_evicted = reg.counter(
+                "serve_prefix_evicted_blocks_total",
+                "prefix-cache KV blocks evicted under the byte budget")
+        if self.paged:
+            self._m_pool_used = reg.gauge(
+                "serve_kv_pool_used_blocks",
+                "paged KV pool blocks referenced by live slots or the device-resident "
+                "prefix tier")
+            self._m_pool_free = reg.gauge("serve_kv_pool_free_blocks",
+                                          "paged KV pool blocks on the free list")
+            self._m_pool_used.set(self.alloc.used_blocks)
+            self._m_pool_free.set(self.alloc.free_blocks)
+            if self.prefix_cache is not None:
+                self._m_alias_tokens = reg.counter(
+                    "serve_prefix_alias_tokens_total",
+                    "prompt tokens served by device-side block-table aliasing (no copy); "
+                    "a subset of serve_prefix_hit_tokens_total")
+        self._m_deadline = reg.counter("serve_deadline_expired_total",
+                                       "requests answered with a deadline error")
+        self._m_cancelled = reg.counter("serve_cancelled_total",
+                                        "requests cancelled by the client")
+        self._m_backpressure = reg.counter("serve_backpressure_total",
+                                           "requests refused at submit (max_backlog)")
+        self._m_retries = reg.counter("serve_admission_retries_total",
+                                      "transient admission faults retried with backoff")
 
     def _step_program(self):
         """The layout's step forward on device tensors, ``(toks, table,
@@ -588,7 +725,70 @@ class ContinuousScheduler:
         return lambda toks, table, index: _pool_step(self.params, self.pools, toks, index, self.cfg)
 
     def _on_breaker_transition(self, name: str, old: str, new: str) -> None:
+        """Log the transition; with telemetry, a gauge (0 closed, 1
+        half-open, 2 open) and a ``serve.breaker`` event carrying the trace
+        id of the request whose fault moved it (when tracing)."""
         self.breaker_log.append((name, old, new))
+        if self._tel is None:
+            return
+        self._tel.registry.gauge(
+            f"serve_breaker_state_{name}", "circuit-breaker state: 0 closed, 1 half-open, 2 open",
+        ).set(BREAKER_STATE_VALUE[new])
+        extra = {} if self._breaker_trace is None else {"trace": self._breaker_trace}
+        self._tel.emit("serve.breaker", name=name, state=new, previous=old, **extra)
+
+    # ---- tracing and the answer funnel ---------------------------------------
+
+    def _traced(self, name: str, parent, **attrs):
+        """A span with an explicit parent (a request's spans join its own
+        tree, never the current step's), or a no-op without a tracer."""
+        if self._tracer is None:
+            return contextlib.nullcontext()
+        return self._tracer.span(name, parent=parent, **attrs)
+
+    def _record_request(self, span: dict, root=None) -> None:
+        """The one answer-boundary funnel: the span dict goes to the SLO
+        engine, the span tap and the ``serve.request`` event alike, stamped
+        with the request's trace id."""
+        if root is not None:
+            span.setdefault("trace", root.ctx.trace_id)
+        if self._slo is not None:
+            self._slo.record(dict(span))
+        if self._span_tap is not None:
+            self._span_tap(dict(span))
+        if self._tel is not None:
+            self._tel.emit("serve.request", **span)
+
+    @staticmethod
+    def _end_spans(obj, attrs: tuple[str, ...], **fields) -> None:
+        """Close the still-open spans named by ``attrs`` on a _Pending or an
+        _Active."""
+        for attr in attrs:
+            sp = getattr(obj, attr, None)
+            if sp is not None:
+                sp.end(**fields)
+                setattr(obj, attr, None)
+
+    def _trace_prefill_done(self, st: _Active) -> None:
+        """The whole prompt is in: close the prefill span, open decode."""
+        if st.span_prefill is not None:
+            st.span_prefill.end(prompt_tokens=st.prompt_len, prefix_hit_tokens=st.prefix_hit)
+            st.span_prefill = None
+            st.span_decode = self._tracer.start_span(
+                "serve.decode", parent=st.span_root, lane=st.span_root.lane
+            )
+
+    def _gauges(self) -> None:
+        """The step boundary's gauges and periodic sinks (telemetry only)."""
+        self._m_active.set(len(self._active))
+        self._m_backlog.set(len(self._queue))
+        self._m_ready.set(len(self._done))
+        if self.paged:
+            self._m_pool_used.set(self.alloc.used_blocks)
+            self._m_pool_free.set(self.alloc.free_blocks)
+        self._tel.maybe_flush()
+        if self._slo is not None:
+            self._slo.maybe_evaluate()
 
     def warm_up(self) -> None:
         """Run the step forward once with every slot free, so that on the
@@ -708,6 +908,8 @@ class ContinuousScheduler:
         self.stats["swap_s"] += time.perf_counter() - t0
         self._prev_version, self.weight_version = self.weight_version, version
         self._swap_events.append({"ok": True, "version": version})
+        if self._tel is not None:
+            self._m_weight_version.set(version_value(version))
 
     # ---- intake ------------------------------------------------------------
 
@@ -718,41 +920,80 @@ class ContinuousScheduler:
         ``deadline_ms`` that does not parse is left to admission, which
         answers it as a validation error."""
         now = time.perf_counter()
+        # The root span, under an incoming W3C "traceparent" when the
+        # request has one (the fleet's router sends it); a malformed header
+        # starts a fresh trace.
+        root = queue_span = None
+        if self._tracer is not None:
+            from transformer_tpu_torch.obs.trace import SpanContext
+
+            root = self._tracer.start_span(
+                "serve.request", lane="intake",
+                parent=SpanContext.from_traceparent(req.get("traceparent")),
+            )
+            queue_span = self._tracer.start_span("serve.queue", parent=root, lane="intake")
+        refused, refused_code = None, "backpressure"
         with self._intake_lock:
             order = self._next_order
             self._next_order += 1
             if self._closed:
-                self._done[order] = error_answer(
-                    "routing",
-                    "scheduler is shut down and accepts no new requests; "
-                    "resubmit to a live replica",
-                )
-                return order
-            if self.max_backlog and len(self._queue) >= self.max_backlog:
+                refused = ("scheduler is shut down and accepts no new requests; "
+                           "resubmit to a live replica")
+                refused_code = "routing"
+                self._done[order] = error_answer(refused_code, refused)
+            elif self.max_backlog and len(self._queue) >= self.max_backlog:
                 self.stats["backpressure"] += 1
-                self._done[order] = error_answer(
-                    "backpressure",
-                    f"admission queue is full ({self.max_backlog} requests); "
-                    "retry after a backoff",
-                )
-                return order
-            deadline = None
-            try:
-                d = req.get("deadline_ms")
-                if d is not None:
-                    deadline = now + float(d) / 1e3
-            except (TypeError, ValueError):
-                pass  # _start parses it again and answers the validation error
-            self._queue.append(_Pending(order=order, req=req, t_enqueue=now, deadline=deadline))
-            if deadline is not None:
-                self._queued_deadlines += 1
+                refused = (f"admission queue is full ({self.max_backlog} requests); "
+                           "retry after a backoff")
+                self._done[order] = error_answer("backpressure", refused)
+            else:
+                deadline = None
+                try:
+                    d = req.get("deadline_ms")
+                    if d is not None:
+                        deadline = now + float(d) / 1e3
+                except (TypeError, ValueError):
+                    pass  # _start parses it again and answers the validation error
+                self._queue.append(_Pending(order=order, req=req, t_enqueue=now,
+                                            deadline=deadline, span_root=root,
+                                            span_queue=queue_span))
+                if deadline is not None:
+                    self._queued_deadlines += 1
+        if refused is not None and root is not None:
+            queue_span.end(error=refused)
+            root.end(order=order, error=refused, code=refused_code)
+        if self._tel is not None:
+            self._m_requests.inc()
+            if refused is not None:
+                if refused_code == "backpressure":
+                    self._m_backpressure.inc()
+                self._m_errors.inc()
+                self._record_request({"order": order, "total_s": 0.0, "error": refused,
+                                      "code": refused_code}, root=root)
         return order
 
     def submit_done(self, resp: dict) -> int:
+        root = None
+        if self._tracer is not None:
+            # A pre-answered line still gets a (leaf) span: every output
+            # order is accounted for in the trace.
+            root = self._tracer.start_span("serve.request", lane="intake")
         with self._intake_lock:
             order = self._next_order
             self._next_order += 1
             self._done[order] = resp
+        extra = {}
+        if "error" in resp:
+            extra["error"] = resp["error"]
+            if "code" in resp:
+                extra["code"] = resp["code"]
+        if root is not None:
+            root.end(order=order, **extra)
+        if self._tel is not None:
+            self._m_requests.inc()
+            if "error" in resp:
+                self._m_errors.inc()
+            self._record_request({"order": order, "total_s": 0.0, **extra}, root=root)
         return order
 
     def shutdown(self) -> None:
@@ -784,6 +1025,18 @@ class ContinuousScheduler:
         """Answer a cancellation caught before admission."""
         self.stats["cancelled"] += 1
         self._done[p.order] = error_answer("cancelled", message)
+        root = p.span_root
+        self._end_spans(p, ("span_queue", "span_admit", "span_prefill"))
+        self._end_spans(p, ("span_root",), order=p.order, error=message, code="cancelled")
+        if self._tel is not None:
+            now = time.perf_counter()
+            self._m_cancelled.inc()
+            self._m_errors.inc()
+            span = {"order": p.order, "error": message, "code": "cancelled"}
+            if p.t_enqueue:
+                span["queue_s"] = round(now - p.t_enqueue, 6)
+                span["total_s"] = round(now - p.t_enqueue, 6)
+            self._record_request(span, root=root)
 
     def _answer_expired(self, p: _Pending, now: float) -> None:
         """A queued request's deadline passed before a slot freed."""
@@ -793,6 +1046,37 @@ class ContinuousScheduler:
             f"deadline_ms elapsed after {round((now - p.t_enqueue) * 1e3)}ms "
             "in the admission queue",
         )
+        root = p.span_root
+        self._end_spans(p, ("span_queue", "span_admit", "span_prefill"))
+        self._end_spans(p, ("span_root",), order=p.order, error=self._done[p.order]["error"],
+                        code="deadline")
+        if self._tel is not None:
+            self._m_deadline.inc()
+            self._m_errors.inc()
+            self._record_request({
+                "order": p.order, "queue_s": round(now - p.t_enqueue, 6),
+                "total_s": round(now - p.t_enqueue, 6),
+                "error": self._done[p.order]["error"], "code": "deadline",
+            }, root=root)
+
+    def _answer_admission_error(self, p: _Pending, e: BaseException, now: float,
+                                code: str | None = None) -> None:
+        """An admission that failed for good answers its error alone."""
+        code = code or classify_error(e)
+        self._done[p.order] = error_answer(code, f"{type(e).__name__}: {e}")
+        root = p.span_root
+        self._end_spans(p, ("span_queue", "span_admit", "span_prefill"), error=type(e).__name__)
+        self._end_spans(p, ("span_root",), order=p.order, error=self._done[p.order]["error"],
+                        code=code)
+        if self._tel is not None:
+            t_enq = p.t_enqueue
+            self._m_errors.inc()
+            self._record_request({
+                "order": p.order,
+                "queue_s": round(now - t_enq, 6) if t_enq else 0.0,
+                "total_s": round(now - t_enq, 6) if t_enq else 0.0,
+                "error": self._done[p.order]["error"], "code": code,
+            }, root=root)
 
     def _expire(self, now: float) -> None:
         """The sweep at a step boundary: queued requests past their
@@ -838,13 +1122,38 @@ class ContinuousScheduler:
                         self._cancel_pending.pop(order, None)
 
     def _abort(self, slot: int, st: _Active, code: str, message: str) -> None:
-        """Free an occupied slot without retiring it normally (deadline or
-        cancellation): its blocks go back to the pool and its table row to
-        the sink, so later steps write nothing of it; nothing is donated to
-        the prefix cache (admission released its hit already); the answer
-        is a ``code`` error carrying the emitted tokens as ``partial``."""
-        self.stats["deadline_expired" if code == "deadline" else "cancelled"] += 1
+        """Free an occupied slot without retiring it normally (deadline,
+        cancellation, or the paged pool's ``resource`` preemption): its
+        blocks go back to the pool and its table row to the sink, so later
+        steps write nothing of it; nothing is donated to the prefix cache
+        (admission released its hit already); the answer is a ``code``
+        error carrying the emitted tokens as ``partial``."""
+        if code == "deadline":
+            self.stats["deadline_expired"] += 1
+        elif code == "cancelled":
+            self.stats["cancelled"] += 1
         self._retire(slot, st, error_answer(code, message))
+        root = st.span_root
+        self._end_spans(st, ("span_prefill", "span_decode"))
+        self._end_spans(st, ("span_root",), order=st.order, error=message, code=code,
+                        new_tokens=len(st.emitted))
+        if self._tel is not None:
+            now = time.perf_counter()
+            if code == "deadline":
+                self._m_deadline.inc()
+            elif code == "cancelled":
+                self._m_cancelled.inc()
+            self._m_errors.inc()
+            span = {
+                "order": st.order, "prompt_tokens": st.prompt_len,
+                "new_tokens": len(st.emitted),
+                "queue_s": round(st.t_admit - st.t_enqueue, 6),
+                "total_s": round(now - st.t_enqueue, 6),
+                "error": message, "code": code,
+            }
+            if st.wv is not None:
+                span["weight_version"] = st.wv
+            self._record_request(span, root=root)
 
     @property
     def busy(self) -> bool:
@@ -911,12 +1220,26 @@ class ContinuousScheduler:
                     p.not_before = now + wait / 1e3
                     deferred.append(p)
                     self.stats["retries"] += 1
+                    # The failed attempt's spans close with the fault; a
+                    # fresh queue span covers the backoff wait.
+                    self._end_spans(p, ("span_admit", "span_prefill"),
+                                    error=f"{type(e).__name__}: {e}", retried=True)
+                    if self._tracer is not None and p.span_queue is None:
+                        p.span_queue = self._tracer.start_span(
+                            "serve.queue", parent=p.span_root, lane="intake", attempt=p.attempts,
+                        )
+                    if self._tel is not None:
+                        self._m_retries.inc()
+                        retry_ev = {"order": p.order, "attempt": p.attempts,
+                                    "backoff_ms": round(wait, 3),
+                                    "error": f"{type(e).__name__}: {e}"}
+                        if p.span_root is not None:
+                            retry_ev["trace"] = p.span_root.ctx.trace_id
+                        self._tel.emit("serve.retry", **retry_ev)
                     continue
-                self._done[p.order] = error_answer("transient", f"{type(e).__name__}: {e}")
+                self._answer_admission_error(p, e, now, "transient")
             except Exception as e:  # noqa: BLE001 — per-request isolation: any admission failure answers this request alone
-                self._done[p.order] = error_answer(
-                    classify_error(e), f"{type(e).__name__}: {e}"
-                )
+                self._answer_admission_error(p, e, now)
         with self._intake_lock:
             self._queue.extendleft(reversed(deferred))
             self._queued_deadlines += sum(1 for p in deferred if p.deadline is not None)
@@ -925,7 +1248,23 @@ class ContinuousScheduler:
             time.sleep(min(min(p.not_before for p in deferred) - now, 0.05))
 
     def _start(self, p: _Pending) -> None:
+        """Admit ``p`` (``_start_inner``); the breaker's fault attribution
+        ends with the admission."""
+        try:
+            self._start_inner(p)
+        finally:
+            self._breaker_trace = None
+
+    def _start_inner(self, p: _Pending) -> None:
         maybe_fail("serve.prefill")  # the fault plane's admission point
+        if self._tracer is not None:
+            # The queue phase ends here (a retry opens it again); from
+            # validation to the first pick is the admit span, and a fault
+            # from here on feeds the breakers under this request's name.
+            self._end_spans(p, ("span_queue",))
+            p.span_admit = self._tracer.start_span("serve.admit", parent=p.span_root,
+                                                   lane="intake")
+            self._breaker_trace = p.span_root.ctx.trace_id
         req, cfg = p.req, self.cfg
         ids = [self.tok.bos_id, *self.tok.encode(str(req["prompt"]))]
         L = len(ids)
@@ -976,8 +1315,11 @@ class ContinuousScheduler:
             # Match the prompt less its last token: at least one token goes
             # through the forward, whose logits make the first pick.
             try:
-                hit = self.prefix_cache.match(ids[: L - 1])
-                m = hit.tokens
+                with self._traced("prefix.match", p.span_admit, lane="intake") as msp:
+                    hit = self.prefix_cache.match(ids[: L - 1])
+                    m = hit.tokens
+                    if msp is not None:
+                        msp.set(hit_tokens=m)
             except Exception:  # noqa: BLE001 — any cache failure (corrupt block, injected fault) feeds the breaker; this admission prefills in full
                 self._brk_prefix.record_failure()
                 prefix_ok = False
@@ -986,14 +1328,21 @@ class ContinuousScheduler:
         n = m + n_suffix
         slot = self._free.pop()
         t_admit = time.perf_counter()
+        if self._tracer is not None:
+            # The slot is known: the rest of the request renders on its lane.
+            p.span_root.lane = f"slot{slot}"
+            p.span_prefill = self._tracer.start_span("serve.prefill", parent=p.span_root,
+                                                     lane=f"slot{slot}")
         aliased = 0
         try:
             if m:
                 try:
-                    if self.paged:
-                        aliased = self._restore(slot, hit)
-                    else:
-                        _slot_restore(self.pools, slot, hit.stacked(self.buf_len))
+                    with self._traced("prefix.restore", p.span_prefill, lane=f"slot{slot}",
+                                      tokens=m):
+                        if self.paged:
+                            aliased = self._restore(slot, hit)
+                        else:
+                            _slot_restore(self.pools, slot, hit.stacked(self.buf_len))
                 except TransientError:
                     raise
                 except Exception as e:  # noqa: BLE001 — a failed restore falls back to full prefill (the prefill resets the slot's position), feeding the breaker
@@ -1016,7 +1365,8 @@ class ContinuousScheduler:
             t0 = time.perf_counter()
             logits = self._prefill(slot, ids[m:n], m)
             synchronize(self.device)
-            self.stats["prefill_s"] += time.perf_counter() - t0
+            prefill_s = time.perf_counter() - t0
+            self.stats["prefill_s"] += prefill_s
         except BaseException:
             if self.paged:
                 self.alloc.free_slot(slot)
@@ -1025,6 +1375,10 @@ class ContinuousScheduler:
         finally:
             if hit is not None:
                 hit.release()
+        if self._profiler is not None:
+            # The prefill up to its synchronize; tokens = the suffix fed
+            # through the forward (the restored prefix excluded).
+            self._profiler.record(self._prog_prefill, prefill_s, tokens=n_suffix)
         if use_prefix and prefix_ok:
             # The cache served this admission (hit or clean miss): a
             # half-open probe closes the breaker here.
@@ -1037,6 +1391,10 @@ class ContinuousScheduler:
         if self.paged:
             self.stats["prefix_alias_tokens"] += aliased
             self.stats["host_restored_tokens"] += m - aliased
+        if m and self._tel is not None and self.prefix_cache is not None:
+            self._m_prefix_hit.inc(m)
+            if aliased:
+                self._m_alias_tokens.inc(aliased)
         spec = bool(self.speculate_k) and bool(req.get("speculate", True))
         st = _Active(
             order=p.order, ids=ids, prompt_len=L, pos=n, cur=PAD_ID,
@@ -1045,19 +1403,30 @@ class ContinuousScheduler:
             spec=spec, dstate=self.drafter.start(ids) if spec else None,
             use_prefix=use_prefix, deadline=deadline, prefix_hit=m, wv=self.weight_version,
             t_enqueue=p.t_enqueue or t_admit, t_admit=t_admit, t_prefill=time.perf_counter(),
+            # The spans pass from the _Pending to the slot's state.
+            span_root=p.span_root, span_prefill=p.span_prefill,
         )
+        p.span_root = p.span_prefill = None
         self._active[slot] = st
         self.stats["admitted"] += 1
         self.stats["max_active"] = max(self.stats["max_active"], len(self._active))
+        self._end_spans(p, ("span_admit",), slot=slot, prefix_hit_tokens=st.prefix_hit)
         if deadline is not None and time.perf_counter() >= deadline:
             # The prefill alone spent the budget: answer now rather than
             # decode tokens the client has given up on.
+            if self._tel is not None:
+                self._m_admissions.inc()
             self._abort(slot, st, "deadline", "deadline_ms elapsed during prefill")
             return
         if n < L:
             st.cur = ids[n]  # the prompt tail feeds through the steps
         else:
-            self._consume_pick(slot, st, self._pick(logits, [st], [n - 1])[0])
+            tokv = self._pick(logits, [st], [n - 1])[0]
+            if self._tracer is not None:
+                self._trace_prefill_done(st)  # the whole prompt is in
+            self._consume_pick(slot, st, tokv)
+        if self._tel is not None:
+            self._m_admissions.inc()
 
     def _prefill(self, slot: int, prompt: list[int], start: int) -> torch.Tensor:
         """Chunked prefill of ``prompt`` at positions ``start ..`` into
@@ -1129,11 +1498,10 @@ class ContinuousScheduler:
                 self._cow(slot, st.pos, st.pos + width)
             except KVPoolExhausted as e:
                 self.stats["kv_preempted"] += 1
-                self._retire(slot, st, error_answer(
-                    "resource",
-                    f"kv pool exhausted after {len(st.emitted)} of "
-                    f"{st.max_new} tokens: {e}",
-                ))
+                self._abort(
+                    slot, st, "resource",
+                    f"kv pool exhausted after {len(st.emitted)} of {st.max_new} tokens: {e}",
+                )
 
     # ---- stepping ----------------------------------------------------------
 
@@ -1160,6 +1528,8 @@ class ContinuousScheduler:
         if self._active and self.paged:
             self._prepare(self.speculate_k + 1)
         if not self._active:
+            if self._tel is not None:
+                self._gauges()
             return
         if self.speculate_k:
             self._step_verify()
@@ -1171,6 +1541,12 @@ class ContinuousScheduler:
 
     def _step_plain(self) -> None:
         t0 = time.perf_counter()
+        step_span = None
+        if self._tracer is not None:
+            step_span = self._tracer.start_span(
+                "scheduler.step", lane="scheduler", active=len(self._active),
+                backlog=len(self._queue),
+            )
         N = self.num_slots
         toks = np.full((N, 1), PAD_ID, np.int64)
         positions = np.zeros((N,), np.int32)
@@ -1192,7 +1568,21 @@ class ContinuousScheduler:
                 continue
             if st.pos == st.prompt_len and not st.emitted:
                 st.t_prefill = time.perf_counter()  # the tail's last token went in
+                if self._tracer is not None:
+                    self._trace_prefill_done(st)
             self._consume_pick(slot, st, tokv)
+        if step_span is not None:
+            step_span.end()
+        if self._tel is not None:
+            # The picks' readback above was the step's device synchronize,
+            # so this is the step's time, not its launch's.
+            dt_step = time.perf_counter() - t0
+            self._m_step_s.observe(dt_step)
+            self._m_steps.inc()
+            if self._profiler is not None:
+                # One token per slot that picked this step.
+                self._profiler.record(self._prog_step, dt_step, tokens=len(picks))
+            self._gauges()
 
     def _step_verify(self) -> None:
         """One speculative verify step: every occupied slot feeds its
@@ -1208,6 +1598,15 @@ class ContinuousScheduler:
         ``drafter_slow_ms``, feeds the breaker, and its row goes
         undrafted. Greedy answers equal the plain path's."""
         t0 = time.perf_counter()
+        n_rows = len(self._active)  # rows fed (before any retires)
+        step_span = draft_span = None
+        if self._tracer is not None:
+            step_span = self._tracer.start_span(
+                "scheduler.step", lane="scheduler", active=len(self._active),
+                backlog=len(self._queue),
+            )
+            draft_span = self._tracer.start_span("spec.draft", parent=step_span,
+                                                 lane="scheduler")
         N, W = self.num_slots, self.speculate_k + 1
         toks = np.full((N, W), PAD_ID, np.int64)
         positions = np.zeros((N,), np.int32)
@@ -1217,6 +1616,7 @@ class ContinuousScheduler:
             self.stats["spec_breaker_open_steps"] += 1
         for slot, st in self._active.items():
             drafter = self.drafter if (st.spec and spec_allowed) else None
+            self._breaker_trace = st.trace_id  # a drafter fault is this request's
             t_draft = time.perf_counter()
             try:
                 row, n_drafted = build_verify_row(
@@ -1237,6 +1637,12 @@ class ContinuousScheduler:
             rows[slot] = (row, n_drafted)
             toks[slot, : len(row)] = row
             positions[slot] = st.pos
+        self._breaker_trace = None
+        verify_span = None
+        if draft_span is not None:
+            draft_span.end(drafted=sum(n for _, n in rows.values()))
+            verify_span = self._tracer.start_span("spec.verify", parent=step_span,
+                                                  lane="scheduler", width=W)
         logits = self.forward(toks, self._table(), positions)
         greedy = torch.argmax(logits, dim=-1).tolist()  # (N, W)
         drafted = accepted = 0
@@ -1278,17 +1684,42 @@ class ContinuousScheduler:
                 continue
             if not st.emitted:
                 st.t_prefill = time.perf_counter()  # a tail-fed prompt's first pick
+                if self._tracer is not None:
+                    self._trace_prefill_done(st)
             for tok in emitted:
                 self._consume_pick(slot, st, tok)
                 if slot not in self._active:
                     break  # retired (EOS / budget): the row's tail is dropped
+        rollback_span = None
+        if verify_span is not None:
+            verify_span.end(drafted=drafted, accepted=accepted)
+            rollback_span = self._tracer.start_span("spec.rollback", parent=step_span,
+                                                    lane="scheduler")
         if self.paged:
             for slot, st in self._active.items():
                 self.alloc.truncate(slot, st.pos)
+        if rollback_span is not None:
+            rollback_span.end()
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["steps"] += 1
         self.stats["drafted"] += drafted
         self.stats["accepted"] += accepted
+        if step_span is not None:
+            step_span.end(drafted=drafted, accepted=accepted)
+        if self._tel is not None:
+            dt_step = time.perf_counter() - t0
+            self._m_step_s.observe(dt_step)
+            self._m_steps.inc()
+            if self._profiler is not None:
+                # W positions scored per fed row: the verify forward's work.
+                self._profiler.record(self._prog_verify, dt_step, tokens=n_rows * W)
+            if drafted:
+                self._m_spec_drafted.inc(drafted)
+                if accepted:
+                    self._m_spec_accepted.inc(accepted)
+                if drafted - accepted:
+                    self._m_spec_rejected.inc(drafted - accepted)
+            self._gauges()
 
     def _consumable(self, st: _Active, emitted: list[int]) -> int:
         """How many of a verify row's emissions ``_consume_pick`` takes
@@ -1313,12 +1744,17 @@ class ContinuousScheduler:
         if st.t_first is None:
             st.t_first = time.perf_counter()
         self.stats["generated_tokens"] += 1
+        if self._tel is not None:
+            self._m_tokens.inc()
         if len(st.emitted) >= st.max_new:
             self._finish(slot, st)
         else:
             st.cur = tokv
 
     def _finish(self, slot: int, st: _Active) -> None:
+        # Before allow(): a cooldown's open -> half-open transition inside
+        # it belongs to this request.
+        self._breaker_trace = st.trace_id
         if self.prefix_cache is not None and st.use_prefix and self._brk_prefix.allow():
             # Feed the trie before the slot is recycled: its block-aligned
             # prompt region, donated by reference to the device tier
@@ -1328,28 +1764,48 @@ class ContinuousScheduler:
             aligned = (st.prompt_len // B) * B
             if aligned:
                 try:
-                    if self.paged:
-                        self.prefix_cache.insert_device(
-                            st.ids, aligned,
-                            [int(b) for b in self.alloc.table[slot][: aligned // B]],
-                        )
-                    else:
-                        self.prefix_cache.insert(
-                            st.ids, aligned,
-                            lambda start: _slot_read_blocks(self.pools, slot, start, B),
-                        )
+                    with self._traced("prefix.insert", st.span_root,
+                                      lane=st.span_root.lane if st.span_root else None,
+                                      tokens=aligned):
+                        if self.paged:
+                            evicted = self.prefix_cache.insert_device(
+                                st.ids, aligned,
+                                [int(b) for b in self.alloc.table[slot][: aligned // B]],
+                            )
+                        else:
+                            evicted = self.prefix_cache.insert(
+                                st.ids, aligned,
+                                lambda start: _slot_read_blocks(self.pools, slot, start, B),
+                            )
                 except Exception:  # noqa: BLE001 — feeding the trie is best-effort: a fault feeds the breaker and this request donates nothing
                     self._brk_prefix.record_failure()
                 else:
                     self._brk_prefix.record_success()
+                    if evicted and self._tel is not None:
+                        self._m_prefix_evicted.inc(evicted)
+        self._breaker_trace = None
         text = _detokenize_rows(
             np.asarray([st.emitted], np.int32) if st.emitted
             else np.zeros((1, 0), np.int32),
             1, self.tok,
         )[0]
         self._retire(slot, st, {"continuation": text})
-        if self._span_tap is not None:
-            self._span_tap(self._span(st))
+        root = st.span_root
+        self._end_spans(st, ("span_prefill",))
+        self._end_spans(st, ("span_decode",), new_tokens=len(st.emitted))
+        self._end_spans(st, ("span_root",), order=st.order, prompt_tokens=st.prompt_len,
+                        new_tokens=len(st.emitted))
+        if self._tel is not None or self._span_tap is not None or self._slo is not None:
+            span = self._span(st)
+            if self._tel is not None:
+                self._m_queue_s.observe(st.t_admit - st.t_enqueue)
+                self._m_total_s.observe(span["total_s"])
+                if st.t_prefill is not None:
+                    self._m_prefill_s.observe(st.t_prefill - st.t_admit)
+                if st.t_first is not None:
+                    self._m_ttft_s.observe(st.t_first - st.t_enqueue)
+                self._m_retirements.inc()
+            self._record_request(span, root=root)
 
     def _span(self, st: _Active) -> dict:
         """The answer-boundary span dict of a finished request (the JAX
@@ -1407,4 +1863,9 @@ class ContinuousScheduler:
         while self.busy:
             self.admit()
             self.step()
-        return self.drain_ready()
+        out = self.drain_ready()
+        if self._tel is not None:
+            if self._slo is not None:
+                self._slo.maybe_evaluate(force=True)
+            self._tel.maybe_flush(force=True)
+        return out

@@ -16,8 +16,9 @@ the router thread:
   breaker open, the fleet serving at N-1, with a ``route.spawn`` event
   carrying ``gave_up=true``. ``route.spawn`` (the fault plane) fires
   inside every attempt. Before a slot is recycled the victim's last
-  flight record, when it shipped one over the wire (a ``dump`` reply),
-  becomes a ``route.postmortem`` event.
+  flight record, shipped over the wire (a ``dump`` reply) or salvaged from
+  its ``<metrics_jsonl>.flight.json`` autodump, becomes a
+  ``route.postmortem`` event.
 - :class:`FleetScaler`: fleet size from the burn rates of the router's
   :class:`~transformer_tpu_torch.obs.slo.SLOEngine`: the watched signal
   (default ``ttft_p95``) burning above 1 for ``sustain_s`` spawns a
@@ -37,6 +38,7 @@ import inspect
 import time
 
 from transformer_tpu_torch.serve.resilience import maybe_fail
+from transformer_tpu_torch.serve.router import inject_state_line
 
 
 class _SlotState:
@@ -147,21 +149,37 @@ class Supervisor:
             delay = max(delay, self._router.breakers[link.index].cooldown_s)
         slot.next_try = now + delay
 
+    def _fleet_changed(self) -> None:
+        """The router's fleet-size gauges follow an admission or a retire."""
+        hook = getattr(self._router, "on_fleet_change", None)
+        if hook is not None:
+            hook()
+
     def _capture_postmortem(self, slot: _SlotState, link) -> None:
-        """The victim's last flight record (a ``dump`` reply it shipped)
-        as a ``route.postmortem`` event, once per record. The port's
-        replicas ship ``null`` until its flight recorder lands, so this
-        captures nothing yet."""
+        """The victim's final flight record (``obs/flight.py``) as a
+        ``route.postmortem`` event, once per record: the record it shipped
+        over the wire (a ``dump`` reply) when there is one, else the
+        on-disk autodump next to its ``--metrics_jsonl``, the only trace a
+        SIGKILL leaves. Best-effort: no recorder, no file or a torn dump
+        captures nothing and never delays the respawn."""
         record = getattr(link, "flight_record", None)
+        origin = "wire"
+        if record is None:
+            jsonl = getattr(link, "metrics_jsonl", None)
+            if jsonl:
+                from transformer_tpu_torch.obs.flight import flight_path_for, load_flight_record
+
+                record = load_flight_record(flight_path_for(jsonl))
+                origin = "file"
         if record is None:
             return
         ts = record.get("ts")
         if ts is not None and ts == slot.postmortem_ts:
-            return
+            return  # this incident's record was captured already
         slot.postmortem_ts = ts
         self.stats["postmortems"] += 1
         self._router.emit_event(
-            "route.postmortem", replica=slot.name, origin="wire",
+            "route.postmortem", replica=slot.name, origin=origin,
             reason=record.get("reason"), record=record,
         )
 
@@ -281,12 +299,11 @@ class Supervisor:
             if slot.phase != "warming" or slot.warm_source != from_link.index:
                 continue
             newbie = self._router.links[slot.index]
-            entries = msg.get("entries") or []
-            if not entries:
-                self._admit(newbie, warmed_tokens=0)
-                return
+            # The reply is the worker's line, unparsed (``serve/router.py``
+            # ``PREFIX_STATE_HEAD``). An empty export goes on too: the
+            # replacement answers ``state_injected`` with 0 tokens.
             try:
-                newbie.send({"type": "inject_state", "entries": entries})
+                newbie.send_line(inject_state_line(msg["line"]))
             except (OSError, ValueError):
                 pass  # the replacement died mid-warm: the liveness sweep sees it
             return
@@ -309,6 +326,7 @@ class Supervisor:
         slot.attempts = 0
         slot.died_at = None
         link.warming = False
+        self._fleet_changed()
         link.dead = False
         link.died_at = None
         # The dead process's breaker dies with it: the replacement starts
@@ -364,6 +382,7 @@ class Supervisor:
             link.draining = False
             link.dead = True
             link.retired = True
+            self._fleet_changed()
             self._slot(link.index).phase = "retired"
             self.stats["retired"] += 1
             self._router.emit_event("route.retire", replica=link.name)

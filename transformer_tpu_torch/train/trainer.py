@@ -19,11 +19,28 @@ periodic logging, bounded in-loop eval, the full end-of-epoch eval, the
 plateau early stop, checkpoints on a cadence and on SIGTERM/SIGINT. The
 steps take two hooks that ``parallel.distributed.DistributedTrainer``
 fills: the forward-and-loss function, and a sum across processes for the
-gradients and the metric sums. Telemetry and tracing are not ported.
+gradients and the metric sums.
+
+Telemetry (the JAX trainer's hooks): with a ``telemetry`` bundle
+(``obs.Telemetry``) the loop records the ``train_*`` gauges and counters,
+the ``train_step_seconds`` histogram (``StepTimer``'s), the
+``train_dispatch_seconds`` histogram and the profiler's ``train.step``
+stream, and emits ``train.window`` / ``train.eval`` / ``train.memory`` /
+``train.compile`` / ``train.preempt`` events; with its tracer,
+``train.fit`` / ``train.step`` / ``train.eval`` / ``ckpt.*`` spans on the
+``train`` lane. Every record is taken at a point where the loop has
+already synchronized the device (each dispatch ends in one), so the
+numbers are device time and telemetry adds no device work: the same
+losses, captures and kernel launches with it on and off. ``profiler``
+(``utils.profiling.Profiler``) records a ``torch.profiler`` window of
+steps, and ``log_dir`` gets TensorBoard scalars under ``train/`` and
+``test/`` at every epoch end. ``train.predicted`` (the JAX cost model's
+prediction) has no twin: the port has no cost model of its step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -52,6 +69,10 @@ from transformer_tpu_torch.train.state import (
     make_optimizer,
 )
 from transformer_tpu_torch.utils.preemption import PreemptionGuard
+from transformer_tpu_torch.utils.profiling import StepTimer, annotate
+
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _check_objective(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
@@ -459,7 +480,9 @@ class Trainer:
     the gradients summed across processes (the ``sum_across`` hook), the
     same K-step dispatch runs uncaptured. With a ``checkpoint`` manager,
     ``fit`` restores the newest intact checkpoint before training and
-    saves on its cadence, on early stop and on SIGTERM/SIGINT."""
+    saves on its cadence, on early stop and on SIGTERM/SIGINT. ``log_dir``,
+    ``profiler`` and ``telemetry`` are the JAX trainer's hooks (the module
+    docstring)."""
 
     def __init__(
         self,
@@ -470,6 +493,9 @@ class Trainer:
         forward_loss: Callable | None = None,
         sum_across: Callable[[list[torch.Tensor]], None] | None = None,
         checkpoint: CheckpointManager | None = None,
+        log_dir: str | None = None,
+        profiler=None,
+        telemetry=None,
     ) -> None:
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
@@ -502,25 +528,112 @@ class Trainer:
         self.eval_batches = 0
         self._best_eval = float("inf")
         self._epochs_since_best = 0
+        self.profiler = profiler
+        self.step_timer = StepTimer(tokens_per_step=train_cfg.batch_size * train_cfg.sequence_length)
+        self.writers = {}
+        if log_dir:
+            from transformer_tpu_torch.utils.tensorboard import SummaryWriter
+
+            self.writers = {"train": SummaryWriter(f"{log_dir}/train"),
+                            "test": SummaryWriter(f"{log_dir}/test")}
+        self.telemetry = telemetry
+        self._tracer = getattr(telemetry, "tracer", None)
+        self._last_metrics: dict | None = None
+        self._window_mark = (0, 0, 0.0)  # (steps, tokens, seconds) at the last record
+        # The dispatch callables: a step (or K) and the device synchronize
+        # that ends it, which every dispatch has with telemetry on or off.
+        # Telemetry's wrappers go around them, outside any CUDA graph
+        # capture (CapturedStep captures inside multi_step), so what they
+        # time is the dispatch up to that synchronize.
+        self._dispatch_step = self._synced(self.train_step)
+        self._dispatch_multi = None if self.multi_step is None else self._synced(self.multi_step)
+        if telemetry is not None:
+            reg = telemetry.registry
+            self._m_loss = reg.gauge("train_loss", "streaming epoch train loss")
+            self._m_acc = reg.gauge("train_accuracy", "streaming token accuracy")
+            self._m_gnorm = reg.gauge("train_grad_norm", "latest global grad norm")
+            self._m_eloss = reg.gauge("train_eval_loss", "latest eval loss")
+            self._m_eacc = reg.gauge("train_eval_accuracy", "latest eval accuracy")
+            self._m_steps = reg.counter("train_steps_total", "optimizer steps")
+            self._m_tokens = reg.counter("train_tokens_total", "target tokens")
+            # The sample stream StepTimer fills, exported as it is.
+            reg.histogram(
+                "train_step_seconds",
+                "per-step wall time: each dispatch up to its device synchronize, "
+                "divided by its steps",
+                hist=self.step_timer.histogram,
+            )
+            self._wrap_steps_for_dispatch_timing()
+
+    def _synced(self, fn: Callable) -> Callable:
+        def dispatch(state, src, tgt):
+            out = fn(state, src, tgt)
+            synchronize(self.device)
+            return out
+
+        dispatch.__wrapped__ = fn
+        return dispatch
+
+    def _wrap_steps_for_dispatch_timing(self) -> None:
+        """The dispatch callables through ``obs.telemetry.timed_call``, then
+        the profiler's ``profile_call("train.step")``, then, with a tracer,
+        ``obs.trace.traced_call`` (one ``train.step`` span per dispatch,
+        under ``train.fit``), chained through ``__wrapped__``. Each wraps a
+        callable that ends in the device synchronize, so each times the
+        dispatch's device work, not its launch."""
+        from transformer_tpu_torch.obs.telemetry import timed_call
+
+        self._m_dispatch = self.telemetry.registry.histogram(
+            "train_dispatch_seconds",
+            "host seconds per dispatch call (one step, or K), up to its device synchronize",
+        )
+        names = ["_dispatch_step"] + (["_dispatch_multi"] if self._dispatch_multi else [])
+        for name in names:
+            setattr(self, name, timed_call(getattr(self, name), self._m_dispatch))
+        profiler = getattr(self.telemetry, "profiler", None)
+        if profiler is not None:
+            from transformer_tpu_torch.obs.profile import profile_call
+
+            for name in names:
+                setattr(self, name, profile_call(getattr(self, name), profiler, "train.step"))
+        if self._tracer is not None:
+            from transformer_tpu_torch.obs.trace import traced_call
+
+            for name in names:
+                setattr(self, name, traced_call(getattr(self, name), self._tracer, "train.step",
+                                                lane="train"))
+
+    def _span(self, name: str, **attrs):
+        """A ``train``-lane span, or a no-op context without a tracer; the
+        trainer's spans parent through the tracer's thread-local stack
+        (everything nests under ``train.fit``)."""
+        if self._tracer is None:
+            return _NO_SPAN
+        return self._tracer.span(name, lane="train", **attrs)
 
     def evaluate(
         self, batches: Iterable, max_batches: int | None = None,
         guard: PreemptionGuard | None = None,
     ) -> None:
-        self.eval_metrics.reset()
-        for i, (src, tgt) in enumerate(batches):
-            if max_batches is not None and i >= max_batches:
-                break
-            if guard is not None and guard.should_stop:
-                return  # preemption: the caller checkpoints
-            self.eval_metrics.update(self.eval_step(self.state, src, tgt))
-            self.eval_batches += 1
+        with self._span("train.eval"):
+            self.eval_metrics.reset()
+            for i, (src, tgt) in enumerate(batches):
+                if max_batches is not None and i >= max_batches:
+                    break
+                if guard is not None and guard.should_stop:
+                    return  # preemption: the caller checkpoints
+                self.eval_metrics.update(self.eval_step(self.state, src, tgt))
+                self.eval_batches += 1
 
     def _restore(self) -> None:
         def fallback(step, exc):
             self.log_fn(f"checkpoint at step {step} unreadable ({type(exc).__name__}); falling back")
+            if self.telemetry is not None:
+                self.telemetry.emit("ckpt.fallback", step=int(step),
+                                    reason=f"{type(exc).__name__}: {exc}")
 
-        restored = self.checkpoint.restore_latest(self.state, on_fallback=fallback)
+        with self._span("ckpt.restore"):
+            restored = self.checkpoint.restore_latest(self.state, on_fallback=fallback)
         if restored is not None:
             self.state = restored
             self.log_fn(f"restored checkpoint at step {self.state.step}")
@@ -537,7 +650,12 @@ class Trainer:
         epoch)-keyed data order and (seed, step)-keyed dropout as the
         uninterrupted run had them). ``epoch_callback(epoch, trainer)``
         runs after each epoch's eval and before its checkpoint; a truthy
-        return stops the run after that checkpoint."""
+        return stops the run after that checkpoint. With a tracer the whole
+        run is one ``train.fit`` span."""
+        with self._span("train.fit", epochs=self.train_cfg.epochs):
+            self._fit(train_ds, test_ds, epoch_callback)
+
+    def _fit(self, train_ds, test_ds, epoch_callback) -> None:
         cfg = self.train_cfg
         if cfg.steps_per_dispatch > 1 and self.multi_step is None:
             raise ValueError(
@@ -575,6 +693,8 @@ class Trainer:
         with PreemptionGuard() as guard:
             for epoch in range(start_epoch, cfg.epochs):
                 self.train_metrics.reset()
+                self.step_timer.reset()
+                self._window_mark = (0, 0, 0.0)
                 epoch_start = time.perf_counter()
                 batches = train_ds.batches(epoch)
                 if self.multi_step is not None:
@@ -582,22 +702,26 @@ class Trainer:
                 else:
                     groups = ((s, t, 1) for s, t in batches)
                 for src, tgt, k in groups:
+                    if self.profiler is not None:
+                        self.profiler.maybe_trace(step, block_on=self.state)
                     t0 = time.perf_counter()
-                    if self.multi_step is None:
-                        self.state, m = self.train_step(self.state, src, tgt)
-                        tokens = tgt.shape[0] * self._width(tgt.shape[1])
-                    else:
-                        if k == 1:  # a group of one replays the step too
-                            src, tgt = np.asarray(src)[None], np.asarray(tgt)[None]
-                        self.state, m = self.multi_step(self.state, src, tgt)
-                        tokens = k * tgt.shape[1] * self._width(tgt.shape[2])
-                    synchronize(self.device)
+                    with annotate("train.step") if self.profiler is not None else _NO_SPAN:
+                        if self.multi_step is None:
+                            self.state, m = self._dispatch_step(self.state, src, tgt)
+                            tokens = tgt.shape[0] * self._width(tgt.shape[1])
+                        else:
+                            if k == 1:  # a group of one replays the step too
+                                src, tgt = np.asarray(src)[None], np.asarray(tgt)[None]
+                            self.state, m = self._dispatch_multi(self.state, src, tgt)
+                            tokens = k * tgt.shape[1] * self._width(tgt.shape[2])
                     seconds = time.perf_counter() - t0
                     self.dispatches.append((k, seconds))
                     self.step_seconds.extend([seconds / k] * k)
+                    self.step_timer.observe(seconds, tokens, steps=k)
                     self.losses.append(float(m["loss"]))
                     self.tokens += tokens
                     self.train_metrics.update(m)
+                    self._last_metrics = m
                     prev_step, step = step, step + k
                     if guard.should_stop:
                         self._preempt(step, guard)
@@ -612,6 +736,7 @@ class Trainer:
                             f"acc {self.train_metrics.accuracy:.4f} "
                             f"grad_norm {float(m['grad_norm']):.4f}"
                         )
+                        self._record_train_window(epoch, step)
                     every = cfg.eval_every_steps
                     if test_ds is not None and every and step // every != prev_step // every:
                         self.evaluate(test_ds.batches(epoch),
@@ -620,6 +745,7 @@ class Trainer:
                             f"  eval loss {self.eval_metrics.loss:.4f} "
                             f"acc {self.eval_metrics.accuracy:.4f}"
                         )
+                        self._record_eval(epoch, step)
                 epoch_loss = self.train_metrics.loss
                 if guard.should_stop:
                     self._preempt(step, guard)
@@ -629,11 +755,16 @@ class Trainer:
                     if guard.should_stop:
                         self._preempt(step, guard)
                         return
+                    self._record_eval(epoch, step)
                 synchronize(self.device)
+                self._write_epoch_summaries(epoch)
+                self._record_train_window(epoch, step)
+                self._record_epoch_telemetry(epoch, step)
                 self.log_fn(
                     f"epoch {epoch + 1}/{cfg.epochs} done in {time.perf_counter() - epoch_start:.1f}s: "
                     f"loss {epoch_loss:.4f} acc {self.train_metrics.accuracy:.4f}"
                     + (f"; eval loss {self.eval_metrics.loss:.4f}" if test_ds is not None else "")
+                    + f"; {self.step_timer.summary()}"
                 )
                 callback_stop = bool(epoch_callback(epoch, self)) if epoch_callback else False
                 stop_early = False
@@ -648,7 +779,8 @@ class Trainer:
                     (epoch + 1) % cfg.checkpoint_every_epochs == 0
                     or epoch + 1 == cfg.epochs or stop_early or callback_stop
                 ):
-                    self.checkpoint.save(self.state)
+                    with self._span("ckpt.save", step=step):
+                        self.checkpoint.save(self.state)
                     if cfg.early_stop_patience:
                         self._save_plateau_state(step)
                 if stop_early:
@@ -663,6 +795,108 @@ class Trainer:
                     break
         if self.checkpoint is not None:
             self.checkpoint.wait()  # the last save is durable before fit returns
+        if self.profiler is not None:
+            self.profiler.stop(block_on=self.state)
+        if self.telemetry is not None:
+            self.telemetry.maybe_flush(force=True)
+
+    # ------------------------------------------------------------- telemetry
+    # The recorders run where the loop has already synchronized the device
+    # (every dispatch ends in one) and read the metrics back: host float
+    # reads, never device work.
+
+    def _record_train_window(self, epoch: int, step: int) -> None:
+        if self.telemetry is None:
+            return
+        st = self.step_timer
+        m_steps, m_tokens, m_time = self._window_mark
+        d_steps = st.count - m_steps
+        if d_steps <= 0:
+            return
+        d_tokens = st.total_tokens - m_tokens
+        window_s = st.total_time_s - m_time
+        self._window_mark = (st.count, st.total_tokens, st.total_time_s)
+        loss, acc = self.train_metrics.loss, self.train_metrics.accuracy
+        self._m_loss.set(loss)
+        self._m_acc.set(acc)
+        self._m_steps.inc(d_steps)
+        self._m_tokens.inc(d_tokens)
+        event = {
+            "epoch": epoch + 1, "step": step, "steps": d_steps,
+            "tokens": d_tokens, "window_s": round(window_s, 6),
+            "loss": round(loss, 6), "accuracy": round(acc, 6),
+        }
+        if window_s > 0:
+            event["steps_per_sec"] = round(d_steps / window_s, 3)
+            event["tokens_per_sec"] = round(d_tokens / window_s, 1)
+        if self._last_metrics is not None and "grad_norm" in self._last_metrics:
+            gnorm = float(self._last_metrics["grad_norm"])
+            self._m_gnorm.set(gnorm)
+            event["grad_norm"] = round(gnorm, 6)
+        self.telemetry.emit("train.window", **event)
+        self.telemetry.maybe_flush()
+
+    def _record_eval(self, epoch: int, step: int) -> None:
+        if self.telemetry is None or self.eval_metrics.weight <= 0:
+            return
+        loss, acc = self.eval_metrics.loss, self.eval_metrics.accuracy
+        self._m_eloss.set(loss)
+        self._m_eacc.set(acc)
+        self.telemetry.emit("train.eval", epoch=epoch + 1, step=step,
+                            loss=round(loss, 6), accuracy=round(acc, 6))
+
+    def _record_epoch_telemetry(self, epoch: int, step: int) -> None:
+        """Epoch-end extras: the card's allocator statistics
+        (``train.memory``, none on the CPU) and the captured CUDA graphs of
+        the step callables (``train.compile``: JAX's compiled-program
+        accounting; the port compiles nothing at run time, its counterpart
+        is a graph per batch signature, and an uncaptured callable counts
+        0)."""
+        if self.telemetry is None:
+            return
+        from transformer_tpu_torch.device import device_memory_stats
+
+        stats = device_memory_stats(self.device)
+        if stats:
+            for key in ("bytes_in_use", "peak_bytes_in_use"):
+                self.telemetry.registry.gauge(
+                    f"device_{key}", "CUDA caching allocator stats, this process's card"
+                ).set(stats[key])
+            index = self.device.index if self.device.index is not None else torch.cuda.current_device()
+            self.telemetry.emit("train.memory", epoch=epoch + 1, step=step,
+                                devices={str(index): stats})
+        cache_sizes = {"train_step": 0}
+        if self.multi_step is not None:
+            cache_sizes["multi_step"] = 0 if self.graph is None else len(self.graph.graphs)
+        cache_sizes["eval_step"] = 0
+        self.telemetry.registry.gauge(
+            "train_compiled_programs", "CUDA graphs captured across the step callables",
+        ).set(sum(cache_sizes.values()))
+        self.telemetry.emit("train.compile", epoch=epoch + 1, step=step,
+                            cache_sizes=cache_sizes)
+        self.telemetry.maybe_flush(force=True)
+
+    def _write_epoch_summaries(self, epoch: int) -> None:
+        if not self.writers:
+            return
+        from transformer_tpu_torch.train.state import make_lr_schedule
+
+        w = self.writers["train"]
+        w.scalar("loss", self.train_metrics.loss, epoch)
+        w.scalar("accuracy", self.train_metrics.accuracy, epoch)
+        lr = make_lr_schedule(self.model_cfg, self.train_cfg)(self.state.step)
+        w.scalar("learning_rate", float(lr), epoch)
+        w.scalar("tokens_per_sec", self.step_timer.tokens_per_sec, epoch)
+        if self._last_metrics is not None and "grad_norm" in self._last_metrics:
+            w.scalar("grad_norm", float(self._last_metrics["grad_norm"]), epoch)
+        # The step-duration distribution in TensorBoard's histogram dashboard.
+        w.histogram("step_time_s", self.step_timer.histogram, epoch)
+        w.flush()
+        if self.eval_metrics.weight > 0:
+            w = self.writers["test"]
+            w.scalar("loss", self.eval_metrics.loss, epoch)
+            w.scalar("accuracy", self.eval_metrics.accuracy, epoch)
+            w.flush()
 
     def _width(self, length: int) -> int:
         """Positions a (B, length) batch feeds the model: the whole window
@@ -671,18 +905,26 @@ class Trainer:
 
     def _preempt(self, step: int, guard: PreemptionGuard) -> None:
         """On SIGTERM/SIGINT: save, wait until the save is durable, report."""
+        if self.profiler is not None:
+            self.profiler.stop(block_on=self.state)
         prefix = f"preemption (signal {guard.signal_received}) at step {step}: "
         if self.checkpoint is None:
             self.log_fn(prefix + "no checkpoint manager configured, state lost")
-            return
-        path = self.checkpoint.save(self.state)
-        self.checkpoint.wait()
-        if self.train_cfg.early_stop_patience:
-            self._save_plateau_state(step)
-        if path is None:
-            self.log_fn(prefix + "checkpoint written by primary process")
         else:
-            self.log_fn(prefix + f"checkpoint saved to {path}")
+            with self._span("ckpt.save", step=step, preempt=True):
+                path = self.checkpoint.save(self.state)
+                self.checkpoint.wait()
+            if self.train_cfg.early_stop_patience:
+                self._save_plateau_state(step)
+            if path is None:
+                self.log_fn(prefix + "checkpoint written by primary process")
+            else:
+                self.log_fn(prefix + f"checkpoint saved to {path}")
+        for w in self.writers.values():
+            w.flush()
+        if self.telemetry is not None:
+            self.telemetry.emit("train.preempt", step=step, signal=guard.signal_received)
+            self.telemetry.maybe_flush(force=True)
 
     # The plateau window and the early-stop marker live beside the
     # checkpoints, written by the primary process, read by every process,

@@ -25,8 +25,10 @@ class PreemptionGuard:
     """Latches termination signals so the training loop can exit cleanly.
 
     Use as a context manager around the loop; check ``should_stop`` between
-    steps. Handlers are chained (a previously installed handler still runs)
-    and restored on exit. A second signal defers to the previous handler,
+    steps. Handlers are chained (a previously installed handler still runs;
+    on the first signal as its ``without_chain`` where it has one: its
+    chain without a re-raise of SIG_DFL) and restored on exit. A second
+    signal defers to the previous handler,
     or re-delivers the signal under its original disposition, for a hard
     stop."""
 
@@ -48,7 +50,12 @@ class PreemptionGuard:
         self.should_stop = True
         self.signal_received = signum
         # Python's default SIGINT handler would raise KeyboardInterrupt and
-        # defeat the graceful path on the first signal.
+        # defeat the graceful path on the first signal; a handler that may
+        # end in the default disposition (the flight recorder's dump, then
+        # its previous handler or SIG_DFL) runs as ``without_chain``, its
+        # chain without that re-raise, so the latched stop still
+        # checkpoints.
+        prev = getattr(prev, "without_chain", prev)
         if callable(prev) and prev is not signal.default_int_handler:
             prev(signum, frame)
 
