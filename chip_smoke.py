@@ -72,7 +72,7 @@ the seventeenth last):
    not causal); then
    ``transformer_tpu_torch.cli.train --preset base --num_layers 2
    --attention_impl flash --sequence_length 64 --epochs 1``
-   (Transformer-base at full width, its depth cut to 2 + 2 layers, on the
+   (Transformer-base at full width, its depth cut to 1 + 1 layer, on the
    bundled corpus), whose flash counters must equal 4 launches of each
    kernel a train step, 4 forward launches an eval batch and 2 a
    translate call of the epilogue's sample translation and BLEU on 200
@@ -86,7 +86,7 @@ the seventeenth last):
    processes of ``transformer_tpu_torch.cli.distributed_train --preset
    long4k --num_layers 2 --attention_impl ring --sp 4 --epochs 1
    --consistency_check`` on this one card (gloo, staged through host
-   memory; long4k's width, its depth cut to 2 layers to make room for
+   memory; long4k's width, its depth cut to 1 layer to make room for
    phase 17); each rank's counters of the ring step and both
    backward kernels must equal what steps, hops and eval batches imply,
    the losses must be within 0.01 of a single-card ``cli.train`` run of
@@ -97,7 +97,7 @@ the seventeenth last):
    worker processes: one spawn for both phases' fp32 checks);
 8. checkpoints: ``cli.train --preset base --num_layers 2 --attention_impl
    flash --sequence_length 64 --grad_accum 2`` (Transformer-base's width,
-   its depth cut to 2 + 2 layers: the phase holds its runs to each other)
+   its depth cut to 1 + 1 layer: the phase holds its runs to each other)
    on the first 1,300 corpus pairs
    (20 steps an epoch), each run with its own ``--ckpt_path``: U trains 2
    epochs; R trains 1, then is relaunched for 2 on the same path and must
@@ -112,7 +112,7 @@ the seventeenth last):
    epoch 2 and end at S + 20, and after one byte of the newest arrays.npz
    is flipped the next relaunch must fall back to S. Then the save stall
    (sync and async), the async write's time to durable, restore + verify
-   and the checkpoint's bytes at full width, 2 + 2 layers;
+   and the checkpoint's bytes at full width, 1 + 1 layer;
    ``cli.export --average_last 2
    --quantize int8`` from R, every leaf within half a quantization step
    of the fp32 average and the file under 1/2.5 of fp32's;
@@ -173,7 +173,7 @@ the seventeenth last):
    ``--num_layers 2 --attention_impl ulysses --sp 4``, held to phase 7's
    single-card run of its depth as phase 7 holds the ring's, its flash
    counters to what steps and eval batches imply. Then one fp32 step
-   (2 + 2 layers, B 64) under each of the
+   (1 + 1 layer, B 64) under each of the
    three meshes against the single-process flash step (the same processes
    then take phase 7's fp32 ring step). Each run reports
    its step median and first step, real target tokens a second across the
@@ -187,7 +187,7 @@ the seventeenth last):
    JAX's ``serve_lines`` lines (no ``code``), and ``flash_fwd`` must have
    launched 6 times per ``translate`` call (member retries included);
    the answers that differ from ``cli.translate``'s are counted. Then
-   ``cli.generate --max_new 32`` on phase 4's 14 prompts and the same
+   ``cli.generate --max_new 16`` on phase 4's 14 prompts and the same
    through ``cli.serve --serve_slots 0`` (dense caches, plain cached
    attention: timed, tokens a second, time a tick), ``speculative_generate``
    at k 4 on the 4 shortest (its stats), a profiled window of their batch
@@ -212,7 +212,7 @@ the seventeenth last):
    that differ from phase 4's and a profiled window per layout beside
    phase 10's kernel step are reported; phase 10's shared-prefix requests
    twice on the dense layout with ``--prefix_cache_mb 64`` must hit. Then
-   long4k with ``--attention_window 1024`` at 2 layers (its depth cut: the
+   long4k with ``--attention_window 1024`` at 1 layer (its depth cut: the
    batch-1 ``generate`` it is held to runs ~3,900 eager ticks a dtype)
    trained for one epoch on 3,000 corpus lines (the flash kernels' band
    path, counted) and served on the
@@ -279,13 +279,14 @@ the seventeenth last):
    (seconds), and both 2^15 vocabularies built by its BPE trainer, which
    must equal the Python-built ones of build/vocab/ piece for piece (both
    times printed); ``cli.train --preset base --attention_impl flash
-   --sequence_length 64 --epochs 1 --warmup_steps 4000`` at full depth
-   (6 + 6) on the data path's defaults, so through the native loader: its epoch and batch counts
+   --sequence_length 64 --epochs 1 --warmup_steps 4000`` at 2 + 2
+   layers (cut from 6 + 6) on the data path's defaults, so
+   through the native loader: its epoch and batch counts
    must show it ran, the epoch's rows must be examples of the corpus
    once each (an epoch without the remainder dropped holds the same
    multiset of rows as the numpy path's), the loss must fall, and the
-   flash counters must equal 12 launches of each kernel a step, 12
-   forward launches an eval batch and 6 a translate call; step median,
+   flash counters must equal 4 launches of each kernel a step, 4
+   forward launches an eval batch and 2 a translate call; step median,
    BLEU on 200 test pairs, a profiled window (busy share), and each
    loader's epoch iterated alone (the host's wait for a batch); the
    source paper's command line at 2 + 2 layers, ``--preset base
@@ -299,7 +300,7 @@ the seventeenth last):
    on the streaming export JAX's keys, every map row summing to 1 within
    1e-2 and decoder block 1 zero above the diagonal; on the base flash
    export the ids and the cross-attention (block 2) maps only, as the
-   JAX dump writes for flash, and 6 + 8 x 12 forward launches.
+   JAX dump writes for flash, and 2 + 8 x 4 forward launches.
    ``python3 chip_smoke.py --only paper`` runs this phase alone;
 17. telemetry (``telemetry_path``): (a) phase 4's 14 requests through
    ``cli.serve`` on paged_flash with ``--metrics_jsonl --trace`` (the
@@ -309,7 +310,7 @@ the seventeenth last):
    transformer_tpu_torch.obs summarize`` rendering the ``perf:`` rows,
    ``obs slo`` the default objectives, ``obs trace`` 14 ``serve.request``
    roots; the profiler's p50 of ``serve.pool_step_paged_flash`` beside
-   phase 10's replayed step. (b) phase 9's D run (base 2 + 2 layers, K 8,
+   phase 10's replayed step. (b) phase 9's D run (base 1 + 1 layer, K 8,
    the 1,300 pairs) again with ``--metrics_jsonl --trace --profile_dir
    --tb_log_dir``: its losses bit-identical to D's, the same captures
    and flash counters, ``train_steps_total`` the steps taken,
@@ -325,6 +326,25 @@ the seventeenth last):
    step and the train step with it on and off (phases 4 and 9).
    ``python3 chip_smoke.py --only telemetry`` runs this phase alone (with
    phase 4's serving and phase 9's D run as its references).
+18. Mixture-of-Experts (``moe_path``), long4k-moe: long4k with 8 experts,
+   top-2, capacity factor 1.25 on every second layer (layers 2, 4, 6).
+   (a) In fp32 at 2 layers (one dense, one MoE), 3 train steps: every
+   token's experts identical on the kernels and on their plain versions,
+   the loss and gradients within TRAIN_TOL, and one 310-token request's
+   greedy tokens through the paged_flash scheduler equal to
+   ``train.decode.generate``'s. (b) At full width in bf16, ``cli.train``
+   for an epoch eagerly (a ``--profile_dir`` window of one step) and at
+   ``--steps_per_dispatch 4``: the flash counters, one capture, the two
+   runs' parameters bit-identical; 3 eager steps then a replayed
+   dispatch of 4 bit-identical to 7 eager steps; ``moe_aux``, step time,
+   peak memory, the bf16 loss kernels-against-plain within 1e-2 and the
+   share of tokens whose experts change (reported); the MoE sublayer
+   timed beside the window's flash kernels. (c) The export served
+   through ``cli.serve``: bf16 paged_flash plain and at ``--speculate_k
+   2`` (kernel A's launches exactly half of B's: the MoE layers take the
+   plain sublayer), fp32 paged_flash and dense (each answer equal to
+   ``train.decode.generate``'s), every step after a shape's first a
+   replay. ``python3 chip_smoke.py --only moe`` runs this phase alone.
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -2005,7 +2025,7 @@ def train_profile(trainer, train_ds, steps: int = 3, phase: str = "train"):
 # phase 7: sequence-parallel training, the main path of the ring
 
 
-SP_LAYERS = 2  # long4k's depth in phase 7 (the width is long4k's)
+SP_LAYERS = 1  # long4k's depth in phases 7 and 11 (the width is long4k's), cut
 
 
 def sp_train_path(vocab_path, single, sp: int = 4):
@@ -2210,7 +2230,7 @@ def fp32_ring_check(tok, tgt, ring, layers: int = 2, sp: int = 4):
 
 
 S2S_LEN = 64  # --sequence_length of the seq2seq main path (bench.py's seq)
-S2S_LAYERS = 2  # phase 6's base depth, cut from 6 + 6 to keep the script in its time
+S2S_LAYERS = 1  # phase 6's base depth, cut from 6 + 6 to keep the script in its time
 BUCKETS = (16, 32, 48, 64)  # phase 9's --length_buckets
 
 
@@ -2506,7 +2526,7 @@ def fp32_decode_tokens_check(trainer, src_tok, tgt_tok, layers: int = 2):
     return rec
 
 
-PRESET_LAYERS = 2  # the presets' depth, cut (big and tied have 6 + 6 at full depth)
+PRESET_LAYERS = 1  # the presets' depth, cut (big and tied have 6 + 6 at full depth)
 
 
 def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 1280):
@@ -2564,13 +2584,13 @@ def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 1280):
 # 1,300 corpus pairs leave 1,293 under the 64-token filter: 20 steps of 64
 # an epoch (the first 1,280 leave 19).
 CKPT_PAIRS = 1300
-CKPT_LAYERS = 2  # encoder and decoder layers of phases 8, 9 and 11's Transformer-base
+CKPT_LAYERS = 1  # encoder and decoder layers of phases 8, 9 and 11's Transformer-base, cut
 
 
 def ckpt_argv(data, src_vocab, tgt_vocab, root, name, epochs, *extra):
     """``cli.train --preset base --attention_impl flash --sequence_length
     64 --grad_accum 2`` on the cut corpus, checkpointing to ``root/name``;
-    its depth cut to 2 + 2 layers (the phase holds its runs to each other,
+    its depth cut to 1 + 1 layer (the phase holds its runs to each other,
     not to another phase's, and the cut keeps the script in its time)."""
     return [
         "--preset", "base", "--num_layers", str(CKPT_LAYERS), "--attention_impl", "flash",
@@ -2946,7 +2966,7 @@ def checkpoints_path(src_vocab, tgt_vocab):
 def dispatch_argv(data, src_vocab, tgt_vocab, root, name, epochs, k, *extra):
     """``cli.train --preset base --attention_impl flash --sequence_length
     64 --steps_per_dispatch k`` on the cut corpus, checkpointing to
-    ``root/name``; its depth cut to 2 + 2 layers as phase 8's (phase 11
+    ``root/name``; its depth cut to 1 + 1 layer as phase 8's (phase 11
     holds its losses to E's, at the same depth)."""
     return [
         "--preset", "base", "--num_layers", str(CKPT_LAYERS), "--attention_impl", "flash",
@@ -3358,11 +3378,17 @@ def serve_passes(argv, passes) -> tuple:
                      {k: sched.stats[k] - before[k] for k in sched.stats}, wall))
     launches = {"paged_attention": paged_flash_attention.launches,
                 "fused_ln_ffn": fused_ln_ffn.launches}
-    # Kernels B and A run on the paged_flash layout only: layers x steps
-    # there, none on the dense and gathered-view layouts.
+    # Kernels B and A run on the paged_flash layout only: B layers x steps
+    # there, A dense (non-MoE) layers x steps, none on the dense and
+    # gathered-view layouts.
+    from transformer_tpu_torch.models.encoder import layer_uses_moe
+
     kernels = sched.decode_kernel == "paged_flash"
-    want = sched.cfg.num_layers * sched.stats["steps"] if kernels else 0
+    cfg = sched.cfg
+    layers = {"paged_attention": cfg.num_layers,
+              "fused_ln_ffn": sum(not layer_uses_moe(cfg, i) for i in range(cfg.num_layers))}
     for name, count in launches.items():
+        want = layers[name] * sched.stats["steps"] if kernels else 0
         if count != want or (kernels and count <= 0):
             raise SystemExit(f"{name} launched {count} times in {argv}, expected {want}")
     return sched, runs, launches
@@ -3808,7 +3834,7 @@ def s2s_fp32_mesh_check(model_cfg, batch, tok, lm_tgt, layers: int = 2, procs: i
 
 def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
     """Phase 11. Transformer-base (d 512, 8 x 64, dff 2048, bf16, batch 64,
-    dropout 0.1; its depth cut to L + L = 2 + 2 layers, as phase 9's)
+    dropout 0.1; its depth cut to L + L = 1 + 1 layer, as phase 9's)
     trained for an epoch of the 1,300 cut pairs
     (20 steps) through ``cli.distributed_train --consistency_check`` by
     four processes on this card, under ``--dp 4`` (flash), ``--sp 4`` with
@@ -3820,7 +3846,7 @@ def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
     0.01 of phase 9's E (``cli.train``, the same flags and seed) in its
     first epoch. The dp 4 export is translated (greedy and beam 4, 8
     sentences) and scored (``cli.evaluate --limit 200``). Then long4k at
-    2 layers with ``--attention_impl ulysses --sp 4`` for an epoch, held
+    1 layer with ``--attention_impl ulysses --sp 4`` for an epoch, held
     to ``single`` (phase 7's single-card run of its flags) within 0.01.
     Returns the flash and ring counters of the phase's main-path runs."""
     data = cut_corpus(CKPT_PAIRS)
@@ -3881,7 +3907,7 @@ def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
 
 
 GROUPED_GREEDY, GROUPED_BEAM = 48, 16  # data/src-test.txt lines served raw / at beam 4
-GEN_NEW = 32  # max_new of phase 12's LM runs
+GEN_NEW = 16  # max_new of phase 12's LM runs
 DEADLINE_MS = 120  # the mid-generation deadline (max_new 512 at ~1 ms a replayed step)
 
 
@@ -3993,7 +4019,7 @@ def grouped_translate_path(export, src_vocab, tgt_vocab):
 
 
 def generate_path(export, vocab_path, tok, reqs, plain_answers):
-    """Phase 12, the LM over dense caches: ``cli.generate --max_new 32`` on
+    """Phase 12, the LM over dense caches: ``cli.generate --max_new 16`` on
     phase 4's 14 prompts (one batch of 16 rows), then the same prompts as
     greedy ``{"prompt": ..., "max_new": 32}`` lines through ``cli.serve
     --serve_slots 0 --serve_batch 64`` (the grouped path); wall time and
@@ -4252,7 +4278,7 @@ LAYOUT_FLAGS = {
 WINDOW = 1024  # --attention_window of phase 13's windowed long4k
 WINDOW_CHUNK = 512  # its --prefill_chunk
 WINDOW_PAIRS = 3000  # corpus pairs its training reads (a few steps)
-WINDOW_LAYERS = 2  # its depth, cut: its batch-1 generate runs ~3,900 eager ticks a dtype
+WINDOW_LAYERS = 1  # its depth, cut: its batch-1 generate runs ~3,900 eager ticks a dtype
 
 
 def replayed(sched, steps: int) -> dict:
@@ -5330,13 +5356,14 @@ def mlm_fit(argv, label):
     return trainer, rec, train_ds
 
 
-def mlm_replay_check(trainer, train_ds):
-    """The first ``MLM_K`` steps of the base run twice from the seed's
-    init, on the epoch's first batches: eagerly (``step.core``) and
-    through a ``graph.CapturedStep`` (the first step eager, then a capture
-    and 7 replays, the masks drawn from the generators registered with the
-    graph). The per-step losses and the parameters after the K steps must
-    be bit-identical, and the K steps' dispatch loss must equal the
+def replay_vs_eager_check(trainer, train_ds, k: int = 0, lead: int = 0, phase: str = "mlm"):
+    """The first ``lead + k`` steps (k defaults to ``MLM_K``) of the run
+    twice from the seed's init, on the epoch's first batches: eagerly
+    (``step.core``) and, after ``lead`` eager steps, through a
+    ``graph.CapturedStep`` (its first step eager, then a capture and k - 1
+    replays, any masks drawn from the generators registered with the
+    graph). The per-step losses and the parameters after the steps must
+    be bit-identical, and the first k steps' dispatch loss must equal the
     ``cli.train`` run's first one bit for bit."""
     import itertools
 
@@ -5348,41 +5375,49 @@ def mlm_replay_check(trainer, train_ds):
     from transformer_tpu_torch.train.state import create_train_state
     from transformer_tpu_torch.train.trainer import _dispatch_metrics, make_train_step, stage
 
+    k = k or MLM_K
     cfg, tcfg = trainer.model_cfg, trainer.train_cfg
-    tgts = np.stack([t for _, t in itertools.islice(train_ds.batches(0), MLM_K)])
+    tgts = np.stack([t for _, t in itertools.islice(train_ds.batches(0), lead + k)])
     device = torch.device("cuda")
 
     def run(captured):
         state = create_train_state(cfg, tcfg, device=device)
         step = make_train_step(cfg, tcfg)
-        fn = CapturedStep(step.core, tcfg.seed, device) if captured else step.core
-        staged_tgt, scalars = stage([tgts], step.scalars(state, MLM_K), device)
-        losses, sums = [], None
-        for i in range(MLM_K):
+        replay = CapturedStep(step.core, tcfg.seed, device) if captured else step.core
+        staged_tgt, scalars = stage([tgts], step.scalars(state, lead + k), device)
+        losses, sums, metrics = [], None, {}
+        for i in range(lead + k):
+            fn = replay if i >= lead else step.core
             state, m = fn(state, None, staged_tgt[i], scalars[i])
             losses.append(m["loss"].clone())
-            sums = ({k: v.clone() for k, v in m.items()} if sums is None
-                    else {k: sums[k] + m[k] for k in sums})
+            metrics = {key: v.clone() for key, v in m.items()}
+            if i < k:  # the cli run's first dispatch: steps 0 .. k - 1
+                m = {**m, "moe_aux": m["moe_aux"] * m["weight"]} if "moe_aux" in m else m
+                sums = ({key: v.clone() for key, v in m.items()} if sums is None
+                        else {key: sums[key] + m[key] for key in sums})
         torch.cuda.synchronize()
-        dispatch = float(_dispatch_metrics(sums, MLM_K, tcfg.loss_normalization,
+        dispatch = float(_dispatch_metrics(sums, k, tcfg.loss_normalization,
                                            tcfg.batch_size)["loss"])
-        captures = len(fn.captures) if captured else 0
-        return torch.stack(losses).cpu(), params_digest(state.params), dispatch, captures
+        captures = len(replay.captures) if captured else 0
+        return (torch.stack(losses).cpu(), params_digest(state.params), dispatch, captures,
+                {key: float(v) for key, v in metrics.items()})
 
     eager, replayed = run(False), run(True)
     rec = {
-        "phase": "mlm", "step": "replay_vs_eager", "steps": MLM_K,
+        "phase": phase, "step": "replay_vs_eager", "steps": lead + k, "eager_lead": lead,
         "eager_losses": eager[0].tolist(), "replayed_losses": replayed[0].tolist(),
         "losses_bit_identical": bool(torch.equal(eager[0], replayed[0])),
         "params_bit_identical": eager[1] == replayed[1], "captures": replayed[3],
         "dispatch_loss": replayed[2], "cli_first_dispatch_loss": trainer.losses[0],
         "cli_first_dispatch_equal": replayed[2] == trainer.losses[0],
-        "masks_differ_by_step": len(set(eager[0].tolist())) == MLM_K,
+        "masks_differ_by_step": len(set(eager[0].tolist())) == lead + k,
+        "last_step_metrics": replayed[4],
     }
     emit(rec)
     if not (rec["losses_bit_identical"] and rec["params_bit_identical"]
             and rec["cli_first_dispatch_equal"] and replayed[3] == 1):
-        raise SystemExit(f"mlm: the replayed steps are not the eager ones: {rec}")
+        raise SystemExit(f"{phase}: the replayed steps are not the eager ones: {rec}")
+    return rec
 
 
 def mlm_adafactor_path(vocab_path):
@@ -5552,7 +5587,7 @@ def mlm_path(vocab_path):
     argv = mlm_argv(vocab_path, "mlm")
     trainer, fit_rec, train_ds = mlm_fit(argv, "base")
     launches = {"mlm_train": fit_rec["launches"]}
-    mlm_replay_check(trainer, train_ds)
+    replay_vs_eager_check(trainer, train_ds)
     window_profile(trainer, batches_of_width(train_ds, MLM_LEN, 3 * MLM_K), MLM_K, "mlm base",
                    phase="mlm")
     export = argv[argv.index("--export_path") + 1]
@@ -5568,6 +5603,7 @@ def mlm_path(vocab_path):
 # phase 16: the trainer's command line (native data path, the paper's flags)
 
 PAPER_LAYERS = 2  # depth of the paper's command-line run (step 3), cut
+PAPER_BASE_LAYERS = 2  # depth of step 2's base run, cut from 6 + 6
 # The base run's noam warmup: the Transformer paper's 4,000 (at the CLI's
 # 60,000 the learning rate stays under 5e-7 for the whole epoch, and the
 # falling loss the phase gates on would be a few thousandths).
@@ -5679,7 +5715,8 @@ def falls(losses, n: int = 10) -> tuple[float, float]:
 
 def paper_base_path(src_vocab, tgt_vocab):
     """Step 2: ``cli.train --preset base --attention_impl flash
-    --sequence_length 64 --epochs 1`` at full depth on the defaults, so
+    --sequence_length 64 --epochs 1`` at ``PAPER_BASE_LAYERS`` +
+    ``PAPER_BASE_LAYERS`` layers on the defaults, so
     through the native loader, with its gates; returns (export, flash
     launches, record)."""
     import statistics
@@ -5691,8 +5728,8 @@ def paper_base_path(src_vocab, tgt_vocab):
     data = os.path.join(ROOT, "data")
     export = os.path.join(BUILD_DIR, "paper_base_export")
     argv = [
-        "--preset", "base", "--attention_impl", "flash", "--sequence_length", str(S2S_LEN),
-        "--warmup_steps", PAPER_WARMUP,
+        "--preset", "base", "--num_layers", str(PAPER_BASE_LAYERS), "--attention_impl", "flash",
+        "--sequence_length", str(S2S_LEN), "--warmup_steps", PAPER_WARMUP,
         "--epochs", "1", "--dataset_path", data, "--src_vocab_file", src_vocab,
         "--tgt_vocab_file", tgt_vocab, "--export_path", export,
         "--ckpt_path", fresh_dir("ckpt", "paper_base"),
@@ -5865,7 +5902,7 @@ def attention_maps_path(stream_export, stream_vocabs, base_export, src_vocab, tg
     read_flash_counters(reset=True)
     flash, _ = attention_maps(base_export, src_vocab, tgt_vocab, "paper_base")
     launches = read_flash_counters()
-    layers = 6
+    layers = PAPER_BASE_LAYERS
     want_launches = {"flash_fwd": layers + n * 2 * layers, "flash_dq": 0, "flash_dkdv": 0}
     rec = {
         "phase": "paper", "step": "attention_out", "sentences": n,
@@ -5887,7 +5924,7 @@ def attention_maps_path(stream_export, stream_vocabs, base_export, src_vocab, tg
 
 
 def paper_path(vocab_paths: dict) -> tuple[dict, dict]:
-    """Phase 16: the native build and vocabularies, base 6 + 6 through the
+    """Phase 16: the native build and vocabularies, base 2 + 2 through the
     native loader, the paper's streaming command line over tfds vocab
     files, and ``--attention_out``. Returns the flash launches by path and
     the records."""
@@ -6174,6 +6211,363 @@ def telemetry_path(export, vocab_path, tok, reqs, plain_answers, serve_rec, grap
     return serve_launches, train_launches
 
 
+# --------------------------------------------------------------------------
+# phase 18: Mixture-of-Experts, long4k-moe
+
+
+MOE_FLAGS = ("--moe_experts", "8", "--moe_top_k", "2", "--moe_capacity_factor", "1.25",
+             "--moe_every", "2")
+MOE_K = 4  # --steps_per_dispatch of the replayed run
+MOE_LEAD = 3  # eager steps before the replayed dispatch of the step-level check
+MOE_NEW = 12  # max_new of phase 18's requests
+MOE_SPEC_K = 2
+# bf16, kernels against plain versions: the loss of one forward, relative
+# (the flash kernels round otherwise than their plain versions, which
+# moves the router's inputs; the tokens whose experts change are counted).
+MOE_BF16_LOSS_REL = 1e-2
+
+
+def moe_config(vocab_size: int, **overrides):
+    """long4k-moe: the long4k preset with 8 experts, top-2, capacity
+    factor 1.25, every second layer (GShard), the aux weight at 0.01."""
+    return long4k_config(vocab_size, moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+                         moe_every=2, **overrides)
+
+
+class recorded_routing:
+    """Inside the block, every MoE layer's (B, S, k) expert choices, in
+    call order (``ops.moe.moe_route`` wrapped)."""
+
+    def __enter__(self):
+        from transformer_tpu_torch.ops import moe
+
+        self.moe, self.real, self.seen = moe, moe.moe_route, []
+
+        def record(probs, k, capacity, live=None):
+            r = self.real(probs, k, capacity, live)
+            self.seen.append(r["indices"].detach().clone())
+            return r
+
+        moe.moe_route = record
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.moe.moe_route = self.real
+
+
+def forward_routing(params, cfg, tcfg, tgt, reference: bool):
+    """One forward's loss, aux and every MoE layer's choices (no dropout,
+    no gradient)."""
+    import torch
+
+    from transformer_tpu_torch.train.trainer import _forward_loss
+
+    with torch.no_grad(), recorded_routing() as seen:
+        loss, m = _forward_loss(params, tgt, cfg, tcfg, None, reference=reference)
+    return seen, float(loss), float(m["moe_aux"])
+
+
+def routing_flips(got, want) -> list[float]:
+    """Per MoE layer, the share of tokens whose set of experts differs."""
+    return [float((g.sort(-1).values != w.sort(-1).values).any(-1).float().mean())
+            for g, w in zip(got, want)]
+
+
+MOE_PROMPTS = (1, 2, 4, 5, 7, 9, 10, 12)  # phase 4's requests of 9 to 310 tokens
+
+
+def moe_requests(tok) -> list[dict]:
+    """Eight of phase 4's prompts (9 to 310 tokens), all greedy,
+    ``MOE_NEW`` new tokens each."""
+    reqs = make_requests(tok)
+    return [{"prompt": reqs[i]["prompt"], "max_new": MOE_NEW} for i in MOE_PROMPTS]
+
+
+def moe_fp32_check(tok, train_ds, steps: int = 3):
+    """Step 1: long4k-moe at 2 layers (one dense, one MoE) in fp32. For
+    ``steps`` train steps from the seed's init, on the same params: every
+    token's experts identical on the kernels and on their plain versions,
+    the loss and gradients held to TRAIN_TOL (the dense fp32 check's);
+    then the kernel step advances. Then one request's greedy tokens
+    through the paged_flash scheduler (kernels B and A) identical to
+    ``train.decode.generate``'s (the plain path)."""
+    import itertools
+
+    import torch
+
+    from transformer_tpu_torch.config import TrainConfig
+    from transformer_tpu_torch.models.transformer import init_params
+    from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
+    from transformer_tpu_torch.train import decode
+    from transformer_tpu_torch.train.state import create_train_state
+    from transformer_tpu_torch.train.trainer import make_train_step
+
+    cfg = moe_config(tok.model_vocab_size, num_layers=2, dtype="float32")
+    tcfg = TrainConfig(batch_size=4, sequence_length=4096)
+    state = create_train_state(cfg, tcfg, params=init_params(
+        cfg, torch.Generator().manual_seed(SEED), device="cuda"))
+    step = make_train_step(cfg, tcfg)
+    per_step = []
+    for i, (_, tgt) in enumerate(itertools.islice(train_ds.batches(0), steps)):
+        t = torch.from_numpy(tgt).to("cuda", torch.long)
+        got, loss_k, aux_k = forward_routing(state.params, cfg, tcfg, t, reference=False)
+        want, loss_p, aux_p = forward_routing(state.params, cfg, tcfg, t, reference=True)
+        same = len(got) == len(want) == 1 and all(torch.equal(a, b) for a, b in zip(got, want))
+        held = kernels_vs_plain_step(
+            {"phase": "moe", "step": "fp32_train_check", "train_step": i, "layers": 2,
+             "routing_identical": same, "aux": aux_k, "aux_plain": aux_p,
+             "tokens_routed": int(got[0].shape[0] * got[0].shape[1])}, cfg, tcfg,
+            state.params, t)
+        per_step.append({"routing_identical": same, "loss_rel_diff": held["loss_rel_diff"],
+                         "aux_abs_diff": abs(aux_k - aux_p)})
+        if not same:
+            raise SystemExit(f"moe: fp32 routing differs, kernels against plain, step {i}: "
+                             f"{routing_flips(got, want)}")
+        state, _ = step(state, None, tgt)
+    req = moe_requests(tok)[1]  # 310 tokens
+    sched = ContinuousScheduler(state.params, cfg, tok, num_slots=4, prefill_chunk=64,
+                                kv_block=16, device="cuda", **PAGED_FLASH_KW)
+    served = sched.run([dict(req)])[0].get("continuation")
+    plain = decode.generate(state.params, cfg, tok, [req["prompt"]], max_new=req["max_new"],
+                            prefill_chunk=64)[0]
+    rec = {"phase": "moe", "step": "fp32_routing", "card": nvidia_smi_line(), "steps": per_step,
+           "greedy_request_tokens": len(tok.encode(req["prompt"])) + 1,
+           "greedy_equal": served == plain, "served": served, "generate": plain}
+    emit(rec)
+    if served != plain:
+        raise SystemExit(f"moe: fp32 greedy tokens differ, paged_flash against generate: {rec}")
+    del state, sched
+    torch.cuda.empty_cache()
+
+
+def trace_shares(trace_dir: str) -> dict:
+    """Device time by kernel in the ``--profile_dir`` window's chrome
+    trace: the total, and the flash kernels' shares."""
+    paths = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")]
+    if not paths:
+        return {"device_ms": "not measured"}
+    with open(max(paths, key=os.path.getmtime)) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    total = sum(e["dur"] for e in kernels)
+    if not total:
+        return {"device_ms": "not measured"}
+    shares = {name: sum(e["dur"] for e in kernels if f"{name}_kernel" in e["name"]) / total
+              for name in ("flash_fwd", "flash_dq", "flash_dkdv")}
+    return {"device_ms": total / 1e3, "kernels": len(kernels), "flash_shares": shares}
+
+
+def moe_sublayer_ms(params, cfg, layer: int) -> dict:
+    """One MoE sublayer at the training shape (B 4, S 4095, d 512, bf16)
+    with layer ``layer``'s weights, forward and forward + backward: the
+    host-paced time of back-to-back calls (``cuda_ms``) and the device
+    time a call (``kernel_us``'s kernels summed), with the call's five
+    longest kernels."""
+    import torch
+
+    from transformer_tpu_torch.ops.moe import moe_apply
+
+    p = {k: {n: t.detach().requires_grad_() for n, t in v.items()}
+         for k, v in params["decoder"]["layers"][layer]["moe"].items()}
+    x = torch.randn((4, 4095, cfg.d_model), generator=torch.Generator("cuda").manual_seed(SEED),
+                    device="cuda").to(cfg.compute_dtype).requires_grad_()
+    kw = dict(num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+              capacity_factor=cfg.moe_capacity_factor, activation=cfg.ffn_activation)
+
+    def fwd():
+        with torch.no_grad():
+            moe_apply(p, x, **kw)
+
+    def fwd_bwd():
+        y, aux = moe_apply(p, x, **kw)
+        torch.autograd.backward([y, aux], [torch.ones_like(y), torch.ones_like(aux)])
+
+    out = {"forward_ms": cuda_ms(fwd, iters=10, warmup=2),
+           "forward_backward_ms": cuda_ms(fwd_bwd, iters=10, warmup=2)}
+    for name, fn in (("forward", fwd), ("forward_backward", fwd_bwd)):
+        per_kernel = kernel_us(fn, calls=10)
+        if isinstance(per_kernel, dict):
+            out[f"{name}_device_ms"] = sum(per_kernel.values()) / 1e3
+            out[f"{name}_top_kernels_us"] = dict(
+                sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5])
+        else:
+            out[f"{name}_device_ms"] = per_kernel
+    return out
+
+
+def moe_serve_path(export, vocab_path, tok) -> dict:
+    """Step 3: the trained long4k-moe export through ``cli.serve``: bf16 on
+    paged_flash (B on all 6 layers, A on the 3 dense ones), plain and at
+    ``--speculate_k 2``; fp32 on paged_flash and on the dense layout. Gates:
+    A's launches exactly half of B's on the decode and verify steps, every
+    step after a shape's first a replay, and each fp32 answer equal to
+    ``train.decode.generate``'s for the request alone (fp32, the plain
+    path, the same prefill chunk). Reported: the bf16 answers that differ
+    from the fp32 paged_flash ones, the steps' times."""
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.train import decode
+
+    reqs = moe_requests(tok)
+    runs, launches = {}, {"paged_attention": 0, "fused_ln_ffn": 0}
+    export32 = export_variant(export, "moe_export_fp32", dtype="float32")
+    cases = {
+        "bf16 paged_flash": serve_argv(export, vocab_path),
+        f"bf16 paged_flash k={MOE_SPEC_K}": serve_argv(export, vocab_path, "--speculate_k",
+                                                       str(MOE_SPEC_K)),
+        "fp32 paged_flash": serve_argv(export32, vocab_path),
+        "fp32 dense": serve_argv(export32, vocab_path, layout=LAYOUT_FLAGS["dense"]),
+    }
+    for label, argv in cases.items():
+        sched, [(answers, st, wall)], counts = serve_passes(argv, [reqs])
+        for name in launches:
+            launches[name] += counts[name]
+        runs[label] = {
+            "answers": [a.get("continuation") for a in answers],
+            "errors": [a for a in answers if "error" in a], "launches": counts,
+            "half": counts["fused_ln_ffn"] * 2 == counts["paged_attention"],
+            **replayed(sched, st["steps"]), "wall_s": wall,
+            "step_ms": st["decode_s"] / max(1, st["steps"]) * 1e3,
+            "prefill_ms": st["prefill_s"] * 1e3, "generated_tokens": st["generated_tokens"],
+            "drafted": st["drafted"], "accepted": st["accepted"],
+        }
+        del sched
+    params32, cfg32 = load_export(export32, device="cuda")
+    want = [decode.generate(params32, cfg32, tok, [r["prompt"]], max_new=r["max_new"],
+                            prefill_chunk=64)[0] for r in reqs]
+    fp32 = {label: [i for i, a in enumerate(runs[label]["answers"]) if a != want[i]]
+            for label in ("fp32 paged_flash", "fp32 dense")}
+    rec = {
+        "phase": "moe", "step": "serve", "card": nvidia_smi_line(), "requests": len(reqs),
+        **{label: {k: v for k, v in r.items() if k != "answers"} for label, r in runs.items()},
+        "fp32_differing_from_generate": fp32,
+        "bf16_differing_from_fp32_paged_flash": [
+            i for i, a in enumerate(runs["bf16 paged_flash"]["answers"])
+            if a != runs["fp32 paged_flash"]["answers"][i]],
+        "speculative_differing_from_plain_bf16": [
+            i for i, a in enumerate(runs[f"bf16 paged_flash k={MOE_SPEC_K}"]["answers"])
+            if a != runs["bf16 paged_flash"]["answers"][i]],
+        "timers": "step_ms: host clock per step of the run (a replayed graph each)",
+    }
+    emit(rec)
+    bad = [label for label, r in runs.items()
+           if r["errors"] or len(r["answers"]) != len(reqs) or not r["every_step_through_the_graph"]
+           or ("paged_flash" in label and not r["half"])]
+    if bad or any(fp32.values()):
+        raise SystemExit(f"moe: serving failed ({bad or 'fp32 answers differ from generate'}): "
+                         f"{rec}")
+    return launches
+
+
+def moe_path(vocab_path, tok) -> tuple[dict, dict]:
+    """Phase 18 (``moe_fp32_check``, then the full-width bf16 run, then
+    ``moe_serve_path``): long4k-moe trained through ``cli.train`` for an
+    epoch of the bundled corpus eagerly (with a ``--profile_dir`` window of
+    one step) and at ``--steps_per_dispatch 4`` (replayed): the two
+    exports bit-identical, one capture, the flash counters of each run its
+    steps' (``train_path``); ``MOE_LEAD`` eager steps then one dispatch of
+    4 through the captured step, its losses and parameters bit-identical
+    to 7 eager steps; the routing of one forward, kernels against plain
+    versions in bf16 (the loss within MOE_BF16_LOSS_REL; the tokens whose
+    experts change, reported); the MoE sublayer timed beside the window's
+    flash kernels; then serving. Returns (flash launches, B and A
+    launches)."""
+    import torch
+
+    from transformer_tpu_torch.config import TrainConfig
+    from transformer_tpu_torch.convert import params_digest
+    from transformer_tpu_torch.ops.moe import expert_capacity
+
+    prof_dir = fresh_dir("moe_profile")
+    e_trainer, train_ds, e_launches, e_rec = train_path(
+        vocab_path, *MOE_FLAGS, "--profile_dir", prof_dir, "--profile_start_step", "2",
+        "--profile_num_steps", "1", name="moe_train")
+    moe_fp32_check(tok, train_ds)
+    e_digest = params_digest(e_trainer.state.params)
+    e_aux = e_trainer.train_metrics.moe_aux
+    del e_trainer
+    torch.cuda.empty_cache()
+    k_trainer, _, k_launches, k_rec = train_path(
+        vocab_path, *MOE_FLAGS, "--steps_per_dispatch", str(MOE_K), name="moe_train_k4")
+    cfg = k_trainer.model_cfg
+    captures = len(k_trainer.graph.captures) if k_trainer.graph is not None else 0
+    replay = replay_vs_eager_check(k_trainer, train_ds, k=MOE_K, lead=MOE_LEAD, phase="moe")
+    tcfg = TrainConfig(batch_size=4, sequence_length=4096)
+    _, tgt = next(iter(train_ds.batches(1)))
+    t = torch.from_numpy(tgt).to("cuda", torch.long)
+    got, loss_k, aux_k = forward_routing(k_trainer.state.params, cfg, tcfg, t, reference=False)
+    want, loss_p, aux_p = forward_routing(k_trainer.state.params, cfg, tcfg, t, reference=True)
+    flips = routing_flips(got, want)
+    timing = moe_sublayer_ms(k_trainer.state.params, cfg, layer=1)
+    window = trace_shares(prof_dir)
+    moe_layers = sum(1 for i in range(cfg.num_layers) if (i + 1) % cfg.moe_every == 0)
+    # Under remat a step runs each MoE sublayer's forward twice (the
+    # recompute) and its backward once: device time.
+    moe_step_ms = (moe_layers * (timing["forward_device_ms"]
+                                 + timing["forward_backward_device_ms"])
+                   if isinstance(timing["forward_device_ms"], float)
+                   and isinstance(timing["forward_backward_device_ms"], float)
+                   else "not measured")
+    rec = {
+        "phase": "moe", "step": "train", "card": nvidia_smi_line(),
+        "config": {k: getattr(cfg, k) for k in (
+            "num_layers", "d_model", "num_heads", "dff", "moe_experts", "moe_top_k",
+            "moe_capacity_factor", "moe_every", "moe_aux_weight", "dtype", "remat")},
+        "capacity_per_row": expert_capacity(4095, cfg.moe_experts, cfg.moe_top_k,
+                                            cfg.moe_capacity_factor),
+        "eager": {k: e_rec[k] for k in ("steps", "step_ms_median", "step_ms_mean",
+                                        "tokens_per_s", "max_memory_allocated_bytes",
+                                        "train_loss", "eval_loss", "launches")},
+        "replayed": {k: k_rec[k] for k in ("steps", "step_ms_median", "step_ms_mean",
+                                           "tokens_per_s", "max_memory_allocated_bytes",
+                                           "train_loss", "eval_loss", "launches")},
+        "moe_aux_eager": e_aux, "moe_aux_replayed": k_trainer.train_metrics.moe_aux,
+        "captures": captures, "exports_bit_identical": e_digest == params_digest(
+            k_trainer.state.params),
+        "replay_losses_bit_identical": replay["losses_bit_identical"],
+        "bf16_kernels_vs_plain": {
+            "loss": loss_k, "loss_plain": loss_p, "loss_rel_diff": abs(loss_k - loss_p) / loss_p,
+            "aux": aux_k, "aux_plain": aux_p, "tolerance": MOE_BF16_LOSS_REL,
+            "routing_flip_share_by_moe_layer": flips,
+        },
+        "moe_sublayer": {**timing, "moe_layers": moe_layers,
+                         "device_ms_per_step (2 forwards + 1 backward a layer)": moe_step_ms},
+        "profile_window": {**window, "dir": prof_dir},
+        "moe_share_of_window_device_time": (
+            moe_step_ms / window["device_ms"]
+            if isinstance(window.get("device_ms"), float) and isinstance(moe_step_ms, float)
+            else "not measured"),
+        "timers": "step_ms: host clock per step (cli.train); moe_sublayer *_ms: cuda_ms "
+                  "(host-paced), *_device_ms: kernel_us summed; profile_window: device "
+                  "time of the --profile_dir trace's kernels",
+    }
+    emit(rec)
+    if not rec["exports_bit_identical"] or captures != 1:
+        raise SystemExit(f"moe: the replayed run is not the eager one: {rec}")
+    if not rec["bf16_kernels_vs_plain"]["loss_rel_diff"] <= MOE_BF16_LOSS_REL:
+        raise SystemExit(f"moe: bf16 loss, kernels against plain: {rec}")
+    if not (e_aux and math.isfinite(e_aux)):
+        raise SystemExit(f"moe: no moe_aux reported: {rec}")
+    export = os.path.join(BUILD_DIR, "moe_train_k4_export")
+    del k_trainer
+    torch.cuda.empty_cache()
+    serve_launches = moe_serve_path(export, vocab_path, tok)
+    flash = {name: e_launches[name] + k_launches[name] for name in e_launches}
+    return flash, serve_launches
+
+
+def moe_only() -> None:
+    """Phase 18 alone (``python3 chip_smoke.py --only moe``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tok, vocab_path = vocab()
+    flash, serve = moe_path(vocab_path, tok)
+    emit({"phase": "moe", "launches": {"flash": flash, "serve": serve},
+          "card": nvidia_smi_line()})
+
+
 def telemetry_only() -> None:
     """Phase 17 alone (``python3 chip_smoke.py --only telemetry``): phase
     4's serving and phase 9's D run first, as its references."""
@@ -6253,6 +6647,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "telemetry"]:
         telemetry_only()
+        return 0
+    if sys.argv[1:] == ["--only", "moe"]:
+        moe_only()
         return 0
 
     # Each phase's seconds on the host clock, emitted as it ends.
@@ -6440,7 +6837,7 @@ def main() -> int:
     lap("6 seq2seq")
 
     # 7. sequence-parallel training over four processes on this card, at
-    # long4k's width and 2 layers, against a single-card run of those flags
+    # long4k's width and 1 layer, against a single-card run of those flags
     sp_trainer, _, sp_single_launches, sp_single = train_path(
         vocab_path, "--num_layers", str(SP_LAYERS), name="sp_single")
     del sp_trainer
@@ -6508,6 +6905,11 @@ def main() -> int:
         export, vocab_path, tok, reqs, plain_answers, serve_rec, graph_rec, src_vocab, d_rec)
     lap("17 telemetry")
 
+    # 18. Mixture-of-Experts: long4k-moe trained (eager and replayed),
+    # routing held kernels-against-plain, served on paged_flash and dense
+    moe_flash, serve_launches["moe"] = moe_path(vocab_path, tok)
+    lap("18 moe")
+
     def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
                                          "share_of_bound_warm") if k in main_rec}
@@ -6548,7 +6950,7 @@ def main() -> int:
                    "windowed_train": windowed_launches[name],
                    **{path: counts[name] for path, counts in mlm_launches.items()},
                    **{path: counts[name] for path, counts in paper_launches.items()},
-                   "telemetry": tel_train_launches[name]}
+                   "telemetry": tel_train_launches[name], "moe_train": moe_flash[name]}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",

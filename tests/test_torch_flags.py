@@ -12,9 +12,11 @@ registry is left alone. Then:
   (``--name=value``, and ``--name`` / ``--noname`` for a boolean): never
   argparse's usage error (exit code 2), and each default is JAX's;
 - away from its default every flag is accepted, or refused with a
-  message that names it (``--moe_experts``; the unported mesh axes of the
-  distributed trainer); the telemetry, profiler and TensorBoard flags and
-  ``--slo_spec`` are accepted;
+  message that names it (the unported mesh axes of the distributed
+  trainer); the telemetry, profiler and TensorBoard flags, ``--slo_spec``
+  and the ``--moe_*`` flags are accepted, and the MoE flags reach the
+  model config; ``--ep``, ``--sp`` and ``--pp`` above 1 with
+  ``--moe_experts`` are refused by name;
 - ``--platform``: ``cpu`` means the CPU, ``gpu``/``cuda`` the card; any
   other value, or one that disagrees with ``--device``, is refused;
 - ``--enable_function=false`` trains and refuses ``--steps_per_dispatch
@@ -63,7 +65,7 @@ TRAINERS = {
         argv, distributed_train._FLAGS, distributed_train.__doc__),
 }
 # Set away from JAX's default, these are refused with a message naming them.
-REFUSED = {"moe_experts"}
+REFUSED: set[str] = set()
 # The server refuses none of JAX's flags.
 SERVE_REFUSED: set[str] = set()
 
@@ -126,6 +128,21 @@ def test_serve_parses_every_jax_flag(name):
             serve.main(base + _spell(kind, name, value), stdin=io.StringIO(""))
     else:
         assert getattr(args, name) == value
+
+
+def test_moe_flags_reach_the_model_config():
+    args = train.resolve_flags(["--moe_experts=8", "--moe_top_k", "2",
+                                "--moe_capacity_factor=1.5", "--moe_every=2",
+                                "--moe_aux_weight=0.02", "--decoder_only"])
+    cfg = train.model_config(args, 100)
+    assert (cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity_factor, cfg.moe_every,
+            cfg.moe_aux_weight) == (8, 2, 1.5, 2, 0.02)
+
+
+@pytest.mark.parametrize("flag,axis", [("ep", "expert"), ("sp", "seq"), ("pp", "pipe")])
+def test_distributed_train_refuses_moe_over_other_axes_by_name(flag, axis):
+    with pytest.raises(NotImplementedError, match=f"--{flag} > 1 with --moe_experts"):
+        distributed_train.main([f"--{flag}=2", "--moe_experts=4"])
 
 
 def test_enum_values_parse_as_jax_spells_them():

@@ -90,6 +90,9 @@ def main(argv: list[str] | None = None, log_fn=print):
     """Train over the launcher's processes and export from rank 0;
     returns the trainer."""
     args = train.resolve_flags(argv, _FLAGS, __doc__)
+    from transformer_tpu_torch.parallel.distributed import check_moe_mesh
+
+    check_moe_mesh(args, {"expert": args.ep, "seq": args.sp, "pipe": args.pp})
     for name in ("fsdp", "tp", "pp", "ep", "dcn_data"):
         if getattr(args, name) > 1:
             raise NotImplementedError(

@@ -41,8 +41,10 @@ Every flag of the JAX CLI parses here, with absl's spellings (``--f=v``,
 The reference's ``--enable_function`` (false: no captured steps) and
 ``--per_replica_batch_size`` (unused) keep JAX's meaning, ``--platform``
 picks ``--device``, and the mesh flags are accepted and unused (they are
-``cli.distributed_train``'s). ``--moe_experts`` above 0 is refused by
-name: MoE is a later slice of the port.
+``cli.distributed_train``'s). ``--moe_experts E`` (with ``--moe_top_k``,
+``--moe_capacity_factor``, ``--moe_every`` and ``--moe_aux_weight``) puts
+an E-expert MoE FFN (``ops/moe.py``) in every ``moe_every``-th layer of
+any of the three families; the log line then carries ``moe_aux``.
 
 Telemetry, as the JAX CLI's: ``--metrics_jsonl PATH`` streams JSONL
 events (``train.window``, ``train.eval``, ``train.memory``,
@@ -232,9 +234,7 @@ _FLAGS: dict[str, tuple] = {
     "dcn_data": (int, 1, "cli.distributed_train's multi-slice data split (unused here)"),
     "consistency_check": (_bool, False, "cli.distributed_train's cross-process check "
                           "(unused here)"),
-    # MoE: accepted at the JAX CLI's defaults, --moe_experts refused by
-    # name above 0 (_LATER).
-    "moe_experts": (int, 0, "refused above 0: MoE is a later slice of the port"),
+    "moe_experts": (int, 0, "experts per MoE layer (0 = dense FFN everywhere)"),
     "moe_top_k": (int, 2, "experts each token routes to (with --moe_experts)"),
     "moe_capacity_factor": (float, 1.25, "expert capacity slack (with --moe_experts)"),
     "moe_every": (int, 1, "every k-th layer carries the MoE FFN (with --moe_experts)"),
@@ -245,9 +245,7 @@ _FLAGS: dict[str, tuple] = {
 
 # Flags of later slices, refused by name when set away from the JAX CLI's
 # default (as cli.router does).
-_LATER: dict[str, str] = {
-    "moe_experts": "--moe_experts > 0: MoE (ops/moe.py) is a later slice of the port",
-}
+_LATER: dict[str, str] = {}
 
 _PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
@@ -466,6 +464,9 @@ def model_config(args: argparse.Namespace, vocab: int, input_vocab: int | None =
         ffn_activation=args.ffn_activation, dtype=args.dtype,
         attention_impl=args.attention_impl, attention_window=args.attention_window,
         remat=args.remat, remat_policy=args.remat_policy,
+        moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
+        moe_capacity_factor=args.moe_capacity_factor, moe_every=args.moe_every,
+        moe_aux_weight=args.moe_aux_weight,
     )
 
 

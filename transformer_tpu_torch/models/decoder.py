@@ -20,10 +20,12 @@ import torch
 
 from transformer_tpu_torch.config import ModelConfig
 from transformer_tpu_torch.models.encoder import (
+    _add_aux,
     _ffn_sublayer_apply,
     _generators,
     _subkey,
     _sublayer,
+    _token_mask_from,
     embed_prologue,
 )
 from transformer_tpu_torch.ops.attention import (
@@ -64,10 +66,13 @@ def decoder_layer_apply(
     drawn over the global activation ``dropout_slice`` places x in. A
     seq2seq layer then attends over ``enc_out`` under ``cross_mask``, or
     over its projected ``cross_kv``. Dropout sites: 0 self-attention, 1
-    FFN, 2 cross-attention. ``return_weights`` (cache-free) returns (x,
-    None, self-attention map, cross-attention map), each None where the
-    path keeps no map."""
+    FFN, 2 cross-attention. Returns (x, updated cache, the MoE layer's
+    aux loss or None); MoE routing takes its token mask from ``self_mask``
+    (every token real without one, as on the cached path).
+    ``return_weights`` (cache-free) returns (x, None, self-attention map,
+    cross-attention map, aux), each map None where the path keeps none."""
     box: list[Any] = [None, None, None]
+    aux_box: list = [None]
 
     def self_attn(h):
         if cache is not None:
@@ -102,10 +107,11 @@ def decoder_layer_apply(
 
         x = _sublayer(cfg, params["ln2"], x, cross_attn, gens[2], deterministic, dropout_slice)
     x = _sublayer(
-        cfg, params["ln_ffn"], x, lambda h: _ffn_sublayer_apply(params, h, cfg),
+        cfg, params["ln_ffn"], x,
+        lambda h: _ffn_sublayer_apply(params, h, cfg, aux_box, _token_mask_from(self_mask)),
         gens[1], deterministic, dropout_slice,
     )
-    return (x, *box) if return_weights else (x, box[0])
+    return (x, *box, aux_box[0]) if return_weights else (x, box[0], aux_box[0])
 
 
 def decoder_apply(
@@ -124,6 +130,7 @@ def decoder_apply(
     reference: bool = False,
     dropout_slice: GlobalSlice | None = None,
     return_weights: bool = False,
+    return_aux: bool = False,
 ):
     """(B, S) ids at positions ``position_offset ..`` -> (B, S, d_model)
     hiddens and the updated caches (None on the cache-free path). Dropout
@@ -135,18 +142,23 @@ def decoder_apply(
     returns (hiddens, None, maps): the JAX twin's
     ``decoder_layer{L}_block1`` (self) and ``_block2`` (cross) maps of the
     plain path (cross-attention always has one; self-attention none
-    under flash); its layers never run under remat."""
+    under flash) and, for a MoE model, the summed load-balance loss under
+    ``"moe_aux_decoder"``; its layers never run under remat.
+    ``return_aux`` appends that sum (None without MoE layers) to what is
+    returned."""
     (g_embed,) = _generators(_subkey(key, 0), 1, cfg, deterministic, ids.device)
     x = embed_prologue(
         params["embedding"], ids, cfg, position_offset, g_embed, deterministic, dropout_slice
     )
     cross = dict(enc_out=enc_out, cross_mask=cross_mask)
     maps = {}
+    aux_total = None
     if caches is not None:
         new_caches = []
         for i, (layer, cache) in enumerate(zip(params["layers"], caches)):
             kv = None if cross_kvs is None else cross_kvs[i]
-            x, cache = decoder_layer_apply(layer, x, cfg, cache, cross_kv=kv, **cross)
+            x, cache, aux = decoder_layer_apply(layer, x, cfg, cache, cross_kv=kv, **cross)
+            aux_total = _add_aux(aux_total, aux)
             new_caches.append(cache)
     else:
         new_caches = None
@@ -157,20 +169,24 @@ def decoder_apply(
                 deterministic=deterministic, reference=reference, dropout_slice=dropout_slice,
                 return_weights=return_weights, **cross,
             )
-            return out if return_weights else out[0]
+            return out if return_weights else (out[0], out[2])
 
         if cfg.remat and torch.is_grad_enabled() and not return_weights:
             layer_call = remat_layer(layer_call, cfg)
         for i, layer in enumerate(params["layers"]):
-            x = layer_call(layer, x, _subkey(key, i + 1))
+            out = layer_call(layer, x, _subkey(key, i + 1))
+            x, aux = out[0], out[-1]
+            aux_total = _add_aux(aux_total, aux)
             if return_weights:
-                x, _, w1, w2 = x
-                for block, w in ((1, w1), (2, w2)):
+                for block, w in ((1, out[2]), (2, out[3])):
                     if w is not None:
                         maps[f"decoder_layer{i + 1}_block{block}"] = w
+    if return_weights and aux_total is not None:
+        maps["moe_aux_decoder"] = aux_total
     if cfg.norm_scheme == "pre":
         x = layernorm_apply(params["final_ln"], x, cfg.layernorm_epsilon)
-    return (x, new_caches, maps) if return_weights else (x, new_caches)
+    out = (x, new_caches, maps) if return_weights else (x, new_caches)
+    return (*out, aux_total) if return_aux else out
 
 
 def decoder_prefill(

@@ -17,6 +17,7 @@ import torch
 from transformer_tpu_torch.config import ModelConfig
 from transformer_tpu_torch.ops.attention import mha_apply
 from transformer_tpu_torch.ops.ffn import ffn_apply
+from transformer_tpu_torch.ops.moe import moe_apply
 from transformer_tpu_torch.ops.nn import (
     GlobalSlice,
     Params,
@@ -60,12 +61,33 @@ def _sublayer(cfg: ModelConfig, params_ln, x, fn, generator=None, deterministic=
     return layernorm_apply(params_ln, x + y, cfg.layernorm_epsilon)
 
 
-def _ffn_sublayer_apply(params: Params, h: torch.Tensor, cfg: ModelConfig):
+def _token_mask_from(mask: torch.Tensor | None) -> torch.Tensor | None:
+    """A (B|1, 1, 1, S) key-padding mask -> the (B|1, S) token mask of MoE
+    routing; any other mask (or none) marks every token real, as in the
+    JAX twin."""
+    if mask is not None and mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[-2] == 1:
+        return mask[:, 0, 0, :]
+    return None
+
+
+def _ffn_sublayer_apply(params: Params, h: torch.Tensor, cfg: ModelConfig, aux_box: list,
+                        token_mask: torch.Tensor | None = None):
+    """The dense FFN, or the MoE FFN for a layer whose params carry
+    ``moe``; a MoE layer's load-balance loss lands in ``aux_box[0]``."""
     if "moe" in params:
-        raise NotImplementedError(
-            "MoE FFN layers are not ported yet (a later slice of the port)"
+        y, aux_box[0] = moe_apply(
+            params["moe"], h, num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, activation=cfg.ffn_activation,
+            token_mask=token_mask,
         )
+        return y
     return ffn_apply(params["ffn"], h, cfg.ffn_activation)
+
+
+def _add_aux(total: torch.Tensor | None, aux: torch.Tensor | None) -> torch.Tensor | None:
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 def embed_prologue(
@@ -120,8 +142,11 @@ def encoder_layer_apply(
     ``mask`` with ``impl=cfg.attention_impl`` and no causality, then the
     FFN. ``reference`` runs the flash kernels' plain versions; dropout
     draws over the global activation that ``dropout_slice`` places x in.
-    ``return_weights`` returns (x, the attention map or None)."""
+    Returns (x, the MoE layer's aux loss or None); ``return_weights``
+    returns (x, the attention map or None, aux). The aux is an output, not
+    a side channel, so it survives ``remat_layer``."""
     box = [None]
+    aux_box: list = [None]
 
     def attn(h):
         out = mha_apply(
@@ -136,10 +161,11 @@ def encoder_layer_apply(
     g_attn, g_ffn = _generators(key, 2, cfg, deterministic, x.device)
     x = _sublayer(cfg, params["ln1"], x, attn, g_attn, deterministic, dropout_slice)
     x = _sublayer(
-        cfg, params["ln2"], x, lambda h: _ffn_sublayer_apply(params, h, cfg), g_ffn,
-        deterministic, dropout_slice,
+        cfg, params["ln2"], x,
+        lambda h: _ffn_sublayer_apply(params, h, cfg, aux_box, _token_mask_from(mask)),
+        g_ffn, deterministic, dropout_slice,
     )
-    return (x, box[0]) if return_weights else x
+    return (x, box[0], aux_box[0]) if return_weights else (x, aux_box[0])
 
 
 def encoder_apply(
@@ -153,6 +179,7 @@ def encoder_apply(
     position_offset: int = 0,
     dropout_slice: GlobalSlice | None = None,
     return_weights: bool = False,
+    return_aux: bool = False,
 ):
     """(B, S) source ids at positions ``position_offset ..`` -> (B, S,
     d_model) encodings. Dropout sites are keyed ``key + (0, site)`` for the
@@ -161,8 +188,10 @@ def encoder_apply(
     sequence split, as in ``decoder_apply``). With ``cfg.remat`` each layer
     runs under ``remat_layer`` whenever gradients are recorded.
     ``return_weights`` returns (encodings, {"encoder_layer{L}": map}) with
-    the plain path's maps (none under flash), as the JAX twin; its layers
-    never run under remat."""
+    the plain path's maps (none under flash) and, for a MoE model, the
+    summed load-balance loss under ``"moe_aux_encoder"``, as the JAX twin;
+    its layers never run under remat. ``return_aux`` appends that sum
+    (None without MoE layers) to what is returned."""
     (g_embed,) = _generators(_subkey(key, 0), 1, cfg, deterministic, ids.device)
     x = embed_prologue(params["embedding"], ids, cfg, position_offset, g_embed, deterministic,
                        dropout_slice)
@@ -174,12 +203,16 @@ def encoder_apply(
     if cfg.remat and torch.is_grad_enabled() and not return_weights:
         layer_call = remat_layer(layer_call, cfg)
     maps = {}
+    aux_total = None
     for i, layer in enumerate(params["layers"]):
-        x = layer_call(layer, x, _subkey(key, i + 1))
-        if return_weights:
-            x, w = x
-            if w is not None:
-                maps[f"encoder_layer{i + 1}"] = w
+        out = layer_call(layer, x, _subkey(key, i + 1))
+        x, aux = out[0], out[-1]
+        aux_total = _add_aux(aux_total, aux)
+        if return_weights and out[1] is not None:
+            maps[f"encoder_layer{i + 1}"] = out[1]
+    if return_weights and aux_total is not None:
+        maps["moe_aux_encoder"] = aux_total
     if cfg.norm_scheme == "pre":
         x = layernorm_apply(params["final_ln"], x, cfg.layernorm_epsilon)
-    return (x, maps) if return_weights else x
+    out = (x, maps) if return_weights else (x,)
+    return (*out, aux_total) if return_aux else (out if return_weights else x)

@@ -4,7 +4,8 @@ Port of ``transformer_tpu/models/paged_decode.py``: one forward over every
 pool slot, where attention reads the pool in place through the block
 table (``kernels/paged_flash.py``, CUDA kernel ``paged_attention.cu``) and
 each dense FFN sublayer is one fused residual+LN+FFN kernel
-(``ops/ffn.py``, CUDA kernel ``fused_ln_ffn.cu``). Everything else
+(``ops/ffn.py``, CUDA kernel ``fused_ln_ffn.cu``); a MoE layer's FFN
+sublayer is the plain one (``ops/moe.py``), as in the JAX twin. Everything else
 (embedding prologue, q/k/v/out projections, RoPE, LayerNorms, the pool
 scatter) is plain torch.
 
@@ -26,7 +27,12 @@ from transformer_tpu_torch.kernels.paged_flash import (
     paged_flash_attention,
     paged_flash_attention_plain,
 )
-from transformer_tpu_torch.models.encoder import _sublayer, embed_prologue, layer_uses_moe
+from transformer_tpu_torch.models.encoder import (
+    _ffn_sublayer_apply,
+    _sublayer,
+    embed_prologue,
+    layer_uses_moe,
+)
 from transformer_tpu_torch.models.transformer import project_logits
 from transformer_tpu_torch.ops.attention import (
     _project,
@@ -48,8 +54,6 @@ def check_paged_flash_config(cfg: ModelConfig) -> None:
             "paged_flash decode has no sliding-window band mask; "
             "attention_window configs are not served by the port"
         )
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE layers are a later slice of the port")
 
 
 def _scatter_layer_kv(pool: dict[str, Any], k, v, rids) -> None:
@@ -103,8 +107,6 @@ def paged_decode_forward(
     rope = cfg.position_scheme == "rope"
     positions = index.long()[:, None] + torch.arange(s_q, device=toks.device)
     for i, layer in enumerate(dec["layers"]):
-        if layer_uses_moe(cfg, i):
-            raise NotImplementedError("MoE layers are a later slice of the port")
         pool = pool_caches[i]
 
         def self_attn(h, layer=layer, pool=pool):
@@ -124,12 +126,18 @@ def paged_decode_forward(
             return out_project(mp["out"], out, dtype)
 
         x = _sublayer(cfg, layer["ln1"], x, self_attn)
-        x = ffn(
-            layer["ln_ffn"], layer["ffn"], x,
-            activation=cfg.ffn_activation,
-            norm_scheme=cfg.norm_scheme,
-            epsilon=cfg.layernorm_epsilon,
-        )
+        if layer_uses_moe(cfg, i):
+            # Routing is data-dependent: the plain MoE sublayer, as the
+            # JAX twin keeps its XLA sublayer here (every token real).
+            x = _sublayer(cfg, layer["ln_ffn"], x,
+                          lambda h, layer=layer: _ffn_sublayer_apply(layer, h, cfg, [None]))
+        else:
+            x = ffn(
+                layer["ln_ffn"], layer["ffn"], x,
+                activation=cfg.ffn_activation,
+                norm_scheme=cfg.norm_scheme,
+                epsilon=cfg.layernorm_epsilon,
+            )
     if cfg.norm_scheme == "pre":
         x = layernorm_apply(dec["final_ln"], x, cfg.layernorm_epsilon)
     return project_logits(params, x, cfg), pool_caches

@@ -29,8 +29,9 @@ import torch
 from transformer_tpu_torch.config import PAD_ID, ModelConfig, is_gated
 from transformer_tpu_torch.device import resolve_device
 from transformer_tpu_torch.models.decoder import CrossKV, decoder_apply, decoder_prefill
-from transformer_tpu_torch.models.encoder import _subkey, encoder_apply
+from transformer_tpu_torch.models.encoder import _add_aux, _subkey, encoder_apply, layer_uses_moe
 from transformer_tpu_torch.ops.masks import make_padding_mask
+from transformer_tpu_torch.ops.moe import glorot_experts
 from transformer_tpu_torch.ops.nn import GlobalSlice, Params, dense_apply, embedding_attend
 
 SEP = "/"
@@ -62,14 +63,19 @@ def _stack_spec(tower: str, cfg: ModelConfig, vocab: int, embed_init: str):
             spec.update(_mha_spec(p + "self_mha/", cfg))
         if seq2seq_decoder:
             spec.update(_mha_spec(p + "cross_mha/", cfg))
-        if cfg.moe_experts and (i + 1) % cfg.moe_every == 0:
-            raise NotImplementedError("MoE layers are a later slice of the port")
-        dense = [("in", d, cfg.dff), ("out", cfg.dff, d)]
-        if is_gated(cfg.ffn_activation):
-            dense.append(("gate", d, cfg.dff))
-        for name, d_in, d_out in dense:
-            spec[p + f"ffn/{name}/kernel"] = ((d_in, d_out), "glorot")
-            spec[p + f"ffn/{name}/bias"] = ((d_out,), "zeros")
+        if layer_uses_moe(cfg, i):
+            e = cfg.moe_experts
+            spec[p + "moe/router/kernel"] = ((d, e), "glorot")
+            for name, d_in, d_out in (("in", d, cfg.dff), ("out", cfg.dff, d)):
+                spec[p + f"moe/{name}/kernel"] = ((e, d_in, d_out), "glorot_expert")
+                spec[p + f"moe/{name}/bias"] = ((e, d_out), "zeros")
+        else:
+            dense = [("in", d, cfg.dff), ("out", cfg.dff, d)]
+            if is_gated(cfg.ffn_activation):
+                dense.append(("gate", d, cfg.dff))
+            for name, d_in, d_out in dense:
+                spec[p + f"ffn/{name}/kernel"] = ((d_in, d_out), "glorot")
+                spec[p + f"ffn/{name}/bias"] = ((d_out,), "zeros")
         norms = ("ln1", "ln2") if tower == "encoder" else ("ln1", "ln_ffn")
         if seq2seq_decoder:
             norms += ("ln2",)
@@ -85,9 +91,12 @@ def _stack_spec(tower: str, cfg: ModelConfig, vocab: int, embed_init: str):
 def param_spec(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
     """Flat key -> (shape, init) in the JAX checkpoint naming
     (``decoder/layers/0/self_mha/query/kernel``), encoder first. init is
-    one of "normal_embed", "glorot", "glorot_out", "zeros", "ones", and
-    "tied" for a decoder table that starts as a copy of the encoder's.
-    An encoder-only model has the encoder tower alone."""
+    one of "normal_embed", "glorot", "glorot_out", "glorot_expert" (an
+    (E, d_in, d_out) stack, each expert drawn with fans (d_in, d_out)),
+    "zeros", "ones", and "tied" for a decoder table that starts as a copy
+    of the encoder's. An encoder-only model has the encoder tower alone.
+    A MoE layer (``layer_uses_moe``) holds ``moe/router``, ``moe/in`` and
+    ``moe/out`` in place of ``ffn/``."""
     spec: dict[str, tuple[tuple[int, ...], str]] = {}
     decoder_embed = "normal_embed"
     if cfg.encoder_only:
@@ -158,6 +167,8 @@ def init_params(
             t = flat["encoder/embedding/table"].clone()
         elif init == "normal_embed":
             t = torch.randn(shape, generator=generator) * cfg.d_model**-0.5
+        elif init == "glorot_expert":
+            t = glorot_experts(generator, *shape)
         elif init in ("glorot", "glorot_out"):
             if init == "glorot_out":  # (H, D, d_model), drawn as (d, d)
                 fan_in = fan_out = cfg.d_model
@@ -198,10 +209,15 @@ def transformer_hidden_apply(
     src_slice: GlobalSlice | None = None,
     source_mask: torch.Tensor | None = None,
     return_weights: bool = False,
+    return_aux: bool = False,
 ):
     """(B, S) target ids -> (B, S, d_model) decoder hiddens, before the
     vocab projection; with ``return_weights``, (hiddens, the attention
-    maps of ``encoder_apply`` and ``decoder_apply``), as the JAX twin. Decoder-only: ``inp`` is ignored; the self-mask is
+    maps of ``encoder_apply`` and ``decoder_apply``, with a MoE model's
+    ``moe_aux_encoder`` / ``moe_aux_decoder`` sums), as the JAX twin;
+    ``return_aux`` appends the whole model's summed MoE load-balance loss
+    (None without MoE layers), the twin's ``_collect_moe_aux`` of those
+    keys. Decoder-only: ``inp`` is ignored; the self-mask is
     ``make_padding_mask(tar)``, ANDed with causality inside attention.
     Encoder-only: ``inp`` is ignored; ``tar`` goes through the encoder
     stack under ``make_padding_mask(tar)`` alone (bidirectional), its
@@ -222,19 +238,24 @@ def transformer_hidden_apply(
     decoder stack (``parallel.seq_context.gather_sequence``), and
     cross-attention reads it under ``source_mask``, the whole source's
     (B, 1, 1, S_src) padding mask."""
+    def result(x, maps, aux):
+        out = (x, maps) if return_weights else (x,)
+        return (*out, aux) if return_aux else (out if return_weights else x)
+
     self_mask = make_padding_mask(tar, pad_id)
     if cfg.encoder_only:
-        return encoder_apply(
+        out = encoder_apply(
             params["encoder"], tar, self_mask, cfg, key, deterministic, reference,
             position_offset=position_offset, dropout_slice=dropout_slice,
-            return_weights=return_weights,
+            return_weights=return_weights, return_aux=True,
         )
+        return result(out[0], out[1] if return_weights else None, out[-1])
     kw = dict(self_mask=self_mask, deterministic=deterministic, reference=reference,
               position_offset=position_offset, dropout_slice=dropout_slice,
-              return_weights=return_weights)
+              return_weights=return_weights, return_aux=True)
     if cfg.decoder_only:
         out = decoder_apply(params["decoder"], tar, cfg, key=key, **kw)
-        return (out[0], out[2]) if return_weights else out[0]
+        return result(out[0], out[2] if return_weights else None, out[-1])
     if inp is None:
         raise ValueError("a seq2seq model needs the source ids")
     from transformer_tpu_torch.parallel.seq_context import (
@@ -246,13 +267,12 @@ def transformer_hidden_apply(
     # The source chunk starts at its own offset (rope rotates at it).
     with (contextlib.nullcontext() if ctx is None
           else sequence_parallel(dataclasses.replace(ctx, offset=src_offset))):
-        enc_out = encoder_apply(
+        enc = encoder_apply(
             params["encoder"], inp, enc_mask, cfg, _subkey(key, 0), deterministic, reference,
             position_offset=src_offset, dropout_slice=src_slice, return_weights=return_weights,
+            return_aux=True,
         )
-    enc_maps = {}
-    if return_weights:
-        enc_out, enc_maps = enc_out
+    enc_out, enc_maps, enc_aux = enc[0], enc[1] if return_weights else {}, enc[-1]
     if ctx is not None and ctx.size > 1:
         if source_mask is None:
             raise ValueError("under sequence parallelism cross-attention needs the whole "
@@ -262,7 +282,8 @@ def transformer_hidden_apply(
         params["decoder"], tar, cfg, enc_out=enc_out, cross_mask=enc_mask,
         key=_subkey(key, 1), **kw,
     )
-    return (out[0], {**enc_maps, **out[2]}) if return_weights else out[0]
+    return result(out[0], {**enc_maps, **out[2]} if return_weights else None,
+                  _add_aux(enc_aux, out[-1]))
 
 
 def transformer_apply(
@@ -277,18 +298,19 @@ def transformer_apply(
     position_offset: int = 0,
     dropout_slice: GlobalSlice | None = None,
     return_weights: bool = False,
+    return_aux: bool = False,
 ):
     """(B, S) target ids (and, seq2seq, (B, S_src) source ids) -> (B, S, V)
     raw logits; with ``return_weights``, (logits, the attention maps), as
-    the JAX twin returns them."""
-    x = transformer_hidden_apply(
+    the JAX twin returns them; ``return_aux`` appends the summed MoE
+    load-balance loss (None without MoE layers)."""
+    out = transformer_hidden_apply(
         params, inp, tar, cfg, key, deterministic, reference, pad_id, position_offset,
-        dropout_slice, return_weights=return_weights,
+        dropout_slice, return_weights=return_weights, return_aux=return_aux,
     )
-    if return_weights:
-        x, maps = x
-        return project_logits(params, x, cfg), maps
-    return project_logits(params, x, cfg)
+    if not (return_weights or return_aux):
+        return project_logits(params, out, cfg)
+    return (project_logits(params, out[0], cfg), *out[1:])
 
 
 def transformer_prefill(

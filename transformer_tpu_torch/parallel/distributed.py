@@ -21,6 +21,11 @@ them; here every process runs the same step on its own part:
   under the whole source's padding mask; dropout draws the global masks
   (``ops.nn.GlobalSlice``), on the source and target sides each;
 - the loss is normalised by the global token count (or global batch);
+  a MoE layer's first-choice counts and live-token count are summed over
+  the processes before its load-balance loss is formed
+  (``ops.moe.moe_stats_reducer``), so the aux is the global batch's, as
+  in the JAX package's single program, and each process's share of it
+  (and of its gradient, through the router probabilities) sums to it;
   gradients and metric sums are summed over all processes before
   ``grad_norm`` and Adam, so every process takes the same update;
 - the parameters are broadcast from rank 0 at start;
@@ -40,12 +45,18 @@ import torch
 from transformer_tpu_torch.config import PAD_ID, ModelConfig, TrainConfig
 from transformer_tpu_torch.models.transformer import flatten, transformer_hidden_apply
 from transformer_tpu_torch.ops.masks import make_padding_mask
+from transformer_tpu_torch.ops.moe import moe_stats_reducer
 from transformer_tpu_torch.ops.nn import GlobalSlice
 from transformer_tpu_torch.parallel.mesh import Mesh
 from transformer_tpu_torch.parallel.seq_context import SeqParallelContext, sequence_parallel
 from transformer_tpu_torch.train.checkpoint import CheckpointManager
 from transformer_tpu_torch.train.state import TrainState, create_train_state
-from transformer_tpu_torch.train.trainer import Trainer, _prepare_batch, loss_from_hidden
+from transformer_tpu_torch.train.trainer import (
+    Trainer,
+    _prepare_batch,
+    loss_from_hidden,
+    with_moe_aux,
+)
 
 
 def _pad_to(batch: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -93,22 +104,52 @@ def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
         if sp > 1:
             ctx = SeqParallelContext(mesh.seq_group, mesh.index("seq"), sp, col)
             with sequence_parallel(ctx):
-                hidden = transformer_hidden_apply(params, src_part, inp_part, model_cfg, **kw)
+                hidden, aux = transformer_hidden_apply(params, src_part, inp_part, model_cfg,
+                                                       return_aux=True, **kw)
         else:
-            hidden = transformer_hidden_apply(params, src_part, inp_part, model_cfg, **kw)
+            with moe_stats_reducer(_sum_over_processes(mesh)):
+                hidden, aux = transformer_hidden_apply(params, src_part, inp_part, model_cfg,
+                                                       return_aux=True, **kw)
         real = min(inp_part.shape[1], inp.shape[1] - col)  # drop the padded positions
         total = (out != PAD_ID).sum().float()  # every process holds the whole batch
-        return loss_from_hidden(
+        return with_moe_aux(loss_from_hidden(
             params, hidden[:, :real], out_part[:, :real], model_cfg, train_cfg, total_weight=total
-        )
+        ), aux, model_cfg)
 
     return forward_loss
+
+
+def _sum_over_processes(mesh: Mesh) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The MoE statistics' sum over every process (``ops.moe``): the
+    counts the JAX package's single program takes over the global batch.
+    Outside autograd: the counts carry no gradient."""
+
+    def reduce(stats: torch.Tensor) -> torch.Tensor:
+        out = stats.detach().clone()
+        mesh.all_reduce_sum_([out])
+        return out
+
+    return reduce
+
+
+def check_moe_mesh(model_cfg: ModelConfig, axes: dict[str, int]) -> None:
+    """MoE runs over the ``data`` axis alone in the port: the expert,
+    sequence and pipeline axes with experts are a later slice."""
+    if not model_cfg.moe_experts:
+        return
+    for axis, flag in (("expert", "ep"), ("seq", "sp"), ("pipe", "pp")):
+        if axes.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"--{flag} > 1 with --moe_experts: MoE over the {axis} axis is a later slice "
+                "of the port (it trains MoE on one card and under --dp)"
+            )
 
 
 def check_mesh(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh) -> None:
     """The JAX trainer's checks, and the axes the port does not run over
     processes."""
     shape = mesh.shape
+    check_moe_mesh(model_cfg, shape)
     if model_cfg.encoder_only and (shape["pipe"] > 1 or shape["seq"] > 1):
         raise ValueError(
             "encoder_only models support data/fsdp/model/expert mesh axes; "

@@ -112,8 +112,13 @@ The rest is the JAX scheduler's:
   and off.
 
 Greedy answers equal ``serve_batch=1`` sequential serving (each request
-alone through ``train.decode.generate``), as in the JAX package. Left out
-here (later slices): the sharded replica, MoE.
+alone through ``train.decode.generate``), as in the JAX package. A MoE
+model serves on every layout: its MoE layers take the plain sublayer
+(``ops/moe.py``; on the paged_flash layout the dense layers keep the fused
+FFN kernel), and each forward routes every row of its batch as its own
+group with that forward's capacity, as in the JAX package (so a chunked
+prefill or a verify step may route a token otherwise than a whole-prompt
+forward would). Left out here (a later slice): the sharded replica.
 """
 
 from __future__ import annotations
@@ -186,7 +191,8 @@ def compute_params(params, cfg: ModelConfig, device: torch.device, own: bool = F
     """The params as serving reads them: every kernel, bias and embedding
     cast once to the compute dtype (every use casts it there anyway, so the
     values are the same ones a per-call cast gives), LayerNorm parameters
-    kept as stored (``layernorm_apply`` reads them in fp32). With ``own``
+    and a MoE router's kernel kept as stored (``layernorm_apply`` and the
+    router read them in fp32). With ``own``
     no leaf is one of the caller's tensors (a weight flip writes into
     them)."""
     dtype = cfg.compute_dtype
@@ -194,7 +200,7 @@ def compute_params(params, cfg: ModelConfig, device: torch.device, own: bool = F
     def walk(node, is_ln=False):
         if isinstance(node, dict):
             return {
-                k: walk(v, is_ln or k.startswith("ln") or k == "final_ln")
+                k: walk(v, is_ln or k.startswith("ln") or k in ("final_ln", "router"))
                 for k, v in node.items()
             }
         if isinstance(node, list):

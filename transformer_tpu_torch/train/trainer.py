@@ -50,7 +50,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from transformer_tpu_torch.config import ModelConfig, TrainConfig
+from transformer_tpu_torch.config import PAD_ID, ModelConfig, TrainConfig
 from transformer_tpu_torch.device import resolve_device, synchronize
 from transformer_tpu_torch.models.transformer import (
     flatten,
@@ -174,10 +174,31 @@ def _forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=N
     ``_prepare_batch``'s (input, labels, forward key), made once for a
     batch whose micro-batches share its masks; None prepares ``tgt``."""
     inp, labels, key = prepared or _prepare_batch(model_cfg, train_cfg, tgt, key)
-    hidden = transformer_hidden_apply(
+    hidden, aux = transformer_hidden_apply(
         params, src, inp, model_cfg, key=key, deterministic=key is None, reference=reference,
+        return_aux=True,
     )
-    return loss_from_hidden(params, hidden, labels, model_cfg, train_cfg)
+    return with_moe_aux(loss_from_hidden(params, hidden, labels, model_cfg, train_cfg), aux,
+                        model_cfg)
+
+
+def with_moe_aux(loss_metrics, aux, model_cfg: ModelConfig):
+    """(loss, metrics) with ``metrics["moe_aux"]``, the summed MoE
+    load-balance loss (0 when the forward had none), whenever the config
+    has experts: the key follows the config, as in the JAX trainer. It
+    still carries its gradient; the steps add ``moe_aux_weight`` times it
+    to the objective, and report ``loss`` as the plain CE."""
+    loss, metrics = loss_metrics
+    if model_cfg.moe_experts:
+        metrics["moe_aux"] = torch.zeros((), device=loss.device) if aux is None else aux
+    return loss, metrics
+
+
+def _objective(loss, metrics, model_cfg: ModelConfig):
+    """``loss + moe_aux_weight * moe_aux``, or ``loss`` without experts."""
+    if "moe_aux" not in metrics:
+        return loss
+    return loss + model_cfg.moe_aux_weight * metrics["moe_aux"]
 
 
 def loss_and_grads(
@@ -202,7 +223,8 @@ def loss_and_grads(
         params, tgt, model_cfg, train_cfg, key, reference, src=src,
         prepared=_prepare_batch(model_cfg, train_cfg, tgt, key),
     )
-    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    objective = _objective(loss, metrics, model_cfg)
+    grads = dict(zip(leaves, torch.autograd.grad(objective, list(leaves.values()))))
     return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}, grads
 
 
@@ -279,7 +301,18 @@ def make_train_step(
                 src=None if src is None else src[rows],
                 prepared=(inp[rows], labels[rows], micro_key),
             )
-            g = torch.autograd.grad(m["loss_sum"], list(leaves.values()))
+            if "moe_aux" in m:
+                # JAX's aux scale: the /denom below then makes the aux a
+                # token-weighted ("tokens") or uniform ("batch") mean over
+                # the micro-steps. The micro-batch's global token count
+                # (every process holds the whole batch).
+                m["moe_aux"] = m["moe_aux"] * (
+                    (labels[rows] != PAD_ID).sum().float()
+                    if train_cfg.loss_normalization == "tokens"
+                    else torch.full((), train_cfg.batch_size / accum, device=device)
+                )
+            g = torch.autograd.grad(_objective(m["loss_sum"], m, model_cfg),
+                                    list(leaves.values()))
             m = {k: v.detach() for k, v in m.items()}
             if grads is None:
                 grads, sums = list(g), m
@@ -295,6 +328,8 @@ def make_train_step(
         else:  # filled on the device: no copy from the host, capturable
             denom = torch.full((), float(train_cfg.batch_size), device=device)
         grads = {k: g / denom for k, g in grads.items()}
+        if "moe_aux" in sums:
+            sums["moe_aux"] = sums["moe_aux"] / denom
         return apply(state, leaves, grads, {"loss": sums["loss_sum"] / denom, **sums}, scalars)
 
     def scalars(state: TrainState, k: int = 1) -> np.ndarray:
@@ -326,6 +361,8 @@ def _dispatch_metrics(sums: dict, k: int, loss_normalization: str, batch_size: i
         out["loss"] = out["loss_sum"] / torch.clamp(out["weight"], min=1.0)
     if "grad_norm" in sums:
         out["grad_norm"] = sums["grad_norm"] / k
+    if "moe_aux" in sums:  # summed weighted by each step's weight (multistep)
+        out["moe_aux"] = sums["moe_aux"] / torch.clamp(out["weight"], min=1.0)
     return out
 
 
@@ -359,6 +396,8 @@ def make_multistep_train_step(
         sums = None
         for i in range(k):
             state, m = run(state, None if srcs is None else srcs[i], tgts[i], scals[i])
+            if "moe_aux" in m:  # token-weighted, as MetricAccumulator.update
+                m = {**m, "moe_aux": m["moe_aux"] * m["weight"]}
             if sums is None:
                 sums = {key: v.clone() for key, v in m.items()}  # run's may be reused
             else:
@@ -397,7 +436,9 @@ def make_eval_step(
 
 class MetricAccumulator:
     """Exact sums of ``loss_sum``/``weight``/``correct`` across steps, kept
-    on the device; reading ``loss`` or ``accuracy`` waits for it."""
+    on the device; reading ``loss`` or ``accuracy`` waits for it. A MoE
+    run's ``moe_aux`` is summed weighted by each step's ``weight``, so
+    ``moe_aux`` is the token-weighted mean, as in the JAX trainer."""
 
     _KEYS = ("loss_sum", "weight", "correct")
 
@@ -409,10 +450,12 @@ class MetricAccumulator:
 
     def update(self, metrics: dict[str, Any]) -> None:
         part = {k: metrics[k].detach() for k in self._KEYS}
+        if "moe_aux" in metrics:
+            part["moe_aux_w"] = metrics["moe_aux"].detach() * part["weight"]
         if self._sums is None:
             self._sums = part
         else:
-            self._sums = {k: self._sums[k] + part[k] for k in self._KEYS}
+            self._sums = {k: self._sums.get(k, 0.0) + part[k] for k in part}
 
     def _get(self, key: str) -> float:
         return 0.0 if self._sums is None else float(self._sums[key])
@@ -436,6 +479,14 @@ class MetricAccumulator:
     @property
     def accuracy(self) -> float:
         return self.correct / max(self.weight, 1.0)
+
+    @property
+    def moe_aux(self) -> float | None:
+        """The token-weighted mean MoE load-balance loss, or None for a
+        dense run."""
+        if self._sums is None or "moe_aux_w" not in self._sums:
+            return None
+        return float(self._sums["moe_aux_w"]) / max(self.weight, 1.0)
 
 
 def _dispatch_groups(batches, k: int):
@@ -731,10 +782,12 @@ class Trainer:
                     # k == 1 this is step % N == 0.
                     every = cfg.log_every_steps
                     if every and step // every != prev_step // every:
+                        aux = self.train_metrics.moe_aux
                         self.log_fn(
                             f"epoch {epoch + 1} step {step} loss {self.train_metrics.loss:.4f} "
                             f"acc {self.train_metrics.accuracy:.4f} "
-                            f"grad_norm {float(m['grad_norm']):.4f}"
+                            + (f"moe_aux {aux:.3f} " if aux is not None else "")
+                            + f"grad_norm {float(m['grad_norm']):.4f}"
                         )
                         self._record_train_window(epoch, step)
                     every = cfg.eval_every_steps
@@ -884,6 +937,8 @@ class Trainer:
         w = self.writers["train"]
         w.scalar("loss", self.train_metrics.loss, epoch)
         w.scalar("accuracy", self.train_metrics.accuracy, epoch)
+        if self.train_metrics.moe_aux is not None:
+            w.scalar("moe_aux", self.train_metrics.moe_aux, epoch)
         lr = make_lr_schedule(self.model_cfg, self.train_cfg)(self.state.step)
         w.scalar("learning_rate", float(lr), epoch)
         w.scalar("tokens_per_sec", self.step_timer.tokens_per_sec, epoch)
