@@ -6,9 +6,9 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in seventeen phases
+runs on the CPU). It prints one JSON line per check, in nineteen phases
 (the tenth runs right after the fourth, on its export; the eleventh to
-the seventeenth last):
+the nineteenth last):
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -81,13 +81,15 @@ the seventeenth last):
    greedy and ``--beam 4`` and ``cli.evaluate --limit 200`` on the export
    (its JSON line printed); greedy and beam-4 tokens with the flash encoder
    and its plain version at fp32 (2 + 2 layers), which must be identical;
-   and the tiny, big and tied presets for an epoch of 1280 pairs;
-7. sequence-parallel training: ``torch.distributed.run`` starts four
-   processes of ``transformer_tpu_torch.cli.distributed_train --preset
-   long4k --num_layers 2 --attention_impl ring --sp 4 --epochs 1
+   and the tiny, big and tied presets for an epoch of 640 pairs;
+7. sequence-parallel training: four processes run
+   ``transformer_tpu_torch.cli.distributed_train --preset long4k
+   --num_layers 1 --attention_impl ring --sp 4 --epochs 1
    --consistency_check`` on this one card (gloo, staged through host
    memory; long4k's width, its depth cut to 1 layer to make room for
-   phase 17); each rank's counters of the ring step and both
+   phase 17; the run shares phase 11's spawn of four processes, each run
+   a call of the CLI's ``main`` under the launcher's environment, and is
+   held there); each rank's counters of the ring step and both
    backward kernels must equal what steps, hops and eval batches imply,
    the losses must be within 0.01 of a single-card ``cli.train`` run of
    the same flags (the phase's first run), and every rank's parameters
@@ -175,7 +177,10 @@ the seventeenth last):
    counters to what steps and eval batches imply. Then one fp32 step
    (1 + 1 layer, B 64) under each of the
    three meshes against the single-process flash step (the same processes
-   then take phase 7's fp32 ring step). Each run reports
+   then take phase 7's fp32 ring step). The fp32 steps and the four runs
+   share one spawn of four processes, each run a call of
+   ``cli.distributed_train.main`` under the launcher's environment with
+   the counters zeroed before it (``cli_runs``). Each run reports
    its step median and first step, real target tokens a second across the
    job, staged bytes by kind, the consistency check's time and its wall;
 12. the grouped serving path, ``cli.generate`` and admission control, on
@@ -345,6 +350,26 @@ the seventeenth last):
    plain sublayer), fp32 paged_flash and dense (each answer equal to
    ``train.decode.generate``'s), every step after a shape's first a
    replay. ``python3 chip_smoke.py --only moe`` runs this phase alone.
+19. Pipeline and fsdp (``pipe_path``): Transformer-base at full width
+   (2 + 2 layers, bf16, B 64 x S 64, flash) over four processes on this
+   card under ``--fsdp 2 --pp 2 --pp_microbatches 4``, in phase 11's
+   spawn of four processes (held after phase 18): (a) one fp32 step
+   (dropout 0) of GPipe on the kernels, of GPipe on their plain versions
+   and of 1F1B on the kernels, each held to the one-card port's step
+   within TRAIN_TOL (the loss, each gathered gradient leaf,
+   ``grad_norm``), and GPipe on the kernels to GPipe on the plain
+   versions; (b) ``cli.distributed_train.main`` for an epoch of the
+   first 260 pairs (4 steps, a 20-step warm-up) under ``--pp_schedule
+   gpipe``, then under ``1f1b``, the flash counters zeroed just before
+   each: every rank launches exactly its layers x microbatches x (steps
+   x the schedule's count + eval batches) (1F1B reruns a stage's decoder
+   forward, except on the last stage), rank 0 also the sample
+   translation's encoder; the bf16 loss falls; the GPipe run's
+   ``sharded-v1`` checkpoint restores on one card with the parameters
+   byte-identical to the gathered export. Reported: each rank's bytes of
+   parameters and optimizer state against a ``--dp 4`` rank's (the whole
+   state), step times, ticks and bubbles.
+   ``python3 chip_smoke.py --only pipe`` runs this phase alone.
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -1524,8 +1549,9 @@ def long4k_config(vocab_size: int, **overrides):
 def vocab(target_size: int = 2**15, side: str = "tgt"):
     """The port's tokenizer built from data/{side}-train.txt (``side``
     "joint": both sides, one id space for tied tables) at the CLI's
-    default target size by the Python BPE trainer (phase 16 holds the
-    native one to it), cached under build/vocab/."""
+    default target size, cached under build/vocab/: the src and tgt sides
+    by the Python BPE trainer (phase 16 holds the native one to it, piece
+    for piece), the joint one by the native trainer."""
     from transformer_tpu_torch import native
     from transformer_tpu_torch.data.tokenizer import SubwordTokenizer, iter_lines
 
@@ -1536,7 +1562,9 @@ def vocab(target_size: int = 2**15, side: str = "tgt"):
     if os.path.exists(path):
         tok, built = SubwordTokenizer.load(path), False
     else:
-        saved, native._lib = native._lib, False  # the Python trainer
+        saved = native._lib
+        if side != "joint":
+            native._lib = False  # the Python trainer
         try:
             tok = SubwordTokenizer.build_from_corpus(iter_lines(*files),
                                                      target_vocab_size=target_size)
@@ -2028,23 +2056,33 @@ def train_profile(trainer, train_ds, steps: int = 3, phase: str = "train"):
 SP_LAYERS = 1  # long4k's depth in phases 7 and 11 (the width is long4k's), cut
 
 
-def sp_train_path(vocab_path, single, sp: int = 4):
-    """``cli.distributed_train --preset long4k --num_layers 2
-    --attention_impl ring --sp 4 --epochs 1 --consistency_check`` under
-    ``torch.distributed.run``: four processes on this one card, so the
-    transport is gloo through host memory (``dist_fit``). Rank r folds its
-    own chunk and the r before it: L x (r + 1) ring steps a forward (each
-    twice a step under remat), and as many dQ and dK/dV a step. Losses
-    must be within 0.01 of ``single``, the single-card run of the same
-    flags (same seed, same dropout draws)."""
-    export = os.path.join(BUILD_DIR, "sp_train_export")
-    args = [
+def sp_train_job(vocab_path, sp: int = 4):
+    """(name, argv) of phase 7's run over the ring: ``cli.distributed_train
+    --preset long4k --num_layers 1 --attention_impl ring --sp 4 --epochs 1
+    --consistency_check``, four processes on this one card, so the
+    transport is gloo through host memory; run in phase 11's spawn
+    (``cli_runs``)."""
+    root = fresh_dir("sp_train")
+    os.makedirs(root)
+    return "sp_train", [
         "--preset", "long4k", "--num_layers", str(SP_LAYERS), "--attention_impl", "ring",
         "--sp", str(sp), "--epochs", "1",
         "--consistency_check", "--dataset_path", os.path.join(ROOT, "data"),
-        "--tgt_vocab_file", vocab_path, "--export_path", export,
-        "--ckpt_path", fresh_dir("ckpt", "sp_train"), "--device", "cuda",
+        "--tgt_vocab_file", vocab_path, "--export_path", os.path.join(root, "export"),
+        "--ckpt_path", os.path.join(root, "ckpt"), "--device", "cuda",
+        "--metrics_json", os.path.join(root, "report.json"),
     ]
+
+
+def sp_train_path(job, single, run, sp: int = 4):
+    """Phase 7's run over the ring (``sp_train_job``; ``run`` its
+    ``cli_runs`` result), held (``dist_fit``): rank r folds its own chunk
+    and the r before it: L x (r + 1) ring steps a forward (each twice a
+    step under remat), and as many dQ and dK/dV a step. Losses must be
+    within 0.01 of ``single``, the single-card run of the same flags (same
+    seed, same dropout draws)."""
+    _, args = job
+    export = args[args.index("--export_path") + 1]
     layers = single["config"]["num_layers"]
 
     def want(rank, steps, evals):
@@ -2052,7 +2090,7 @@ def sp_train_path(vocab_path, single, sp: int = 4):
         return {"flash_fwd": 0, "flash_ring_step": hops * (2 * steps + evals),
                 "flash_dq": hops * steps, "flash_dkdv": hops * steps}
 
-    rec, _ = dist_fit("sp_train", "fit", args, want, export, procs=sp)
+    rec, _ = dist_fit("sp_train", "fit", args, want, export, run, procs=sp)
     hold_to_single(rec, single)
     return rec
 
@@ -2072,33 +2110,92 @@ def hold_to_single(rec, single):
                          f"{held} / {want}")
 
 
-def distributed_run(args, procs: int, name: str, timeout: int = 600):
-    """``cli.distributed_train`` with ``args`` under ``torch.distributed.run``
-    in ``procs`` processes on this one card (gloo through host memory),
-    each rank's report gathered with ``--metrics_json``. The kernel
-    counters of each process start at 0 with it. Returns (the finished
-    process, the ranks' reports, wall seconds); a failed run fails the
-    script."""
-    report_path = os.path.join(BUILD_DIR, f"{name}_report.json")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(procs), "-m", "transformer_tpu_torch.cli.distributed_train", *args,
-           "--metrics_json", report_path]
-    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"}
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=timeout)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise SystemExit(
-            f"{name}: cli.distributed_train failed (exit {proc.returncode}):\n"
-            f"{proc.stdout[-4000:]}\n{proc.stderr[-6000:]}"
-        )
-    with open(report_path) as f:
-        return proc, json.load(f)["ranks"], wall
+def _cli_worker(rank, world, ports, before, runs, out_dir):
+    """One of four processes on this card that run each of ``before`` (the
+    name of a function of this module and its arguments, called with the
+    rank and world; it may join a process group and must leave it), then
+    ``cli.distributed_train.main`` once per (name, argv) of ``runs``, as
+    ``torch.distributed.run`` would start it (the launcher's environment,
+    a fresh rendezvous port each), the kernel counters and the staged
+    bytes and the peak-memory statistics reset just before each run, so
+    that each run's ``--metrics_json`` report holds its own. Rank 0 writes each run's log
+    lines and wall seconds under ``out_dir``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost")
+    import gc
+
+    import torch
+
+    from transformer_tpu_torch.cli import distributed_train
+    from transformer_tpu_torch.kernels.flash_attention import flash_ring_step
+    from transformer_tpu_torch.parallel.mesh import staged_bytes
+
+    for port, (fn, args) in zip(ports, before):
+        os.environ["MASTER_PORT"] = str(port)  # a fresh rendezvous for each group
+        globals()[fn](rank, world, *args)
+    for port, (name, argv) in zip(ports[len(before):], runs):
+        os.environ["MASTER_PORT"] = str(port)  # main joins a fresh group, destroys it at its end
+        read_flash_counters(reset=True)
+        flash_ring_step.launches = 0
+        for kind in staged_bytes:
+            staged_bytes[kind] = 0
+        torch.cuda.reset_peak_memory_stats()  # each report's peak its own run's
+        lines: list[str] = []
+        t0 = time.perf_counter()
+        distributed_train.main(argv, log_fn=lines.append if rank == 0 else (lambda *_: None))
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            with open(os.path.join(out_dir, f"{name}_run.json"), "w") as f:
+                json.dump({"logs": lines, "wall_s": time.perf_counter() - t0}, f)
 
 
-def dist_fit(phase, name, args, want_fn, export, procs: int = 4):
-    """One ``distributed_run``, held: every rank's kernel counters equal
+def cli_runs(runs, out_dir, before=(), procs: int = 4, timeout: int = 900) -> dict:
+    """``runs`` ((name, argv) of ``cli.distributed_train``, each with its
+    ``--metrics_json``) in one spawn of ``procs`` processes on this card
+    (``_cli_worker``), after the steps of ``before``: one start of the
+    processes for all of them. Returns each run's (log text, the ranks'
+    reports, wall seconds); a failing
+    process, or the spawn outlasting ``timeout`` seconds, fails the script
+    (the processes are stopped)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    ports = []
+    for _ in range(len(before) + len(runs)):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            ports.append(sock.getsockname()[1])
+    saved = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "2"  # the workers', as the launcher's runs had it
+    try:
+        context = mp.spawn(_cli_worker, args=(procs, ports, before, runs, out_dir),
+                           nprocs=procs, join=False)
+    finally:
+        if saved is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = saved
+    deadline = time.perf_counter() + timeout
+    while not context.join(timeout=max(1.0, deadline - time.perf_counter())):
+        if time.perf_counter() >= deadline:
+            for p in context.processes:
+                p.terminate()
+            raise SystemExit(f"cli_runs: {[n for n, _ in runs]} did not end in {timeout} s")
+    out = {}
+    for name, argv in runs:
+        with open(os.path.join(out_dir, f"{name}_run.json")) as f:
+            run = json.load(f)
+        with open(argv[argv.index("--metrics_json") + 1]) as f:
+            ranks = json.load(f)["ranks"]
+        out[name] = ("\n".join(run["logs"]), ranks, run["wall_s"])
+    return out
+
+
+def dist_fit(phase, name, args, want_fn, export, run, procs: int = 4):
+    """One run of ``cli.distributed_train`` (``run``, its ``cli_runs``
+    result) held: every rank's kernel counters equal
     ``want_fn(rank, steps, eval_batches)``, every rank ends with the same
     parameters (and the export loads back to them), the consistency check
     ran after each epoch and at the end and passed, the losses are finite
@@ -2109,7 +2206,7 @@ def dist_fit(phase, name, args, want_fn, export, procs: int = 4):
 
     from transformer_tpu_torch.convert import load_export, params_digest
 
-    proc, ranks, wall = distributed_run(args, procs, name)
+    logs, ranks, wall = run
     r0 = ranks[0]
     steps, evals = len(r0["step_seconds"]), r0["eval_batches"]
     per_rank = {r["rank"]: r["launches"] for r in ranks}
@@ -2127,13 +2224,15 @@ def dist_fit(phase, name, args, want_fn, export, procs: int = 4):
         "target_tokens_per_s": r0["target_tokens"] / sum(r0["step_seconds"]),
         "staged_bytes_per_rank": [r["staged_bytes"] for r in ranks],
         "staged_bytes_per_step_rank0": {k: v / steps for k, v in r0["staged_bytes"].items()},
+        "state_bytes_per_rank": [r["state_bytes"] for r in ranks],
+        "peak_allocated_bytes_per_rank": [r["peak_allocated_bytes"] for r in ranks],
         "consistency_check": consistency, "wall_s": wall,
         "train_loss": r0["train_loss"], "eval_loss": r0["eval_loss"], "losses": r0["losses"],
         "launches_per_rank": per_rank, "expected_launches_per_rank": want,
         "launches": launches,
         "ranks_hold_the_same_params": len({r["params_sha256"] for r in ranks}) == 1,
         "export_loads_back": params_digest(params) == r0["params_sha256"],
-        "logs": [ln for ln in proc.stdout.splitlines() if not ln.startswith("sample")][-14:],
+        "logs": [ln for ln in logs.splitlines() if not ln.startswith("sample")][-14:],
     }
     emit(rec)
     del params
@@ -2529,7 +2628,7 @@ def fp32_decode_tokens_check(trainer, src_tok, tgt_tok, layers: int = 2):
 PRESET_LAYERS = 1  # the presets' depth, cut (big and tied have 6 + 6 at full depth)
 
 
-def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 1280):
+def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 640):
     """The tiny, big and tied presets through ``cli.train --attention_impl
     flash`` for one epoch on the first ``pairs`` corpus pairs (and 64 test
     pairs), BLEU off, at their widths and ``PRESET_LAYERS`` layers: losses
@@ -3739,33 +3838,32 @@ def hold_losses(rec, want_losses, label):
     return rec_h
 
 
-def _fp32_mesh_worker(rank, world, port, model_kw, batch, ring_job, out_path):
-    """One rank of the fp32 parity checks: one seq2seq step's loss and
-    gradients (summed over the processes) under dp 4 with flash, ring sp 4
-    and Ulysses sp 4 in turn, then phase 7's long4k ring step
-    (``ring_job`` = (vocab size, batch, layers)), written by rank 0: one
-    spawn of the four processes for both phases' checks."""
+def _fp32_mesh_steps(rank, world, model_kw, batch, ring_job, out_path):
+    """One rank of the fp32 parity checks (run first in phase 11's
+    processes, ``_cli_worker``): one seq2seq step's loss and gradients
+    (summed over the processes) under dp 4 with flash, ring sp 4 and
+    Ulysses sp 4 in turn, then phase 7's long4k ring step (``ring_job`` =
+    (vocab size, batch, layers)), written by rank 0."""
     import torch
 
     from transformer_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
-    from transformer_tpu_torch.models.transformer import flatten, init_params
+    from transformer_tpu_torch.models.transformer import flatten, init_params, unflatten
     from transformer_tpu_torch.parallel.distributed import _seq_parallel_forward_loss
     from transformer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
     from transformer_tpu_torch.train.trainer import loss_and_grads
 
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port))
     process = initialize_distributed("cuda", log_fn=lambda *_: None)
     src, tgt = (torch.from_numpy(a).to(process.device, torch.long) for a in batch)
     out = {}
+    t_spawn = time.perf_counter()
+    init = flatten(init_params(ModelConfig(**model_kw), torch.Generator().manual_seed(SEED),
+                               device=process.device))  # the impl draws nothing
     for label, impl, mesh_cfg in (("dp4 flash", "flash", MeshConfig(data=world)),
                                   ("ring sp4", "ring", MeshConfig(seq=world)),
                                   ("ulysses sp4", "ulysses", MeshConfig(seq=world))):
         mesh = make_mesh(mesh_cfg, process)
         cfg = ModelConfig(**{**model_kw, "attention_impl": impl})
-        params = init_params(cfg, torch.Generator().manual_seed(SEED), device=process.device)
-        for p in flatten(params).values():
-            p.requires_grad_(True)
+        params = unflatten({k: v.clone().requires_grad_(True) for k, v in init.items()})
         t0 = time.perf_counter()
         metrics, grads = loss_and_grads(params, tgt, cfg, TrainConfig(batch_size=64), None,
                                         forward_loss=_seq_parallel_forward_loss(mesh), src=src)
@@ -3778,42 +3876,41 @@ def _fp32_mesh_worker(rank, world, port, model_kw, batch, ring_job, out_path):
     out["long4k ring"] = _fp32_ring_step(process, *ring_job)
     torch.cuda.synchronize()
     out["long4k ring"]["seconds"] = time.perf_counter() - t0
+    out["steps_seconds"] = time.perf_counter() - t_spawn
     if rank == 0:
         torch.save(out, out_path)
     torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
 
 
-def s2s_fp32_mesh_check(model_cfg, batch, tok, lm_tgt, layers: int = 2, procs: int = 4):
-    """One fp32 seq2seq step at base width (2 + 2 layers, B 64, S 64,
-    dropout 0, kernels on) over four processes on this card, under dp 4
-    (flash), ring sp 4 and Ulysses sp 4, each against the single-process
-    flash step from the same init and batch, held to the fp32 step's
-    limits (``hold_to_train_tol``); the same processes then take phase 7's
-    fp32 long4k ring step on ``lm_tgt`` (``fp32_ring_check``)."""
+def s2s_fp32_mesh_job(model_cfg, batch, tok, lm_tgt, layers: int = 2):
+    """The fp32 checks' part of phase 11's spawn: (``before`` for
+    ``cli_runs``, the fp32 model config). One fp32 seq2seq step at base
+    width (2 + 2 layers, B 64, S 64, dropout 0, kernels on) under dp 4
+    (flash), ring sp 4 and Ulysses sp 4, and phase 7's fp32 long4k ring
+    step on ``lm_tgt``."""
     import dataclasses as dc
-    import socket
 
+    cfg = dc.replace(model_cfg, num_layers=layers, dtype="float32", dropout_rate=0.0,
+                     attention_impl="flash")
+    out_path = os.path.join(BUILD_DIR, "fp32_mesh_grads.pt")
+    job = (dc.asdict(cfg), batch, (tok.model_vocab_size, lm_tgt, layers), out_path)
+    return ("_fp32_mesh_steps", job), cfg
+
+
+def s2s_fp32_mesh_check(cfg, batch, tok, lm_tgt, layers: int = 2, procs: int = 4):
+    """Each mesh's fp32 step (``s2s_fp32_mesh_job``, run in phase 11's
+    processes) against the single-process flash step from the same init
+    and batch, held to the fp32 step's limits (``hold_to_train_tol``);
+    phase 7's long4k ring step likewise (``fp32_ring_check``)."""
     import torch
-    import torch.multiprocessing as mp
 
     from transformer_tpu_torch.config import TrainConfig
     from transformer_tpu_torch.models.transformer import flatten, init_params
     from transformer_tpu_torch.train.trainer import loss_and_grads
 
-    cfg = dc.replace(model_cfg, num_layers=layers, dtype="float32", dropout_rate=0.0,
-                     attention_impl="flash")
-    model_kw = dc.asdict(cfg)
-    out_path = os.path.join(BUILD_DIR, "fp32_mesh_grads.pt")
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    mp.spawn(_fp32_mesh_worker, args=(procs, port, model_kw, batch,
-                                      (tok.model_vocab_size, lm_tgt, layers), out_path),
-             nprocs=procs, join=True)
-    spawn_s = time.perf_counter() - t0
-    runs = torch.load(out_path)
+    runs = torch.load(os.path.join(BUILD_DIR, "fp32_mesh_grads.pt"))
+    steps_s = runs.pop("steps_seconds")
     fp32_ring_check(tok, lm_tgt, runs.pop("long4k ring"), layers, procs)
     params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
     for p in flatten(params).values():
@@ -3827,12 +3924,12 @@ def s2s_fp32_mesh_check(model_cfg, batch, tok, lm_tgt, layers: int = 2, procs: i
         recs.append(hold_to_train_tol(
             {"phase": "s2s_dist", "step": "fp32_mesh_check", "mesh": label, "layers": layers,
              "batch": 64, "processes": procs, "step_seconds": run["seconds"],
-             "spawn_seconds": spawn_s},
+             "fp32_steps_seconds": steps_s},
             (run["loss"], got), want_run, f"fp32 {label} step against the single-process step"))
     return recs
 
 
-def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
+def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single, before=(), extra_runs=()):
     """Phase 11. Transformer-base (d 512, 8 x 64, dff 2048, bf16, batch 64,
     dropout 0.1; its depth cut to L + L = 1 + 1 layer, as phase 9's)
     trained for an epoch of the 1,300 cut pairs
@@ -3848,7 +3945,12 @@ def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
     sentences) and scored (``cli.evaluate --limit 200``). Then long4k at
     1 layer with ``--attention_impl ulysses --sp 4`` for an epoch, held
     to ``single`` (phase 7's single-card run of its flags) within 0.01.
-    Returns the flash and ring counters of the phase's main-path runs."""
+    The four runs go through ``cli.distributed_train.main`` in one spawn
+    of four processes (``cli_runs``), after the steps of ``before`` (the
+    fp32 checks) and before ``extra_runs`` (phases 7's and 19's runs,
+    which share the spawn). Returns the flash and ring counters of the
+    phase's main-path runs, its records, the translation's record and
+    every run's ``cli_runs`` result."""
     data = cut_corpus(CKPT_PAIRS)
     root = fresh_dir("ckpt", "s2s_dist")
     launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0, "flash_ring_step": 0}
@@ -3865,13 +3967,28 @@ def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
                 "flash_ring_step": hops[rank] * (steps + evals),
                 "flash_dq": hops[rank] * steps, "flash_dkdv": hops[rank] * steps}
 
+    # long4k over Ulysses, at phase 7's depth
+    export = os.path.join(root, "long4k_ulysses_export")
+    long4k_args = [
+        "--preset", "long4k", "--num_layers", str(SP_LAYERS), "--attention_impl", "ulysses",
+        "--sp", "4", "--epochs", "1", "--consistency_check",
+        "--dataset_path", os.path.join(ROOT, "data"), "--tgt_vocab_file", tgt_vocab,
+        "--export_path", export, "--ckpt_path", os.path.join(root, "long4k_ulysses"),
+        "--device", "cuda"]
+    meshes = (("dp4_flash", "flash", ("--dp", "4"), flash_want),
+              ("ring_sp4", "ring", ("--sp", "4"), ring_want),
+              ("ulysses_sp4", "ulysses", ("--sp", "4"), flash_want))
+    argvs = {name: dist_argv(data, src_vocab, tgt_vocab, root, name, impl, *mesh)
+             for name, impl, mesh, _ in meshes}
+    argvs["long4k_ulysses_sp4"] = long4k_args
+    os.makedirs(root, exist_ok=True)
+    for name, argv in argvs.items():
+        argv += ["--metrics_json", os.path.join(root, f"{name}_report.json")]
+    done = cli_runs(list(argvs.items()) + list(extra_runs), root, before=before, timeout=600)
     recs = {}
-    for name, impl, mesh, want_fn in (("dp4_flash", "flash", ("--dp", "4"), flash_want),
-                                      ("ring_sp4", "ring", ("--sp", "4"), ring_want),
-                                      ("ulysses_sp4", "ulysses", ("--sp", "4"), flash_want)):
-        args = dist_argv(data, src_vocab, tgt_vocab, root, name, impl, *mesh)
-        rec, counts = dist_fit("s2s_dist", name, args, want_fn,
-                               os.path.join(root, f"{name}_export"))
+    for name, impl, mesh, want_fn in meshes:
+        rec, counts = dist_fit("s2s_dist", name, argvs[name], want_fn,
+                               os.path.join(root, f"{name}_export"), done[name])
         hold_losses(rec, e_losses, "phase 9's E, epoch 1")
         recs[name] = rec
         for key, n in counts.items():
@@ -3881,25 +3998,19 @@ def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single):
     for key, n in tr_launches.items():
         launches[key] += n
 
-    # long4k over Ulysses, at phase 7's depth
-    export = os.path.join(root, "long4k_ulysses_export")
-    args = ["--preset", "long4k", "--num_layers", str(SP_LAYERS), "--attention_impl", "ulysses",
-            "--sp", "4", "--epochs", "1", "--consistency_check",
-            "--dataset_path", os.path.join(ROOT, "data"), "--tgt_vocab_file", tgt_vocab,
-            "--export_path", export, "--ckpt_path", os.path.join(root, "long4k_ulysses"),
-            "--device", "cuda"]
     layers = single["config"]["num_layers"]
 
     def long4k_want(rank, steps, evals):  # remat: each forward twice in a step
         return {"flash_fwd": layers * (2 * steps + evals), "flash_ring_step": 0,
                 "flash_dq": layers * steps, "flash_dkdv": layers * steps}
 
-    rec, counts = dist_fit("s2s_dist", "long4k_ulysses_sp4", args, long4k_want, export)
+    rec, counts = dist_fit("s2s_dist", "long4k_ulysses_sp4", long4k_args, long4k_want, export,
+                           done["long4k_ulysses_sp4"])
     for key, n in counts.items():
         launches[key] += n
     hold_to_single(rec, single)
     recs["long4k_ulysses_sp4"] = rec
-    return launches, recs, tr_rec
+    return launches, recs, tr_rec, done
 
 
 # --------------------------------------------------------------------------
@@ -6556,6 +6667,257 @@ def moe_path(vocab_path, tok) -> tuple[dict, dict]:
     return flash, serve_launches
 
 
+# --------------------------------------------------------------------------
+# phase 19: pipeline and fsdp over processes
+
+
+PIPE_PAIRS = 260  # 4 steps of 64 under the 64-token filter
+PIPE_LAYERS = 2  # encoder and decoder layers: --pp 2 gives each stage one of each
+PIPE_MB = 4  # --pp_microbatches
+PIPE_MESH = ("--fsdp", "2", "--pp", "2", "--pp_microbatches", str(PIPE_MB))
+
+
+def pipe_argv(data, src_vocab, tgt_vocab, root, schedule):
+    """``cli.distributed_train --preset base`` at 2 + 2 layers under
+    ``--fsdp 2 --pp 2`` with ``schedule``; a warm-up of 20 steps, so that
+    the learning rate stays small enough over the epoch's 4 for the loss
+    to fall."""
+    return [
+        "--preset", "base", "--num_layers", str(PIPE_LAYERS), "--attention_impl", "flash",
+        "--sequence_length", str(S2S_LEN), "--epochs", "1", *PIPE_MESH,
+        "--pp_schedule", schedule, "--warmup_steps", "20", "--dataset_path", data,
+        "--src_vocab_file", src_vocab, "--tgt_vocab_file", tgt_vocab,
+        "--ckpt_path", os.path.join(root, schedule),
+        "--export_path", os.path.join(root, f"{schedule}_export"),
+        "--metrics_json", os.path.join(root, f"{schedule}_report.json"),
+        "--eval_bleu", "false", "--device", "cuda",
+    ]
+
+
+def _pipe_fp32_steps(rank, world, model_kw, train_kw, batch, out_dir):
+    """Phase 19's fp32 steps, run first in its four processes
+    (``_cli_worker``): GPipe on the kernels, GPipe on their plain versions
+    and 1F1B on the kernels under fsdp 2 x pipe 2, the metrics and
+    gradients summed over the processes and the gradients gathered to
+    whole leaves, written by rank 0."""
+    import torch
+
+    from transformer_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
+    from transformer_tpu_torch.models.transformer import flatten, init_params
+    from transformer_tpu_torch.parallel import sharding
+    from transformer_tpu_torch.parallel.distributed import DistributedTrainer
+    from transformer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from transformer_tpu_torch.parallel.pipeline import pipeline_loss_and_grads
+    from transformer_tpu_torch.train.state import create_train_state
+    from transformer_tpu_torch.train.trainer import _prepare_batch
+
+    process = initialize_distributed("cuda", log_fn=lambda *_: None)
+    mesh = make_mesh(MeshConfig(fsdp=2, pipe=2), process)
+    cfg, tcfg = ModelConfig(**model_kw), TrainConfig(**train_kw)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device=process.device)
+    trainer = DistributedTrainer(cfg, tcfg, mesh, log_fn=lambda *_: None,
+                                 state=create_train_state(cfg, tcfg, params=params))
+    src, tgt = (torch.from_numpy(a).to(process.device, torch.long) for a in batch)
+    inp, labels, _ = _prepare_batch(cfg, tcfg, tgt, None)
+    out = {}
+    for label, schedule, reference in (("gpipe kernels", "gpipe", False),
+                                       ("gpipe plain", "gpipe", True),
+                                       ("1f1b kernels", "1f1b", False)):
+        t0 = time.perf_counter()
+        p = trainer.state.params
+        metrics, grads = pipeline_loss_and_grads(
+            mesh, trainer._params_for_layers(p), flatten(p), inp, labels, src, cfg,
+            dataclasses.replace(tcfg, pp_schedule=schedule), None, reference=reference,
+            schedule=schedule)
+        trainer._sum_across(grads, metrics)
+        norm = float(trainer._grad_norm(grads))
+        whole = {n: sharding.gather(g, mesh, trainer.dims[n]).cpu() for n, g in grads.items()}
+        torch.cuda.synchronize()
+        out[label] = {"loss": float(metrics["loss"]), "grad_norm": norm, "grads": whole,
+                      "seconds": time.perf_counter() - t0}
+        del metrics, grads, whole
+    if rank == 0:
+        torch.save(out, os.path.join(out_dir, "fp32_steps.pt"))
+    del trainer, params, out
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def pipe_want(rank: int, schedule: str, steps: int, evals: int) -> dict:
+    """A rank's flash launches under ``--fsdp 2 --pp 2``: its stage holds
+    one encoder and one decoder layer (one self-attention each) and runs
+    them once a microbatch a forward; the backward launches dQ and dK/dV
+    once each a forward; 1F1B runs each decoder forward twice (the tick's
+    forward half without a graph, then again in its backward half) except
+    on the last stage, whose backward half is its only forward; rank 0
+    also encodes the epilogue's sample sentence (both encoder layers)."""
+    stage = rank % 2  # pipe is the faster axis of (fsdp, pipe)
+    dec_fwd = 2 if schedule == "1f1b" and stage == 0 else 1
+    return {
+        "flash_fwd": PIPE_MB * ((1 + dec_fwd) * steps + 2 * evals) + (PIPE_LAYERS if rank == 0
+                                                                         else 0),
+        "flash_dq": 2 * PIPE_MB * steps, "flash_dkdv": 2 * PIPE_MB * steps,
+    }
+
+
+def pipe_job(src_vocab, tgt_vocab) -> dict:
+    """Phase 19's work for a spawn of four processes (``cli_runs``): its
+    fp32 steps (``before``) and its two CLI runs (``runs``), with what
+    ``pipe_path`` needs to hold them."""
+    from transformer_tpu_torch.cli import distributed_train, train
+
+    data = cut_corpus(PIPE_PAIRS)
+    root = fresh_dir("pipe")
+    os.makedirs(root)
+    runs = [(s, pipe_argv(data, src_vocab, tgt_vocab, root, s)) for s in ("gpipe", "1f1b")]
+    args = train.resolve_flags(runs[0][1], distributed_train._FLAGS)
+    tcfg = train.train_config(args)
+    train_ds, _, bf16_cfg, _ = train.load_for_model(args, tcfg, lambda *_: None)
+    batch = next(iter(train_ds.batches(0)))
+    cfg = dataclasses.replace(bf16_cfg, dtype="float32", dropout_rate=0.0)
+    before = ("_pipe_fp32_steps", (dataclasses.asdict(cfg), dataclasses.asdict(tcfg), batch,
+                                   root))
+    return {"root": root, "runs": runs, "before": before, "batch": batch, "cfg": cfg,
+            "bf16_cfg": bf16_cfg, "tcfg": tcfg}
+
+
+def pipe_path(job: dict, done: dict) -> dict:
+    """Phase 19 (module docstring): ``job`` (``pipe_job``) held, its spawn
+    done (``done``, ``cli_runs``' results). Returns the flash counters
+    summed over the ranks of both runs."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.models.transformer import flatten, init_params
+    from transformer_tpu_torch.parallel.pipeline import gpipe_ticks, one_f1b_ticks
+    from transformer_tpu_torch.train.checkpoint import CheckpointManager, to_numpy
+    from transformer_tpu_torch.train.state import create_train_state, global_norm
+    from transformer_tpu_torch.train.trainer import loss_and_grads
+
+    root, runs, batch, cfg, bf16_cfg, tcfg = (
+        job[k] for k in ("root", "runs", "batch", "cfg", "bf16_cfg", "tcfg"))
+    t0 = time.perf_counter()
+
+    # (a) the fp32 steps against the one-card step and against each other
+    fp32 = torch.load(os.path.join(root, "fp32_steps.pt"))
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    state = create_train_state(cfg, tcfg, params=params)
+    src, tgt = (torch.from_numpy(a).to("cuda", torch.long) for a in batch)
+    metrics, want = loss_and_grads(state.params, tgt, cfg, tcfg, None, src=src)
+    want_run = (float(metrics["loss"]), want)
+    want_norm = float(global_norm(want.values()))
+    del state, params
+    grad_norm_rel = {}
+    for label, run in fp32.items():
+        got = {k: g.cuda() for k, g in run["grads"].items()}
+        hold_to_train_tol(
+            {"phase": "pipe", "step": "fp32_step", "run": label, "mesh": "fsdp 2 x pipe 2",
+             "microbatches": PIPE_MB, "layers": PIPE_LAYERS, "batch": 64,
+             "step_seconds": run["seconds"]},
+            (run["loss"], got), want_run, f"fp32 {label} step against the one-card step")
+        grad_norm_rel[label] = abs(run["grad_norm"] - want_norm) / want_norm
+    plain = fp32["gpipe plain"]
+    hold_to_train_tol(
+        {"phase": "pipe", "step": "fp32_step", "run": "gpipe kernels against plain"},
+        (fp32["gpipe kernels"]["loss"], {k: g.cuda() for k, g in
+                                         fp32["gpipe kernels"]["grads"].items()}),
+        (plain["loss"], {k: g.cuda() for k, g in plain["grads"].items()}),
+        "fp32 pipelined step, kernels against plain versions")
+    emit({"phase": "pipe", "step": "fp32_grad_norm", "one_card": want_norm,
+          "rel_diff": grad_norm_rel, "limit": TRAIN_TOL["grad_rel"]})
+    if max(grad_norm_rel.values()) > TRAIN_TOL["grad_rel"]:
+        raise SystemExit(f"pipe: grad_norm off the one-card step's: {grad_norm_rel}")
+    del fp32, want, got
+
+    # (b) the two CLI runs
+    launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0}
+    whole_bytes = None
+    for schedule, argv in runs:
+        logs, ranks, wall = done[schedule]
+        r0 = ranks[0]
+        steps, evals = len(r0["step_seconds"]), r0["eval_batches"]
+        per_rank = {r["rank"]: {k: r["launches"][k] for k in launches} for r in ranks}
+        want_launches = {r: pipe_want(r, schedule, steps, evals) for r in per_rank}
+        for counts in per_rank.values():
+            for k, n in counts.items():
+                launches[k] += n
+        losses = r0["losses"]
+        ms = [t * 1e3 for t in r0["step_seconds"]]
+        export = os.path.join(root, f"{schedule}_export")
+        exported, _ = load_export(export, device="cuda")
+        if whole_bytes is None:  # a --dp 4 rank holds the whole state: params, mu, nu
+            whole_bytes = 3 * sum(t.numel() * t.element_size()
+                                  for t in flatten(exported).values())
+        ticks = (gpipe_ticks(PIPE_MB, 2) if schedule == "gpipe"
+                 else one_f1b_ticks(PIPE_MB, 2))
+        rec = {
+            "phase": "pipe", "step": f"cli.distributed_train {schedule}", "argv": argv,
+            "processes": 4, "card": nvidia_smi_line(), "transport": r0["transport"],
+            "steps": steps, "eval_batches": evals, "losses": losses,
+            "step_ms_first": ms[0], "step_ms_median": statistics.median(ms[1:] or ms),
+            "ticks_per_step": ticks if schedule == "1f1b" else 2 * ticks,
+            "bubble_share": (1 / (PIPE_MB + 1)) if schedule == "gpipe" else 2 / (PIPE_MB + 2),
+            "stash_slots_per_stage": 3 if schedule == "1f1b" else PIPE_MB,
+            "state_bytes_per_rank": [r["state_bytes"] for r in ranks],
+            "state_bytes_dp4_rank": whole_bytes,
+            "peak_allocated_bytes_per_rank": [r["peak_allocated_bytes"] for r in ranks],
+            "staged_bytes_per_step_rank0": {k: v / steps for k, v in r0["staged_bytes"].items()},
+            "launches_per_rank": per_rank, "expected_launches_per_rank": want_launches,
+            "eval_loss": r0["eval_loss"], "wall_s": wall,
+            "logs": [ln for ln in logs.splitlines() if not ln.startswith("sample")][-8:],
+        }
+        emit(rec)
+        if per_rank != want_launches:
+            raise SystemExit(f"pipe {schedule}: launches {per_rank}, expected {want_launches}")
+        half = len(losses) // 2
+        if not (half and all(math.isfinite(x) for x in losses)
+                and np.mean(losses[-half:]) < np.mean(losses[:half])):
+            raise SystemExit(f"pipe {schedule}: the bf16 loss does not fall: {losses}")
+        if any(r["losses"] != losses for r in ranks):
+            raise SystemExit(f"pipe {schedule}: the ranks' losses differ")
+        if schedule == "gpipe":
+            # The sharded-v1 checkpoint on one card: the gathered export's
+            # parameters, byte for byte.
+            (ckpt,) = [d for d in os.listdir(os.path.join(root, schedule))
+                       if d.startswith("ckpt_")]
+            files = sorted(os.listdir(os.path.join(root, schedule, ckpt)))
+            template = create_train_state(bf16_cfg, tcfg, device="cuda")
+            restored = CheckpointManager(os.path.join(root, schedule)).restore_latest(template)
+            same = all(to_numpy(v).tobytes() == to_numpy(flatten(exported)[k]).tobytes()
+                       for k, v in flatten(restored.params).items())
+            emit({"phase": "pipe", "step": "sharded checkpoint on one card", "files": files,
+                  "step_restored": restored.step, "params_byte_identical": same})
+            if not same or restored.step != steps or "meta.json" not in files or not any(
+                    n.startswith("shards_p") for n in files):
+                raise SystemExit(f"pipe: the sharded checkpoint does not restore: {files}")
+            del template, restored
+        del exported
+    emit({"phase": "pipe", "step": "checks", "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pipe_only() -> None:
+    """Phase 19 alone (``python3 chip_smoke.py --only pipe``)."""
+    import torch
+
+    from transformer_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build(["flash_attention"])  # once, before four processes load it
+    _, src_vocab = vocab(side="src")
+    _, tgt_vocab = vocab()
+    job = pipe_job(src_vocab, tgt_vocab)
+    t0 = time.perf_counter()
+    done = cli_runs(job["runs"], job["root"], before=[job["before"]])
+    emit({"phase": "pipe", "step": "spawn", "seconds": time.perf_counter() - t0})
+    emit({"phase": "pipe", "launches": pipe_path(job, done), "card": nvidia_smi_line()})
+
+
 def moe_only() -> None:
     """Phase 18 alone (``python3 chip_smoke.py --only moe``)."""
     import torch
@@ -6650,6 +7012,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "moe"]:
         moe_only()
+        return 0
+    if sys.argv[1:] == ["--only", "pipe"]:
+        pipe_only()
         return 0
 
     # Each phase's seconds on the host clock, emitted as it ends.
@@ -6838,13 +7203,13 @@ def main() -> int:
 
     # 7. sequence-parallel training over four processes on this card, at
     # long4k's width and 1 layer, against a single-card run of those flags
+    # (the run over the ring shares phase 11's spawn and is held there)
     sp_trainer, _, sp_single_launches, sp_single = train_path(
         vocab_path, "--num_layers", str(SP_LAYERS), name="sp_single")
     del sp_trainer
     torch.cuda.empty_cache()
-    sp = sp_train_path(vocab_path, sp_single)
     fresh_dir("ckpt")  # the earlier runs' checkpoints
-    lap("7 sequence parallel")
+    lap("7 sequence parallel, one card")
 
     # 8. checkpoints, resume, preemption and export on the base path
     ckpt_launches = checkpoints_path(src_vocab, vocab_path)
@@ -6858,9 +7223,18 @@ def main() -> int:
     # 11. seq2seq over four processes on this card: dp 4, ring sp 4,
     # Ulysses sp 4; long4k over Ulysses held to phase 7's single card; and
     # the fp32 step under each mesh
-    dist_launches, _, _ = s2s_dist_path(src_vocab, vocab_path, e_rec, sp_single)
-    # ... and phase 7's fp32 ring step, in the same four processes
-    s2s_fp32_mesh_check(s2s_cfg, s2s_batch, tok, next(iter(train_ds.batches(0)))[1])
+    # in one spawn of four processes with phase 7's run over the ring and
+    # phase 19's work (held after phase 18)
+    lm_tgt = next(iter(train_ds.batches(0)))[1]
+    fp32_before, fp32_cfg = s2s_fp32_mesh_job(s2s_cfg, s2s_batch, tok, lm_tgt)
+    sp_job, p_job = sp_train_job(vocab_path), pipe_job(src_vocab, vocab_path)
+    dist_launches, _, _, done = s2s_dist_path(
+        src_vocab, vocab_path, e_rec, sp_single, before=[fp32_before, p_job["before"]],
+        extra_runs=[sp_job, *p_job["runs"]])
+    # ... and phase 7's fp32 ring step and run over the ring, in the same
+    # four processes
+    s2s_fp32_mesh_check(fp32_cfg, s2s_batch, tok, lm_tgt)
+    sp = sp_train_path(sp_job, sp_single, done[sp_job[0]])
     fresh_dir("ckpt", "s2s_dist")
     lap("11 seq2seq over processes")
 
@@ -6910,6 +7284,11 @@ def main() -> int:
     moe_flash, serve_launches["moe"] = moe_path(vocab_path, tok)
     lap("18 moe")
 
+    # 19. Transformer-base over --fsdp 2 --pp 2 (GPipe and 1F1B): fp32
+    # steps against the one-card step, two epochs through the CLI
+    pipe_flash = pipe_path(p_job, done)
+    lap("19 pipe")
+
     def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
                                          "share_of_bound_warm") if k in main_rec}
@@ -6950,7 +7329,8 @@ def main() -> int:
                    "windowed_train": windowed_launches[name],
                    **{path: counts[name] for path, counts in mlm_launches.items()},
                    **{path: counts[name] for path, counts in paper_launches.items()},
-                   "telemetry": tel_train_launches[name], "moe_train": moe_flash[name]}
+                   "telemetry": tel_train_launches[name], "moe_train": moe_flash[name],
+                   "pipe_train": pipe_flash[name]}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",

@@ -37,7 +37,9 @@ package's one-device train step on converted weights.
   ``cli.translate`` runs; ``--length_buckets`` under ``--dp 2``.
 
 Workers are module-level functions run in spawned processes (gloo on the
-CPU, one thread each); they import no JAX.
+CPU, one thread each); they import no JAX. The trainer's runs of every
+case share two spawns (one of 4 processes, one of 2, started together:
+``port_runs``), each process taking its cases in turn.
 """
 
 import io
@@ -166,43 +168,99 @@ def _hold_to_jax(runs, want_losses, want_norms, want_params, got_losses=True, sp
 # the trainer against JAX
 
 
-def _train_worker(rank, world, port, mesh_kw, init, batches, out_dir):
+def _train_worker(rank, world, port, jobs, out_dir):
+    """Each job (name, mesh, init, batches) in turn on this process group:
+    three ``DistributedTrainer`` steps, the losses, grad norms and params
+    written to ``<name>.<rank>.npz``."""
     from transformer_tpu_torch.parallel.distributed import DistributedTrainer
 
-    mesh = make_mesh(MeshConfig(data=mesh_kw["dp"], seq=mesh_kw["sp"]),
-                     join_job(rank, world, port))
-    cfg = ModelConfig(**{**MODEL, **mesh_kw.get("model", {}), "attention_impl": mesh_kw["impl"],
-                         "remat": mesh_kw.get("remat", False)})
-    tcfg = TrainConfig(**TRAIN)
-    state = create_train_state(cfg, tcfg, params=params_from_numpy(init, cfg, device="cpu"))
-    trainer = DistributedTrainer(cfg, tcfg, mesh, state=state, log_fn=lambda *_: None)
-    losses, norms = [], []
-    for src, tgt in batches:
-        trainer.state, m = trainer.train_step(trainer.state, src, tgt)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    params = {k: v.detach().numpy() for k, v in flatten(trainer.state.params).items()}
-    np.savez(os.path.join(out_dir, f"{rank}.npz"), losses=losses, norms=norms, **params)
+    process = join_job(rank, world, port)
+    for name, mesh_kw, init, batches in jobs:
+        mesh = make_mesh(MeshConfig(data=mesh_kw["dp"], seq=mesh_kw["sp"]), process)
+        cfg = ModelConfig(**{**MODEL, **mesh_kw.get("model", {}),
+                             "attention_impl": mesh_kw["impl"],
+                             "remat": mesh_kw.get("remat", False)})
+        tcfg = TrainConfig(**TRAIN)
+        state = create_train_state(cfg, tcfg, params=params_from_numpy(init, cfg, device="cpu"))
+        trainer = DistributedTrainer(cfg, tcfg, mesh, state=state, log_fn=lambda *_: None)
+        losses, norms = [], []
+        for src, tgt in batches:
+            trainer.state, m = trainer.train_step(trainer.state, src, tgt)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        params = {k: v.detach().numpy() for k, v in flatten(trainer.state.params).items()}
+        np.savez(os.path.join(out_dir, f"{name}.{rank}.npz"), losses=losses, norms=norms,
+                 **params)
     torch.distributed.destroy_process_group()
 
 
+def _jax_init(model=MODEL):
+    """The JAX init ``_jax_run`` starts from (the same key and config)."""
+    import jax
+
+    from transformer_tpu.config import ModelConfig as JConfig
+    from transformer_tpu.config import TrainConfig as JTrain
+    from transformer_tpu.train.checkpoint import _flatten
+    from transformer_tpu.train.state import create_train_state as j_create_state
+
+    state = j_create_state(jax.random.PRNGKey(0), JConfig(**model), JTrain(**TRAIN))
+    return {k: np.asarray(v) for k, v in _flatten(state.params).items()}
+
+
+def _rope_batches():
+    batches = []
+    for i in range(3):
+        src, tgt = _pairs(40 + i, s_src=9, s_tgt=9)
+        src[2:, 6:], tgt[1:, 7:] = 0, 0
+        batches.append((src, tgt))
+    return batches
+
+
+ROPE_MESHES = {
+    "ring_sp2": dict(dp=1, sp=2, impl="ring", model={"position_scheme": "rope"}),
+    "ulysses_sp2": dict(dp=1, sp=2, impl="ulysses", model={"position_scheme": "rope"}),
+    "ring_sp4": dict(dp=1, sp=4, impl="ring", model={"position_scheme": "rope"}),
+}
+SPREAD_MESHES = ["dp4_flash", "ring_sp4", "ulysses_sp2"]
+
+
+@pytest.fixture(scope="module")
+def port_runs(tmp_path_factory):
+    """Every trainer case of this file run by the port: one spawn of 4
+    processes and one of 2, started together, each process taking its
+    cases in turn. Returns {case: [each rank's npz]}."""
+    from torch_pipeline_jobs import finish, start
+
+    init, rope_init = _jax_init(), _jax_init({**MODEL, "position_scheme": "rope"})
+    cases = {}
+    for name, mesh_kw in MESHES.items():
+        cases[f"mesh-{name}"] = (mesh_kw, init, [_pairs(30 + i) for i in range(3)])
+    cases["buckets-ring_sp2"] = (dict(dp=1, sp=2, impl="ring"), init, _bucket_batches())
+    for name in SPREAD_MESHES:
+        cases[f"spread-{name}"] = (MESHES[name], init, [_pairs(10 + i) for i in range(3)])
+    for name, mesh_kw in ROPE_MESHES.items():
+        cases[f"rope-{name}"] = (mesh_kw, rope_init, _rope_batches())
+    out = tmp_path_factory.mktemp("seq2seq_runs")
+    by_world: dict[int, list] = {}
+    for name, (mesh_kw, job_init, batches) in cases.items():
+        by_world.setdefault(mesh_kw["dp"] * mesh_kw["sp"], []).append(
+            (name, mesh_kw, job_init, batches))
+    handles = [start(_train_worker, world, jobs, str(out)) for world, jobs in by_world.items()]
+    for h in handles:
+        finish(h)
+    return {name: [np.load(out / f"{name}.{r}.npz") for r in range(mesh_kw["dp"] * mesh_kw["sp"])]
+            for name, (mesh_kw, _, _) in cases.items()}
+
+
 @pytest.mark.parametrize("name", list(MESHES))
-def test_seq2seq_trainer_matches_jax(jax_run, tmp_path, name):
+def test_seq2seq_trainer_matches_jax(jax_run, port_runs, name):
     init, want_losses, want_norms, want_params = jax_run
-    mesh_kw = MESHES[name]
-    world = mesh_kw["dp"] * mesh_kw["sp"]
-    spawn(_train_worker, world, mesh_kw, init, [_pairs(30 + i) for i in range(3)],
-          str(tmp_path))
-    runs = [np.load(tmp_path / f"{r}.npz") for r in range(world)]
-    _hold_to_jax(runs, want_losses, want_norms, want_params)
+    _hold_to_jax(port_runs[f"mesh-{name}"], want_losses, want_norms, want_params)
 
 
-def test_bucketed_widths_at_sp2_match_jax(tmp_path):
-    batches = _bucket_batches()
-    init, want_losses, want_norms, want_params = _jax_run(batches)
-    spawn(_train_worker, 2, dict(dp=1, sp=2, impl="ring"), init, batches, str(tmp_path))
-    runs = [np.load(tmp_path / f"{r}.npz") for r in range(2)]
-    _hold_to_jax(runs, want_losses, want_norms, want_params)
+def test_bucketed_widths_at_sp2_match_jax(port_runs):
+    _, want_losses, want_norms, want_params = _jax_run(_bucket_batches())
+    _hold_to_jax(port_runs["buckets-ring_sp2"], want_losses, want_norms, want_params)
 
 
 @pytest.fixture(scope="module")
@@ -227,42 +285,24 @@ def jax_spread_run():
     return batches, init, losses, norms, params, spread
 
 
-@pytest.mark.parametrize("name", ["dp4_flash", "ring_sp4", "ulysses_sp2"])
-def test_seq2seq_trainer_within_jax_own_spread_on_seeds_10_to_12(jax_spread_run, tmp_path, name):
+@pytest.mark.parametrize("name", SPREAD_MESHES)
+def test_seq2seq_trainer_within_jax_own_spread_on_seeds_10_to_12(jax_spread_run, port_runs,
+                                                                 name):
     batches, init, want_losses, want_norms, want_params, spread = jax_spread_run
     assert max(m for m, _ in spread["params"].values()) > 1e-5  # Adam amplifies rounding
-    mesh_kw = MESHES[name]
-    world = mesh_kw["dp"] * mesh_kw["sp"]
-    spawn(_train_worker, world, mesh_kw, init, batches, str(tmp_path))
-    runs = [np.load(tmp_path / f"{r}.npz") for r in range(world)]
-    _hold_to_jax(runs, want_losses, want_norms, want_params, spread=spread)
-
-
-ROPE_MESHES = {
-    "ring_sp2": dict(dp=1, sp=2, impl="ring", model={"position_scheme": "rope"}),
-    "ulysses_sp2": dict(dp=1, sp=2, impl="ulysses", model={"position_scheme": "rope"}),
-    "ring_sp4": dict(dp=1, sp=4, impl="ring", model={"position_scheme": "rope"}),
-}
+    _hold_to_jax(port_runs[f"spread-{name}"], want_losses, want_norms, want_params,
+                 spread=spread)
 
 
 @pytest.mark.parametrize("name", list(ROPE_MESHES))
-def test_rope_seq2seq_with_unequal_chunk_widths_matches_jax(tmp_path, name):
+def test_rope_seq2seq_with_unequal_chunk_widths_matches_jax(port_runs, name):
     """Source and target width 9: the source pads to a multiple of ``seq``
     on its own (10 at sp 2, 12 at sp 4) and the teacher-forcing input is 8,
     so the encoder's chunks are wider than the decoder's and each tower
     must rotate at its own global positions."""
-    batches = []
-    for i in range(3):
-        src, tgt = _pairs(40 + i, s_src=9, s_tgt=9)
-        src[2:, 6:], tgt[1:, 7:] = 0, 0
-        batches.append((src, tgt))
-    mesh_kw = ROPE_MESHES[name]
     init, want_losses, want_norms, want_params = _jax_run(
-        batches, {**MODEL, "position_scheme": "rope"})
-    world = mesh_kw["sp"]
-    spawn(_train_worker, world, mesh_kw, init, batches, str(tmp_path))
-    runs = [np.load(tmp_path / f"{r}.npz") for r in range(world)]
-    _hold_to_jax(runs, want_losses, want_norms, want_params)
+        _rope_batches(), {**MODEL, "position_scheme": "rope"})
+    _hold_to_jax(port_runs[f"rope-{name}"], want_losses, want_norms, want_params)
 
 
 def _dispatch_worker(rank, world, port, init, batches, out_dir):

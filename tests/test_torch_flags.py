@@ -141,6 +141,12 @@ def test_moe_flags_reach_the_model_config():
 
 @pytest.mark.parametrize("flag,axis", [("ep", "expert"), ("sp", "seq"), ("pp", "pipe")])
 def test_distributed_train_refuses_moe_over_other_axes_by_name(flag, axis):
+    if axis == "pipe":  # a homogeneous stack pipelines; a mixed one has JAX's refusal
+        with pytest.raises(ValueError, match="pipe>1 requires a homogeneous layer stack"):
+            distributed_train.main(["--pp=2", "--moe_experts=4", "--moe_every=2"])
+        distributed_train.check_flags(train.resolve_flags(
+            ["--pp=2", "--moe_experts=4", "--moe_every=1"], distributed_train._FLAGS))
+        return
     with pytest.raises(NotImplementedError, match=f"--{flag} > 1 with --moe_experts"):
         distributed_train.main([f"--{flag}=2", "--moe_experts=4"])
 
@@ -181,10 +187,24 @@ def test_platform_refusals(argv, match):
 
 
 @pytest.mark.parametrize("name,value", [("dcn_data", "2"), ("pp_microbatches", "4"),
-                                        ("pp_schedule", "1f1b"), ("fsdp", "2")])
+                                        ("pp_schedule", "1f1b"), ("fsdp", "2"), ("tp", "2"),
+                                        ("ep", "2")])
 def test_distributed_train_refuses_unported_axes_by_name(name, value):
-    with pytest.raises(NotImplementedError, match=f"--{name}"):
-        distributed_train.main([f"--{name}", value, "--device", "cpu"])
+    """--tp, --ep and --dcn_data stay refused by name; the pipe and fsdp
+    flags are accepted and reach the mesh and the train config."""
+    argv = [f"--{name}", value, "--device", "cpu"]
+    if name in ("dcn_data", "tp", "ep"):
+        with pytest.raises(NotImplementedError, match=f"--{name}"):
+            distributed_train.main(argv)
+        return
+    args = train.resolve_flags(argv, distributed_train._FLAGS)
+    distributed_train.check_flags(args)
+    assert str(getattr(args, name)) == value
+    tcfg = train.train_config(args)
+    assert (tcfg.pp_microbatches, tcfg.pp_schedule) == (args.pp_microbatches, args.pp_schedule)
+    if name == "fsdp":  # a world of one cannot hold an fsdp 2 mesh
+        with pytest.raises(ValueError, match="needs 2 processes, have 1"):
+            distributed_train.main(argv)
 
 
 def test_absl_boolean_spellings():

@@ -311,33 +311,49 @@ def test_resumed_run_equals_uninterrupted(tmp_path):
 # --dp 2
 
 
-def _dp_worker(rank, world, port, init, batches, accum, out_path):
+ACCUMS = [1, 2]
+
+
+def _dp_worker(rank, world, port, init, batches, out_dir):
+    """Three ``--dp 2`` steps at each of ``ACCUMS`` in turn on one process
+    group, written by rank 0 to ``dp<accum>.npz``."""
     from transformer_tpu_torch.parallel.distributed import DistributedTrainer
 
-    mesh = make_mesh(MeshConfig(data=world), join_job(rank, world, port))
-    model = {**LM, "moe_every": 1}
-    cfg, tcfg = ModelConfig(**model), TrainConfig(**TRAIN, grad_accum_steps=accum)
-    state = create_train_state(cfg, tcfg, params=_port(init, model))
-    trainer = DistributedTrainer(cfg, tcfg, mesh, state=state, log_fn=lambda *_: None)
-    losses, auxes = [], []
-    for tgt in batches:
-        trainer.state, m = trainer.train_step(trainer.state, tgt, tgt)
-        losses.append(float(m["loss"]))
-        auxes.append(float(m["moe_aux"]))
-    params = {k: v.detach().numpy() for k, v in flatten(trainer.state.params).items()}
-    if rank == 0:
-        np.savez(out_path, losses=losses, auxes=auxes, **params)
+    process = join_job(rank, world, port)
+    for accum in ACCUMS:
+        mesh = make_mesh(MeshConfig(data=world), process)
+        model = {**LM, "moe_every": 1}
+        cfg, tcfg = ModelConfig(**model), TrainConfig(**TRAIN, grad_accum_steps=accum)
+        state = create_train_state(cfg, tcfg, params=_port(init, model))
+        trainer = DistributedTrainer(cfg, tcfg, mesh, state=state, log_fn=lambda *_: None)
+        losses, auxes = [], []
+        for tgt in batches:
+            trainer.state, m = trainer.train_step(trainer.state, tgt, tgt)
+            losses.append(float(m["loss"]))
+            auxes.append(float(m["moe_aux"]))
+        params = {k: v.detach().numpy() for k, v in flatten(trainer.state.params).items()}
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"dp{accum}.npz"), losses=losses, auxes=auxes,
+                     **params)
     torch.distributed.destroy_process_group()
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_dp2_matches_jax_single_program(tmp_path, accum):
+@pytest.fixture(scope="module")
+def dp_runs(tmp_path_factory):
+    """The ``--dp 2`` runs of every ``ACCUMS`` value, one spawn."""
+    out = tmp_path_factory.mktemp("dp")
+    _, init = _jax_init({**LM, "moe_every": 1})
+    spawn(_dp_worker, 2, init, [_ids(70 + i) for i in range(3)], str(out))
+    return {accum: np.load(out / f"dp{accum}.npz") for accum in ACCUMS}
+
+
+@pytest.mark.parametrize("accum", ACCUMS)
+def test_dp2_matches_jax_single_program(dp_runs, accum):
     model = {**LM, "moe_every": 1}
     train = {**TRAIN, "grad_accum_steps": accum}
     batches = [_ids(70 + i) for i in range(3)]
     init, want_l, want_a, want_p = _jax_steps(model, train, batches)
-    spawn(_dp_worker, 2, init, batches, accum, str(tmp_path / "dp.npz"))
-    got = np.load(tmp_path / "dp.npz")
+    got = dp_runs[accum]
     for g, w in zip(got["losses"], want_l):
         assert _rel(g, w) <= 1e-5, (list(got["losses"]), want_l)
     for g, w in zip(got["auxes"], want_a):

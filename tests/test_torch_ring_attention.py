@@ -237,12 +237,18 @@ def _assemble(out_dir, world):
 
 @pytest.fixture(scope="module")
 def ring_runs(tmp_path_factory):
-    """Every ring case, one spawn per ring size."""
-    runs = {}
+    """Every ring case, one spawn per ring size, the two started together."""
+    os.environ["OMP_NUM_THREADS"] = "1"
+    started = []
     for sp in (2, 4):
         names = [n for n, s in RING_CASES.items() if s["sp"] == sp]
         out = tmp_path_factory.mktemp(f"ring{sp}")
-        spawn(_ring_worker, sp, names, str(out))
+        started.append((sp, out, mp.spawn(_ring_worker, args=(sp, free_port(), names, str(out)),
+                                          nprocs=sp, join=False)))
+    runs = {}
+    for sp, out, context in started:
+        while not context.join():
+            pass
         runs.update(_assemble(out, sp))
     return runs
 
@@ -276,9 +282,10 @@ def test_ring_matches_jax_dense_attention(ring_runs, name):
                                    atol=1e-5, err_msg=key)
 
 
-def test_ring_matches_jax_ring():
+def test_ring_matches_jax_ring(ring_runs):
     """The one case against JAX's own ring (shard_map over 4 virtual CPU
-    devices, Pallas in interpret mode): causal with padding."""
+    devices, Pallas in interpret mode): causal with padding (the port's
+    ring from ``ring_runs``)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -295,14 +302,9 @@ def test_ring_matches_jax_ring():
 
     want_out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
     want = (want_out, *vjp(jnp.asarray(do)))
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as out_dir:
-        spawn(_ring_worker, 4, [name], out_dir)
-        got = _assemble(out_dir, 4)
     for key, w in zip(("out", "dq", "dk", "dv"), want):
-        np.testing.assert_allclose(got[f"{name}/{key}"], np.asarray(w), rtol=1e-5, atol=1e-5,
-                                   err_msg=key)
+        np.testing.assert_allclose(ring_runs[f"{name}/{key}"], np.asarray(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=key)
 
 
 def _shift_worker(rank, world, port, out_dir):

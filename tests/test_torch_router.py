@@ -557,11 +557,22 @@ def test_metrics_jsonl_per_replica_and_joined_traces(lm, fleet_files, tmp_path):
 
 def test_warm_up_export_keeps_heartbeats_flowing(lm):
     """``export_state`` returns the hottest prefixes as the worker's
-    ``prefix_state`` entries (which inject back into a cold cache) and
-    runs the heartbeat after every prefix, so an export longer than the
-    router's heartbeat timeout does not fail the exporting worker over."""
+    ``prefix_state`` fields, the KV blocks in a file beside the line
+    (which ``inject_state`` reads back into a cold cache, byte for byte,
+    and removes), and runs the heartbeat after every prefix, so an export
+    longer than the router's heartbeat timeout does not fail the
+    exporting worker over; ``inject_state`` beats after every prefix too,
+    leaves the cache cold when the file is gone, and takes the JAX
+    worker's inline form as well."""
+    import os
+
     from transformer_tpu_torch.serve.prefix_cache import PrefixCache
-    from transformer_tpu_torch.serve.replica import export_state, inject_blocks
+    from transformer_tpu_torch.serve.replica import (
+        _host_blocks,
+        export_blocks,
+        export_state,
+        inject_state,
+    )
     from transformer_tpu_torch.serve.scheduler import ContinuousScheduler
 
     params, cfg, tok = port_model(lm)
@@ -570,12 +581,27 @@ def test_warm_up_export_keeps_heartbeats_flowing(lm):
     ContinuousScheduler(params, cfg, tok, num_slots=1, prefix_cache=cache, device="cpu").run(
         [{"prompt": p, "max_new": 0} for p in prompts])
     beats = []
-    entries = export_state(cache, 8, lambda: beats.append(len(beats)))
+    state = export_state(cache, 8, lambda: beats.append(len(beats)))
+    entries = state["entries"]
     assert entries and len(beats) == len(cache.hot_prefixes(8)) >= len(entries)
-    wire = json.loads(json.dumps(entries))
+    assert os.path.exists(state["path"])
+    msg = json.loads(json.dumps({"type": "inject_state", **state}))
     cold = PrefixCache(cfg, block_tokens=4, budget_mb=8)
-    assert sum(inject_blocks(cold, e["ids"], e["tokens"], e["blocks"]) for e in wire) == \
+    beats.clear()
+    assert inject_state(cold, msg, lambda: beats.append(1)) == \
         sum(e["tokens"] for e in entries) > 0
+    assert len(beats) == len(entries) and not os.path.exists(state["path"])
+    for e in entries:
+        want, got = _host_blocks(cache, e["ids"])[1], _host_blocks(cold, e["ids"])[1]
+        assert len(got) == len(want) == e["blocks"]
+        assert all(g[k].tobytes() == w[k].tobytes() and g[k].dtype == w[k].dtype
+                   for gb, wb in zip(got, want) for g, w in zip(gb, wb) for k in w)
+    assert inject_state(cold, {"entries": entries, "path": state["path"]}) == 0  # gone
+    inline = [{"ids": e["ids"], "tokens": e["tokens"],
+               "blocks": export_blocks(cache, e["ids"])[1]} for e in entries]
+    cold = PrefixCache(cfg, block_tokens=4, budget_mb=8)
+    assert inject_state(cold, json.loads(json.dumps({"entries": inline}))) == \
+        sum(e["tokens"] for e in entries)
 
 
 def test_warm_up_line_is_forwarded_unparsed():

@@ -1,5 +1,5 @@
 """Train a seq2seq translator or a decoder-only LM over several processes:
-data × sequence parallel.
+data × fsdp × sequence × pipeline parallel.
 
     python -m torch.distributed.run --standalone --nproc_per_node 4 \\
         -m transformer_tpu_torch.cli.distributed_train --preset base \\
@@ -10,14 +10,20 @@ data × sequence parallel.
         -m transformer_tpu_torch.cli.distributed_train --preset long4k \\
         --attention_impl ring --sp 4 --epochs 1 --dataset_path data \\
         --tgt_vocab_file tgt_vocab.subwords
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m transformer_tpu_torch.cli.distributed_train --preset base \
+        --attention_impl flash --fsdp 2 --pp 2 --pp_microbatches 4 \
+        --pp_schedule 1f1b --epochs 1 --dataset_path data \
+        --src_vocab_file src_vocab.subwords --tgt_vocab_file tgt_vocab.subwords
 
 Port of ``transformer_tpu/cli/distributed_train.py``. The flags are
 ``cli.train``'s plus the mesh: ``--dp`` (0 = every process not used by
-the other axes), ``--sp`` (the sequence split, with ``--attention_impl
-ring`` or ``ulysses``), and ``--fsdp/--tp/--pp/--ep/--dcn_data``, which
-raise above 1 (``--pp_microbatches`` and ``--pp_schedule`` away from
-their defaults too). Without the launcher's environment it runs as a
-world of one. Each process reads the same data (the same global batches
+the other axes), ``--fsdp`` (parameters and optimizer state split over
+processes that also split the batch), ``--sp`` (the sequence split, with
+``--attention_impl ring`` or ``ulysses``), ``--pp`` (layer stages, with
+``--pp_microbatches`` (0 = ``--pp``) and ``--pp_schedule gpipe|1f1b``),
+and ``--tp/--ep/--dcn_data``, which raise above 1. Without the launcher's
+environment it runs as a world of one. Each process reads the same data (the same global batches
 in the same order: the native loader's by default, as ``cli.train``'s,
 length buckets and ``--streaming`` included) and keeps its part of each
 batch; rank 0 builds
@@ -33,14 +39,20 @@ writes them, every rank restores the newest at start. The transport
 CPU) is chosen at start-up and logged. ``--metrics_json`` writes every
 rank's step times, dispatch losses, kernel launch counts, staged bytes
 by kind, step, whether it writes checkpoints, the consistency check's
-outcome and time, and a digest of its parameters, gathered on rank 0.
+outcome and time, a digest of its parameters, the bytes of parameters
+and optimizer state it holds and its card's peak allocation, gathered
+on rank 0.
 Rank 0 alone owns the telemetry (``--metrics_jsonl``, ``--trace``, ...),
 the ``--profile_dir`` window and the TensorBoard logs, as in the JAX CLI:
-the metrics it records are already summed over the processes.
+the metrics it records are already summed over the processes. Under
+``--fsdp`` the checkpoints are JAX's ``sharded-v1`` (every process writes
+its slices), and the epilogue gathers the parameters to every process
+first, as JAX's ``process_allgather`` does.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import sys
@@ -51,10 +63,10 @@ from transformer_tpu_torch.cli import train
 _FLAGS: dict[str, tuple] = {
     **train._FLAGS,
     "dp": (int, 0, "data-parallel mesh size (0 = the processes left by the other axes)"),
-    "fsdp": (int, 1, "fsdp mesh size (only 1 is ported)"),
+    "fsdp": (int, 1, "fsdp mesh size: parameters and optimizer state split over processes"),
     "tp": (int, 1, "tensor-parallel mesh size (only 1 is ported)"),
     "sp": (int, 1, "sequence-parallel mesh size (ring or ulysses attention)"),
-    "pp": (int, 1, "pipeline-parallel mesh size (only 1 is ported)"),
+    "pp": (int, 1, "pipeline-parallel mesh size: layer stages (GPipe or 1F1B)"),
     "ep": (int, 1, "expert-parallel mesh size (only 1 is ported)"),
     "metrics_json": (str, "", "write every rank's counters and step times here (rank 0)"),
     "consistency_check": (train._bool, False, "assert after every epoch and at the end that "
@@ -63,7 +75,10 @@ _FLAGS: dict[str, tuple] = {
 
 
 def _report(trainer, process, consistency: dict) -> dict:
+    import torch
+
     from transformer_tpu_torch.convert import params_digest
+    from transformer_tpu_torch.models.transformer import flatten
     from transformer_tpu_torch.kernels.flash_attention import (
         flash_dkdv,
         flash_dq,
@@ -83,26 +98,38 @@ def _report(trainer, process, consistency: dict) -> dict:
         "params_sha256": params_digest(trainer.state.params),
         "step": trainer.state.step, "checkpoint_writer": trainer.checkpoint.is_primary,
         "consistency_check": consistency,
+        # what this rank holds at rest: its slices (fsdp) or whole leaves
+        "state_bytes": {
+            "params": sum(t.numel() * t.element_size()
+                          for t in flatten(trainer.state.params).values()),
+            "optimizer": sum(t.numel() * t.element_size()
+                             for t in trainer.state.opt_state.tensors()),
+        },
+        "peak_allocated_bytes": (torch.cuda.max_memory_allocated(process.device)
+                                 if process.device.type == "cuda" else None),
     }
+
+
+def check_flags(args) -> None:
+    """The flag-level refusals, before any process joins: MoE over the axes
+    the port does not run it on, and the mesh axes that are not ported."""
+    from transformer_tpu_torch.parallel.distributed import check_moe_mesh
+
+    check_moe_mesh(args, {"expert": args.ep, "seq": args.sp, "pipe": args.pp})
+    for name in ("tp", "ep", "dcn_data"):
+        if getattr(args, name) > 1:
+            raise NotImplementedError(
+                f"--{name} > 1 is not ported yet; the port runs --dp, --fsdp, --sp and --pp"
+            )
 
 
 def main(argv: list[str] | None = None, log_fn=print):
     """Train over the launcher's processes and export from rank 0;
     returns the trainer."""
     args = train.resolve_flags(argv, _FLAGS, __doc__)
-    from transformer_tpu_torch.parallel.distributed import check_moe_mesh
+    check_flags(args)
+    import dataclasses
 
-    check_moe_mesh(args, {"expert": args.ep, "seq": args.sp, "pipe": args.pp})
-    for name in ("fsdp", "tp", "pp", "ep", "dcn_data"):
-        if getattr(args, name) > 1:
-            raise NotImplementedError(
-                f"--{name} > 1 is not ported yet; the port runs --dp and --sp"
-            )
-    for name in ("pp_microbatches", "pp_schedule"):
-        if getattr(args, name) != _FLAGS[name][1]:
-            raise NotImplementedError(
-                f"--{name} belongs to the pipeline axis (--pp), which is not ported yet"
-            )
     import torch.distributed as dist
 
     from transformer_tpu_torch.config import MeshConfig
@@ -113,8 +140,9 @@ def main(argv: list[str] | None = None, log_fn=print):
     process = initialize_distributed(args.device, log_fn)
     log = log_fn if process.rank == 0 else (lambda *_: None)
     try:
-        dp = args.dp or max(1, process.world_size // args.sp)
-        mesh = make_mesh(MeshConfig(data=dp, seq=args.sp), process)
+        dp = args.dp or max(1, process.world_size // (args.sp * args.fsdp * args.pp))
+        mesh = make_mesh(MeshConfig(data=dp, fsdp=args.fsdp, seq=args.sp, pipe=args.pp),
+                         process)
         log(f"mesh: {mesh.shape} over {process.world_size} processes")
         train_cfg = train.train_config(args)
         if process.rank != 0:
@@ -136,7 +164,9 @@ def main(argv: list[str] | None = None, log_fn=print):
 
         def check(label: str) -> None:
             t0 = time.perf_counter()
-            assert_cross_process_consistent(trainer.state.params, label=label)
+            split = any(d is not None for d in trainer.dims.values())
+            assert_cross_process_consistent(
+                trainer.full_params() if split else trainer.state.params, label=label)
             seconds = time.perf_counter() - t0
             consistency["checks"] += 1
             consistency["seconds"] += seconds
@@ -152,8 +182,12 @@ def main(argv: list[str] | None = None, log_fn=print):
             trainer.fit(train_ds, test_ds)
         if telemetry is not None:
             telemetry.close()
+        whole = trainer
+        if any(d is not None for d in trainer.dims.values()):
+            whole = copy.copy(trainer)  # every process gathers; rank 0 uses them
+            whole.state = dataclasses.replace(trainer.state, params=trainer.full_params())
         if process.rank == 0:
-            train.epilogue(trainer, test_ds, toks, args, log)
+            train.epilogue(whole, test_ds, toks, args, log)
         if args.metrics_json:
             reports = [None] * process.world_size if process.rank == 0 else None
             report = _report(trainer, process, consistency)

@@ -229,8 +229,10 @@ _FLAGS: dict[str, tuple] = {
     "sp": (int, 1, "cli.distributed_train's sequence axis (unused here)"),
     "pp": (int, 1, "cli.distributed_train's pipeline axis (unused here)"),
     "ep": (int, 1, "cli.distributed_train's expert axis (unused here)"),
-    "pp_microbatches": (int, 0, "cli.distributed_train's GPipe microbatches (unused here)"),
-    "pp_schedule": (str, "gpipe", "cli.distributed_train's pipeline schedule (unused here)"),
+    "pp_microbatches": (int, 0, "cli.distributed_train's pipeline microbatches, 0 = --pp "
+                        "(unused here)"),
+    "pp_schedule": (str, "gpipe", "cli.distributed_train's pipeline schedule, gpipe or 1f1b "
+                    "(unused here)"),
     "dcn_data": (int, 1, "cli.distributed_train's multi-slice data split (unused here)"),
     "consistency_check": (_bool, False, "cli.distributed_train's cross-process check "
                           "(unused here)"),
@@ -373,6 +375,7 @@ def train_config(args: argparse.Namespace):
         early_stop_patience=args.early_stop_patience,
         max_ckpt_keep=args.max_ckpt_keep, ckpt_path=args.ckpt_path,
         enable_function=args.enable_function, buffer_size=args.buffer_size,
+        pp_microbatches=args.pp_microbatches, pp_schedule=args.pp_schedule,
     )
 
 

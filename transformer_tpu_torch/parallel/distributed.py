@@ -1,12 +1,16 @@
-"""The distributed trainer: data × sequence parallelism over processes.
+"""The distributed trainer: data × fsdp × sequence × pipeline parallelism
+over processes.
 
-Port of ``put_batch``, ``DistributedTrainer`` and the sequence logic of
-``_seq_parallel_forward`` from ``transformer_tpu/parallel/distributed.py``.
-The JAX package jits one step over global arrays and lets GSPMD split
-them; here every process runs the same step on its own part:
+Port of ``put_batch``, ``DistributedTrainer``, the sequence logic of
+``_seq_parallel_forward``, the pipelined steps (``_pipelined_forward``,
+``make_1f1b_train_step``) and the mesh checks from
+``transformer_tpu/parallel/distributed.py``. The JAX package jits one step
+over global arrays and lets GSPMD split them; here every process runs the
+same step on its own part:
 
 - every process reads the same global batch and keeps its slice: rows by
-  its ``data`` coordinate and, with ``seq > 1``, one sequence chunk by its
+  its place in the batch group ``data × fsdp`` (fsdp is a batch axis, as
+  in JAX's ``batch_spec``) and, with ``seq > 1``, one sequence chunk by its
   ``seq`` coordinate, after the teacher-forcing input (and a seq2seq
   model's source, on its own) is padded with PAD to a multiple of ``seq``
   (4095 -> 4096 at long4k); the padded positions' logits are dropped. An
@@ -20,14 +24,29 @@ them; here every process runs the same step on its own part:
   cross-attention reads the encoder output gathered to the whole source
   under the whole source's padding mask; dropout draws the global masks
   (``ops.nn.GlobalSlice``), on the source and target sides each;
+- with ``fsdp > 1`` each process holds, at rest, its slice of every leaf
+  the partition rules split (``parallel/sharding.py``) and of the
+  optimizer's moments on it; the forward reads the parameters through
+  ``sharding.GatheredView``, which gathers a slice over the fsdp group when
+  a layer reads it and reduce-scatters its gradient back (ZeRO-3); the
+  update runs on the slice. Adafactor's factored statistics need whole
+  rows and columns: it is refused with fsdp;
+- with ``pipe > 1`` the step is ``parallel.pipeline``'s GPipe or 1F1B
+  schedule over the ``pipe`` chain (eval: GPipe's forward); every process
+  holds every layer at rest (the rules name no ``pipe`` dim, as in JAX),
+  and a stage's gradients are its own layers', zero elsewhere;
 - the loss is normalised by the global token count (or global batch);
   a MoE layer's first-choice counts and live-token count are summed over
-  the processes before its load-balance loss is formed
+  the batch group before its load-balance loss is formed
   (``ops.moe.moe_stats_reducer``), so the aux is the global batch's, as
   in the JAX package's single program, and each process's share of it
   (and of its gradient, through the router probabilities) sums to it;
-  gradients and metric sums are summed over all processes before
-  ``grad_norm`` and Adam, so every process takes the same update;
+  under ``pipe`` the aux is JAX's per-microbatch one instead;
+- each gradient is summed over the processes that hold its leaf: a whole
+  leaf over every process, an fsdp slice over the ranks holding the same
+  slice; the metric sums over every process; ``grad_norm`` (and
+  clipping) adds each slice's squares once; so every process takes the
+  same update on what it holds and reports the same metrics;
 - the parameters are broadcast from rank 0 at start;
 - with ``steps_per_dispatch`` = K > 1 the K steps of a dispatch are the
   single-process trainer's (one staged copy, metrics summed on the device,
@@ -38,19 +57,31 @@ them; here every process runs the same step on its own part:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
 
 from transformer_tpu_torch.config import PAD_ID, ModelConfig, TrainConfig
-from transformer_tpu_torch.models.transformer import flatten, transformer_hidden_apply
+from transformer_tpu_torch.models.transformer import (
+    flatten,
+    transformer_hidden_apply,
+    unflatten,
+)
 from transformer_tpu_torch.ops.masks import make_padding_mask
 from transformer_tpu_torch.ops.moe import moe_stats_reducer
 from transformer_tpu_torch.ops.nn import GlobalSlice
+from transformer_tpu_torch.parallel import sharding
 from transformer_tpu_torch.parallel.mesh import Mesh
+from transformer_tpu_torch.parallel.pipeline import pipeline_loss_and_grads
 from transformer_tpu_torch.parallel.seq_context import SeqParallelContext, sequence_parallel
 from transformer_tpu_torch.train.checkpoint import CheckpointManager
-from transformer_tpu_torch.train.state import TrainState, create_train_state
+from transformer_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    make_optimizer,
+    state_to_flat,
+)
 from transformer_tpu_torch.train.trainer import (
     Trainer,
     _prepare_batch,
@@ -65,28 +96,32 @@ def _pad_to(batch: torch.Tensor, multiple: int) -> torch.Tensor:
 
 
 def put_batch(batch: torch.Tensor, mesh: Mesh) -> tuple[torch.Tensor, int, int]:
-    """This process's part of a global (B, S) batch: its rows, and with
-    ``seq > 1`` its chunk of the sequence padded with PAD to a multiple of
-    ``seq``. Returns (part, first global row, first global position)."""
-    sp, dp = mesh.shape["seq"], mesh.shape["data"]
+    """This process's part of a global (B, S) batch: its rows (by its place
+    in the batch group ``data × fsdp``), and with ``seq > 1`` its chunk of
+    the sequence padded with PAD to a multiple of ``seq``. Returns (part,
+    first global row, first global position)."""
+    sp, nb = mesh.shape["seq"], mesh.size("batch")
     batch = _pad_to(batch, sp)
     b, s = batch.shape
-    rows, chunk = b // dp, s // sp
-    row, col = mesh.index("data") * rows, mesh.index("seq") * chunk
+    rows, chunk = b // nb, s // sp
+    row, col = mesh.group_index("batch") * rows, mesh.index("seq") * chunk
     return batch[row : row + rows, col : col + chunk], row, col
 
 
-def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
+def _seq_parallel_forward_loss(mesh: Mesh, dims: dict | None = None) -> Callable:
     """The ``forward_loss`` hook of ``Trainer``: the teacher-forcing shift
     (or the MLM's masking) on the global batch, this process's part of it
     (and of a seq2seq source), the forward under the sequence-parallel
     context (when ``seq > 1``), and the masked CE (chunked with
     ``loss_chunks > 1``) over the part's real positions, normalised
-    globally."""
+    globally. With ``dims`` (fsdp) the parameters are read through a
+    ``GatheredView``."""
     sp = mesh.shape["seq"]
 
     def forward_loss(params, tgt, model_cfg, train_cfg, key, reference=False, src=None,
                      prepared=None):
+        if dims is not None:
+            params = sharding.GatheredView(params, mesh, dims)
         inp, out, key = prepared or _prepare_batch(model_cfg, train_cfg, tgt, key)
         inp_part, row, col = put_batch(inp, mesh)
         out_part, _, _ = put_batch(out, mesh)
@@ -107,7 +142,7 @@ def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
                 hidden, aux = transformer_hidden_apply(params, src_part, inp_part, model_cfg,
                                                        return_aux=True, **kw)
         else:
-            with moe_stats_reducer(_sum_over_processes(mesh)):
+            with moe_stats_reducer(_sum_over_batch(mesh)):
                 hidden, aux = transformer_hidden_apply(params, src_part, inp_part, model_cfg,
                                                        return_aux=True, **kw)
         real = min(inp_part.shape[1], inp.shape[1] - col)  # drop the padded positions
@@ -119,35 +154,45 @@ def _seq_parallel_forward_loss(mesh: Mesh) -> Callable:
     return forward_loss
 
 
-def _sum_over_processes(mesh: Mesh) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The MoE statistics' sum over every process (``ops.moe``): the
-    counts the JAX package's single program takes over the global batch.
-    Outside autograd: the counts carry no gradient."""
+def _sum_over_batch(mesh: Mesh) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The MoE statistics' sum over the batch group ``data × fsdp``
+    (``ops.moe``): the counts the JAX package's single program takes over
+    the global batch. Outside autograd: the counts carry no gradient."""
 
     def reduce(stats: torch.Tensor) -> torch.Tensor:
         out = stats.detach().clone()
-        mesh.all_reduce_sum_([out])
+        mesh.all_reduce_sum_([out], group="batch")
         return out
 
     return reduce
 
 
 def check_moe_mesh(model_cfg: ModelConfig, axes: dict[str, int]) -> None:
-    """MoE runs over the ``data`` axis alone in the port: the expert,
-    sequence and pipeline axes with experts are a later slice."""
+    """MoE runs over ``data``, ``fsdp`` and ``pipe`` in the port: a
+    homogeneous stack (``moe_every`` 1) only over ``pipe``, with JAX's
+    message; the expert and sequence axes with experts are a later
+    slice."""
     if not model_cfg.moe_experts:
         return
-    for axis, flag in (("expert", "ep"), ("seq", "sp"), ("pipe", "pp")):
+    if axes.get("pipe", 1) > 1 and model_cfg.moe_every > 1:
+        raise ValueError(
+            "pipe>1 requires a homogeneous layer stack: set moe_every=1 "
+            "(every layer MoE) — mixed dense/MoE stacks cannot stack over "
+            "the pipe axis"
+        )
+    for axis, flag in (("expert", "ep"), ("seq", "sp")):
         if axes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"--{flag} > 1 with --moe_experts: MoE over the {axis} axis is a later slice "
-                "of the port (it trains MoE on one card and under --dp)"
+                "of the port (it trains MoE on one card, under --dp, --fsdp and --pp)"
             )
 
 
 def check_mesh(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh) -> None:
-    """The JAX trainer's checks, and the axes the port does not run over
-    processes."""
+    """The JAX trainer's checks (``DistributedTrainer.__init__``,
+    ``_raw_sharded_steps``, ``make_1f1b_train_step``), and the axes the
+    port does not run over processes (``model``, ``expert``,
+    ``dcn_data``)."""
     shape = mesh.shape
     check_moe_mesh(model_cfg, shape)
     if model_cfg.encoder_only and (shape["pipe"] > 1 or shape["seq"] > 1):
@@ -155,24 +200,67 @@ def check_mesh(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh) -> No
             "encoder_only models support data/fsdp/model/expert mesh axes; "
             "pipe and seq are not wired for the encoder-only forward"
         )
-    others = {a: n for a, n in shape.items() if a not in ("data", "seq") and n > 1}
+    others = {a: n for a, n in shape.items() if a in ("model", "expert") and n > 1}
     if others or mesh.cfg.dcn_data > 1:
         raise NotImplementedError(
-            f"the port runs data and seq parallelism; {others or {'dcn_data': mesh.cfg.dcn_data}} "
-            "is not ported yet"
+            f"the port runs the data, fsdp, seq and pipe axes; "
+            f"{others or {'dcn_data': mesh.cfg.dcn_data}} is not ported yet"
         )
-    if train_cfg.batch_size % shape["data"]:
+    batch_axes = shape["data"] * shape["fsdp"]
+    if train_cfg.batch_size % batch_axes:
         raise ValueError(
             f"global batch size {train_cfg.batch_size} must be divisible "
-            f"by data×fsdp×expert = {shape['data']} "
+            f"by data×fsdp×expert = {batch_axes} "
             "(reference check: distributed_train.py:154-158)"
         )
     micro = train_cfg.batch_size // max(1, train_cfg.grad_accum_steps)
-    if train_cfg.grad_accum_steps > 1 and micro % shape["data"]:
+    if train_cfg.grad_accum_steps > 1 and micro % batch_axes:
         raise ValueError(
             f"the micro-batch of {micro} rows (batch {train_cfg.batch_size} / grad_accum_steps "
-            f"{train_cfg.grad_accum_steps}) must be divisible by data = {shape['data']}"
+            f"{train_cfg.grad_accum_steps}) must be divisible by data×fsdp = {batch_axes}"
         )
+    if shape["fsdp"] > 1 and train_cfg.optimizer == "adafactor":
+        raise NotImplementedError(
+            "--optimizer adafactor with --fsdp > 1: its factored statistics need whole rows "
+            "and columns of each leaf, which fsdp splits; a later slice of the port"
+        )
+    n_stages = shape["pipe"]
+    if n_stages > 1:
+        unsupported = {a: shape[a] for a in ("seq", "expert") if shape[a] > 1}
+        if unsupported:
+            raise ValueError(
+                f"pipe>1 composes with 'data', 'fsdp' and 'model' "
+                f"(parallel/pipeline.py), but not with {unsupported}: "
+                "sequence/expert sharding inside stages is not wired "
+                "through the GPipe path (the seq/expert shard_map "
+                "contexts cannot fire inside its manual region)."
+            )
+        if model_cfg.num_layers % n_stages:
+            raise ValueError(
+                f"pipe axis size {n_stages} must divide num_layers {model_cfg.num_layers}"
+            )
+        per_shard = train_cfg.batch_size // batch_axes
+        num_mb = train_cfg.pp_microbatches or n_stages
+        if per_shard % num_mb:
+            raise ValueError(
+                f"pp_microbatches {num_mb} must divide the per-data-shard batch {per_shard}"
+            )
+        if train_cfg.pp_schedule == "1f1b" and train_cfg.loss_chunks > 1:
+            raise ValueError(
+                "pp_schedule='1f1b' already bounds logits memory per microbatch; "
+                "loss_chunks>1 is unsupported with it (use pp_schedule='gpipe')"
+            )
+        if train_cfg.pp_schedule == "1f1b" and train_cfg.grad_accum_steps > 1:
+            raise ValueError(
+                "pp_schedule='1f1b' accumulates per microbatch already; raise "
+                "pp_microbatches instead of grad_accum_steps"
+            )
+        if train_cfg.grad_accum_steps > 1:
+            raise NotImplementedError(
+                "grad_accum_steps > 1 with pp_schedule='gpipe' over pipe > 1 is not ported: "
+                "the schedule accumulates per microbatch already; raise pp_microbatches "
+                "instead of grad_accum_steps"
+            )
     if shape["seq"] > 1:
         if model_cfg.attention_impl not in ("ring", "ulysses"):
             raise ValueError(
@@ -189,16 +277,56 @@ def check_mesh(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh) -> No
             )
 
 
+class ShardLayout:
+    """Which leaves of the train state this process holds a slice of: by
+    flat state name (``state_to_flat``'s), the dim split over ``fsdp`` and
+    the whole leaf's shape. A checkpoint manager given one writes JAX's
+    ``sharded-v1`` layout (each process its slices, one copy of each) and
+    slices what it restores."""
+
+    def __init__(self, mesh: Mesh, full_flat: dict[str, torch.Tensor]):
+        self.mesh = mesh
+        shape = mesh.shape
+        self.shapes = {k: tuple(getattr(v, "shape", ())) for k, v in full_flat.items()}
+        self.dims = {k: sharding.fsdp_dim(k, s, shape) for k, s in self.shapes.items()}
+        self.index, self.count = mesh.index("fsdp"), shape["fsdp"]
+        # One copy of each slice: the ranks at data, seq and pipe 0 write.
+        self.writer = all(mesh.index(a) == 0 for a in ("data", "model", "seq", "pipe", "expert"))
+
+    @property
+    def sharded(self) -> bool:
+        return any(d is not None for d in self.dims.values())
+
+    def bounds(self, key: str) -> tuple[tuple[int, int], ...]:
+        return sharding.bounds(self.shapes[key], self.dims[key], self.index, self.count)
+
+    def local(self, key: str, full):
+        """This process's part of the whole leaf ``full`` (an array or a
+        tensor)."""
+        dim = self.dims.get(key)
+        if dim is None:
+            return full
+        lo, hi = self.bounds(key)[dim]
+        index = [slice(None)] * len(self.shapes[key])
+        index[dim] = slice(lo, hi)
+        return full[tuple(index)]
+
+    def barrier(self) -> None:
+        self.mesh.barrier()
+
+
 class DistributedTrainer(Trainer):
     """``Trainer`` whose steps run over the processes of ``mesh``: each
-    process holds the whole (replicated) train state and its part of each
-    batch; the ``data × seq`` sums make the update the same everywhere.
-    ``state`` defaults to a fresh one from ``train_cfg.seed`` on the mesh's
-    device; rank 0's parameters are broadcast to every process. With a
-    ``checkpoint`` manager rank 0 writes and every process restores the
-    same checkpoint at the start of ``fit``. ``log_dir``, ``profiler`` and
-    ``telemetry`` are ``Trainer``'s (``cli.distributed_train`` gives them to
-    rank 0 alone)."""
+    process holds the train state (its fsdp slices of the split leaves, the
+    rest whole) and its part of each batch; the sums over the processes
+    holding each leaf make the update the same everywhere. ``state``
+    defaults to a fresh one from ``train_cfg.seed`` on the mesh's device;
+    rank 0's parameters are broadcast to every process before the state is
+    split. With a ``checkpoint`` manager the state is written (under fsdp:
+    each process its slices, in JAX's ``sharded-v1`` layout; else by rank
+    0) and restored by every process at the start of ``fit``. ``log_dir``,
+    ``profiler`` and ``telemetry`` are ``Trainer``'s
+    (``cli.distributed_train`` gives them to rank 0 alone)."""
 
     def __init__(
         self,
@@ -217,10 +345,26 @@ class DistributedTrainer(Trainer):
             state = create_train_state(model_cfg, train_cfg, device=mesh.device)
         mesh.broadcast_(list(flatten(state.params).values()))
         self.mesh = mesh
+        self.layout = ShardLayout(mesh, state_to_flat(state))
+        names = list(flatten(state.params))
+        self.dims = {n: self.layout.dims[f"params/{n}"] for n in names}
+        split = any(d is not None for d in self.dims.values())
+        if split:
+            state = self._split(state)
+        tx = make_optimizer(model_cfg, train_cfg)
+        tx.norm = self._grad_norm
+        hooks = dict(tx=tx)
+        forward_loss = _seq_parallel_forward_loss(mesh, self.dims if split else None)
+        if mesh.shape["pipe"] > 1:
+            hooks["grads_fn"] = self._pipeline_grads
+            forward_loss = self._pipeline_eval
+        if checkpoint is not None and split:
+            checkpoint.layout = self.layout
         super().__init__(
             model_cfg, train_cfg, state, log_fn,
-            forward_loss=_seq_parallel_forward_loss(mesh), sum_across=mesh.all_reduce_sum_,
+            forward_loss=forward_loss, sum_across=self._sum_across,
             checkpoint=checkpoint, log_dir=log_dir, profiler=profiler, telemetry=telemetry,
+            step_hooks=hooks,
         )
         if train_cfg.steps_per_dispatch > 1:
             why = {
@@ -232,3 +376,73 @@ class DistributedTrainer(Trainer):
                 f"run uncaptured (transport {mesh.process.transport}: {why})"
             )
 
+    # ------------------------------------------------------------ the state
+    def _split(self, state: TrainState) -> TrainState:
+        """The whole ``state`` cut to this process's fsdp slices: each split
+        parameter and each optimizer moment on it."""
+        lay = self.layout
+
+        def cut(key, t):
+            return sharding.shard(t, lay.dims.get(key), lay.index, lay.count)
+
+        params = {n: cut(f"params/{n}", p).requires_grad_(True)
+                  for n, p in flatten(state.params).items()}
+        opt = state.opt_state
+        fields = {f: {n: cut(f"{opt.path}/{f}/{n}", t) for n, t in getattr(opt, f).items()}
+                  for f in opt.FIELDS}
+        return TrainState(state.step, unflatten(params), dataclasses.replace(opt, **fields))
+
+    def full_params(self):
+        """The whole parameters (nested) on every process: each fsdp slice
+        gathered over its group. A collective: every process calls it."""
+        with torch.no_grad():
+            return unflatten({n: sharding.gather(p.detach(), self.mesh, self.dims[n])
+                              for n, p in flatten(self.state.params).items()})
+
+    # ------------------------------------------------------------ the hooks
+    def _sum_across(self, grads: dict, metrics: dict) -> None:
+        """Each gradient summed over the processes holding its leaf (a split
+        leaf's slice over the ranks with the same slice; a whole leaf, and
+        the metric sums, over every process)."""
+        split = [g for n, g in grads.items() if self.dims[n] is not None]
+        whole = [g for n, g in grads.items() if self.dims[n] is None]
+        self.mesh.all_reduce_sum_(whole + list(metrics.values()))
+        if split:
+            self.mesh.all_reduce_sum_(split, group="shard")
+
+    def _grad_norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of the whole gradients: each fsdp slice's squares
+        summed over the fsdp group, each whole leaf's counted once."""
+        split = [g for n, g in grads.items() if self.dims[n] is not None]
+        whole = [g for n, g in grads.items() if self.dims[n] is None]
+        device = next(iter(grads.values())).device
+        sq = torch.zeros((), device=device)
+        if split:
+            sq = sum(torch.sum(g.float() * g.float()) for g in split)
+            self.mesh.all_reduce_sum_([sq], group="fsdp")
+        return torch.sqrt(sq + sum((torch.sum(g.float() * g.float()) for g in whole),
+                                   torch.zeros((), device=device)))
+
+    def _params_for_layers(self, params):
+        if any(d is not None for d in self.dims.values()):
+            return sharding.GatheredView(params, self.mesh, self.dims)
+        return params
+
+    def _pipeline_grads(self, params, tgt, src, key):
+        cfg, tcfg = self.model_cfg, self.train_cfg
+        inp, labels, key = _prepare_batch(cfg, tcfg, tgt, key)
+        return pipeline_loss_and_grads(
+            self.mesh, self._params_for_layers(params), flatten(params), inp, labels, src,
+            cfg, tcfg, key, schedule=tcfg.pp_schedule,
+        )
+
+    def _pipeline_eval(self, params, tgt, model_cfg, train_cfg, key, reference=False, src=None,
+                       prepared=None):
+        """The eval forward under ``pipe``: GPipe's, as in JAX for either
+        schedule; returns (loss, metric sums) like ``forward_loss``."""
+        inp, labels, key = prepared or _prepare_batch(model_cfg, train_cfg, tgt, key)
+        metrics, _ = pipeline_loss_and_grads(
+            self.mesh, self._params_for_layers(params), flatten(params), inp, labels, src,
+            model_cfg, train_cfg, key, reference=reference, grad=False,
+        )
+        return metrics.pop("loss"), metrics

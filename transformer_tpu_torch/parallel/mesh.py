@@ -4,9 +4,14 @@ Port of ``make_mesh`` and ``initialize_distributed`` from
 ``transformer_tpu/parallel/mesh.py``. Where the JAX package lays devices
 out on a 6-axis ``Mesh`` and lets XLA place collectives, here each
 process is one position of that mesh: ranks map to mesh coordinates in
-the JAX package's row-major order (``seq`` fastest of the axes the port
-runs), each ``seq`` ring gets its own process group, and the sums over
-``data × seq`` run on the world group.
+the JAX package's row-major order, and the collectives XLA would insert
+run on process groups of the ranks that differ along some axes: each
+``seq`` ring; the ``fsdp`` group (a layer's weights gathered before use,
+its gradients reduce-scattered back); the batch group ``data × fsdp``
+(JAX's ``batch_spec`` axes); the ``pipe`` chain (activations and their
+cotangents sent stage to stage); and the ranks holding the same ``fsdp``
+slice (its gradient summed over them). Sums over everything run on the
+world group.
 
 The transport is decided once, at start-up, from the layout, and never
 changes afterwards (no fallback after a failed call): NCCL when every
@@ -88,13 +93,15 @@ def initialize_distributed(device: str = "cuda", log_fn=print) -> Process:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``cfg`` laid over the processes of the job: this rank's coordinates
-    and the process group of its ``seq`` ring (None in a world of one)."""
+    """``cfg`` laid over the processes of the job: this rank's coordinates,
+    the process group of its ``seq`` ring (None in a world of one) and of
+    its other groups (``GROUP_AXES``; absent in a world of one)."""
 
     cfg: MeshConfig
     process: Process
     coords: tuple[int, ...]  # one index per axis of cfg.axis_names
     seq_group: Any
+    groups: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -107,22 +114,100 @@ class Mesh:
     def index(self, axis: str) -> int:
         return self.coords[self.cfg.axis_names.index(axis)]
 
-    def all_reduce_sum_(self, tensors: list[torch.Tensor]) -> None:
-        """Sum each tensor over every rank, in place: one collective over
-        the tensors packed into one fp32 buffer (staged through the host
-        under gloo)."""
-        if self.process.world_size == 1 or not tensors:
+    def size(self, group: str) -> int:
+        """How many ranks ``group`` (a key of ``GROUP_AXES``) holds."""
+        return int(np.prod([self.shape[a] for a in GROUP_AXES[group]]))
+
+    def group_index(self, group: str) -> int:
+        """This rank's place in ``group``, in row-major order of its axes."""
+        axes = GROUP_AXES[group]
+        return int(np.ravel_multi_index([self.index(a) for a in axes],
+                                        [self.shape[a] for a in axes]))
+
+    def rank_at(self, **coords: int) -> int:
+        """The global rank at this rank's coordinates with ``coords``
+        replaced (``mesh.rank_at(pipe=0)``)."""
+        at = [coords.get(a, c) for a, c in zip(self.cfg.axis_names, self.coords)]
+        return int(np.ravel_multi_index(at, self.cfg.axis_sizes))
+
+    def _group(self, group: str | None):
+        """The process group to run on, or "skip" when it has one rank."""
+        if group is None:
+            return None if self.process.world_size > 1 else "skip"
+        return self.groups[group] if self.size(group) > 1 else "skip"
+
+    def all_reduce_sum_(self, tensors: list[torch.Tensor], group: str | None = None) -> None:
+        """Sum each tensor over every rank (or over ``group``), in place:
+        one collective over the tensors packed into one fp32 buffer (staged
+        through the host under gloo)."""
+        pg = self._group(group)
+        if pg == "skip" or not tensors:
             return
         flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-        flat = _collective(flat, lambda buf: dist.all_reduce(buf), self.process.transport)
+        flat = _collective(flat, lambda buf: dist.all_reduce(buf, group=pg),
+                           self.process.transport)
         _unpack_into(flat, tensors)
 
-    def broadcast_(self, tensors: list[torch.Tensor], src: int = 0) -> None:
-        """Overwrite each tensor with rank ``src``'s, in place."""
-        if self.process.world_size == 1 or not tensors:
+    def all_gather(self, t: torch.Tensor, group: str, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` of ``group``, concatenated along ``dim`` in the
+        group's order (staged through the host under gloo)."""
+        pg = self._group(group)
+        if pg == "skip":
+            return t
+        stage = staged(t.device, pg)
+        buf = t.detach().contiguous()
+        buf = buf.cpu() if stage else buf
+        parts = [torch.empty_like(buf) for _ in range(self.size(group))]
+        dist.all_gather(parts, buf, group=pg)
+        out = torch.cat(parts, dim=dim)
+        if stage:
+            staged_bytes["fsdp"] += (buf.numel() + out.numel()) * buf.element_size()
+            out = out.to(t.device)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, group: str, dim: int) -> torch.Tensor:
+        """This rank's slice along ``dim`` of ``t`` summed over ``group``:
+        an all-reduce and a slice, since gloo has no reduce-scatter for CPU
+        tensors."""
+        if self._group(group) == "skip":
+            return t
+        full = t.detach().clone()
+        self.all_reduce_sum_([full], group)
+        n = self.size(group)
+        width = full.shape[dim] // n
+        return full.narrow(dim, self.group_index(group) * width, width).contiguous()
+
+    def send(self, t: torch.Tensor, dst: int, tag: int):
+        """Start sending ``t`` to global rank ``dst``; returns the request
+        to wait on (and the host copy it reads, kept alive until then)."""
+        buf = t.detach().contiguous()
+        if staged(buf.device, None):
+            buf = buf.cpu()
+            staged_bytes["pipe"] += buf.numel() * buf.element_size()
+        return dist.isend(buf, dst, tag=tag), buf
+
+    def recv(self, shape, dtype, src: int, tag: int) -> torch.Tensor:
+        """A tensor of ``shape`` and ``dtype`` received from global rank
+        ``src``, on this rank's device."""
+        device = self.device
+        stage = staged(device, None)
+        buf = torch.empty(shape, dtype=dtype, device="cpu" if stage else device)
+        dist.recv(buf, src, tag=tag)
+        if stage:
+            staged_bytes["pipe"] += buf.numel() * buf.element_size()
+            buf = buf.to(device)
+        return buf
+
+    def broadcast_(self, tensors: list[torch.Tensor], src: int = 0,
+                   group: str | None = None) -> None:
+        """Overwrite each tensor with global rank ``src``'s (a member of
+        ``group`` when one is named), in place."""
+        pg = self._group(group)
+        if pg == "skip" or not tensors:
             return
         flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-        flat = _collective(flat, lambda buf: dist.broadcast(buf, src), self.process.transport)
+        flat = _collective(flat, lambda buf: dist.broadcast(buf, src, group=pg),
+                           self.process.transport)
         _unpack_into(flat, tensors)
 
     def barrier(self) -> None:
@@ -158,16 +243,29 @@ def _unpack_into(flat: torch.Tensor, tensors: list[torch.Tensor]) -> None:
 # Bytes copied device -> host and host -> device for gloo, by kind
 # ("ring" for ring_attention.ring_shift, "ulysses" for its all-to-alls,
 # "gather" for seq_context.gather_sequence, "collectives" for the sums and
-# broadcasts above), since the last reset.
-staged_bytes = {"ring": 0, "ulysses": 0, "gather": 0, "collectives": 0}
+# broadcasts above, "fsdp" for the weight gathers, "pipe" for the stage to
+# stage sends), since the last reset.
+staged_bytes = {"ring": 0, "ulysses": 0, "gather": 0, "collectives": 0, "fsdp": 0, "pipe": 0}
+
+# The process groups of a mesh: each holds the ranks that differ only along
+# its axes. "shard" is every axis but fsdp: the ranks holding the same fsdp
+# slice of a leaf.
+GROUP_AXES = {
+    "seq": ("seq",),
+    "fsdp": ("fsdp",),
+    "pipe": ("pipe",),
+    "batch": ("data", "fsdp"),
+    "shard": ("data", "model", "seq", "pipe", "expert"),
+}
 
 
 def make_mesh(cfg: MeshConfig, process: Process) -> Mesh:
     """Lay ``cfg`` over the job: rank r sits at the row-major position r of
     ``cfg.axis_sizes`` (as ``np.reshape`` of the device list places it in
-    the JAX package), and the ranks that differ only in their ``seq``
-    coordinate form a ring, in ``seq`` order, with a process group each.
-    Every rank creates every ring's group, in the same order."""
+    the JAX package). For each group of ``GROUP_AXES`` the ranks that differ
+    only along its axes form one process group, in row-major order of those
+    axes (the ``seq`` rings in ``seq`` order). Every rank creates every
+    group, in the same order."""
     if cfg.num_devices != process.world_size:
         raise ValueError(
             f"mesh {cfg.axis_sizes} needs {cfg.num_devices} processes, have "
@@ -175,12 +273,16 @@ def make_mesh(cfg: MeshConfig, process: Process) -> Mesh:
         )
     grid = np.arange(process.world_size).reshape(cfg.axis_sizes)
     coords = tuple(int(i) for i in np.unravel_index(process.rank, cfg.axis_sizes))
-    seq_axis = cfg.axis_names.index("seq")
-    rings = np.moveaxis(grid, seq_axis, -1).reshape(-1, cfg.seq)
-    group = None
+    groups: dict[str, Any] = {}
     if process.world_size > 1:
-        for ring in rings:
-            g = dist.new_group([int(r) for r in ring])
-            if process.rank in ring:
-                group = g
-    return Mesh(cfg, process, coords, group)
+        for name, axes in GROUP_AXES.items():
+            idx = [cfg.axis_names.index(a) for a in axes]
+            rest = [i for i in range(len(cfg.axis_names)) if i not in idx]
+            size = int(np.prod([cfg.axis_sizes[i] for i in idx]))
+            if size == 1 and name != "seq":
+                continue
+            for ranks in np.transpose(grid, rest + idx).reshape(-1, size):
+                g = dist.new_group([int(r) for r in ranks])
+                if process.rank in ranks:
+                    groups[name] = g
+    return Mesh(cfg, process, coords, groups.get("seq"), groups)

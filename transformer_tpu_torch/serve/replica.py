@@ -23,7 +23,8 @@ router -> replica:
                                                        export its KV blocks
     {"type": "export_state", "limit": K}               the K hottest cached
                                                        prefixes (warm-up)
-    {"type": "inject_state", "entries": [...]}         ... into a new replica
+    {"type": "inject_state", "entries": [...],         ... into a new replica
+     "path": P}
     {"type": "upgrade", "ckpt": D, "version": V}       verify and stage a
                                                        weight set (the flip
                                                        lands at a drained
@@ -39,7 +40,7 @@ replica -> router:
     {"type": "hb", "backlog": B, "free": F, "active": A [, "wv": V]}
     {"type": "answer", "rid": N, "resp": {...} [, "slo": {...}]}
     {"type": "prefilled", "rid": N, "tokens": T, "blocks": ...}
-    {"type": "prefix_state", "entries": [...]}
+    {"type": "prefix_state", "entries": [...], "path": P}
     {"type": "state_injected", "tokens": T}
     {"type": "upgrade_staged", "ok": B, "version": V [, "error": E]}
     {"type": "upgraded", "ok": B, "version": V [, "error": E]}
@@ -62,7 +63,9 @@ the prefix cache's own host blocks (per layer, per ``block_tokens``
 positions, in the cache's storage layout), each array as base64 bytes
 with its numpy dtype string and shape: JAX's wire format, so a block
 exported by either package injects into the other (a bf16 array travels
-as ``V2`` words, the port's int16 host form).
+as ``V2`` words, the port's int16 host form). The warm-up's prefixes
+(``export_state``) go beside the line instead, raw in an ``.npz`` file
+that the line names; ``inject_state`` takes either form.
 
 Telemetry: with ``--metrics_jsonl PATH`` (the router passes
 ``<its path>.r<index>``) the scheduler records into ``PATH`` (the
@@ -82,6 +85,7 @@ from __future__ import annotations
 import argparse
 import base64
 import json
+import os
 import queue
 import sys
 import threading
@@ -183,6 +187,14 @@ def export_blocks(cache, ids: "list[int]") -> "tuple[int, list]":
     payload: ``payload[j]`` is block j, per-layer dicts of encoded arrays
     in the cache's storage layout. Returns ``(tokens, payload)``; (0, [])
     when nothing aligned is stored (the decode side then prefills it)."""
+    tokens, blocks = _host_blocks(cache, ids)
+    return tokens, [[{key: _encode_array(layer[key]) for key in sorted(layer)}
+                     for layer in blk] for blk in blocks]
+
+
+def _host_blocks(cache, ids: "list[int]") -> "tuple[int, list]":
+    """``export_blocks``'s prefix as the cache's host blocks (per-layer
+    dicts of arrays), not encoded."""
     B = cache.block_tokens
     aligned = (len(ids) // B) * B
     if not aligned:
@@ -197,46 +209,110 @@ def export_blocks(cache, ids: "list[int]") -> "tuple[int, list]":
                 blocks = cache.host_blocks_for(node)
             except Exception:  # noqa: BLE001 — an unreadable block ends the payload; the rest is prefilled
                 break
-            payload.append([
-                {key: _encode_array(layer[key]) for key in sorted(layer)} for layer in blocks
-            ])
+            payload.append(blocks)
         return len(payload) * B, payload
     finally:
         hit.release()
 
 
-def export_state(cache, limit: int, beat=None) -> list[dict]:
-    """The ``limit`` hottest cached prefixes as ``prefix_state`` entries
-    (``ids``, ``tokens``, ``blocks``), for warming a respawned replica.
-    ``beat()`` runs after each prefix: an export of many long prefixes
-    takes seconds, longer than the router's heartbeat timeout, and the
-    worker's heartbeats must keep flowing meanwhile (the JAX worker
-    exports in one go and can be failed over mid-export on a slow host)."""
-    entries = []
+def export_state(cache, limit: int, beat=None) -> dict:
+    """The ``limit`` hottest cached prefixes, for warming a respawned
+    replica, as the ``prefix_state`` message's fields: ``entries``
+    (``ids``, ``tokens``, ``blocks``: the count of blocks) and ``path``,
+    an uncompressed ``.npz`` in the temp directory holding block j of
+    entry i, layer l, under ``{i}_{j}_{l}_{key}`` (None when nothing was
+    exported). The blocks travel beside the control line, not in it: tens
+    to hundreds of MB of base64 JSON, encoded, piped to the router,
+    forwarded and parsed again, outlasted the router's heartbeat timeout
+    and the warm-up's own on a slow host. ``beat()`` runs after each
+    prefix, so the worker's heartbeats keep flowing meanwhile."""
+    import tempfile
+
+    import numpy as np
+
+    entries, arrays = [], {}
     for ids in cache.hot_prefixes(limit):
         try:
-            tokens, payload = export_blocks(cache, list(ids))
+            tokens, blocks = _host_blocks(cache, list(ids))
         except Exception:  # noqa: BLE001 — warm-up is best-effort: skip the prefix
             tokens = 0
         if tokens:
-            entries.append({"ids": list(ids), "tokens": tokens, "blocks": payload})
+            i = len(entries)
+            for j, blk in enumerate(blocks):
+                for l, layer in enumerate(blk):
+                    for key, a in layer.items():
+                        arrays[f"{i}_{j}_{l}_{key}"] = np.ascontiguousarray(a)
+            entries.append({"ids": list(ids), "tokens": tokens, "blocks": len(blocks)})
         if beat is not None:
             beat()
-    return entries
+    path = None
+    if entries:
+        fd, path = tempfile.mkstemp(prefix="warm-state-", suffix=".npz")
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **arrays)
+    return {"entries": entries, "path": path}
+
+
+def inject_state(cache, msg: dict, beat=None) -> int:
+    """An ``inject_state`` message's prefixes into ``cache`` (None: none):
+    the blocks read from ``msg["path"]`` (``export_state``'s file, removed
+    once read) or, with no path, each entry's wire ``blocks`` (the JAX
+    worker's form). A prefix that does not load is skipped; ``beat()``
+    runs after each. Returns the tokens inserted."""
+    import numpy as np
+
+    path, total = msg.get("path"), 0
+    data = None
+    try:
+        if path and cache is not None:
+            names: dict = {}
+            try:
+                data = np.load(path, allow_pickle=False)
+                for name in data.files:
+                    i, j, l, key = name.split("_", 3)
+                    names.setdefault((int(i), int(j)), {}).setdefault(int(l), {})[key] = name
+            except Exception:  # noqa: BLE001 — a missing or corrupt file leaves the cache cold
+                return 0
+        for i, e in enumerate(msg.get("entries", []) if cache is not None else []):
+            try:
+                if data is None:
+                    total += inject_blocks(cache, list(e["ids"]), e.get("tokens", 0),
+                                           e.get("blocks", []))
+                else:
+                    blocks = [[{key: data[name] for key, name in layers[l].items()}
+                               for l in sorted(layers)]
+                              for layers in (names[i, j] for j in range(int(e["blocks"])))]
+                    total += _insert_blocks(cache, list(e["ids"]), e.get("tokens", 0), blocks)
+            except Exception:  # noqa: BLE001 — a corrupt payload leaves the cache cold
+                pass
+            if beat is not None:
+                beat()
+    finally:
+        if data is not None:
+            data.close()
+        if path:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+    return total
 
 
 def inject_blocks(cache, ids: "list[int]", tokens: int, payload: list) -> int:
     """Insert a handoff payload into the local ``PrefixCache`` so that the
     next admission of ``ids`` restores it without a forward. Returns the
     tokens inserted (the cache's budget may take fewer)."""
-    B = cache.block_tokens
-    tokens = min(int(tokens), (len(ids) // B) * B, len(payload) * B)
-    if tokens <= 0:
-        return 0
-    blocks = [
+    return _insert_blocks(cache, ids, tokens, [
         [{key: _decode_array(d) for key, d in layer.items()} for layer in blk]
         for blk in payload
-    ]
+    ])
+
+
+def _insert_blocks(cache, ids: "list[int]", tokens: int, blocks: list) -> int:
+    B = cache.block_tokens
+    tokens = min(int(tokens), (len(ids) // B) * B, len(blocks) * B)
+    if tokens <= 0:
+        return 0
     cache.insert(ids[:tokens], tokens, lambda start: blocks[start // B])
     return tokens
 
@@ -467,6 +543,9 @@ def main(argv=None) -> None:
         out.send({"type": "upgrade_staged", "ok": True, "version": digest})
 
     template = sched.stored_template()
+    # Warm-up files this worker wrote: the replacement removes each one it
+    # reads; whatever no replacement read goes at exit.
+    exported: "list[str]" = []
 
     def ingest(msg: dict) -> bool:
         """Handle one control message; False on shutdown."""
@@ -483,10 +562,12 @@ def main(argv=None) -> None:
             out.send({"type": "flight", "record": record})
             return True
         if kind == "export_state":
-            entries = []
+            state = {"entries": [], "path": None}
             if prefix_cache is not None:
-                entries = export_state(prefix_cache, int(msg.get("limit", 8)), heartbeat)
-            out.send({"type": "prefix_state", "entries": entries})
+                state = export_state(prefix_cache, int(msg.get("limit", 8)), heartbeat)
+                if state["path"]:
+                    exported.append(state["path"])
+            out.send({"type": "prefix_state", **state})
             return True
         if kind == "upgrade":
             # Verify the checkpoint and match it against the running tree
@@ -533,15 +614,7 @@ def main(argv=None) -> None:
                       "rollback": True})
             return True
         if kind == "inject_state":
-            total = 0
-            for e in msg.get("entries", []):
-                try:
-                    total += inject_blocks(
-                        prefix_cache, list(e["ids"]), e.get("tokens", 0), e.get("blocks", []),
-                    ) if prefix_cache is not None else 0
-                except Exception:  # noqa: BLE001 — a corrupt payload leaves the cache cold
-                    pass
-                heartbeat()
+            total = inject_state(prefix_cache, msg, heartbeat)
             out.send({"type": "state_injected", "tokens": total})
             return True
         if kind not in ("req", "prefill"):
@@ -645,6 +718,11 @@ def main(argv=None) -> None:
     out.send(final)
     if telemetry is not None:
         telemetry.close()
+    for path in exported:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
 
 
 if __name__ == "__main__":

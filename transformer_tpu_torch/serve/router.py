@@ -132,12 +132,13 @@ def parse_router_line(line: str) -> dict:
 
 
 # A worker's ``prefix_state`` line (``serve/replica.py`` ``export_state``,
-# written by ``json.dumps``) starts with this. It carries the warm-up's
-# KV (hundreds of MB for long prompts in fp32), so the reader delivers it
+# written by ``json.dumps``) starts with this. The reader delivers it
 # unparsed, as ``{"type": "prefix_state", "line": <the line>}``, the one
 # form the supervisor takes, which forwards it to the replacement as its
-# ``inject_state`` (``inject_state_line``): parsing it here and encoding it
-# again cost seconds of the warm-up's timeout, on the router's thread.
+# ``inject_state`` (``inject_state_line``). The port's worker puts the
+# warm-up's KV in a file the line names; a line in the JAX worker's form
+# carries it inline (hundreds of MB for long prompts in fp32), and parsing
+# it here and encoding it again would cost seconds on the router's thread.
 PREFIX_STATE_HEAD = '{"type": "prefix_state", '
 
 

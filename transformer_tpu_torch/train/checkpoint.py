@@ -12,11 +12,17 @@ a checkpoint written by either package restores in the other:
                         the arrays are used
 
 Saves write a ``.tmp`` directory and rename it into place, so a crash
-mid-save never leaves a torn newest checkpoint. The port holds its state
-replicated and writes only this layout; ``restore`` also reads the JAX
-package's *sharded* layout (``shards_p*.npz``, each entry named
-``key@start:stop,...`` by its slice of the global array), reassembling
-every array on the host.
+mid-save never leaves a torn newest checkpoint. A state held whole is
+written in this layout by the primary process. A state split over the
+``fsdp`` axis (a manager given the trainer's ``layout``) is written in the
+JAX package's *sharded* layout, ``sharded-v1``: each process writes
+``shards_p{rank:05d}.npz`` with one copy of each of its slices, every
+entry named ``key@start:stop,...`` by its window of the global array
+(scalars ``key@``), and the primary writes ``meta.json`` (shape and dtype
+of every array) and commits, with barriers between the phases, as
+``_save_sharded`` in JAX. ``restore`` reads either layout, from either
+package and any topology, reassembling each array on the host and, under
+a layout, slicing this process's part.
 
 numpy has no bfloat16: a bf16 leaf is stored as its raw 2-byte words
 (a ``V2`` array, as JAX's ``ml_dtypes`` arrays read back without that
@@ -216,6 +222,10 @@ def verify_manifest(ckpt_dir: str, flat: dict[str, np.ndarray] | None = None) ->
 # the JAX package's sharded layout (read only)
 
 
+def _entry_name(key: str, bounds: tuple[tuple[int, int], ...]) -> str:
+    return key + "@" + ",".join(f"{a}:{b}" for a, b in bounds)
+
+
 def _parse_entry(entry: str) -> tuple[str, tuple[tuple[int, int], ...]]:
     key, sep, spec = entry.rpartition("@")
     if not sep:
@@ -277,6 +287,9 @@ class CheckpointManager:
         self.directory = directory
         self.max_to_keep = max_to_keep
         self.is_primary = _primary() if is_primary is None else is_primary
+        # A ``parallel.distributed.ShardLayout`` when the state is split
+        # over processes: saves go sharded, restores are sliced.
+        self.layout = None
         if self.is_primary:
             os.makedirs(directory, exist_ok=True)
 
@@ -288,9 +301,48 @@ class CheckpointManager:
         """Write ``state`` at ``step`` (default ``state.step``); returns the
         checkpoint's directory, None on a process that does not write."""
         step = int(state.step) if step is None else int(step)
+        if self.layout is not None and self.layout.sharded:
+            return self._save_sharded(snapshot(state), step)
         if not self.is_primary:
             return None
         self._write(snapshot(state), step)
+        return self.path(step)
+
+    def _save_sharded(self, flat: dict[str, np.ndarray], step: int) -> str:
+        """``sharded-v1``: the primary clears the tmp directory; barrier;
+        every writing process saves its slices (the primary also the whole
+        leaves and ``meta.json``); barrier; the primary renames it into
+        place; barrier, so that no process reports a save before it is
+        committed."""
+        lay, tmp = self.layout, self.path(step) + ".tmp"
+        if self.is_primary:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        lay.barrier()
+        entries = {}
+        for key, arr in flat.items():
+            split = lay.dims.get(key) is not None
+            if (split and lay.writer) or (not split and self.is_primary):
+                entries[_entry_name(key, lay.bounds(key))] = arr
+        if entries:
+            rank = lay.mesh.process.rank
+            np.savez(os.path.join(tmp, f"shards_p{rank:05d}.npz"), **entries)
+        if self.is_primary:
+            meta = {key: {"shape": list(lay.shapes[key]), "dtype": dtype_name(arr)}
+                    for key, arr in flat.items()}
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump({"step": step, "format": "sharded-v1",
+                           "n_processes": lay.mesh.process.world_size, "arrays": meta}, f)
+        lay.barrier()
+        if self.is_primary:
+            final = self.path(step)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            for old in self.all_steps()[: -self.max_to_keep]:
+                shutil.rmtree(self.path(old))
+        lay.barrier()
         return self.path(step)
 
     def _write(self, flat: dict[str, np.ndarray], step: int) -> None:
@@ -337,16 +389,21 @@ class CheckpointManager:
                 return self._fill(template, _read_sharded(ckpt_dir, meta, keys))
         return self._fill(template, _load_npz(os.path.join(ckpt_dir, "arrays.npz")))
 
-    @staticmethod
-    def _fill(template, flat: dict[str, np.ndarray]):
+    def _fill(self, template, flat: dict[str, np.ndarray]):
+        """``template`` with the whole arrays ``flat`` (this process's slices
+        of them under a layout)."""
         want = _flatten(template)
+        lay = self.layout
         for key, leaf in want.items():
             if key not in flat:
                 raise KeyError(f"checkpoint missing array {key!r}")
-            if tuple(flat[key].shape) != tuple(leaf.shape):
+            full = tuple(leaf.shape) if lay is None else lay.shapes[key]
+            if tuple(flat[key].shape) != tuple(full):
                 raise ValueError(
-                    f"{key}: checkpoint shape {flat[key].shape} != target {tuple(leaf.shape)}"
+                    f"{key}: checkpoint shape {flat[key].shape} != target {tuple(full)}"
                 )
+        if lay is not None:
+            flat = {key: lay.local(key, flat[key]) for key in want}
         out = {key: _like(flat[key], leaf) for key, leaf in want.items()}
         return state_from_flat(out, template) if isinstance(template, TrainState) else unflatten(out)
 
@@ -400,6 +457,8 @@ class AsyncCheckpointManager(CheckpointManager):
     def save(self, state, step: int | None = None) -> str | None:
         step = int(state.step) if step is None else int(step)
         self.wait()
+        if self.layout is not None and self.layout.sharded:
+            return self._save_sharded(snapshot(state), step)  # barriers: in this thread
         if not self.is_primary:
             return None
         self._pending = self._executor.submit(self._write, snapshot(state), step)

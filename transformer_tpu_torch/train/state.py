@@ -108,12 +108,14 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float, norm=None):
     """optax.clip_by_global_norm: every gradient scaled by ``max_norm /
-    norm`` when the global norm reaches ``max_norm`` (0 = off)."""
+    norm`` when the global norm reaches ``max_norm`` (0 = off). ``norm``
+    replaces ``global_norm`` of the dict (a norm over leaves split across
+    processes)."""
     if max_norm <= 0:
         return grads
-    g_norm = global_norm(grads.values())
+    g_norm = global_norm(grads.values()) if norm is None else norm(grads)
     keep = g_norm < max_norm
     return {k: torch.where(keep, g, (g / g_norm) * max_norm) for k, g in grads.items()}
 
@@ -137,9 +139,10 @@ class _Optimizer:
     per-update ``scalars``."""
 
     max_grad_norm = 0.0
+    norm = None  # the global norm of a grads dict (None: global_norm)
 
     def _clip_and_scalars(self, grads, state, scalars):
-        grads = clip_by_global_norm(grads, self.max_grad_norm)
+        grads = clip_by_global_norm(grads, self.max_grad_norm, self.norm)
         if scalars is None:
             device = next(iter(grads.values())).device
             scalars = torch.from_numpy(self.scalars(state.count)).to(device)

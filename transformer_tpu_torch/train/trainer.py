@@ -233,7 +233,8 @@ def make_train_step(
     train_cfg: TrainConfig,
     tx: Adam | Adafactor | None = None,
     forward_loss: Callable | None = None,
-    sum_across: Callable[[list[torch.Tensor]], None] | None = None,
+    sum_across: Callable[[dict, dict], None] | None = None,
+    grads_fn: Callable | None = None,
 ) -> Callable[[TrainState, Any, Any], tuple[TrainState, dict]]:
     """``step(state, src, tgt) -> (state, metrics)``: ``loss_and_grads``
     with dropout (and the MLM's masks) keyed on (seed, step), then the
@@ -241,9 +242,13 @@ def make_train_step(
     in place. Metrics are device scalars (``loss``,
     ``loss_sum``, ``weight``, ``correct``, ``grad_norm``); nothing here
     waits for the device. With
-    ``sum_across`` (an in-place sum over processes) the gradients and the
-    metrics are summed before ``grad_norm`` and the update, so every
-    process takes the same update and reports the same metrics.
+    ``sum_across(grads, metrics)`` (an in-place sum over processes: each
+    gradient over the processes that hold its leaf, the metric sums over
+    every process) they are summed before ``grad_norm`` and the update, so
+    every process takes the same update and reports the same metrics.
+    ``grad_norm`` is ``tx.norm(grads)`` where the optimizer has one (the
+    norm that clipping uses: over leaves split across processes, each
+    slice's squares added once), else ``global_norm`` of the gradients.
     ``step.core(state, src, tgt, scalars)`` is the same step on device
     tensors, with the optimizer's per-update scalars read from the device
     (``step.scalars(state, k)`` gives the next k updates' on the host): the
@@ -255,14 +260,18 @@ def make_train_step(
     micro-step i's dropout keyed on (seed, step, 1, i)): each one's
     gradient of its loss *sum* is added up, and the total divided once by
     the whole batch's non-PAD token count ("tokens") or the batch size
-    ("batch"), so the update is the whole batch's."""
+    ("batch"), so the update is the whole batch's.
+
+    ``grads_fn(params, tgt, src, key) -> (metrics, grads)`` replaces
+    ``loss_and_grads`` (a pipeline schedule's backward, on the pipe axis)."""
     _check_objective(model_cfg, train_cfg)
     tx = tx or make_optimizer(model_cfg, train_cfg)
     accum = max(1, train_cfg.grad_accum_steps)
     forward = forward_loss or _forward_loss
+    norm = getattr(tx, "norm", None) or (lambda grads: global_norm(grads.values()))
 
     def apply(state, leaves, grads, metrics, scalars):
-        metrics["grad_norm"] = global_norm(grads.values())
+        metrics["grad_norm"] = norm(grads)
         if hasattr(tx, "step_"):  # the port's optimizers: in place
             opt_state = tx.step_(leaves, grads, state.opt_state, scalars)
         else:  # any optimizer with optax's update(grads, state, params)
@@ -277,12 +286,14 @@ def make_train_step(
         tgt, src = tgt.long(), None if src is None else src.long()
         if accum > 1:
             return accum_core(state, leaves, src, tgt, scalars)
-        metrics, grads = loss_and_grads(
-            state.params, tgt, model_cfg, train_cfg, (train_cfg.seed, state.step),
-            forward_loss=forward_loss, src=src,
-        )
+        key = (train_cfg.seed, state.step)
+        if grads_fn is not None:
+            metrics, grads = grads_fn(state.params, tgt, src, key)
+        else:
+            metrics, grads = loss_and_grads(state.params, tgt, model_cfg, train_cfg, key,
+                                            forward_loss=forward_loss, src=src)
         if sum_across is not None:
-            sum_across([*grads.values(), *metrics.values()])
+            sum_across(grads, metrics)
         return apply(state, leaves, grads, metrics, scalars)
 
     def accum_core(state: TrainState, leaves, src, tgt, scalars):
@@ -322,7 +333,7 @@ def make_train_step(
                 sums = {k: sums[k] + m[k] for k in sums}
         grads = dict(zip(leaves, grads))
         if sum_across is not None:
-            sum_across([*grads.values(), *sums.values()])
+            sum_across(grads, sums)
         if train_cfg.loss_normalization == "tokens":
             denom = torch.clamp(sums["weight"], min=1.0)
         else:  # filled on the device: no copy from the host, capturable
@@ -411,7 +422,7 @@ def make_eval_step(
     model_cfg: ModelConfig,
     train_cfg: TrainConfig,
     forward_loss: Callable | None = None,
-    sum_across: Callable[[list[torch.Tensor]], None] | None = None,
+    sum_across: Callable[[dict, dict], None] | None = None,
 ) -> Callable[[TrainState, Any, Any], dict]:
     """Forward-only ``eval(state, src, tgt) -> metrics`` (no dropout;
     MLM: the constant eval masks); the hooks as in ``make_train_step``."""
@@ -428,7 +439,7 @@ def make_eval_step(
         )
         metrics = {"loss": loss, **metrics}
         if sum_across is not None:
-            sum_across(list(metrics.values()))
+            sum_across({}, metrics)
         return metrics
 
     return eval_step
@@ -533,7 +544,8 @@ class Trainer:
     ``fit`` restores the newest intact checkpoint before training and
     saves on its cadence, on early stop and on SIGTERM/SIGINT. ``log_dir``,
     ``profiler`` and ``telemetry`` are the JAX trainer's hooks (the module
-    docstring)."""
+    docstring); ``step_hooks`` go to ``make_train_step`` (its ``tx`` and
+    ``grads_fn``)."""
 
     def __init__(
         self,
@@ -542,11 +554,12 @@ class Trainer:
         state: TrainState,
         log_fn: Callable[[str], None] = print,
         forward_loss: Callable | None = None,
-        sum_across: Callable[[list[torch.Tensor]], None] | None = None,
+        sum_across: Callable[[dict, dict], None] | None = None,
         checkpoint: CheckpointManager | None = None,
         log_dir: str | None = None,
         profiler=None,
         telemetry=None,
+        step_hooks: dict | None = None,
     ) -> None:
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
@@ -554,7 +567,7 @@ class Trainer:
         self.log_fn = log_fn
         self.checkpoint = checkpoint
         hooks = dict(forward_loss=forward_loss, sum_across=sum_across)
-        self.train_step = make_train_step(model_cfg, train_cfg, **hooks)
+        self.train_step = make_train_step(model_cfg, train_cfg, **hooks, **(step_hooks or {}))
         self.eval_step = make_eval_step(model_cfg, train_cfg, **hooks)
         self.train_metrics = MetricAccumulator()
         self.eval_metrics = MetricAccumulator()
