@@ -6,9 +6,9 @@
 Run from the root of a checkout. It needs a CUDA device and nvcc, builds
 the port's kernels from ``transformer_tpu_torch/csrc``, and exits non-zero
 if anything fails (with no CUDA device it exits non-zero at once: nothing
-runs on the CPU). It prints one JSON line per check, in nineteen phases
+runs on the CPU). It prints one JSON line per check, in twenty phases
 (the tenth runs right after the fourth, on its export; the eleventh to
-the nineteenth last):
+the twentieth last):
 
 1. device: the card, its power limit, and the matmul precision settings;
 2. build: the three CUDA sources compiled with nvcc in parallel (seconds,
@@ -81,7 +81,7 @@ the nineteenth last):
    greedy and ``--beam 4`` and ``cli.evaluate --limit 200`` on the export
    (its JSON line printed); greedy and beam-4 tokens with the flash encoder
    and its plain version at fp32 (2 + 2 layers), which must be identical;
-   and the tiny, big and tied presets for an epoch of 640 pairs;
+   and the tiny, big and tied presets for an epoch of 320 pairs;
 7. sequence-parallel training: four processes run
    ``transformer_tpu_torch.cli.distributed_train --preset long4k
    --num_layers 1 --attention_impl ring --sp 4 --epochs 1
@@ -285,7 +285,8 @@ the nineteenth last):
    must equal the Python-built ones of build/vocab/ piece for piece (both
    times printed); ``cli.train --preset base --attention_impl flash
    --sequence_length 64 --epochs 1 --warmup_steps 4000`` at 2 + 2
-   layers (cut from 6 + 6) on the data path's defaults, so
+   layers (cut from 6 + 6) on the first 5,000 pairs (half the corpus)
+   and the data path's defaults, so
    through the native loader: its epoch and batch counts
    must show it ran, the epoch's rows must be examples of the corpus
    once each (an epoch without the remainder dropped holds the same
@@ -370,6 +371,34 @@ the nineteenth last):
    parameters and optimizer state against a ``--dp 4`` rank's (the whole
    state), step times, ticks and bubbles.
    ``python3 chip_smoke.py --only pipe`` runs this phase alone.
+20. Tensor and expert parallelism (``tp_path``), over four processes on
+   this card in phase 11's spawn (held after phase 19): (a) fp32 steps
+   (dropout 0), each held to the one-card port's step within TRAIN_TOL
+   (the loss, each gathered gradient leaf, ``grad_norm``):
+   Transformer-base at full width (2 + 2 layers, B 64 x S 64, flash)
+   under ``--tp 2 --dp 2`` on the kernels and on their plain versions
+   (and the two held to each other), long4k-moe at full width (2 layers,
+   layer 2 MoE, B 4 x S 4096) under ``--tp 2 --ep 2``, and long4k at 1
+   layer over a ring of ``--sp 2 --tp 2`` on the kernels and on their
+   plain versions (the two held to each other); every rank's launches and
+   query heads in each step exactly ``tp_fp32_want``'s, none on the plain
+   versions (the ring steps of the one on the kernels are phase 20's
+   ``tp_train`` launches of ``flash_ring_step``); (b) ``cli.distributed_train
+   .main`` for an epoch of base 2 + 2 under ``--tp 2 --dp 2`` (the first
+   260 pairs, 4 steps) and of long4k-moe under ``--tp 2 --ep 2`` (the
+   first 2,600 lines, 4 steps), bf16, a 20-step warm-up: every rank's
+   flash launches exactly ``tp_want``'s, each train and eval launch on 4
+   of the 8 heads (the query heads per launch summed by the kernel
+   wrappers), the loss falling, each run's ``sharded-v1`` checkpoint (a
+   shard file from each rank holding distinct slices: the two at data 0
+   under ``--tp 2 --dp 2``, all four under ``--tp 2 --ep 2``) restoring on
+   one card byte-identical to the gathered export; (c) reported: each
+   rank's bytes of parameters and optimizer state against a ``--dp 4``
+   rank's, computed (3 x the whole parameters' bytes: whole parameters
+   and Adam's two moments; no ``--dp 4`` run of these models is made),
+   step times, bytes staged a step by kind (``tp``, ``ep``, the gradient
+   sums' ``collectives``).
+   ``python3 chip_smoke.py --only tp`` runs this phase alone.
 
 Every training run writes checkpoints to a fresh directory under
 ``build/ckpt/``, so no run restores another's.
@@ -2137,6 +2166,8 @@ def _cli_worker(rank, world, ports, before, runs, out_dir):
         os.environ["MASTER_PORT"] = str(port)  # main joins a fresh group, destroys it at its end
         read_flash_counters(reset=True)
         flash_ring_step.launches = 0
+        for fn in (*flash_counters(), flash_ring_step):
+            fn.heads = 0
         for kind in staged_bytes:
             staged_bytes[kind] = 0
         torch.cuda.reset_peak_memory_stats()  # each report's peak its own run's
@@ -2628,7 +2659,7 @@ def fp32_decode_tokens_check(trainer, src_tok, tgt_tok, layers: int = 2):
 PRESET_LAYERS = 1  # the presets' depth, cut (big and tied have 6 + 6 at full depth)
 
 
-def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 640):
+def presets_path(src_vocab, tgt_vocab, joint_vocab, pairs: int = 320):
     """The tiny, big and tied presets through ``cli.train --attention_impl
     flash`` for one epoch on the first ``pairs`` corpus pairs (and 64 test
     pairs), BLEU off, at their widths and ``PRESET_LAYERS`` layers: losses
@@ -3984,7 +4015,7 @@ def s2s_dist_path(src_vocab, tgt_vocab, e_rec, single, before=(), extra_runs=())
     os.makedirs(root, exist_ok=True)
     for name, argv in argvs.items():
         argv += ["--metrics_json", os.path.join(root, f"{name}_report.json")]
-    done = cli_runs(list(argvs.items()) + list(extra_runs), root, before=before, timeout=600)
+    done = cli_runs(list(argvs.items()) + list(extra_runs), root, before=before, timeout=900)
     recs = {}
     for name, impl, mesh, want_fn in meshes:
         rec, counts = dist_fit("s2s_dist", name, argvs[name], want_fn,
@@ -5720,6 +5751,7 @@ PAPER_BASE_LAYERS = 2  # depth of step 2's base run, cut from 6 + 6
 # falling loss the phase gates on would be a few thousandths).
 PAPER_WARMUP = "4000"
 PAPER_BUFFER = 1000  # its --buffer_size
+PAPER_BASE_PAIRS = 5000  # step 2's corpus: the first half of it, 78 steps
 PAPER_TFDS_WORDS = 8000  # frequent tokens in the hand-built tfds vocabularies
 ATTENTION_SENTENCES = 8
 
@@ -5836,7 +5868,7 @@ def paper_base_path(src_vocab, tgt_vocab):
 
     from transformer_tpu_torch.cli import train
 
-    data = os.path.join(ROOT, "data")
+    data = cut_corpus(PAPER_BASE_PAIRS, test=500)
     export = os.path.join(BUILD_DIR, "paper_base_export")
     argv = [
         "--preset", "base", "--num_layers", str(PAPER_BASE_LAYERS), "--attention_impl", "flash",
@@ -6900,6 +6932,332 @@ def pipe_path(job: dict, done: dict) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 20: tensor and expert parallelism over processes
+
+
+TP_PAIRS = 260  # base: 4 steps of 64 under the 64-token filter
+TP_LAYERS = 2  # base 2 + 2; long4k-moe 2 (layer 2 MoE)
+TP_MOE_LINES = 2600  # long4k-moe: 4 steps of 4 windows of 4096
+TP_MESH = {"base": ("--tp", "2", "--dp", "2"), "moe": ("--tp", "2", "--ep", "2")}
+
+
+def tp_argv(name, data, src_vocab, tgt_vocab, root):
+    """``cli.distributed_train`` under phase 20's meshes: Transformer-base
+    at 2 + 2 layers over ``--tp 2 --dp 2``, long4k-moe at 2 layers over
+    ``--tp 2 --ep 2``; a warm-up of 20 steps, so that the loss falls over
+    the epoch's 4."""
+    common = ["--attention_impl", "flash", "--num_layers", str(TP_LAYERS), *TP_MESH[name],
+              "--epochs", "1", "--warmup_steps", "20", "--dataset_path", data,
+              "--tgt_vocab_file", tgt_vocab, "--ckpt_path", os.path.join(root, name),
+              "--export_path", os.path.join(root, f"{name}_export"),
+              "--metrics_json", os.path.join(root, f"{name}_report.json"), "--device", "cuda"]
+    if name == "base":
+        return ["--preset", "base", "--sequence_length", str(S2S_LEN),
+                "--src_vocab_file", src_vocab, "--eval_bleu", "false", *common]
+    return ["--preset", "long4k", *MOE_FLAGS, *common]
+
+
+def _tp_fp32_steps(rank, world, cases, out_dir):
+    """Phase 20's fp32 steps, run first in its four processes
+    (``_cli_worker``): each case (label, mesh, model and train fields, the
+    (src, tgt) batch, plain versions or kernels) one step from the seed's
+    init through ``DistributedTrainer``'s forward and sums, the gradients
+    gathered to whole leaves, written by rank 0 with every rank's seq
+    index and the (launches, query heads) of each flash kernel in its
+    step, the counters set to 0 just before it."""
+    import torch
+
+    from transformer_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
+    from transformer_tpu_torch.kernels.flash_attention import flash_ring_step
+    from transformer_tpu_torch.models.transformer import init_params
+    from transformer_tpu_torch.parallel import sharding
+    from transformer_tpu_torch.parallel.distributed import (
+        DistributedTrainer,
+        _seq_parallel_forward_loss,
+    )
+    from transformer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from transformer_tpu_torch.train.state import create_train_state
+    from transformer_tpu_torch.train.trainer import loss_and_grads
+
+    process = initialize_distributed("cuda", log_fn=lambda *_: None)
+    kernels = (*flash_counters(), flash_ring_step)
+    out = {}
+    for label, mesh_kw, model_kw, train_kw, batch, reference in cases:
+        mesh = make_mesh(MeshConfig(**mesh_kw), process)
+        cfg, tcfg = ModelConfig(**model_kw), TrainConfig(**train_kw)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), device=process.device)
+        trainer = DistributedTrainer(cfg, tcfg, mesh, log_fn=lambda *_: None,
+                                     state=create_train_state(cfg, tcfg, params=params))
+        src, tgt = (None if a is None else torch.from_numpy(a).to(process.device, torch.long)
+                    for a in batch)
+        for fn in kernels:
+            fn.launches = fn.heads = 0
+        t0 = time.perf_counter()
+        metrics, grads = loss_and_grads(
+            trainer.state.params, tgt, cfg, tcfg, None, reference=reference,
+            forward_loss=_seq_parallel_forward_loss(mesh, None, trainer.mp), src=src)
+        trainer._sum_across(grads, metrics)
+        norm = float(trainer._grad_norm(grads))
+        whole = {n: sharding.gather_leaf(g, trainer.splits[n], mesh).cpu()
+                 for n, g in grads.items()}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ranks = [None] * world
+        torch.distributed.all_gather_object(ranks, {
+            "seq": mesh.index("seq"), "counts": {fn.__name__: (fn.launches, fn.heads)
+                                                 for fn in kernels}})
+        out[label] = {"loss": float(metrics["loss"]), "grad_norm": norm, "grads": whole,
+                      "seconds": seconds, "ranks": ranks}
+        del trainer, params, metrics, grads, whole
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(out, os.path.join(out_dir, "fp32_steps.pt"))
+    del out
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def tp_job(src_vocab, tgt_vocab) -> dict:
+    """Phase 20's work for a spawn of four processes (``cli_runs``): its
+    fp32 steps (``before``) and its two CLI runs (``runs``), with what
+    ``tp_path`` needs to hold them."""
+    from transformer_tpu_torch.cli import distributed_train, train
+
+    root = fresh_dir("tp")
+    os.makedirs(root)
+    # long4k-moe reads the whole test split (64 lines fill no 4096-token window)
+    data = {"base": cut_corpus(TP_PAIRS), "moe": cut_corpus(TP_MOE_LINES, test=500)}
+    runs = [(f"tp_{n}", tp_argv(n, data[n], src_vocab, tgt_vocab, root)) for n in TP_MESH]
+    cfgs, batches, tcfgs = {}, {}, {}
+    for (_, argv), name in zip(runs, TP_MESH):
+        args = train.resolve_flags(argv, distributed_train._FLAGS)
+        tcfgs[name] = train.train_config(args)
+        train_ds, _, cfgs[name], _ = train.load_for_model(args, tcfgs[name], lambda *_: None)
+        src, tgt = next(iter(train_ds.batches(0)))
+        batches[name] = (src if name == "base" else None, tgt)
+    fp32 = {n: dataclasses.replace(c, dtype="float32", dropout_rate=0.0) for n, c in cfgs.items()}
+    ring = dataclasses.replace(fp32["moe"], num_layers=1, moe_experts=0, attention_impl="ring")
+
+    def case(label, mesh, cfg, name, reference=False):
+        return (label, mesh, dataclasses.asdict(cfg), dataclasses.asdict(tcfgs[name]),
+                batches[name], reference)
+
+    cases = [
+        case("base kernels", dict(data=2, model=2), fp32["base"], "base"),
+        case("base plain", dict(data=2, model=2), fp32["base"], "base", reference=True),
+        case("long4k-moe kernels", dict(model=2, expert=2), fp32["moe"], "moe"),
+        case("long4k ring", dict(seq=2, model=2), ring, "moe"),
+        case("long4k ring plain", dict(seq=2, model=2), ring, "moe", reference=True),
+    ]
+    before = ("_tp_fp32_steps", (cases, root))
+    return {"root": root, "runs": runs, "before": before, "cases": cases, "cfgs": cfgs,
+            "tcfgs": tcfgs}
+
+
+def tp_want(name: str, rank: int, steps: int, evals: int) -> tuple[dict, dict]:
+    """A rank's flash launches under phase 20's meshes, and the query heads
+    they run over: every train and eval launch on the rank's 4 of the 8
+    heads. Base (``--tp 2 --dp 2``, 2 + 2 layers): a self-attention per
+    layer and step each of the three kernels, per eval batch a forward;
+    rank 0 also encodes the epilogue's sample sentence (2 launches of the
+    whole model, 8 heads). long4k-moe (``--tp 2 --ep 2``, remat): each
+    layer's forward twice a step, once an eval batch; dQ and dK/dV once."""
+    L, h = TP_LAYERS, 4
+    if name == "tp_base":
+        fwd = 2 * L * (steps + evals)
+        launches = {"flash_fwd": fwd + (L if rank == 0 else 0),
+                    "flash_dq": 2 * L * steps, "flash_dkdv": 2 * L * steps}
+        heads = {"flash_fwd": h * fwd + (8 * L if rank == 0 else 0),
+                 "flash_dq": h * 2 * L * steps, "flash_dkdv": h * 2 * L * steps}
+        return launches, heads
+    launches = {"flash_fwd": L * (2 * steps + evals), "flash_dq": L * steps,
+                "flash_dkdv": L * steps}
+    return launches, {k: h * n for k, n in launches.items()}
+
+
+def tp_fp32_want(label: str, model_kw: dict, seq: int, reference: bool) -> dict:
+    """A rank's (launches, query heads) of each flash kernel in one of
+    phase 20's fp32 steps: none on the plain versions; 4 of the 8 heads a
+    launch. On the causal ring (``--sp 2 --tp 2``) seq rank s folds s + 1
+    hops a layer: as many ring steps a forward (each forward twice under
+    remat), dQ and dK/dV; no whole-sequence forward."""
+    want = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkdv", "flash_ring_step"), 0)
+    passes = 2 if model_kw["remat"] else 1
+    L = model_kw["num_layers"]
+    if reference:
+        return {k: [0, 0] for k in want}
+    if label == "long4k ring":
+        hops = L * (seq + 1)
+        want.update(flash_ring_step=passes * hops, flash_dq=hops, flash_dkdv=hops)
+    elif label == "base kernels":  # encoder and decoder self-attention
+        want.update(flash_fwd=2 * L * passes, flash_dq=2 * L, flash_dkdv=2 * L)
+    else:
+        want.update(flash_fwd=L * passes, flash_dq=L, flash_dkdv=L)
+    return {k: [n, 4 * n] for k, n in want.items()}
+
+
+def tp_path(job: dict, done: dict) -> dict:
+    """Phase 20 (module docstring): ``job`` (``tp_job``) held, its spawn
+    done (``done``, ``cli_runs``' results). Returns the flash counters
+    summed over the ranks of both runs, and the ring steps of the fp32
+    ring step (phase 20 runs the ring nowhere else)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from transformer_tpu_torch.config import ModelConfig, TrainConfig
+    from transformer_tpu_torch.convert import load_export
+    from transformer_tpu_torch.models.transformer import flatten, init_params
+    from transformer_tpu_torch.train.checkpoint import CheckpointManager, to_numpy
+    from transformer_tpu_torch.train.state import create_train_state, global_norm
+    from transformer_tpu_torch.train.trainer import loss_and_grads
+
+    root, runs, cases = job["root"], job["runs"], job["cases"]
+    t0 = time.perf_counter()
+
+    # (a) the fp32 steps against the one-card step (the ring's against the
+    # one-card flash step), base kernels also against its plain versions
+    fp32 = torch.load(os.path.join(root, "fp32_steps.pt"))
+    norm_rel = {}
+    for label, mesh, model_kw, train_kw, batch, _ in cases:
+        cfg = ModelConfig(**{**model_kw, "attention_impl": "flash"})
+        tcfg = TrainConfig(**train_kw)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+        state = create_train_state(cfg, tcfg, params=params)
+        src, tgt = (None if a is None else torch.from_numpy(a).to("cuda", torch.long)
+                    for a in batch)
+        metrics, want = loss_and_grads(state.params, tgt, cfg, tcfg, None, src=src)
+        run = fp32[label]
+        got = {k: g.cuda() for k, g in run["grads"].items()}
+        hold_to_train_tol(
+            {"phase": "tp", "step": "fp32_step", "run": label, "mesh": mesh,
+             "layers": cfg.num_layers, "batch": list(tgt.shape),
+             "step_seconds": run["seconds"]},
+            (run["loss"], got), (float(metrics["loss"]), want),
+            f"fp32 {label} step against the one-card step")
+        want_norm = float(global_norm(want.values()))
+        norm_rel[label] = abs(run["grad_norm"] - want_norm) / want_norm
+        del state, params, metrics, want, got
+        torch.cuda.empty_cache()
+    plain = fp32["base plain"]
+    hold_to_train_tol(
+        {"phase": "tp", "step": "fp32_step", "run": "base kernels against plain"},
+        (fp32["base kernels"]["loss"], {k: g.cuda() for k, g in
+                                        fp32["base kernels"]["grads"].items()}),
+        (plain["loss"], {k: g.cuda() for k, g in plain["grads"].items()}),
+        "fp32 tp 2 x dp 2 step, kernels against plain versions")
+    ring, ring_plain = fp32["long4k ring"], fp32["long4k ring plain"]
+    hold_to_train_tol(
+        {"phase": "tp", "step": "fp32_step", "run": "long4k ring kernels against plain"},
+        (ring["loss"], {k: g.cuda() for k, g in ring["grads"].items()}),
+        (ring_plain["loss"], {k: g.cuda() for k, g in ring_plain["grads"].items()}),
+        "fp32 ring sp 2 x tp 2 step, kernels against plain versions")
+    ring_steps = 0
+    for label, _, model_kw, _, _, reference in cases:
+        for r, got in enumerate(fp32[label]["ranks"]):
+            want = tp_fp32_want(label, model_kw, got["seq"], reference)
+            emit({"phase": "tp", "step": "fp32_step launches", "run": label, "rank": r,
+                  "launches_heads": got["counts"], "expected": want})
+            if {k: list(v) for k, v in got["counts"].items()} != want:
+                raise SystemExit(f"tp {label} rank {r}: (launches, heads) {got['counts']}, "
+                                 f"expected {want}")
+            if label == "long4k ring":
+                ring_steps += got["counts"]["flash_ring_step"][0]
+    emit({"phase": "tp", "step": "fp32_grad_norm", "rel_diff": norm_rel,
+          "limit": TRAIN_TOL["grad_rel"]})
+    if max(norm_rel.values()) > TRAIN_TOL["grad_rel"]:
+        raise SystemExit(f"tp: grad_norm off the one-card step's: {norm_rel}")
+    del fp32, plain
+    torch.cuda.empty_cache()
+
+    # (b) the two CLI runs
+    launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0}
+    for (name, argv), key in zip(runs, TP_MESH):
+        logs, ranks, wall = done[name]
+        r0 = ranks[0]
+        steps, evals = len(r0["step_seconds"]), r0["eval_batches"]
+        per_rank = {r["rank"]: {k: r["launches"][k] for k in launches} for r in ranks}
+        heads = {r["rank"]: {k: r["launch_heads"][k] for k in launches} for r in ranks}
+        want = {r: tp_want(name, r, steps, evals) for r in per_rank}
+        for counts in per_rank.values():
+            for k, n in counts.items():
+                launches[k] += n
+        losses = r0["losses"]
+        ms = [t * 1e3 for t in r0["step_seconds"]]
+        export = os.path.join(root, f"{key}_export")
+        exported, _ = load_export(export, device="cuda")
+        whole = 3 * sum(t.numel() * t.element_size() for t in flatten(exported).values())
+        rec = {
+            "phase": "tp", "step": f"cli.distributed_train {key}", "argv": argv,
+            "processes": 4, "card": nvidia_smi_line(), "transport": r0["transport"],
+            "steps": steps, "eval_batches": evals, "losses": losses,
+            "step_ms_first": ms[0], "step_ms_median": statistics.median(ms[1:] or ms),
+            "step_ms_all": ms, "state_bytes_per_rank": [r["state_bytes"] for r in ranks],
+            # computed, not read: a --dp 4 rank holds the whole parameters
+            # and Adam's two moments of each
+            "state_bytes_dp4_rank_computed": whole,
+            "state_share_of_dp4_computed": [
+                (r["state_bytes"]["params"] + r["state_bytes"]["optimizer"]) / whole
+                for r in ranks],
+            "peak_allocated_bytes_per_rank": [r["peak_allocated_bytes"] for r in ranks],
+            "staged_bytes_per_step_rank0": {k: v / steps for k, v in r0["staged_bytes"].items()},
+            "launches_per_rank": per_rank, "expected_launches_per_rank":
+                {r: w[0] for r, w in want.items()},
+            "heads_per_rank": heads, "expected_heads_per_rank": {r: w[1] for r, w in want.items()},
+            "eval_loss": r0["eval_loss"], "wall_s": wall,
+            "logs": [ln for ln in logs.splitlines() if not ln.startswith("sample")][-8:],
+        }
+        emit(rec)
+        if per_rank != rec["expected_launches_per_rank"]:
+            raise SystemExit(f"tp {key}: launches {per_rank}, expected {want}")
+        if heads != rec["expected_heads_per_rank"]:
+            raise SystemExit(f"tp {key}: heads a launch {heads}, expected {want}")
+        half = len(losses) // 2
+        if not (half and all(math.isfinite(x) for x in losses)
+                and np.mean(losses[-half:]) < np.mean(losses[:half])):
+            raise SystemExit(f"tp {key}: the bf16 loss does not fall: {losses}")
+        if any(r["losses"] != losses for r in ranks):
+            raise SystemExit(f"tp {key}: the ranks' losses differ")
+        # The sharded-v1 checkpoint on one card: the gathered export's
+        # parameters, byte for byte.
+        (ckpt,) = [d for d in os.listdir(os.path.join(root, key)) if d.startswith("ckpt_")]
+        files = sorted(os.listdir(os.path.join(root, key, ckpt)))
+        template = create_train_state(job["cfgs"][key], job["tcfgs"][key], device="cuda")
+        restored = CheckpointManager(os.path.join(root, key)).restore_latest(template)
+        same = all(to_numpy(v).tobytes() == to_numpy(flatten(exported)[k]).tobytes()
+                   for k, v in flatten(restored.params).items())
+        emit({"phase": "tp", "step": f"sharded checkpoint of {key} on one card", "files": files,
+              "step_restored": restored.step, "params_byte_identical": same})
+        writers = 2 if key == "base" else 4  # the ranks holding distinct slices
+        if not same or restored.step != steps or "meta.json" not in files or sum(
+                n.startswith("shards_p") for n in files) != writers:
+            raise SystemExit(f"tp {key}: the sharded checkpoint does not restore: {files}")
+        del template, restored, exported
+        torch.cuda.empty_cache()
+    emit({"phase": "tp", "step": "checks", "seconds": time.perf_counter() - t0})
+    return {**launches, "flash_ring_step": ring_steps}
+
+
+def tp_only() -> None:
+    """Phase 20 alone (``python3 chip_smoke.py --only tp``)."""
+    import torch
+
+    from transformer_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build(["flash_attention"])  # once, before four processes load it
+    _, src_vocab = vocab(side="src")
+    _, tgt_vocab = vocab()
+    job = tp_job(src_vocab, tgt_vocab)
+    t0 = time.perf_counter()
+    done = cli_runs(job["runs"], job["root"], before=[job["before"]])
+    emit({"phase": "tp", "step": "spawn", "seconds": time.perf_counter() - t0})
+    emit({"phase": "tp", "launches": tp_path(job, done), "card": nvidia_smi_line()})
+
+
 def pipe_only() -> None:
     """Phase 19 alone (``python3 chip_smoke.py --only pipe``)."""
     import torch
@@ -7015,6 +7373,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "pipe"]:
         pipe_only()
+        return 0
+    if sys.argv[1:] == ["--only", "tp"]:
+        tp_only()
         return 0
 
     # Each phase's seconds on the host clock, emitted as it ends.
@@ -7228,9 +7589,11 @@ def main() -> int:
     lm_tgt = next(iter(train_ds.batches(0)))[1]
     fp32_before, fp32_cfg = s2s_fp32_mesh_job(s2s_cfg, s2s_batch, tok, lm_tgt)
     sp_job, p_job = sp_train_job(vocab_path), pipe_job(src_vocab, vocab_path)
+    t_job = tp_job(src_vocab, vocab_path)
     dist_launches, _, _, done = s2s_dist_path(
-        src_vocab, vocab_path, e_rec, sp_single, before=[fp32_before, p_job["before"]],
-        extra_runs=[sp_job, *p_job["runs"]])
+        src_vocab, vocab_path, e_rec, sp_single,
+        before=[fp32_before, p_job["before"], t_job["before"]],
+        extra_runs=[sp_job, *p_job["runs"], *t_job["runs"]])
     # ... and phase 7's fp32 ring step and run over the ring, in the same
     # four processes
     s2s_fp32_mesh_check(fp32_cfg, s2s_batch, tok, lm_tgt)
@@ -7289,6 +7652,12 @@ def main() -> int:
     pipe_flash = pipe_path(p_job, done)
     lap("19 pipe")
 
+    # 20. Transformer-base over --tp 2 --dp 2 and long4k-moe over --tp 2
+    # --ep 2 (their work done in phase 11's spawn): fp32 steps against the
+    # one-card step, an epoch of each through the CLI
+    tp_flash = tp_path(t_job, done)
+    lap("20 tp")
+
     def summary(name, main_rec, recs, replaces, verify_rec):
         cold = {k: main_rec[k] for k in ("device_ms_cold", "library_device_ms_cold",
                                          "share_of_bound_warm") if k in main_rec}
@@ -7330,7 +7699,7 @@ def main() -> int:
                    **{path: counts[name] for path, counts in mlm_launches.items()},
                    **{path: counts[name] for path, counts in paper_launches.items()},
                    "telemetry": tel_train_launches[name], "moe_train": moe_flash[name],
-                   "pipe_train": pipe_flash[name]}
+                   "pipe_train": pipe_flash[name], "tp_train": tp_flash[name]}
         return {
             "name": name, "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",
@@ -7377,9 +7746,11 @@ def main() -> int:
             "name": "flash_ring_step", "route": "cuda",
             "source": "transformer_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES["flash_ring_step"],
-            "launches": sp["launches"]["flash_ring_step"] + dist_launches["flash_ring_step"],
+            "launches": (sp["launches"]["flash_ring_step"] + dist_launches["flash_ring_step"]
+                         + tp_flash["flash_ring_step"]),
             "launches_by_path": {"sp_train": sp["launches"]["flash_ring_step"],
-                                 "s2s_dist": dist_launches["flash_ring_step"]},
+                                 "s2s_dist": dist_launches["flash_ring_step"],
+                                 "tp_train": tp_flash["flash_ring_step"]},
             "max_abs_err": max(r["max_abs_err"] for r in r_recs),
             "max_reading": max(r["readings"]["out"] for r in r_recs),
             "tolerance": {k: v["out"] for k, v in FLASH_TOL.items()},

@@ -16,13 +16,15 @@ over gloo processes against the JAX package's one-device train step.
   ``convert.load_export`` reads and logs an eval loss; as a console script
   in a world of one it exits 0.
 - The transport rule on layouts, the rank -> (data, seq) map, and the
-  guards: ring attention without a context, ``--tp 2`` (LM and seq2seq),
-  ``--sp 2`` with flash attention, encoder-only models over ``seq`` (JAX's
+  guards: ring attention without a context, ``--tp 2`` in a world of one
+  (LM and seq2seq), ``pipe`` with ``expert``, ``--sp 2`` with flash attention, encoder-only models over ``seq`` (JAX's
   message), Ulysses over heads the seq axis does not divide; seq2seq
   models, encoder-only models over ``data`` and Ulysses are admitted.
 
 Workers are module-level functions run in spawned processes (gloo on the
-CPU, one thread each); they import no JAX.
+CPU, one thread each); they import no JAX. Every multi-process case but the
+CLI's shares two spawns (one of 4 processes, one of 2, started together:
+``port_runs``).
 """
 
 import os
@@ -33,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_ring_attention import join_job, spawn
+from test_torch_ring_attention import join_job
 from transformer_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
 from transformer_tpu_torch.convert import load_export, params_from_numpy
 from transformer_tpu_torch.models.transformer import flatten
@@ -82,10 +84,20 @@ def _jax_init():
 # the trainer against JAX
 
 
-def _train_worker(rank, world, port, dp, remat, init, batches, out_dir):
+def _jobs_worker(rank, world, port, jobs, out_dir):
+    """Each job (name, function, its arguments) in turn on this process
+    group: the function called with the process, the rank, the world and
+    the path of this rank's ``<name>.<rank>.npz``."""
+    process = join_job(rank, world, port)
+    for name, fn, args in jobs:
+        fn(process, rank, world, *args, os.path.join(out_dir, f"{name}.{rank}.npz"))
+    torch.distributed.destroy_process_group()
+
+
+def _train_job(process, rank, world, dp, remat, init, batches, path):
     from transformer_tpu_torch.parallel.distributed import DistributedTrainer
 
-    mesh = make_mesh(MeshConfig(data=dp, seq=world // dp), join_job(rank, world, port))
+    mesh = make_mesh(MeshConfig(data=dp, seq=world // dp), process)
     cfg = ModelConfig(**{**MODEL, "attention_impl": "ring", "remat": remat})
     tcfg = TrainConfig(**TRAIN)
     state = create_train_state(cfg, tcfg, params=params_from_numpy(init, cfg, device="cpu"))
@@ -96,8 +108,31 @@ def _train_worker(rank, world, port, dp, remat, init, batches, out_dir):
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     params = {k: v.detach().numpy() for k, v in flatten(trainer.state.params).items()}
-    np.savez(os.path.join(out_dir, f"{rank}.npz"), losses=losses, norms=norms, **params)
-    torch.distributed.destroy_process_group()
+    np.savez(path, losses=losses, norms=norms, **params)
+
+
+TRAIN_MESHES = {"sp4": (1, 4, False), "dp2_sp2_remat": (2, 2, True)}
+
+
+@pytest.fixture(scope="module")
+def port_runs(tmp_path_factory):
+    """Every multi-process case of this file: one spawn of 4 processes (the
+    two trainer meshes and the dropout gradients) and one of 2 (the
+    dispatch), started together, each process taking its jobs in turn.
+    Returns {case: [each rank's npz]}."""
+    from torch_pipeline_jobs import finish, start
+
+    _, init = _jax_init()
+    out = tmp_path_factory.mktemp("dist_runs")
+    four = [(name, _train_job, (dp, remat, init, _batches(3)))
+            for name, (dp, sp, remat) in TRAIN_MESHES.items()]
+    four.append(("grads", _grads_job, (init, _batches(1, seed=7)[0])))
+    two = [("dispatch", _dispatch_job, (init, _batches(3)))]
+    handles = [start(_jobs_worker, 4, four, str(out)), start(_jobs_worker, 2, two, str(out))]
+    for h in handles:
+        finish(h)
+    return {name: [np.load(out / f"{name}.{r}.npz") for r in range(world)]
+            for world, jobs in ((4, four), (2, two)) for name, _, _ in jobs}
 
 
 @pytest.fixture(scope="module")
@@ -120,14 +155,12 @@ def jax_run():
     return init, losses, norms, {k: np.asarray(v) for k, v in _flatten(state.params).items()}
 
 
-@pytest.mark.parametrize("dp, sp, remat", [(1, 4, False), (2, 2, True)],
-                         ids=["sp4", "dp2_sp2_remat"])
-def test_distributed_trainer_matches_jax(jax_run, tmp_path, dp, sp, remat):
+@pytest.mark.parametrize("mesh", list(TRAIN_MESHES))
+def test_distributed_trainer_matches_jax(jax_run, port_runs, mesh):
     from transformer_tpu.train.schedule import noam_schedule as j_noam
 
     init, want_losses, want_norms, want_params = jax_run
-    spawn(_train_worker, dp * sp, dp, remat, init, _batches(3), str(tmp_path))
-    runs = [np.load(tmp_path / f"{r}.npz") for r in range(dp * sp)]
+    runs = port_runs[mesh]
     for run in runs:  # every process took the same steps
         assert np.array_equal(run["losses"], runs[0]["losses"])
         for key in want_params:
@@ -146,11 +179,11 @@ def test_distributed_trainer_matches_jax(jax_run, tmp_path, dp, sp, remat):
             assert diff.mean() <= 1e-5 and diff.max() <= 1e-2, (key, diff.mean(), diff.max())
 
 
-def _dispatch_worker(rank, world, port, init, batches, out_dir):
+def _dispatch_job(process, rank, world, init, batches, path):
     """Steps 1-2 as one ``steps_per_dispatch`` 2 dispatch, step 3 alone."""
     from transformer_tpu_torch.parallel.distributed import DistributedTrainer
 
-    mesh = make_mesh(MeshConfig(seq=world), join_job(rank, world, port))
+    mesh = make_mesh(MeshConfig(seq=world), process)
     cfg = ModelConfig(**{**MODEL, "attention_impl": "ring"})
     tcfg = TrainConfig(**TRAIN, steps_per_dispatch=2)
     state = create_train_state(cfg, tcfg, params=params_from_numpy(init, cfg, device="cpu"))
@@ -161,20 +194,17 @@ def _dispatch_worker(rank, world, port, init, batches, out_dir):
     sums = [float(m[k]) for k in ("loss_sum", "weight", "correct")]
     trainer.state, _ = trainer.train_step(trainer.state, None, batches[2])
     params = {k: v.detach().numpy() for k, v in flatten(trainer.state.params).items()}
-    np.savez(os.path.join(out_dir, f"{rank}.npz"), sums=sums, step=trainer.state.step,
-             logs=np.asarray(logs), **params)
-    torch.distributed.destroy_process_group()
+    np.savez(path, sums=sums, step=trainer.state.step, logs=np.asarray(logs), **params)
 
 
-def test_distributed_steps_per_dispatch_matches_jax(jax_run, tmp_path):
+def test_distributed_steps_per_dispatch_matches_jax(jax_run, port_runs):
     """``steps_per_dispatch`` 2 over 2 gloo processes (ring, sp 2): the
     dispatch runs uncaptured (and says so once), and three steps land on
     the JAX step's params within the limits above."""
     from transformer_tpu.train.schedule import noam_schedule as j_noam
 
     init, _, _, want_params = jax_run
-    spawn(_dispatch_worker, 2, init, _batches(3), str(tmp_path))
-    runs = [np.load(tmp_path / f"{r}.npz") for r in range(2)]
+    runs = port_runs["dispatch"]
     for run in runs:
         assert int(run["step"]) == 3 and np.array_equal(run["sums"], runs[0]["sums"])
         for key in want_params:
@@ -200,11 +230,11 @@ def test_distributed_steps_per_dispatch_matches_jax(jax_run, tmp_path):
 DROPOUT_MODEL = {**MODEL, "dropout_rate": 0.1}
 
 
-def _grads_worker(rank, world, port, init, tgt, out_dir):
+def _grads_job(process, rank, world, init, tgt, path):
     from transformer_tpu_torch.parallel.distributed import _seq_parallel_forward_loss
     from transformer_tpu_torch.train.trainer import loss_and_grads
 
-    mesh = make_mesh(MeshConfig(seq=world), join_job(rank, world, port))
+    mesh = make_mesh(MeshConfig(seq=world), process)
     cfg = ModelConfig(**{**DROPOUT_MODEL, "attention_impl": "ring"})
     params = params_from_numpy(init, cfg, device="cpu")
     for p in flatten(params).values():
@@ -214,19 +244,16 @@ def _grads_worker(rank, world, port, init, tgt, out_dir):
         forward_loss=_seq_parallel_forward_loss(mesh),
     )
     mesh.all_reduce_sum_([*grads.values(), *metrics.values()])
-    if rank == 0:
-        np.savez(os.path.join(out_dir, "grads.npz"), loss=metrics["loss"].numpy(),
-                 **{k: g.numpy() for k, g in grads.items()})
-    torch.distributed.destroy_process_group()
+    np.savez(path, **({"loss": metrics["loss"].numpy(),
+                       **{k: g.numpy() for k, g in grads.items()}} if rank == 0 else {}))
 
 
-def test_sp4_dropout_draws_the_single_process_masks(tmp_path):
+def test_sp4_dropout_draws_the_single_process_masks(port_runs):
     from transformer_tpu_torch.train.trainer import loss_and_grads
 
     _, init = _jax_init()
     tgt = _batches(1, seed=7)[0]
-    spawn(_grads_worker, 4, init, tgt, str(tmp_path))
-    got = np.load(tmp_path / "grads.npz")
+    got = port_runs["grads"][0]
     cfg = ModelConfig(**DROPOUT_MODEL)
     params = params_from_numpy(init, cfg, device="cpu")
     for p in flatten(params).values():
@@ -348,7 +375,8 @@ def test_guards(tmp_path):
     from transformer_tpu_torch.parallel.distributed import DistributedTrainer, check_mesh
 
     for extra in (["--decoder_only"], []):  # LM and seq2seq alike
-        with pytest.raises(NotImplementedError, match="--tp > 1"):
+        # --tp is admitted; a world of one cannot hold its mesh
+        with pytest.raises(ValueError, match="needs 2 processes, have 1"):
             distributed_train.main(["--tp", "2", *extra, "--device", "cpu",
                                     "--ckpt_path", str(tmp_path / "ckpt")])
     # Seq2seq models, encoder-only models over data and Ulysses are
@@ -371,9 +399,9 @@ def test_guards(tmp_path):
     with pytest.raises(ValueError, match="needs a sequence-parallel attention impl"):
         DistributedTrainer(ModelConfig(**MODEL), TrainConfig(**TRAIN),
                            _fake_mesh(MeshConfig(seq=2)))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="pipe>1 composes with 'data', 'fsdp' and 'model'"):
         DistributedTrainer(ModelConfig(**MODEL), TrainConfig(**TRAIN),
-                           _fake_mesh(MeshConfig(model=2)))
+                           _fake_mesh(MeshConfig(pipe=2, expert=2)))
     with pytest.raises(ValueError, match="divisible"):
         DistributedTrainer(ModelConfig(**MODEL), TrainConfig(**{**TRAIN, "batch_size": 3}),
                            _fake_mesh(MeshConfig(data=2)))

@@ -38,7 +38,8 @@ package's one-device train step on converted weights.
 
 Workers are module-level functions run in spawned processes (gloo on the
 CPU, one thread each); they import no JAX. The trainer's runs of every
-case share two spawns (one of 4 processes, one of 2, started together:
+case, the dispatch, dropout and ``gather_sequence`` cases included, share
+two spawns (one of 4 processes, one of 2, started together:
 ``port_runs``), each process taking its cases in turn.
 """
 
@@ -52,7 +53,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_ring_attention import join_job, spawn
+from test_torch_ring_attention import join_job
 from transformer_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
 from transformer_tpu_torch.convert import load_export, params_from_numpy
 from transformer_tpu_torch.models.transformer import flatten
@@ -169,13 +170,20 @@ def _hold_to_jax(runs, want_losses, want_norms, want_params, got_losses=True, sp
 
 
 def _train_worker(rank, world, port, jobs, out_dir):
-    """Each job (name, mesh, init, batches) in turn on this process group:
-    three ``DistributedTrainer`` steps, the losses, grad norms and params
-    written to ``<name>.<rank>.npz``."""
+    """Each job in turn on this process group: a trainer case (name, mesh,
+    init, batches), three ``DistributedTrainer`` steps, the losses, grad
+    norms and params written to ``<name>.<rank>.npz``; or one of the other
+    tests' cases (name, worker function, its arguments), the function
+    called with the process and the mesh's rank."""
     from transformer_tpu_torch.parallel.distributed import DistributedTrainer
 
     process = join_job(rank, world, port)
-    for name, mesh_kw, init, batches in jobs:
+    for job in jobs:
+        if callable(job[1]):
+            name, fn, args = job
+            fn(process, rank, world, *args, os.path.join(out_dir, f"{name}.{rank}.npz"))
+            continue
+        name, mesh_kw, init, batches = job
         mesh = make_mesh(MeshConfig(data=mesh_kw["dp"], seq=mesh_kw["sp"]), process)
         cfg = ModelConfig(**{**MODEL, **mesh_kw.get("model", {}),
                              "attention_impl": mesh_kw["impl"],
@@ -245,11 +253,24 @@ def port_runs(tmp_path_factory):
     for name, (mesh_kw, job_init, batches) in cases.items():
         by_world.setdefault(mesh_kw["dp"] * mesh_kw["sp"], []).append(
             (name, mesh_kw, job_init, batches))
+    # the dispatch, dropout and gather_sequence tests' cases ride the spawns
+    rng = np.random.default_rng(5)
+    gather_x = rng.standard_normal((2, 16, 8)).astype(np.float32)
+    gather_w = rng.standard_normal((4, 2, 16, 8)).astype(np.float32)
+    others = {"dispatch": (2, _dispatch_job, (init, [_pairs(30 + i) for i in range(3)])),
+              "grads": (4, _grads_job, (init, _pairs(7))),
+              "gather": (4, _gather_job, (gather_x, gather_w))}
+    for name, (world, fn, args) in others.items():
+        by_world[world].append((name, fn, args))
     handles = [start(_train_worker, world, jobs, str(out)) for world, jobs in by_world.items()]
     for h in handles:
         finish(h)
-    return {name: [np.load(out / f"{name}.{r}.npz") for r in range(mesh_kw["dp"] * mesh_kw["sp"])]
+    runs = {name: [np.load(out / f"{name}.{r}.npz") for r in range(mesh_kw["dp"] * mesh_kw["sp"])]
             for name, (mesh_kw, _, _) in cases.items()}
+    for name, (world, _, args) in others.items():
+        runs[name] = [np.load(out / f"{name}.{r}.npz") for r in range(world)]
+    runs["gather-input"] = (gather_x, gather_w)
+    return runs
 
 
 @pytest.mark.parametrize("name", list(MESHES))
@@ -305,11 +326,12 @@ def test_rope_seq2seq_with_unequal_chunk_widths_matches_jax(port_runs, name):
     _hold_to_jax(port_runs[f"rope-{name}"], want_losses, want_norms, want_params)
 
 
-def _dispatch_worker(rank, world, port, init, batches, out_dir):
-    """Steps 1-2 as one ``steps_per_dispatch`` 2 dispatch, step 3 alone."""
+def _dispatch_job(process, rank, world, init, batches, path):
+    """Steps 1-2 as one ``steps_per_dispatch`` 2 dispatch, step 3 alone (a
+    ``port_runs`` job)."""
     from transformer_tpu_torch.parallel.distributed import DistributedTrainer
 
-    mesh = make_mesh(MeshConfig(seq=world), join_job(rank, world, port))
+    mesh = make_mesh(MeshConfig(seq=world), process)
     cfg = ModelConfig(**{**MODEL, "attention_impl": "ring"})
     tcfg = TrainConfig(**TRAIN, steps_per_dispatch=2)
     state = create_train_state(cfg, tcfg, params=params_from_numpy(init, cfg, device="cpu"))
@@ -319,14 +341,12 @@ def _dispatch_worker(rank, world, port, init, batches, out_dir):
     trainer.state, _ = trainer.multi_step(trainer.state, src, tgt)
     trainer.state, _ = trainer.train_step(trainer.state, *batches[2])
     params = {k: v.detach().numpy() for k, v in flatten(trainer.state.params).items()}
-    np.savez(os.path.join(out_dir, f"{rank}.npz"), step=trainer.state.step, **params)
-    torch.distributed.destroy_process_group()
+    np.savez(path, step=trainer.state.step, **params)
 
 
-def test_steps_per_dispatch_over_two_processes_matches_jax(jax_run, tmp_path):
+def test_steps_per_dispatch_over_two_processes_matches_jax(jax_run, port_runs):
     init, want_losses, want_norms, want_params = jax_run
-    spawn(_dispatch_worker, 2, init, [_pairs(30 + i) for i in range(3)], str(tmp_path))
-    runs = [np.load(tmp_path / f"{r}.npz") for r in range(2)]
+    runs = port_runs["dispatch"]
     assert all(int(r["step"]) == 3 for r in runs)
     _hold_to_jax(runs, want_losses, want_norms, want_params, got_losses=False)
 
@@ -338,11 +358,13 @@ def test_steps_per_dispatch_over_two_processes_matches_jax(jax_run, tmp_path):
 DROPOUT_MODEL = {**MODEL, "dropout_rate": 0.1}
 
 
-def _grads_worker(rank, world, port, init, batch, out_dir):
+def _grads_job(process, rank, world, init, batch, path):
+    """One dropout step's loss and gradients over a ring of ``world``
+    (a ``port_runs`` job; rank 0 writes them)."""
     from transformer_tpu_torch.parallel.distributed import _seq_parallel_forward_loss
     from transformer_tpu_torch.train.trainer import loss_and_grads
 
-    mesh = make_mesh(MeshConfig(seq=world), join_job(rank, world, port))
+    mesh = make_mesh(MeshConfig(seq=world), process)
     cfg = ModelConfig(**{**DROPOUT_MODEL, "attention_impl": "ring"})
     params = params_from_numpy(init, cfg, device="cpu")
     for p in flatten(params).values():
@@ -351,19 +373,16 @@ def _grads_worker(rank, world, port, init, batch, out_dir):
     metrics, grads = loss_and_grads(params, tgt, cfg, TrainConfig(**TRAIN), (0, 0),
                                     forward_loss=_seq_parallel_forward_loss(mesh), src=src)
     mesh.all_reduce_sum_([*grads.values(), *metrics.values()])
-    if rank == 0:
-        np.savez(os.path.join(out_dir, "grads.npz"), loss=metrics["loss"].numpy(),
-                 **{k: g.numpy() for k, g in grads.items()})
-    torch.distributed.destroy_process_group()
+    np.savez(path, **({"loss": metrics["loss"].numpy(),
+                       **{k: g.numpy() for k, g in grads.items()}} if rank == 0 else {}))
 
 
-def test_ring_sp4_dropout_draws_the_single_process_masks(jax_run, tmp_path):
+def test_ring_sp4_dropout_draws_the_single_process_masks(jax_run, port_runs):
     from transformer_tpu_torch.train.trainer import loss_and_grads
 
     init = jax_run[0]
     batch = _pairs(7)
-    spawn(_grads_worker, 4, init, batch, str(tmp_path))
-    got = np.load(tmp_path / "grads.npz")
+    got = port_runs["grads"][0]
     src, tgt = (torch.from_numpy(a).long() for a in batch)
 
     def single(model_kw):
@@ -392,26 +411,23 @@ def test_ring_sp4_dropout_draws_the_single_process_masks(jax_run, tmp_path):
 # gather_sequence
 
 
-def _gather_worker(rank, world, port, x, weights, out_dir):
+def _gather_job(process, rank, world, x, weights, path):
+    """This rank's chunk of ``x`` gathered whole, and its gradient when the
+    rank reads the whole with ``weights[rank]`` (a ``port_runs`` job)."""
     from transformer_tpu_torch.parallel.seq_context import SeqParallelContext, gather_sequence
 
-    mesh = make_mesh(MeshConfig(seq=world), join_job(rank, world, port))
+    mesh = make_mesh(MeshConfig(seq=world), process)
     c = x.shape[1] // world
     part = torch.from_numpy(np.ascontiguousarray(x[:, rank * c : (rank + 1) * c]))
     part.requires_grad_(True)
     full = gather_sequence(part, SeqParallelContext(mesh.seq_group, rank, world, rank * c))
     (full * torch.from_numpy(weights[rank])).sum().backward()  # each rank reads it otherwise
-    np.savez(os.path.join(out_dir, f"{rank}.npz"), full=full.detach().numpy(),
-             grad=part.grad.numpy())
-    torch.distributed.destroy_process_group()
+    np.savez(path, full=full.detach().numpy(), grad=part.grad.numpy())
 
 
-def test_gather_sequence_gradient_matches_a_single_process(tmp_path):
-    rng = np.random.default_rng(5)
-    x = rng.standard_normal((2, 16, 8)).astype(np.float32)
-    weights = rng.standard_normal((4, 2, 16, 8)).astype(np.float32)
-    spawn(_gather_worker, 4, x, weights, str(tmp_path))
-    runs = [np.load(tmp_path / f"{r}.npz") for r in range(4)]
+def test_gather_sequence_gradient_matches_a_single_process(port_runs):
+    x, weights = port_runs["gather-input"]
+    runs = port_runs["gather"]
     for run in runs:
         assert np.array_equal(run["full"], x)
     # One process reading x four ways: d/dx of sum_r (x * w_r).sum().

@@ -26,6 +26,7 @@ registry is left alone. Then:
 import ast
 import io
 import os
+import re
 
 import pytest
 
@@ -147,8 +148,13 @@ def test_distributed_train_refuses_moe_over_other_axes_by_name(flag, axis):
         distributed_train.check_flags(train.resolve_flags(
             ["--pp=2", "--moe_experts=4", "--moe_every=1"], distributed_train._FLAGS))
         return
-    with pytest.raises(NotImplementedError, match=f"--{flag} > 1 with --moe_experts"):
-        distributed_train.main([f"--{flag}=2", "--moe_experts=4"])
+    # MoE runs over --ep and --sp; experts that --ep does not divide keep
+    # JAX's refusal
+    distributed_train.check_flags(train.resolve_flags(
+        [f"--{flag}=2", "--moe_experts=4"], distributed_train._FLAGS))
+    if axis == "expert":
+        with pytest.raises(ValueError, match="moe_experts 3 must be divisible by the expert"):
+            distributed_train.main(["--ep=2", "--moe_experts=3"])
 
 
 def test_enum_values_parse_as_jax_spells_them():
@@ -190,11 +196,15 @@ def test_platform_refusals(argv, match):
                                         ("pp_schedule", "1f1b"), ("fsdp", "2"), ("tp", "2"),
                                         ("ep", "2")])
 def test_distributed_train_refuses_unported_axes_by_name(name, value):
-    """--tp, --ep and --dcn_data stay refused by name; the pipe and fsdp
-    flags are accepted and reach the mesh and the train config."""
+    """Every mesh flag is accepted and reaches the mesh and the train
+    config; a world of one cannot hold a --tp or --ep 2 mesh, and
+    --dcn_data 2 does not divide its data axis of one (JAX's message)."""
     argv = [f"--{name}", value, "--device", "cpu"]
     if name in ("dcn_data", "tp", "ep"):
-        with pytest.raises(NotImplementedError, match=f"--{name}"):
+        distributed_train.check_flags(train.resolve_flags(argv, distributed_train._FLAGS))
+        match = ("dcn_data=2 must divide the data axis (1)" if name == "dcn_data"
+                 else "needs 2 processes, have 1")
+        with pytest.raises(ValueError, match=re.escape(match)):
             distributed_train.main(argv)
         return
     args = train.resolve_flags(argv, distributed_train._FLAGS)

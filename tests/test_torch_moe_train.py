@@ -38,7 +38,7 @@ import optax
 import pytest
 import torch
 
-from test_torch_ring_attention import join_job, spawn
+from test_torch_ring_attention import join_job
 from transformer_tpu.config import ModelConfig as JConfig
 from transformer_tpu.config import TrainConfig as JTrain
 from transformer_tpu.models import transformer_apply as j_transformer_apply
@@ -340,27 +340,35 @@ def _dp_worker(rank, world, port, init, batches, out_dir):
 
 @pytest.fixture(scope="module")
 def dp_runs(tmp_path_factory):
-    """The ``--dp 2`` runs of every ``ACCUMS`` value, one spawn."""
+    """The ``--dp 2`` runs of every ``ACCUMS`` value, one spawn, and beside
+    it (while its processes run) the JAX steps and the one-process port's
+    of each: {accum: (the run, the JAX steps, the port's state)}."""
+    from torch_pipeline_jobs import finish, start
+
     out = tmp_path_factory.mktemp("dp")
-    _, init = _jax_init({**LM, "moe_every": 1})
-    spawn(_dp_worker, 2, init, [_ids(70 + i) for i in range(3)], str(out))
-    return {accum: np.load(out / f"dp{accum}.npz") for accum in ACCUMS}
+    model = {**LM, "moe_every": 1}
+    _, init = _jax_init(model)
+    batches = [_ids(70 + i) for i in range(3)]
+    handle = start(_dp_worker, 2, init, batches, str(out))
+    refs = {}
+    for accum in ACCUMS:
+        train = {**TRAIN, "grad_accum_steps": accum}
+        steps = _jax_steps(model, train, batches)
+        refs[accum] = (steps, _port_steps(model, train, steps[0], batches)[0])
+    finish(handle)
+    return {accum: (np.load(out / f"dp{accum}.npz"), *refs[accum]) for accum in ACCUMS}
 
 
 @pytest.mark.parametrize("accum", ACCUMS)
 def test_dp2_matches_jax_single_program(dp_runs, accum):
     model = {**LM, "moe_every": 1}
-    train = {**TRAIN, "grad_accum_steps": accum}
-    batches = [_ids(70 + i) for i in range(3)]
-    init, want_l, want_a, want_p = _jax_steps(model, train, batches)
-    got = dp_runs[accum]
+    got, (init, want_l, want_a, want_p), state = dp_runs[accum]
     for g, w in zip(got["losses"], want_l):
         assert _rel(g, w) <= 1e-5, (list(got["losses"]), want_l)
     for g, w in zip(got["auxes"], want_a):
         assert _rel(g, w) <= 1e-5, (list(got["auxes"]), want_a)
     # The parameters: the one-process port's (which the test above holds
     # to JAX's), up to the rounding of the sum over processes.
-    state, _, _ = _port_steps(model, train, init, batches)
     from transformer_tpu.train.schedule import noam_schedule as j_noam
 
     lr_sum = sum(float(j_noam(model["d_model"], TRAIN["warmup_steps"])(s)) for s in range(3))

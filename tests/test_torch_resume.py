@@ -495,29 +495,40 @@ def test_distributed_micro_batch_must_split_over_data():
                            _fake_mesh(MeshConfig(data=2)))
 
 
-def _torchrun(corpus, tmp_path, ckpt, epochs, report):
+def _torchrun_start(corpus, ckpt, epochs, report, export):
+    """``cli.distributed_train`` on 2 processes under ``torch.distributed
+    .run``, started; ``_torchrun_wait`` waits for it."""
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
     for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(name, None)
-    proc = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
          "-m", "transformer_tpu_torch.cli.distributed_train", "--device", "cpu",
          "--decoder_only", "--target_vocab_size", "400", "--num_layers", "1", "--d_model", "32",
          "--dff", "64", "--num_heads", "4", "--sequence_length", "64", "--batch_size", "8",
          "--dropout_rate", "0.1", "--dataset_path", str(corpus),
          "--tgt_vocab_file", str(corpus / "tgt.subwords"), "--epochs", str(epochs),
-         "--ckpt_path", str(ckpt), "--export_path", str(tmp_path / "export"),
+         "--ckpt_path", str(ckpt), "--export_path", str(export),
          "--metrics_json", str(report)],
-        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT,
     )
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    return proc.stdout, json.loads(report.read_text())["ranks"]
+
+
+def _torchrun_wait(proc, report):
+    stdout, stderr = proc.communicate(timeout=300)
+    assert proc.returncode == 0, stdout[-3000:] + stderr[-3000:]
+    return stdout, json.loads(report.read_text())["ranks"]
 
 
 def test_distributed_train_rank0_writes_and_resumes_over_gloo(corpus, tmp_path):
-    _, whole = _torchrun(corpus, tmp_path, tmp_path / "u", 2, tmp_path / "u.json")
-    _, first = _torchrun(corpus, tmp_path, tmp_path / "r", 1, tmp_path / "r1.json")
-    out, resumed = _torchrun(corpus, tmp_path, tmp_path / "r", 2, tmp_path / "r2.json")
+    # U (two epochs) and R's first epoch run side by side, then R resumes
+    u = _torchrun_start(corpus, tmp_path / "u", 2, tmp_path / "u.json", tmp_path / "u_export")
+    r1 = _torchrun_start(corpus, tmp_path / "r", 1, tmp_path / "r1.json", tmp_path / "r_export")
+    _, whole = _torchrun_wait(u, tmp_path / "u.json")
+    _, first = _torchrun_wait(r1, tmp_path / "r1.json")
+    out, resumed = _torchrun_wait(
+        _torchrun_start(corpus, tmp_path / "r", 2, tmp_path / "r2.json", tmp_path / "r_export"),
+        tmp_path / "r2.json")
     n = first[0]["step"]
     assert f"resuming at epoch 2/2 (step {n})" in out
     assert [r["checkpoint_writer"] for r in resumed] == [True, False]

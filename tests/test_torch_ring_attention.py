@@ -20,6 +20,9 @@ ring over gloo processes against the JAX package, on the same numpy inputs.
   not causal, sp 2 and 4.
 - ``ring_shift`` moves mixed-dtype tensors one and three places round a
   ring of 4.
+- A ring of one with ``reference`` (the plain ring step and chunk
+  backward, which a CUDA tensor runs in place of the kernels) gives the
+  forward and gradients of the default route bit for bit.
 
 Workers are module-level functions run in spawned processes (gloo on the
 CPU, one thread each); they import no JAX.
@@ -177,6 +180,23 @@ def test_chunk_bwd_with_band_matches_jax(causal, band, h_kv):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5, err_msg=label)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_of_one_reference_matches_the_default_route(causal):
+    from transformer_tpu_torch.parallel.ring_attention import ring_attention
+
+    spec = dict(h_kv=2, mask=True)
+    q, _, (k, v), do, mask = _step_inputs(spec, seed=2)
+    runs = []
+    for reference in (False, True):
+        q_t, k_t, v_t = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+        out = ring_attention(q_t, k_t, v_t, group=None, kv_mask=torch.from_numpy(mask),
+                             causal=causal, reference=reference)
+        out.backward(torch.from_numpy(do))
+        runs.append([out.detach(), q_t.grad, k_t.grad, v_t.grad])
+    for got, want, label in zip(runs[1], runs[0], ("out", "dq", "dk", "dv")):
+        assert torch.equal(got, want), label
+
+
 # --------------------------------------------------------------------------
 # the ring over gloo processes
 
@@ -206,7 +226,10 @@ def _ring_inputs(spec, seed=3):
     return q, k, v, do, mask
 
 
-def _ring_worker(rank, world, port, names, out_dir):
+def _ring_worker(rank, world, port, names, out_dir, shift_dir=None):
+    """Each ring case of ``names``, this rank's outputs and gradients
+    written to ``<rank>.npz``; with ``shift_dir``, then the ``ring_shift``
+    case (``_shift_case``)."""
     from transformer_tpu_torch.parallel.mesh import make_mesh
     from transformer_tpu_torch.config import MeshConfig
     from transformer_tpu_torch.parallel.ring_attention import ring_attention
@@ -227,6 +250,8 @@ def _ring_worker(rank, world, port, names, out_dir):
         for key, x in (("out", out), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad)):
             results[f"{name}/{key}"] = x.detach().numpy()
     np.savez(os.path.join(out_dir, f"{rank}.npz"), **results)
+    if shift_dir is not None:
+        _shift_case(mesh, rank, shift_dir)
     torch.distributed.destroy_process_group()
 
 
@@ -237,19 +262,23 @@ def _assemble(out_dir, world):
 
 @pytest.fixture(scope="module")
 def ring_runs(tmp_path_factory):
-    """Every ring case, one spawn per ring size, the two started together."""
+    """Every ring case, one spawn per ring size, the two started together;
+    the ring of 4 also takes the ``ring_shift`` case (``runs["shift"]``,
+    its directory)."""
     os.environ["OMP_NUM_THREADS"] = "1"
     started = []
+    shift = tmp_path_factory.mktemp("shift")
     for sp in (2, 4):
         names = [n for n, s in RING_CASES.items() if s["sp"] == sp]
         out = tmp_path_factory.mktemp(f"ring{sp}")
-        started.append((sp, out, mp.spawn(_ring_worker, args=(sp, free_port(), names, str(out)),
-                                          nprocs=sp, join=False)))
+        args = (sp, free_port(), names, str(out), str(shift) if sp == 4 else None)
+        started.append((sp, out, mp.spawn(_ring_worker, args=args, nprocs=sp, join=False)))
     runs = {}
     for sp, out, context in started:
         while not context.join():
             pass
         runs.update(_assemble(out, sp))
+    runs["shift"] = shift
     return runs
 
 
@@ -307,12 +336,9 @@ def test_ring_matches_jax_ring(ring_runs):
                                    atol=1e-5, err_msg=key)
 
 
-def _shift_worker(rank, world, port, out_dir):
-    from transformer_tpu_torch.config import MeshConfig
-    from transformer_tpu_torch.parallel.mesh import make_mesh
+def _shift_case(mesh, rank, out_dir):
     from transformer_tpu_torch.parallel.ring_attention import ring_shift
 
-    mesh = make_mesh(MeshConfig(seq=world), join_job(rank, world, port))
     tensors = [torch.full((3,), float(rank), dtype=torch.bfloat16),
                torch.tensor([rank % 2 == 0] * 5), torch.arange(7, dtype=torch.float32) + rank]
     one = ring_shift(tensors, mesh.seq_group)
@@ -321,13 +347,11 @@ def _shift_worker(rank, world, port, out_dir):
              **{f"one{i}": t.float().numpy() for i, t in enumerate(one)},
              **{f"three{i}": t.float().numpy() for i, t in enumerate(three)},
              dtypes=np.array([str(t.dtype) for t in one + three]))
-    torch.distributed.destroy_process_group()
 
 
-def test_ring_shift_moves_each_chunk_round_the_ring(tmp_path):
-    spawn(_shift_worker, 4, str(tmp_path))
+def test_ring_shift_moves_each_chunk_round_the_ring(ring_runs):
     for rank in range(4):
-        got = np.load(tmp_path / f"{rank}.npz")
+        got = np.load(ring_runs["shift"] / f"{rank}.npz")
         for label, offset in (("one", 1), ("three", 3)):
             src = (rank - offset) % 4
             np.testing.assert_array_equal(got[f"{label}0"], np.full(3, src))

@@ -107,11 +107,16 @@ def test_batch_spec_matches_jax(shard_seq):
 
 
 def test_shard_bounds_name_the_window():
-    t = torch.arange(24.0).reshape(4, 6)
-    assert torch.equal(sharding.shard(t, 1, 1, 2), t[:, 3:])
-    assert sharding.bounds((4, 6), 1, 1, 2) == ((0, 4), (3, 6))
-    assert sharding.bounds((), None, 0, 2) == ()
-    assert sharding.shard(t, None, 1, 2) is t
+    # rank 3 of fsdp 2 x model 2: fsdp slice 1, model slice 1
+    mesh = Mesh(MeshConfig(fsdp=2, model=2), Process(3, 4, torch.device("cpu"), "gloo"),
+                (0, 1, 1, 0, 0, 0), None)
+    t = torch.arange(48.0).reshape(4, 6, 2)
+    split = sharding.leaf_split("decoder/layers/0/self_mha/query/kernel", t.shape, mesh.shape)
+    assert split == {0: "fsdp", 1: "model"}
+    assert sharding.leaf_bounds(t.shape, split, mesh) == ((2, 4), (3, 6), (0, 2))
+    assert torch.equal(sharding.shard_leaf(t, split, mesh), t[2:, 3:])
+    assert sharding.leaf_bounds((), {}, mesh) == ()
+    assert sharding.shard_leaf(t, {}, mesh) is t
 
 
 # --------------------------------------------------------------------------

@@ -16,17 +16,17 @@ numpy inputs.
   (``tests/test_sequence_parallel.py::test_ulysses_rejects_indivisible_heads``).
 
 Workers are module-level functions run in spawned processes (gloo on the
-CPU, one thread each); they import no JAX.
+CPU, one thread each); they import no JAX. One spawn per ring size, the two
+started together, compute every case (``runs``).
 """
 
 import os
-import tempfile
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_ring_attention import join_job, spawn
+from test_torch_ring_attention import join_job
 
 CASES = {
     "causal_pad_sp4": dict(sp=4, causal=True),
@@ -57,7 +57,10 @@ def _inputs(spec, seed=4):
     return q, k, v, do, mask
 
 
-def _worker(rank, world, port, names, out_dir):
+def _worker(rank, world, port, names, out_dir, raises=False):
+    """Each case of ``names`` over this ring, this rank's outputs and
+    gradients written to ``<rank>.npz``; with ``raises``, then the
+    indivisible-heads calls, rank 0's messages written to ``messages.npz``."""
     from transformer_tpu_torch.config import MeshConfig
     from transformer_tpu_torch.parallel.mesh import make_mesh
     from transformer_tpu_torch.parallel.seq_context import (
@@ -81,6 +84,10 @@ def _worker(rank, world, port, names, out_dir):
         for key, x in (("out", out), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad)):
             results[f"{name}/{key}"] = x.detach().numpy()
     np.savez(os.path.join(out_dir, f"{rank}.npz"), **results)
+    if raises:
+        messages = _indivisible_heads_messages(mesh)
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "messages.npz"), messages=np.asarray(messages))
     torch.distributed.destroy_process_group()
 
 
@@ -91,13 +98,21 @@ def _assemble(out_dir, world):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every case, one spawn per ring size."""
-    out = {}
+    """Every case, one spawn per ring size, started together (the ring of 4
+    also takes the indivisible-heads calls)."""
+    from torch_pipeline_jobs import finish, start
+
+    paths, handles = {}, []
     for sp in (2, 4):
         names = [n for n, s in CASES.items() if s["sp"] == sp]
-        path = tmp_path_factory.mktemp(f"ulysses{sp}")
-        spawn(_worker, sp, names, str(path))
+        paths[sp] = tmp_path_factory.mktemp(f"ulysses{sp}")
+        handles.append(start(_worker, sp, names, str(paths[sp]), sp == 4))
+    for h in handles:
+        finish(h)
+    out = {}
+    for sp, path in paths.items():
         out.update(_assemble(path, sp))
+    out["messages"] = list(np.load(paths[4] / "messages.npz")["messages"])
     return out
 
 
@@ -128,7 +143,7 @@ def test_ulysses_matches_jax_dense_attention(runs, name):
                                    err_msg=key)
 
 
-def test_ulysses_matches_jax_ulysses():
+def test_ulysses_matches_jax_ulysses(runs):
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -145,20 +160,14 @@ def test_ulysses_matches_jax_ulysses():
 
     want_out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
     want = (want_out, *vjp(jnp.asarray(do)))
-    with tempfile.TemporaryDirectory() as out_dir:
-        spawn(_worker, 4, [name], out_dir)
-        got = _assemble(out_dir, 4)
     for key, w in zip(("out", "dq", "dk", "dv"), want):
-        np.testing.assert_allclose(got[f"{name}/{key}"], np.asarray(w), rtol=1e-5, atol=1e-5,
+        np.testing.assert_allclose(runs[f"{name}/{key}"], np.asarray(w), rtol=1e-5, atol=1e-5,
                                    err_msg=key)
 
 
-def _raise_worker(rank, world, port, out_dir):
-    from transformer_tpu_torch.config import MeshConfig
-    from transformer_tpu_torch.parallel.mesh import make_mesh
+def _indivisible_heads_messages(mesh) -> list[str]:
     from transformer_tpu_torch.parallel.ring_attention import ulysses_attention
 
-    mesh = make_mesh(MeshConfig(seq=world), join_job(rank, world, port))
     messages = []
     for h, h_kv in ((6, 6), (4, 2)):  # 6 heads over 4; then kv heads not repeated first
         x, kv = torch.zeros(2, 8, h, 16), torch.zeros(2, 8, h_kv, 16)
@@ -166,13 +175,11 @@ def _raise_worker(rank, world, port, out_dir):
             ulysses_attention(x, kv, kv, group=mesh.seq_group)
         except ValueError as e:
             messages.append(str(e))
-    np.savez(os.path.join(out_dir, f"{rank}.npz"), messages=np.asarray(messages))
-    torch.distributed.destroy_process_group()
+    return messages
 
 
-def test_ulysses_rejects_indivisible_heads(tmp_path):
-    spawn(_raise_worker, 4, str(tmp_path))
-    messages = list(np.load(tmp_path / "0.npz")["messages"])
+def test_ulysses_rejects_indivisible_heads(runs):
+    messages = runs["messages"]
     assert messages == [
         "ulysses needs num_heads (6) divisible by the seq axis (4)",
         "ulysses with grouped kv needs kv heads (2) divisible by the seq axis (4); repeat kv "

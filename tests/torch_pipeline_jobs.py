@@ -1,15 +1,19 @@
-"""The port's side of the pipe and fsdp tests (``test_torch_pipeline.py``,
-``test_torch_sharding.py``): jobs run by gloo processes on the CPU, many
-cases to one spawn. This module imports no JAX, so the spawned processes
-start quickly.
+"""The port's side of the pipe, fsdp, tensor- and expert-parallel tests
+(``test_torch_pipeline.py``, ``test_torch_sharding.py``,
+``test_torch_tensor_parallel.py``, ``test_torch_expert_parallel.py``):
+jobs run by gloo processes on the CPU, many cases to one spawn. This
+module imports no JAX, so the spawned processes start quickly.
 
-A job is a dict: ``name``, ``kind`` ("train", "forward", "restore" or "roundtrip"),
+A job is a dict: ``name``, ``kind`` ("train", "forward", "restore",
+"roundtrip" or "dcn"),
 ``mesh`` (``MeshConfig`` fields), ``model`` and ``train`` (config
 fields), ``init`` (flat JAX-named arrays), and per kind ``batches`` ((src,
 tgt) pairs), ``ckpt`` (a directory to save into after training, or to
 restore from), ``hidden``/``mbs`` (forward), optionally ``wait_for`` (a
 path to wait for before the job runs); "roundtrip" splits each leaf of
-``init`` over fsdp and gathers it back. Rank 0 writes
+``init`` over the axes its rules name and gathers it back; "dcn" lays a
+``dcn_data`` mesh over ranks that take ``nodes[rank]`` for their node and
+writes each rank's coordinates (or the error). Rank 0 writes
 ``<out>/<name>.npz``; a forward job writes one file per rank
 (``<name>.r<rank>.npz``) with the rows that rank holds.
 """
@@ -27,8 +31,8 @@ from test_torch_ring_attention import join_job, spawn
 
 
 def _gathered_state(trainer) -> dict[str, np.ndarray]:
-    """The whole train state under its flat checkpoint names: each fsdp
-    slice gathered over its group."""
+    """The whole train state under its flat checkpoint names: each slice
+    gathered over the axes that split it."""
     from transformer_tpu_torch.parallel import sharding
     from transformer_tpu_torch.train.checkpoint import to_numpy
     from transformer_tpu_torch.train.state import state_to_flat
@@ -37,7 +41,7 @@ def _gathered_state(trainer) -> dict[str, np.ndarray]:
     out = {}
     for key, v in state_to_flat(trainer.state).items():
         if isinstance(v, torch.Tensor):
-            v = sharding.gather(v.detach(), trainer.mesh, lay.dims.get(key))
+            v = sharding.gather_leaf(v.detach(), lay.splits.get(key, {}), trainer.mesh)
         out[key] = to_numpy(v)
     return out
 
@@ -78,10 +82,10 @@ def _run(job, mesh, rank, out):
         same = []
         for name, arr in job["init"].items():
             full = torch.from_numpy(arr.copy())
-            dim = sharding.fsdp_dim(name, full.shape, mesh.shape)
-            part = sharding.shard(full, dim, mesh.index("fsdp"), mesh.shape["fsdp"])
-            back = sharding.gather(part, mesh, dim)
-            same.append(dim is not None and torch.equal(back, full))
+            split = sharding.leaf_split(name, full.shape, mesh.shape)
+            part = sharding.shard_leaf(full, split, mesh)
+            back = sharding.gather_leaf(part, split, mesh)
+            same.append(bool(split) and torch.equal(back, full))
             assert torch.equal(back, full), name
         if rank == 0:
             np.savez(path + ".npz", split=sum(same), leaves=len(same))
@@ -121,8 +125,27 @@ def _worker(rank, world, port, jobs_path, out):
     for job in jobs:
         if job.get("wait_for"):
             _wait_for(job["wait_for"])
+        if job["kind"] == "dcn":
+            _dcn(job, process, rank, out)
+            continue
         _run(job, make_mesh(MeshConfig(**job["mesh"]), process), rank, out)
     torch.distributed.destroy_process_group()
+
+
+def _dcn(job, process, rank, out):
+    import dataclasses
+
+    from transformer_tpu_torch.config import MeshConfig
+    from transformer_tpu_torch.parallel.mesh import make_mesh
+
+    node = dataclasses.replace(process, node=job["nodes"][rank])
+    path = os.path.join(out, f"{job['name']}.r{rank}.npz")
+    try:
+        mesh = make_mesh(MeshConfig(**job["mesh"]), node)
+        np.savez(path, coords=np.asarray(mesh.coords), order=np.asarray(mesh.order),
+                 peer=mesh.rank_at(data=(mesh.index("data") + 1) % mesh.shape["data"]))
+    except ValueError as e:
+        np.savez(path, error=str(e))
 
 
 def _wait_for(path: str, timeout: float = 600.0) -> None:

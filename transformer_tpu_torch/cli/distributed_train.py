@@ -1,5 +1,5 @@
 """Train a seq2seq translator or a decoder-only LM over several processes:
-data × fsdp × sequence × pipeline parallel.
+data × fsdp × tensor × sequence × pipeline × expert parallel.
 
     python -m torch.distributed.run --standalone --nproc_per_node 4 \\
         -m transformer_tpu_torch.cli.distributed_train --preset base \\
@@ -15,6 +15,16 @@ data × fsdp × sequence × pipeline parallel.
         --attention_impl flash --fsdp 2 --pp 2 --pp_microbatches 4 \
         --pp_schedule 1f1b --epochs 1 --dataset_path data \
         --src_vocab_file src_vocab.subwords --tgt_vocab_file tgt_vocab.subwords
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m transformer_tpu_torch.cli.distributed_train --preset long4k --decoder_only \
+        --moe_experts 8 --moe_every 2 --attention_impl flash --tp 2 --ep 2 --epochs 1 \
+        --dataset_path data --tgt_vocab_file tgt_vocab.subwords
+    # two nodes of two processes each, the data axis across them
+    python -m torch.distributed.run --nnodes 2 --node_rank <0|1> --nproc_per_node 2 \
+        --master_addr <host of node 0> --master_port 29500 \
+        -m transformer_tpu_torch.cli.distributed_train --preset base --tp 2 --dp 2 \
+        --dcn_data 2 --epochs 1 --dataset_path data \
+        --src_vocab_file src_vocab.subwords --tgt_vocab_file tgt_vocab.subwords
 
 Port of ``transformer_tpu/cli/distributed_train.py``. The flags are
 ``cli.train``'s plus the mesh: ``--dp`` (0 = every process not used by
@@ -22,7 +32,10 @@ the other axes), ``--fsdp`` (parameters and optimizer state split over
 processes that also split the batch), ``--sp`` (the sequence split, with
 ``--attention_impl ring`` or ``ulysses``), ``--pp`` (layer stages, with
 ``--pp_microbatches`` (0 = ``--pp``) and ``--pp_schedule gpipe|1f1b``),
-and ``--tp/--ep/--dcn_data``, which raise above 1. Without the launcher's
+``--tp`` (attention heads, dff and the output vocabulary split over
+processes, ``parallel/collectives.py``), ``--ep`` (MoE experts split over
+processes that also split the batch) and ``--dcn_data`` (how many nodes
+the data axis spans; every other axis stays inside a node). Without the launcher's
 environment it runs as a world of one. Each process reads the same data (the same global batches
 in the same order: the native loader's by default, as ``cli.train``'s,
 length buckets and ``--streaming`` included) and keeps its part of each
@@ -31,13 +44,14 @@ a missing vocabulary before the others read it, logs, and runs the
 epilogue of ``cli.train``: for seq2seq the sample translation, the export
 and ``--eval_bleu``; for an LM the eval loss and the export.
 ``--consistency_check`` asserts after every epoch, and once on the final
-parameters, that every process holds the same parameter bytes
-(``utils.consistency``). Checkpoints follow ``cli.train``'s flags
+parameters, that every process holds the same parameter bytes as every
+other process holding the same slice (``utils.consistency``). Checkpoints follow ``cli.train``'s flags
 (``--ckpt_path``, ``--max_ckpt_keep``, ``--async_checkpoint``): rank 0
 writes them, every rank restores the newest at start. The transport
 (NCCL, or gloo through host memory when ranks share a card or run on the
 CPU) is chosen at start-up and logged. ``--metrics_json`` writes every
-rank's step times, dispatch losses, kernel launch counts, staged bytes
+rank's step times, dispatch losses, kernel launch counts (and the query
+heads they ran over), staged bytes
 by kind, step, whether it writes checkpoints, the consistency check's
 outcome and time, a digest of its parameters, the bytes of parameters
 and optimizer state it holds and its card's peak allocation, gathered
@@ -45,9 +59,9 @@ on rank 0.
 Rank 0 alone owns the telemetry (``--metrics_jsonl``, ``--trace``, ...),
 the ``--profile_dir`` window and the TensorBoard logs, as in the JAX CLI:
 the metrics it records are already summed over the processes. Under
-``--fsdp`` the checkpoints are JAX's ``sharded-v1`` (every process writes
-its slices), and the epilogue gathers the parameters to every process
-first, as JAX's ``process_allgather`` does.
+``--fsdp``, ``--tp`` or ``--ep`` the checkpoints are JAX's ``sharded-v1``
+(one process writes each distinct slice), and the epilogue gathers the
+parameters to every process first, as JAX's ``process_allgather`` does.
 """
 
 from __future__ import annotations
@@ -64,13 +78,16 @@ _FLAGS: dict[str, tuple] = {
     **train._FLAGS,
     "dp": (int, 0, "data-parallel mesh size (0 = the processes left by the other axes)"),
     "fsdp": (int, 1, "fsdp mesh size: parameters and optimizer state split over processes"),
-    "tp": (int, 1, "tensor-parallel mesh size (only 1 is ported)"),
+    "tp": (int, 1, "tensor-parallel mesh size: attention heads, dff and the vocabulary "
+           "split over processes"),
     "sp": (int, 1, "sequence-parallel mesh size (ring or ulysses attention)"),
     "pp": (int, 1, "pipeline-parallel mesh size: layer stages (GPipe or 1F1B)"),
-    "ep": (int, 1, "expert-parallel mesh size (only 1 is ported)"),
+    "ep": (int, 1, "expert-parallel mesh size: MoE experts split over processes (which "
+           "also split the batch)"),
     "metrics_json": (str, "", "write every rank's counters and step times here (rank 0)"),
     "consistency_check": (train._bool, False, "assert after every epoch and at the end that "
-                          "every process holds bit-identical parameters"),
+                          "every process holding the same slice of a parameter holds the "
+                          "same bytes"),
 }
 
 
@@ -91,6 +108,8 @@ def _report(trainer, process, consistency: dict) -> dict:
         "rank": process.rank, "device": str(process.device), "transport": process.transport,
         "launches": {f.__name__: f.launches
                      for f in (flash_fwd, flash_ring_step, flash_dq, flash_dkdv)},
+        "launch_heads": {f.__name__: f.heads
+                         for f in (flash_fwd, flash_ring_step, flash_dq, flash_dkdv)},
         "staged_bytes": dict(staged_bytes), "step_seconds": trainer.step_seconds,
         "losses": trainer.losses, "tokens": trainer.tokens,
         "target_tokens": trainer.train_metrics.weight, "eval_batches": trainer.eval_batches,
@@ -111,16 +130,11 @@ def _report(trainer, process, consistency: dict) -> dict:
 
 
 def check_flags(args) -> None:
-    """The flag-level refusals, before any process joins: MoE over the axes
-    the port does not run it on, and the mesh axes that are not ported."""
+    """The flag-level refusals, before any process joins: JAX's MoE mesh
+    checks (a homogeneous stack over ``--pp``, experts ``--ep`` divides)."""
     from transformer_tpu_torch.parallel.distributed import check_moe_mesh
 
     check_moe_mesh(args, {"expert": args.ep, "seq": args.sp, "pipe": args.pp})
-    for name in ("tp", "ep", "dcn_data"):
-        if getattr(args, name) > 1:
-            raise NotImplementedError(
-                f"--{name} > 1 is not ported yet; the port runs --dp, --fsdp, --sp and --pp"
-            )
 
 
 def main(argv: list[str] | None = None, log_fn=print):
@@ -135,13 +149,19 @@ def main(argv: list[str] | None = None, log_fn=print):
     from transformer_tpu_torch.config import MeshConfig
     from transformer_tpu_torch.parallel.distributed import DistributedTrainer
     from transformer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
-    from transformer_tpu_torch.utils.consistency import assert_cross_process_consistent
+    from transformer_tpu_torch.models.transformer import flatten
+    from transformer_tpu_torch.utils.consistency import (
+        assert_cross_process_consistent,
+        assert_slices_consistent,
+    )
 
     process = initialize_distributed(args.device, log_fn)
     log = log_fn if process.rank == 0 else (lambda *_: None)
     try:
-        dp = args.dp or max(1, process.world_size // (args.sp * args.fsdp * args.pp))
-        mesh = make_mesh(MeshConfig(data=dp, fsdp=args.fsdp, seq=args.sp, pipe=args.pp),
+        others = args.sp * args.fsdp * args.pp * args.tp * args.ep
+        dp = args.dp or max(1, process.world_size // others)
+        mesh = make_mesh(MeshConfig(data=dp, fsdp=args.fsdp, model=args.tp, seq=args.sp,
+                                    pipe=args.pp, expert=args.ep, dcn_data=args.dcn_data),
                          process)
         log(f"mesh: {mesh.shape} over {process.world_size} processes")
         train_cfg = train.train_config(args)
@@ -164,9 +184,11 @@ def main(argv: list[str] | None = None, log_fn=print):
 
         def check(label: str) -> None:
             t0 = time.perf_counter()
-            split = any(d is not None for d in trainer.dims.values())
-            assert_cross_process_consistent(
-                trainer.full_params() if split else trainer.state.params, label=label)
+            if trainer.split:  # each slice among its holders
+                assert_slices_consistent(flatten(trainer.state.params), trainer.replica_axes,
+                                         mesh, label=label)
+            else:
+                assert_cross_process_consistent(trainer.state.params, label=label)
             seconds = time.perf_counter() - t0
             consistency["checks"] += 1
             consistency["seconds"] += seconds
@@ -183,7 +205,7 @@ def main(argv: list[str] | None = None, log_fn=print):
         if telemetry is not None:
             telemetry.close()
         whole = trainer
-        if any(d is not None for d in trainer.dims.values()):
+        if trainer.split:
             whole = copy.copy(trainer)  # every process gathers; rank 0 uses them
             whole.state = dataclasses.replace(trainer.state, params=trainer.full_params())
         if process.rank == 0:

@@ -312,6 +312,7 @@ def flash_fwd(q, k, v, *, kv_mask=None, causal=False, band=None):
     )
     build.check(status, "flash_fwd")
     flash_fwd.launches += 1
+    flash_fwd.heads += q.shape[2]
     return out, lse
 
 
@@ -358,6 +359,7 @@ def flash_ring_step(q, k, v, kv_mask, m, l, acc, *, causal=False, band=None):
     )
     build.check(status, "flash_ring_step")
     flash_ring_step.launches += 1
+    flash_ring_step.heads += q.shape[2]
     return m, l, acc
 
 
@@ -398,6 +400,7 @@ def flash_dq(q, k, v, do, lse, delta, *, kv_mask=None, causal=False, band=None):
     )
     build.check(status, "flash_dq")
     flash_dq.launches += 1
+    flash_dq.heads += q.shape[2]
     return dq
 
 
@@ -430,26 +433,33 @@ def flash_dkdv(q, k, v, do, lse, delta, *, kv_mask=None, causal=False, band=None
     )
     build.check(status, "flash_dkdv")
     flash_dkdv.launches += 1
+    flash_dkdv.heads += q.shape[2]
     return dk, dv
 
 
-def flash_chunk_bwd(q, k, v, kv_mask, lse, delta, do, *, causal=False, band=None):
+def flash_chunk_bwd(q, k, v, kv_mask, lse, delta, do, *, causal=False, band=None,
+                    reference=False):
     """(dq, dk, dv) for one (q, KV chunk) pair from the GLOBAL per-row
     ``lse`` and ``delta``, in the inputs' dtypes: ``flash_dq`` then
-    ``flash_dkdv``. Ring attention calls it once per hop and sums; the sum
-    is exact because P recomputed from the global lse is the true
-    probability tile."""
+    ``flash_dkdv`` (their plain versions with ``reference``). Ring
+    attention calls it once per hop and sums; the sum is exact because P
+    recomputed from the global lse is the true probability tile."""
     kw = dict(kv_mask=kv_mask, causal=causal, band=band)
-    dq = flash_dq(q, k, v, do, lse, delta, **kw)
-    dk, dv = flash_dkdv(q, k, v, do, lse, delta, **kw)
+    dq = (flash_dq_plain if reference else flash_dq)(q, k, v, do, lse, delta, **kw)
+    dk, dv = (flash_dkdv_plain if reference else flash_dkdv)(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
 
 
-# Kernel launches since the last reset (the plain versions do not count).
+# Kernel launches since the last reset (the plain versions do not count),
+# and the query heads those launches ran over, summed.
 flash_fwd.launches = 0
 flash_ring_step.launches = 0
 flash_dq.launches = 0
 flash_dkdv.launches = 0
+flash_fwd.heads = 0
+flash_ring_step.heads = 0
+flash_dq.heads = 0
+flash_dkdv.heads = 0
 
 
 # --------------------------------------------------------------------------

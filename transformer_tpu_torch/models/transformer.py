@@ -33,6 +33,7 @@ from transformer_tpu_torch.models.encoder import _add_aux, _subkey, encoder_appl
 from transformer_tpu_torch.ops.masks import make_padding_mask
 from transformer_tpu_torch.ops.moe import glorot_experts
 from transformer_tpu_torch.ops.nn import GlobalSlice, Params, dense_apply, embedding_attend
+from transformer_tpu_torch.parallel import collectives as _collectives
 
 SEP = "/"
 
@@ -186,10 +187,14 @@ def init_params(
 
 def project_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """(..., d_model) hiddens -> (..., V) raw logits, tied (through the
-    one tower's table) or untied."""
+    one tower's table) or untied; inside a model-parallel context with the
+    vocabulary split over ``model``, this rank's (..., V/tp) columns."""
     if cfg.tie_output:
         tower = "encoder" if cfg.encoder_only else "decoder"
         return embedding_attend(params[tower]["embedding"], x)
+    tp = _collectives.current()
+    if tp is not None and tp.vocab:  # this rank's vocabulary columns
+        x = _collectives.copy_to_model(x)
     return dense_apply(params["final"], x)
 
 

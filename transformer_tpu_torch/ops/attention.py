@@ -30,6 +30,7 @@ from transformer_tpu_torch.ops.masks import (
     make_rolling_prefill_mask,
 )
 from transformer_tpu_torch.ops.nn import Params
+from transformer_tpu_torch.parallel import collectives as _collectives
 
 
 def dot_product_attention(
@@ -77,11 +78,14 @@ def _project(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
     ) + p["bias"].to(dtype)
 
 
-def out_project(p: Params, out: torch.Tensor, dtype) -> torch.Tensor:
-    # (B, S, H, D) @ (H, D, M) -> (B, S, M)
-    return torch.einsum("bshd,hdm->bsm", out, p["kernel"].to(dtype)) + p[
-        "bias"
-    ].to(dtype)
+def out_project(p: Params, out: torch.Tensor, dtype, reduce: bool = False) -> torch.Tensor:
+    """(B, S, H, D) @ (H, D, M) -> (B, S, M); ``reduce`` (heads split over
+    ``model``) sums the partial products over the model group before the
+    replicated bias."""
+    y = torch.einsum("bshd,hdm->bsm", out, p["kernel"].to(dtype))
+    if reduce:
+        y = _collectives.reduce_from_model(y)
+    return y + p["bias"].to(dtype)
 
 
 def project_kv(params: Params, x_kv: torch.Tensor, dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -130,7 +134,11 @@ def mha_apply(
     global position under ``"ring"``. ``impl="ring"`` runs inside
     ``parallel.seq_context.sequence_parallel``: the inputs are this
     process's sequence chunk and the keys come round the ring.
-    ``reference`` runs the flash kernels' plain versions on any device."""
+    ``reference`` runs the flash kernels' plain versions on any device.
+    Inside ``parallel.collectives.model_parallel`` with heads split over
+    ``model``, the parameters are this rank's heads: it attends over them
+    and sums the output projection over the model group before its
+    bias."""
     if window and not causal:
         raise ValueError(
             "window requires causal=True; bidirectional local attention is not implemented"
@@ -148,12 +156,19 @@ def mha_apply(
                 "parallel.seq_context.sequence_parallel)"
             )
     dtype = x_q.dtype
-    q = _project(params["query"], x_q, dtype)
+    tp = _collectives.current()
+    split = tp is not None and tp.heads and precomputed_kv is None
+    q_in, kv_in = x_q, x_kv
+    if split:  # column-split q (and k/v): their input's gradient sums over model
+        q_in = _collectives.copy_to_model(x_q)
+        if tp.kv:
+            kv_in = q_in if x_kv is x_q else _collectives.copy_to_model(x_kv)
+    q = _project(params["query"], q_in, dtype)
     if precomputed_kv is not None:
         k, v = (t.to(dtype) for t in precomputed_kv)
     else:
-        k = _project(params["key"], x_kv, dtype)
-        v = _project(params["value"], x_kv, dtype)
+        k = _project(params["key"], kv_in, dtype)
+        v = _project(params["value"], kv_in, dtype)
     if rope:
         from transformer_tpu_torch.ops.positional import apply_rope
 
@@ -163,6 +178,12 @@ def mha_apply(
         q = apply_rope(q, positions)
         if precomputed_kv is None:
             k = apply_rope(k, positions)
+    if split and not tp.kv:
+        # whole kv heads (the model axis does not divide them): repeated to
+        # the query heads, this rank's heads taken (JAX's fallback)
+        reps = q.shape[2] * tp.tp // k.shape[2]
+        k = _collectives.scatter_to_model(k.repeat_interleave(reps, dim=2), 2)
+        v = _collectives.scatter_to_model(v.repeat_interleave(reps, dim=2), 2)
     weights = None
     if impl == "flash":
         from transformer_tpu_torch.kernels.flash_attention import flash_attention
@@ -179,7 +200,8 @@ def mha_apply(
         kv_mask = _kv_padding_mask(mask, impl)
         if kv_mask is not None:
             kv_mask = kv_mask.expand(q.shape[0], k.shape[1])
-        out = seq_parallel_attention(ctx, impl, q, k, v, kv_mask, causal, window=window)
+        out = seq_parallel_attention(ctx, impl, q, k, v, kv_mask, causal, window=window,
+                                     reference=reference)
     else:
         if causal:
             cmask = make_causal_mask(x_q.shape[1], window, device=x_q.device)
@@ -187,7 +209,7 @@ def mha_apply(
         out = dot_product_attention(q, k, v, mask, return_weights=return_weights)
         if return_weights:
             out, weights = out
-    out = out_project(params["out"], out, dtype)
+    out = out_project(params["out"], out, dtype, reduce=split)
     return (out, weights) if return_weights else out
 
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from transformer_tpu_torch.config import is_gated
 from transformer_tpu_torch.ops.nn import Params, dense_apply, layernorm_apply
+from transformer_tpu_torch.parallel import collectives as _collectives
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -35,12 +36,33 @@ _ACT_CODE = {
 
 
 def ffn_apply(params: Params, x: torch.Tensor, activation: str = "relu") -> torch.Tensor:
+    """The FFN. Inside ``parallel.collectives.model_parallel`` with dff
+    split over ``model``, ``in``/``gate`` are this rank's columns and it
+    reads its rows of ``out`` (whole, by the partition rules): the partial
+    products are summed over the model group before ``out/bias``."""
+    tp = _collectives.current()
+    split = tp is not None and tp.ffn
+    if split:
+        x = _collectives.copy_to_model(x)
     if is_gated(activation):
         act = _GATED_ACTIVATIONS[activation]
         h = act(dense_apply(params["gate"], x)) * dense_apply(params["in"], x)
-        return dense_apply(params["out"], h)
-    h = _ACTIVATIONS[activation](dense_apply(params["in"], x))
-    return dense_apply(params["out"], h)
+    else:
+        h = _ACTIVATIONS[activation](dense_apply(params["in"], x))
+    return _out_apply(params["out"], h, tp if split else None)
+
+
+def _out_apply(p: Params, h: torch.Tensor, tp=None) -> torch.Tensor:
+    """``out`` over ``h``; with ``tp`` (dff split over ``model``) this
+    rank's rows of the kernel, the partial products summed over the model
+    group before the replicated bias."""
+    kernel = p["kernel"]
+    if tp is not None and kernel.shape[0] != h.shape[-1]:  # a whole kernel: its rows
+        kernel = kernel.narrow(0, tp.model_rank * h.shape[-1], h.shape[-1])
+    y = torch.matmul(h, kernel.to(h.dtype))
+    if tp is not None:
+        y = _collectives.reduce_from_model(y)
+    return y + p["bias"].to(h.dtype)
 
 
 def _check_args(norm_scheme: str, activation: str) -> None:

@@ -37,13 +37,21 @@ are distinct, so no float atomics run and the step is bit-reproducible
 (the backward of ``index_add_``/``scatter_add_`` or of an advanced-index
 gather with repeated indices is not, on CUDA).
 
-``expert_mesh`` and ``_constrain`` of the twin are GSPMD sharding hints
-with no counterpart on one card. Under ``--dp`` the statistic's ``f_e``
-and live-token count must be the global batch's, as in the JAX package's
-single SPMD program: ``moe_stats_reducer`` installs the sum across
-processes (``parallel.distributed``); only ``p_e`` carries a gradient,
-so each process's aux is its share of ``E * sum_e f_e * p_e`` and the
-shares sum to the global value and gradient.
+``expert_mesh`` and ``_constrain`` of the twin are GSPMD sharding hints;
+over processes they are collectives (``parallel/collectives.py``): under
+``--ep`` each process holds E/ep experts, its rows' token slots go to the
+processes holding their experts by one all-to-all and come back by
+another; under ``--tp`` each expert's dff is split, its ``in`` by columns
+and ``out`` by rows, summed over the model group before ``out/bias``.
+Under ``--sp`` a row is gathered over the sequence ring before routing,
+so its capacity and slot order are the whole sequence's, as in the twin;
+each process keeps its chunk of the output. Over processes the
+statistic's ``f_e`` and live-token count must be the global batch's, as
+in the JAX package's single SPMD program: ``moe_stats_reducer`` installs
+the sum across the batch's processes (``parallel.distributed``); only
+``p_e`` carries a gradient, each process's over its own positions, so
+each process's aux is its share of ``E * sum_e f_e * p_e`` and the shares
+sum to the global value and gradient.
 """
 
 from __future__ import annotations
@@ -57,6 +65,8 @@ import torch
 
 from transformer_tpu_torch.ops.ffn import _ACTIVATIONS
 from transformer_tpu_torch.ops.nn import Params
+from transformer_tpu_torch.parallel import collectives as _collectives
+from transformer_tpu_torch.parallel.seq_context import current_seq_context, gather_sequence
 
 _REDUCER: contextvars.ContextVar[Callable | None] = contextvars.ContextVar(
     "moe_stats_reducer", default=None
@@ -249,6 +259,16 @@ def moe_apply(
     (the caller's residual carries them through). ``token_mask`` (B, S)
     bool, True = real token: PADs are neither dispatched nor counted in
     the load-balance statistics."""
+    seq = current_seq_context()
+    chunk = None
+    if seq is not None and seq.size > 1:
+        # each row routes over its whole sequence, as the JAX twin's global
+        # arrays do: gather it, run the layer on it, keep this chunk
+        chunk = x.shape[1]
+        if token_mask is not None:
+            token_mask = gather_sequence(token_mask.bool().expand(x.shape[0], chunk)
+                                         .contiguous(), seq)
+        x = gather_sequence(x, seq)
     B, S, M = x.shape
     E, k = num_experts, min(top_k, num_experts)
     C = expert_capacity(S, E, k, capacity_factor)
@@ -282,21 +302,40 @@ def moe_apply(
 
     # --- the experts (compute dtype) ------------------------------------------
     xe = _Dispatch.apply(x.reshape(N, M), src, sent_slots).reshape(E, B * C, M)
+    tp = _collectives.current()
+    ep = tp.ep if tp is not None and tp.experts else 1
+    if ep > 1:  # the slots to the ranks holding their experts: (E/ep, ep * B * C, M)
+        xe = _collectives.expert_all_to_all(xe.reshape(ep, E // ep, B * C, M))
+        xe = xe.transpose(0, 1).reshape(E // ep, ep * B * C, M)
+    tp_ffn = tp is not None and tp.moe_ffn
+    if tp_ffn:
+        xe = _collectives.copy_to_model(xe)
     h = act(torch.matmul(xe, params["in"]["kernel"].to(dtype))
             + params["in"]["bias"].to(dtype)[:, None, :])
-    ye = (torch.matmul(h, params["out"]["kernel"].to(dtype))
-          + params["out"]["bias"].to(dtype)[:, None, :])
+    ye = torch.matmul(h, params["out"]["kernel"].to(dtype))
+    if tp_ffn:
+        ye = _collectives.reduce_from_model(ye)
+    ye = ye + params["out"]["bias"].to(dtype)[:, None, :]
+    if ep > 1:  # and back to the ranks holding their tokens
+        ye = ye.reshape(E // ep, ep, B * C, M).transpose(0, 1).contiguous()
+        ye = _collectives.expert_all_to_all(ye).reshape(E, B * C, M)
     w = (gates * fits).reshape(N, k).to(dtype)
     y = _Combine.apply(ye.reshape(Q, M), w, slots, owner).reshape(B, S, M)
 
     # --- load-balance loss (Switch: E * sum_e f_e * p_e) ---------------------
     first = _one_hot(indices[..., 0], E).float()
+    own = probs  # the positions whose router probabilities are this process's share
+    if chunk is not None:
+        lo = seq.rank * chunk
+        y, own = y[:, lo : lo + chunk], probs[:, lo : lo + chunk]
     if live is None:
-        f_sum, p_sum = first.sum(dim=(0, 1)), probs.sum(dim=(0, 1))
+        f_sum, p_sum = first.sum(dim=(0, 1)), own.sum(dim=(0, 1))
         n = torch.full((1,), float(N), device=dev)
     else:
         lw = live.float()[..., None]
-        f_sum, p_sum = (first * lw).sum(dim=(0, 1)), (probs * lw).sum(dim=(0, 1))
+        f_sum = (first * lw).sum(dim=(0, 1))
+        own_lw = lw if chunk is None else lw[:, lo : lo + chunk]
+        p_sum = (own * own_lw).sum(dim=(0, 1))
         n = lw.sum().reshape(1)
     reducer = _REDUCER.get()
     if reducer is not None:

@@ -146,7 +146,7 @@ class _Ctx:
     M: int
     tgt_in: list[torch.Tensor]  # per microbatch: decoder input ids
     src: list[torch.Tensor] | None  # per microbatch: source ids (seq2seq)
-    aux_seed: float
+    aux_seed: float | torch.Tensor
     grads: dict[str, torch.Tensor] | None = None
     # seq2seq: the encoder output's microbatches as the decoder reads them
     # (leaves that take gradients) and their summed cotangents
@@ -253,11 +253,11 @@ def _final(ctx: _Ctx, tower: str, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _seeds(outputs: list, grads: list, aux, seed: float):
+def _seeds(outputs: list, grads: list, aux, seed):
     """Append a stage's aux and its objective weight to an autograd call."""
     if aux is not None:
         outputs.append(aux)
-        grads.append(torch.full((), seed, dtype=aux.dtype, device=aux.device))
+        grads.append(torch.ones((), dtype=aux.dtype, device=aux.device) * seed)
     return outputs, grads
 
 
@@ -440,6 +440,8 @@ def pipeline_loss_and_grads(
     reference: bool = False,
     grad: bool = True,
     schedule: str = "gpipe",
+    total: torch.Tensor | None = None,
+    aux_scale: float | torch.Tensor = 1.0,
 ) -> tuple[dict, dict | None]:
     """One step's pipelined forward (and, with ``grad``, backward) on this
     rank's rows of a prepared global batch (``inp`` the decoder's input ids,
@@ -448,11 +450,16 @@ def pipeline_loss_and_grads(
     gradients are taken for. Returns (this rank's share of the metrics, its
     gradients by leaf name, or None without ``grad``): the loss and the
     metric sums are the last stage's, the aux every stage's, so their sums
-    over the processes are the whole batch's."""
+    over the processes are the whole batch's. ``total`` replaces the
+    batch's token count as the "tokens" divisor and ``aux_scale`` scales
+    the aux's objective weight (a ``grad_accum_steps`` micro-step's loss
+    sum and its aux, as JAX's accumulation weighs them)."""
     ctx, sl = _context(mesh, params, leaves, inp, src, model_cfg, train_cfg.pp_microbatches,
                        key, reference, grad)
+    ctx.aux_seed = ctx.aux_seed * aux_scale
     M, nb = ctx.M, mesh.size("batch")
-    total = (labels != PAD_ID).sum().float()  # every process holds the whole batch
+    if total is None:
+        total = (labels != PAD_ID).sum().float()  # every process holds the whole batch
     labels_mbs = _microbatches(labels[sl], M)
     with torch.set_grad_enabled(grad):
         enc_recs = normed = None

@@ -37,6 +37,7 @@ from transformer_tpu_torch.kernels.flash_attention import (
     check_args,
     flash_chunk_bwd,
     flash_ring_step,
+    flash_ring_step_plain,
 )
 from transformer_tpu_torch.kernels.paged_flash import MASKED
 from transformer_tpu_torch.parallel import mesh as _mesh
@@ -105,6 +106,7 @@ class _RingConfig:
     causal: bool
     window: int = 0
     chunk: int = 0
+    reference: bool = False  # the plain versions of the kernels
 
     def kept_hops(self) -> int:
         """How many hops can contribute at all: hop t is dead once even its
@@ -147,8 +149,12 @@ def _ring_fwd_impl(cfg: _RingConfig, q, k, v, kv_mask):
         fold, diagonal = cfg.folds(t)
         if fold:
             mask = travel[2] if kv_mask is not None else None
-            flash_ring_step(q, travel[0], travel[1], mask, m, l, acc, causal=diagonal,
-                            band=cfg.hop_band(t))
+            if cfg.reference:
+                m, l, acc = flash_ring_step_plain(q, travel[0], travel[1], mask, m, l, acc,
+                                                  causal=diagonal, band=cfg.hop_band(t))
+            else:
+                flash_ring_step(q, travel[0], travel[1], mask, m, l, acc, causal=diagonal,
+                                band=cfg.hop_band(t))
         if t + 1 < hops:
             travel = ring_shift(travel, cfg.group)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
@@ -187,7 +193,7 @@ class _Ring(torch.autograd.Function):
                 mask = travel[4] if kv_mask is not None else None
                 dq_s, dk_s, dv_s = flash_chunk_bwd(
                     q, travel[0], travel[1], mask, lse, delta, do, causal=diagonal,
-                    band=cfg.hop_band(t),
+                    band=cfg.hop_band(t), reference=cfg.reference,
                 )
                 dq += dq_s.float()
                 travel[2] = travel[2] + dk_s.float()
@@ -282,6 +288,7 @@ def ulysses_attention(
     kv_mask: torch.Tensor | None = None,
     causal: bool = False,
     window: int = 0,
+    reference: bool = False,
 ) -> torch.Tensor:
     """Ulysses sequence parallelism over the processes of ``group``;
     differentiable. Port of the JAX package's ``ulysses_attention``.
@@ -295,7 +302,8 @@ def ulysses_attention(
     causal flag and the window apply unchanged), and one all-to-all back
     returns (B, C, H, D) in q's dtype. H and H_kv must be multiples of the
     ring size (``seq_context.seq_parallel_attention`` repeats the kv heads
-    first when H_kv is not). ``group`` None is a ring of one."""
+    first when H_kv is not). ``group`` None is a ring of one; ``reference``
+    runs the flash kernels' plain versions."""
     from transformer_tpu_torch.kernels.flash_attention import flash_attention
 
     check_args(q, k, v, kv_mask, causal, window)
@@ -312,7 +320,7 @@ def ulysses_attention(
         kv_mask = kv_mask.expand(q.shape[0], q.shape[1]).contiguous()
     q_full, k_full, v_full, mask_full = _SeqToHeads.apply(group, size, q, k, v, kv_mask)
     out = flash_attention(q_full, k_full, v_full, kv_mask=mask_full, causal=causal,
-                          window=window)
+                          window=window, reference=reference)
     return _HeadsToSeq.apply(group, size, out)
 
 
@@ -325,6 +333,7 @@ def ring_attention(
     kv_mask: torch.Tensor | None = None,
     causal: bool = False,
     window: int = 0,
+    reference: bool = False,
 ) -> torch.Tensor:
     """Blockwise ring attention over the sequence chunks of ``group``'s
     processes; differentiable.
@@ -335,8 +344,8 @@ def ring_attention(
     (B, C) is True for a real key. ``causal`` is structural across global
     positions; ``window`` (needs ``causal``) bounds each row to its last
     ``window`` keys, and the ring stops after the hops that can still
-    reach them. ``group`` None is a ring of one. Returns (B, C, H, D) in
-    q's dtype.
+    reach them. ``group`` None is a ring of one; ``reference`` runs the
+    kernels' plain versions. Returns (B, C, H, D) in q's dtype.
     """
     check_args(q, k, v, kv_mask, causal, window)
     c = q.shape[1]
@@ -344,7 +353,7 @@ def ring_attention(
         raise ValueError(f"ring chunks must match: q {c} keys, k/v {k.shape[1]}")
     size = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
-    cfg = _RingConfig(group, rank, size, bool(causal), int(window), c)
+    cfg = _RingConfig(group, rank, size, bool(causal), int(window), c, bool(reference))
     if kv_mask is not None:
         kv_mask = kv_mask.expand(q.shape[0], c).contiguous()
     return _Ring.apply(cfg, q, k, v, kv_mask)

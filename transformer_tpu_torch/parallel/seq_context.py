@@ -62,13 +62,16 @@ def seq_parallel_attention(
     kv_mask: torch.Tensor | None,
     causal: bool,
     window: int = 0,
+    reference: bool = False,
 ) -> torch.Tensor:
-    """Ring or Ulysses attention over this process's (B, C, H, D) chunks.
-    Grouped kv heads ride at their own count, as in the JAX twin, except in
-    its one corner the port can reach: Ulysses splits the heads over the
-    ring, so kv heads that the ring size does not divide are repeated to
-    the query heads first. (The JAX twin's other corner, kv heads
-    misaligned with a ``model`` axis, needs an axis the port has not.)"""
+    """Ring or Ulysses attention over this process's (B, C, H, D) chunks,
+    H this rank's heads under ``model``. Grouped kv heads ride at their own
+    count, as in the JAX twin, except in its two corners: kv heads that
+    the model axis does not divide reach here already repeated to the
+    query heads (``ops.attention.mha_apply``), and Ulysses splits the
+    heads over the ring, so kv heads that the ring size does not divide
+    are repeated to the query heads first. ``reference`` runs the flash
+    kernels' plain versions."""
     from transformer_tpu_torch.parallel.ring_attention import ring_attention, ulysses_attention
 
     if impl == "ulysses":
@@ -76,9 +79,9 @@ def seq_parallel_attention(
             reps = q.shape[2] // k.shape[2]
             k, v = k.repeat_interleave(reps, dim=2), v.repeat_interleave(reps, dim=2)
         return ulysses_attention(q, k, v, group=ctx.group, kv_mask=kv_mask, causal=causal,
-                                 window=window)
+                                 window=window, reference=reference)
     return ring_attention(q, k, v, group=ctx.group, kv_mask=kv_mask, causal=causal,
-                          window=window)
+                          window=window, reference=reference)
 
 
 class _GatherSequence(torch.autograd.Function):

@@ -21,10 +21,12 @@ layernorm scale/bias, router                 replicated
 
 Optimizer moments carry the parameter's name as a suffix
 (``opt_state/0/mu/<name>``), so the same rules apply to them. Any dim
-that does not divide its axis falls back to replicated. The port runs the
-``fsdp`` axis: at rest each rank holds its slice of every leaf whose spec
-names ``fsdp`` (``fsdp_dim``); the ``model`` and ``expert`` entries stay
-inert while those axes have size 1.
+that does not divide its axis falls back to replicated. At rest each rank
+holds its slice of every leaf along every dim its spec splits over an
+axis of more than one rank (``leaf_split``, ``shard_leaf``): the ``fsdp``
+dim is gathered when a layer reads the leaf (``GatheredView``), the
+``model`` and ``expert`` dims never are (the ops run on their slices,
+``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -103,34 +105,41 @@ def batch_spec(mesh_shape: dict[str, int], shard_seq: bool = False) -> Spec:
     return (batch, "seq" if shard_seq else None)
 
 
-def fsdp_dim(name: str, shape, mesh_shape: dict[str, int]) -> int | None:
-    """The dim of the leaf that is split over ``fsdp``, or None when the leaf
-    stays whole on every rank (fsdp of 1, a rule without fsdp, a dim that
-    does not divide)."""
-    if mesh_shape.get("fsdp", 1) <= 1:
-        return None
+def leaf_split(name: str, shape, mesh_shape: dict[str, int]) -> dict[int, str]:
+    """dim -> mesh axis for every dim of the leaf that its spec splits over
+    an axis of more than one rank; {} for a leaf every rank holds whole."""
     spec = param_partition_spec(name, shape, mesh_shape)
-    hits = [d for d, a in enumerate(spec) if a == "fsdp"]
-    return hits[0] if hits else None
+    return {d: a for d, a in enumerate(spec)
+            if a is not None and mesh_shape.get(a, 1) > 1}
 
 
-def shard(t: torch.Tensor, dim: int | None, index: int, count: int) -> torch.Tensor:
-    """Slice ``index`` of ``count`` equal slices of ``t`` along ``dim`` (a
-    copy); ``t`` itself when ``dim`` is None."""
-    if dim is None:
-        return t
-    width = t.shape[dim] // count
-    return t.detach().narrow(dim, index * width, width).clone()
-
-
-def bounds(shape, dim: int | None, index: int, count: int) -> tuple[tuple[int, int], ...]:
-    """(start, stop) per dim of slice ``index`` of ``count`` along ``dim``:
-    the window a ``sharded-v1`` checkpoint names its entry by."""
+def leaf_bounds(shape, split: dict[int, str], mesh) -> tuple[tuple[int, int], ...]:
+    """(start, stop) per dim of this rank's slice of a leaf of ``shape``
+    split as ``split`` (``leaf_split``) over ``mesh``."""
     out = [(0, int(n)) for n in shape]
-    if dim is not None:
-        width = int(shape[dim]) // count
-        out[dim] = (index * width, (index + 1) * width)
+    for dim, axis in split.items():
+        width = int(shape[dim]) // mesh.size((axis,))
+        out[dim] = (mesh.group_index((axis,)) * width, (mesh.group_index((axis,)) + 1) * width)
     return tuple(out)
+
+
+def shard_leaf(t, split: dict[int, str], mesh):
+    """This rank's slice of the whole leaf ``t`` (a tensor, copied, or an
+    array, viewed); ``t`` itself when nothing splits it."""
+    if not split:
+        return t
+    region = tuple(slice(a, b) for a, b in leaf_bounds(t.shape, split, mesh))
+    part = t[region]
+    return part.detach().clone() if isinstance(t, torch.Tensor) else part
+
+
+def gather_leaf(part: torch.Tensor, split: dict[int, str], mesh) -> torch.Tensor:
+    """The whole leaf from every rank's slice ``part``: one all-gather per
+    split dim over its axis (not differentiable). A collective: every rank
+    of the mesh calls it."""
+    for dim, axis in split.items():
+        part = mesh.all_gather(part, (axis,), dim, kind="whole")
+    return part
 
 
 class _Gather(torch.autograd.Function):

@@ -14,7 +14,8 @@ a checkpoint written by either package restores in the other:
 Saves write a ``.tmp`` directory and rename it into place, so a crash
 mid-save never leaves a torn newest checkpoint. A state held whole is
 written in this layout by the primary process. A state split over the
-``fsdp`` axis (a manager given the trainer's ``layout``) is written in the
+``fsdp``, ``model`` or ``expert`` axes (a manager given the trainer's
+``layout``) is written in the
 JAX package's *sharded* layout, ``sharded-v1``: each process writes
 ``shards_p{rank:05d}.npz`` with one copy of each of its slices, every
 entry named ``key@start:stop,...`` by its window of the global array
@@ -322,8 +323,8 @@ class CheckpointManager:
         lay.barrier()
         entries = {}
         for key, arr in flat.items():
-            split = lay.dims.get(key) is not None
-            if (split and lay.writer) or (not split and self.is_primary):
+            split = bool(lay.splits.get(key))
+            if (split and lay.writer(key)) or (not split and self.is_primary):
                 entries[_entry_name(key, lay.bounds(key))] = arr
         if entries:
             rank = lay.mesh.process.rank

@@ -15,12 +15,15 @@ logits.
 
 from __future__ import annotations
 
+import contextvars
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from transformer_tpu_torch.config import PAD_ID
 from transformer_tpu_torch.models.transformer import project_logits
+from transformer_tpu_torch.parallel import collectives as _collectives
 
 
 def _normalize(loss_sum, weight, normalization: str, batch_size: int | None):
@@ -48,21 +51,27 @@ def masked_cross_entropy(
     global count of a split batch)."""
     vocab = logits.shape[-1]
     targets = targets.long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    target_logp = logp.gather(-1, targets[..., None])[..., 0]
-    if label_smoothing > 0.0:
-        confidence = 1.0 - label_smoothing
-        uniform = label_smoothing / (vocab - 1)
-        smooth_sum = logp.sum(dim=-1) - target_logp
-        per_token = -(confidence * target_logp + uniform * smooth_sum)
+    tp = _collectives.current()
+    if tp is not None and tp.vocab:  # this rank's vocabulary columns
+        per_token, argmax = _collectives.vocab_parallel_cross_entropy(
+            logits, targets, vocab * tp.tp, label_smoothing)
     else:
-        per_token = -target_logp
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        target_logp = logp.gather(-1, targets[..., None])[..., 0]
+        if label_smoothing > 0.0:
+            confidence = 1.0 - label_smoothing
+            uniform = label_smoothing / (vocab - 1)
+            smooth_sum = logp.sum(dim=-1) - target_logp
+            per_token = -(confidence * target_logp + uniform * smooth_sum)
+        else:
+            per_token = -target_logp
+        argmax = logits.argmax(dim=-1)
     mask = (targets != pad_id).float()
     loss_sum = (per_token * mask).sum()
     weight = mask.sum()
     divisor = weight if total_weight is None else total_weight
     loss = _normalize(loss_sum, divisor, normalization, batch_size)
-    correct = ((logits.argmax(dim=-1) == targets).float() * mask).sum()
+    correct = ((argmax == targets).float() * mask).sum()
     return loss, {"loss_sum": loss_sum, "weight": weight, "correct": correct}
 
 
@@ -100,9 +109,11 @@ def chunked_cross_entropy_from_hidden(
 
     zero = hidden.new_zeros((), dtype=torch.float32)
     loss_sum, weight, correct = zero, zero, zero
+    ctx = contextvars.copy_context()  # the recompute runs under the forward's context
     for i in range(num_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
-        ls, w, c = checkpoint(chunk_sums, hidden[:, sl], targets[:, sl], use_reentrant=False,
+        ls, w, c = checkpoint(lambda *a: ctx.run(chunk_sums, *a), hidden[:, sl],
+                              targets[:, sl], use_reentrant=False,
                               preserve_rng_state=False)  # no randomness; capturable
         loss_sum, weight, correct = loss_sum + ls, weight + w, correct + c
     divisor = weight if total_weight is None else total_weight

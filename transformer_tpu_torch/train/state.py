@@ -140,6 +140,10 @@ class _Optimizer:
 
     max_grad_norm = 0.0
     norm = None  # the global norm of a grads dict (None: global_norm)
+    # Leaves split over processes (``parallel.distributed.ParamSharding``):
+    # each leaf's whole shape, this process's window of it, and sums over
+    # the processes holding its other slices. None: every leaf is whole.
+    sharding = None
 
     def _clip_and_scalars(self, grads, state, scalars):
         grads = clip_by_global_norm(grads, self.max_grad_norm, self.norm)
@@ -253,13 +257,51 @@ class Adafactor(_Optimizer):
     def __init__(self, schedule, max_grad_norm: float = 0.0):
         self.schedule, self.max_grad_norm = schedule, max_grad_norm
 
-    def _dims(self, p: torch.Tensor):
-        return factored_dims(tuple(p.shape), self.MIN_DIM_SIZE_TO_FACTOR)
+    def _split(self, k) -> bool:
+        return self.sharding is not None and self.sharding.split(k)
+
+    def _dims(self, p: torch.Tensor, k=None):
+        """The factored dims, from the whole leaf's shape."""
+        shape = self.sharding.shape(k) if self._split(k) else tuple(p.shape)
+        return factored_dims(shape, self.MIN_DIM_SIZE_TO_FACTOR)
+
+    def _mean(self, k, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the whole leaf ``k`` (this process holds
+        its window of it)."""
+        if not self._split(k):
+            return torch.mean(t)
+        total = torch.sum(t).reshape(1)
+        self.sharding.sum_(k, [total])
+        return total[0] / float(np.prod(self.sharding.shape(k)))
+
+    def _whole_sum(self, k, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole leaf's sum of ``t`` over ``dim``: this process's
+        partial sums written at its window of the other dims, then summed
+        over the processes holding the leaf's other slices."""
+        part = t.sum(dim=dim)
+        if not self._split(k):
+            return part
+        shape = list(self.sharding.shape(k))
+        window = list(self.sharding.bounds(k))
+        del shape[dim], window[dim]
+        whole = part.new_zeros(shape)
+        whole[tuple(slice(a, b) for a, b in window)] = part
+        self.sharding.sum_(k, [whole])
+        return whole
+
+    def _window(self, k, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This process's window of ``t``, a whole statistic that lacks the
+        leaf's dim ``dim``."""
+        if not self._split(k):
+            return t
+        window = list(self.sharding.bounds(k))
+        del window[dim]
+        return t[tuple(slice(a, b) for a, b in window)]
 
     def init(self, params: dict[str, torch.Tensor]) -> AdafactorState:
         rows, cols, full = {}, {}, {}
         for k, p in params.items():
-            dims = self._dims(p)
+            dims = self._dims(p, k)
             one = torch.zeros((1,), dtype=p.dtype, device=p.device)
             if dims is None:
                 rows[k], cols[k], full[k] = one, one.clone(), torch.zeros_like(p)
@@ -288,23 +330,31 @@ class Adafactor(_Optimizer):
             raise ValueError("adafactor's update needs the params")
         decay = scalars[0]
         grad_sqr = g * g + self.EPS
-        dims = self._dims(p)
+        dims = self._dims(p, k)
         if dims is None:
-            v = state.v[k]
+            v = state.v[k]  # this process's window, as the leaf's
             v.mul_(decay).add_((1.0 - decay) * grad_sqr)
             u = g * v ** -0.5
         else:
             d1, d0 = dims
-            v_row, v_col = state.v_row[k], state.v_col[k]
-            v_row.mul_(decay).add_((1.0 - decay) * grad_sqr.mean(dim=d0))
-            v_col.mul_(decay).add_((1.0 - decay) * grad_sqr.mean(dim=d1))
+            v_row, v_col = state.v_row[k], state.v_col[k]  # whole on every process
+            if self._split(k):
+                shape = self.sharding.shape(k)
+                rows = self._whole_sum(k, grad_sqr, d0) / float(shape[d0])
+                cols = self._whole_sum(k, grad_sqr, d1) / float(shape[d1])
+            else:
+                rows, cols = grad_sqr.mean(dim=d0), grad_sqr.mean(dim=d1)
+            v_row.mul_(decay).add_((1.0 - decay) * rows)
+            v_col.mul_(decay).add_((1.0 - decay) * cols)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
-            u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
-        u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.CLIPPING_THRESHOLD, min=1.0)
+            u = (g * self._window(k, row_factor, d0).unsqueeze(d0)
+                 * (self._window(k, v_col, d1) ** -0.5).unsqueeze(d1))
+        u = u / torch.clamp(torch.sqrt(self._mean(k, u * u)) / self.CLIPPING_THRESHOLD,
+                            min=1.0)
         u = u * scalars[1]  # -lr: the learning rate and the final sign flip
         p = p.detach()
-        rms = torch.sqrt(torch.mean(p * p))
+        rms = torch.sqrt(self._mean(k, p * p))
         return u * torch.where(rms <= self.MIN_SCALE, torch.full_like(rms, self.MIN_SCALE), rms)
 
 

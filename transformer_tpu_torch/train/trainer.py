@@ -263,7 +263,10 @@ def make_train_step(
     ("batch"), so the update is the whole batch's.
 
     ``grads_fn(params, tgt, src, key) -> (metrics, grads)`` replaces
-    ``loss_and_grads`` (a pipeline schedule's backward, on the pipe axis)."""
+    ``loss_and_grads`` (a pipeline schedule's backward, on the pipe axis);
+    under ``grad_accum_steps`` each micro-step calls it with
+    ``prepared=`` its rows of the prepared batch and ``accumulate=`` its
+    MoE aux scale, for the gradient of its loss sum."""
     _check_objective(model_cfg, train_cfg)
     tx = tx or make_optimizer(model_cfg, train_cfg)
     accum = max(1, train_cfg.grad_accum_steps)
@@ -307,23 +310,29 @@ def make_train_step(
         for i in range(accum):
             rows = slice(i * mb, (i + 1) * mb)
             micro_key = tuple(fwd_key) + (i,)
-            _, m = forward(
-                state.params, tgt[rows], model_cfg, train_cfg, micro_key,
-                src=None if src is None else src[rows],
-                prepared=(inp[rows], labels[rows], micro_key),
-            )
-            if "moe_aux" in m:
-                # JAX's aux scale: the /denom below then makes the aux a
-                # token-weighted ("tokens") or uniform ("batch") mean over
-                # the micro-steps. The micro-batch's global token count
-                # (every process holds the whole batch).
-                m["moe_aux"] = m["moe_aux"] * (
-                    (labels[rows] != PAD_ID).sum().float()
-                    if train_cfg.loss_normalization == "tokens"
-                    else torch.full((), train_cfg.batch_size / accum, device=device)
-                )
-            g = torch.autograd.grad(_objective(m["loss_sum"], m, model_cfg),
-                                    list(leaves.values()))
+            # JAX's aux scale: the /denom below then makes the aux a
+            # token-weighted ("tokens") or uniform ("batch") mean over the
+            # micro-steps. The micro-batch's global token count (every
+            # process holds the whole batch).
+            aux_scale = ((labels[rows] != PAD_ID).sum().float()
+                         if train_cfg.loss_normalization == "tokens"
+                         else torch.full((), train_cfg.batch_size / accum, device=device))
+            micro_src = None if src is None else src[rows]
+            prepared = (inp[rows], labels[rows], micro_key)
+            if grads_fn is not None:  # the schedule's gradients of the loss sum
+                m, g = grads_fn(state.params, tgt[rows], micro_src, micro_key,
+                                prepared=prepared, accumulate=aux_scale)
+                m.pop("loss")
+                if "moe_aux" in m:
+                    m["moe_aux"] = m["moe_aux"] * aux_scale
+                g = [g[n] for n in leaves]
+            else:
+                _, m = forward(state.params, tgt[rows], model_cfg, train_cfg, micro_key,
+                               src=micro_src, prepared=prepared)
+                if "moe_aux" in m:
+                    m["moe_aux"] = m["moe_aux"] * aux_scale
+                g = torch.autograd.grad(_objective(m["loss_sum"], m, model_cfg),
+                                        list(leaves.values()))
             m = {k: v.detach() for k, v in m.items()}
             if grads is None:
                 grads, sums = list(g), m

@@ -17,8 +17,9 @@ assertable:
 Every comparison is over raw bytes, never floats: state that holds the
 same NaNs compares equal (a loss blow-up reads as a numerics problem, not
 as a replication bug), and no two different byte patterns compare equal
-through a lossy summary. The port holds no sharded leaves (fsdp and tp
-are not ported), so every leaf is compared.
+through a lossy summary. Where the state is split over processes (fsdp,
+model, expert), :func:`assert_slices_consistent` compares each leaf
+among the processes holding the same slice of it.
 """
 
 from __future__ import annotations
@@ -100,6 +101,24 @@ def assert_cross_process_consistent(tree: Any, label: str = "params", group=None
             f"ranks {ranks} disagree with rank 0 — replicated state is no longer "
             "replicated (a per-process data-order or dropout-stream bug)"
         )
+
+
+def assert_slices_consistent(flat: dict[str, Any], replica_axes: dict[str, tuple[str, ...]],
+                             mesh, label: str = "params") -> None:
+    """Every process must hold the same bytes as the others holding the
+    same slice of each leaf: ``flat`` (this process's leaves, possibly
+    slices, by name) compared leaf by leaf over the ranks that differ only
+    along ``replica_axes[name]`` (the axes that do not split the leaf: a
+    replicated leaf across every rank, model and expert ranks included, a
+    split leaf within the group of its slice's holders). One comparison
+    per distinct set of axes, every process in the same order."""
+    by_axes: dict[tuple[str, ...], dict[str, Any]] = {}
+    for name, leaf in flat.items():
+        by_axes.setdefault(tuple(replica_axes[name]), {})[name] = leaf
+    for axes in sorted(by_axes):
+        group = mesh.pg(axes)
+        if group is not None:
+            assert_cross_process_consistent(by_axes[axes], label=label, group=group)
 
 
 def _outputs(out: Any) -> list[np.ndarray]:
