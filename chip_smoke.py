@@ -252,7 +252,14 @@ the twentieth last):
    and one decode worker (phase 10's answers byte-identical, the KV
    handoff's bytes and seconds) and ``--fault_spec ckpt.swap:at=1``
    aborting a flip with the old weights serving; the same traffic on a
-   bf16 fleet, reported. ``python3 chip_smoke.py --only fleet`` runs this
+   bf16 fleet, reported; then the warm standby's takeover of that
+   disaggregated fleet (``--ha``, its journal beside the router's events):
+   phase 4's 14 requests, two delivered, the primary stopped, a
+   ``Standby`` built by ``cli.router`` (``--standby``, ``--takeover_after
+   0.5``) adopting the workers at epoch 2 (each answered once, greedy ones
+   byte-identical to phase 13's fp32 dense answers, a takeover at epoch 2
+   rejected, the old primary's late request dropped and counted; its
+   ``standby:`` line). ``python3 chip_smoke.py --only fleet`` runs this
    phase alone (its references computed there);
 15. the encoder-only masked LM (``mlm_path``): the three flash kernels at
    its shape (B 64 x S 128, 8 heads of 64, bidirectional, a ragged key
@@ -4864,28 +4871,36 @@ CANARY_FLAGS = ("--canary_window", "2",
 
 
 class FleetEvents:
-    """The router's event sink: each event with its host-clock time."""
+    """The router's event sink: each event with its host-clock time, and
+    written to the JSONL event log ``journal`` too where one is named (the
+    log a warm standby tails)."""
 
-    def __init__(self):
+    def __init__(self, journal=None):
+        from transformer_tpu_torch.obs import EventLog
+
         self.events = []
+        self.journal = journal
+        self.log = None if journal is None else EventLog(journal)
 
     def emit(self, kind, **fields):
         self.events.append({"kind": kind, "t": time.perf_counter(), **fields})
+        if self.log is not None:
+            self.log.emit(kind, **fields)
 
     def of(self, kind, **match):
         return [e for e in self.events if e["kind"] == kind
                 and all(e.get(k) == v for k, v in match.items())]
 
 
-def fleet(export, vocab_path, *extra):
+def fleet(export, vocab_path, *extra, journal=None):
     """``cli.router``'s fleet for ``export``: its flags parsed, its workers
     spawned (they start in parallel), its Router returned with an event
-    sink."""
+    sink (tee'd to the event log ``journal``, where given)."""
     from transformer_tpu_torch.cli import router as cli
 
     args = cli.build_parser().parse_args(
         ["--export_path", export, "--tgt_vocab_file", vocab_path, *FLEET_FLAGS, *extra])
-    events = FleetEvents()
+    events = FleetEvents(journal)
     router = cli.build_router(args, telemetry=events)
     return router, events, args
 
@@ -4970,6 +4985,142 @@ def single_scheduler(export_or_params, tok, reqs, cfg=None, cache_mb=0):
     return sched.run([dict(r) for r in reqs])
 
 
+def journal_path(name) -> str:
+    """A fresh event log under ``BUILD_DIR``."""
+    path = os.path.join(BUILD_DIR, name)
+    if os.path.exists(path):
+        os.unlink(path)
+    return path
+
+
+def takeover_drill(primary, primary_events, primary_args, tok, reqs, dense32, also=()):
+    """The warm standby's takeover of ``primary`` (a fleet with ``--ha``
+    whose events are journaled): ``reqs[:2]`` delivered, ``reqs[2:]``
+    dispatched, then the primary pumps no more. A ``Standby`` built by
+    ``cli.router`` for ``--standby <journal> --takeover_after 0.5`` tails
+    the journal and adopts the workers; the adopted router answers the
+    rest. Then a takeover at epoch 2 on a worker's socket, and the old
+    primary's late request and takeover at its own epoch on its pipe,
+    whose rejection shows the request was read (and dropped) first.
+    Returns (adopted router, record, the decode-role worker's admissions
+    in the drill as [(order, prefix_hit_tokens)], tapped from its answer
+    messages). The routers ``also`` are pumped beside, without waiting."""
+    import argparse
+    import socket
+
+    from transformer_tpu_torch.cli import router as cli
+
+    t_lap = time.perf_counter()
+    greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
+    order0 = primary._next_order
+    orders = range(order0, order0 + len(reqs))
+    decode_answers = []
+
+    def tap(router):
+        # The decode worker's answers for the drill's orders, as they
+        # arrive: each is one admission there, for the phase's accounting.
+        handle = router._handle_msg
+
+        def handle_msg(index, msg):
+            if (msg.get("type") == "answer" and msg.get("rid") in orders
+                    and router.links[index].role == "decode"):
+                decode_answers.append((msg["rid"], (msg.get("slo") or {}).get(
+                    "prefix_hit_tokens")))
+            handle(index, msg)
+
+        router._handle_msg = handle_msg
+
+    def pump(router, cond, what, seconds=120):
+        deadline = time.perf_counter() + seconds
+        got = []
+        while not cond(got):
+            if time.perf_counter() > deadline:
+                raise SystemExit(f"standby: {what} did not happen within {seconds} s")
+            router.pump()
+            for other in also:
+                other.pump(timeout=0)
+            got.extend(router.drain_ready())
+        return got
+
+    tap(primary)
+    for r in reqs[:2]:
+        primary.submit(dict(r))
+    delivered = pump(primary, lambda got: len(got) == 2, "the primary's first two answers")
+    ports = {l.name: l.control_port for l in primary.links}
+    for r in reqs[2:]:
+        primary.submit(dict(r))
+    primary.pump(timeout=0)  # dispatches the rest; the primary pumps no more
+    cut = {"inflight": len(primary._inflight), "pending": len(primary._pending)}
+    t_stop = time.perf_counter()
+    args = argparse.Namespace(**{**vars(primary_args), "standby": primary_events.journal,
+                                 "takeover_after": 0.5})
+    standby_events = FleetEvents(journal_path("fleet_standby.jsonl"))
+    standby = cli.build_standby(args, telemetry=standby_events)
+    handshake_ms, handshake = {}, standby._handshake
+
+    def timed(index, name, port, ask):
+        t0 = time.perf_counter()
+        try:
+            return handshake(index, name, port, ask)
+        finally:
+            handshake_ms[name] = (time.perf_counter() - t0) * 1e3
+
+    standby._handshake = timed
+    adopted = standby.run_until_takeover(poll_s=0.05, timeout=60)
+    t_adopted = time.perf_counter()
+    tap(adopted)
+    delivered += pump(adopted, lambda got: not adopted.busy, "the adopted router's answers")
+    t_answered = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", adopted.links[0].control_port),
+                                  timeout=10) as sock:
+        wf, rf = sock.makefile("w", encoding="utf-8"), sock.makefile("r", encoding="utf-8")
+        wf.write(json.dumps({"type": "takeover", "epoch": 2, "inflight": []}) + "\n")
+        wf.flush()
+        rejected = json.loads(rf.readline())
+    # The old primary, wrongly declared dead, sends on through its pipe.
+    old = primary.links[0]
+    old.send({"type": "req", "rid": primary._next_order, "req": dict(reqs[0])})
+    old.send({"type": "takeover", "epoch": 1, "inflight": []})
+    deadline, stale_reply = time.perf_counter() + 60, None
+    while stale_reply is None:
+        if time.perf_counter() > deadline:
+            raise SystemExit("standby: the old primary's takeover was not answered")
+        try:
+            index, msg = primary.inbox.get(timeout=1.0)
+        except Exception:  # noqa: BLE001 — queue.Empty: the worker has not read it yet
+            continue
+        if index == 0 and msg.get("type") == "rejected":
+            stale_reply = msg
+    late = []
+    for _ in range(3):  # a few more turns: nothing may answer
+        adopted.pump(timeout=0.05)
+        late.extend(adopted.drain_ready())
+    last_beacon = primary_events.of("route.hb")[-1]["t"]
+    rec = {
+        "card": nvidia_smi_line(), "requests": len(reqs), "first_order": order0,
+        "delivered_before_cutover": 2,
+        "cut": cut, "answers": len(delivered), "late_answers": late,
+        "errors": [a for a in delivered if "error" in a],
+        "greedy_differing_from_phase13_fp32_dense": [
+            i for i in greedy if i >= len(delivered) or delivered[i] != dense32[i]],
+        "sampled_differing_from_phase13_fp32_dense": [
+            i for i in range(len(reqs)) if i not in greedy
+            and (i >= len(delivered) or delivered[i] != dense32[i])],
+        "epoch": adopted.epoch, "adopted": [l.name for l in adopted.links],
+        "ports": ports, "standby_stats": dict(standby.stats),
+        "duplicates": adopted.stats["duplicate_answers"],
+        "handshake_ms": handshake_ms, "rejected_at_epoch_2": rejected,
+        "old_primary_rejected": stale_reply,
+        "beacon_to_adopted_s": t_adopted - last_beacon,
+        "stop_to_adopted_s": t_adopted - t_stop,
+        "adopted_to_answered_s": t_answered - t_adopted,
+        "lap_s": time.perf_counter() - t_lap,
+        "timers": "host clock (perf_counter) in this process; beacon: the primary's last "
+                  "route.hb event",
+    }
+    return adopted, rec, decode_answers
+
+
 def fleet_path(export, vocab_path, tok, reqs, dense32):
     """Phase 14, the serving fleet: ``cli.router``'s Router over two
     ``serve/replica.py`` worker processes sharing the card, on the dense
@@ -5018,8 +5169,9 @@ def fleet_path(export, vocab_path, tok, reqs, dense32):
     greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
     t0 = time.perf_counter()
     fleet_a, ev_a, _ = fleet(export32, vocab_path, *CANARY_FLAGS)
-    fleet_b, ev_b, _ = fleet(export32, vocab_path, "--disaggregate", "--fault_spec",
-                             "ckpt.swap:at=1")
+    fleet_b, ev_b, args_b = fleet(export32, vocab_path, "--disaggregate", "--fault_spec",
+                                  "ckpt.swap:at=1", "--ha",
+                                  journal=journal_path("fleet_b.jsonl"))
     fleet_c, ev_c, _ = fleet(export, vocab_path)
     # The references while the workers start: a single fp32 dense
     # scheduler on phase 10's traffic, and the upgrade target.
@@ -5040,6 +5192,7 @@ def fleet_path(export, vocab_path, tok, reqs, dense32):
     ref_s = time.perf_counter() - t0
     sup_a = fleet_a._sup
     up_a = fleet_a._upgrader
+    adopted = None
     try:
         # ---- 1. serve -------------------------------------------------------
         t0 = time.perf_counter()
@@ -5124,6 +5277,9 @@ def fleet_path(export, vocab_path, tok, reqs, dense32):
             after_abort = serve_beside(fleet_b, preqs[:4], (fleet_a,))
         pump_until(fleet_a, lambda: sup_a.stats["respawns"] >= 1
                    and len(fleet_a.healthy_links) == 2, 120, "the respawn")
+        # ---- 5. the warm standby takes fleet B over ---------------------------
+        adopted, standby, decode_drill = takeover_drill(fleet_b, ev_b, args_b, tok, reqs,
+                                                        dense32, (fleet_a,))
         t_failover = ev_a.of("route.failover")[-1]["t"] if victim else None
         t_admitted = ev_a.of("route.spawn")[-1]["t"] if victim else None
         serve = {
@@ -5254,10 +5410,13 @@ def fleet_path(export, vocab_path, tok, reqs, dense32):
             },
         }
     finally:
-        for r in (fleet_a, fleet_b, fleet_c):
-            r.shutdown()
+        # The adopted router first: fleet B's workers take their shutdown
+        # from it now, and exit before their old router closes its pipes.
+        for r in (adopted, fleet_a, fleet_b, fleet_c):
+            if r is not None:
+                r.shutdown()
     finals = {f"A/{l.name}": l.final_stats for l in fleet_a.links}
-    finals.update({f"B/{l.name}": l.final_stats for l in fleet_b.links})
+    finals.update({f"B/{l.name}": l.final_stats for l in adopted.links})
     finals.update({f"C/{l.name}": l.final_stats for l in fleet_c.links})
     workers = {
         name: None if st is None else {
@@ -5269,12 +5428,43 @@ def fleet_path(export, vocab_path, tok, reqs, dense32):
     swaps = [st for st in workers.values() if st and st["swaps"]]
     flip_ms = [st["swap_s"] / st["swaps"] * 1e3 for st in swaps]
     decode_b = finals.get("B/replica1") or {}
-    disagg["decode_worker_prefill_tokens"] = decode_b.get("prefill_tokens")
-    disagg["decode_worker_admitted"] = decode_b.get("admitted")
+    # Step 4's share of the decode worker's counters: its final stats less
+    # the takeover drill's admissions there (each answer it sent for a
+    # drill order; its prefill as the scheduler counts it, the suffix past
+    # the prefix hit in whole prefill blocks).
+    from transformer_tpu_torch.train.decode import prefill_len_for
+
+    drill_prefill = sum(
+        prefill_len_for(len(tok.encode(reqs[order - standby["first_order"]]["prompt"])) + 1
+                        - (hit or 0), args_b.prefill_chunk)
+        for order, hit in decode_drill)
+    disagg["decode_worker_totals"] = {k: decode_b.get(k) for k in ("admitted", "prefill_tokens")}
+    disagg["decode_worker_in_the_takeover_drill"] = {
+        "admitted": len(decode_drill), "prefill_tokens": drill_prefill}
+    disagg["decode_worker_prefill_tokens"] = (
+        None if decode_b.get("prefill_tokens") is None
+        else decode_b["prefill_tokens"] - drill_prefill)
+    disagg["decode_worker_admitted"] = (
+        None if decode_b.get("admitted") is None else decode_b["admitted"] - len(decode_drill))
+    stale = {name: (st or {}).get("stale_dropped") for name, st in finals.items()
+             if name.startswith("B/")}
+    standby.update(stale_dropped=stale, takeovers={
+        name: (st or {}).get("takeovers") for name, st in finals.items() if name.startswith("B/")})
+    print("standby: " + json.dumps({
+        "beacon_to_adopted_s": standby["beacon_to_adopted_s"],
+        "handshake_ms": standby["handshake_ms"],
+        **{k: standby["standby_stats"][k] for k in ("recovered_answers", "reowned_inflight",
+                                                    "redispatched")},
+        "stale_dropped": stale, "epoch": standby["epoch"], "answers": standby["answers"],
+        "duplicates": standby["duplicates"],
+        "greedy_differing_from_dense32": standby["greedy_differing_from_phase13_fp32_dense"],
+        "rejected_at_epoch_2": standby["rejected_at_epoch_2"], "lap_s": standby["lap_s"],
+        "card": standby["card"]}), flush=True)
     rec = {
         "phase": "fleet", "step": "serve", "card": nvidia_smi_line(), "flags": FLEET_FLAGS,
         "references_s": ref_s, "serve": serve, "failover": failover, "refusal": refusal,
         "canary_burn": burn, "upgrade": upgrade, "disaggregation": disagg, "workers": workers,
+        "standby": standby,
         "flip_ms": flip_ms, "seconds": time.perf_counter() - t_phase,
         "timers": "host clock (perf_counter) in this process; flip_ms: the worker's host clock "
                   "around the in-place copies, ending in a synchronize",
@@ -5324,6 +5514,21 @@ def fleet_path(export, vocab_path, tok, reqs, dense32):
             failed.append(f"{name} captured after warm-up or moved a serving tensor")
     if not swaps:
         failed.append("no worker flipped")
+    sb = standby
+    if (sb["answers"] != len(reqs) or sb["errors"] or sb["late_answers"]
+            or sb["cut"] != {"inflight": len(reqs) - 2, "pending": 0}
+            or sb["greedy_differing_from_phase13_fp32_dense"] or sb["epoch"] != 2
+            or sb["adopted"] != sorted(l.name for l in fleet_b.links)
+            or sb["standby_stats"]["skipped_replicas"]
+            or sum(sb["standby_stats"][k] for k in (
+                "recovered_answers", "reowned_inflight", "redispatched")) != len(reqs) - 2
+            or sb["rejected_at_epoch_2"].get("type") != "rejected"
+            or sb["rejected_at_epoch_2"].get("epoch") != 2
+            or sb["old_primary_rejected"].get("epoch") != 2
+            or stale.get("B/replica0") != 1 or stale.get("B/replica1") != 0
+            or any(t != 1 for t in sb["takeovers"].values())
+            or any(h is None for _, h in decode_drill)):
+        failed.append("the standby's takeover")
     if failed:
         raise SystemExit(f"fleet: {failed}: {rec}")
     return rec

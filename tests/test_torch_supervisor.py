@@ -1,7 +1,7 @@
 """The port's fleet supervision (``serve/supervisor.py``), its fault points
 and its CLI (``cli/router.py``) against the JAX package's, ported from
-``tests/test_supervisor.py`` (less the standby / HA cases and the mesh
-shape check, whose modules are later slices).
+``tests/test_supervisor.py`` (less the mesh shape check, whose module is
+a later slice; the standby / HA cases are in ``test_torch_standby.py``).
 
 The supervisor's and the scaler's drills run on both packages' routers
 over fake links fed the same messages and must make the same decisions.
@@ -11,8 +11,9 @@ single scheduler does. Each fault point the fleet adds (``route.spawn``,
 ``route.hb``, ``route.upgrade``, ``route.canary``, ``ckpt.swap``) fires at
 JAX's call indices, and ``ckpt.swap`` through a fleet's ``--fault_spec``
 aborts the flip with the old weights serving. ``cli.router`` takes every
-flag of JAX's with JAX's defaults, refuses the later slices' flags, and
-raises without a card before spawning.
+flag of JAX's with JAX's defaults, takes ``--ha`` and ``--standby`` as
+JAX's does (with its two warnings without ``--metrics_jsonl``), refuses
+``--mesh``, and raises without a card before spawning.
 """
 
 import io
@@ -526,29 +527,80 @@ def test_cli_router_takes_jax_flags_with_jax_defaults():
 @pytest.mark.parametrize("flag", [
     ["--ha"], ["--standby", "p.jsonl"], ["--mesh", "2"], ["--metrics_jsonl", "m.jsonl"],
     ["--metrics_port", "9100"], ["--trace"],
+    # JAX's two warnings: --ha and --standby without an event log.
+    ["--ha", "--metrics_jsonl", ""], ["--standby", "p.jsonl", "--metrics_jsonl", ""],
 ])
-def test_cli_router_refuses_the_later_slices(flag, fleet_files):
-    from transformer_tpu_torch.cli.router import (
-        build_parser,
-        main,
-        refuse_later_slices,
-        replica_jsonl,
-        worker_args,
-    )
+def test_cli_router_refuses_the_later_slices(flag, fleet_files, tmp_path, monkeypatch, capsys):
+    """Only ``--mesh`` is refused now. ``--ha`` reaches every worker's
+    argv and the Router (without an event log it warns and is off for
+    both); ``--standby`` takes the standby path with a primary's
+    supervision kwargs (without an event log it warns and goes on)."""
+    from transformer_tpu_torch.cli import router as cli
+    from transformer_tpu_torch.serve import router as srouter
+    from transformer_tpu_torch.serve import standby as sstandby
 
     argv = ["--model_spec", fleet_files[0], "--device", "cpu", *flag]
     if flag[0] in ("--metrics_jsonl", "--metrics_port", "--trace"):
         # The port's telemetry is accepted: each replica logs to <path>.r<i>.
-        args = build_parser().parse_args(argv)
-        refuse_later_slices(args)
-        tail = worker_args(args, replica_jsonl(args, 1))
+        args = cli.build_parser().parse_args(argv)
+        cli.refuse_later_slices(args)
+        tail = cli.worker_args(args, cli.replica_jsonl(args, 1))
         if flag[0] == "--metrics_jsonl":
             assert tail[tail.index("--metrics_jsonl") + 1] == "m.jsonl.r1"
         else:
             assert "--metrics_jsonl" not in tail and "--trace" not in tail
         return
-    with pytest.raises(SystemExit, match="later slice"):
-        main(argv, stdin=io.StringIO(""))
+    if flag[0] == "--mesh":
+        with pytest.raises(SystemExit, match="later slice"):
+            cli.main(argv, stdin=io.StringIO(""))
+        return
+    warned = "--metrics_jsonl" in flag
+    if not warned:
+        argv += ["--metrics_jsonl", str(tmp_path / "m.jsonl"), "--flight_recorder=false"]
+    Fake = fake_link_class(PACKAGES["torch"])
+
+    class Link(Fake):
+        def start_reader(self, inbox):
+            pass
+
+    spawned = []
+
+    def spawn(cls, index, worker_argv, role="both", name=None):
+        spawned.append(list(worker_argv))
+        return Link(index, name or f"replica{index}")
+
+    monkeypatch.setattr(srouter.ReplicaProcess, "spawn", classmethod(spawn))
+    if flag[0] == "--ha":
+        args = cli.build_parser().parse_args(argv)
+        assert "--ha" in cli.worker_args(args)
+        sink = None if warned else Events()
+        router = cli.build_router(args, telemetry=sink)
+        err = capsys.readouterr().err
+        assert ("--ha needs --metrics_jsonl" in err) is warned
+        assert router.ha is not warned and args.ha is not warned
+        assert all(("--ha" in a) is not warned for a in spawned) and len(spawned) == 2
+        return
+    taken = []
+
+    def run_until_takeover(self, *a, **k):
+        taken.append(self)
+        links = [Link(0, "replica0")]
+        return srouter.Router(links, telemetry=self._tel, ha=True, epoch=self.epoch + 1,
+                              **self._router_kwargs)
+
+    monkeypatch.setattr(sstandby.Standby, "run_until_takeover", run_until_takeover)
+    router = cli.main(argv, stdin=io.StringIO(""))
+    err = capsys.readouterr().err
+    assert ("--standby without --metrics_jsonl" in err) is warned
+    assert spawned == [] and len(taken) == 1 and router.epoch == 2
+    st = taken[0]
+    assert st.log_path == "p.jsonl" and st.takeover_after_s == 2.0
+    assert (st._tel is None) is warned
+    kw = st._router_kwargs
+    assert kw["affinity_block"] == 16 and kw["heartbeat_timeout_s"] == 5.0
+    assert {"supervisor", "upgrader"} <= set(kw)
+    # A respawn under the adopting router starts its worker with --ha.
+    assert "--ha" in cli.worker_args(cli.build_parser().parse_args(argv))
 
 
 def test_cli_router_raises_without_a_card_before_spawning(fleet_files, monkeypatch):

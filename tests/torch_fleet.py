@@ -1,5 +1,6 @@
 """Shared pieces of the fleet tests (``tests/test_torch_router.py``,
-``test_torch_supervisor.py``, ``test_torch_upgrade.py``): the JAX tests'
+``test_torch_supervisor.py``, ``test_torch_upgrade.py``,
+``test_torch_standby.py``): the JAX tests'
 tiny spec model, the same weights for both packages (a JAX-written
 checkpoint the port's workers load through ``--init_ckpt``), subprocess
 fleets of the port's workers, and the two packages' router tiers side by
@@ -131,8 +132,10 @@ def _ns(prefix):
     sup = __import__(f"{prefix}.serve.supervisor", fromlist=["Supervisor"])
     up = __import__(f"{prefix}.serve.upgrade", fromlist=["UpgradeCoordinator"])
     res = __import__(f"{prefix}.serve.resilience", fromlist=["FaultPlane"])
+    standby = __import__(f"{prefix}.serve.standby", fromlist=["Standby"])
     return types.SimpleNamespace(
         name=prefix, Router=router.Router, ReplicaLink=router.ReplicaLink,
+        Standby=standby.Standby, TakeoverRejected=standby.TakeoverRejected,
         Supervisor=sup.Supervisor, FleetScaler=sup.FleetScaler,
         UpgradeCoordinator=up.UpgradeCoordinator, FaultPlane=res.FaultPlane,
         install=res.install,

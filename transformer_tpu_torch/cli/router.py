@@ -45,8 +45,21 @@ render the fleet (its ``fleet:`` line) and join each request's spans
 across the processes. ``--metrics_port`` serves the router's
 ``/metrics``.
 
-Refused here, naming the later slice: ``--ha`` and ``--standby`` (the
-warm standby, ``serve/standby.py``) and ``--mesh`` (``serve/sharded.py``).
+Router HA: ``--ha`` journals intake, delivery and a heartbeat to
+``--metrics_jsonl`` and gives each worker a takeover socket, so that a
+warm standby
+
+    python -m transformer_tpu_torch.cli.router --standby PATH --model_spec spec.json \
+        --metrics_jsonl standby.jsonl --device=cpu
+
+tails the primary's log, finds it dead after ``--takeover_after`` seconds
+of heartbeat silence, adopts the fleet (``serve/standby.py``), answers
+every request in flight exactly once and then serves its own stdin.
+Without ``--metrics_jsonl``, ``--ha`` warns and is turned off for the
+router and its workers (there would be no journal to tail), and
+``--standby`` warns that the next standby will have nothing to tail.
+
+Refused here, naming the later slice: ``--mesh`` (``serve/sharded.py``).
 """
 
 from __future__ import annotations
@@ -61,10 +74,6 @@ from transformer_tpu_torch.cli.serve import add_metrics_flags
 from transformer_tpu_torch.cli.train import _bool
 
 _REFUSED = {
-    "ha": "--ha (router HA journal and takeover sockets) comes with serve/standby.py, "
-          "a later slice of the port",
-    "standby": "--standby (the warm standby router) comes with serve/standby.py, a later "
-               "slice of the port",
     "mesh": "--mesh (sharded replicas) comes with serve/sharded.py, a later slice of the "
             "port",
 }
@@ -148,7 +157,10 @@ def build_parser() -> argparse.ArgumentParser:
     flag("--slo_spec", default="",
          help="SLO objectives of the router's burn-rate engine (obs/slo.py grammar; "
               "'' = defaults when autoscaling is on; 'none' disables)")
-    boolean("--ha", False, "refused: the warm standby is a later slice")
+    boolean("--ha", False,
+            "router HA primary: journal intake/delivery/heartbeat events to "
+            "--metrics_jsonl and give replicas takeover control sockets so a warm "
+            "standby (--standby) can adopt the fleet")
     flag("--upgrade", default="",
          help="start a rolling weight swap to this manifest-verified checkpoint at "
               "startup; at runtime a control line {\"upgrade\": \"<ckpt>\"} does the same")
@@ -160,7 +172,10 @@ def build_parser() -> argparse.ArgumentParser:
     flag("--canary_slo", default="",
          help="SLO objectives of the per-version canary verdict (obs/slo.py grammar; "
               "'' = short-window availability + ttft_p95)")
-    flag("--standby", default="", help="refused: the warm standby is a later slice")
+    flag("--standby", default="",
+         help="run as the warm standby for the primary whose --metrics_jsonl is this "
+              "path: tail its journal, adopt the fleet when its heartbeat goes silent, "
+              "then serve from this process's stdin")
     flag("--takeover_after", type=float, default=2.0,
          help="standby: seconds of primary heartbeat silence before takeover")
     flag("--device", default="cuda",
@@ -203,6 +218,8 @@ def worker_args(args: argparse.Namespace, replica_jsonl: str = "") -> list[str]:
             out += ["--trace"]
     if args.fault_spec:
         out += ["--fault_spec", args.fault_spec]
+    if args.ha or args.standby:
+        out += ["--ha"]
     return out
 
 
@@ -331,17 +348,37 @@ def supervision_kwargs(args: argparse.Namespace) -> dict:
     return out
 
 
+def _warn(message: str) -> None:
+    print(f"warning: {message}", file=sys.stderr)
+
+
+def router_kwargs(args: argparse.Namespace) -> dict:
+    """The dispatch settings and supervision kwargs of a Router, the same
+    for a primary and for an adopting standby."""
+    return dict(
+        affinity_block=args.affinity_block or args.prefix_block,
+        affinity_slack=args.affinity_slack, max_redispatch=args.max_redispatch,
+        heartbeat_timeout_s=args.heartbeat_timeout, **supervision_kwargs(args),
+    )
+
+
 def build_router(args: argparse.Namespace, telemetry=None):
     """Spawn the fleet the flags describe and return its ``Router``, its
     reader threads started. The device is checked first: with no card,
-    ``--device cuda`` raises before any worker is spawned."""
+    ``--device cuda`` raises before any worker is spawned. ``--ha`` without
+    an event sink (``telemetry`` None) warns and is turned off, in ``args``
+    too, so that no worker outlives this router where no standby could
+    find it."""
     from transformer_tpu_torch.device import resolve_device
     from transformer_tpu_torch.serve.router import ReplicaProcess, Router
 
     refuse_later_slices(args)
     resolve_device(args.device)
+    if args.ha and telemetry is None:
+        _warn("--ha needs --metrics_jsonl for the standby journal; disabling")
+        args.ha = False
     tok = load_tokenizer(args)
-    kwargs = supervision_kwargs(args)
+    kwargs = router_kwargs(args)
     links = []
     for i in range(max(1, args.replicas)):
         role = "both"
@@ -349,16 +386,29 @@ def build_router(args: argparse.Namespace, telemetry=None):
             role = "prefill" if i == 0 else "decode"
         links.append(ReplicaProcess.spawn(i, worker_args(args, replica_jsonl(args, i)),
                                           role=role))
-    router = Router(
-        links, encode=tok.encode, bos_id=tok.bos_id,
-        affinity_block=args.affinity_block or args.prefix_block,
-        affinity_slack=args.affinity_slack, max_redispatch=args.max_redispatch,
-        heartbeat_timeout_s=args.heartbeat_timeout, disaggregate=args.disaggregate,
-        telemetry=telemetry, **kwargs,
-    )
+    router = Router(links, encode=tok.encode, bos_id=tok.bos_id,
+                    disaggregate=args.disaggregate, telemetry=telemetry, ha=args.ha, **kwargs)
     for link in links:
         link.start_reader(router.inbox)
     return router
+
+
+def build_standby(args: argparse.Namespace, telemetry=None):
+    """The warm ``Standby`` for the primary whose event log is
+    ``--standby``, with a primary's supervision and dispatch settings for
+    the router it adopts into. Without an event sink it warns: after
+    adopting it writes no journal for a next standby."""
+    from transformer_tpu_torch.device import resolve_device
+    from transformer_tpu_torch.serve.standby import Standby
+
+    refuse_later_slices(args)
+    resolve_device(args.device)  # respawned workers run there
+    if telemetry is None:
+        _warn("--standby without --metrics_jsonl: after adopting, this router writes no "
+              "journal — the NEXT standby will have nothing to tail")
+    tok = load_tokenizer(args)
+    return Standby(args.standby, takeover_after_s=args.takeover_after, encode=tok.encode,
+                   bos_id=tok.bos_id, telemetry=telemetry, router_kwargs=router_kwargs(args))
 
 
 def main(argv: list[str] | None = None, stdin=None, stdout=None):
@@ -378,15 +428,25 @@ def _serve(args: argparse.Namespace, stdin, stdout):
     from transformer_tpu_torch.cli.train import flags_to_telemetry
 
     telemetry = flags_to_telemetry(args, lambda msg: print(msg, file=sys.stderr))
-    router = build_router(args, telemetry)
-    print(
-        f"router up: {len(router.links)} replica(s) x {args.serve_slots} slots, affinity "
-        f"block {args.affinity_block or args.prefix_block}"
-        f"{', disaggregated prefill/decode' if args.disaggregate else ''}"
-        f"{', supervised' if args.supervise else ''}", file=sys.stderr,
-    )
+    if args.standby:
+        # The warm standby: tail the primary's journal until its heartbeat
+        # goes silent, adopt the fleet, then serve this process's stdin.
+        standby = build_standby(args, telemetry)
+        print(f"standby up: tailing {args.standby} (takeover after "
+              f"{args.takeover_after:.1f}s of silence)", file=sys.stderr)
+        router = standby.run_until_takeover()
+        print(f"adopted the fleet as epoch {router.epoch}: {standby.stats}", file=sys.stderr)
+    else:
+        router = build_router(args, telemetry)
+        print(
+            f"router up: {len(router.links)} replica(s) x {args.serve_slots} slots, affinity "
+            f"block {args.affinity_block or args.prefix_block}"
+            f"{', disaggregated prefill/decode' if args.disaggregate else ''}"
+            f"{', supervised' if args.supervise else ''}"
+            f"{', HA journal on' if args.ha else ''}", file=sys.stderr,
+        )
     try:
-        if args.upgrade:
+        if args.upgrade and not args.standby:
             status = router.start_upgrade(args.upgrade)
             if status.get("ok"):
                 print(f"rolling upgrade started: {args.upgrade} -> version "

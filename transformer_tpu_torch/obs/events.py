@@ -48,10 +48,8 @@ fault_hook = None
 
 #: Every event kind of the JAX package's catalogue, with a one-line
 #: meaning: the port keeps the whole list so both packages' logs read
-#: alike (the ``bench.*`` kinds belong to the JAX package's bench harness
-#: and the ``route.takeover``/HA kinds to its standby, which the port
-#: does not emit yet). A test holds every literal ``emit`` kind in the
-#: port to this catalogue.
+#: alike (the ``bench.*`` kinds belong to the JAX package's bench harness).
+#: A test holds every literal ``emit`` kind in the port to this catalogue.
 EVENT_CATALOGUE = {
     "bench.attempt": "bench-infra: one per relay attempt (bench.py rows)",
     "bench.fallback_row": "bench-infra: CPU-fallback row attribution",

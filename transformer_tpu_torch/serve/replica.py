@@ -36,7 +36,7 @@ router -> replica:
 
 replica -> router:
     {"type": "ready", "replica": name, "slots": N, "role": R
-     [, "weight_version": V]}
+     [, "control_port": P] [, "weight_version": V]}    P with --ha only
     {"type": "hb", "backlog": B, "free": F, "active": A [, "wv": V]}
     {"type": "answer", "rid": N, "resp": {...} [, "slo": {...}]}
     {"type": "prefilled", "rid": N, "tokens": T, "blocks": ...}
@@ -76,8 +76,35 @@ forwarded ``traceparent``, and the flight recorder dumps to
 supervisor's postmortem), on SIGTERM and on a ``dump`` request. The
 final ``stats`` message then carries the profiler's rows as ``perf``.
 
-Left out (later slices): ``--ha`` and its takeover socket
-(``serve/standby.py``), ``--mesh`` (``serve/sharded.py``).
+**Router HA** (``--ha``): the worker also listens on a localhost TCP
+control socket (an ephemeral port, announced in ``ready``). A warm standby
+router (``serve/standby.py``) that finds the primary dead connects and
+sends::
+
+    {"type": "takeover", "epoch": E, "inflight": [rid, ...]}
+
+An epoch higher than that of the channel holding authority (stdin starts
+at 1) wins. The reply says, for each rid the standby believes in flight,
+whether it is ``done`` (the answer message replayed from a bounded cache
+of recent answers: an answer lost in the dead primary's pipe is delivered
+again, and the standby's funnel keeps it at most once), still
+``inflight`` (it will answer on the new channel) or ``unknown`` (the
+standby redispatches it)::
+
+    {"type": "adopted", "replica": name, "epoch": E,
+     "statuses": {rid: "done"|"inflight"|"unknown"},
+     "messages": {rid: <the answer or prefilled message>}}
+
+and every later message goes to the adopting channel. A takeover at an
+epoch not above the current one answers ``{"type": "rejected", "epoch":
+cur}`` and changes nothing: after an adoption, what still arrives from the
+old channel (a primary wrongly declared dead) is dropped and counted
+(``stale_dropped``), never served twice. In HA mode stdin's EOF does not
+end the worker (the primary's death must not take the fleet with it);
+shutdown comes from the channel in authority. The final ``stats`` add
+``stale_dropped``, ``takeovers`` and ``rejected_takeovers``.
+
+Left out (a later slice): ``--mesh`` (``serve/sharded.py``).
 """
 
 from __future__ import annotations
@@ -87,24 +114,32 @@ import base64
 import json
 import os
 import queue
+import socket
 import sys
 import threading
 import time
+from collections import deque
 
 _LATER = {
-    "ha": "--ha (a warm standby's takeover socket) comes with serve/standby.py, "
-          "a later slice of the port",
     "mesh": "--mesh (sharded replicas) comes with serve/sharded.py, a later slice "
             "of the port",
 }
 
+RECENT_ANSWERS = 512  # the re-delivery cache a takeover replays from
+
 
 class _Channel:
-    """The outbound control line (stdout). The main loop is its only
-    writer, so lines never tear; a write failure marks it broken."""
+    """One duplex control link: stdin/stdout, or an accepted takeover
+    socket. The main loop is its only writer, so lines never tear; reader
+    threads only feed its inbound lines to the main queue. ``epoch`` is the
+    authority the channel last proved (stdin starts at 1, a socket earns
+    one in the handshake). A write failure marks it broken: the answers
+    are not lost with it, the re-delivery cache replays them to whoever
+    adopts next."""
 
-    def __init__(self, write_file):
+    def __init__(self, write_file, epoch: int = 0):
         self._write = write_file
+        self.epoch = epoch
         self.broken = False
 
     def send(self, msg: dict) -> bool:
@@ -350,7 +385,10 @@ def _parse_args(argv=None) -> argparse.Namespace:
 
     add_metrics_flags(p)
     p.add_argument("--fault_spec", default="")
-    p.add_argument("--ha", action="store_true", help="refused: a later slice")
+    p.add_argument("--ha", action="store_true",
+                   help="router HA: listen on a localhost control socket for a warm "
+                        "standby's takeover handshake, and outlive stdin's EOF (the "
+                        "primary's death must not end the fleet)")
     p.add_argument("--init_ckpt", default="",
                    help="bootstrap the serving weights from this manifest-verified "
                         "checkpoint instead of the export or spec weights (the "
@@ -379,6 +417,29 @@ def stdin_reader(q: "queue.Queue") -> None:
     for line in sys.stdin:
         q.put(line)
     q.put(None)
+
+
+def _control_server(listener: socket.socket, q: "queue.Queue") -> None:
+    """Accept takeover connections; for each, one reader thread puts
+    ``(channel, line)`` pairs on the main queue, as ``stdin_reader`` puts
+    lines, so the main loop stays the only owner of the serving state."""
+    while True:
+        try:
+            conn, _ = listener.accept()
+        except OSError:
+            return  # the listener closed at exit
+        chan = _Channel(conn.makefile("w", encoding="utf-8", buffering=1))
+        rf = conn.makefile("r", encoding="utf-8")
+
+        def reader(chan=chan, rf=rf):
+            try:
+                for line in rf:
+                    q.put((chan, line))
+            except (OSError, ValueError):
+                pass
+            chan.broken = True
+
+        threading.Thread(target=reader, daemon=True, name="replica-control-read").start()
 
 
 def replica_telemetry(args: argparse.Namespace):
@@ -423,7 +484,8 @@ def main(argv=None) -> None:
     from transformer_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)  # no card for "cuda": raises before ready
-    out = _Channel(sys.stdout)
+    stdin_chan = _Channel(sys.stdout, epoch=1)
+    out = stdin_chan  # the channel in authority; its epoch is the worker's
     sys.stdout = sys.stderr  # stray prints never reach the protocol line
     if args.fault_spec:
         from transformer_tpu_torch.serve import resilience
@@ -492,8 +554,16 @@ def main(argv=None) -> None:
 
     q: queue.Queue = queue.Queue()
     threading.Thread(target=stdin_reader, args=(q,), daemon=True).start()
+    listener = None
     ready = {"type": "ready", "replica": args.replica_name, "slots": args.serve_slots,
              "role": args.role}
+    if args.ha:
+        listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        listener.bind(("127.0.0.1", 0))
+        listener.listen(4)
+        ready["control_port"] = listener.getsockname()[1]
+        threading.Thread(target=_control_server, args=(listener, q), daemon=True,
+                         name="replica-control-accept").start()
     if weight_version is not None:
         ready["weight_version"] = weight_version
     out.send(ready)
@@ -520,6 +590,12 @@ def main(argv=None) -> None:
     rid_fifo: "list[tuple[int, int]]" = []
     prefill_rids: "set[int]" = set()
     prompt_ids: "dict[int, list[int]]" = {}
+    # The bounded re-delivery cache: each answered rid's whole message,
+    # replayed through a takeover when the answer died in the old
+    # primary's pipe (the adopting funnel drops duplicates).
+    recent_answers: "dict[int, dict]" = {}
+    answer_fifo: deque = deque()
+    stats_extra = {"stale_dropped": 0, "takeovers": 0, "rejected_takeovers": 0}
     # At most one checkpoint verification in flight, on a worker thread
     # (a large checkpoint must not starve the heartbeats); the main loop
     # stages its result on its own stream.
@@ -547,9 +623,51 @@ def main(argv=None) -> None:
     # reads; whatever no replacement read goes at exit.
     exported: "list[str]" = []
 
-    def ingest(msg: dict) -> bool:
-        """Handle one control message; False on shutdown."""
+    def remember(rid, msg) -> None:
+        recent_answers[rid] = msg
+        answer_fifo.append(rid)
+        while len(answer_fifo) > RECENT_ANSWERS:
+            recent_answers.pop(answer_fifo.popleft(), None)
+
+    def handle_takeover(chan: _Channel, msg: dict) -> None:
+        nonlocal out
+        e = int(msg.get("epoch", 0))
+        if e <= out.epoch:
+            # The split-brain guard: a stale or second adopter changes
+            # nothing.
+            stats_extra["rejected_takeovers"] += 1
+            chan.send({"type": "rejected", "replica": args.replica_name, "epoch": out.epoch})
+            return
+        inflight_here = {rid for rid, _ in rid_fifo}
+        statuses, messages = {}, {}
+        for rid in msg.get("inflight", []):
+            if rid in recent_answers:
+                statuses[str(rid)] = "done"
+                messages[str(rid)] = recent_answers[rid]
+            elif rid in inflight_here:
+                statuses[str(rid)] = "inflight"
+            else:
+                statuses[str(rid)] = "unknown"
+        chan.epoch = e
+        out = chan
+        stats_extra["takeovers"] += 1
+        out.send({
+            "type": "adopted", "replica": args.replica_name, "epoch": e, "role": args.role,
+            "slots": args.serve_slots, "statuses": statuses, "messages": messages,
+            "backlog": sched.backlog, "active": sched.active_count,
+        })
+
+    def ingest(chan: _Channel, msg: dict) -> bool:
+        """Handle one control message from ``chan``; False on shutdown."""
         kind = msg.get("type")
+        if kind == "takeover":
+            handle_takeover(chan, msg)
+            return True
+        if chan.epoch < out.epoch:
+            # A channel that lost authority (the old primary after a
+            # takeover): its requests must not be served twice.
+            stats_extra["stale_dropped"] += 1
+            return True
         if kind == "shutdown":
             sched.shutdown()
             return False
@@ -666,6 +784,7 @@ def main(argv=None) -> None:
                                   "new_tokens")
                         if k in span
                     }
+            remember(rid, msg)
             out.send(msg)
 
     alive = True
@@ -674,14 +793,19 @@ def main(argv=None) -> None:
         while alive:
             try:
                 if sched.busy or sched.has_ready:
-                    line = q.get_nowait()
+                    item = q.get_nowait()
                 else:
-                    line = q.get(timeout=hb_s)  # idle: wake for heartbeats
+                    item = q.get(timeout=hb_s)  # idle: wake for heartbeats
             except queue.Empty:
                 break
-            if line is None:  # stdin EOF: drain and exit
+            if item is None:
+                # stdin's EOF: drain and exit, unless in HA mode, where the
+                # worker outlives its primary and a standby adopts it.
+                if args.ha:
+                    continue
                 alive = False
                 break
+            chan, line = (stdin_chan, item) if isinstance(item, str) else item
             line = line.strip()
             if not line:
                 continue
@@ -691,7 +815,7 @@ def main(argv=None) -> None:
                 continue
             if not isinstance(msg, dict):
                 continue
-            if not ingest(msg):
+            if not ingest(chan, msg):
                 alive = False
                 break
         reap_upgrade_load()
@@ -705,6 +829,7 @@ def main(argv=None) -> None:
     flush_answers()
     stats = {
         **dict(sched.stats),
+        **stats_extra,
         "graph_captures": len(sched.forward.captures),
         "warm_captures": warm_captures,
         "params_moved": sum(
@@ -716,6 +841,8 @@ def main(argv=None) -> None:
         # The measured per-program rows, without a parse of the worker's log.
         final["perf"] = telemetry.profiler.summary()
     out.send(final)
+    if listener is not None:
+        listener.close()
     if telemetry is not None:
         telemetry.close()
     for path in exported:

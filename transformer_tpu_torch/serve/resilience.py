@@ -11,12 +11,13 @@ Port of ``transformer_tpu/serve/resilience.py`` (standard library only):
   ``draft.propose`` / ``draft.slow`` (both drafters), ``ckpt.swap`` (the
   scheduler's weight flip), and the fleet's ``route.spawn`` (the
   supervisor's respawn), ``route.hb`` (a heartbeat at the router),
-  ``route.upgrade`` (the rollout's per-replica swap) and ``route.canary``
-  (the canary's per-version SLO split), and ``obs.emit`` (the event
-  log's write, ``obs/events.py``, through its ``fault_hook`` slot);
-  ``ckpt.write``, ``data.prefetch`` and ``route.takeover`` parse but fire
-  nowhere until the modules that hold them are ported (the port's
-  checkpoint writer and prefetch thread, ``serve/standby.py``). Armed by
+  ``route.upgrade`` (the rollout's per-replica swap), ``route.canary``
+  (the canary's per-version SLO split) and ``route.takeover`` (each
+  per-replica handshake of the warm standby, ``serve/standby.py``), and
+  ``obs.emit`` (the event log's write, ``obs/events.py``, through its
+  ``fault_hook`` slot); ``ckpt.write`` and ``data.prefetch`` parse but
+  fire nowhere until the modules that hold them are ported (the port's
+  checkpoint writer and prefetch thread). Armed by
   ``cli.serve --fault_spec``, ``cli.router --fault_spec`` (in the router
   and in every worker it spawns) or :func:`active`; a disarmed plane
   costs one module-global ``None`` check per site.
@@ -63,7 +64,7 @@ FAULT_POINTS = frozenset({
     "data.prefetch",    # the prefetch worker (no site in the port yet)
     "route.spawn",      # raise inside the supervisor's replica (re)spawn
     "route.hb",         # swallow a replica heartbeat at the router
-    "route.takeover",   # the standby's takeover handshake (no site in the port yet)
+    "route.takeover",   # raise inside the standby's per-replica takeover handshake
     "ckpt.swap",        # abort the scheduler's step-boundary weight flip
     "route.upgrade",    # raise inside the rollout's per-replica swap dispatch
     "route.canary",     # mark a canary answer bad in the per-version SLO split

@@ -56,8 +56,18 @@ the supervisor and the rollout) go there; with a registry, the
 fleet-size gauges; with a tracer, one ``route.request`` span per request
 on the ``router`` lane, the parent of the replica's ``serve.request``
 span (its ``traceparent``), so ``python -m transformer_tpu_torch.obs
-trace ROUTER ROUTER.r0 ROUTER.r1`` joins them. The standby's takeover
-(``seed_takeover``, the HA heartbeat) comes with ``serve/standby.py``.
+trace ROUTER ROUTER.r0 ROUTER.r1`` joins them.
+
+**Router HA** (``ha=True``): the router journals what a warm standby
+(``serve/standby.py``) needs to adopt the fleet to that event log: one
+``route.intake`` per accepted order (the request, its traceparent and its
+remaining deadline budget; a pre-answered order its response),
+``route.answered`` delivery marks from :meth:`Router.drain_ready`, and a
+``route.hb`` beacon every ``ha_heartbeat_s`` with the authority
+``epoch`` and the workers' takeover ports (their ``ready`` lines'
+``control_port``). A standby that adopts builds its Router through
+:meth:`Router.seed_takeover`, which journals the adopted orders again for
+the next standby.
 """
 
 from __future__ import annotations
@@ -199,6 +209,7 @@ class ReplicaLink:
         # is the replica's last confirmed weight_version (None untagged).
         self.upgrading = False
         self.wv: str | None = None
+        self.control_port: int | None = None  # the worker's --ha takeover socket
         self.final_stats: dict | None = None  # the replica's shutdown report
         self.final_perf: dict | None = None   # ... and its profiler's rows, if armed
         self.flight_record: dict | None = None  # the last ``dump`` reply's record
@@ -348,6 +359,9 @@ class Router:
         scaler=None,
         upgrader=None,
         slos=None,
+        ha: bool = False,
+        epoch: int = 1,
+        ha_heartbeat_s: float = 0.5,
     ):
         if not links:
             raise ValueError("router needs at least one replica link")
@@ -398,6 +412,11 @@ class Router:
         # after a rollback); the supervisor's spawn recipe reads it.
         self._upgrader = upgrader
         self.weight_target: "tuple[str, str] | None" = None
+        # Router HA: journal intake, delivery and a beacon for a standby.
+        self.ha = ha
+        self.epoch = epoch
+        self.ha_heartbeat_s = ha_heartbeat_s
+        self._last_ha_hb = 0.0
         # The router's own SLO engine over the answer funnel (the
         # replicas' per-answer "slo" side channel): the FleetScaler's
         # signal.
@@ -475,17 +494,26 @@ class Router:
         except (TypeError, ValueError):
             pass  # the replica's admission answers the validation error
         with self._intake_lock:
-            order = self._next_order
+            rr = _Tracked(
+                order=self._next_order, req=req, ctx=ctx, t_submit=now, deadline=deadline,
+                affinity=affinity, stage="prefill" if self.disaggregate else "decode",
+                span_root=span_root,
+            )
             self._next_order += 1
             self.stats["submitted"] += 1
-            self._pending.append(
-                _Tracked(
-                    order=order, req=req, ctx=ctx, t_submit=now, deadline=deadline,
-                    affinity=affinity, stage="prefill" if self.disaggregate else "decode",
-                    span_root=span_root,
-                )
-            )
-        return order
+            self._pending.append(rr)
+        if self.ha:
+            self._journal_intake(rr, now)
+        return rr.order
+
+    def _journal_intake(self, rr: _Tracked, now: float) -> None:
+        """The standby's replayable record of an accepted order: enough to
+        re-own or redispatch it after adopting the fleet (the request, its
+        trace identity, the deadline budget left at ``now``)."""
+        self.emit_event(
+            "route.intake", order=rr.order, req=rr.req, traceparent=rr.ctx.to_traceparent(),
+            deadline_ms=None if rr.deadline is None else round((rr.deadline - now) * 1e3, 3),
+        )
 
     def submit_done(self, resp: dict) -> int:
         """Reserve an output position for an already-answered response
@@ -495,6 +523,10 @@ class Router:
             self._next_order += 1
             self.stats["submitted"] += 1
             self._done[order] = resp
+        if self.ha:
+            # A pre-answered order carries its response: the standby answers
+            # it from the log alone.
+            self.emit_event("route.intake", order=order, resp=resp)
         if self._tracer is not None:
             span = self._tracer.start_span("route.request", lane="router")
             extra = {}
@@ -509,9 +541,17 @@ class Router:
         """Responses completed, in arrival order (the stdout contract)."""
         out = []
         with self._intake_lock:
+            first = self._emit_next
             while self._emit_next in self._done:
                 out.append(self._done.pop(self._emit_next))
                 self._emit_next += 1
+            last = self._emit_next
+        if self.ha and out:
+            # Delivery marks, not completion marks: an answer waiting out of
+            # order in ``_done`` dies with this process and the standby
+            # recovers it from the workers, while a delivered order must
+            # never reach the client twice.
+            self.emit_event("route.answered", first=first, upto=last - 1, n=len(out))
         return out
 
     @property
@@ -550,6 +590,8 @@ class Router:
             slo_result = self._slo_engine.maybe_evaluate()
         if self._scaler is not None:
             progressed |= self._scaler.poll(slo_result)
+        if self.ha:
+            self._ha_heartbeat()
         return progressed
 
     def run(self, reqs: "list[dict]") -> "list[dict]":
@@ -640,6 +682,58 @@ class Router:
             if not l.dead and not l.warming and not l.draining and not l.upgrading
         ]
 
+    def seed_takeover(
+        self,
+        *,
+        next_order: int,
+        emit_next: int,
+        done: "dict[int, dict]",
+        inflight: "list[tuple[int, _Tracked]]",
+        pending: "list[_Tracked]",
+    ) -> None:
+        """Install a warm standby's adopted state (``serve/standby.py``):
+        the order clock resumes past every order the primary minted,
+        delivery at the client's floor ``emit_next``; recovered answers go
+        to the funnel, orders a worker claimed are re-owned in the in-flight
+        table once, the unknown ones queue for dispatch. Called before the
+        pump thread starts. In ``ha`` mode the adopted orders are journaled
+        again, since a chained standby reads only this router's log."""
+        with self._intake_lock:
+            self._next_order = max(self._next_order, next_order)
+            self._emit_next = emit_next
+            self._done.update(done)
+            self._pending.extend(pending)
+        for index, rr in inflight:
+            rr.replica = index
+            self._inflight[rr.order] = rr
+            self.links[index].inflight += 1
+        if not self.ha:
+            return
+        if emit_next > 0:
+            # The floor (n 0): orders below it reached the client through a
+            # predecessor.
+            self.emit_event("route.answered", first=emit_next, upto=emit_next - 1, n=0)
+        now = time.perf_counter()
+        for order in sorted(done):
+            self.emit_event("route.intake", order=order, resp=done[order])
+        for rr in sorted([rr for _, rr in inflight] + list(pending), key=lambda r: r.order):
+            self._journal_intake(rr, now)
+
+    def _ha_heartbeat(self) -> None:
+        """The beacon a warm standby watches: a ``route.hb`` event every
+        ``ha_heartbeat_s`` with the epoch and the workers' takeover ports.
+        The in-flight table is not in it (the standby rebuilds that from
+        the intake and delivery records), so it stays O(fleet)."""
+        now = time.monotonic()
+        if now - self._last_ha_hb < self.ha_heartbeat_s:
+            return
+        self._last_ha_hb = now
+        self.emit_event(
+            "route.hb", epoch=self.epoch,
+            ports={l.name: l.control_port for l in self.links
+                   if l.control_port is not None and not l.retired},
+        )
+
     # -- inbox --------------------------------------------------------------
 
     def _drain_inbox(self, timeout: float) -> bool:
@@ -694,6 +788,8 @@ class Router:
                 self._fail_replica(index, "pipe closed")
         elif kind == "ready":
             link.last_hb = time.monotonic()
+            if isinstance(msg.get("control_port"), int):
+                link.control_port = msg["control_port"]
             if msg.get("weight_version") is not None:
                 # A replica bootstrapped from --init_ckpt announces the
                 # verified version it serves.
