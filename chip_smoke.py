@@ -19,7 +19,9 @@ the twentieth last):
    which runs on the CUDA cores, included);
 3. kernels: each kernel against its plain PyTorch version on the card at
    long4k shapes, with its time, the plain version's time, one library
-   call's time, and the least time the card could take (bound). Two
+   call's time, and the least time the card could take (bound: each
+   kernel's bytes and operations from ``kernels/work.py``, the count the
+   cost model prices a launch with, over the card's rates). Two
    timers: ``cuda_ms`` (CUDA events around back-to-back Python calls: for
    a kernel of a few microseconds that is the host's time per call) for
    every kernel, and ``cuda_graph_ms`` (the calls captured in one CUDA
@@ -323,19 +325,28 @@ the twentieth last):
    transformer_tpu_torch.obs summarize`` rendering the ``perf:`` rows,
    ``obs slo`` the default objectives, ``obs trace`` 14 ``serve.request``
    roots; the profiler's p50 of ``serve.pool_step_paged_flash`` beside
-   phase 10's replayed step. (b) phase 9's D run (base 1 + 1 layer, K 8,
+   phase 10's replayed step; that step priced by the cost model at this
+   shape (``analysis/costs.py`` ``serving_step_costs``, a meta-device
+   trace) and joined with the p50 by ``obs roofline --costs``: its
+   effective bytes/s and share of 3.35e12 B/s. (b) phase 9's D run (base 1 + 1 layer, K 8,
    the 1,300 pairs) again with ``--metrics_jsonl --trace --profile_dir
    --tb_log_dir``: its losses bit-identical to D's, the same captures
    and flash counters, ``train_steps_total`` the steps taken,
    ``train.memory``'s peak equal to ``torch.cuda.max_memory_allocated``,
    the ``torch.profiler`` window naming the three flash kernels and
-   TensorBoard files for train and test. (c) two fp32 replica workers
+   TensorBoard files for train and test; exactly one ``train.predicted``
+   (the cost model's price of the step), its peak at least the
+   parameters' and optimizer state's bytes, and ``summarize``'s
+   measured/predicted peak. (c) two fp32 replica workers
    behind ``cli.router`` with ``--metrics_jsonl --trace`` and an idle
    drain (``--max_replicas 2 --scale_idle 1``) on 8 greedy requests: the
    answers equal to a single scheduler's, a log a process
    (``<path>.r0``, ``<path>.r1``), each worker's request spans under the
    router's, and ``summarize`` over the three logs rendering the
-   ``router:`` and ``fleet:`` lines. Telemetry's overhead: the serve
+   ``router:`` and ``fleet:`` lines. (d) ``analysis/retrace.py``'s
+   reports on the card: no steady-state path meets a new step signature
+   after warm-up, and each signature met is one captured graph.
+   Telemetry's overhead: the serve
    step and the train step with it on and off (phases 4 and 9).
    ``python3 chip_smoke.py --only telemetry`` runs this phase alone (with
    phase 4's serving and phase 9's D run as its references).
@@ -766,6 +777,7 @@ def check_paged_attention(label, s_q, h, h_kv, lengths, quant, nmax=None, profil
         paged_flash_attention,
         paged_flash_attention_plain,
     )
+    from transformer_tpu_torch.kernels.work import paged_attention_work
 
     lengths = [max(L, s_q) for L in lengths]
     n = len(lengths)
@@ -805,17 +817,8 @@ def check_paged_attention(label, s_q, h, h_kv, lengths, quant, nmax=None, profil
     library_ms = cuda_ms(library)
     library_device_ms = cuda_graph_ms(library)
     d = q.shape[-1]
-    kv_elem = 1 if quant else 2
-    rows = sum(lengths)
-    nbytes = (
-        2 * q.numel() * 2  # q read, out written (bf16)
-        + 2 * rows * h_kv * d * kv_elem  # visible K and V rows
-        + (2 * rows * h_kv * 4 if quant else 0)  # their scales
-        + sum(math.ceil(L / 16) for L in lengths) * 4 + 4 * n  # table, lengths
-    )
-    visible = sum(L - s_q + i + 1 for L in lengths for i in range(s_q))
-    flops = 4.0 * d * h * visible
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    work = paged_attention_work(q, k, table, lengths, quant)
+    b_ms, b_by = bound_ms(work.nbytes, work.flops, "bfloat16")
     rec = {
         "phase": "kernels", "kernel": "paged_attention", "case": label,
         "n": n, "s_q": s_q, "h": h, "h_kv": h_kv, "d": d, "block": 16,
@@ -869,6 +872,7 @@ def check_fused_ln_ffn(label, m, activation, norm_scheme, d=512, dff=2048):
     import torch.nn.functional as F
 
     from transformer_tpu_torch.config import is_gated
+    from transformer_tpu_torch.kernels.work import fused_ln_ffn_work
     from transformer_tpu_torch.ops.ffn import fused_ln_ffn, fused_ln_ffn_plain, slab_cols
 
     rng = np.random.default_rng(SEED + m)
@@ -941,10 +945,8 @@ def check_fused_ln_ffn(label, m, activation, norm_scheme, d=512, dff=2048):
     library_device_ms_cold = cuda_graph_ms(cycling([library_call(*c) for c in copies]),
                                            iters=iters)
     del copies
-    mats = 3 if gated else 2
-    nbytes = 2 * (2 * m * d + mats * d * dff + (mats - 1) * dff + d + 2 * d)
-    flops = 2.0 * m * d * dff * mats
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    work = fused_ln_ffn_work(x, dff, gated)
+    b_ms, b_by = bound_ms(work.nbytes, work.flops, "bfloat16")
     rec = {
         "phase": "kernels", "kernel": "fused_ln_ffn", "case": label,
         "m": m, "d": d, "dff": dff, "activation": activation,
@@ -1116,22 +1118,6 @@ def last_rows_dropped_plain(q, k, v, do, lse, delta, kw, rows=10):
     return (dq, *flash_dkdv_plain(q, k, v, do, lse, delta, **kw))
 
 
-def visible_pairs(mask, s_q, causal, band):
-    """(query row, key) pairs the attention computes, summed over the
-    batch, per query head: what these inputs need, not the dense S_q*S_k."""
-    import torch
-
-    cm = torch.cumsum(mask.long(), dim=1)  # (B, S_k)
-    if not causal:
-        return int(cm[:, -1].sum().item()) * s_q
-    rows = torch.arange(s_q, device=mask.device)
-    seen = cm[:, rows]
-    if band is not None:
-        lo = rows - band
-        seen = seen - torch.where(lo >= 0, cm[:, lo.clamp_min(0)], torch.zeros_like(seen))
-    return int(seen.sum().item())
-
-
 def check_flash(label, dtype, b, s_q, s_k, h, h_kv, d, causal, band, padded, timed=False,
                 lengths=None, device_timed=False):
     """The three flash kernels against their plain versions on one case,
@@ -1274,6 +1260,7 @@ def time_flash(q, k, v, do, mask, kw, lse, delta, dtype, device_timed=False):
         flash_fwd,
         flash_fwd_plain,
     )
+    from transformer_tpu_torch.kernels.work import flash_work
 
     calls = {
         "flash_fwd": lambda: flash_fwd(q, k, v, **kw),
@@ -1307,19 +1294,8 @@ def time_flash(q, k, v, do, mask, kw, lse, delta, dtype, device_timed=False):
     sdpa_out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True))
     library_ms = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd, "flash_dkdv": lib_bwd}
-    e = q.element_size()
-    pairs = visible_pairs(mask, s_q, kw["causal"], kw["band"]) * h
-    qb, kvb, rows = q.numel() * e, k.numel() * e, b * h * s_q * 4
-    nbytes = {
-        "flash_fwd": 2 * qb + 2 * kvb + rows + mask.numel(),
-        "flash_dq": 3 * qb + 2 * kvb + 2 * rows + mask.numel(),
-        "flash_dkdv": 2 * qb + 4 * kvb + 2 * rows + mask.numel(),
-    }
-    # 2 flops per multiply-add: QK^T and PV forward; S, dP and dQ; S, dP,
-    # dV and dK.
-    flops = {name: 2.0 * n * d * pairs
-             for name, n in (("flash_fwd", 2), ("flash_dq", 3), ("flash_dkdv", 4))}
-    bounds = {name: bound_ms(nbytes[name], flops[name], dtype) for name in ms}
+    works = {name: flash_work(name, q, k, mask, kw["causal"], kw["band"]) for name in ms}
+    bounds = {name: bound_ms(w.nbytes, w.flops, dtype) for name, w in works.items()}
     device = {}
     if device_timed:
         own = {name: kernel_us(fn) for name, fn in calls.items()}
@@ -1345,7 +1321,9 @@ def time_flash(q, k, v, do, mask, kw, lse, delta, dtype, device_timed=False):
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library": f"torch.nn.functional.scaled_dot_product_attention({library}); "
                    "backward via torch.autograd.grad (dq, dk, dv together)",
-        "visible_pairs_per_head": pairs // h, "bytes": nbytes, "flops": flops,
+        "visible_pairs_per_head": int(works["flash_fwd"].flops) // (4 * d * h),
+        "bytes": {n: w.nbytes for n, w in works.items()},
+        "flops": {n: w.flops for n, w in works.items()},
         "bound_ms": {n: v[0] for n, v in bounds.items()},
         "bound_by": {n: v[1] for n, v in bounds.items()},
         "share_of_bound": {n: bounds[n][0] / ms[n] for n in ms},
@@ -1407,6 +1385,7 @@ def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=
         flash_ring_step_plain,
     )
     from transformer_tpu_torch.kernels.paged_flash import MASKED
+    from transformer_tpu_torch.kernels.work import ring_step_work
 
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
     q, k, v, _, mask = flash_inputs(b, c, c, h, h_kv, d, dt, padded, lengths=lengths)
@@ -1470,11 +1449,8 @@ def check_ring_step(label, dtype, b, c, h, h_kv, d, causal, band, padded, timed=
         ms = cuda_ms(lambda: flash_ring_step(q, k, v, mask, *got, **kw), iters=20)
         plain_ms = cuda_ms(lambda: flash_ring_step_plain(q, k, v, mask, *carry, **kw),
                            iters=3, warmup=1)
-        e = q.element_size()
-        carry_bytes = sum(x.numel() * 4 for x in carry)
-        nbytes = q.numel() * e + 2 * k.numel() * e + mask.numel() + 2 * carry_bytes
-        pairs = visible_pairs(mask, c, causal, None) * h
-        flops = 4.0 * d * pairs  # QK^T and PV, 2 flops per multiply-add
+        work = ring_step_work(q, k, mask, carry, causal, band)
+        nbytes, flops = work.nbytes, work.flops
         b_ms, b_by = bound_ms(nbytes, flops, dtype)
         rec.update({
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
@@ -6312,6 +6288,7 @@ def telemetry_serve(export, vocab_path, reqs, plain_answers, serve_rec, graph_re
     launches as phase 4's; what ``obs`` renders from the log."""
     import torch
 
+    from transformer_tpu_torch.analysis.costs import serving_step_costs
     from transformer_tpu_torch.cli import serve
     from transformer_tpu_torch.kernels.paged_flash import paged_flash_attention
     from transformer_tpu_torch.obs import read_events
@@ -6341,8 +6318,26 @@ def telemetry_serve(export, vocab_path, reqs, plain_answers, serve_rec, graph_re
     roots = [e for e in spans if e.get("name") == "serve.request"
              and "parent" not in e.get("args", {})]
     step_ms = st["decode_s"] / max(1, st["steps"]) * 1e3
+    # The step's bytes at this shape (the cost model, a meta-device trace)
+    # over the profiler's p50, through `obs roofline --costs`.
+    t0 = time.perf_counter()
+    (step_cost,) = serving_step_costs(sched.cfg, sched.num_slots, sched.max_total,
+                                      sched.block_tokens, layouts=("paged_flash",))
+    costs_path = os.path.join(root, "serve_costs.json")
+    with open(costs_path, "w") as f:
+        json.dump({"programs": [step_cost.to_dict()]}, f)
+    roof = json.loads(obs_cli("roofline", path, "--costs", costs_path, "--format", "json"))
+    roof_row = next((r for r in roof["programs"]
+                     if r["program"] == "serve.pool_step_paged_flash"), {})
+    priced_s = time.perf_counter() - t0
     rec = {
         "phase": "telemetry", "step": "serve", "card": nvidia_smi_line(), "argv": argv,
+        "predicted_step": {k: step_cost.to_dict()[k] for k in (
+            "name", "peak_bytes", "flops", "bytes_moved", "arithmetic_intensity", "kernels")},
+        "roofline_row": roof_row,
+        "effective_bytes_per_s": roof_row.get("effective_bytes_per_s", "not measured"),
+        "share_of_3.35e12": roof_row.get("roofline_ratio", "not measured"),
+        "pricing_and_join_s": priced_s,
         "answers_identical": out.getvalue() == "".join(
             json.dumps(a) + "\n" for a in plain_answers),
         "steps": st["steps"], "steps_phase4": serve_rec["decode_forwards"],
@@ -6381,6 +6376,9 @@ def telemetry_serve(export, vocab_path, reqs, plain_answers, serve_rec, graph_re
             name in slo_report for name in ("availability", "ttft_p95", "deadline_miss",
                                             "acceptance_rate")),
         "the SLO engine's gauges": bool(rec["slo_gauges"]),
+        "obs roofline joins the priced step with its p50": (
+            roof_row.get("predicted_bytes_moved") == step_cost.bytes_moved
+            and roof_row.get("effective_bytes_per_s", 0) > 0),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -6397,6 +6395,7 @@ def telemetry_train(src_vocab, tgt_vocab, d_rec, root):
 
     import torch
 
+    from transformer_tpu_torch.models.transformer import flatten
     from transformer_tpu_torch.obs import read_events
 
     data = cut_corpus(CKPT_PAIRS)
@@ -6433,8 +6432,18 @@ def telemetry_train(src_vocab, tgt_vocab, d_rec, root):
                        for k in ("flash_fwd", "flash_dq", "flash_dkdv")}
     stamp = os.listdir(tb_dir)
     summary = obs_cli("summarize", path)
+    # The cost model's prediction of the step (train.predicted, at fit
+    # start) against what the step must hold: the parameters and the
+    # optimizer's state, updated in place.
+    predicted = [e for e in events if e["kind"] == "train.predicted"]
+    state_bytes = sum(t.numel() * t.element_size() for t in [
+        *flatten(trainer.state.params).values(), *trainer.state.opt_state.tensors()])
+    pred_peak = predicted[0]["peak_bytes"] if predicted else None
     out = {
         "phase": "telemetry", "step": "train", "card": nvidia_smi_line(), "argv": argv,
+        "predicted": predicted, "state_bytes": state_bytes,
+        "measured_over_predicted_peak": mem_peak / pred_peak if pred_peak else "not measured",
+        "summarize_cost_model": [ln for ln in summary.splitlines() if "cost model" in ln],
         "losses_identical": rec["losses"] == d_rec["losses"], "steps": trainer.state.step,
         "captures": rec["captures"], "captures_d": d_rec["captures"],
         "launches": rec["launches"], "launches_d": d_rec["launches"],
@@ -6473,6 +6482,10 @@ def telemetry_train(src_vocab, tgt_vocab, d_rec, root):
         "TensorBoard files for train and test": any(
             v == ["test", "train"] for v in out["tensorboard"].values()),
         "summarize renders the train run": f"train: {steps} steps" in summary,
+        "one train.predicted": len(predicted) == 1,
+        "its peak holds the parameters and the optimizer's state": (
+            pred_peak is not None and pred_peak >= state_bytes),
+        "summarize prints measured/predicted peak": "measured/predicted" in summary,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -6546,16 +6559,45 @@ def telemetry_fleet(export, vocab_path, tok, reqs, root):
         raise SystemExit(f"telemetry (fleet): {failed}: {rec}")
 
 
+RETRACE_STEPS = 2  # steady-state rounds of each retrace report
+
+
+def telemetry_retrace():
+    """(d) ``analysis/retrace.py``'s reports on the card (one long-lived
+    scheduler each, the tiny canned model; the kernel step at the widths
+    the kernels take): after warm-up no steady-state path meets a new
+    step signature, and each signature met is one captured graph."""
+    from transformer_tpu_torch.analysis.retrace import REPORTS, SKIPPED_REPORTS
+
+    t0 = time.perf_counter()
+    deltas = [d for report in REPORTS.values()
+              for d in report(steps=RETRACE_STEPS, device="cuda")]
+    rec = {"phase": "telemetry", "step": "retrace", "steps": RETRACE_STEPS,
+           "watches": [d.to_dict() for d in deltas], "skipped": list(SKIPPED_REPORTS),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    checks = {
+        "every watch within budget": all(d.within_budget for d in deltas),
+        "one captured graph a signature": all(d.captures == d.after for d in deltas),
+        "a watch for every report": len(deltas) == len(REPORTS) + 1,  # paged: two steps
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"telemetry (retrace): {failed}: {rec}")
+
+
 def telemetry_path(export, vocab_path, tok, reqs, plain_answers, serve_rec, graph_rec,
                    src_vocab, d_rec):
     """Phase 17: (a) serving, (b) training, (c) the fleet with telemetry
-    on. Returns the B/A and the flash launches of its main-path runs."""
+    on, (d) the retrace reports. Returns the B/A and the flash launches of
+    its main-path runs."""
     root = fresh_dir("telemetry")
     os.makedirs(root)
     serve_launches = telemetry_serve(export, vocab_path, reqs, plain_answers, serve_rec,
                                      graph_rec, root)
     train_launches = telemetry_train(src_vocab, vocab_path, d_rec, root)
     telemetry_fleet(export, vocab_path, tok, reqs, root)
+    telemetry_retrace()
     return serve_launches, train_launches
 
 

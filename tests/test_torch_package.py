@@ -229,20 +229,40 @@ def test_entry_points_refuse_cuda_without_a_card(tmp_path):
                     "--ckpt_path", str(tmp_path / "ckpt")])
 
 
+class _OnXpu(torch.Tensor):
+    """A CPU tensor that reports another device (this build has only cpu
+    and meta, and meta is the cost model's: priced, not refused)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_kernel_wrappers_refuse_other_devices():
     from transformer_tpu_torch.kernels.flash_attention import flash_attention, flash_fwd
     from transformer_tpu_torch.kernels.paged_flash import paged_flash_attention
 
-    x = torch.zeros((1, 8, 2, 8), device="meta")
+    x = torch.zeros((1, 8, 2, 8)).as_subclass(_OnXpu)
     for fn in (flash_attention, flash_fwd):
         with pytest.raises(ValueError, match="cpu or cuda"):
             fn(x, x, x, causal=True)
 
-    q = torch.zeros((1, 1, 2, 8), device="meta")
-    pool = torch.zeros((2, 4, 2, 8), device="meta")
+    q = torch.zeros((1, 1, 2, 8)).as_subclass(_OnXpu)
+    pool = torch.zeros((2, 4, 2, 8))
     with pytest.raises(ValueError, match="cpu or cuda"):
         paged_flash_attention(q, pool, pool, torch.zeros((1, 1), dtype=torch.int32),
                               torch.ones((1,), dtype=torch.int32))
+
+    # meta tensors (a cost trace) are priced: outputs of the right shapes
+    m = torch.zeros((1, 8, 2, 8), device="meta")
+    out, lse = flash_fwd(m, m, m, causal=True)
+    assert out.device.type == "meta" and out.shape == m.shape and lse.shape == (1, 2, 8)
+    assert flash_attention(m, m, m, causal=True).shape == m.shape
+    mq, mpool = torch.zeros((1, 1, 2, 8), device="meta"), torch.zeros((2, 4, 2, 8), device="meta")
+    got = paged_flash_attention(mq, mpool, mpool, torch.zeros((1, 1), dtype=torch.int32,
+                                                              device="meta"),
+                                torch.ones((1,), dtype=torch.int32, device="meta"))
+    assert got.device.type == "meta" and got.shape == mq.shape
 
 
 def test_init_params_has_the_jax_tree():

@@ -15,9 +15,15 @@ profiler) and TensorBoard writers. Then:
 - the port's losses and parameters are bit-identical to its own run with
   telemetry off (``Trainer.losses``, the parameter digest).
 
-``train.predicted`` (and its ``train_predicted_peak_bytes`` gauge) is the
-JAX cost model's prediction, which the port has no twin of: it is dropped
-from JAX's side before the comparison. A ``Profiler`` window of
+The port always emits ``train.predicted`` (and its
+``train_predicted_peak_bytes`` gauge), the cost model's prediction of its
+step; JAX's trainer emits its own where its cost model can trace (with
+JAX versions whose ``jax.core`` still has ``Literal`` and ``ClosedJaxpr``)
+and otherwise logs "cost-model prediction unavailable". Where JAX emitted
+one, the two are compared like every other event (fields, order, the
+gauge); where it did not, the port's is compared with
+``train_step_costs`` run directly and left out of the comparison. A
+``Profiler`` window of
 ``num_steps`` steps holds that many ``train.step`` ranges; SIGTERM with
 the flight recorder armed still checkpoints; ``cli.train`` and
 ``cli.distributed_train`` write the telemetry their flags ask for.
@@ -40,6 +46,7 @@ from transformer_tpu.train.checkpoint import CheckpointManager as JCheckpoints
 from transformer_tpu.train.checkpoint import _flatten
 from transformer_tpu.train.state import create_train_state as j_create_state
 from transformer_tpu.train.trainer import Trainer as JTrainer
+from transformer_tpu_torch.analysis.costs import train_step_costs
 from transformer_tpu_torch.config import ModelConfig, TrainConfig
 from transformer_tpu_torch.convert import params_digest, params_from_numpy
 from transformer_tpu_torch.train.checkpoint import CheckpointManager
@@ -114,7 +121,11 @@ def _port_fit(model_kw, init, root=None, telemetry=True, steps_per_dispatch=1, p
 
 
 def _events(path):
-    return [e for e in jobs.read_events(path) if e["kind"] != "train.predicted"]
+    return jobs.read_events(path)
+
+
+def _without_predicted(events):
+    return [e for e in events if e["kind"] != "train.predicted"]
 
 
 def _shape(events):
@@ -202,14 +213,30 @@ def test_train_telemetry_matches_jax(model, spd, tmp_path):
     assert params_digest(port.state.params) == params_digest(plain.state.params)
 
     jev, tev = _events(str(tmp_path / "jax.jsonl")), _events(str(tmp_path / "port.jsonl"))
+    # The port's prediction, always: one event at fit start, the cost
+    # model's numbers for this run's config.
+    pred = [e for e in tev if e["kind"] == "train.predicted"]
+    assert len(pred) == 1
+    want = train_step_costs(ModelConfig(**model_kw), TrainConfig(**TRAIN, steps_per_dispatch=spd))
+    assert {k: pred[0][k] for k in ("program", "peak_bytes", "flops", "bytes_moved",
+                                    "tokens_per_step")} == {
+        "program": "train_step", "peak_bytes": want.peak_bytes, "flops": want.flops,
+        "bytes_moved": want.bytes_moved, "tokens_per_step": TRAIN["batch_size"] *
+        TRAIN["sequence_length"]}
+    jpred = [e for e in jev if e["kind"] == "train.predicted"]
+    if jpred:  # JAX's cost model traced: its prediction compared like any event
+        assert pred[0]["tokens_per_step"] == jpred[0]["tokens_per_step"]
+    else:
+        tev = _without_predicted(tev)
     jorder, jfields = _shape(jev)
     torder, tfields = _shape(tev)
     assert torder == jorder
     assert tfields == jfields
     assert _tree(tev) == _tree(jev)
-    jnames = [n for n in _prom_names(str(tmp_path / "jax.jsonl.prom"))
-              if n[0] != "train_predicted_peak_bytes"]
-    assert _prom_names(str(tmp_path / "port.jsonl.prom")) == jnames
+    jnames = set(_prom_names(str(tmp_path / "jax.jsonl.prom")))
+    if not jpred:
+        jnames.add(("train_predicted_peak_bytes", "gauge"))
+    assert _prom_names(str(tmp_path / "port.jsonl.prom")) == sorted(jnames)
 
     jtb = _tfevents(os.path.join(tmp_path, "jax_tb"))
     assert _tfevents(os.path.join(tmp_path, "port_tb")) == jtb

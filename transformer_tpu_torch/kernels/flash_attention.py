@@ -53,6 +53,7 @@ import ctypes
 import torch
 
 from transformer_tpu_torch.kernels.paged_flash import MASK_GUARD, MASKED
+from transformer_tpu_torch.kernels.work import flash_work, priced_call, ring_step_work
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -237,7 +238,9 @@ def flash_dkdv_plain(q, k, v, do, lse, delta, *, kv_mask=None, causal=False, ban
 
 
 def _device_kind(q) -> str:
-    if q.device.type not in ("cpu", "cuda"):
+    """cpu (the plain versions), cuda (the kernels) or meta (a cost trace:
+    ``kernels.work.priced_call``)."""
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
     return q.device.type
 
@@ -295,8 +298,14 @@ def flash_fwd(q, k, v, *, kv_mask=None, causal=False, band=None):
     K/V tile once per q tile, skipping tiles above the diagonal or below
     the window.
     """
-    if _device_kind(q) == "cpu":
+    kind = _device_kind(q)
+    if kind == "cpu":
         return flash_fwd_plain(q, k, v, kv_mask=kv_mask, causal=causal, band=band)
+    if kind == "meta":
+        b, s_q, h, _ = q.shape
+        return priced_call("flash_fwd", flash_work("flash_fwd", q, k, kv_mask, causal, band),
+                           lambda: (torch.empty_like(q), torch.empty(
+                               (b, h, s_q), dtype=torch.float32, device=q.device)))
     from transformer_tpu_torch.kernels import build
 
     q, k, v, mask, dims = _kernel_args(q, k, v, kv_mask, causal, band)
@@ -334,11 +343,15 @@ def flash_ring_step(q, k, v, kv_mask, m, l, acc, *, causal=False, band=None):
     cores. At C 1024 a hop moves the fp32 carry (read and written) beside
     q/k/v, so it sits near the bytes/operations ridge.
     """
-    if _device_kind(q) == "cpu":
+    kind = _device_kind(q)
+    if kind == "cpu":
         new = flash_ring_step_plain(q, k, v, kv_mask, m, l, acc, causal=causal, band=band)
         for dst, src in zip((m, l, acc), new):
             dst.copy_(src)
         return m, l, acc
+    if kind == "meta":
+        work = ring_step_work(q, k, kv_mask, (m, l, acc), causal, band)
+        return priced_call("flash_ring_step", work, lambda: (m, l, acc))
     from transformer_tpu_torch.kernels import build
 
     _check_carry(q, m, l, acc)
@@ -384,8 +397,12 @@ def flash_dq(q, k, v, do, lse, delta, *, kv_mask=None, causal=False, band=None):
     bf16 runs the three products on the tensor cores (``wgmma``, K/V tiles
     fed by TMA), fp32 on the CUDA cores.
     """
-    if _device_kind(q) == "cpu":
+    kind = _device_kind(q)
+    if kind == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, kv_mask=kv_mask, causal=causal, band=band)
+    if kind == "meta":
+        return priced_call("flash_dq", flash_work("flash_dq", q, k, kv_mask, causal, band),
+                           lambda: torch.empty_like(q))
     from transformer_tpu_torch.kernels import build
 
     do, lse, delta = _bwd_extra(q, do, lse, delta)
@@ -415,10 +432,14 @@ def flash_dkdv(q, k, v, do, lse, delta, *, kv_mask=None, causal=False, band=None
     race and no atomics. bf16 runs the four products on the tensor cores
     (``wgmma``, Q/dO tiles fed by TMA), fp32 on the CUDA cores.
     """
-    if _device_kind(q) == "cpu":
+    kind = _device_kind(q)
+    if kind == "cpu":
         return flash_dkdv_plain(
             q, k, v, do, lse, delta, kv_mask=kv_mask, causal=causal, band=band
         )
+    if kind == "meta":
+        return priced_call("flash_dkdv", flash_work("flash_dkdv", q, k, kv_mask, causal, band),
+                           lambda: (torch.empty_like(k), torch.empty_like(v)))
     from transformer_tpu_torch.kernels import build
 
     do, lse, delta = _bwd_extra(q, do, lse, delta)

@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from transformer_tpu_torch.kernels.kv_pool import gather_block_views
+from transformer_tpu_torch.kernels.work import paged_attention_work, priced_call
 
 # Finite stand-ins for -inf, as in the JAX package's flash kernels: masked
 # scores sit far below any real logit, and the exp-guard recognises them.
@@ -127,7 +128,8 @@ def paged_flash_attention(
 
     Replaces the TPU kernel ``_paged_kernel`` (``transformer_tpu/kernels/
     paged_flash.py``). On CPU tensors this runs the plain version; on CUDA
-    tensors it launches ``csrc/paged_attention.cu`` or raises. Decode
+    tensors it launches ``csrc/paged_attention.cu`` or raises; on ``meta``
+tensors (a cost trace) it is priced by ``kernels.work``. Decode
     attention is bound by reading the visible K/V rows from HBM: the kernel
     splits each sequence over CTAs of ``split_plan(...).split_tokens``
     positions, each reading only the table entries below the sequence's
@@ -141,6 +143,10 @@ def paged_flash_attention(
         return paged_flash_attention_plain(
             q, k_pool, v_pool, table, lengths, k_scale=k_scale, v_scale=v_scale
         )
+    if q.device.type == "meta":
+        _check(q, k_pool, v_pool, k_scale, v_scale)
+        work = paged_attention_work(q, k_pool, table, lengths, k_scale is not None)
+        return priced_call("paged_flash_attention", work, lambda: torch.empty_like(q))
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_attention runs on cpu or cuda, not {q.device}")
     _check(q, k_pool, v_pool, k_scale, v_scale)

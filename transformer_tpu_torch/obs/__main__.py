@@ -19,7 +19,8 @@ programs compiled" counts the port's captured CUDA graphs).
   rates over the same log.
 - ``roofline`` joins an episode's measured per-program histograms
   (``obs/profile.py``, the ``perf_seconds_*`` stream) against predictions
-  (``--costs``, the JAX package's ``analysis costs --format=json`` shape)
+  (``--costs``, ``python -m transformer_tpu_torch.analysis costs
+  --format=json``'s shape, the JAX package's)
   and the banked baseline. ``--check`` exits 1 on a banked-band breach;
   ``--update`` re-banks the measured p50s.
 - ``postmortem`` reconstructs a fleet's last seconds from any mix of
@@ -1017,8 +1018,8 @@ def main(argv: list[str] | None = None) -> int:
     _add_common_args(p_roof)
     p_roof.add_argument(
         "--costs", default=None, metavar="JSON",
-        help="predictions document to join (the JAX package's `analysis "
-        "costs --format=json` shape; without it, the banked baseline's "
+        help="predictions document to join (`python -m transformer_tpu_torch.analysis "
+        "costs --format=json`'s shape; without it, the banked baseline's "
         "frozen predictions apply)",
     )
     p_roof.add_argument(

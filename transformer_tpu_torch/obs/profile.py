@@ -18,10 +18,12 @@ on the card, not the time to enqueue it. Three surfaces:
   ``perf.drift`` event fires on each banked-band breach-state TRANSITION.
 - the banked baseline (``obs/roofline_baseline.json``): the card's peak
   memory rate and each program's acceptance band. The port's bank holds
-  no ``bytes_moved`` and no ``p50_s`` yet (they wait for a cost model of
-  the port's programs), so its report shows the measured columns, and
-  drift is judged only once a ``p50_s`` is banked (``obs roofline
-  --update`` on the card).
+  the cost model's ``bytes_moved`` and ``tokens_per_step`` for the three
+  serving step programs at the long4k serving shape its note names
+  (``analysis/costs.py`` ``serving_step_costs``), so those rows get an
+  effective bytes/s and a roofline ratio; no ``p50_s`` is banked yet, so
+  drift is judged only once one is (``obs roofline --update`` on the
+  card).
 - :func:`roofline_report` — the offline join (``obs roofline``): measured
   per-program histograms recovered from a JSONL episode's
   ``metrics.snapshot`` stream against a predictions document and the bank,
@@ -160,8 +162,9 @@ def write_baseline(
 
 
 def predictions_by_program(costs) -> dict:
-    """Index a predictions document (the JAX package's ``analysis costs
-    --format=json`` shape: a ``programs`` list of rows with ``name`` and
+    """Index a predictions document (``python -m
+    transformer_tpu_torch.analysis costs --format=json``'s shape, the JAX
+    package's: a ``programs`` list of rows with ``name`` and
     ``bytes_moved``) by BASE program name, stripping the ``[variant,...]``
     suffix; when several variants share a base the ``lm_bf16`` one wins
     (the default serving config)."""

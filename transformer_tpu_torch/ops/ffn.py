@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from transformer_tpu_torch.config import is_gated
+from transformer_tpu_torch.kernels.work import fused_ln_ffn_work, priced_call
 from transformer_tpu_torch.ops.nn import Params, dense_apply, layernorm_apply
 from transformer_tpu_torch.parallel import collectives as _collectives
 
@@ -222,7 +223,8 @@ def fused_ln_ffn(
 
     Replaces the TPU kernel ``_fused_kernel`` (``transformer_tpu/ops/
     ffn.py``). On a CPU tensor this runs ``fused_ln_ffn_plain``; on a CUDA
-    tensor it launches ``csrc/fused_ln_ffn.cu`` or raises. At decode M is
+    tensor it launches ``csrc/fused_ln_ffn.cu`` or raises; on a ``meta``
+    tensor (a cost trace) it is priced by ``kernels.work``. At decode M is
     ``slots * S_q`` rows, so the kernel is bound by reading the weights once
     (2 * 512 * 2048 * 2 B = 4.2 MB a layer at long4k in bf16): one CTA per
     32-byte slab of dff and 8 rows streams its W_in columns and W_out rows
@@ -236,6 +238,10 @@ def fused_ln_ffn(
             ln_params, ffn_params, x, activation=activation,
             norm_scheme=norm_scheme, epsilon=epsilon,
         )
+    if x.device.type == "meta":
+        _check_args(norm_scheme, activation)
+        work = fused_ln_ffn_work(x, ffn_params["in"]["kernel"].shape[1], is_gated(activation))
+        return priced_call("fused_ln_ffn", work, lambda: torch.empty_like(x))
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_ffn runs on cpu or cuda, not {x.device}")
     _check_args(norm_scheme, activation)

@@ -135,10 +135,14 @@ def dropout_generator(key: tuple[int, ...], device) -> torch.Generator:
     (seed, step, layer, site). A layer that seeds its dropout this way
     draws the same masks each time it runs, so the recompute of a
     checkpointed layer sees the forward's masks. Under a ``DropoutTape``
-    (a train step being captured) the tape hands the generator out."""
+    (a train step being captured) the tape hands the generator out. On
+    the ``meta`` device (a cost trace: the masks are shapes, nothing is
+    drawn) it is a host generator, which ``torch.rand`` accepts there."""
     tape = _TAPE.get()
     if tape is not None:
         return tape.generator(key, device)
+    if torch.device(device).type == "meta":
+        return torch.Generator()
     return torch.Generator(device=device).manual_seed(key_seed(key))
 
 

@@ -81,7 +81,10 @@ class CapturedForward:
     ``paged_decode_forward`` over ``pools``. ``captures`` lists ((N, S_q,
     table width), seconds) per capture (host clock); ``replays`` counts
     the calls served by a replay (every call on the card but each shape's
-    first, which runs eagerly before its capture)."""
+    first, which runs eagerly before its capture). ``signatures`` holds
+    every (N, S_q, table width) a call has met, on the CPU too, where
+    nothing is captured: on the card each is one graph
+    (``analysis/retrace.py`` budgets them)."""
 
     def __init__(self, params, pools: list[dict], cfg: ModelConfig, block_tokens: int,
                  device: torch.device, program: Program | None = None) -> None:
@@ -91,6 +94,7 @@ class CapturedForward:
         self.program = program or self._paged_flash
         self.graphs: dict[tuple[int, int, int], _Graph] = {}
         self.captures: list[tuple[tuple[int, int, int], float]] = []
+        self.signatures: set[tuple[int, int, int]] = set()
         self.replays = 0
         if self.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
@@ -118,9 +122,10 @@ class CapturedForward:
 
     def __call__(self, toks: np.ndarray, table: np.ndarray | None,
                  index: np.ndarray) -> torch.Tensor:
+        sig = _signature(toks, table)
+        self.signatures.add(sig)
         if self.device.type != "cuda":
             return self.eager(toks, table, index)
-        sig = _signature(toks, table)
         host = _pack_inputs(toks, table, index)
         g = self.graphs.get(sig)
         if g is None:

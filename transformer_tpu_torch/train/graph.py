@@ -73,19 +73,27 @@ class CapturedStep:
     step (the first of a signature eagerly, then by replay) and returns
     the advanced state and the step's metrics, which the next call
     overwrites. ``captures`` lists (signature, seconds) per capture (host
-    clock, the synchronize before the capture included)."""
+    clock, the synchronize before the capture included). ``signatures``
+    holds every batch signature a call has met, on the CPU too, where
+    the step runs eagerly: on the card each is one graph
+    (``analysis/retrace.py`` budgets them)."""
 
     def __init__(self, core: Callable, seed: int, device: torch.device) -> None:
         self.core = core
         self.seed = seed
         self.device = torch.device(device)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(self.device)
+        if self.device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.device)
         self.graphs: dict[tuple, _Graph] = {}
         self.captures: list[tuple[tuple, float]] = []
+        self.signatures: set[tuple] = set()
 
     def __call__(self, state, src, tgt, scalars):
         sig = (None if src is None else tuple(src.shape), tuple(tgt.shape))
+        self.signatures.add(sig)
+        if self.device.type != "cuda":
+            return self.core(state, src, tgt, scalars)
         g = self.graphs.get(sig)
         if g is None or g.addresses != _addresses(state):
             return self._warm_up_and_capture(sig, state, src, tgt, scalars)

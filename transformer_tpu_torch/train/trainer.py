@@ -26,7 +26,8 @@ Telemetry (the JAX trainer's hooks): with a ``telemetry`` bundle
 the ``train_step_seconds`` histogram (``StepTimer``'s), the
 ``train_dispatch_seconds`` histogram and the profiler's ``train.step``
 stream, and emits ``train.window`` / ``train.eval`` / ``train.memory`` /
-``train.compile`` / ``train.preempt`` events; with its tracer,
+``train.compile`` / ``train.preempt`` events, and at fit start one
+``train.predicted`` (``_emit_cost_prediction``); with its tracer,
 ``train.fit`` / ``train.step`` / ``train.eval`` / ``ckpt.*`` spans on the
 ``train`` lane. Every record is taken at a point where the loop has
 already synchronized the device (each dispatch ends in one), so the
@@ -34,8 +35,7 @@ numbers are device time and telemetry adds no device work: the same
 losses, captures and kernel launches with it on and off. ``profiler``
 (``utils.profiling.Profiler``) records a ``torch.profiler`` window of
 steps, and ``log_dir`` gets TensorBoard scalars under ``train/`` and
-``test/`` at every epoch end. ``train.predicted`` (the JAX cost model's
-prediction) has no twin: the port has no cost model of its step.
+``test/`` at every epoch end.
 """
 
 from __future__ import annotations
@@ -737,6 +737,7 @@ class Trainer:
                 "CUDA graph of the step; in eager-debug mode it would silently fall "
                 "back to single-step dispatch"
             )
+        self._emit_cost_prediction()
         if self.checkpoint is not None:
             self._restore()
         step = self.state.step
@@ -919,6 +920,41 @@ class Trainer:
         self._m_eacc.set(acc)
         self.telemetry.emit("train.eval", epoch=epoch + 1, step=step,
                             loss=round(loss, 6), accuracy=round(acc, 6))
+
+    def _emit_cost_prediction(self) -> None:
+        """One ``train.predicted`` event at fit start: the cost model's
+        peak bytes, FLOPs and bytes moved for THIS run's plain train step
+        (``analysis/costs.py`` ``train_step_costs``, traced on the
+        ``meta`` device: nothing runs on the card), and the
+        ``train_predicted_peak_bytes`` gauge. ``obs summarize`` holds it
+        against the ``train.memory`` samples and reports measured /
+        predicted. One device's prediction: a ``DistributedTrainer``
+        inherits it as a per-replica bound. Advisory, as in the JAX
+        trainer: a config the model cannot trace logs "cost-model
+        prediction unavailable" and training goes on. Emitted once per
+        Trainer (``cli.train`` may call ``fit`` more than once)."""
+        if self.telemetry is None or getattr(self, "_cost_predicted", False):
+            return
+        self._cost_predicted = True
+        try:
+            from transformer_tpu_torch.analysis.costs import train_step_costs
+
+            r = train_step_costs(self.model_cfg, self.train_cfg)
+        except Exception as e:  # advisory: a failed trace never fails training
+            self.log_fn(f"cost-model prediction unavailable ({type(e).__name__}: {e})")
+            return
+        self.telemetry.registry.gauge(
+            "train_predicted_peak_bytes",
+            "cost model (meta-device trace): train-step peak live-buffer bytes",
+        ).set(r.peak_bytes)
+        self.telemetry.emit(
+            "train.predicted",
+            program="train_step",
+            peak_bytes=r.peak_bytes,
+            flops=r.flops,
+            bytes_moved=r.bytes_moved,
+            tokens_per_step=r.extras.get("tokens_per_step"),
+        )
 
     def _record_epoch_telemetry(self, epoch: int, step: int) -> None:
         """Epoch-end extras: the card's allocator statistics
